@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the port's Spatter main path on one CUDA card and check it.
+"""Drive the port's two paths on one CUDA card and check them: the Spatter
+main path, and falcon-mamba-7b served at full width.
 
     python3 chip_smoke.py            # from the root of the repository
 
@@ -7,12 +8,15 @@ Imports ``repro_torch`` (from ``src/``), ``torch``, numpy and the stdlib
 only.  Phases:
 
   0. print the card (``nvidia-smi``), the torch and CUDA versions, and
-     build the four CUDA kernels from ``src/repro_torch/csrc`` with nvcc;
+     build the five CUDA kernels from ``src/repro_torch/csrc`` with nvcc
+     (one process per source, all at once);
   1. hold each kernel against its plain PyTorch version on the card over
      B in {1, 3}, R in {1, 3, 8, 17}, ragged N, out-of-range and INT32_MAX
      lanes, duplicate indices, and tables on both sides of the
      shared-memory switch: gathers and stores must be ``torch.equal``, adds
-     within ``add_error_bound``;
+     within ``add_error_bound``; the selective scan over B in {1, 3}, L in
+     {1, 7, 300, 2048}, D in {16, 200, 8192}, N in {4, 8, 16}, float32 and
+     bfloat16, two ranges of dt, within ``scan_tolerance``;
   2. the paper's CLI invocation ``-k Gather -p UNIFORM:8:1 -d 8 -l 2^24``
      through the port's CLI, as a gather, a store and an add scatter, on
      ``-b hopper`` and then on ``-b torch`` (the library yardstick);
@@ -21,14 +25,26 @@ only.  Phases:
      digests must agree, and each kernel's launch count must rise by a
      warm-up plus ``runs`` per bucket;
   4. time each kernel, its plain version and one PyTorch library call at
-     the shapes the main path gave it, and the add kernel once more on
-     appdb's LULESH-S3 (2^25 lanes onto 16 rows).
+     the shapes the main path gave it, the add kernel once more on
+     appdb's LULESH-S3 (2^25 lanes onto 16 rows), and the selective scan
+     at the serving shape (4, 2048, 8192, 16, bfloat16);
+  5. serve falcon-mamba-7b at its published width and depth (64 layers,
+     bfloat16, random weights from a seed) through
+     ``repro_torch.launch.serve.main``: 4 prompts of 2048 tokens, 32 greedy
+     steps.  The prefill must launch the scan kernel once per layer and
+     the decode never; every logit must be finite; a teacher-forced
+     ``forward`` over prompt + fed tokens must give each decode step's
+     logits within ``SERVE_TOL``, and the same greedy token wherever its
+     top-2 margin is wider than that; and a 2 x 64-token prefill's cache
+     must equal the cache of ``decode_step`` iterated over the prompt.
 
 The launch counts are set to 0 just before phase 2 and read just after
-phase 3.  Any failed check raises, so the script exits nonzero.  Before
-the last line it prints one ``{"kernels": [...]}`` JSON line; the last
-line is ``{"ok": true, "device": {...}}``.
+phase 3, and again just before and after the serve call of phase 5.  Any
+failed check raises, so the script exits nonzero.  Before the last line
+it prints one ``{"kernels": [...]}`` JSON line; the last line is
+``{"ok": true, "device": {...}}``.
 """
+import gc
 import json
 import subprocess
 import sys
@@ -40,6 +56,15 @@ INT32_MAX = 2 ** 31 - 1
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM device memory (NVIDIA data sheet)
 CLI_ARGS = ["-k", "Gather", "-p", "UNIFORM:8:1", "-d", "8", "-l", "16777216"]
 RUNS = 10                        # min-of-K runs of the CLI and the suites
+SERVE_ARGS = ["--arch", "falcon-mamba-7b", "--batch", "4", "--prompt-len",
+              "2048", "--gen", "32"]
+FALCON_MAMBA_PARAMS = 7_272_665_088
+SFU_EXP_PER_CLOCK_PER_SM = 16    # compute capability 9.0 (CUDA guide)
+N_SMS = 132
+# bfloat16 keeps 8 significant bits (u = 2^-8); decode and a teacher-forced
+# forward round the residual stream of 64 layers in different places, so
+# logits (of magnitude ~1) and caches may differ by ~sqrt(64) * 2 u
+SERVE_TOL = dict(rtol=2 ** -4, atol=2 ** -4)
 KERNEL_INFO = {                  # name -> (source, TPU kernel it replaces)
     "gather_rows": ("src/repro_torch/csrc/gather_rows.cu",
                     "src/repro/kernels/gather_rows/kernel.py:102"),
@@ -49,7 +74,11 @@ KERNEL_INFO = {                  # name -> (source, TPU kernel it replaces)
                            "src/repro/kernels/scatter_rows/kernel.py:157"),
     "scatter_add_rows": ("src/repro_torch/csrc/scatter_rows.cu",
                          "src/repro/kernels/scatter_rows/kernel.py:83"),
+    "selective_scan": ("src/repro_torch/csrc/selective_scan.cu",
+                       "src/repro/kernels/selective_scan/kernel.py:55"),
 }
+SPATTER_KERNELS = ("gather_rows", "gather_rows_smem", "scatter_store_rows",
+                   "scatter_add_rows")
 
 
 class SmokeFailure(Exception):
@@ -191,6 +220,82 @@ def kernel_cases(torch):
                     n_cases += 1
     print(f"phase 1: {n_cases} kernel cases equal their plain versions "
           f"(add within add_error_bound); max |err| {err}", flush=True)
+    return err
+
+
+def scan_tolerance(l):
+    """Relative error allowed the float32 scan, as a share of the summed
+    magnitudes: each step's factor exp(dt * a) carries up to ~2^-22 of
+    relative error (exp2f's 2 ulp and the pre-scaled argument's rounding),
+    and a state may carry the errors of all L steps."""
+    return 2.0 ** -22 * (l + 16)
+
+
+def _scan_inputs(torch, gen, bsz, l, d, n, dtype, dt_kind):
+    def rnd(*shape):
+        return torch.randn(*shape, generator=gen, device=gen.device)
+    u = rnd(bsz, l, d)
+    if dt_kind == "abs":
+        dt = rnd(bsz, l, d).abs() * 0.1
+    else:                                       # the model's range
+        dt = torch.nn.functional.softplus(rnd(bsz, l, d))
+    b, c = rnd(bsz, l, n), rnd(bsz, l, n)
+    a = -torch.exp(0.5 * rnd(n, d))
+    d_skip = rnd(1, d)
+    return ([t.to(dtype) for t in (u, dt, b, c)] + [a, d_skip])
+
+
+def check_scan(torch, ins, where):
+    """The kernel against its plain version on ``ins``; returns max |err|.
+
+    float32 y and h_final: within ``scan_tolerance`` of the magnitudes
+    summed (the plain version run on |u|, |b|, |c|, |d_skip| bounds them);
+    a bfloat16 y: within one bfloat16 rounding (2^-8 relative) of the plain
+    version's float32 y on the same inputs, plus that tolerance.
+    """
+    from repro_torch.kernels.selective_scan.ops import selective_scan
+    from repro_torch.kernels.selective_scan.ref import selective_scan_ref
+    u, dt, b, c, a, d_skip = ins
+    y, h = selective_scan(*ins)
+    f32 = [t.float() for t in (u, dt, b, c)]
+    y32, h32 = selective_scan_ref(*f32, a, d_skip)
+    mag_y, mag_h = selective_scan_ref(f32[0].abs(), f32[1], f32[2].abs(),
+                                      f32[3].abs(), a, d_skip.abs())
+    torch.cuda.synchronize()
+    tol = scan_tolerance(u.shape[1])
+    check(y.dtype == u.dtype and h.dtype == torch.float32
+          and h.shape == h32.shape, f"selective_scan {where}: bad outputs")
+    round_y = 2.0 ** -8 if u.dtype == torch.bfloat16 else 0.0
+    dy = (y.float() - y32).abs()
+    dh = (h - h32).abs()
+    check(bool((dy <= round_y * y32.abs() + tol * mag_y).all()),
+          f"selective_scan {where}: y off by {dy.max().item()}")
+    check(bool((dh <= tol * mag_h).all()),
+          f"selective_scan {where}: h_final off by {dh.max().item()}")
+    # |err| against the plain version's output in y's own dtype
+    dy_same = (y.float() - y32.to(y.dtype).float()).abs()
+    return max(dy_same.max().item(), dh.max().item())
+
+
+def scan_cases(torch):
+    """Phase 1 for the selective scan; returns max |err| over the cases."""
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    err, n_cases, t0 = 0.0, 0, time.perf_counter()
+    for bsz in (1, 3):
+        for l in (1, 7, 300, 2048):
+            for d in (16, 200, 8192):
+                for n in (4, 8, 16):
+                    for dtype in (torch.float32, torch.bfloat16):
+                        for dt_kind in ("abs", "softplus"):
+                            ins = _scan_inputs(torch, gen, bsz, l, d, n,
+                                               dtype, dt_kind)
+                            where = (f"B={bsz} L={l} D={d} N={n} {dtype} "
+                                     f"dt={dt_kind}")
+                            err = max(err, check_scan(torch, ins, where))
+                            n_cases += 1
+    print(f"phase 1: {n_cases} selective_scan cases within scan_tolerance "
+          f"of their plain versions; max |err| {err} "
+          f"({time.perf_counter() - t0:.1f} s)", flush=True)
     return err
 
 
@@ -434,6 +539,206 @@ def kernel_times(torch, err):
     out["lulesh_s3_add"] = s3
     del got, want, diff, idx3, vals3, dst3
     torch.cuda.empty_cache()
+    out["selective_scan"] = scan_time(torch, err)
+    return out
+
+
+def sm_clock_hz():
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                          "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, timeout=60)
+    check(smi.returncode == 0, f"nvidia-smi failed: {smi.stderr.strip()}")
+    return float(smi.stdout.strip().splitlines()[0]) * 1e6
+
+
+def scan_time(torch, err):
+    """The scan at the serving shape: ms, plain ms and the bound, the
+    larger of bytes over 3.35 TB/s and exponentials over the SFU rate."""
+    from repro_torch.kernels.selective_scan.ops import selective_scan
+    from repro_torch.kernels.selective_scan.ref import selective_scan_ref
+    bsz, l, d, n = 4, 2048, 8192, 16
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    ins = _scan_inputs(torch, gen, bsz, l, d, n, torch.bfloat16, "softplus")
+    err["selective_scan"] = max(err["selective_scan"],
+                                check_scan(torch, ins, "at serve shape"))
+    nbytes = sum(t.numel() * t.element_size() for t in ins)
+    nbytes += bsz * l * d * 2 + bsz * n * d * 4          # y, h_final
+    exps = bsz * l * d * n
+    clock = sm_clock_hz()
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    exp_ms = exps / (SFU_EXP_PER_CLOCK_PER_SM * N_SMS * clock) * 1e3
+    ms = _time_ms(torch, lambda: selective_scan(*ins), 20)
+    plain_ms = _time_ms(torch, lambda: selective_scan_ref(*ins), 2)
+    bound_by = "operations" if exp_ms >= bytes_ms else "bytes"
+    row = dict(ms=ms, plain_ms=plain_ms, library_ms=None,
+               bound_ms=max(exp_ms, bytes_ms), bound_by=bound_by,
+               bytes=nbytes, exps=exps, bytes_ms=bytes_ms, exp_ms=exp_ms,
+               sm_clock_mhz=clock / 1e6, shape=[bsz, l, d, n, "bfloat16"])
+    print(f"  selective_scan (4, 2048, 8192, 16, bf16): kernel {ms:.4f} ms, "
+          f"plain {plain_ms:.4f} ms, library none (no PyTorch call computes "
+          f"a selective scan), bound {row['bound_ms']:.4f} ms by "
+          f"{bound_by} ({exps} exponentials at {clock / 1e6:.0f} MHz: "
+          f"{exp_ms:.4f} ms; {nbytes} bytes: {bytes_ms:.4f} ms)", flush=True)
+    del ins
+    torch.cuda.empty_cache()
+    return row
+
+
+# -- phase 5: falcon-mamba-7b served at full width -------------------------------
+
+def _rel_err(got, want):
+    """max |got - want| / (atol + rtol * |want|) under SERVE_TOL (<= 1
+    passes)."""
+    got, want = got.float(), want.float()
+    return ((got - want).abs()
+            / (SERVE_TOL["atol"] + SERVE_TOL["rtol"] * want.abs())
+            ).max().item()
+
+
+def serve_phase(torch, argv=SERVE_ARGS, cache_prompt=64):
+    """Serve through ``launch.serve.main`` and check the result; returns
+    the numbers for the records and the serve window's launch counts."""
+    from repro_torch.kernels import reset_launches
+    from repro_torch.launch import serve
+    from repro_torch.models import transformer
+    from repro_torch.plan import default_cache
+    default_cache().clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    print(f"\n$ python -m repro_torch.launch.serve {' '.join(argv)}",
+          flush=True)
+    reset_launches()
+    t0 = time.perf_counter()
+    res = serve.main(list(argv))
+    serve_launches = _launches()
+    wall = time.perf_counter() - t0
+    cfg, lm, dev = res.model.cfg, res.params, res.logits.device
+    n_params = sum(p.numel() for p in lm.parameters())
+    check(res.launches_prefill["selective_scan"] == cfg.n_layers,
+          f"prefill launched the scan {res.launches_prefill} times, not "
+          f"once per layer ({cfg.n_layers})")
+    check(not any(res.launches_decode.values()),
+          f"decode launched kernels: {res.launches_decode}")
+    check(serve_launches["selective_scan"] == cfg.n_layers,
+          f"serve window launches {serve_launches}")
+    check(bool(torch.isfinite(res.logits.float()).all()),
+          "non-finite logits")
+    peak = torch.cuda.max_memory_allocated()
+
+    # the whole slice: teacher-forced forward vs each decode step
+    with torch.no_grad():
+        seq = torch.cat([res.prompts, res.tokens[:, :-1]], 1)
+        hidden = transformer.forward(cfg, lm, seq)
+        tf = transformer.unembed_logits(
+            cfg, lm.embed, hidden[:, res.prompt_len - 1:]).float()
+        del hidden
+    logit_err = _rel_err(res.logits, tf)
+    check(logit_err <= 1.0, f"decode logits vs teacher-forced forward: "
+          f"{logit_err} x SERVE_TOL")
+    top2 = tf.topk(2, dim=-1).values
+    margin = top2[..., 0] - top2[..., 1]
+    wide = margin > 2 * (SERVE_TOL["atol"]
+                         + SERVE_TOL["rtol"] * top2[..., 0].abs())
+    agree = tf.argmax(-1) == res.tokens
+    check(bool(agree[wide].all()), "a greedy token differs from the "
+          "teacher-forced argmax where the top-2 margin is wide")
+    print(f"  teacher-forced forward over {tuple(seq.shape)}: decode logits "
+          f"within {logit_err:.3f} x SERVE_TOL {SERVE_TOL}; greedy tokens "
+          f"agree at {int(agree.sum())} of {agree.numel()} positions, at all "
+          f"{int(wide.sum())} with a wide top-2 margin", flush=True)
+    del tf, seq
+
+    # the prefill cache vs decode_step iterated over the prompt
+    prompt = res.prompts[:2, :cache_prompt].contiguous()
+    with torch.no_grad():
+        _, pre = res.model.prefill(lm, prompt)
+        it = res.model.init_cache(2, cache_prompt, device=dev)
+        for t in range(cache_prompt):
+            _, it = res.model.decode_step(lm, it, prompt[:, t:t + 1], t)
+    cache_err = max(_rel_err(p[k], i[k])
+                    for p, i in zip(pre, it) for k in ("conv", "ssm"))
+    check(len(pre) == len(it) == cfg.n_layers and cache_err <= 1.0,
+          f"prefill cache vs iterated decode: {cache_err} x SERVE_TOL")
+    print(f"  prefill cache of 2 x {cache_prompt} tokens vs decode_step "
+          f"iterated: within {cache_err:.3f} x SERVE_TOL, all "
+          f"{cfg.n_layers} layers", flush=True)
+    out = dict(arch=res.arch, batch=res.batch, prompt_len=res.prompt_len,
+               gen=res.gen, prefill_ms=res.prefill_ms,
+               decode_ms_per_step=res.decode_ms / res.gen, tok_s=res.tok_s,
+               params=n_params, weight_bytes=res.weight_bytes,
+               max_memory_allocated=peak, serve_wall_s=wall,
+               launches_prefill=res.launches_prefill["selective_scan"],
+               logit_err_x_tol=logit_err, cache_err_x_tol=cache_err,
+               greedy_agree=int(agree.sum()), greedy_positions=agree.numel())
+    print(f"  serve: prefill {res.prefill_ms:.1f} ms, decode "
+          f"{out['decode_ms_per_step']:.2f} ms/step, {res.tok_s:.1f} tok/s, "
+          f"{n_params} params ({res.weight_bytes} weight bytes), "
+          f"max_memory_allocated {peak} bytes, wall {wall:.1f} s", flush=True)
+    del res, lm, pre, it
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out, serve_launches
+
+
+def _device_ms(evt):
+    us = getattr(evt, "self_device_time_total", None)
+    return (us if us is not None else evt.self_cuda_time_total) / 1e3
+
+
+def profile_serve(torch, decode_steps=8):
+    """Steady-state serve, not run by ``main``: after one warm serve call,
+    time a prefill and ``decode_steps`` decode steps again on the host
+    clock, then trace one of each with ``torch.profiler`` and print the
+    device time by kernel and the device's busy share of the wall."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.launch import serve
+    argv = SERVE_ARGS[:-1] + [str(decode_steps)]
+    res = serve.main(argv)
+    model, lm, prompts = res.model, res.params, res.prompts
+
+    def prefill():
+        return model.prefill(lm, prompts)
+
+    def decode(cache, n):
+        tok = res.tokens[:, :1]
+        for i in range(n):
+            logits, cache = model.decode_step(lm, cache, tok,
+                                              res.prompt_len + i)
+            tok = logits.argmax(-1, keepdim=True)
+        return cache
+
+    out = {}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, cache = prefill()
+    torch.cuda.synchronize()
+    out["prefill_ms"] = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    decode(cache, decode_steps)
+    torch.cuda.synchronize()
+    out["decode_ms_per_step"] = (time.perf_counter() - t0) * 1e3 / decode_steps
+    for name, fn in (("prefill", prefill),
+                     ("decode", lambda: decode(cache, decode_steps))):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        evts = sorted((e for e in prof.key_averages()
+                       if e.device_type.name == "CUDA"),
+                      key=_device_ms, reverse=True)
+        busy = sum(_device_ms(e) for e in evts)
+        print(f"\nprofile {name}: wall {wall_ms:.1f} ms (traced), device "
+              f"busy {busy:.1f} ms ({100 * busy / wall_ms:.1f}% of wall)")
+        for e in evts[:14]:
+            print(f"  {_device_ms(e):10.3f} ms  {e.count:6d} x  {e.key[:90]}")
+        out[f"{name}_traced_wall_ms"] = wall_ms
+        out[f"{name}_device_busy_ms"] = busy
+    print(json.dumps(out), flush=True)
     return out
 
 
@@ -443,6 +748,7 @@ def main():
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     err = kernel_cases(torch)
+    err["selective_scan"] = scan_cases(torch)
     print(f"phase 1 wall {time.perf_counter() - t0:.1f} s", flush=True)
 
     from repro_torch.kernels import reset_launches
@@ -452,20 +758,24 @@ def main():
     main_launches = _launches()
     print(f"\nmain path launches {main_launches}; phases 2-3 wall "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
-    check(all(main_launches[k] > 0 for k in KERNEL_INFO),
+    check(all(main_launches[k] > 0 for k in SPATTER_KERNELS),
           f"a kernel of the main path never launched: {main_launches}")
 
     times = kernel_times(torch, err)
     lulesh_s3_add = times.pop("lulesh_s3_add")
+    peak_1_4 = torch.cuda.max_memory_allocated()
+    served, serve_launches = serve_phase(torch)
+    path_launches = {k: main_launches[k] for k in SPATTER_KERNELS}
+    path_launches["selective_scan"] = serve_launches["selective_scan"]
     rows = []
     for name, (source, replaces) in KERNEL_INFO.items():
         t = times[name]
         rows.append(dict(name=name, route="cuda", source=source,
-                         replaces=replaces, launches=main_launches[name],
+                         replaces=replaces, launches=path_launches[name],
                          max_abs_err=err[name], ms=t["ms"], time_ms=t["ms"],
                          plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
-                         bound_by="bytes", library_ms=t["library_ms"],
-                         shape=t["shape"]))
+                         bound_by=t.get("bound_by", "bytes"),
+                         library_ms=t["library_ms"], shape=t["shape"]))
     cli = {f"{b}/{k}/{m}": dict(time_ms=r.time_s * 1e3, gbs=r.measured_gbs,
                                 host_s=r.host_s)
            for (b, k, m), r in cli_results.items()}
@@ -473,9 +783,12 @@ def main():
                          hmean_gbs=st.hmean_gbs, n_buckets=st.plan.n_buckets,
                          host_s=st.host_s)
               for name, st in suite_stats.items()}
-    print(f"\nmax_memory_allocated {torch.cuda.max_memory_allocated()} bytes")
+    print(f"\nmax_memory_allocated {peak_1_4} bytes in phases 1-4, "
+          f"{served['max_memory_allocated']} bytes in phase 5")
     print(json.dumps({"cli": cli, "suites_hopper": suites,
-                      "lulesh_s3_add": lulesh_s3_add}))
+                      "lulesh_s3_add": lulesh_s3_add,
+                      "selective_scan": times["selective_scan"],
+                      "serve": served}))
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -7,6 +7,10 @@ Main path: pattern string / JSON suite (``pattern``) -> host buffers
 (``plan``) -> suite statistics (``suite``) -> CLI (``python -m
 repro_torch``).
 
+Serving path (falcon-mamba-7b): ``launch.serve`` -> ``models.zoo`` ->
+``models.transformer`` -> ``models.ssm``, whose prefill runs the Hopper
+selective-scan kernel (``kernels/selective_scan``); configs in ``configs``.
+
 Public names load lazily, so importing the package imports no submodule
 and builds nothing; the kernels are compiled at their first launch.  The
 package never imports ``jax`` or ``repro``.
@@ -29,8 +33,8 @@ _EXPORTS = {
     "stream_reference": "suite", "aggregate_stats": "suite",
     "harmonic_mean": "suite", "pearson_r": "suite", "SuiteStats": "suite",
 }
-_SUBMODULES = ("appdb", "backends", "bandwidth", "engine", "host", "kernels",
-               "pattern", "plan", "suite")
+_SUBMODULES = ("appdb", "backends", "bandwidth", "configs", "engine", "host",
+               "kernels", "launch", "models", "pattern", "plan", "suite")
 
 __all__ = sorted(_EXPORTS) + list(_SUBMODULES)
 

@@ -29,12 +29,12 @@ from pathlib import Path
 PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
-SOURCES = ("gather_rows", "scatter_rows")
+SOURCES = ("gather_rows", "scatter_rows", "selective_scan")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 KERNELS = ("gather_rows", "gather_rows_smem", "scatter_store_rows",
-           "scatter_add_rows")
+           "scatter_add_rows", "selective_scan")
 launches: dict[str, int] = {k: 0 for k in KERNELS}
 
 _libs: dict[str, ctypes.CDLL] = {}
@@ -57,6 +57,11 @@ _SIGNATURES = {
                                    _P),
         # dst, idx, vals, B, N, V, D, stream
         "scatter_add_rows_f32": (_P, _P, _P, _I64, _I64, _I64, _I64, _P),
+    },
+    "selective_scan": {
+        # u, dt, b, c, a, d_skip, y, h_final, B, L, D, N, stream
+        "selective_scan_f32": (_P,) * 8 + (_I64,) * 4 + (_P,),
+        "selective_scan_bf16": (_P,) * 8 + (_I64,) * 4 + (_P,),
     },
 }
 
@@ -142,8 +147,7 @@ def check_operand(name: str, t, dtype, ndim: int) -> None:
     if not isinstance(t, torch.Tensor):
         raise TypeError(f"{name}: expected a tensor, got {type(t).__name__}")
     if t.dtype != dtype:
-        raise TypeError(f"{name}: expected {dtype}, got {t.dtype} "
-                        f"(float32 tables and int32 indices only)")
+        raise TypeError(f"{name}: expected {dtype}, got {t.dtype}")
     if t.dim() != ndim:
         raise ValueError(f"{name}: expected {ndim} dims, got {tuple(t.shape)}")
     if not t.is_contiguous():

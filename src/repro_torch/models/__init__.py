@@ -1,0 +1,18 @@
+"""Model code of the port: ``common``, ``ssm``, ``transformer``, ``zoo``,
+``convert``.  Submodules load on first use; importing the package loads
+none of them and builds nothing."""
+import importlib
+
+_SUBMODULES = ("common", "convert", "ssm", "transformer", "zoo")
+_EXPORTS = {"Model": "zoo", "count_params": "zoo"}
+
+__all__ = sorted(_EXPORTS) + list(_SUBMODULES)
+
+
+def __getattr__(name):
+    if name in _EXPORTS:
+        return getattr(importlib.import_module(f".{_EXPORTS[name]}", __name__),
+                       name)
+    if name in _SUBMODULES:
+        return importlib.import_module(f".{name}", __name__)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

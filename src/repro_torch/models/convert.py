@@ -1,0 +1,75 @@
+"""Carry weights and caches between the JAX package and the port.
+
+The JAX package scan-stacks each stage's layers on a leading axis
+(``params["stages"][s]["b<i>_<kind>"]``, one slice per group); the port
+keeps one ``Block`` per layer.  ``params_from_jax`` unstacks a JAX
+``Model.init`` tree, given as numpy arrays, into a state dict for
+``LM.load_state_dict`` (which casts to the module's dtype);
+``cache_from_jax`` and ``cache_to_jax`` do the same for decode caches.
+JAX's bfloat16 arrays arrive as ``ml_dtypes.bfloat16``, which
+``torch.from_numpy`` refuses, so every leaf goes through float32, which
+holds every bfloat16 value exactly.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .transformer import stage_layout
+
+
+def _f32(x) -> torch.Tensor:
+    a = np.asarray(x, dtype=np.float32)
+    # JAX hands out read-only arrays; torch wants to own writable memory
+    return torch.from_numpy(a if a.flags.writeable else a.copy())
+
+
+def _leaves(tree, prefix=""):
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _leaves(v, f"{prefix}{k}.")
+        else:
+            yield f"{prefix}{k}", v
+
+
+def _layers(cfg, stacked: list):
+    """Yield (layer index, group index, stage entry) in layer order."""
+    i = 0
+    for stage, (count, kinds) in zip(stacked, stage_layout(cfg)):
+        for g in range(count):
+            for k, kind in enumerate(kinds):
+                yield i, g, stage[f"b{k}_{kind}"]
+                i += 1
+
+
+def params_from_jax(cfg, tree: dict) -> dict[str, torch.Tensor]:
+    """JAX ``Model.init`` tree (numpy leaves) -> the port's state dict."""
+    state = {f"embed.{k}": _f32(v) for k, v in _leaves(tree["embed"])}
+    state.update({f"ln_f.{k}": _f32(v) for k, v in _leaves(tree["ln_f"])})
+    for i, g, block in _layers(cfg, tree["stages"]):
+        for k, v in _leaves(block):
+            state[f"layers.{i}.{k}"] = _f32(v[g])
+    return state
+
+
+def cache_from_jax(cfg, caches: list) -> list[dict]:
+    """JAX decode cache (numpy leaves) -> the port's per-layer list, as
+    float32 CPU tensors (``ssm`` is float32 on both sides)."""
+    return [{k: _f32(v[g]) for k, v in block.items()}
+            for _, g, block in _layers(cfg, caches)]
+
+
+def cache_to_jax(cfg, caches: list[dict]) -> list:
+    """The port's per-layer cache -> the JAX layout, as float32 numpy."""
+    out, i = [], 0
+    for count, kinds in stage_layout(cfg):
+        stage = {}
+        for k, kind in enumerate(kinds):
+            layers = caches[i + k::len(kinds)][:count]
+            stage[f"b{k}_{kind}"] = {
+                name: np.stack([c[name].detach().to("cpu", torch.float32)
+                                .numpy() for c in layers])
+                for name in layers[0]}
+        out.append(stage)
+        i += count * len(kinds)
+    return out

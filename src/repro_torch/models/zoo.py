@@ -1,0 +1,64 @@
+"""Model zoo: one interface over the ported architectures.
+
+    model = Model(get_config("falcon-mamba-7b"))
+    params = model.init(torch.Generator("cuda").manual_seed(0))   # an LM
+    logits, cache = model.prefill(params, tokens)   # cache ready to decode
+    logits, cache = model.decode_step(params, cache, tokens, pos)
+
+The port of ``repro/models/zoo.py``.  ``device=None`` means ``cuda`` and
+raises without CUDA; only an explicit ``device="cpu"`` runs on the CPU.
+"""
+from __future__ import annotations
+
+import torch
+
+from ..engine import resolve_device
+from . import transformer
+
+
+def model_dtype(cfg) -> torch.dtype:
+    return getattr(torch, cfg.dtype)
+
+
+class Model:
+    def __init__(self, cfg):
+        self.cfg = cfg
+
+    def init(self, generator: torch.Generator | None = None, device=None,
+             dtype=None) -> transformer.LM:
+        """The parameters, drawn on ``device`` from ``generator`` (default:
+        a generator on that device seeded 0) in ``dtype`` (default the
+        config's)."""
+        dev = resolve_device(device)
+        if generator is None:
+            generator = torch.Generator(device=dev).manual_seed(0)
+        lm = transformer.LM(self.cfg, device=dev,
+                            dtype=dtype or model_dtype(self.cfg))
+        return lm.init_(generator)
+
+    def forward(self, params, tokens, **kw):
+        return transformer.forward(self.cfg, params, tokens, **kw)
+
+    def prefill(self, params, tokens: torch.Tensor):
+        """tokens (B,S) -> (last-position logits (B,V), per-layer caches
+        that ``decode_step`` continues from at position S)."""
+        hidden, caches = transformer.forward(self.cfg, params, tokens,
+                                             collect_cache=True)
+        last = transformer.unembed_logits(self.cfg, params.embed,
+                                          hidden[:, -1:])[:, 0]
+        return last, caches
+
+    def init_cache(self, batch: int, max_len: int, dtype=None, device=None):
+        return transformer.init_cache(self.cfg, batch, max_len,
+                                      dtype or model_dtype(self.cfg),
+                                      resolve_device(device))
+
+    def decode_step(self, params, cache, tokens, pos):
+        return transformer.decode_step(self.cfg, params, cache, tokens, pos)
+
+
+def count_params(cfg) -> int:
+    """Total parameters, counted on the ``meta`` device (nothing is
+    allocated)."""
+    lm = transformer.LM(cfg, device="meta")
+    return sum(p.numel() for p in lm.parameters())

@@ -107,11 +107,21 @@ def test_keep_last_mask_matches_reference():
 def test_import_loads_no_jax_repro_or_triton():
     code = (
         "import sys\n"
-        "import repro_torch, repro_torch.__main__\n"
+        "import repro_torch, repro_torch.models, repro_torch.launch\n"
+        "lazy = sorted(m for m in sys.modules if m.startswith(("
+        "'repro_torch.models.', 'repro_torch.launch.')))\n"
+        "assert not lazy, lazy\n"
+        "import repro_torch.__main__\n"
         "from repro_torch import appdb, backends, engine, host, plan, suite\n"
         "from repro_torch.kernels import _build\n"
         "from repro_torch.kernels.gather_rows import ops, ref\n"
         "from repro_torch.kernels.scatter_rows import ops, ref\n"
+        "from repro_torch.kernels.selective_scan import ops, ref\n"
+        "from repro_torch import configs\n"
+        "from repro_torch.configs import base, falcon_mamba_7b\n"
+        "from repro_torch.models import common, convert, ssm, transformer, "
+        "zoo\n"
+        "from repro_torch.launch import serve\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro', 'triton'))\n"
         "assert not bad, bad\n"
