@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the port's two paths on one CUDA card and check them: the Spatter
-main path, and falcon-mamba-7b served at full width.
+"""Drive the port's three paths on one CUDA card and check them: the
+Spatter main path, and falcon-mamba-7b and llama3-8b served at full width.
 
     python3 chip_smoke.py            # from the root of the repository
 
@@ -8,15 +8,22 @@ Imports ``repro_torch`` (from ``src/``), ``torch``, numpy and the stdlib
 only.  Phases:
 
   0. print the card (``nvidia-smi``), the torch and CUDA versions, and
-     build the five CUDA kernels from ``src/repro_torch/csrc`` with nvcc
-     (one process per source, all at once);
+     build the seven CUDA kernels of the five sources in
+     ``src/repro_torch/csrc`` with nvcc (one process per source, all at
+     once);
   1. hold each kernel against its plain PyTorch version on the card over
      B in {1, 3}, R in {1, 3, 8, 17}, ragged N, out-of-range and INT32_MAX
      lanes, duplicate indices, and tables on both sides of the
      shared-memory switch: gathers and stores must be ``torch.equal``, adds
      within ``add_error_bound``; the selective scan over B in {1, 3}, L in
      {1, 7, 300, 2048}, D in {16, 200, 8192}, N in {4, 8, 16}, float32 and
-     bfloat16, two ranges of dt, within ``scan_tolerance``;
+     bfloat16, two ranges of dt, within ``scan_tolerance``; flash attention
+     over S = T in {1, 17, 128, 300, 2048}, (KVH, G) in {(1, 1), (2, 4),
+     (8, 4)}, dh in {64, 128}, float32 and bfloat16, with B in {1, 2},
+     causal, window in {0, 64} and softcap in {0, 50} cycled; paged decode
+     over page in {8, 16}, six (KVH, G), dh in {64, 128}, both dtypes, a
+     permuted table and one with repeats, lengths 1, full and ragged; both
+     within ``attn_tolerance``;
   2. the paper's CLI invocation ``-k Gather -p UNIFORM:8:1 -d 8 -l 2^24``
      through the port's CLI, as a gather, a store and an add scatter, on
      ``-b hopper`` and then on ``-b torch`` (the library yardstick);
@@ -27,7 +34,9 @@ only.  Phases:
   4. time each kernel, its plain version and one PyTorch library call at
      the shapes the main path gave it, the add kernel once more on
      appdb's LULESH-S3 (2^25 lanes onto 16 rows), and the selective scan
-     at the serving shape (4, 2048, 8192, 16, bfloat16);
+     at the serving shape (4, 2048, 8192, 16, bfloat16), flash attention
+     at the llama3-8b prefill shape and paged decode at its decode shape
+     (``FLASH_SHAPE``, ``PAGED_SHAPE``, bfloat16);
   5. serve falcon-mamba-7b at its published width and depth (64 layers,
      bfloat16, random weights from a seed) through
      ``repro_torch.launch.serve.main``: 4 prompts of 2048 tokens, 32 greedy
@@ -36,13 +45,18 @@ only.  Phases:
      ``forward`` over prompt + fed tokens must give each decode step's
      logits within ``SERVE_TOL``, and the same greedy token wherever its
      top-2 margin is wider than that; and a 2 x 64-token prefill's cache
-     must equal the cache of ``decode_step`` iterated over the prompt.
+     must equal the cache of ``decode_step`` iterated over the prompt;
+  6. the same for llama3-8b (32 layers, d_model 4096, GQA 32/8 heads,
+     bfloat16): the prefill must launch flash attention once per layer and
+     paged decode never, each decode step paged decode once per layer and
+     flash attention never; the prefill's paged cache, gathered through
+     its table, must equal the iterated decode's.
 
 The launch counts are set to 0 just before phase 2 and read just after
-phase 3, and again just before and after the serve call of phase 5.  Any
-failed check raises, so the script exits nonzero.  Before the last line
-it prints one ``{"kernels": [...]}`` JSON line; the last line is
-``{"ok": true, "device": {...}}``.
+phase 3, and again just before and after the serve calls of phases 5 and
+6.  Any failed check raises, so the script exits nonzero.  Before the
+last line it prints one ``{"kernels": [...]}`` JSON line; the last line
+is ``{"ok": true, "device": {...}}``.
 """
 import gc
 import json
@@ -59,10 +73,13 @@ RUNS = 10                        # min-of-K runs of the CLI and the suites
 SERVE_ARGS = ["--arch", "falcon-mamba-7b", "--batch", "4", "--prompt-len",
               "2048", "--gen", "32"]
 FALCON_MAMBA_PARAMS = 7_272_665_088
+LLAMA_ARGS = ["--arch", "llama3-8b", "--batch", "4", "--prompt-len", "2048",
+              "--gen", "32"]
+LLAMA3_8B_PARAMS = 8_030_261_248
 SFU_EXP_PER_CLOCK_PER_SM = 16    # compute capability 9.0 (CUDA guide)
 N_SMS = 132
 # bfloat16 keeps 8 significant bits (u = 2^-8); decode and a teacher-forced
-# forward round the residual stream of 64 layers in different places, so
+# forward round the residual stream of 32-64 layers in different places, so
 # logits (of magnitude ~1) and caches may differ by ~sqrt(64) * 2 u
 SERVE_TOL = dict(rtol=2 ** -4, atol=2 ** -4)
 KERNEL_INFO = {                  # name -> (source, TPU kernel it replaces)
@@ -76,6 +93,10 @@ KERNEL_INFO = {                  # name -> (source, TPU kernel it replaces)
                          "src/repro/kernels/scatter_rows/kernel.py:83"),
     "selective_scan": ("src/repro_torch/csrc/selective_scan.cu",
                        "src/repro/kernels/selective_scan/kernel.py:55"),
+    "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
+                        "src/repro/kernels/flash_attention/kernel.py:70"),
+    "paged_decode": ("src/repro_torch/csrc/paged_decode.cu",
+                     "src/repro/kernels/paged_decode/kernel.py:71"),
 }
 SPATTER_KERNELS = ("gather_rows", "gather_rows_smem", "scatter_store_rows",
                    "scatter_add_rows")
@@ -295,6 +316,146 @@ def scan_cases(torch):
                             n_cases += 1
     print(f"phase 1: {n_cases} selective_scan cases within scan_tolerance "
           f"of their plain versions; max |err| {err} "
+          f"({time.perf_counter() - t0:.1f} s)", flush=True)
+    return err
+
+
+def attn_tolerance(n_terms, smax):
+    """Error allowed a float32 attention output, as a share of the
+    magnitude sum_j p_j |v_j| / sum_j p_j it averages: each product sums
+    ``n_terms`` float32 terms in another order than the plain version
+    (gamma_n <= n 2^-24 of the summed magnitudes), and an error d in a score
+    of magnitude up to ``smax`` moves its weight by a factor e^d."""
+    return 2.0 ** -23 * (n_terms + 16) * (1.0 + smax)
+
+
+def check_attention(torch, got, plain, plain_abs, n_terms, smax, where):
+    """``got`` (the kernel's output, in the inputs' dtype) against the
+    plain version's float32 output on the same inputs: within
+    ``attn_tolerance`` of ``plain_abs`` (the plain version run on |v|),
+    plus, for bfloat16, one bfloat16 rounding (2^-8 relative) of the plain
+    output.  Returns max |err| against the plain output in got's dtype."""
+    torch.cuda.synchronize()
+    check(got.shape == plain.shape, f"{where}: shape {tuple(got.shape)}")
+    round_out = 2.0 ** -8 if got.dtype == torch.bfloat16 else 0.0
+    diff = (got.float() - plain).abs()
+    bound = round_out * plain.abs() + attn_tolerance(n_terms, smax) * plain_abs
+    check(bool(torch.isfinite(got.float()).all()), f"{where}: not finite")
+    check(bool((diff <= bound).all()),
+          f"{where}: off by {diff.max().item()} (bound "
+          f"{bound.flatten()[diff.flatten().argmax()].item()})")
+    return (got.float() - plain.to(got.dtype).float()).abs().max().item()
+
+
+def _flash_inputs(torch, gen, bsz, kvh, g, s, dh, dtype):
+    def rnd(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda").to(dtype)
+    return rnd(bsz, kvh, g, s, dh), rnd(bsz, kvh, s, dh), rnd(bsz, kvh, s, dh)
+
+
+def check_flash(torch, q, k, v, causal, window, softcap, where):
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+    scale = q.shape[-1] ** -0.5
+    kw = dict(causal=causal, window=window, softcap=softcap)
+    got = flash_attention(q, k, v, **kw)
+    q32, k32, v32 = q.float(), k.float(), v.float()
+    plain = flash_attention_ref(q32, k32, v32, scale=scale, **kw)
+    plain_abs = flash_attention_ref(q32, k32, v32.abs(), scale=scale, **kw)
+    smax = (torch.einsum("bhgqd,bhtd->bhgqt", q32, k32).abs().max().item()
+            * scale)
+    return check_attention(torch, got, plain, plain_abs,
+                           q.shape[-1] + k.shape[2], smax, where)
+
+
+def flash_cases(torch):
+    """Phase 1 for flash attention: every S, (KVH, G), dh and dtype, with
+    B, causal, window and softcap cycled so that each pair of flag values
+    meets; returns max |err|."""
+    import itertools
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    err, n_cases, t0 = 0.0, 0, time.perf_counter()
+    combos = itertools.product((1, 17, 128, 300, 2048),
+                               ((1, 1), (2, 4), (8, 4)), (64, 128),
+                               (torch.float32, torch.bfloat16))
+    for i, (s, (kvh, g), dh, dtype) in enumerate(combos):
+        causal, window, softcap = (bool(i & 1), (0, 64)[(i >> 1) & 1],
+                                   (0.0, 50.0)[(i >> 2) & 1])
+        bsz = 1 + (i // 8 + i) % 2
+        q, k, v = _flash_inputs(torch, gen, bsz, kvh, g, s, dh, dtype)
+        where = (f"flash_attention B={bsz} KVH={kvh} G={g} S=T={s} dh={dh} "
+                 f"{dtype} causal={causal} window={window} softcap={softcap}")
+        err = max(err, check_flash(torch, q, k, v, causal, window, softcap,
+                                   where))
+        n_cases += 1
+    print(f"phase 1: {n_cases} flash_attention cases within attn_tolerance "
+          f"of their plain versions; max |err| {err} "
+          f"({time.perf_counter() - t0:.1f} s)", flush=True)
+    return err
+
+
+def _paged_inputs(torch, gen, bsz, kvh, g, dh, page, pps, dtype, repeats,
+                  lengths):
+    n_pages = bsz * pps
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda").to(dtype)
+    if repeats:          # rows share pages, and a row may repeat one
+        table = torch.randint(0, n_pages, (bsz, pps), generator=gen,
+                              device="cuda", dtype=torch.int32)
+    else:
+        table = torch.randperm(n_pages, generator=gen, device="cuda").to(
+            torch.int32).reshape(bsz, pps)
+    return (rnd(bsz, kvh, g, dh), rnd(kvh, n_pages, page, dh),
+            rnd(kvh, n_pages, page, dh), table,
+            torch.tensor(lengths, dtype=torch.int32, device="cuda"))
+
+
+def check_paged(torch, ins, where):
+    from repro_torch.kernels.paged_decode.ops import paged_decode_attention
+    from repro_torch.kernels.paged_decode.ref import (
+        paged_decode_attention_ref)
+    q, kp, vp, table, lengths = ins
+    scale = q.shape[-1] ** -0.5
+    got = paged_decode_attention(*ins)
+    q32, k32, v32 = q.float(), kp.float(), vp.float()
+    plain = paged_decode_attention_ref(q32, k32, v32, table, lengths,
+                                       scale=scale)
+    plain_abs = paged_decode_attention_ref(q32, k32, v32.abs(), table,
+                                           lengths, scale=scale)
+    bsz, kvh, _, dh = q.shape
+    keys = k32.index_select(1, table.reshape(-1).long()).reshape(
+        kvh, bsz, -1, dh)
+    smax = (torch.einsum("bhgd,hbsd->bhgs", q32, keys).abs().max().item()
+            * scale)
+    return check_attention(torch, got, plain, plain_abs,
+                           q.shape[-1] + int(lengths.max()), smax, where)
+
+
+def paged_cases(torch):
+    """Phase 1 for paged decode: page 8 and 16, every (KVH, G), dh and
+    dtype, a permuted table and one with repeats, ragged lengths with 1 and
+    full among them, and the serve shape's 130 pages a row; returns max
+    |err|."""
+    import itertools
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    err, n_cases, t0 = 0.0, 0, time.perf_counter()
+    combos = itertools.product((8, 16), ((1, 1), (2, 4), (8, 4), (4, 2),
+                                         (1, 8), (2, 16)),
+                               (64, 128), (torch.float32, torch.bfloat16),
+                               (False, True))
+    for i, (page, (kvh, g), dh, dtype, repeats) in enumerate(combos):
+        pps = 130 if i % 8 == 0 else 9
+        full = pps * page
+        lengths = [1, full, 1 + (37 * i + 11) % full]
+        ins = _paged_inputs(torch, gen, 3, kvh, g, dh, page, pps, dtype,
+                            repeats, lengths)
+        where = (f"paged_decode KVH={kvh} G={g} dh={dh} page={page} "
+                 f"pps={pps} {dtype} repeats={repeats} lengths={lengths}")
+        err = max(err, check_paged(torch, ins, where))
+        n_cases += 1
+    print(f"phase 1: {n_cases} paged_decode cases within attn_tolerance of "
+          f"their plain versions; max |err| {err} "
           f"({time.perf_counter() - t0:.1f} s)", flush=True)
     return err
 
@@ -584,7 +745,85 @@ def scan_time(torch, err):
     return row
 
 
-# -- phase 5: falcon-mamba-7b served at full width -------------------------------
+TENSOR_BF16_FLOP_PER_S = 989e12  # H100 SXM dense bf16 (NVIDIA data sheet)
+# llama3-8b serving shapes: prefill B 4 x S 2048, decode at ~2080 positions
+FLASH_SHAPE = (4, 8, 4, 2048, 128)          # B, KVH, G, S = T, dh
+PAGED_SHAPE = (4, 8, 4, 128, 16, 130, 2080)  # B, KVH, G, dh, page, pps, len
+
+
+def attention_times(torch, err):
+    """Both attention kernels at the llama3-8b serving shapes, in bfloat16:
+    ms, plain ms, the library call and the bound.  Returns their rows."""
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+    from repro_torch.kernels.paged_decode.ops import paged_decode_attention
+    from repro_torch.kernels.paged_decode.ref import (
+        paged_decode_attention_ref)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    rows = {}
+
+    bsz, kvh, g, s, dh = FLASH_SHAPE
+    q, k, v = _flash_inputs(torch, gen, bsz, kvh, g, s, dh, torch.bfloat16)
+    err["flash_attention"] = max(err["flash_attention"], check_flash(
+        torch, q, k, v, True, 0, 0.0, f"flash_attention at {FLASH_SHAPE}"))
+    scale = dh ** -0.5
+    pairs = bsz * kvh * g * s * (s + 1) // 2     # causal (query, key) pairs
+    flops = 2 * 2 * pairs * dh                   # q.k and p.v
+    nbytes = 2 * (q.numel() * 2 + k.numel() + v.numel())   # q, out, k, v
+    qh = q.view(bsz, kvh * g, s, dh)
+    rows["flash_attention"] = _bound_row(
+        ms=_time_ms(torch, lambda: flash_attention(q, k, v), 10),
+        plain_ms=_time_ms(torch, lambda: flash_attention_ref(
+            q, k, v, scale=scale), 3),
+        library_ms=_time_ms(torch, lambda: sdpa(
+            qh, k, v, is_causal=True, enable_gqa=True), 10),
+        flops=flops, nbytes=nbytes,
+        shape=list(FLASH_SHAPE) + ["bfloat16", "causal"],
+        library="scaled_dot_product_attention(is_causal, enable_gqa)")
+    del q, k, v, qh
+    torch.cuda.empty_cache()
+
+    bsz, kvh, g, dh, page, pps, length = PAGED_SHAPE
+    ins = _paged_inputs(torch, gen, bsz, kvh, g, dh, page, pps,
+                        torch.bfloat16, False, [length] * bsz)
+    err["paged_decode"] = max(err["paged_decode"], check_paged(
+        torch, ins, f"paged_decode at {PAGED_SHAPE}"))
+    # K and V of every row's positions, q and out; the table and lengths
+    nbytes = (2 * bsz * kvh * length * dh * 2 + 2 * bsz * kvh * g * dh * 2
+              + bsz * pps * 4 + bsz * 4)
+    flops = 2 * 2 * bsz * kvh * g * length * dh
+    rows["paged_decode"] = _bound_row(
+        ms=_time_ms(torch, lambda: paged_decode_attention(*ins), 50),
+        plain_ms=_time_ms(torch, lambda: paged_decode_attention_ref(
+            *ins, scale=dh ** -0.5), 10),
+        library_ms=None, flops=flops, nbytes=nbytes,
+        shape=list(PAGED_SHAPE) + ["bfloat16"],
+        library="none: no PyTorch call attends through a page table")
+    del ins
+    torch.cuda.empty_cache()
+    return rows
+
+
+def _bound_row(ms, plain_ms, library_ms, flops, nbytes, shape, library):
+    """A kernel's row; the bound is the larger of bytes over 3.35 TB/s and
+    bf16 tensor FLOPs over 989 TFLOP/s."""
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    flop_ms = flops / TENSOR_BF16_FLOP_PER_S * 1e3
+    row = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+               bound_ms=max(bytes_ms, flop_ms),
+               bound_by="operations" if flop_ms >= bytes_ms else "bytes",
+               bytes=nbytes, flops=flops, bytes_ms=bytes_ms, flop_ms=flop_ms,
+               shape=shape)
+    lib = f"{library_ms:.4f} ms" if library_ms is not None else "none"
+    print(f"  {shape}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library "
+          f"{lib} ({library}), bound {row['bound_ms']:.4f} ms by "
+          f"{row['bound_by']} ({flops} FLOP: {flop_ms:.4f} ms; {nbytes} "
+          f"bytes: {bytes_ms:.4f} ms)", flush=True)
+    return row
+
+
+# -- phases 5 and 6: falcon-mamba-7b and llama3-8b served at full width --------
 
 def _rel_err(got, want):
     """max |got - want| / (atol + rtol * |want|) under SERVE_TOL (<= 1
@@ -595,10 +834,35 @@ def _rel_err(got, want):
             ).max().item()
 
 
-def serve_phase(torch, argv=SERVE_ARGS, cache_prompt=64):
+def _mamba_launches(cfg, gen):
+    """Launches a falcon-mamba-7b serve call must make: the scan once per
+    layer in the prefill, nothing in decode."""
+    return {"selective_scan": cfg.n_layers}, {}
+
+
+def _dense_launches(cfg, gen):
+    """Launches a llama3-8b serve call must make: flash attention once per
+    layer in the prefill, paged decode once per layer and step in decode."""
+    return {"flash_attention": cfg.n_layers}, {"paged_decode":
+                                                cfg.n_layers * gen}
+
+
+def _cache_tensors(cache, length):
+    """A layer's cache as tensors to compare: a paged cache gathered
+    through its table to (B, length, KVH, dh) K and V."""
+    from repro_torch.models.attention import contiguous_kv
+    if "page_table" in cache:
+        return contiguous_kv(cache, length)
+    return cache["conv"], cache["ssm"]
+
+
+def serve_phase(torch, argv=SERVE_ARGS, want=_mamba_launches,
+                params=FALCON_MAMBA_PARAMS, cache_prompt=64):
     """Serve through ``launch.serve.main`` and check the result; returns
-    the numbers for the records and the serve window's launch counts."""
-    from repro_torch.kernels import reset_launches
+    the numbers for the records and the serve window's launch counts.
+    ``want(cfg, gen)`` gives the launches the prefill and the decode must
+    make (every other kernel: none)."""
+    from repro_torch.kernels import KERNELS, reset_launches
     from repro_torch.launch import serve
     from repro_torch.models import transformer
     from repro_torch.plan import default_cache
@@ -615,12 +879,15 @@ def serve_phase(torch, argv=SERVE_ARGS, cache_prompt=64):
     wall = time.perf_counter() - t0
     cfg, lm, dev = res.model.cfg, res.params, res.logits.device
     n_params = sum(p.numel() for p in lm.parameters())
-    check(res.launches_prefill["selective_scan"] == cfg.n_layers,
-          f"prefill launched the scan {res.launches_prefill} times, not "
-          f"once per layer ({cfg.n_layers})")
-    check(not any(res.launches_decode.values()),
-          f"decode launched kernels: {res.launches_decode}")
-    check(serve_launches["selective_scan"] == cfg.n_layers,
+    check(n_params == params, f"{n_params} parameters, not {params}")
+    want_prefill, want_decode = ({k: w.get(k, 0) for k in KERNELS}
+                                 for w in want(cfg, res.gen))
+    check(res.launches_prefill == want_prefill,
+          f"prefill launches {res.launches_prefill} != {want_prefill}")
+    check(res.launches_decode == want_decode,
+          f"decode launches {res.launches_decode} != {want_decode}")
+    check(serve_launches == {k: want_prefill[k] + want_decode[k]
+                             for k in KERNELS},
           f"serve window launches {serve_launches}")
     check(bool(torch.isfinite(res.logits.float()).all()),
           "non-finite logits")
@@ -656,8 +923,9 @@ def serve_phase(torch, argv=SERVE_ARGS, cache_prompt=64):
         it = res.model.init_cache(2, cache_prompt, device=dev)
         for t in range(cache_prompt):
             _, it = res.model.decode_step(lm, it, prompt[:, t:t + 1], t)
-    cache_err = max(_rel_err(p[k], i[k])
-                    for p, i in zip(pre, it) for k in ("conv", "ssm"))
+    cache_err = max(_rel_err(a, b) for p, i in zip(pre, it)
+                    for a, b in zip(_cache_tensors(p, cache_prompt),
+                                    _cache_tensors(i, cache_prompt)))
     check(len(pre) == len(it) == cfg.n_layers and cache_err <= 1.0,
           f"prefill cache vs iterated decode: {cache_err} x SERVE_TOL")
     print(f"  prefill cache of 2 x {cache_prompt} tokens vs decode_step "
@@ -668,7 +936,8 @@ def serve_phase(torch, argv=SERVE_ARGS, cache_prompt=64):
                decode_ms_per_step=res.decode_ms / res.gen, tok_s=res.tok_s,
                params=n_params, weight_bytes=res.weight_bytes,
                max_memory_allocated=peak, serve_wall_s=wall,
-               launches_prefill=res.launches_prefill["selective_scan"],
+               launches_prefill=res.launches_prefill,
+               launches_decode=res.launches_decode,
                logit_err_x_tol=logit_err, cache_err_x_tol=cache_err,
                greedy_agree=int(agree.sum()), greedy_positions=agree.numel())
     print(f"  serve: prefill {res.prefill_ms:.1f} ms, decode "
@@ -686,7 +955,27 @@ def _device_ms(evt):
     return (us if us is not None else evt.self_cuda_time_total) / 1e3
 
 
-def profile_serve(torch, decode_steps=8):
+# kernel-name fragments of the port's kernels and of cuBLAS's matrix products
+_KERNEL_CLASSES = (("selective_scan", ("selective_scan_kernel",)),
+                   ("flash_attention", ("flash_attention_kernel",)),
+                   ("paged_decode", ("paged_decode_kernel",)),
+                   ("gemm", ("gemm", "gemv", "nvjet", "cutlass", "xmma")))
+
+
+def _by_class(evts):
+    """Device ms by class: the port's kernels, matrix products, the rest
+    (elementwise passes, copies, reductions)."""
+    out = {name: 0.0 for name, _ in _KERNEL_CLASSES}
+    out["other"] = 0.0
+    for e in evts:
+        key = e.key.lower()
+        name = next((n for n, frags in _KERNEL_CLASSES
+                     if any(f in key for f in frags)), "other")
+        out[name] += _device_ms(e)
+    return out
+
+
+def profile_serve(torch, argv=SERVE_ARGS, decode_steps=8):
     """Steady-state serve, not run by ``main``: after one warm serve call,
     time a prefill and ``decode_steps`` decode steps again on the host
     clock, then trace one of each with ``torch.profiler`` and print the
@@ -694,12 +983,12 @@ def profile_serve(torch, decode_steps=8):
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.launch import serve
-    argv = SERVE_ARGS[:-1] + [str(decode_steps)]
-    res = serve.main(argv)
+    res = serve.main(list(argv[:-1]) + [str(decode_steps)])
     model, lm, prompts = res.model, res.params, res.prompts
 
     def prefill():
-        return model.prefill(lm, prompts)
+        return model.prefill(lm, prompts,
+                             max_len=res.prompt_len + decode_steps)
 
     def decode(cache, n):
         tok = res.tokens[:, :1]
@@ -734,10 +1023,11 @@ def profile_serve(torch, decode_steps=8):
         busy = sum(_device_ms(e) for e in evts)
         print(f"\nprofile {name}: wall {wall_ms:.1f} ms (traced), device "
               f"busy {busy:.1f} ms ({100 * busy / wall_ms:.1f}% of wall)")
-        for e in evts[:14]:
+        for e in evts[:20]:
             print(f"  {_device_ms(e):10.3f} ms  {e.count:6d} x  {e.key[:90]}")
         out[f"{name}_traced_wall_ms"] = wall_ms
         out[f"{name}_device_busy_ms"] = busy
+        out[f"{name}_device_ms_by_class"] = _by_class(evts)
     print(json.dumps(out), flush=True)
     return out
 
@@ -749,6 +1039,8 @@ def main():
     t0 = time.perf_counter()
     err = kernel_cases(torch)
     err["selective_scan"] = scan_cases(torch)
+    err["flash_attention"] = flash_cases(torch)
+    err["paged_decode"] = paged_cases(torch)
     print(f"phase 1 wall {time.perf_counter() - t0:.1f} s", flush=True)
 
     from repro_torch.kernels import reset_launches
@@ -762,11 +1054,16 @@ def main():
           f"a kernel of the main path never launched: {main_launches}")
 
     times = kernel_times(torch, err)
+    times.update(attention_times(torch, err))
     lulesh_s3_add = times.pop("lulesh_s3_add")
     peak_1_4 = torch.cuda.max_memory_allocated()
     served, serve_launches = serve_phase(torch)
+    served_llama, llama_launches = serve_phase(
+        torch, LLAMA_ARGS, _dense_launches, LLAMA3_8B_PARAMS)
     path_launches = {k: main_launches[k] for k in SPATTER_KERNELS}
     path_launches["selective_scan"] = serve_launches["selective_scan"]
+    for k in ("flash_attention", "paged_decode"):
+        path_launches[k] = llama_launches[k]
     rows = []
     for name, (source, replaces) in KERNEL_INFO.items():
         t = times[name]
@@ -784,11 +1081,14 @@ def main():
                          host_s=st.host_s)
               for name, st in suite_stats.items()}
     print(f"\nmax_memory_allocated {peak_1_4} bytes in phases 1-4, "
-          f"{served['max_memory_allocated']} bytes in phase 5")
+          f"{served['max_memory_allocated']} bytes in phase 5, "
+          f"{served_llama['max_memory_allocated']} bytes in phase 6")
     print(json.dumps({"cli": cli, "suites_hopper": suites,
                       "lulesh_s3_add": lulesh_s3_add,
                       "selective_scan": times["selective_scan"],
-                      "serve": served}))
+                      "flash_attention": times["flash_attention"],
+                      "paged_decode": times["paged_decode"],
+                      "serve": served, "serve_llama": served_llama}))
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

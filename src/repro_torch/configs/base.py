@@ -11,11 +11,10 @@ from __future__ import annotations
 import dataclasses
 import importlib
 
-ARCH_IDS = ["falcon-mamba-7b"]
+ARCH_IDS = ["falcon-mamba-7b", "llama3-8b"]
 
-# the JAX package's other architectures: ROADMAP A12 ports them, the dense
-# serving path (llama3-8b, with kernels B5 and B6) next
-NOT_PORTED = ("chatglm3-6b", "llama3-8b", "gemma2-27b", "starcoder2-15b",
+# the JAX package's other architectures: ROADMAP A12 ports them
+NOT_PORTED = ("chatglm3-6b", "gemma2-27b", "starcoder2-15b",
               "deepseek-v2-236b", "kimi-k2-1t-a32b", "whisper-base",
               "internvl2-26b", "recurrentgemma-9b")
 
@@ -99,6 +98,10 @@ class ModelConfig:
     remat: str = "block"                 # none | block | full
     scan_layers: bool = True
     attn_chunk: int = 512                # query-chunked attention block
+
+    @property
+    def dh(self) -> int:
+        return self.head_dim or (self.d_model // max(1, self.n_heads))
 
 
 def _module(arch_id: str):

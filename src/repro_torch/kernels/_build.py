@@ -29,12 +29,14 @@ from pathlib import Path
 PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
-SOURCES = ("gather_rows", "scatter_rows", "selective_scan")
+SOURCES = ("gather_rows", "scatter_rows", "selective_scan",
+           "flash_attention", "paged_decode")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 KERNELS = ("gather_rows", "gather_rows_smem", "scatter_store_rows",
-           "scatter_add_rows", "selective_scan")
+           "scatter_add_rows", "selective_scan", "flash_attention",
+           "paged_decode")
 launches: dict[str, int] = {k: 0 for k in KERNELS}
 
 _libs: dict[str, ctypes.CDLL] = {}
@@ -42,6 +44,8 @@ _lock = threading.Lock()
 
 _P = ctypes.c_void_p
 _I64 = ctypes.c_int64
+_I32 = ctypes.c_int
+_F32 = ctypes.c_float
 # C signatures: (argtypes) -> int (cudaError_t of the launch)
 _SIGNATURES = {
     "gather_rows": {
@@ -62,6 +66,19 @@ _SIGNATURES = {
         # u, dt, b, c, a, d_skip, y, h_final, B, L, D, N, stream
         "selective_scan_f32": (_P,) * 8 + (_I64,) * 4 + (_P,),
         "selective_scan_bf16": (_P,) * 8 + (_I64,) * 4 + (_P,),
+    },
+    "flash_attention": {
+        # q, k, v, out, B, KVH, G, S, T, DH, scale, causal, window, softcap,
+        # stream
+        f"flash_attention_{t}": (_P,) * 4 + (_I64,) * 6 + (_F32, _I32, _I64,
+                                                            _F32, _P)
+        for t in ("f32", "bf16")
+    },
+    "paged_decode": {
+        # q, k_pages, v_pages, page_table, lengths, out, B, KVH, G, P, page,
+        # pages_per_seq, DH, scale, stream
+        f"paged_decode_{t}": (_P,) * 6 + (_I64,) * 7 + (_F32, _P)
+        for t in ("f32", "bf16")
     },
 }
 

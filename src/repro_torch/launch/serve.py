@@ -1,13 +1,15 @@
 """Batched serving: prefill, then greedy token-by-token decode.
 
-    PYTHONPATH=src python -m repro_torch.launch.serve --arch falcon-mamba-7b \\
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3-8b \\
         --smoke --device cpu --batch 2 --prompt-len 8 --gen 4
 
 The port of ``repro/launch/serve.py`` for the ported architectures.  The
 weights are random, drawn on the device from a ``torch.Generator`` seeded
 by ``--seed``; the prompts are the same numpy draws as there.  The
-prefill returns the decode cache itself (``Model.prefill``), so decode
-starts at position ``prompt_len`` with no splice.  ``--device`` defaults to
+prefill returns the decode cache itself, with room for ``prompt_len +
+gen`` positions (``Model.prefill``; a dense model's KV cache is paged, its
+page table drawn from ``--seed``), so decode starts at position
+``prompt_len`` with no splice.  ``--device`` defaults to
 ``cuda`` and raises without it; ``--device cpu`` runs the kernels' plain
 versions.  Times are host clocks around work that ends in a device
 synchronise.
@@ -49,7 +51,7 @@ class ServeResult:
 
 def _parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(prog="python -m repro_torch.launch.serve")
-    ap.add_argument("--arch", default="falcon-mamba-7b", choices=ARCH_IDS)
+    ap.add_argument("--arch", default="llama3-8b", choices=ARCH_IDS)
     ap.add_argument("--smoke", action="store_true",
                     help="the reduced config of the same family")
     ap.add_argument("--batch", type=int, default=4)
@@ -85,7 +87,8 @@ def main(argv=None) -> ServeResult:
     sync()
     before = dict(launches)
     t0 = time.perf_counter()
-    logits, cache = model.prefill(params, prompts)
+    logits, cache = model.prefill(params, prompts, max_len=plen + args.gen,
+                                  seed=args.seed)
     sync()
     t_prefill = time.perf_counter() - t0
     launches_prefill = _delta(before)

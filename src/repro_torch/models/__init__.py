@@ -1,9 +1,10 @@
-"""Model code of the port: ``common``, ``ssm``, ``transformer``, ``zoo``,
-``convert``.  Submodules load on first use; importing the package loads
-none of them and builds nothing."""
+"""Model code of the port: ``common``, ``ssm``, ``attention``,
+``transformer``, ``zoo``, ``convert``.  Submodules load on first use;
+importing the package loads none of them and builds nothing."""
 import importlib
 
-_SUBMODULES = ("common", "convert", "ssm", "transformer", "zoo")
+_SUBMODULES = ("attention", "common", "convert", "ssm", "transformer",
+               "zoo")
 _EXPORTS = {"Model": "zoo", "count_params": "zoo"}
 
 __all__ = sorted(_EXPORTS) + list(_SUBMODULES)

@@ -1,6 +1,7 @@
-"""Shared model machinery: declared parameters and their init, the RMS norm.
+"""Shared model machinery: declared parameters and their init, the RMS norm,
+the MLP, RoPE.
 
-The port of ``repro/models/common.py:24-100``.  A module declares its
+The port of ``repro/models/common.py:24-159``.  A module declares its
 parameters as ``ParamDef``s (shape, init, scale) in the JAX package's
 names and layouts (weights are (in, out), so a layer is ``x @ w``);
 ``make_params`` allocates them, uninitialised, on a device (``meta``
@@ -16,6 +17,7 @@ import dataclasses
 import math
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 
@@ -69,3 +71,59 @@ def rms_norm(p: RMSNorm, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     var = (x32 * x32).mean(-1, keepdim=True)
     y = x32 * torch.rsqrt(var + eps)
     return (y * p.scale.to(torch.float32)).to(x.dtype)
+
+
+# block kinds and families of the JAX package that the port does not run yet
+_NOT_PORTED = "ROADMAP A12 (model-side consumers)"
+
+
+def mlp_def(cfg, d_in: int, d_ff: int) -> dict:
+    """``wi``, ``wg`` (d_in, d_ff) and ``wo`` (d_ff, d_in): SwiGLU only."""
+    if cfg.mlp_kind != "swiglu":
+        raise NotImplementedError(
+            f"mlp_kind {cfg.mlp_kind!r} is not ported: {_NOT_PORTED}")
+    return {"wi": ParamDef((d_in, d_ff)), "wg": ParamDef((d_in, d_ff)),
+            "wo": ParamDef((d_ff, d_in))}
+
+
+class MLP(nn.Module):
+    def __init__(self, cfg, d_in: int, d_ff: int, *, device=None,
+                 dtype=None):
+        super().__init__()
+        self.defs = mlp_def(cfg, d_in, d_ff)
+        make_params(self, self.defs, device, dtype)
+
+
+def mlp_apply(cfg, p: MLP, x: torch.Tensor) -> torch.Tensor:
+    del cfg                      # swiglu: the only kind ``mlp_def`` builds
+    return (F.silu(x @ p.wg) * (x @ p.wi)) @ p.wo
+
+
+def softcap(x: torch.Tensor, cap: float) -> torch.Tensor:
+    if cap <= 0:
+        return x
+    return torch.tanh(x / cap) * cap
+
+
+def rope_freqs(dh: int, theta: float, device=None) -> torch.Tensor:
+    return 1.0 / (theta ** (torch.arange(0, dh, 2, dtype=torch.float32,
+                                         device=device) / dh))
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
+               mode: str = "full") -> torch.Tensor:
+    """x (..., S, H, dh); positions (..., S).  mode: full | none.  Float32
+    inside, rounded once to x's dtype, as the JAX package's ``apply_rope``."""
+    if mode == "none":
+        return x
+    if mode != "full":
+        raise NotImplementedError(f"rope {mode!r} is not ported: "
+                                  f"{_NOT_PORTED}")
+    dh = x.shape[-1]
+    freqs = rope_freqs(dh, theta, x.device)                  # (dh/2,)
+    ang = positions[..., None].to(torch.float32) * freqs     # (..., S, dh/2)
+    cos = torch.cos(ang)[..., None, :]                       # (..., S, 1, dh/2)
+    sin = torch.sin(ang)[..., None, :]
+    x1, x2 = x.to(torch.float32).chunk(2, dim=-1)
+    return torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos],
+                     dim=-1).to(x.dtype)

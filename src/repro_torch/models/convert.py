@@ -5,7 +5,10 @@ The JAX package scan-stacks each stage's layers on a leading axis
 keeps one ``Block`` per layer.  ``params_from_jax`` unstacks a JAX
 ``Model.init`` tree, given as numpy arrays, into a state dict for
 ``LM.load_state_dict`` (which casts to the module's dtype);
-``cache_from_jax`` and ``cache_to_jax`` do the same for decode caches.
+``cache_from_jax`` and ``cache_to_jax`` do the same for decode caches, and
+between the JAX package's contiguous K/V cache (count, B, max_len, KVH, dh)
+and the port's paged one they gather the pages through the table, and
+scatter them back.
 JAX's bfloat16 arrays arrive as ``ml_dtypes.bfloat16``, which
 ``torch.from_numpy`` refuses, so every leaf goes through float32, which
 holds every bfloat16 value exactly.
@@ -15,6 +18,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from . import attention as attn
 from .transformer import stage_layout
 
 
@@ -52,15 +56,39 @@ def params_from_jax(cfg, tree: dict) -> dict[str, torch.Tensor]:
     return state
 
 
-def cache_from_jax(cfg, caches: list) -> list[dict]:
+def cache_from_jax(cfg, caches: list, seed: int = 0) -> list[dict]:
     """JAX decode cache (numpy leaves) -> the port's per-layer list, as
-    float32 CPU tensors (``ssm`` is float32 on both sides)."""
-    return [{k: _f32(v[g]) for k, v in block.items()}
-            for _, g, block in _layers(cfg, caches)]
+    float32 CPU tensors (``ssm`` is float32 on both sides).  Contiguous
+    K/V go into pages through one table drawn from ``seed``."""
+    out, table = [], None
+    for _, g, block in _layers(cfg, caches):
+        if "k" not in block:
+            out.append({k: _f32(v[g]) for k, v in block.items()})
+            continue
+        k, v = _f32(block["k"][g]), _f32(block["v"][g])
+        if table is None:
+            b, length = k.shape[:2]
+            table = attn.page_table(b, attn.n_pages(length), seed, "cpu")
+        cache = attn.gqa_init_cache(cfg, table, torch.float32, "cpu")
+        attn.write_prefill(cache, k, v)
+        out.append(cache)
+    return out
 
 
-def cache_to_jax(cfg, caches: list[dict]) -> list:
-    """The port's per-layer cache -> the JAX layout, as float32 numpy."""
+def _to_jax(cache: dict, max_len: int | None) -> dict:
+    if "page_table" not in cache:
+        return cache
+    table = cache["page_table"]
+    k, v = attn.contiguous_kv(cache, max_len or table.shape[1]
+                              * attn.PAGE_SIZE)
+    return {"k": k, "v": v}
+
+
+def cache_to_jax(cfg, caches: list[dict], max_len: int | None = None) -> list:
+    """The port's per-layer cache -> the JAX layout, as float32 numpy.
+    Paged K/V are gathered through the table into (B, max_len, KVH, dh)
+    (default: every slot of the table)."""
+    caches = [_to_jax(c, max_len) for c in caches]
     out, i = [], 0
     for count, kinds in stage_layout(cfg):
         stage = {}

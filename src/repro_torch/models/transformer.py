@@ -1,11 +1,12 @@
 """Decoder-LM assembly: embedding (a Spatter gather), blocks, decode.
 
 The port of ``repro/models/transformer.py`` for the families ported so far
-(``ssm``: falcon-mamba-7b).  The JAX package scan-stacks each stage's
-layers on a leading axis; here each layer is its own ``Block`` in an
-``nn.ModuleList``, in ``stage_layout`` order, and a cache is a list with
-one entry per layer.  Other block kinds and families raise, naming the
-ROADMAP item that will port them.
+(``ssm``: falcon-mamba-7b; ``dense`` without local/global layers:
+llama3-8b).  The JAX package scan-stacks each stage's layers on a leading
+axis; here each layer is its own ``Block`` in an ``nn.ModuleList``, in
+``stage_layout`` order, and a cache is a list with one entry per layer
+(a dense layer's is paged, ``attention.py``).  Other block kinds and
+families raise, naming the ROADMAP item that will port them.
 """
 from __future__ import annotations
 
@@ -15,11 +16,10 @@ import torch
 from torch import nn
 
 from .. import backends as gs_backends
+from . import attention as attn
 from . import ssm as ssm_mod
-from .common import ParamDef, RMSNorm, init_params, make_params, rms_norm
-
-# block kinds and families of the JAX package that the port does not run yet
-_NOT_PORTED = "ROADMAP A12 (model-side consumers)"
+from .common import (_NOT_PORTED, MLP, ParamDef, RMSNorm, init_params,
+                     make_params, mlp_apply, rms_norm)
 
 
 def embed_defs(cfg) -> dict:
@@ -55,21 +55,29 @@ def stage_layout(cfg) -> list[tuple[int, tuple[str, ...]]]:
     """[(n_groups, kinds_per_group), ...] — total layers must match."""
     if cfg.family == "ssm":
         return [(cfg.n_layers, ("mamba",))]
+    if cfg.family == "dense" and cfg.attn_kind == "full":
+        return [(cfg.n_layers, ("dense",))]
     raise NotImplementedError(
         f"family {cfg.family!r} ({cfg.arch_id}) is not ported: {_NOT_PORTED}")
 
 
 class Block(nn.Module):
-    """ln1 -> mixer -> residual (a mamba block has no channel MLP)."""
+    """ln1 -> mixer -> residual, then (``dense``) ln2 -> MLP -> residual;
+    a ``mamba`` block has no channel MLP."""
 
     def __init__(self, cfg, kind: str, *, device=None, dtype=None):
         super().__init__()
-        if kind != "mamba":
+        if kind not in ("mamba", "dense"):
             raise NotImplementedError(
                 f"block kind {kind!r} is not ported: {_NOT_PORTED}")
         self.kind = kind
         self.ln1 = RMSNorm(cfg.d_model, device=device, dtype=dtype)
-        self.mixer = ssm_mod.Mamba(cfg, device=device, dtype=dtype)
+        if kind == "mamba":
+            self.mixer = ssm_mod.Mamba(cfg, device=device, dtype=dtype)
+            return
+        self.mixer = attn.GQA(cfg, device=device, dtype=dtype)
+        self.ln2 = RMSNorm(cfg.d_model, device=device, dtype=dtype)
+        self.mlp = MLP(cfg, cfg.d_model, cfg.d_ff, device=device, dtype=dtype)
 
 
 class LM(nn.Module):
@@ -92,41 +100,65 @@ class LM(nn.Module):
         return self
 
 
-def block_apply(cfg, blk: Block, x: torch.Tensor):
-    """Returns (x', cache entry)."""
+def block_apply(cfg, blk: Block, x: torch.Tensor, positions: torch.Tensor,
+                cache=None):
+    """Returns (x', cache).  Given a ``cache`` entry (from ``init_cache``),
+    the block writes into it what decode continues from: a mamba block its
+    final state, a dense block its K/V into the pages."""
     h = rms_norm(blk.ln1, x, cfg.norm_eps)
-    y, cache = ssm_mod.mamba_prefill(cfg, blk.mixer, h)
-    return x + y, cache
+    if blk.kind == "mamba":
+        y, state = ssm_mod.mamba_prefill(cfg, blk.mixer, h)
+        if cache is not None:
+            for k, v in state.items():
+                cache[k].copy_(v)
+        return x + y, cache
+    y, cache = attn.gqa_apply(cfg, blk.mixer, h, positions, cache=cache)
+    x = x + y
+    return x + mlp_apply(cfg, blk.mlp, rms_norm(blk.ln2, x, cfg.norm_eps)), \
+        cache
 
 
-def block_decode(cfg, blk: Block, x: torch.Tensor, pos, cache):
+def block_decode(cfg, blk: Block, x: torch.Tensor, pos: int, cache):
     """Single-token decode through one block. Returns (x', cache')."""
-    del pos                  # a mamba block keeps no positions
     h = rms_norm(blk.ln1, x, cfg.norm_eps)
-    y, cache = ssm_mod.mamba_decode(cfg, blk.mixer, h, cache)
-    return x + y, cache
+    if blk.kind == "mamba":  # a mamba block keeps no positions
+        y, cache = ssm_mod.mamba_decode(cfg, blk.mixer, h, cache)
+        return x + y, cache
+    y, cache = attn.gqa_decode(cfg, blk.mixer, h, pos, cache)
+    x = x + y
+    return x + mlp_apply(cfg, blk.mlp, rms_norm(blk.ln2, x, cfg.norm_eps)), \
+        cache
 
 
-def forward(cfg, lm: LM, tokens: torch.Tensor, *,
-            collect_cache: bool = False):
-    """tokens (B,S) -> hidden (B,S,d), and with ``collect_cache`` the
-    per-layer caches that ``decode_step`` continues from."""
+def forward(cfg, lm: LM, tokens: torch.Tensor, *, caches: list | None = None):
+    """tokens (B,S) -> hidden (B,S,d).  Given ``caches`` (from
+    ``init_cache``), also returns the per-layer caches that ``decode_step``
+    continues from at position S."""
     x = embed_lookup(cfg, lm.embed, tokens)
     x = x * math.sqrt(cfg.d_model)
-    caches = []
-    for blk in lm.layers:
-        x, c = block_apply(cfg, blk, x)
-        if collect_cache:
-            caches.append(c)
+    positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
+    out = []
+    for i, blk in enumerate(lm.layers):
+        x, c = block_apply(cfg, blk, x, positions,
+                           None if caches is None else caches[i])
+        out.append(c)
     x = rms_norm(lm.ln_f, x, cfg.norm_eps)
-    return (x, caches) if collect_cache else x
+    return x if caches is None else (x, out)
 
 
-def init_cache(cfg, batch: int, max_len: int, dtype, device) -> list:
-    del max_len              # a mamba cache does not grow with the context
+def init_cache(cfg, batch: int, max_len: int, dtype, device,
+               seed: int = 0) -> list:
+    """Zeroed per-layer caches.  Dense layers share one page table, drawn
+    from ``seed``, of ceil(max_len / PAGE_SIZE) pages a row; a mamba cache
+    does not grow with the context."""
+    kinds = [kind for count, ks in stage_layout(cfg)
+             for _ in range(count) for kind in ks]
+    table = None
+    if "dense" in kinds:
+        table = attn.page_table(batch, attn.n_pages(max_len), seed, device)
     return [ssm_mod.mamba_init_cache(cfg, batch, dtype, device)
-            for count, kinds in stage_layout(cfg)
-            for _ in range(count) for _kind in kinds]
+            if kind == "mamba" else
+            attn.gqa_init_cache(cfg, table, dtype, device) for kind in kinds]
 
 
 def decode_step(cfg, lm: LM, caches: list, tokens: torch.Tensor, pos):

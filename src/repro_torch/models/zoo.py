@@ -1,8 +1,8 @@
 """Model zoo: one interface over the ported architectures.
 
-    model = Model(get_config("falcon-mamba-7b"))
+    model = Model(get_config("llama3-8b"))
     params = model.init(torch.Generator("cuda").manual_seed(0))   # an LM
-    logits, cache = model.prefill(params, tokens)   # cache ready to decode
+    logits, cache = model.prefill(params, tokens, max_len)   # ready to decode
     logits, cache = model.decode_step(params, cache, tokens, pos)
 
 The port of ``repro/models/zoo.py``.  ``device=None`` means ``cuda`` and
@@ -39,19 +39,28 @@ class Model:
     def forward(self, params, tokens, **kw):
         return transformer.forward(self.cfg, params, tokens, **kw)
 
-    def prefill(self, params, tokens: torch.Tensor):
+    def prefill(self, params, tokens: torch.Tensor, max_len: int | None = None,
+                seed: int = 0):
         """tokens (B,S) -> (last-position logits (B,V), per-layer caches
-        that ``decode_step`` continues from at position S)."""
+        that ``decode_step`` continues from at position S, with room for
+        ``max_len`` positions (default S; a paged cache's table is drawn
+        from ``seed``).  A mamba cache does not grow: ``max_len`` is
+        ignored there."""
+        b, s = tokens.shape
+        caches = transformer.init_cache(self.cfg, b, max_len or s,
+                                        params.embed.table.dtype,
+                                        tokens.device, seed)
         hidden, caches = transformer.forward(self.cfg, params, tokens,
-                                             collect_cache=True)
+                                             caches=caches)
         last = transformer.unembed_logits(self.cfg, params.embed,
                                           hidden[:, -1:])[:, 0]
         return last, caches
 
-    def init_cache(self, batch: int, max_len: int, dtype=None, device=None):
+    def init_cache(self, batch: int, max_len: int, dtype=None, device=None,
+                   seed: int = 0):
         return transformer.init_cache(self.cfg, batch, max_len,
                                       dtype or model_dtype(self.cfg),
-                                      resolve_device(device))
+                                      resolve_device(device), seed)
 
     def decode_step(self, params, cache, tokens, pos):
         return transformer.decode_step(self.cfg, params, cache, tokens, pos)

@@ -117,10 +117,12 @@ def test_import_loads_no_jax_repro_or_triton():
         "from repro_torch.kernels.gather_rows import ops, ref\n"
         "from repro_torch.kernels.scatter_rows import ops, ref\n"
         "from repro_torch.kernels.selective_scan import ops, ref\n"
+        "from repro_torch.kernels.flash_attention import ops, ref\n"
+        "from repro_torch.kernels.paged_decode import ops, ref\n"
         "from repro_torch import configs\n"
-        "from repro_torch.configs import base, falcon_mamba_7b\n"
-        "from repro_torch.models import common, convert, ssm, transformer, "
-        "zoo\n"
+        "from repro_torch.configs import base, falcon_mamba_7b, llama3_8b\n"
+        "from repro_torch.models import attention, common, convert, ssm, "
+        "transformer, zoo\n"
         "from repro_torch.launch import serve\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro', 'triton'))\n"

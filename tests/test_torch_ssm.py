@@ -315,7 +315,7 @@ def test_full_width_params_convert_and_count():
 
 def test_unported_archs_raise_naming_roadmap():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_config("llama3-8b")
+        get_config("gemma2-27b")
     with pytest.raises(ValueError, match="unknown"):
         get_config("no-such-arch")
 
@@ -323,8 +323,8 @@ def test_unported_archs_raise_naming_roadmap():
 # -- serving ------------------------------------------------------------------------
 
 def test_serve_cpu_prefill_cache_continues_the_prompt():
-    res = serve.main(["--smoke", "--device", "cpu", "--batch", "2",
-                      "--prompt-len", "8", "--gen", "3"])
+    res = serve.main(["--arch", ARCH, "--smoke", "--device", "cpu",
+                      "--batch", "2", "--prompt-len", "8", "--gen", "3"])
     cfg = get_smoke_config(ARCH)
     assert res.tokens.shape == (2, 4) and res.logits.shape == (2, 4, 256)
     assert not any(res.launches_prefill.values())      # CPU: plain versions
@@ -343,9 +343,10 @@ def test_serve_cpu_prefill_cache_continues_the_prompt():
 def test_serve_module_runs_on_cpu():
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     out = subprocess.run(
-        [sys.executable, "-m", "repro_torch.launch.serve", "--smoke",
-         "--device", "cpu", "--batch", "2", "--prompt-len", "6", "--gen",
-         "2"], env=env, capture_output=True, text=True, timeout=120)
+        [sys.executable, "-m", "repro_torch.launch.serve", "--arch", ARCH,
+         "--smoke", "--device", "cpu", "--batch", "2", "--prompt-len", "6",
+         "--gen", "2"], env=env, capture_output=True, text=True,
+        timeout=120)
     assert out.returncode == 0, out.stderr
     assert "[serve] prefill: 2x6" in out.stdout
     assert "[serve] decode: 2 steps x batch 2" in out.stdout
