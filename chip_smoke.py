@@ -18,12 +18,16 @@ only.  Phases:
      within ``add_error_bound``; the selective scan over B in {1, 3}, L in
      {1, 7, 300, 2048}, D in {16, 200, 8192}, N in {4, 8, 16}, float32 and
      bfloat16, two ranges of dt, within ``scan_tolerance``; flash attention
-     over S = T in {1, 17, 128, 300, 2048}, (KVH, G) in {(1, 1), (2, 4),
-     (8, 4)}, dh in {64, 128}, float32 and bfloat16, with B in {1, 2},
+     first at the bf16 kernel's edges (one 64 x 64 tile at G = 1, S = T in
+     {64, 65, 128, 129, 255, 257}, G = 3, a causal window of 64, a softcap
+     of 50),
+     then over S = T in {1, 17, 128, 300, 2048}, (KVH, G) in {(1, 1), (2,
+     4), (8, 4)}, dh in {64, 128}, float32 and bfloat16, with B in {1, 2},
      causal, window in {0, 64} and softcap in {0, 50} cycled; paged decode
      over page in {8, 16}, six (KVH, G), dh in {64, 128}, both dtypes, a
      permuted table and one with repeats, lengths 1, full and ragged; both
-     within ``attn_tolerance``;
+     within ``attn_tolerance`` (flash in bf16 with 2^-8 more for its
+     rounded weights);
   2. the paper's CLI invocation ``-k Gather -p UNIFORM:8:1 -d 8 -l 2^24``
      through the port's CLI, as a gather, a store and an add scatter, on
      ``-b hopper`` and then on ``-b torch`` (the library yardstick);
@@ -59,6 +63,7 @@ last line it prints one ``{"kernels": [...]}`` JSON line; the last line
 is ``{"ok": true, "device": {...}}``.
 """
 import gc
+import itertools
 import json
 import subprocess
 import sys
@@ -142,7 +147,8 @@ def build():
           f"({', '.join(reports) or 'cached'})", flush=True)
     for name, log in reports.items():
         for line in log.splitlines():
-            if "registers" in line or "spill" in line or "Compiling" in line:
+            if any(w in line for w in ("registers", "spill", "Compiling",
+                                       "warning")):
                 print(f"  ptxas[{name}]: {line.strip()}")
 
 
@@ -329,17 +335,21 @@ def attn_tolerance(n_terms, smax):
     return 2.0 ** -23 * (n_terms + 16) * (1.0 + smax)
 
 
-def check_attention(torch, got, plain, plain_abs, n_terms, smax, where):
+def check_attention(torch, got, plain, plain_abs, n_terms, smax, where,
+                    round_p=0.0):
     """``got`` (the kernel's output, in the inputs' dtype) against the
     plain version's float32 output on the same inputs: within
-    ``attn_tolerance`` of ``plain_abs`` (the plain version run on |v|),
-    plus, for bfloat16, one bfloat16 rounding (2^-8 relative) of the plain
-    output.  Returns max |err| against the plain output in got's dtype."""
+    ``attn_tolerance`` + ``round_p`` of ``plain_abs`` (the plain version
+    run on |v|), plus, for bfloat16, one bfloat16 rounding (2^-8 relative)
+    of the plain output.  ``round_p`` is the share a kernel adds by rounding
+    its weights p before P.V.  Returns max |err| against the plain output
+    in got's dtype."""
     torch.cuda.synchronize()
     check(got.shape == plain.shape, f"{where}: shape {tuple(got.shape)}")
     round_out = 2.0 ** -8 if got.dtype == torch.bfloat16 else 0.0
     diff = (got.float() - plain).abs()
-    bound = round_out * plain.abs() + attn_tolerance(n_terms, smax) * plain_abs
+    bound = (round_out * plain.abs()
+             + (attn_tolerance(n_terms, smax) + round_p) * plain_abs)
     check(bool(torch.isfinite(got.float()).all()), f"{where}: not finite")
     check(bool((diff <= bound).all()),
           f"{where}: off by {diff.max().item()} (bound "
@@ -364,32 +374,65 @@ def check_flash(torch, q, k, v, causal, window, softcap, where):
     plain_abs = flash_attention_ref(q32, k32, v32.abs(), scale=scale, **kw)
     smax = (torch.einsum("bhgqd,bhtd->bhgqt", q32, k32).abs().max().item()
             * scale)
+    # the bf16 kernel rounds each weight p to bf16 (2^-9) for the tensor
+    # cores' P.V, and l may sum the rounded weights: one more 2^-9
+    round_p = 2.0 ** -8 if q.dtype == torch.bfloat16 else 0.0
     return check_attention(torch, got, plain, plain_abs,
-                           q.shape[-1] + k.shape[2], smax, where)
+                           q.shape[-1] + k.shape[2], smax, where, round_p)
+
+
+def _flash_edge_cases(torch):
+    """The bf16 kernel's edges, as (B, KVH, G, S = T, dh, dtype, causal,
+    window, softcap): one 64 x 64 tile at G = 1 first; then, for its
+    128-key tiles in a ring of 2, part of a tile, a ragged tile, one tile,
+    a tile plus one key, two ragged tiles and a ring wrap plus one key; G
+    = 3 (rows left unused in a 128-row tile); a causal window of 64; a
+    softcap of 50."""
+    bf16 = torch.bfloat16
+    cases = [(1, 1, 1, 64, dh, bf16, False, 0, 0.0) for dh in (64, 128)]
+    for i, (s, dh, (kvh, g)) in enumerate(itertools.product(
+            (64, 65, 128, 129, 255, 257), (64, 128), ((1, 1), (2, 4)))):
+        cases.append((1 + i % 2, kvh, g, s, dh, bf16, bool(i & 1), 0, 0.0))
+    for s, dh, dtype in itertools.product((129, 300), (64, 128),
+                                          (torch.float32, bf16)):
+        cases.append((2, 2, 3, s, dh, dtype, True, 0, 0.0))
+    for s, dh in itertools.product((300, 2048), (64, 128)):
+        cases.append((1, 2, 4, s, dh, bf16, True, 64, 0.0))
+        cases.append((1, 2, 4, s, dh, bf16, True, 0, 50.0))
+    return cases
 
 
 def flash_cases(torch):
-    """Phase 1 for flash attention: every S, (KVH, G), dh and dtype, with
-    B, causal, window and softcap cycled so that each pair of flag values
+    """Phase 1 for flash attention: the bf16 kernel's edge cases
+    (``_flash_edge_cases``), then every S, (KVH, G), dh and dtype, with B,
+    causal, window and softcap cycled so that each pair of flag values
     meets; returns max |err|."""
-    import itertools
-    gen = torch.Generator(device="cuda").manual_seed(3)
-    err, n_cases, t0 = 0.0, 0, time.perf_counter()
     combos = itertools.product((1, 17, 128, 300, 2048),
                                ((1, 1), (2, 4), (8, 4)), (64, 128),
                                (torch.float32, torch.bfloat16))
+    cycled = []
     for i, (s, (kvh, g), dh, dtype) in enumerate(combos):
         causal, window, softcap = (bool(i & 1), (0, 64)[(i >> 1) & 1],
                                    (0.0, 50.0)[(i >> 2) & 1])
         bsz = 1 + (i // 8 + i) % 2
+        cycled.append((bsz, kvh, g, s, dh, dtype, causal, window, softcap))
+    # the edge cases draw from their own generator: the cycled cases keep
+    # the inputs they had before the edge cases were added
+    edge_gen = torch.Generator(device="cuda").manual_seed(6)
+    cycled_gen = torch.Generator(device="cuda").manual_seed(3)
+    cases = ([(c, edge_gen) for c in _flash_edge_cases(torch)]
+             + [(c, cycled_gen) for c in cycled])
+    err, t0 = 0.0, time.perf_counter()
+    for (bsz, kvh, g, s, dh, dtype, causal, window, softcap), gen in cases:
         q, k, v = _flash_inputs(torch, gen, bsz, kvh, g, s, dh, dtype)
         where = (f"flash_attention B={bsz} KVH={kvh} G={g} S=T={s} dh={dh} "
                  f"{dtype} causal={causal} window={window} softcap={softcap}")
         err = max(err, check_flash(torch, q, k, v, causal, window, softcap,
                                    where))
-        n_cases += 1
+    n_cases = len(cases)
     print(f"phase 1: {n_cases} flash_attention cases within attn_tolerance "
-          f"of their plain versions; max |err| {err} "
+          f"(+ 2^-8 for bf16's rounded weights) of their plain versions; "
+          f"max |err| {err} "
           f"({time.perf_counter() - t0:.1f} s)", flush=True)
     return err
 
@@ -437,7 +480,6 @@ def paged_cases(torch):
     dtype, a permuted table and one with repeats, ragged lengths with 1 and
     full among them, and the serve shape's 130 pages a row; returns max
     |err|."""
-    import itertools
     gen = torch.Generator(device="cuda").manual_seed(4)
     err, n_cases, t0 = 0.0, 0, time.perf_counter()
     combos = itertools.product((8, 16), ((1, 1), (2, 4), (8, 4), (4, 2),
@@ -810,16 +852,19 @@ def _bound_row(ms, plain_ms, library_ms, flops, nbytes, shape, library):
     bf16 tensor FLOPs over 989 TFLOP/s."""
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     flop_ms = flops / TENSOR_BF16_FLOP_PER_S * 1e3
+    bound_ms = max(bytes_ms, flop_ms)
     row = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
-               bound_ms=max(bytes_ms, flop_ms),
+               bound_ms=bound_ms,
                bound_by="operations" if flop_ms >= bytes_ms else "bytes",
                bytes=nbytes, flops=flops, bytes_ms=bytes_ms, flop_ms=flop_ms,
+               tflop_per_s=flops / ms / 1e9, bound_share=bound_ms / ms,
                shape=shape)
     lib = f"{library_ms:.4f} ms" if library_ms is not None else "none"
-    print(f"  {shape}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library "
-          f"{lib} ({library}), bound {row['bound_ms']:.4f} ms by "
-          f"{row['bound_by']} ({flops} FLOP: {flop_ms:.4f} ms; {nbytes} "
-          f"bytes: {bytes_ms:.4f} ms)", flush=True)
+    print(f"  {shape}: kernel {ms:.4f} ms ({row['tflop_per_s']:.1f} TFLOP/s, "
+          f"{100 * row['bound_share']:.1f}% of the bound), plain "
+          f"{plain_ms:.4f} ms, library {lib} ({library}), bound "
+          f"{bound_ms:.4f} ms by {row['bound_by']} ({flops} FLOP: "
+          f"{flop_ms:.4f} ms; {nbytes} bytes: {bytes_ms:.4f} ms)", flush=True)
     return row
 
 
@@ -957,7 +1002,8 @@ def _device_ms(evt):
 
 # kernel-name fragments of the port's kernels and of cuBLAS's matrix products
 _KERNEL_CLASSES = (("selective_scan", ("selective_scan_kernel",)),
-                   ("flash_attention", ("flash_attention_kernel",)),
+                   ("flash_attention", ("flash_attention_kernel",
+                                        "flash_attention_tc_kernel")),
                    ("paged_decode", ("paged_decode_kernel",)),
                    ("gemm", ("gemm", "gemv", "nvjet", "cutlass", "xmma")))
 

@@ -2,10 +2,12 @@
 
 Replaces ``repro/kernels/flash_attention`` (``flash_attention_fwd``): one
 launch computes the attention of every (batch row, KV head, query head)
-with an online softmax, never writing the scores to device memory.  Any S
-and T run (no block multiple).  The head size is a template of the kernel:
-64 or 128; on CUDA tensors any other raises, and so do more than 64 query
-heads per KV head (``check_kernel_shape``).  The plain version takes any.
+with an online softmax, never writing the scores to device memory.  In
+bfloat16 the products run on the tensor cores (wgmma, K/V tiles copied by
+TMA); in float32 on the CUDA cores.  Any S and T run (no block multiple).
+The head size is a template of the kernel: 64 or 128; on CUDA tensors any
+other raises, and so do more than 64 query heads per KV head
+(``check_kernel_shape``).  The plain version takes any.
 
 On CPU tensors the wrapper runs the plain version (``ref``); on CUDA
 tensors it launches the kernel or raises.  q, k, v are all float32 or all
@@ -22,7 +24,7 @@ from .. import _build
 from .ref import flash_attention_ref
 
 HEAD_DIMS = (64, 128)
-MAX_GROUP = 64                  # query rows a CTA holds: G heads x 64 / G
+MAX_GROUP = 64                  # a CTA's 64 (f32) or 128 rows: G x rows / G
 _ENTRY = {torch.float32: "flash_attention_f32",
           torch.bfloat16: "flash_attention_bf16"}
 
@@ -75,7 +77,7 @@ def flash_attention(q, k, v, *, scale: float | None = None,
                                    window=window, softcap=softcap)
     check_kernel_shape(dh, g)
     for name, t in (("q", q), ("k", k), ("v", v)):
-        if t.data_ptr() % 16:            # the kernel reads 16 bytes at a time
+        if t.data_ptr() % 16:            # 16-byte loads and TMA copies
             raise ValueError(f"{name}: data not 16-byte aligned")
     out = torch.empty_like(q)
     if bsz * kvh * s:
