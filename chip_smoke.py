@@ -14,8 +14,11 @@ only.  Phases:
   1. hold each kernel against its plain PyTorch version on the card over
      B in {1, 3}, R in {1, 3, 8, 17}, ragged N, out-of-range and INT32_MAX
      lanes, duplicate indices, and tables on both sides of the
-     shared-memory switch: gathers and stores must be ``torch.equal``, adds
-     within ``add_error_bound``; the selective scan over B in {1, 3}, L in
+     shared-memory switch, then the gathers' edges
+     (``gather_edge_cases``: unaligned views, vectors straddling patterns,
+     N below one CTA, a 232,448-byte table, more patterns than clusters
+     fit, the 64-bit instances): gathers and stores must be
+     ``torch.equal``, adds within ``add_error_bound``; the selective scan over B in {1, 3}, L in
      {1, 7, 300, 2048}, D in {16, 200, 8192}, N in {4, 8, 16}, float32 and
      bfloat16, two ranges of dt, within ``scan_tolerance``; flash attention
      first at the bf16 kernel's edges (one 64 x 64 tile at G = 1, S = T in
@@ -36,7 +39,10 @@ only.  Phases:
      digests must agree, and each kernel's launch count must rise by a
      warm-up plus ``runs`` per bucket;
   4. time each kernel, its plain version and one PyTorch library call at
-     the shapes the main path gave it, the add kernel once more on
+     the shapes the main path gave it (the gathers, in ``gather_times``,
+     also by their kernels' device time from ``torch.profiler``, in turns
+     with ``index_select``, and on 2^24 random lanes of each table), the
+     add kernel once more on
      appdb's LULESH-S3 (2^25 lanes onto 16 rows), and the selective scan
      at the serving shape (4, 2048, 8192, 16, bfloat16), flash attention
      at the llama3-8b prefill shape and paged decode at its decode shape
@@ -103,6 +109,8 @@ KERNEL_INFO = {                  # name -> (source, TPU kernel it replaces)
     "paged_decode": ("src/repro_torch/csrc/paged_decode.cu",
                      "src/repro/kernels/paged_decode/kernel.py:71"),
 }
+GATHER_LINES = ("gather_rows", "gather_rows_random", "gather_rows_smem",
+                "gather_rows_smem_2p24")
 SPATTER_KERNELS = ("gather_rows", "gather_rows_smem", "scatter_store_rows",
                    "scatter_add_rows")
 
@@ -245,9 +253,144 @@ def kernel_cases(torch):
                     err["scatter_add_rows"] = max(err["scatter_add_rows"],
                                                   diff.max().item())
                     n_cases += 1
+    n_cases += gather_edge_cases(torch, gen)
     print(f"phase 1: {n_cases} kernel cases equal their plain versions "
           f"(add within add_error_bound); max |err| {err}", flush=True)
     return err
+
+
+def _at_offset(torch, shape, off, make):
+    """A contiguous ``shape`` view ``off`` elements into a buffer from
+    ``make(numel)``: at off % 4 != 0 its data is not 16-byte aligned."""
+    numel = 1
+    for x in shape:
+        numel *= x
+    return make(numel + off)[off:off + numel].view(shape)
+
+
+def gather_edge_cases(torch, gen):
+    """Phase 1's gather edges, each ``torch.equal`` to ``gather_rows_ref``:
+    table, idx and out as views at element offsets (unaligned; idx and out
+    in and out of phase), N % 4 != 0 with B in {2, 3} (vectors that
+    straddle patterns) and N below one CTA, a table of exactly 232,448
+    bytes (D in {1, 4}), more patterns than clusters fit at once, and both
+    kernels' 64-bit instances.  Returns the number of cases."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.gather_rows import ops as g
+    from repro_torch.kernels.gather_rows.ref import gather_rows_ref
+    dev = torch.device("cuda")
+    n_cases = 0
+    wrappers = {"gather_rows": g.gather_rows_global,
+                "gather_rows_smem": g.gather_rows_smem}
+
+    def make_idx(bsz, n, v, off=0):
+        # uniform rows, the last rows, and out-of-range lanes, permuted
+        idx = torch.randint(0, v, (bsz, n), generator=gen, dtype=torch.int32)
+        flat = idx.view(-1)
+        tail = torch.tensor([v - 1 - i for i in range(8)] + [INT32_MAX, -1, v],
+                            dtype=torch.int32).clamp(min=-1)
+        k = min(flat.numel(), tail.numel())
+        flat[:k] = tail[:k]
+        flat.copy_(flat[torch.randperm(flat.numel(), generator=gen)])
+        return _at_offset(torch, (bsz, n), off, lambda m: torch.empty(
+            m, dtype=torch.int32, device=dev)).copy_(idx)
+
+    def into(kernel, table, idx, oo):
+        """``kernel`` launched into a (B, N, D) view ``oo`` floats into a
+        NaN buffer (the wrappers allocate their own, aligned, result), and
+        whether the floats around the view stayed NaN."""
+        bsz, v, d = table.shape
+        n = idx.shape[1]
+        buf = torch.full((bsz * n * d + oo + 4,), float("nan"), device=dev)
+        out = buf[oo:oo + bsz * n * d].view(bsz, n, d)
+        lanes = ((g.smem_lanes_per_cta(bsz, n, v,
+                                       g.smem_resident_ctas(v, d, 0)),)
+                 if kernel == "gather_rows_smem" else ())
+        _build.launch(kernel, dev, "gather_rows", f"{kernel}_f32",
+                      table.data_ptr(), idx.data_ptr(), out.data_ptr(), bsz,
+                      n, v, d, *lanes)
+        guards = torch.cat([buf[:oo], buf[oo + bsz * n * d:]])
+        return out, bool(torch.isnan(guards).all())
+
+    def case(kernel, bsz, v, d, n, offs=(0, 0, 0), via=None):
+        """One case of ``kernel``: through its wrapper (or ``via``, which
+        must launch it) where out is aligned, else into an offset view."""
+        nonlocal n_cases
+        ot, oi, oo = offs
+        table = _at_offset(torch, (bsz, v, d), ot, lambda m: torch.randn(
+            m, generator=gen).to(dev))
+        idx = make_idx(bsz, n, v, oi)
+        where = (f"{kernel} B={bsz} V={v} D={d} N={n} "
+                 f"offsets(table, idx, out)={offs}")
+        before = _launches()
+        if oo:
+            got, kept = into(kernel, table, idx, oo)
+            check(kept, f"{where}: wrote outside out")
+        else:
+            got = (via or wrappers[kernel])(table, idx)
+        check(_launches()[kernel] == before[kernel] + 1,
+              f"{where}: did not launch {kernel}")
+        check(torch.equal(got, gather_rows_ref(table, idx)),
+              f"{where}: not equal")
+        n_cases += 1
+
+    both = (("gather_rows", 5000), ("gather_rows_smem", 300))
+    for d in (1, 3, 4):
+        for offs in ((0, 0, 0), (1, 1, 1), (3, 3, 3), (1, 0, 0), (0, 1, 0),
+                     (0, 0, 1), (2, 3, 1)):
+            for kernel, v in both:
+                case(kernel, 2, v, d, 1001, offs)
+    for bsz in (1, 2, 3):
+        for n in (1, 2, 3, 5, 100, 1001, 4099, 8191):
+            for kernel, v in both:
+                case(kernel, bsz, v, 1, n)
+    # exactly 227 KB: the last floats of the table stay in global memory;
+    # gather_rows must still pick the smem kernel for it
+    for d in (1, 4):
+        v = g.SMEM_TABLE_BYTES // (4 * d)
+        for bsz in (1, 2):
+            for offs in ((0, 0, 0), (1, 1, 0), (1, 1, 1)):
+                case("gather_rows_smem", bsz, v, d, v, offs, g.gather_rows)
+    # more clusters than the card holds at once
+    for bsz, v, n in ((40, 5000, 8192), (20, 32769, 32768)):
+        resident = g.smem_resident_ctas(v, 1, 0)
+        fit = resident // g.SMEM_CLUSTER
+        clusters = g.smem_grid(bsz, n, v, resident) // g.SMEM_CLUSTER
+        check(clusters > fit, f"B={bsz} V={v}: {clusters} clusters fit at "
+              f"once ({fit})")
+        print(f"  gather_rows_smem B={bsz} V={v} N={n}: {clusters} clusters, "
+              f"{fit} fit at once", flush=True)
+        case("gather_rows_smem", bsz, v, 1, n)
+    # the 64-bit instances: a table of 2^31 + 16 rows (global), 2^31 + 5
+    # and 2^31 + 12 output floats (smem), compared in slices of 2^28 lanes
+    def equal_in_slices(got, table, idx, where):
+        nonlocal n_cases
+        step = 1 << 28
+        for a in range(0, idx.shape[1], step):
+            part = got[:, a:a + step]
+            want = gather_rows_ref(table, idx[:, a:a + step])
+            bad = (part != want).any(-1).nonzero()[:4, 1].tolist()
+            check(not bad, f"{where}: {len(bad)}+ lanes differ in "
+                  f"{a}.., e.g. {[(a + i, idx[0, a + i].item(), part[0, i].tolist(), want[0, i].tolist()) for i in bad]}")
+        n_cases += 1
+
+    v = 2 ** 31 + 16
+    table = torch.randn(1, v, 1, device=dev)
+    for oi in (0, 1):                 # vectors; idx and out out of phase
+        idx = _at_offset(torch, (1, 1 << 20), oi, lambda m: torch.randint(
+            0, INT32_MAX, (m,), device=dev, dtype=torch.int32))
+        idx[0, :4] = torch.tensor([INT32_MAX, INT32_MAX - 1, 0, -1])
+        equal_in_slices(g.gather_rows_global(table, idx), table, idx,
+                        f"gather_rows_global V=2^31+16 idx offset {oi}")
+    del table, idx
+    for d, n in ((1, 2 ** 31 + 5), (4, 2 ** 29 + 3)):
+        table = torch.randn(1, 1000, d, device=dev)
+        idx = torch.randint(-8, 1008, (1, n), device=dev, dtype=torch.int32)
+        equal_in_slices(g.gather_rows_smem(table, idx), table, idx,
+                        f"gather_rows_smem D={d} N={n}")
+        del table, idx
+    torch.cuda.empty_cache()
+    return n_cases
 
 
 def scan_tolerance(l):
@@ -609,18 +752,211 @@ def _keep_last_dev(torch, idx):
     return keep
 
 
-def kernel_times(torch, err):
-    """ms, plain_ms, library_ms, bound_ms and max |err| per kernel."""
-    from repro_torch import SuitePlan, appdb, load_suite, make_pattern
+def _profiled_ms(torch, fn, iters):
+    """Device ms a call: torch.profiler's CUDA time of every kernel that
+    ``iters`` calls of ``fn`` launched, over ``iters``; and the kernels'
+    names with their counts."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    evts = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
+    check(evts, "torch.profiler saw no device time")
+    return (sum(_device_ms(e) for e in evts) / iters,
+            {k: sum(e.count for e in evts if e.key[:100] == k)
+             for k in {e.key[:100] for e in evts}})
+
+
+def _in_turns(torch, fns, iters):
+    """Each of ``fns`` (name -> call) timed twice, in turns: the names in
+    order, then in reverse (library, kernel, kernel, library).  Each turn
+    takes ``ms`` (CUDA events around ``iters`` back-to-back Python calls)
+    and ``device_ms`` (``_profiled_ms`` over as many).  Returns name ->
+    (ms pair, device_ms pair, kernel names)."""
+    res = {k: ([], [], None) for k in fns}
+    for name in list(fns) + list(reversed(fns)):
+        ms, dev, _ = res[name]
+        ms.append(_time_ms(torch, fns[name], iters))
+        d, names = _profiled_ms(torch, fns[name], iters)
+        dev.append(d)
+        res[name] = (ms, dev, names)
+    return res
+
+
+def _smem_layout(g, bsz, n, v):
+    """The smem kernel's lanes per CTA, its CTAs, and the CTAs that fit at
+    once, for a (B, V, 1) table gathered at N lanes on ``cuda:0``."""
+    resident = g.smem_resident_ctas(v, 1, 0)
+    return dict(lanes_per_cta=g.smem_lanes_per_cta(bsz, n, v, resident),
+                ctas=g.smem_grid(bsz, n, v, resident),
+                resident_ctas=resident)
+
+
+def gather_suites(torch, runs=RUNS):
+    """Not run by ``main``: ``gather_times`` and the demo and appdb suites
+    on ``hopper`` (min / max / harmonic-mean GB/s), as one JSON line, for
+    comparing two trees in one call: import the other tree's
+    ``repro_torch`` first (``sys.path``), and this script times it (a tree
+    whose gather ops have ``smem_resident_ctas``)."""
+    import repro_torch
+    from repro_torch import appdb, load_suite, run_suite
+    rows = gather_times(torch)
+    suites = {}
+    for name, pats in (("demo", load_suite(str(ROOT / "suites" /
+                                                "demo.json"))),
+                       ("appdb", appdb.scale_counts(appdb.ALL_PATTERNS,
+                                                    1.0))):
+        st = run_suite(pats, backend="hopper", runs=runs)
+        suites[name] = dict(min_gbs=st.min_gbs, max_gbs=st.max_gbs,
+                            hmean_gbs=st.hmean_gbs)
+        torch.cuda.empty_cache()
+    print(json.dumps({"tree": str(Path(repro_torch.__file__).parent),
+                      "gathers": rows, "suites_hopper": suites}), flush=True)
+
+
+def gather_times(torch, err=None):
+    """Both gathers in phase 4, each beside ``index_select`` on the same
+    inputs, in turns (``_in_turns``): ``gather_rows`` at the CLI shape
+    (contiguous indices) and on 2^24 random lanes of the same table;
+    ``gather_rows_smem`` at demo's UNIFORM:8:1 bucket and on 2^24 random
+    lanes of that table, with ``gather_rows_global`` beside it.  Returns
+    the rows by name (``gather_rows``, ``gather_rows_smem``, and the two
+    new lines ``gather_rows_random``, ``gather_rows_smem_2p24``)."""
+    from repro_torch import SuitePlan, load_suite, make_pattern
     from repro_torch.kernels.gather_rows import ops as g
     from repro_torch.kernels.gather_rows.ref import gather_rows_ref
+    from repro_torch.plan import _assemble_members
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    err = {} if err is None else err
+    rows = {}
+    print("\nphase 4: kernel times (ms: CUDA events over repeated Python "
+          "calls; device_ms: torch.profiler's time of the kernels they "
+          "launched)", flush=True)
+
+    def line(name, kernel, library, plain, nbytes, shape, got, want, iters,
+             plain_iters, others=None, **extra):
+        check(torch.equal(got, want), f"{name} {shape}: not equal")
+        if name in ("gather_rows", "gather_rows_smem"):
+            err[name] = max(err.get(name, 0.0),
+                            (got - want).abs().max().item())
+        fns = {"library": library, "kernel": kernel, **(others or {})}
+        t = _in_turns(torch, fns, iters)
+        ms, dms, knames = t["kernel"]
+        lms, ldms, lnames = t["library"]
+        launched = sum(c for k, c in knames.items() if "gather" in k)
+        check(launched == iters, f"{name}: {knames} in {iters} calls")
+        bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        row = dict(ms=min(ms), ms_pair=ms, device_ms=min(dms),
+                   device_ms_pair=dms, library_ms=min(lms),
+                   library_ms_pair=lms, library_device_ms=min(ldms),
+                   library_device_ms_pair=ldms, library_kernels=lnames,
+                   plain_ms=(_time_ms(torch, plain, plain_iters)
+                             if plain else None),
+                   bound_ms=bound_ms, bound_by="bytes", bytes=nbytes,
+                   shape=shape, **extra)
+        for k in others or {}:
+            row[f"{k}_ms_pair"], row[f"{k}_device_ms_pair"] = t[k][:2]
+        rows[name] = row
+        print(f"  {name} {shape}: kernel ms {ms} device_ms {dms}; "
+              f"index_select ms {lms} device_ms {ldms} ({lnames}); "
+              + "".join(f"{k} ms {t[k][0]} device_ms {t[k][1]}; "
+                        for k in others or {})
+              + f"plain {row['plain_ms']} ms; bound {bound_ms:.4f} ms "
+              f"({nbytes} bytes); {100 * bound_ms / min(dms):.1f}% of the "
+              f"bound on device_ms" + "".join(f"; {k} {v}"
+                                             for k, v in extra.items()),
+              flush=True)
+
+    # gather_rows (global): the CLI gather, table (1, 2^27, 1), the CLI's
+    # pattern built on the device: UNIFORM:8:1, delta 8, 2^24 (contiguous)
+    p = make_pattern("UNIFORM:8:1", delta=8, count=2 ** 24)
+    base = torch.arange(p.count, device=dev, dtype=torch.int64) * p.delta
+    idx1 = (base[:, None] + torch.tensor(p.index, device=dev)[None, :]
+            ).reshape(1, -1).to(torch.int32)
+    n, v = idx1.shape[1], p.footprint()
+    table = torch.randn(1, v, 1, generator=gen, device=dev)
+    line("gather_rows",
+         lambda: g.gather_rows_global(table, idx1),
+         lambda: torch.index_select(table[0], 0, idx1[0]),
+         lambda: gather_rows_ref(table, idx1),
+         n * 4 + torch.unique(idx1).numel() * 4 + n * 4, [1, v, 1],
+         g.gather_rows_global(table, idx1), gather_rows_ref(table, idx1),
+         20, 5)
+    del idx1, base
+
+    # the same table read at 2^24 uniform-random lanes: each unique row is
+    # read once in the bound, but each random 4-byte read pulls a 32-byte
+    # sector, so the sector bound is the one in reach
+    idx_r = torch.randint(0, v, (1, 2 ** 24), generator=gen, device=dev,
+                          dtype=torch.int32)
+    uniq = torch.unique(idx_r)
+    sectors = torch.unique(uniq // 8).numel()
+    nr = idx_r.shape[1]
+    line("gather_rows_random",
+         lambda: g.gather_rows_global(table, idx_r),
+         lambda: torch.index_select(table[0], 0, idx_r[0]),
+         None, nr * 8 + uniq.numel() * 4, [1, v, 1, "random", nr],
+         g.gather_rows_global(table, idx_r), gather_rows_ref(table, idx_r),
+         20, 0, sector_bytes=nr * 8 + sectors * 32,
+         sector_bound_ms=(nr * 8 + sectors * 32) / HBM_BYTES_PER_S * 1e3)
+    del table, idx_r, uniq
+    torch.cuda.empty_cache()
+
+    # gather_rows_smem: demo.json's UNIFORM:8:1 gather bucket
+    demo = SuitePlan.build(load_suite(str(ROOT / "suites" / "demo.json")))
+    bucket = next(b for b in demo.buckets if b.spec.kind == "gather"
+                  and g.use_smem(b.spec.footprint + 1, b.spec.idx_len, 1))
+    members = [demo.patterns[i] for i in bucket.members]
+    (tb, ib), _ = _assemble_members(bucket.spec, members, 1,
+                                    [0] * len(members), dev)
+    flat = (ib.to(torch.int64) + torch.arange(
+        ib.shape[0], device=dev)[:, None] * tb.shape[1]).reshape(-1)
+    bsz, nd, vd = ib.shape[0], ib.shape[1], tb.shape[1]
+    line("gather_rows_smem",
+         lambda: g.gather_rows_smem(tb, ib),
+         lambda: torch.index_select(tb.reshape(-1, 1), 0, flat),
+         lambda: gather_rows_ref(tb, ib),
+         ib.numel() * 4 + torch.unique(flat).numel() * 4 + ib.numel() * 4,
+         list(tb.shape), g.gather_rows_smem(tb, ib), gather_rows_ref(tb, ib),
+         200, 50, others={"gather_rows_global":
+                          lambda: g.gather_rows_global(tb, ib)},
+         **_smem_layout(g, bsz, nd, vd))
+    del ib, flat
+
+    # demo's table read at 2^24 uniform-random lanes: does staging on chip
+    # pay on this card?
+    ib2 = torch.randint(0, vd, (1, 2 ** 24), generator=gen, device=dev,
+                        dtype=torch.int32)
+    tb2 = tb[:1].contiguous()
+    n2 = ib2.shape[1]
+    line("gather_rows_smem_2p24",
+         lambda: g.gather_rows_smem(tb2, ib2),
+         lambda: torch.index_select(tb2[0], 0, ib2[0]),
+         None, n2 * 8 + torch.unique(ib2).numel() * 4,
+         [1, vd, 1, "random", n2], g.gather_rows_smem(tb2, ib2),
+         gather_rows_ref(tb2, ib2), 50, 0,
+         others={"gather_rows_global":
+                 lambda: g.gather_rows_global(tb2, ib2)},
+         **_smem_layout(g, 1, n2, vd))
+    del tb, tb2, ib2
+    torch.cuda.empty_cache()
+    return rows
+
+
+def kernel_times(torch, err):
+    """ms, plain_ms, library_ms, bound_ms and max |err| per kernel."""
+    from repro_torch import appdb, make_pattern
     from repro_torch.kernels.scatter_rows import ops as s
     from repro_torch.kernels.scatter_rows.ref import (add_error_bound,
                                                       scatter_add_rows_ref_,
                                                       scatter_store_rows_ref_)
-    from repro_torch.plan import _assemble_members
     dev = torch.device("cuda")
-    gen = torch.Generator(device=dev).manual_seed(0)
+    gen = torch.Generator(device=dev).manual_seed(1)     # the scatters'
     out = {}
 
     def bound(nbytes):
@@ -634,6 +970,7 @@ def kernel_times(torch, err):
               f"ms, library {library_ms:.4f} ms, bound {bound(nbytes):.4f} "
               f"ms ({nbytes} bytes), max |err| {e}", flush=True)
 
+    out.update(gather_times(torch, err))
     # the CLI's pattern, built on the device: UNIFORM:8:1, delta 8, 2^24
     p = make_pattern("UNIFORM:8:1", delta=8, count=2 ** 24)
     base = torch.arange(p.count, device=dev, dtype=torch.int64) * p.delta
@@ -642,42 +979,6 @@ def kernel_times(torch, err):
     n = idx1.shape[1]
     v = p.footprint()
     uniq = torch.unique(idx1).numel()
-    print("\nphase 4: kernel times (CUDA events, mean of repeated launches)")
-
-    # gather_rows (global): the CLI gather, table (1, 2^27, 1)
-    table = torch.randn(1, v, 1, generator=gen, device=dev)
-    got = g.gather_rows_global(table, idx1)
-    want = gather_rows_ref(table, idx1)
-    check(torch.equal(got, want), "gather_rows at CLI shape: not equal")
-    record("gather_rows",
-           _time_ms(torch, lambda: g.gather_rows_global(table, idx1), 20),
-           _time_ms(torch, lambda: gather_rows_ref(table, idx1), 5),
-           _time_ms(torch, lambda: torch.index_select(table[0], 0, idx1[0]),
-                    20),
-           n * 4 + uniq * 4 + n * 4, [1, v, 1],
-           (got - want).abs().max().item())
-    del table, got, want
-
-    # gather_rows_smem: demo.json's UNIFORM:8:1 gather bucket
-    demo = SuitePlan.build(load_suite(str(ROOT / "suites" / "demo.json")))
-    bucket = next(b for b in demo.buckets if b.spec.kind == "gather"
-                  and g.use_smem(b.spec.footprint + 1, b.spec.idx_len, 1))
-    members = [demo.patterns[i] for i in bucket.members]
-    (tb, ib), _ = _assemble_members(bucket.spec, members, 1,
-                                    [0] * len(members), dev)
-    got = g.gather_rows_smem(tb, ib)
-    want = gather_rows_ref(tb, ib)
-    check(torch.equal(got, want), "gather_rows_smem at demo shape")
-    flat = (ib.to(torch.int64) + torch.arange(
-        ib.shape[0], device=dev)[:, None] * tb.shape[1]).reshape(-1)
-    record("gather_rows_smem",
-           _time_ms(torch, lambda: g.gather_rows_smem(tb, ib), 200),
-           _time_ms(torch, lambda: gather_rows_ref(tb, ib), 50),
-           _time_ms(torch, lambda: torch.index_select(
-               tb.reshape(-1, 1), 0, flat), 200),
-           ib.numel() * 4 + torch.unique(flat).numel() * 4 + ib.numel() * 4,
-           list(tb.shape), (got - want).abs().max().item())
-    del tb, ib, got, want, flat
 
     # scatter_store_rows: the CLI store scatter, dst (1, 2^27, 1)
     vals = torch.randn(1, n, 1, generator=gen, device=dev)
@@ -1118,7 +1419,10 @@ def main():
                          max_abs_err=err[name], ms=t["ms"], time_ms=t["ms"],
                          plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
                          bound_by=t.get("bound_by", "bytes"),
-                         library_ms=t["library_ms"], shape=t["shape"]))
+                         library_ms=t["library_ms"],
+                         device_ms=t.get("device_ms"),
+                         library_device_ms=t.get("library_device_ms"),
+                         shape=t["shape"]))
     cli = {f"{b}/{k}/{m}": dict(time_ms=r.time_s * 1e3, gbs=r.measured_gbs,
                                 host_s=r.host_s)
            for (b, k, m), r in cli_results.items()}
@@ -1130,6 +1434,7 @@ def main():
           f"{served['max_memory_allocated']} bytes in phase 5, "
           f"{served_llama['max_memory_allocated']} bytes in phase 6")
     print(json.dumps({"cli": cli, "suites_hopper": suites,
+                      "gathers": {k: times[k] for k in GATHER_LINES},
                       "lulesh_s3_add": lulesh_s3_add,
                       "selective_scan": times["selective_scan"],
                       "flash_attention": times["flash_attention"],

@@ -40,6 +40,7 @@ KERNELS = ("gather_rows", "gather_rows_smem", "scatter_store_rows",
 launches: dict[str, int] = {k: 0 for k in KERNELS}
 
 _libs: dict[str, ctypes.CDLL] = {}
+_fns: dict[tuple[str, str], ctypes._CFuncPtr] = {}   # (library, function)
 _lock = threading.Lock()
 
 _P = ctypes.c_void_p
@@ -54,6 +55,8 @@ _SIGNATURES = {
         # table, idx, out, B, N, V, D, lanes_per_cta, stream
         "gather_rows_smem_f32": (_P, _P, _P, _I64, _I64, _I64, _I64, _I64,
                                  _P),
+        # V, D, int *clusters (no stream: a query, not a launch)
+        "gather_rows_smem_clusters": (_I64, _I64, _P),
     },
     "scatter_rows": {
         # dst, idx, keep, vals, B, N, V, D, stream
@@ -184,14 +187,41 @@ def common_device(**tensors):
     return dev
 
 
+def c_function(lib_name: str, fn: str):
+    """C function ``fn`` of library ``lib_name``, looked up once: later
+    calls read a dict, with no lock."""
+    c_fn = _fns.get((lib_name, fn))
+    if c_fn is None:
+        c_fn = _fns[(lib_name, fn)] = getattr(library(lib_name), fn)
+    return c_fn
+
+
+def current_stream(index: int) -> int:
+    """The handle of device ``index``'s current CUDA stream.  PyTorch's raw
+    getter (the one its Triton launchers use) skips building the Stream
+    object that makes ``torch.cuda.current_stream(...).cuda_stream`` cost
+    microseconds of host time a launch; the public call stands in where a
+    PyTorch lacks the getter."""
+    import torch
+    raw = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+    if raw is not None:
+        return raw(index)
+    return torch.cuda.current_stream(index).cuda_stream
+
+
 def launch(kernel: str, device, lib_name: str, fn: str, *args) -> None:
     """Call C function ``fn`` of library ``lib_name`` on ``device``'s
     current stream (no synchronisation) and count one launch of
-    ``kernel``; raises if the launch reported a CUDA error."""
+    ``kernel``; raises if the launch reported a CUDA error.  The device
+    is made current only when it is not already."""
     import torch
-    c_fn = getattr(library(lib_name), fn)
-    with torch.cuda.device(device):
-        err = c_fn(*args, torch.cuda.current_stream(device).cuda_stream)
+    c_fn = c_function(lib_name, fn)
+    here = torch.cuda.current_device()
+    if device.index is None or device.index == here:
+        err = c_fn(*args, current_stream(here))
+    else:
+        with torch.cuda.device(device):
+            err = c_fn(*args, current_stream(device.index))
     if err != 0:
         raise RuntimeError(f"{fn}: CUDA error {err} at launch")
     launches[kernel] += 1

@@ -9,16 +9,30 @@ and ``gather_rows`` picks between them from the shapes, as the reference's
 The switch point.  The reference stages a table in VMEM up to 4 MiB, a TPU
 figure.  On the H100 the on-chip store is shared memory, at most 227 KB
 (232,448 bytes) for one block, so a pattern's (V, D) float32 table is
-staged only when ``V * D * 4 <= SMEM_TABLE_BYTES``.  Every CTA restages its
-table, so the regime must also gather enough to pay for that: it is taken
-only where the pattern reads at least half as many rows as it stages
-(``V <= 2 * N``), and each CTA gathers at least ``V`` lanes
-(``smem_lanes_per_cta``), so restaging reads at most as many bytes as the
-CTA writes, and those reads come from L2, which holds every such table.
-Where that rule would leave SMs idle (fewer CTAs than the card's 132 SMs),
-the runs are cut shorter, down to 256 lanes, to fill the card.
+staged only when ``V * D * 4 <= SMEM_TABLE_BYTES``, and only where the
+pattern reads at least half as many rows as it stages (``V <= 2 * N``).
 ``suites/demo.json`` reaches this kernel through its UNIFORM:8:1 gather
 bucket: V = 32,769 rows of 4 bytes (128 KiB) for N = 32,768 lanes.
+
+Lanes per CTA (``smem_lanes_per_cta``).  The kernel runs in clusters of
+``SMEM_CLUSTER`` = 8 CTAs, one pattern a cluster: the cluster reads its
+table from L2 once (multicast to its 8 shared memories), and each CTA
+gathers one run of lanes.  Three terms set the run:
+
+- fill: the batch's lanes spread over the CTAs the card holds at once
+  (``smem_resident_ctas``: the clusters that the CUDA runtime's
+  ``cudaOccupancyMaxActiveClusters`` says fit, times 8; 15 clusters, 120
+  CTAs on an H100 SXM, a cluster's SMs being drawn from one GPC), so a
+  large batch stages each table once per SM and streams its lanes in one
+  wave;
+- at least ``max(256, ceil(V / 8))`` lanes, so a cluster gathers at least
+  V lanes for each staging it reads from L2;
+- at most ``ceil(N / 8)``: one cluster covers a pattern.
+
+The grid is ``B`` patterns times ``ceil(N / lanes)`` CTAs rounded up to a
+whole cluster (``smem_grid``); a CTA past the last lane stages and exits.
+Demo's bucket takes one cluster of 4,096 lanes a CTA; 2^24 lanes on the
+same table take 15 clusters of 139,811 on an H100 SXM.
 
 On CPU tensors the wrappers run the plain version (``ref``); on CUDA
 tensors they launch the kernel or raise.  Float32 tables and int32
@@ -26,13 +40,15 @@ indices only.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from .. import _build
 from .ref import gather_rows_ref
 
 SMEM_TABLE_BYTES = 232448        # 227 KB: the H100's shared memory per block
-N_SMS = 132                      # streaming multiprocessors of an H100 SXM
+SMEM_CLUSTER = 8                 # CTAs a cluster (csrc: kCluster)
 
 
 def use_smem(v: int, n: int, d: int) -> bool:
@@ -40,10 +56,39 @@ def use_smem(v: int, n: int, d: int) -> bool:
     return v * d * 4 <= SMEM_TABLE_BYTES and v <= 2 * n
 
 
-def smem_lanes_per_cta(bsz: int, n: int, v: int) -> int:
-    """Lanes one CTA of the smem kernel gathers (see the module note)."""
-    fill = -(-bsz * n // N_SMS)          # lanes per CTA with one CTA per SM
-    return max(256, min(max(v, 1024), fill))
+@functools.lru_cache(maxsize=256)
+def smem_lanes_per_cta(bsz: int, n: int, v: int, resident: int) -> int:
+    """Lanes one CTA of the smem kernel gathers, on a card that holds
+    ``resident`` of its CTAs at once (see the module note)."""
+    fill = -(-bsz * n // resident)
+    least = max(256, -(-v // SMEM_CLUSTER))
+    return max(1, min(max(fill, least), -(-n // SMEM_CLUSTER)))
+
+
+def smem_grid(bsz: int, n: int, v: int, resident: int) -> int:
+    """CTAs the smem kernel launches: whole clusters, one pattern each."""
+    runs = -(-n // smem_lanes_per_cta(bsz, n, v, resident))
+    return bsz * -(-runs // SMEM_CLUSTER) * SMEM_CLUSTER
+
+
+@functools.lru_cache(maxsize=256)
+def smem_resident_ctas(v: int, d: int, index: int) -> int:
+    """CTAs of the smem kernel that card ``index`` holds at once for a
+    (V, D) table: the clusters the CUDA runtime says fit, times
+    ``SMEM_CLUSTER``.  Asked once per card and shape (builds the kernel);
+    raises where no cluster fits."""
+    import ctypes
+    clusters = ctypes.c_int(0)
+    fn = _build.c_function("gather_rows", "gather_rows_smem_clusters")
+    with torch.cuda.device(index):
+        err = fn(v, d, ctypes.addressof(clusters))
+    if err != 0:
+        raise RuntimeError(f"gather_rows_smem_clusters: CUDA error {err}")
+    if clusters.value < 1:
+        raise RuntimeError(f"no cluster of {SMEM_CLUSTER} CTAs of the "
+                           f"shared-memory gather fits on cuda:{index} for "
+                           f"a ({v}, {d}) table")
+    return clusters.value * SMEM_CLUSTER
 
 
 def _checked(table: torch.Tensor, idx: torch.Tensor):
@@ -83,10 +128,11 @@ def gather_rows_smem(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     n = idx.shape[1]
     out = torch.empty((bsz, n, d), dtype=table.dtype, device=dev)
     if out.numel():
+        lanes = smem_lanes_per_cta(bsz, n, v,
+                                   smem_resident_ctas(v, d, dev.index))
         _build.launch("gather_rows_smem", dev, "gather_rows",
                       "gather_rows_smem_f32", table.data_ptr(),
-                      idx.data_ptr(), out.data_ptr(), bsz, n, v, d,
-                      smem_lanes_per_cta(bsz, n, v))
+                      idx.data_ptr(), out.data_ptr(), bsz, n, v, d, lanes)
     return out
 
 

@@ -157,10 +157,151 @@ def test_smem_switch_point():
     assert not gather_ops.use_smem(limit // 4, 100, 1)   # too few lanes
     assert gather_ops.use_smem(limit // 68, limit // 68, 17)
     assert not gather_ops.use_smem(limit // 68 + 1, 10 ** 6, 17)
-    # runs: >= V lanes per CTA unless that leaves SMs idle, never < 256
-    assert gather_ops.smem_lanes_per_cta(1, 32768, 32769) == 256
-    assert gather_ops.smem_lanes_per_cta(64, 1 << 20, 5000) == 5000
-    assert gather_ops.smem_lanes_per_cta(64, 1 << 20, 100) == 1024
+    # runs: the batch over the resident CTAs (120 on an H100 SXM), at least
+    # V / 8 (and 256) lanes, at most N / 8; demo's bucket takes one cluster
+    # of 4,096 lanes
+    assert gather_ops.smem_lanes_per_cta(1, 32768, 32769, 120) == 4096
+    assert gather_ops.smem_lanes_per_cta(1, 1 << 24, 32769, 120) == 139811
+    assert gather_ops.smem_lanes_per_cta(64, 1 << 20, 5000, 120) == 131072
+    assert gather_ops.smem_lanes_per_cta(4, 1 << 16, 32769, 120) == 4097
+    assert gather_ops.smem_lanes_per_cta(1, 1000, 37, 120) == 125
+    assert gather_ops.smem_lanes_per_cta(1, 1, 1, 120) == 1
+
+
+@pytest.mark.parametrize("bsz,n,v,resident,ctas", [
+    (1, 32768, 32769, 120, 8),          # demo: one cluster
+    (1, 1 << 24, 32769, 120, 120),      # 15 clusters: one wave
+    (1, 1 << 24, 32769, 112, 112),      # a card that holds 14 clusters
+    (1, 1 << 24, 32769, 240, 240),      # ... or 30 (a smaller table)
+    (40, 8192, 5000, 120, 320),         # a cluster per pattern, 40 > 15
+    (3, 1, 1, 120, 24),                 # one lane: a cluster of 7 idle CTAs
+    (2, 1000, 37, 120, 16),
+])
+def test_smem_grid_is_whole_clusters(bsz, n, v, resident, ctas):
+    grid = gather_ops.smem_grid(bsz, n, v, resident)
+    lanes = gather_ops.smem_lanes_per_cta(bsz, n, v, resident)
+    assert grid == ctas
+    assert grid % (bsz * gather_ops.SMEM_CLUSTER) == 0
+    per_pattern = grid // bsz
+    # every lane has a CTA, and no whole cluster is idle
+    assert per_pattern * lanes >= n
+    assert (per_pattern - gather_ops.SMEM_CLUSTER) * lanes < n
+    assert gather_ops.SMEM_CLUSTER == 8
+
+
+@pytest.mark.parametrize("clusters,err,raises", [
+    (15, 0, None), (1, 0, None), (0, 0, "no cluster"),
+    (15, 2, "CUDA error 2")])
+def test_smem_resident_ctas_asks_once_per_card_and_shape(
+        monkeypatch, clusters, err, raises):
+    import contextlib
+    import ctypes
+    calls = []
+
+    def query(v, d, where):
+        calls.append((v, d, torch_device[-1]))
+        ctypes.c_int.from_address(where).value = clusters
+        return err
+
+    @contextlib.contextmanager
+    def device(index):
+        torch_device.append(index)
+        yield
+        torch_device.pop()
+    torch_device = [None]
+    monkeypatch.setattr(_build, "c_function", lambda lib, fn: query)
+    monkeypatch.setattr(torch.cuda, "device", device)
+    gather_ops.smem_resident_ctas.cache_clear()
+    before = dict(launches)
+    try:
+        for _ in range(2):
+            for index in (0, 1):
+                if raises:
+                    with pytest.raises(RuntimeError, match=raises):
+                        gather_ops.smem_resident_ctas(32769, 1, index)
+                else:
+                    assert gather_ops.smem_resident_ctas(32769, 1, index) \
+                        == clusters * gather_ops.SMEM_CLUSTER
+        # each card is asked with itself current; a failed query is asked
+        # again, an answer is kept
+        want = [(32769, 1, 0), (32769, 1, 1)]
+        assert calls == (want * 2 if raises else want)
+    finally:
+        gather_ops.smem_resident_ctas.cache_clear()
+    assert launches == before            # a query, not a launch
+
+
+def test_plain_gather_past_int32_rows():
+    # a table of 2^31 + 16 rows, all 7.0 (a stride-0 view: no memory):
+    # every int32 index >= 0 is a row; V must not wrap to a negative int32
+    v = 2 ** 31 + 16
+    table = torch.full((1, 1, 1), 7.0).expand(1, v, 1)
+    idx = torch.tensor([[INT32_MAX, 0, -1, INT32_MAX - 1]], dtype=torch.int32)
+    got = gather_rows_ref(table, idx)
+    assert got.flatten().tolist() == [7.0, 7.0, 0.0, 7.0]
+
+
+class _FakeLib:
+    """A loaded library whose functions count their lookups and calls."""
+
+    def __init__(self):
+        self.lookups, self.calls = 0, []
+
+    def __getattr__(self, name):
+        self.lookups += 1
+
+        def fn(*args):
+            self.calls.append((name, args))
+            return 0
+        return fn
+
+
+def test_launch_looks_up_once_and_counts(monkeypatch):
+    import contextlib
+    lib = _FakeLib()
+    entered = []
+    monkeypatch.setattr(_build, "_fns", {})
+    monkeypatch.setattr(_build, "library", lambda name: lib)
+    monkeypatch.setattr(_build, "current_stream", lambda index: 1000 + index)
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
+
+    @contextlib.contextmanager
+    def device(dev):
+        entered.append(dev)
+        yield
+    monkeypatch.setattr(torch.cuda, "device", device)
+    before = dict(launches)
+    for dev in ("cuda", "cuda:0", "cuda:0", "cuda:1"):
+        _build.launch("gather_rows", torch.device(dev), "gather_rows",
+                      "gather_rows_f32", 1, 2, 3)
+    _build.launch("gather_rows_smem", torch.device("cuda"), "gather_rows",
+                  "gather_rows_smem_f32", 4)
+    assert lib.lookups == 2                  # once per (library, function)
+    # the device is entered only for a card other than the current one,
+    # and each call gets its card's stream after its own arguments
+    assert entered == [torch.device("cuda:1")]
+    assert [c[1] for c in lib.calls] == [(1, 2, 3, 1000)] * 3 + [
+        (1, 2, 3, 1001), (4, 1000)]
+    assert launches["gather_rows"] == before["gather_rows"] + 4
+    assert launches["gather_rows_smem"] == before["gather_rows_smem"] + 1
+    assert all(launches[k] == before[k] for k in launches
+               if k not in ("gather_rows", "gather_rows_smem"))
+    assert not _build._libs
+
+
+def test_launch_raises_on_a_cuda_error(monkeypatch):
+    class Failing:
+        def __getattr__(self, name):
+            return lambda *args: 98         # cudaErrorInvalidDeviceFunction
+    monkeypatch.setattr(_build, "_fns", {})
+    monkeypatch.setattr(_build, "library", lambda name: Failing())
+    monkeypatch.setattr(_build, "current_stream", lambda index: 0)
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
+    before = dict(launches)
+    with pytest.raises(RuntimeError, match="CUDA error 98"):
+        _build.launch("gather_rows", torch.device("cuda"), "gather_rows",
+                      "gather_rows_f32")
+    assert launches == before
 
 
 def test_cuda_sources_export_what_the_loader_binds():
