@@ -17,20 +17,25 @@ only.  Phases:
      shared-memory switch, then the gathers' edges
      (``gather_edge_cases``: unaligned views, vectors straddling patterns,
      N below one CTA, a 232,448-byte table, more patterns than clusters
-     fit, the 64-bit instances): gathers and stores must be
-     ``torch.equal``, adds within ``add_error_bound``; the selective scan over B in {1, 3}, L in
-     {1, 7, 300, 2048}, D in {16, 200, 8192}, N in {4, 8, 16}, float32 and
-     bfloat16, two ranges of dt, within ``scan_tolerance``; flash attention
-     first at the bf16 kernel's edges (one 64 x 64 tile at G = 1, S = T in
-     {64, 65, 128, 129, 255, 257}, G = 3, a causal window of 64, a softcap
-     of 50),
+     fit, the 64-bit instances), the gather's route where no cluster fits
+     (``gather_route_case``) and the store's edges (``store_edge_cases``:
+     D in {1, 3, 4, 8}, views in and out of phase, B in {1, 2, 3} with N
+     from 1 to 8,191, the deep setting, the 64-bit instances): gathers and
+     stores must be ``torch.equal``, adds within ``add_error_bound``; the
+     selective scan over B in {1, 3}, L in {1, 7, 300, 2048}, D in {16,
+     200, 8192}, N in {4, 8, 16}, float32 and bfloat16, two ranges of dt,
+     then L and D off the chunk's and the CTA's multiples with b and c at
+     every alignment, within ``scan_tolerance``; flash attention first at
+     the bf16 kernel's edges (one 64 x 64 tile at G = 1, S = T in {64, 65,
+     128, 129, 255, 257}, G = 3, a causal window of 64, a softcap of 50),
      then over S = T in {1, 17, 128, 300, 2048}, (KVH, G) in {(1, 1), (2,
      4), (8, 4)}, dh in {64, 128}, float32 and bfloat16, with B in {1, 2},
-     causal, window in {0, 64} and softcap in {0, 50} cycled; paged decode
-     over page in {8, 16}, six (KVH, G), dh in {64, 128}, both dtypes, a
-     permuted table and one with repeats, lengths 1, full and ragged; both
-     within ``attn_tolerance`` (flash in bf16 with 2^-8 more for its
-     rounded weights);
+     causal, window in {0, 64} and softcap in {0, 50} cycled, then rows
+     that a window leaves no key (S >= T + window); paged decode over page
+     in {8, 16}, six (KVH, G), dh in {64, 128}, both dtypes, a permuted
+     table and one with repeats, lengths 1, full and ragged, then rows of
+     length 0; both within ``attn_tolerance`` (flash in bf16 with 2^-8
+     more for its rounded weights);
   2. the paper's CLI invocation ``-k Gather -p UNIFORM:8:1 -d 8 -l 2^24``
      through the port's CLI, as a gather, a store and an add scatter, on
      ``-b hopper`` and then on ``-b torch`` (the library yardstick);
@@ -39,12 +44,13 @@ only.  Phases:
      digests must agree, and each kernel's launch count must rise by a
      warm-up plus ``runs`` per bucket;
   4. time each kernel, its plain version and one PyTorch library call at
-     the shapes the main path gave it (the gathers, in ``gather_times``,
-     also by their kernels' device time from ``torch.profiler``, in turns
-     with ``index_select``, and on 2^24 random lanes of each table), the
-     add kernel once more on
-     appdb's LULESH-S3 (2^25 lanes onto 16 rows), and the selective scan
-     at the serving shape (4, 2048, 8192, 16, bfloat16), flash attention
+     the shapes the main path gave it (the gathers and scatters, in
+     ``gather_times`` and ``scatter_times``, also by their kernels' device
+     time from ``torch.profiler``, in turns with ``index_select``,
+     ``index_put_`` or ``index_add_``, and the gathers on 2^24 random
+     lanes of each table), the add kernel once more on appdb's LULESH-S3
+     (2^25 lanes onto 16 rows), and the selective scan at the serving
+     shape (4, 2048, 8192, 16, bfloat16; device time too), flash attention
      at the llama3-8b prefill shape and paged decode at its decode shape
      (``FLASH_SHAPE``, ``PAGED_SHAPE``, bfloat16);
   5. serve falcon-mamba-7b at its published width and depth (64 layers,
@@ -56,6 +62,8 @@ only.  Phases:
      logits within ``SERVE_TOL``, and the same greedy token wherever its
      top-2 margin is wider than that; and a 2 x 64-token prefill's cache
      must equal the cache of ``decode_step`` iterated over the prompt;
+     then ``profile_serve`` times a steady prefill and traces it, and the
+     scan's row carries the prefill's scan time;
   6. the same for llama3-8b (32 layers, d_model 4096, GQA 32/8 heads,
      bfloat16): the prefill must launch flash attention once per layer and
      paged decode never, each decode step paged decode once per layer and
@@ -254,6 +262,8 @@ def kernel_cases(torch):
                                                   diff.max().item())
                     n_cases += 1
     n_cases += gather_edge_cases(torch, gen)
+    n_cases += gather_route_case(torch, gen)
+    n_cases += store_edge_cases(torch, gen)
     print(f"phase 1: {n_cases} kernel cases equal their plain versions "
           f"(add within add_error_bound); max |err| {err}", flush=True)
     return err
@@ -393,6 +403,136 @@ def gather_edge_cases(torch, gen):
     return n_cases
 
 
+def gather_route_case(torch, gen):
+    """C4's route: with the cluster query forced to answer 0 (a card where
+    no cluster of 8 fits), ``gather_rows`` sends a smem-regime bucket to
+    the global kernel, equal to the plain version, and ``gather_rows_smem``
+    raises.  Returns the number of cases."""
+    from repro_torch.kernels.gather_rows import ops as g
+    from repro_torch.kernels.gather_rows.ref import gather_rows_ref
+    dev = torch.device("cuda")
+    table = torch.randn(2, 300, 1, generator=gen).to(dev)
+    idx = torch.randint(-2, 302, (2, 1000), generator=gen,
+                        dtype=torch.int32).to(dev)
+    check(g.use_smem(300, 1000, 1), "route case: not a smem bucket")
+    asked = g.smem_resident_ctas
+    g.smem_resident_ctas = lambda v, d, index: 0
+    try:
+        before = _launches()
+        got = g.gather_rows(table, idx)
+        after = _launches()
+        check(after["gather_rows"] == before["gather_rows"] + 1
+              and after["gather_rows_smem"] == before["gather_rows_smem"],
+              f"0 clusters: gather_rows launched {after} (before {before})")
+        check(torch.equal(got, gather_rows_ref(table, idx)),
+              "0 clusters: gather_rows routed to the global kernel: not "
+              "equal")
+        try:
+            g.gather_rows_smem(table, idx)
+            raised = False
+        except RuntimeError:
+            raised = True
+        check(raised and _launches() == after,
+              "0 clusters: gather_rows_smem did not raise")
+    finally:
+        g.smem_resident_ctas = asked
+    return 1
+
+
+def store_edge_cases(torch, gen=None):
+    """Phase 1's store edges, each ``torch.equal`` to
+    ``scatter_store_rows_ref_`` over the whole dst buffer (the floats around
+    an offset dst must stay): D in {1, 3, 4, 8}; dst, idx, keep and vals as
+    views at element offsets, in phase (a nonzero head) and out of phase;
+    consecutive rows (the float4 stores) and random ones, with !keep lanes,
+    out-of-range lanes and dropped duplicates inside vectors; B in {1, 2,
+    3} with N from 1 to 8,191 (vectors straddling patterns); 3 x 1,500,007
+    lanes (the deep setting, 16 lanes a thread); and the 64-bit instances
+    (a dst of 2^31 + 16 rows).  Returns the number of cases."""
+    from repro_torch.kernels.scatter_rows import ops as s
+    from repro_torch.kernels.scatter_rows.ref import scatter_store_rows_ref_
+    dev = torch.device("cuda")
+    gen = gen or torch.Generator(device="cpu").manual_seed(0)
+    dgen = torch.Generator(device=dev).manual_seed(7)   # dst and vals
+    n_cases = 0
+
+    def make(bsz, n, v, kind, top=None):
+        """idx, keep for B patterns: consecutive runs from a random start
+        (``top``: ending at INT32_MAX) or uniform rows, with duplicates,
+        out-of-range lanes, and lanes turned off; at most one kept
+        in-range lane per row."""
+        if kind == "consecutive":
+            hi = top if top is not None else max(v - n, 0)
+            start = (torch.full((bsz, 1), hi, dtype=torch.int64)
+                     if top is not None
+                     else torch.randint(0, hi + 1, (bsz, 1), generator=gen))
+            idx = start + torch.arange(n)[None]
+        else:
+            idx = torch.randint(0, v, (bsz, n), generator=gen)
+        idx = idx.to(torch.int32)
+        k = max(1, n // 50)
+        for b in range(bsz):
+            pos = torch.randperm(n, generator=gen)[:4 * k]
+            idx[b, pos[:k]] = torch.tensor(
+                [INT32_MAX, -1, min(v, INT32_MAX), -7],
+                dtype=torch.int32).repeat(k)[:k]
+            if n > 1:                           # a duplicate, dropped
+                j = pos[k:2 * k].clamp(max=n - 2)
+                idx[b, j] = idx[b, j + 1]
+        idx = idx.to(dev)
+        keep = torch.stack([_keep_last_dev(torch, idx[b])
+                            for b in range(bsz)])
+        off = torch.rand(bsz, n, generator=gen).to(dev) < 0.1
+        keep &= ~off                            # !keep lanes
+        keep |= (idx < 0) | (idx.to(torch.int64) >= v)   # kept, out of range
+        return idx, keep
+
+    def case(bsz, v, d, n, kind="consecutive", offs=(0, 0, 0, 0),
+             top=None):
+        nonlocal n_cases
+        od, oi, ok, ov = offs
+        idx0, keep0 = make(bsz, n, v, kind, top)
+        numel = bsz * v * d
+        buf = torch.randn(numel + od + 4, generator=dgen, device=dev)
+        want = buf.clone()
+        dst = buf[od:od + numel].view(bsz, v, d)
+        idx = _at_offset(torch, (bsz, n), oi, lambda m: torch.empty(
+            m, dtype=torch.int32, device=dev)).copy_(idx0)
+        keep = _at_offset(torch, (bsz, n), ok, lambda m: torch.empty(
+            m, dtype=torch.bool, device=dev)).copy_(keep0)
+        vals = _at_offset(torch, (bsz, n, d), ov, lambda m: torch.randn(
+            m, generator=dgen, device=dev))
+        before = _launches()["scatter_store_rows"]
+        s.scatter_store_rows_(dst, idx, keep, vals)
+        scatter_store_rows_ref_(want[od:od + numel].view(bsz, v, d), idx,
+                                keep, vals)
+        where = (f"scatter_store_rows B={bsz} V={v} D={d} N={n} {kind} "
+                 f"offsets(dst, idx, keep, vals)={offs}")
+        check(_launches()["scatter_store_rows"] == before + 1,
+              f"{where}: did not launch")
+        check(torch.equal(buf, want), f"{where}: not equal")
+        n_cases += 1
+
+    for d in (1, 3, 4, 8):
+        for offs in ((0, 0, 0, 0), (1, 1, 1, 1), (0, 1, 1, 1),
+                     (3, 2, 6, 2), (0, 0, 1, 0), (0, 1, 0, 1),
+                     (0, 0, 0, 1), (1, 0, 0, 0)):
+            for kind in ("consecutive", "random"):
+                case(2, 5000, d, 1001, kind, offs)
+    for bsz in (1, 2, 3):
+        for n in (1, 2, 3, 5, 15, 16, 17, 100, 1001, 4099, 8191):
+            case(bsz, 8192, 1, n)
+    for offs in ((0, 0, 0, 0), (0, 1, 1, 1), (1, 0, 0, 0)):
+        case(3, 1 << 21, 1, 1_500_007, offs=offs)
+    # the 64-bit instances: rows up to INT32_MAX of a 2^31 + 16-row dst, in
+    # phase (float4 stores) and with idx out of phase (the element kernel)
+    for offs in ((0, 0, 0, 0), (0, 1, 0, 0)):
+        case(1, 2 ** 31 + 16, 1, 1 << 20, offs=offs,
+             top=INT32_MAX - (1 << 20))
+    torch.cuda.empty_cache()
+    return n_cases
+
+
 def scan_tolerance(l):
     """Relative error allowed the float32 scan, as a share of the summed
     magnitudes: each step's factor exp(dt * a) carries up to ~2^-22 of
@@ -463,6 +603,23 @@ def scan_cases(torch):
                                      f"dt={dt_kind}")
                             err = max(err, check_scan(torch, ins, where))
                             n_cases += 1
+    # the chunk and CTA edges (16 steps, 64 channels): L and D off their
+    # multiples, and b and c starting at every element offset mod 16 bytes
+    # (views into a larger buffer), from their own generator
+    edge = torch.Generator(device="cuda").manual_seed(8)
+    for i, (bsz, l, d, n, dtype) in enumerate(itertools.product(
+            (1, 2), (15, 17, 33), (63, 65, 130), (4, 16),
+            (torch.float32, torch.bfloat16))):
+        ins = _scan_inputs(torch, edge, bsz, l, d, n, dtype, "softplus")
+        off = i % (16 // ins[2].element_size())
+        for j in (2, 3):                        # b, c at element offset off
+            ins[j] = _at_offset(torch, ins[j].shape, off,
+                                lambda m, t=ins[j]: torch.empty(
+                                    m, dtype=t.dtype, device=t.device)
+                                ).copy_(ins[j])
+        where = f"B={bsz} L={l} D={d} N={n} {dtype} b/c offset {off}"
+        err = max(err, check_scan(torch, ins, where))
+        n_cases += 1
     print(f"phase 1: {n_cases} selective_scan cases within scan_tolerance "
           f"of their plain versions; max |err| {err} "
           f"({time.perf_counter() - t0:.1f} s)", flush=True)
@@ -572,6 +729,24 @@ def flash_cases(torch):
                  f"{dtype} causal={causal} window={window} softcap={softcap}")
         err = max(err, check_flash(torch, q, k, v, causal, window, softcap,
                                    where))
+    # rows that the window leaves no key (S >= T + window): the reference
+    # gives them the mean of v over all T keys
+    no_key = torch.Generator(device="cuda").manual_seed(9)
+    empty = [(1, 2, 4, 300, 64, 64, True, 64, 0.0),
+             (1, 2, 4, 300, 64, 128, False, 64, 50.0),
+             (2, 1, 1, 200, 17, 128, True, 8, 0.0),
+             (1, 8, 4, 257, 1, 64, False, 1, 0.0),
+             (1, 2, 3, 700, 129, 128, True, 300, 50.0)]
+    for (bsz, kvh, g, s, t, dh, causal, window, softcap), dtype in (
+            itertools.product(empty, (torch.float32, torch.bfloat16))):
+        q = _flash_inputs(torch, no_key, bsz, kvh, g, s, dh, dtype)[0]
+        _, k, v = _flash_inputs(torch, no_key, bsz, kvh, 1, t, dh, dtype)
+        where = (f"flash_attention B={bsz} KVH={kvh} G={g} S={s} T={t} "
+                 f"dh={dh} {dtype} causal={causal} window={window} "
+                 f"softcap={softcap} (rows >= {t + window - 1} see no key)")
+        err = max(err, check_flash(torch, q, k, v, causal, window, softcap,
+                                   where))
+        cases.append(None)
     n_cases = len(cases)
     print(f"phase 1: {n_cases} flash_attention cases within attn_tolerance "
           f"(+ 2^-8 for bf16's rounded weights) of their plain versions; "
@@ -621,8 +796,8 @@ def check_paged(torch, ins, where):
 def paged_cases(torch):
     """Phase 1 for paged decode: page 8 and 16, every (KVH, G), dh and
     dtype, a permuted table and one with repeats, ragged lengths with 1 and
-    full among them, and the serve shape's 130 pages a row; returns max
-    |err|."""
+    full among them, and the serve shape's 130 pages a row; then rows of
+    length 0; returns max |err|."""
     gen = torch.Generator(device="cuda").manual_seed(4)
     err, n_cases, t0 = 0.0, 0, time.perf_counter()
     combos = itertools.product((8, 16), ((1, 1), (2, 4), (8, 4), (4, 2),
@@ -637,6 +812,22 @@ def paged_cases(torch):
                             repeats, lengths)
         where = (f"paged_decode KVH={kvh} G={g} dh={dh} page={page} "
                  f"pps={pps} {dtype} repeats={repeats} lengths={lengths}")
+        err = max(err, check_paged(torch, ins, where))
+        n_cases += 1
+    # rows of length 0 (and a negative length, clamped to 0) beside full
+    # and ragged ones: the reference's mean of V over all their pages'
+    # positions; from their own generator
+    zero = torch.Generator(device="cuda").manual_seed(10)
+    for i, (page, (kvh, g), dh, dtype) in enumerate(itertools.product(
+            (8, 16), ((1, 1), (8, 4), (2, 16)), (64, 128),
+            (torch.float32, torch.bfloat16))):
+        pps = 130 if i % 4 == 0 else 9
+        full = pps * page
+        lengths = [0, full, 1 + (29 * i + 5) % full, -3 if i % 2 else 0]
+        ins = _paged_inputs(torch, zero, 4, kvh, g, dh, page, pps, dtype,
+                            bool(i % 3), lengths)
+        where = (f"paged_decode KVH={kvh} G={g} dh={dh} page={page} "
+                 f"pps={pps} {dtype} lengths={lengths}")
         err = max(err, check_paged(torch, ins, where))
         n_cases += 1
     print(f"phase 1: {n_cases} paged_decode cases within attn_tolerance of "
@@ -752,20 +943,30 @@ def _keep_last_dev(torch, idx):
     return keep
 
 
-def _profiled_ms(torch, fn, iters):
+def _profiled_ms(torch, fn, iters, tries=3):
     """Device ms a call: torch.profiler's CUDA time of every kernel that
     ``iters`` calls of ``fn`` launched, over ``iters``; and the kernels'
-    names with their counts."""
+    names with their counts.  The profiler now and then loses a kernel's
+    record (on the H100, 17 of 20 launches once): a trace whose count of
+    device events is not a multiple of ``iters`` is taken again, at most
+    ``tries`` times in all, and the last one is returned as it is (the
+    callers' launch checks then fail on it)."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    evts = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
-    check(evts, "torch.profiler saw no device time")
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        evts = [e for e in prof.key_averages()
+                if e.device_type.name == "CUDA"]
+        check(evts, "torch.profiler saw no device time")
+        if sum(e.count for e in evts) % iters == 0:
+            break
+        print(f"  (torch.profiler recorded {sum(e.count for e in evts)} "
+              f"device events for {iters} calls: traced again)", flush=True)
     return (sum(_device_ms(e) for e in evts) / iters,
             {k: sum(e.count for e in evts if e.key[:100] == k)
              for k in {e.key[:100] for e in evts}})
@@ -948,8 +1149,51 @@ def gather_times(torch, err=None):
     return rows
 
 
+def _turn_times(torch, fns, iters, frag, where):
+    """``fns`` ("kernel" and, where one exists, "library") timed in turns
+    (``_in_turns``): each one's ms and device_ms, the lower of two turns,
+    beside the pairs; checks that the kernel's calls launched ``iters``
+    kernels whose names hold ``frag``."""
+    t = _in_turns(torch, fns, iters)
+    ms, dms, names = t["kernel"]
+    launched = sum(c for k, c in names.items() if frag in k)
+    check(launched == iters, f"{where}: {names} in {iters} calls")
+    row = dict(ms=min(ms), ms_pair=ms, device_ms=min(dms),
+               device_ms_pair=dms, kernels=names)
+    if "library" in t:
+        lms, ldms, lnames = t["library"]
+        row.update(library_ms=min(lms), library_ms_pair=lms,
+                   library_device_ms=min(ldms), library_device_ms_pair=ldms,
+                   library_kernels=lnames)
+    return row
+
+
 def kernel_times(torch, err):
-    """ms, plain_ms, library_ms, bound_ms and max |err| per kernel."""
+    """ms, device_ms, plain_ms, library_ms, bound_ms and max |err| per
+    kernel of the Spatter path and the scan."""
+    out = gather_times(torch, err)
+    out.update(scatter_times(torch, err))
+    out["selective_scan"] = scan_time(torch, err)
+    return out
+
+
+def store_scan_times(torch):
+    """Not run by ``main``: ``scatter_times`` and ``scan_time`` as one JSON
+    line, for comparing two trees in one call: import the other tree's
+    ``repro_torch`` first (``sys.path``), and this script times it."""
+    import repro_torch
+    err = {k: 0.0 for k in KERNEL_INFO}
+    rows = scatter_times(torch, err)
+    rows["selective_scan"] = scan_time(torch, err)
+    print(json.dumps({"tree": str(Path(repro_torch.__file__).parent),
+                      "rows": rows}), flush=True)
+    return rows
+
+
+def scatter_times(torch, err):
+    """Both scatters at the CLI's shapes, each beside its library call in
+    turns (``_turn_times``: ``index_put_`` for the store, ``index_add_``
+    for the add), and the add once more on appdb's LULESH-S3."""
     from repro_torch import appdb, make_pattern
     from repro_torch.kernels.scatter_rows import ops as s
     from repro_torch.kernels.scatter_rows.ref import (add_error_bound,
@@ -962,15 +1206,19 @@ def kernel_times(torch, err):
     def bound(nbytes):
         return nbytes / HBM_BYTES_PER_S * 1e3
 
-    def record(name, ms, plain_ms, library_ms, nbytes, shape, e):
+    def record(name, row, plain_ms, nbytes, shape, e):
         err[name] = max(err[name], e)
-        out[name] = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
-                         bound_ms=bound(nbytes), bytes=nbytes, shape=shape)
-        print(f"  {name} {shape}: kernel {ms:.4f} ms, plain {plain_ms:.4f} "
-              f"ms, library {library_ms:.4f} ms, bound {bound(nbytes):.4f} "
-              f"ms ({nbytes} bytes), max |err| {e}", flush=True)
+        row.update(plain_ms=plain_ms, bound_ms=bound(nbytes), bound_by="bytes",
+                   bytes=nbytes, shape=shape)
+        out[name] = row
+        print(f"  {name} {shape}: kernel ms {row['ms_pair']} device_ms "
+              f"{row['device_ms_pair']}; library ms {row['library_ms_pair']} "
+              f"device_ms {row['library_device_ms_pair']} "
+              f"({row['library_kernels']}); plain {plain_ms:.4f} ms; bound "
+              f"{bound(nbytes):.4f} ms ({nbytes} bytes), "
+              f"{100 * bound(nbytes) / row['device_ms']:.1f}% of it on "
+              f"device_ms; max |err| {e}", flush=True)
 
-    out.update(gather_times(torch, err))
     # the CLI's pattern, built on the device: UNIFORM:8:1, delta 8, 2^24
     p = make_pattern("UNIFORM:8:1", delta=8, count=2 ** 24)
     base = torch.arange(p.count, device=dev, dtype=torch.int64) * p.delta
@@ -992,12 +1240,14 @@ def kernel_times(torch, err):
     vals_k = vals[0][keep[0]]
     kept = rows_k.numel()
     record("scatter_store_rows",
-           _time_ms(torch, lambda: s.scatter_store_rows_(dst, idx1, keep,
-                                                         vals), 20),
+           _turn_times(torch, {
+               "library": lambda: dst.view(-1, 1).index_put_((rows_k,),
+                                                             vals_k),
+               "kernel": lambda: s.scatter_store_rows_(dst, idx1, keep,
+                                                       vals)},
+               20, "store", "scatter_store_rows"),
            _time_ms(torch, lambda: scatter_store_rows_ref_(dst, idx1, keep,
                                                            vals), 5),
-           _time_ms(torch, lambda: dst.view(-1, 1).index_put_((rows_k,),
-                                                              vals_k), 20),
            n * 4 + n * 1 + kept * 4 + kept * 4, [1, v, 1], 0.0)
     del rows_k, vals_k, keep
 
@@ -1010,10 +1260,12 @@ def kernel_times(torch, err):
           "scatter_add_rows at CLI shape: over add_error_bound")
     del got, want
     record("scatter_add_rows",
-           _time_ms(torch, lambda: s.scatter_add_rows_(dst, idx1, vals), 20),
+           _turn_times(torch, {
+               "library": lambda: dst.view(-1, 1).index_add_(0, idx1[0],
+                                                             vals[0]),
+               "kernel": lambda: s.scatter_add_rows_(dst, idx1, vals)},
+               20, "scatter_add", "scatter_add_rows"),
            _time_ms(torch, lambda: scatter_add_rows_ref_(dst, idx1, vals), 5),
-           _time_ms(torch, lambda: dst.view(-1, 1).index_add_(
-               0, idx1[0], vals[0]), 20),
            n * 4 + n * 4 + 2 * uniq * 4, [1, v, 1], diff.max().item())
     del dst, vals, idx1, diff
 
@@ -1043,7 +1295,6 @@ def kernel_times(torch, err):
     out["lulesh_s3_add"] = s3
     del got, want, diff, idx3, vals3, dst3
     torch.cuda.empty_cache()
-    out["selective_scan"] = scan_time(torch, err)
     return out
 
 
@@ -1056,8 +1307,9 @@ def sm_clock_hz():
 
 
 def scan_time(torch, err):
-    """The scan at the serving shape: ms, plain ms and the bound, the
-    larger of bytes over 3.35 TB/s and exponentials over the SFU rate."""
+    """The scan at the serving shape: ms and device_ms (two turns), plain
+    ms and the bound, the larger of bytes over 3.35 TB/s and exponentials
+    over the SFU rate."""
     from repro_torch.kernels.selective_scan.ops import selective_scan
     from repro_torch.kernels.selective_scan.ref import selective_scan_ref
     bsz, l, d, n = 4, 2048, 8192, 16
@@ -1071,14 +1323,17 @@ def scan_time(torch, err):
     clock = sm_clock_hz()
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     exp_ms = exps / (SFU_EXP_PER_CLOCK_PER_SM * N_SMS * clock) * 1e3
-    ms = _time_ms(torch, lambda: selective_scan(*ins), 20)
+    row = _turn_times(torch, {"kernel": lambda: selective_scan(*ins)}, 20,
+                      "selective_scan", "selective_scan")
     plain_ms = _time_ms(torch, lambda: selective_scan_ref(*ins), 2)
     bound_by = "operations" if exp_ms >= bytes_ms else "bytes"
-    row = dict(ms=ms, plain_ms=plain_ms, library_ms=None,
+    row.update(plain_ms=plain_ms, library_ms=None,
                bound_ms=max(exp_ms, bytes_ms), bound_by=bound_by,
                bytes=nbytes, exps=exps, bytes_ms=bytes_ms, exp_ms=exp_ms,
                sm_clock_mhz=clock / 1e6, shape=[bsz, l, d, n, "bfloat16"])
-    print(f"  selective_scan (4, 2048, 8192, 16, bf16): kernel {ms:.4f} ms, "
+    print(f"  selective_scan (4, 2048, 8192, 16, bf16): kernel ms "
+          f"{row['ms_pair']} device_ms {row['device_ms_pair']} "
+          f"({100 * row['bound_ms'] / row['device_ms']:.1f}% of the bound), "
           f"plain {plain_ms:.4f} ms, library none (no PyTorch call computes "
           f"a selective scan), bound {row['bound_ms']:.4f} ms by "
           f"{bound_by} ({exps} exponentials at {clock / 1e6:.0f} MHz: "
@@ -1115,15 +1370,18 @@ def attention_times(torch, err):
     flops = 2 * 2 * pairs * dh                   # q.k and p.v
     nbytes = 2 * (q.numel() * 2 + k.numel() + v.numel())   # q, out, k, v
     qh = q.view(bsz, kvh * g, s, dh)
+    turns = _turn_times(torch, {
+        "library": lambda: sdpa(qh, k, v, is_causal=True, enable_gqa=True),
+        "kernel": lambda: flash_attention(q, k, v)}, 10, "flash_attention",
+        "flash_attention")
     rows["flash_attention"] = _bound_row(
-        ms=_time_ms(torch, lambda: flash_attention(q, k, v), 10),
+        ms=turns["ms"],
         plain_ms=_time_ms(torch, lambda: flash_attention_ref(
             q, k, v, scale=scale), 3),
-        library_ms=_time_ms(torch, lambda: sdpa(
-            qh, k, v, is_causal=True, enable_gqa=True), 10),
-        flops=flops, nbytes=nbytes,
+        library_ms=turns["library_ms"], flops=flops, nbytes=nbytes,
         shape=list(FLASH_SHAPE) + ["bfloat16", "causal"],
-        library="scaled_dot_product_attention(is_causal, enable_gqa)")
+        library="scaled_dot_product_attention(is_causal, enable_gqa)",
+        turns=turns)
     del q, k, v, qh
     torch.cuda.empty_cache()
 
@@ -1136,33 +1394,42 @@ def attention_times(torch, err):
     nbytes = (2 * bsz * kvh * length * dh * 2 + 2 * bsz * kvh * g * dh * 2
               + bsz * pps * 4 + bsz * 4)
     flops = 2 * 2 * bsz * kvh * g * length * dh
+    turns = _turn_times(torch, {
+        "kernel": lambda: paged_decode_attention(*ins)}, 50, "paged_decode",
+        "paged_decode")
     rows["paged_decode"] = _bound_row(
-        ms=_time_ms(torch, lambda: paged_decode_attention(*ins), 50),
+        ms=turns["ms"],
         plain_ms=_time_ms(torch, lambda: paged_decode_attention_ref(
             *ins, scale=dh ** -0.5), 10),
         library_ms=None, flops=flops, nbytes=nbytes,
         shape=list(PAGED_SHAPE) + ["bfloat16"],
-        library="none: no PyTorch call attends through a page table")
+        library="none: no PyTorch call attends through a page table",
+        turns=turns)
     del ins
     torch.cuda.empty_cache()
     return rows
 
 
-def _bound_row(ms, plain_ms, library_ms, flops, nbytes, shape, library):
-    """A kernel's row; the bound is the larger of bytes over 3.35 TB/s and
-    bf16 tensor FLOPs over 989 TFLOP/s."""
+def _bound_row(ms, plain_ms, library_ms, flops, nbytes, shape, library,
+               turns):
+    """A kernel's row, with the ``_turn_times`` pairs ``turns``; the bound
+    is the larger of bytes over 3.35 TB/s and bf16 tensor FLOPs over 989
+    TFLOP/s."""
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     flop_ms = flops / TENSOR_BF16_FLOP_PER_S * 1e3
     bound_ms = max(bytes_ms, flop_ms)
-    row = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+    row = dict(turns)
+    row.update(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
                bound_ms=bound_ms,
                bound_by="operations" if flop_ms >= bytes_ms else "bytes",
                bytes=nbytes, flops=flops, bytes_ms=bytes_ms, flop_ms=flop_ms,
                tflop_per_s=flops / ms / 1e9, bound_share=bound_ms / ms,
                shape=shape)
     lib = f"{library_ms:.4f} ms" if library_ms is not None else "none"
-    print(f"  {shape}: kernel {ms:.4f} ms ({row['tflop_per_s']:.1f} TFLOP/s, "
-          f"{100 * row['bound_share']:.1f}% of the bound), plain "
+    print(f"  {shape}: kernel ms {turns['ms_pair']} device_ms "
+          f"{turns['device_ms_pair']} ({row['tflop_per_s']:.1f} TFLOP/s, "
+          f"{100 * row['bound_share']:.1f}% of the bound on ms; library "
+          f"device_ms {turns.get('library_device_ms_pair')}), plain "
           f"{plain_ms:.4f} ms, library {lib} ({library}), bound "
           f"{bound_ms:.4f} ms by {row['bound_by']} ({flops} FLOP: "
           f"{flop_ms:.4f} ms; {nbytes} bytes: {bytes_ms:.4f} ms)", flush=True)
@@ -1405,6 +1672,13 @@ def main():
     lulesh_s3_add = times.pop("lulesh_s3_add")
     peak_1_4 = torch.cuda.max_memory_allocated()
     served, serve_launches = serve_phase(torch)
+    steady = profile_serve(torch)           # falcon-mamba-7b, steady state
+    times["selective_scan"].update(
+        steady_prefill_ms=steady["prefill_ms"],
+        steady_prefill_scan_device_ms=steady["prefill_device_ms_by_class"][
+            "selective_scan"])
+    gc.collect()
+    torch.cuda.empty_cache()
     served_llama, llama_launches = serve_phase(
         torch, LLAMA_ARGS, _dense_launches, LLAMA3_8B_PARAMS)
     path_launches = {k: main_launches[k] for k in SPATTER_KERNELS}

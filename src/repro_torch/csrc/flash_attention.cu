@@ -24,7 +24,11 @@
 // tiles that the mask empties for every row of the CTA are skipped (with
 // causal, tiles past the last query; with a window, tiles wholly before q0
 // - window): the function is unchanged and the causal work halves.  The
-// causal CTAs with most tiles start first.
+// causal CTAs with most tiles start first.  A query row that the window leaves no
+// key (i >= T + window - 1) gets what the reference's -1e30 mask gives it:
+// uniform weights over all T keys, so the mean of V.  A CTA that holds such
+// rows sums V's columns once after its loop (mean_of_v) and stores the mean
+// in those rows; every other CTA only tests for them.
 //
 // What bounds it: operations.  At the llama3-8b prefill (B 4, KVH 8, G 4,
 // S = T = 2048, DH 128, bf16, causal) the two products are 2 x 2 x 4 x 32 x
@@ -60,8 +64,8 @@
 //   (fmaf), then ex2.approx; masks per element only in a tile that the
 //   diagonal, a window's edge or the ragged T edge cuts, where a masked
 //   score is -inf (a row that has met no key yet keeps m = -inf, weight 0;
-//   every row the wrapper lets through meets a key, so the result is the
-//   reference's -1e30 mask); row max and sum reduced over the 4 lanes of a
+//   a row that sees a key meets it, so the result is the reference's -1e30
+//   mask, and a row that sees none takes the mean of V); row max and sum reduced over the 4 lanes of a
 //   quad; the rescale of O skipped when no row's maximum moved.  Rounding
 //   each weight p to bf16 before P V moves the output by up to 2^-9 of
 //   sum p|v| / sum p (l sums the float32 weights): chip_smoke.py's bound
@@ -141,6 +145,27 @@ __device__ __forceinline__ void load4(const float* __restrict__ p, float* x) {
   x[1] = r.y;
   x[2] = r.z;
   x[3] = r.w;
+}
+
+// mean[c] = the mean over the T keys of column c of one head's V (T, DH),
+// for the CTA's threads tid = 0 .. threads - 1; the caller synchronises.
+template <int DH, typename T>
+__device__ void mean_of_v(const T* __restrict__ vb, int64_t T_len,
+                          float* mean, int tid, int threads) {
+  for (int c = tid; c < DH; c += threads) {
+    float sum = 0.f;
+    for (int64_t t = 0; t < T_len; ++t) {
+      sum += static_cast<float>(vb[t * DH + c]);
+    }
+    mean[c] = sum / static_cast<float>(T_len);
+  }
+}
+
+// Whether query position i sees no key: the window's first key, i - window
+// + 1, lies past the last key, T - 1 (with or without causal).
+__device__ __forceinline__ bool sees_no_key(int64_t i, int64_t T_len,
+                                            int64_t window) {
+  return window > 0 && i - window >= T_len - 1;
 }
 
 template <int DH>
@@ -289,17 +314,29 @@ flash_attention_kernel(const float* __restrict__ q,
     __syncthreads();                 // the next tile overwrites kt, v, pt
   }
 
+  // rows with no key: P^T is free after the loop's last __syncthreads
+  const bool any_empty = sees_no_key(q_last, T_len, window);
+  float* mean = &sm.pt[0][0];
+  if (any_empty) {
+    mean_of_v<DH>(vb, T_len, mean, tid, kThreads);
+    __syncthreads();
+  }
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int r = ty * 4 + i;
     if (r >= rows || qpos[i] >= S) continue;
     const float denom = fmaxf(l[i], 1e-30f);
+    const bool empty = any_empty && sees_no_key(qpos[i], T_len, window);
     float* orow = out + ((bh * G + r / bq) * S + qpos[i]) * DH;
 #pragma unroll
     for (int cc = 0; cc < kCols; ++cc) {
-      *reinterpret_cast<float4*>(orow + tx * 4 + 32 * cc) = make_float4(
-          o[i][cc * 4 + 0] / denom, o[i][cc * 4 + 1] / denom,
-          o[i][cc * 4 + 2] / denom, o[i][cc * 4 + 3] / denom);
+      const int c = tx * 4 + 32 * cc;
+      *reinterpret_cast<float4*>(orow + c) =
+          empty ? *reinterpret_cast<const float4*>(mean + c)
+                : make_float4(o[i][cc * 4 + 0] / denom,
+                              o[i][cc * 4 + 1] / denom,
+                              o[i][cc * 4 + 2] / denom,
+                              o[i][cc * 4 + 3] / denom);
     }
   }
 }
@@ -346,8 +383,10 @@ struct TcLayout {
   static constexpr int kQ = kBoxes * kQBox;
   static constexpr int kStage = 2 * kBoxes * kKVBox;    // K boxes, V boxes
   static constexpr int kBars = kQ + kTcStages * kStage;
-  // Q's barrier, then kTcStages "full", then kTcStages "empty"
-  static constexpr int kBytes = kBars + 8 * (1 + 2 * kTcStages) + 1024;
+  // Q's barrier, then kTcStages "full", then kTcStages "empty"; then the
+  // mean of V (DH floats) for rows that see no key
+  static constexpr int kMean = kBars + 8 * (1 + 2 * kTcStages);
+  static constexpr int kBytes = kMean + 4 * DH + 1024;
 };
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -509,6 +548,7 @@ __global__ void __launch_bounds__(kTcThreads, 1)
 flash_attention_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
                           const __grid_constant__ CUtensorMap tm_k,
                           const __grid_constant__ CUtensorMap tm_v,
+                          const __nv_bfloat16* __restrict__ v,
                           __nv_bfloat16* __restrict__ out, int kvh, int G,
                           int S, int T_len, int bq, float score_mul,
                           float cap_in, float cap_out, int causal,
@@ -695,6 +735,16 @@ flash_attention_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
     l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
     l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
   }
+  // rows with no key: the consumer warpgroups (not the producer warp, which
+  // has left) sum V once and meet at named barrier 1
+  const bool any_empty = sees_no_key(q_last, T_len, window);
+  const float* mean = reinterpret_cast<const float*>(smem + L::kMean);
+  if (any_empty) {
+    mean_of_v<DH>(v + static_cast<int64_t>(bh) * T_len * DH, T_len,
+                  reinterpret_cast<float*>(smem + L::kMean), tid,
+                  128 * kTcConsumers);
+    asm volatile("bar.sync 1, %0;" :: "n"(128 * kTcConsumers) : "memory");
+  }
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     const int g = row[i] / bq;
@@ -702,13 +752,16 @@ flash_attention_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
     // times the reciprocal of max(l, 1e-30): within a float32 ulp of the
     // division, before the one rounding to bf16
     const float inv = __frcp_rn(fmaxf(l[i], 1e-30f));
+    const bool empty = any_empty && sees_no_key(qpos[i], T_len, window);
     __nv_bfloat16* orow =
         out + ((static_cast<int64_t>(bh) * G + g) * S + qpos[i]) * DH;
 #pragma unroll
     for (int j = 0; j < DH / 8; ++j) {
-      *reinterpret_cast<__nv_bfloat162*>(orow + 8 * j + 2 * quad) =
-          __floats2bfloat162_rn(o[4 * j + 2 * i] * inv,
-                                o[4 * j + 2 * i + 1] * inv);
+      const int c = 8 * j + 2 * quad;
+      *reinterpret_cast<__nv_bfloat162*>(orow + c) =
+          empty ? __floats2bfloat162_rn(mean[c], mean[c + 1])
+                : __floats2bfloat162_rn(o[4 * j + 2 * i] * inv,
+                                        o[4 * j + 2 * i + 1] * inv);
     }
   }
 }
@@ -771,7 +824,8 @@ int launch_bf16(const void* q, const void* k, const void* v, void* out,
   const int win = window < INT_MAX ? static_cast<int>(window) : INT_MAX;
   const float cap_in = softcap > 0.f ? scale / softcap : 0.f;
   flash_attention_tc_kernel<DH><<<grid, kTcThreads, smem, s>>>(
-      tm_q, tm_k, tm_v, static_cast<__nv_bfloat16*>(out),
+      tm_q, tm_k, tm_v, static_cast<const __nv_bfloat16*>(v),
+      static_cast<__nv_bfloat16*>(out),
       static_cast<int>(KVH), static_cast<int>(G), static_cast<int>(S),
       static_cast<int>(T_len), bq, scale * kLog2e, cap_in, softcap * kLog2e,
       causal, win);

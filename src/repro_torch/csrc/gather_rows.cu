@@ -61,6 +61,8 @@
 #include <tuple>
 #include <utility>
 
+#include "common.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;              // global kernels
@@ -74,59 +76,6 @@ constexpr int64_t kMaxSmemBytes = 232448;  // 227 KB per block (H100)
 constexpr uint32_t kBarBytes = 16;         // the mbarrier, padded to 16 bytes
 constexpr uint32_t kMaxCopy = 1u << 16;    // bytes a bulk copy
 
-// Division by a fixed d through one high multiply and a shift (the
-// round-up method of Granlund and Montgomery, as CUTLASS's FastDivmod):
-// exact for every dividend below 2^31 (32-bit) or 2^63 (64-bit).
-template <typename I>
-struct FastDiv;
-
-template <>
-struct FastDiv<uint32_t> {
-  uint32_t d, m, s;
-  __device__ __forceinline__ uint32_t div(uint32_t n) const {
-    return d == 1 ? n : __umulhi(n, m) >> s;
-  }
-};
-
-template <>
-struct FastDiv<uint64_t> {
-  uint64_t d, m;
-  uint32_t s;
-  __device__ __forceinline__ uint64_t div(uint64_t n) const {
-    return d == 1 ? n : __umul64hi(n, m) >> s;
-  }
-};
-
-int ceil_log2(uint64_t x) {
-  int l = 0;
-  while (l < 64 && (uint64_t{1} << l) < x) ++l;
-  return l;
-}
-
-FastDiv<uint32_t> make_div32(uint32_t d) {
-  FastDiv<uint32_t> f{d, 0, 0};
-  if (d > 1) {
-    const int p = 31 + ceil_log2(d);
-    f.m = static_cast<uint32_t>(((uint64_t{1} << p) + d - 1) / d);
-    f.s = static_cast<uint32_t>(p - 32);
-  }
-  return f;
-}
-
-FastDiv<uint64_t> make_div64(uint64_t d) {
-  FastDiv<uint64_t> f{d, 0, 0};
-  if (d > 1) {
-    const int p = 63 + ceil_log2(d);
-    using u128 = unsigned __int128;
-    f.m = static_cast<uint64_t>(((u128{1} << p) + d - 1) / d);
-    f.s = static_cast<uint32_t>(p - 64);
-  }
-  return f;
-}
-
-inline FastDiv<uint32_t> make_div(uint32_t d) { return make_div32(d); }
-inline FastDiv<uint64_t> make_div(uint64_t d) { return make_div64(d); }
-
 template <typename T>
 __device__ __forceinline__ T zero_of();
 template <>
@@ -134,11 +83,6 @@ __device__ __forceinline__ float zero_of<float>() { return 0.f; }
 template <>
 __device__ __forceinline__ float4 zero_of<float4>() {
   return make_float4(0.f, 0.f, 0.f, 0.f);
-}
-
-template <typename I>
-__device__ __forceinline__ bool in_table(int32_t row, I V) {
-  return row >= 0 && static_cast<I>(row) < V;
 }
 
 // -- the global kernels -------------------------------------------------------
@@ -469,33 +413,6 @@ gather_rows_smem_kernel(const float* __restrict__ table,
 
 // -- host side ------------------------------------------------------------------
 
-bool aligned16(const void* p) {
-  return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
-}
-
-// Threads the current card holds at once (SMs x threads an SM), asked of
-// the runtime: below this many threads at the deep setting, a global gather
-// takes one vector (or element) a thread, so that a small gather spreads its
-// lanes over every SM instead of a few.
-cudaError_t card_threads(int64_t* threads) {
-  int dev = 0, sms = 0, per_sm = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess) {
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  }
-  if (err == cudaSuccess) {
-    err = cudaDeviceGetAttribute(&per_sm,
-                                 cudaDevAttrMaxThreadsPerMultiProcessor, dev);
-  }
-  *threads = int64_t{sms} * per_sm;
-  return err;
-}
-
-bool in_phase(const void* a, const void* b) {
-  return ((reinterpret_cast<uintptr_t>(a) ^ reinterpret_cast<uintptr_t>(b)) &
-          15) == 0;
-}
-
 template <typename I, int V4>
 void launch_d1_vec(const float* table, const int32_t* idx, float* out,
                    I total, I head, I nv, I V, FastDiv<I> by_n, int64_t blocks,
@@ -652,13 +569,6 @@ int launch_smem(const void* table, const int32_t* idx, void* out, int64_t B,
                            static_cast<uint32_t>(ctas), bytes, make_div(dv));
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
-}
-
-// The 32-bit instances: every flat lane, element and table offset < 2^31.
-bool fits32(int64_t B, int64_t N, int64_t V, int64_t D) {
-  const int64_t lim = int64_t{1} << 31;
-  return N <= lim / B / D && V <= lim / B / D && B * N * D < lim &&
-         B * V * D < lim;
 }
 
 }  // namespace

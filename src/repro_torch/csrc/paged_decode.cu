@@ -12,7 +12,10 @@
 // size; repeated pages in a table are fine (the pool is only read).  A table
 // entry outside [0, P) is clamped into it, so that no index reads outside the
 // pool (the plain version raises on one).  lengths are clamped to
-// [0, pages_per_seq * page]; a row of length 0 gives zeros.
+// [0, pages_per_seq * page].  A row of length 0 gets what the reference's
+// -1e30 mask gives it: uniform weights over all pages_per_seq * page
+// positions of its pages, so every query head the mean of their V rows
+// (uniform_mean, a branch taken before the loop that other rows run).
 //
 // What changes from the TPU.  There the page table is scalar-prefetched and
 // drives the K/V BlockSpecs of a grid (B, KVH, pages_per_seq) that visits
@@ -76,6 +79,42 @@ __device__ __forceinline__ void load_f32(const T* __restrict__ p, float* out) {
   for (int i = 0; i < N; ++i) out[i] = to_f32(e[i]);
 }
 
+// The output of a row of length 0: the mean of the V rows at all pps * page
+// positions of its pages, for every query head.  Warp w sums the positions
+// w, w + 8, ..., lane l columns l * DH / 32 ..; red is the CTA's (8, DH)
+// scratch.
+template <typename T, int G, int DH>
+__device__ void uniform_mean(const T* __restrict__ vh,
+                             const int* __restrict__ trow, int64_t P,
+                             int page, int pps, T* __restrict__ ob,
+                             float (*red)[DH]) {
+  constexpr int kDpl = DH / 32;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int64_t n = static_cast<int64_t>(pps) * page;
+  float acc[kDpl];
+#pragma unroll
+  for (int e = 0; e < kDpl; ++e) acc[e] = 0.f;
+  for (int64_t t = warp; t < n; t += kWarps) {
+    int64_t phys = trow[t / page];
+    phys = phys < 0 ? 0 : (phys >= P ? P - 1 : phys);
+    float vx[kDpl];
+    load_f32<T, kDpl>(vh + (phys * page + t % page) * DH + lane * kDpl, vx);
+#pragma unroll
+    for (int e = 0; e < kDpl; ++e) acc[e] += vx[e];
+  }
+#pragma unroll
+  for (int e = 0; e < kDpl; ++e) red[warp][lane * kDpl + e] = acc[e];
+  __syncthreads();
+  for (int d = threadIdx.x; d < DH; d += kWarps * 32) {
+    float sum = 0.f;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) sum += red[w][d];
+    const T mean = from_f32<T>(sum / static_cast<float>(n));
+#pragma unroll
+    for (int g = 0; g < G; ++g) ob[g * DH + d] = mean;
+  }
+}
+
 template <typename T, int G, int DH>
 __global__ void __launch_bounds__(kWarps * 32)
 paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
@@ -104,6 +143,11 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
   const int64_t head = static_cast<int64_t>(blockIdx.x) * P * page * DH;
   const T* kh = k_pages + head;
   const T* vh = v_pages + head;
+  T* ob = out + bh * G * DH;
+  if (len == 0) {                  // the same for the whole CTA
+    uniform_mean<T, G, DH>(vh, trow, P, page, pps, ob, red_acc);
+    return;
+  }
 
   float m[G], l[G], acc[G][kDpl];
 #pragma unroll
@@ -182,7 +226,6 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
   }
 
   // merge the warps' (m, l, acc), one query head at a time
-  T* ob = out + bh * G * DH;
 #pragma unroll
   for (int g = 0; g < G; ++g) {
     float lg = l[g];

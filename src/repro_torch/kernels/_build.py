@@ -7,10 +7,11 @@ use, on the machine with the card, into its own shared library::
          -Xcompiler -fPIC -Xptxas -v -o _build/<name>-<hash>.so csrc/<name>.cu
 
 then loaded with ``ctypes`` (every pointer and the stream as ``c_void_p``).
-The library's name carries a hash of its source and of the flags, so a
-stale library is never loaded; ``build_all`` starts one ``nvcc`` per
-source, all at once.  The output directory, ``src/repro_torch/_build/``,
-is listed in ``.gitignore``.  Nothing here runs at import time.
+The library's name carries a hash of its source, of the shared headers
+(``csrc/*.cuh``) and of the flags, so a stale library is never loaded;
+``build_all`` starts one ``nvcc`` per source, all at once.  The output
+directory, ``src/repro_torch/_build/``, is listed in ``.gitignore``.
+Nothing here runs at import time.
 
 ``launches`` counts kernel launches by kernel name: each wrapper adds one
 where it launches its kernel, and nowhere else, so a caller can show that
@@ -106,6 +107,8 @@ def nvcc_path() -> str:
 def _lib_path(name: str) -> Path:
     h = hashlib.sha256()
     h.update((CSRC_DIR / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC_DIR.glob("*.cuh")):    # what sources include
+        h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 

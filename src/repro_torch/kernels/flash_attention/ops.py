@@ -47,8 +47,9 @@ def flash_attention(q, k, v, *, scale: float | None = None,
 
     ``scale=None`` means 1/sqrt(dh).  ``causal`` keeps keys j <= i, a
     ``window`` > 0 keys with i - j < window, a ``softcap`` > 0 caps the
-    scores with tanh.  A window must leave every query a key (S < T +
-    window): a query row that sees no key has no softmax.
+    scores with tanh.  A query row that the window leaves no key (i >= T +
+    window - 1) gets the reference's answer: every score masked to -1e30,
+    so uniform weights, the mean of v over all T keys.
     """
     _build.check_operand("q", q, getattr(q, "dtype", None), 5)
     if q.dtype not in _ENTRY:
@@ -67,9 +68,6 @@ def flash_attention(q, k, v, *, scale: float | None = None,
         raise ValueError("k, v: no keys (T = 0)")
     if window < 0:
         raise ValueError(f"window must be >= 0, got {window}")
-    if window > 0 and s >= t_len + window:
-        raise ValueError(f"window {window} leaves query rows >= "
-                         f"{t_len + window - 1} no key (S={s}, T={t_len})")
     scale = 1.0 / math.sqrt(dh) if scale is None else float(scale)
     dev = _build.common_device(q=q, k=k, v=v)
     if dev.type == "cpu":

@@ -76,7 +76,8 @@ def smem_resident_ctas(v: int, d: int, index: int) -> int:
     """CTAs of the smem kernel that card ``index`` holds at once for a
     (V, D) table: the clusters the CUDA runtime says fit, times
     ``SMEM_CLUSTER``.  Asked once per card and shape (builds the kernel);
-    raises where no cluster fits."""
+    0 where no cluster fits (a smaller card, a MIG slice); raises on a CUDA
+    error."""
     import ctypes
     clusters = ctypes.c_int(0)
     fn = _build.c_function("gather_rows", "gather_rows_smem_clusters")
@@ -84,11 +85,7 @@ def smem_resident_ctas(v: int, d: int, index: int) -> int:
         err = fn(v, d, ctypes.addressof(clusters))
     if err != 0:
         raise RuntimeError(f"gather_rows_smem_clusters: CUDA error {err}")
-    if clusters.value < 1:
-        raise RuntimeError(f"no cluster of {SMEM_CLUSTER} CTAs of the "
-                           f"shared-memory gather fits on cuda:{index} for "
-                           f"a ({v}, {d}) table")
-    return clusters.value * SMEM_CLUSTER
+    return max(clusters.value, 0) * SMEM_CLUSTER
 
 
 def _checked(table: torch.Tensor, idx: torch.Tensor):
@@ -117,7 +114,8 @@ def gather_rows_global(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 
 def gather_rows_smem(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """Batched gather with each pattern's table staged in shared memory:
-    (B, V, D), (B, N) -> (B, N, D).  Raises if a table exceeds 227 KB."""
+    (B, V, D), (B, N) -> (B, N, D).  Raises if a table exceeds 227 KB, and
+    on a card where no cluster of its CTAs fits."""
     dev = _checked(table, idx)
     bsz, v, d = table.shape
     if v * d * 4 > SMEM_TABLE_BYTES:
@@ -126,10 +124,14 @@ def gather_rows_smem(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     if dev.type == "cpu":
         return gather_rows_ref(table, idx)
     n = idx.shape[1]
+    resident = smem_resident_ctas(v, d, dev.index)
+    if resident < 1:
+        raise RuntimeError(f"no cluster of {SMEM_CLUSTER} CTAs of the "
+                           f"shared-memory gather fits on {dev} for a "
+                           f"({v}, {d}) table")
     out = torch.empty((bsz, n, d), dtype=table.dtype, device=dev)
     if out.numel():
-        lanes = smem_lanes_per_cta(bsz, n, v,
-                                   smem_resident_ctas(v, d, dev.index))
+        lanes = smem_lanes_per_cta(bsz, n, v, resident)
         _build.launch("gather_rows_smem", dev, "gather_rows",
                       "gather_rows_smem_f32", table.data_ptr(),
                       idx.data_ptr(), out.data_ptr(), bsz, n, v, d, lanes)
@@ -138,8 +140,13 @@ def gather_rows_smem(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 
 def gather_rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """Batched gather, (B, V, D), (B, N) -> (B, N, D), in the regime
-    ``use_smem`` picks: one kernel launch for the whole batch."""
+    ``use_smem`` picks: one kernel launch for the whole batch.  On a card
+    where no cluster of the smem kernel fits (``smem_resident_ctas`` is 0),
+    its buckets take ``gather_rows_global``, exact as well, and count as
+    ``gather_rows`` launches: a route chosen before launching."""
     _, v, d = table.shape
     if use_smem(v, idx.shape[-1], d):
-        return gather_rows_smem(table, idx)
+        dev = _checked(table, idx)
+        if dev.type == "cpu" or smem_resident_ctas(v, d, dev.index) > 0:
+            return gather_rows_smem(table, idx)
     return gather_rows_global(table, idx)

@@ -11,9 +11,12 @@ The head size (64 or 128) and the query heads per KV head (1, 2, 4, 8 or
 On CPU tensors the wrapper runs the plain version (``ref``); on CUDA
 tensors it launches the kernel or raises.  q and the pages are all float32
 or all bfloat16; the table and lengths are int32; everything is
-contiguous.  Lengths lie in [1, pages_per_seq * page] and table entries in
-[0, P): the plain version raises on an entry outside, the kernel clamps it
-(it is not checked on the card, which would cost a synchronisation).
+contiguous.  Lengths lie in [0, pages_per_seq * page]: a row of length 0
+gets the reference's answer, the mean of V over all pages_per_seq * page
+positions of its pages (every score masked to -1e30, so uniform weights).
+Table entries lie in [0, P): the plain version raises on an entry outside,
+the kernel clamps it (it is not checked on the card, which would cost a
+synchronisation).
 """
 from __future__ import annotations
 

@@ -2,6 +2,16 @@
 import torch
 
 
+def in_range(idx: torch.Tensor, v: int) -> torch.Tensor:
+    """Which int32 indices name a row of a table of ``v`` rows: [0, v).
+    Past INT32_MAX rows every index >= 0 does (``idx < v`` would compare
+    with a ``v`` that no int32 holds)."""
+    ok = idx >= 0
+    if v <= torch.iinfo(torch.int32).max:
+        ok &= idx < v
+    return ok
+
+
 def _rows(idx: torch.Tensor, v: int, sel: torch.Tensor) -> torch.Tensor:
     """Flat (B*V)-row numbers of the selected lanes."""
     base = torch.arange(idx.shape[0], device=idx.device,
@@ -19,7 +29,7 @@ def scatter_store_rows_ref_(dst: torch.Tensor, idx: torch.Tensor,
     dst (B, V, D), idx (B, N) int32, keep (B, N) bool, vals (B, N, D).
     """
     bsz, v, d = dst.shape
-    sel = keep & (idx >= 0) & (idx < v)
+    sel = keep & in_range(idx, v)
     dst.view(bsz * v, d)[_rows(idx, v, sel)] = vals[sel]
     return dst
 
@@ -31,7 +41,7 @@ def scatter_add_rows_ref_(dst: torch.Tensor, idx: torch.Tensor,
     dst (B, V, D), idx (B, N) int32, vals (B, N, D).
     """
     bsz, v, d = dst.shape
-    sel = (idx >= 0) & (idx < v)
+    sel = in_range(idx, v)
     dst.view(bsz * v, d).index_add_(0, _rows(idx, v, sel), vals[sel])
     return dst
 
@@ -49,7 +59,7 @@ def add_error_bound(idx: torch.Tensor, vals: torch.Tensor,
     (B, V, D) tensor; rows nothing is added to get 0.
     """
     bsz, n, d = vals.shape
-    sel = (idx >= 0) & (idx < v)
+    sel = in_range(idx, v)
     rows = _rows(idx, v, sel)
     absum = torch.zeros(bsz * v, d, dtype=torch.float64, device=vals.device)
     absum.index_add_(0, rows, vals[sel].abs().to(torch.float64))

@@ -116,14 +116,49 @@ def test_flash_wrapper_rejects_what_the_kernel_does_not_take():
         flash_attention(q, k.transpose(2, 3).contiguous().transpose(2, 3), v)
     with pytest.raises(ValueError, match="no keys"):
         flash_attention(q, k[:, :, :0], v[:, :, :0])
-    with pytest.raises(ValueError, match="no key"):
-        flash_attention(torch.zeros(1, 2, 4, 20, 64), k, v, window=4)
+    # a window that leaves rows 8 + 4 - 1 = 11.. no key: the reference's
+    # uniform mean of v over all keys, not an error
+    vr = torch.arange(2 * 8 * 64, dtype=torch.float32).reshape(1, 2, 8, 64)
+    got = flash_attention(torch.zeros(1, 2, 4, 20, 64), k, vr, window=4)
+    assert torch.equal(got[:, :, :, 11:],
+                       vr.mean(2)[:, :, None, None].expand(1, 2, 4, 9, 64))
     # the kernel's templates: on CUDA tensors these raise before launching
     for dh, g in ((16, 4), (96, 4), (64, 65)):
         with pytest.raises(ValueError):
             flash_ops.check_kernel_shape(dh, g)
     for dh in flash_ops.HEAD_DIMS:
         flash_ops.check_kernel_shape(dh, 4)
+
+
+# (B, KVH, G, S, T, dh, causal, window, softcap) with S >= T + window:
+# rows T + window - 1 .. S - 1 see no key
+NO_KEY_CASES = [
+    (1, 2, 2, 40, 16, 16, True, 8, 0.0),
+    (2, 1, 4, 33, 20, 16, False, 4, 0.0),
+    (1, 2, 1, 64, 3, 32, True, 1, 50.0),
+    (1, 1, 2, 70, 24, 16, False, 16, 50.0),
+]
+
+
+@pytest.mark.parametrize("b,kvh,g,s,t,dh,causal,window,cap", NO_KEY_CASES)
+def test_flash_rows_with_no_key_equal_jax_oracle(b, kvh, g, s, t, dh, causal,
+                                                 window, cap):
+    # every score of such a row is masked to -1e30 (after the softcap), so
+    # its weights are uniform: the mean of v over all T keys
+    rng = np.random.default_rng(7)
+    q = rng.standard_normal((b, kvh, g, s, dh)).astype(np.float32)
+    k = rng.standard_normal((b, kvh, t, dh)).astype(np.float32)
+    v = rng.standard_normal((b, kvh, t, dh)).astype(np.float32)
+    kw = dict(causal=causal, window=window, softcap=cap)
+    want = np.asarray(j_flash_ref(*map(jnp.asarray, (q, k, v)),
+                                  scale=1 / dh ** 0.5, **kw))
+    got = flash_attention(_t(q), _t(k), _t(v), **kw).numpy()
+    np.testing.assert_allclose(got, want, **F32_TOL)
+    empty = slice(t + window - 1, None)
+    np.testing.assert_allclose(
+        got[:, :, :, empty],
+        np.broadcast_to(v.mean(2)[:, :, None, None], got[:, :, :, empty].shape),
+        **F32_TOL)
 
 
 def test_flash_bfloat16_rounds_once():
@@ -164,6 +199,20 @@ def test_paged_plain_equals_jax_kernel_and_oracle(b, kvh, g, dh, pages, page,
         for w in want:
             np.testing.assert_allclose(got.numpy(), np.asarray(w), **F32_TOL)
     assert launches["paged_decode"] == before
+
+
+def test_paged_length_zero_equals_jax_oracle():
+    # every score masked to -1e30: uniform weights over all pps * page
+    # positions of the row's pages (rows of length 0 beside others)
+    ins = list(_paged_inputs(3, 2, 4, 16, 12, 8, 3, seed=2))
+    ins[4] = np.array([0, 24, 0], dtype=np.int32)
+    want = np.asarray(j_paged_ref(*map(jnp.asarray, ins), scale=0.25))
+    got = paged_decode_attention(*map(_t, ins)).numpy()
+    np.testing.assert_allclose(got, want, **F32_TOL)
+    _, kp, vp, pt, _ = ins
+    rows = vp[:, pt[0]].reshape(2, -1, 16)          # (KVH, pps * page, dh)
+    np.testing.assert_allclose(
+        got[0], np.broadcast_to(rows.mean(1)[:, None], (2, 4, 16)), **F32_TOL)
 
 
 def test_paged_wrapper_rejects_what_the_kernel_does_not_take():

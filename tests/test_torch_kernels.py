@@ -20,7 +20,8 @@ from repro_torch.kernels import _build, launches
 from repro_torch.kernels.gather_rows import ops as gather_ops
 from repro_torch.kernels.gather_rows.ref import gather_rows_ref
 from repro_torch.kernels.scatter_rows import ops as scatter_ops
-from repro_torch.kernels.scatter_rows.ref import (add_error_bound,
+from repro_torch.kernels.scatter_rows import ref as scatter_ref
+from repro_torch.kernels.scatter_rows.ref import (add_error_bound, in_range,
                                                   scatter_add_rows_ref_,
                                                   scatter_store_rows_ref_)
 
@@ -190,7 +191,10 @@ def test_smem_grid_is_whole_clusters(bsz, n, v, resident, ctas):
 
 
 @pytest.mark.parametrize("clusters,err,raises", [
-    (15, 0, None), (1, 0, None), (0, 0, "no cluster"),
+    (15, 0, None), (1, 0, None),
+    # no cluster fits: the answer is 0 (gather_rows then routes the bucket
+    # to the global kernel), kept like any other
+    pytest.param(0, 0, None, id="0-0-no cluster"),
     (15, 2, "CUDA error 2")])
 def test_smem_resident_ctas_asks_once_per_card_and_shape(
         monkeypatch, clusters, err, raises):
@@ -239,6 +243,77 @@ def test_plain_gather_past_int32_rows():
     idx = torch.tensor([[INT32_MAX, 0, -1, INT32_MAX - 1]], dtype=torch.int32)
     got = gather_rows_ref(table, idx)
     assert got.flatten().tolist() == [7.0, 7.0, 0.0, 7.0]
+
+
+def test_plain_store_past_int32_rows():
+    # dst of 2^31 + 16 rows, all one float (a stride-0 view: no memory);
+    # index_put_ takes it (with a warning), so the one kept in-range lane at
+    # INT32_MAX lands there: it must not be dropped by a range test that
+    # compares int32 indices with a V no int32 holds
+    v = 2 ** 31 + 16
+    base = torch.zeros(1)
+    dst = base.view(1, 1, 1).expand(1, v, 1)
+    idx = torch.tensor([[INT32_MAX, 0, -1, INT32_MAX - 1]], dtype=torch.int32)
+    keep = torch.tensor([[True, False, True, False]])
+    vals = torch.tensor([[[5.0], [9.0], [7.0], [8.0]]])
+    with pytest.warns(UserWarning):
+        scatter_store_rows_ref_(dst, idx, keep, vals)
+    assert base.item() == 5.0
+
+
+@pytest.mark.parametrize("v,want", [
+    (2 ** 31 + 16, [True, True, False, True, True]),
+    (2 ** 31 - 1, [False, True, False, True, True]),
+    (7, [False, True, False, False, True])])
+def test_in_range_past_int32_rows(v, want):
+    idx = torch.tensor([INT32_MAX, 0, -1, INT32_MAX - 1, 6],
+                       dtype=torch.int32)
+    assert in_range(idx, v).tolist() == want
+
+
+def test_scatters_and_add_bound_select_lanes_by_in_range(monkeypatch):
+    # index_add_ refuses a stride-0 dst, and add_error_bound's (B * V, D)
+    # float64 sums past 2^31 rows would take 16 GB: the add and its bound
+    # are held to the shared range test instead
+    seen = []
+
+    def spy(idx, v):
+        seen.append(v)
+        return in_range(idx, v)
+    monkeypatch.setattr(scatter_ref, "in_range", spy)
+    _, idx, vals = _inputs(2, 40, 3, 50)
+    idx[0, :3] = [INT32_MAX, -1, 40]
+    dst, idx, vals = (torch.zeros(2, 40, 3), torch.from_numpy(idx),
+                      torch.from_numpy(vals))
+    keep = torch.ones(2, 50, dtype=torch.bool)
+    scatter_store_rows_ref_(dst.clone(), idx, keep, vals)
+    scatter_add_rows_ref_(dst.clone(), idx, vals)
+    add_error_bound(idx, vals, 40)
+    assert seen == [40, 40, 40]
+
+
+def test_gather_rows_routes_to_global_where_no_cluster_fits(monkeypatch):
+    # a card that fits no cluster of 8: gather_rows sends a smem-regime
+    # bucket to gather_rows_global (counted as a gather_rows launch) and
+    # never to the plain version; gather_rows_smem itself still raises
+    calls = []
+    monkeypatch.setattr(gather_ops, "_checked",
+                        lambda table, idx: torch.device("cuda", 0))
+    monkeypatch.setattr(gather_ops, "smem_resident_ctas",
+                        lambda v, d, index: calls.append((v, d, index)) or 0)
+    monkeypatch.setattr(gather_ops, "gather_rows_ref", None)
+    table = torch.zeros(1, 300, 1)
+    idx = torch.zeros(1, 1000, dtype=torch.int32)
+    assert gather_ops.use_smem(300, 1000, 1)
+    routed = []
+    monkeypatch.setattr(gather_ops, "gather_rows_global",
+                        lambda t, i: routed.append("global") or "out")
+    assert gather_ops.gather_rows(table, idx) == "out"
+    assert routed == ["global"] and calls == [(300, 1, 0)]
+    before = dict(launches)
+    with pytest.raises(RuntimeError, match="no cluster"):
+        gather_ops.gather_rows_smem(table, idx)
+    assert launches == before
 
 
 class _FakeLib:
