@@ -34,7 +34,10 @@ only.  Phases:
      that a window leaves no key (S >= T + window); paged decode over page
      in {8, 16}, six (KVH, G), dh in {64, 128}, both dtypes, a permuted
      table and one with repeats, lengths 1, full and ragged, then rows of
-     length 0; both within ``attn_tolerance`` (flash in bf16 with 2^-8
+     length 0, then the split of each row's pages (``paged_split_cases``:
+     lengths at a split's end, one past it and in the first page of 130, a
+     shape where B x KVH fills the card, calls back to back and on two
+     streams); both within ``attn_tolerance`` (flash in bf16 with 2^-8
      more for its rounded weights);
   2. the paper's CLI invocation ``-k Gather -p UNIFORM:8:1 -d 8 -l 2^24``
      through the port's CLI, as a gather, a store and an add scatter, on
@@ -52,7 +55,8 @@ only.  Phases:
      (2^25 lanes onto 16 rows), and the selective scan at the serving
      shape (4, 2048, 8192, 16, bfloat16; device time too), flash attention
      at the llama3-8b prefill shape and paged decode at its decode shape
-     (``FLASH_SHAPE``, ``PAGED_SHAPE``, bfloat16);
+     (``FLASH_SHAPE``, ``PAGED_SHAPE``, bfloat16; paged decode with its
+     split count, CTAs and host time a call);
   5. serve falcon-mamba-7b at its published width and depth (64 layers,
      bfloat16, random weights from a seed) through
      ``repro_torch.launch.serve.main``: 4 prompts of 2048 tokens, 32 greedy
@@ -772,13 +776,16 @@ def _paged_inputs(torch, gen, bsz, kvh, g, dh, page, pps, dtype, repeats,
             torch.tensor(lengths, dtype=torch.int32, device="cuda"))
 
 
-def check_paged(torch, ins, where):
+def check_paged(torch, ins, where, got=None):
+    """The kernel's output on ``ins`` (``got``, or a call made here) against
+    the plain version's; returns max |err|."""
     from repro_torch.kernels.paged_decode.ops import paged_decode_attention
     from repro_torch.kernels.paged_decode.ref import (
         paged_decode_attention_ref)
     q, kp, vp, table, lengths = ins
     scale = q.shape[-1] ** -0.5
-    got = paged_decode_attention(*ins)
+    if got is None:
+        got = paged_decode_attention(*ins)
     q32, k32, v32 = q.float(), kp.float(), vp.float()
     plain = paged_decode_attention_ref(q32, k32, v32, table, lengths,
                                        scale=scale)
@@ -830,10 +837,82 @@ def paged_cases(torch):
                  f"pps={pps} {dtype} lengths={lengths}")
         err = max(err, check_paged(torch, ins, where))
         n_cases += 1
-    print(f"phase 1: {n_cases} paged_decode cases within attn_tolerance of "
-          f"their plain versions; max |err| {err} "
+    split_err, n_split = paged_split_cases(torch)
+    err, n_cases = max(err, split_err), n_cases + n_split
+    print(f"phase 1: {n_cases} paged_decode cases ({n_split} for the split) "
+          f"within attn_tolerance of their plain versions; max |err| {err} "
           f"({time.perf_counter() - t0:.1f} s)", flush=True)
     return err
+
+
+def paged_split_cases(torch):
+    """Phase 1's cases for the split of each row's pages over CTAs and
+    their merge in the same launch (``ops.paged_splits``): rows of 130
+    pages whose lengths end on a split's last position, one past it, and
+    in the first page (most splits empty); a shape where B x KVH fills the
+    card (one split); calls back to back on one stream with other lengths
+    and another B (a counter left non-zero would spoil the next call); and
+    calls on two streams at once (each has its own workspace and
+    counters).  Returns (max |err|, cases)."""
+    from repro_torch.kernels.paged_decode import ops
+    from repro_torch.kernels.paged_decode.ref import split_pages
+    paged = ops.paged_decode_attention
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    bf16, err, n = torch.bfloat16, 0.0, 0
+    for i, ((kvh, g), dh, dtype) in enumerate(itertools.product(
+            ((8, 4), (2, 16), (1, 1)), (64, 128), (torch.float32, bf16))):
+        bsz, page, pps = 4, 16, 130
+        s = ops.paged_splits(bsz, kvh, pps, sms)
+        check(s > 2, f"paged_splits({bsz}, {kvh}, {pps}, {sms}) = {s}")
+        ranges = split_pages(pps, s)
+        lengths = [ranges[i % (s - 1)][1] * page,          # a split's end
+                   ranges[(i + s // 2) % (s - 1)][1] * page + 1,  # one past
+                   1 + (7 * i) % page,                     # the first page
+                   0 if i % 2 else pps * page]
+        ins = _paged_inputs(torch, gen, bsz, kvh, g, dh, page, pps, dtype,
+                            bool(i % 2), lengths)
+        err = max(err, check_paged(torch, ins, (
+            f"paged_decode split KVH={kvh} G={g} dh={dh} {dtype} {s} "
+            f"splits lengths={lengths}")))
+        n += 1
+    # B x KVH alone fills the card: one split, no workspace
+    kvh = 8
+    bsz = -(-ops.CTAS_PER_SM * sms // kvh)
+    check(ops.paged_splits(bsz, kvh, 9, sms) == 1,
+          f"B={bsz} KVH={kvh}: more than one split")
+    for dtype in (torch.float32, bf16):
+        lengths = [(13 * b) % 145 for b in range(bsz)]
+        ins = _paged_inputs(torch, gen, bsz, kvh, 4, 128, 16, 9, dtype, True,
+                            lengths)
+        err = max(err, check_paged(torch, ins, (
+            f"paged_decode one split B={bsz} KVH={kvh} {dtype}")))
+        n += 1
+    # back to back on one stream, no synchronisation between the calls
+    a = _paged_inputs(torch, gen, 4, 8, 4, 128, 16, 130, bf16, False,
+                      [2080, 1000, 17, 0])
+    b = a[:4] + (torch.tensor([5, 2080, 1600, 300], dtype=torch.int32,
+                              device="cuda"),)
+    c = _paged_inputs(torch, gen, 9, 8, 4, 128, 16, 130, bf16, True,
+                      [33 * j for j in range(9)])
+    calls = [(a, "A"), (b, "B"), (c, "C (B=9)"), (a, "A again")]
+    outs = [paged(*ins) for ins, _ in calls]
+    # two streams at once: each call on its own stream's workspace
+    main, side = torch.cuda.current_stream(), torch.cuda.Stream()
+    side.wait_stream(main)
+    outs.append(paged(*a))
+    calls.append((a, "A on the current stream beside B on a side stream"))
+    with torch.cuda.stream(side):
+        outs.append(paged(*b))
+    calls.append((b, "B on a side stream"))
+    main.wait_stream(side)
+    for got, (ins, name) in zip(outs, calls):
+        err = max(err, check_paged(torch, ins,
+                                   f"paged_decode back to back: {name}", got))
+        n += 1
+    keys = [k for k in ops._WORKSPACES if k[0] == 0]
+    check(len(keys) >= 2, f"one workspace for two streams: {keys}")
+    return err, n
 
 
 def _launches():
@@ -1354,9 +1433,6 @@ def attention_times(torch, err):
     ms, plain ms, the library call and the bound.  Returns their rows."""
     from repro_torch.kernels.flash_attention.ops import flash_attention
     from repro_torch.kernels.flash_attention.ref import flash_attention_ref
-    from repro_torch.kernels.paged_decode.ops import paged_decode_attention
-    from repro_torch.kernels.paged_decode.ref import (
-        paged_decode_attention_ref)
     sdpa = torch.nn.functional.scaled_dot_product_attention
     gen = torch.Generator(device="cuda").manual_seed(5)
     rows = {}
@@ -1385,6 +1461,17 @@ def attention_times(torch, err):
     del q, k, v, qh
     torch.cuda.empty_cache()
 
+    rows["paged_decode"] = paged_time(torch, err, gen)
+    return rows
+
+
+def paged_time(torch, err, gen):
+    """Paged decode at ``PAGED_SHAPE`` in bfloat16: ms and device_ms (two
+    turns), plain ms and the bound, with the split count, the CTAs and the
+    wrapper's host time a call (ms - device_ms)."""
+    from repro_torch.kernels.paged_decode import ops
+    from repro_torch.kernels.paged_decode.ref import (
+        paged_decode_attention_ref)
     bsz, kvh, g, dh, page, pps, length = PAGED_SHAPE
     ins = _paged_inputs(torch, gen, bsz, kvh, g, dh, page, pps,
                         torch.bfloat16, False, [length] * bsz)
@@ -1395,9 +1482,9 @@ def attention_times(torch, err):
               + bsz * pps * 4 + bsz * 4)
     flops = 2 * 2 * bsz * kvh * g * length * dh
     turns = _turn_times(torch, {
-        "kernel": lambda: paged_decode_attention(*ins)}, 50, "paged_decode",
-        "paged_decode")
-    rows["paged_decode"] = _bound_row(
+        "kernel": lambda: ops.paged_decode_attention(*ins)}, 50,
+        "paged_decode", "paged_decode")
+    row = _bound_row(
         ms=turns["ms"],
         plain_ms=_time_ms(torch, lambda: paged_decode_attention_ref(
             *ins, scale=dh ** -0.5), 10),
@@ -1405,9 +1492,39 @@ def attention_times(torch, err):
         shape=list(PAGED_SHAPE) + ["bfloat16"],
         library="none: no PyTorch call attends through a page table",
         turns=turns)
+    # a tree without the split rule runs one CTA per (row, KV head)
+    splits = (ops.paged_splits(bsz, kvh, pps, torch.cuda.get_device_properties(
+        0).multi_processor_count) if hasattr(ops, "paged_splits") else 1)
+    # the wrapper's host path alone: calls queued back to back, host clock
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(50):
+        ops.paged_decode_attention(*ins)
+    enqueue_us = (time.perf_counter() - t0) / 50 * 1e6
+    torch.cuda.synchronize()
+    row.update(splits=splits, ctas=splits * bsz * kvh,
+               host_ms=row["ms"] - row["device_ms"], enqueue_us=enqueue_us,
+               device_bound_share=row["bound_ms"] / row["device_ms"])
+    print(f"  paged_decode: {splits} splits a row, {row['ctas']} CTAs; "
+          f"device_ms {row['device_ms']:.4f} "
+          f"({100 * row['device_bound_share']:.1f}% of the bound); ms - "
+          f"device_ms {1e3 * row['host_ms']:.2f} us; host path "
+          f"{enqueue_us:.2f} us a call", flush=True)
     del ins
     torch.cuda.empty_cache()
-    return rows
+    return row
+
+
+def decode_times(torch):
+    """Not run by ``main``: ``paged_time`` as one JSON line, for comparing
+    two trees in one call as ``store_scan_times`` does: import the other
+    tree's ``repro_torch`` first (``sys.path``), and this script times it."""
+    import repro_torch
+    err = {k: 0.0 for k in KERNEL_INFO}
+    row = paged_time(torch, err, torch.Generator(device="cuda").manual_seed(5))
+    print(json.dumps({"tree": str(Path(repro_torch.__file__).parent),
+                      "paged_decode": row}), flush=True)
+    return row
 
 
 def _bound_row(ms, plain_ms, library_ms, flops, nbytes, shape, library,

@@ -1,7 +1,8 @@
 // Helpers shared by the row-gather and row-scatter kernels (gather_rows.cu,
-// scatter_rows.cu): magic-number division, the range test of a lane's row,
-// and the host's alignment and card queries.  Each source that includes
-// this file compiles its own copy (everything here is internal to it).
+// scatter_rows.cu): magic-number division (paged_decode.cu's page lookup
+// too), the range test of a lane's row, and the host's alignment and card
+// queries.  Each source that includes this file compiles its own copy
+// (everything here is internal to it).
 #pragma once
 
 #include <cuda_runtime.h>

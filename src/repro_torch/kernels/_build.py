@@ -79,9 +79,10 @@ _SIGNATURES = {
         for t in ("f32", "bf16")
     },
     "paged_decode": {
-        # q, k_pages, v_pages, page_table, lengths, out, B, KVH, G, P, page,
-        # pages_per_seq, DH, scale, stream
-        f"paged_decode_{t}": (_P,) * 6 + (_I64,) * 7 + (_F32, _P)
+        # q, k_pages, v_pages, page_table, lengths, out, workspace,
+        # counters, B, KVH, G, P, page, pages_per_seq, DH, splits, scale,
+        # stream
+        f"paged_decode_{t}": (_P,) * 8 + (_I64,) * 8 + (_F32, _P)
         for t in ("f32", "bf16")
     },
 }

@@ -8,6 +8,16 @@ The head size (64 or 128) and the query heads per KV head (1, 2, 4, 8 or
 16) are templates of the kernel: on CUDA tensors others raise
 (``check_kernel_shape``).  The plain version takes any.
 
+The launch splits each row's pages over ``paged_splits`` CTAs and merges
+their partial softmax sums in the same launch: the last CTA of a (row,
+head) to finish merges.  That takes a float32 workspace (the partials) and
+a counter per (row, head), which the wrapper keeps per (device, stream),
+grown when a call needs more and never freed.  The counters are zeroed
+once, when they are allocated, and every launch leaves them zero, so no
+call launches a memset; calls on one stream are ordered, and a call on
+another stream gets that stream's own workspace and counters.  A call
+reads no length and does not synchronise.
+
 On CPU tensors the wrapper runs the plain version (``ref``); on CUDA
 tensors it launches the kernel or raises.  q and the pages are all float32
 or all bfloat16; the table and lengths are int32; everything is
@@ -29,8 +39,13 @@ from .ref import paged_decode_attention_ref
 
 HEAD_DIMS = (64, 128)
 GROUPS = (1, 2, 4, 8, 16)
+CTAS_PER_SM = 3       # csrc/paged_decode.cu kCtasPerSm: CTAs an SM holds
+MAX_SPLITS = 128      # csrc/paged_decode.cu kMaxSplits
 _ENTRY = {torch.float32: "paged_decode_f32",
           torch.bfloat16: "paged_decode_bf16"}
+_SMS: dict[int, int] = {}                  # device index -> SMs
+# (device index, stream handle) -> (float32 workspace, int32 counters)
+_WORKSPACES: dict[tuple[int, int], tuple[torch.Tensor, torch.Tensor]] = {}
 
 
 def check_kernel_shape(dh: int, g: int) -> None:
@@ -42,6 +57,38 @@ def check_kernel_shape(dh: int, g: int) -> None:
     if g not in GROUPS:
         raise ValueError(f"{g} query heads per KV head not supported; the "
                          f"kernel takes G in {GROUPS}")
+
+
+def paged_splits(bsz: int, kvh: int, pps: int, sms: int) -> int:
+    """Splits of each row's pages: as many as keep ``CTAS_PER_SM`` CTAs on
+    each of ``sms`` SMs in one wave, between 1 and ``pps`` (and at most
+    ``MAX_SPLITS``); 1 once B x KVH alone fills the card."""
+    return max(1, min(pps, MAX_SPLITS, CTAS_PER_SM * sms // (bsz * kvh)))
+
+
+def _sm_count(index: int) -> int:
+    sms = _SMS.get(index)
+    if sms is None:
+        sms = _SMS[index] = torch.cuda.get_device_properties(
+            index).multi_processor_count
+    return sms
+
+
+def _workspace(index: int, floats: int, rows: int) -> tuple[int, int]:
+    """Pointers to the workspace (``floats`` float32) and counters
+    (``rows`` int32 zeros) of device ``index``'s current stream, allocated
+    (on that stream) the first time or when a call needs more."""
+    key = (index, _build.current_stream(index))
+    ws = _WORKSPACES.get(key)
+    if ws is None or ws[0].numel() < floats or ws[1].numel() < rows:
+        if ws is not None:
+            floats, rows = max(floats, ws[0].numel()), max(rows,
+                                                           ws[1].numel())
+        dev = torch.device("cuda", index)
+        ws = _WORKSPACES[key] = (
+            torch.empty(floats, dtype=torch.float32, device=dev),
+            torch.zeros(rows, dtype=torch.int32, device=dev))
+    return ws[0].data_ptr(), ws[1].data_ptr()
 
 
 def paged_decode_attention(q, k_pages, v_pages, page_table, lengths, *,
@@ -80,14 +127,22 @@ def paged_decode_attention(q, k_pages, v_pages, page_table, lengths, *,
         return paged_decode_attention_ref(q, k_pages, v_pages, page_table,
                                           lengths, scale=scale)
     check_kernel_shape(dh, g)
+    if pps * page >= 2 ** 31:
+        raise ValueError(f"pages_per_seq * page = {pps * page}: the kernel "
+                         f"takes fewer than 2^31 positions a row")
     for name, t in (("q", q), ("k_pages", k_pages), ("v_pages", v_pages)):
         if t.data_ptr() % 16:            # the kernel reads 16 bytes at a time
             raise ValueError(f"{name}: data not 16-byte aligned")
     out = torch.empty_like(q)
     if bsz * kvh:
+        splits = paged_splits(bsz, kvh, pps, _sm_count(dev.index))
+        ws = cnt = None
+        if splits > 1:
+            ws, cnt = _workspace(dev.index, bsz * kvh * splits * g * (dh + 2),
+                                 bsz * kvh)
         _build.launch("paged_decode", dev, "paged_decode", _ENTRY[q.dtype],
                       q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
                       page_table.data_ptr(), lengths.data_ptr(),
-                      out.data_ptr(), bsz, kvh, g, n_pages, page, pps, dh,
-                      scale)
+                      out.data_ptr(), ws, cnt, bsz, kvh, g, n_pages, page,
+                      pps, dh, splits, scale)
     return out
