@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Drive the port's three paths on one CUDA card and check them: the
-Spatter main path, and falcon-mamba-7b and llama3-8b served at full width.
+"""Drive the port's paths on one CUDA card and check them: the Spatter
+main path, falcon-mamba-7b and llama3-8b served at full width, and the
+Spatter suite daemon.
 
     python3 chip_smoke.py            # from the root of the repository
 
@@ -72,13 +73,29 @@ only.  Phases:
      bfloat16): the prefill must launch flash attention once per layer and
      paged decode never, each decode step paged decode once per layer and
      flash attention never; the prefill's paged cache, gathered through
-     its table, must equal the iterated decode's.
+     its table, must equal the iterated decode's;
+  7. spatterd (``repro_torch.serve``) on the card, on hopper
+     (``daemon_phase``): demo cold then warm (misses 4, then 0), appdb at
+     scale 1.0 in the requests the schema's budget admits (misses summing
+     to its 13 buckets), and the CLI pattern as gather, store and add; the
+     digests must equal phase 3's and a numpy reference, and each
+     kernel's launches the responses' buckets x (1 + runs); the CLI
+     gather's min-of-K time, taken while a second client keeps sending
+     demo, within ``DAEMON_TIME_TOL`` of phase 2's; eight concurrent demo
+     clients, then eight staged behind a paused scheduler (a coalesced
+     launch, summed request misses equal to the cache's); then ``python
+     -m repro_torch.serve.daemon --cache-dir D`` in processes of its own:
+     a cold start (two nvcc runs), a restart (misses 0, disk hits 4, no
+     nvcc run), a restart after one library entry was overwritten (it is
+     quarantined and rebuilt by nvcc, the request answers), and SIGTERM
+     during a request (it answers, the process exits 0).
 
 The launch counts are set to 0 just before phase 2 and read just after
-phase 3, and again just before and after the serve calls of phases 5 and
-6.  Any failed check raises, so the script exits nonzero.  Before the
-last line it prints one ``{"kernels": [...]}`` JSON line; the last line
-is ``{"ok": true, "device": {...}}``.
+phase 3, again just before and after the serve calls of phases 5 and 6,
+and just before and after phase 7's daemon.  Any failed check raises, so
+the script exits nonzero.  Before the last line it prints a
+``{"daemon": {...}}`` and a ``{"kernels": [...]}`` JSON line; the last
+line is ``{"ok": true, "device": {...}}``.
 """
 import gc
 import itertools
@@ -922,12 +939,22 @@ def _launches():
 
 # -- phases 2 and 3: the main path ---------------------------------------------
 
+def _bucket_kernel(spec, mode):
+    """The kernel a hopper bucket launch of ``spec`` runs (phase 3's and
+    phase 7's launch census)."""
+    from repro_torch.kernels.gather_rows.ops import use_smem
+    if spec.kind == "gather":
+        return ("gather_rows_smem"
+                if use_smem(spec.footprint + 1, spec.idx_len, 1)
+                else "gather_rows")
+    return "scatter_add_rows" if mode == "add" else "scatter_store_rows"
+
+
 def main_path(torch):
     """The CLI and the planner on hopper and torch; returns the CLI
     results by (backend, kind, mode) and the per-bucket launch check."""
     from repro_torch import appdb, load_suite, run_suite
     from repro_torch.__main__ import main as cli
-    from repro_torch.kernels.gather_rows.ops import use_smem
 
     cli_results = {}
     for backend in ("hopper", "torch"):
@@ -969,14 +996,7 @@ def main_path(torch):
             if backend == "hopper":
                 want = {k: 0 for k in before}
                 for b in st.plan.buckets:
-                    spec = b.spec
-                    if spec.kind == "gather":
-                        k = ("gather_rows_smem"
-                             if use_smem(spec.footprint + 1, spec.idx_len, 1)
-                             else "gather_rows")
-                    else:
-                        k = "scatter_store_rows"
-                    want[k] += 1 + RUNS          # warm-up + timed runs
+                    want[_bucket_kernel(b.spec, "store")] += 1 + RUNS
                 got = {k: after[k] - before[k] for k in before}
                 check(got == want, f"{name}: launches {got} != {want}")
                 print(f"  launches per kernel {got} "
@@ -1763,6 +1783,399 @@ def profile_serve(torch, argv=SERVE_ARGS, decode_steps=8):
     return out
 
 
+# -- phase 7: spatterd on the card ---------------------------------------------
+
+# the CLI gather's min-of-K time through the daemon, while a second client's
+# demo requests run at the same time, must lie within this share of phase
+# 2's time (fixed before the phase's first run on the card)
+DAEMON_TIME_TOL = 0.10
+CLI_DOC = {"name": "cli", "kernel": "Gather", "pattern": "UNIFORM:8:1",
+           "delta": 8, "count": 2 ** 24}        # CLI_ARGS as a suite entry
+
+
+def _cli_doc(kernel):
+    return dict(CLI_DOC, name=f"cli-{kernel.lower()}", kernel=kernel)
+
+
+def _cli_reference_digests():
+    """sha256 of the CLI pattern's gather, store and add outputs computed
+    in numpy from the same host buffers.  Every lane of UNIFORM:8:1 at
+    delta 8 writes its own row, so the add's output is 0 + value: the
+    store's, except that a value of -0.0 (numpy's float32 normals hold a
+    few exact zeros) adds up to +0.0."""
+    import hashlib
+
+    import numpy as np
+
+    from repro_torch.host import make_host_buffers
+    from repro_torch.pattern import Pattern
+    g = Pattern.from_json(_cli_doc("Gather"))
+    src, idx, _, _ = make_host_buffers(g, 1, seed=0)
+    gather = hashlib.sha256(src[idx].tobytes()).hexdigest()
+    del src
+    sc = Pattern.from_json(_cli_doc("Scatter"))
+    _, idx, vals, keep = make_host_buffers(sc, 1, seed=0)
+    check(bool(keep.all()), "CLI pattern: a row is written twice")
+    dst = np.zeros((sc.footprint(), 1), np.float32)
+    dst[idx] = vals
+    store = hashlib.sha256(dst.tobytes()).hexdigest()
+    dst[:] = 0
+    dst[idx] += vals                   # rows are distinct: one add each
+    add = hashlib.sha256(dst.tobytes()).hexdigest()
+    return {"gather": gather, "store": store, "add": add}
+
+
+def _appdb_requests(pats):
+    """Positions of ``pats`` grouped into requests the schema admits (each
+    under ``MAX_SUITE_LANES``, the reference's budget), in bucket order.
+    A bucket larger than one request is split in runs that start a fresh
+    request, so its first run is its largest and a first pass builds
+    every bucket once."""
+    from repro_torch.plan import SuitePlan
+    from repro_torch.serve.schema import MAX_SUITE_LANES
+
+    def size(i):
+        return max(pats[i].count * pats[i].index_len, pats[i].footprint())
+
+    requests, cur, room = [], [], MAX_SUITE_LANES
+    for b in SuitePlan.build(pats).buckets:
+        total = sum(size(i) for i in b.members)
+        if total > room and cur:
+            requests.append(cur)
+            cur, room = [], MAX_SUITE_LANES
+        for i in b.members:
+            if size(i) > room:
+                requests.append(cur)
+                cur, room = [], MAX_SUITE_LANES
+            cur.append(i)
+            room -= size(i)
+    if cur:
+        requests.append(cur)
+    return requests
+
+
+def _digests_of(resp):
+    return [t["digest"] for t in resp["stats"]["table"]]
+
+
+def _wait_for(pred, what, timeout=300.0):
+    deadline = time.time() + timeout
+    while not pred():
+        check(time.time() < deadline, f"phase 7: {what} never happened")
+        time.sleep(0.01)
+
+
+def _spawn_daemon(cache_dir, log):
+    """``python -m repro_torch.serve.daemon --port 0 --cache-dir D`` in a
+    process of its own; returns it and a client on the port it printed."""
+    import os
+
+    from repro_torch.serve import SpatterClient
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src"),
+           "PYTHONUNBUFFERED": "1"}
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.serve.daemon", "--port", "0",
+         "--cache-dir", str(cache_dir)], cwd=str(ROOT), env=env,
+        stdout=subprocess.PIPE, stderr=log, text=True)
+    line = proc.stdout.readline()
+    if "listening on" not in line:
+        proc.kill()
+        check(False, f"phase 7: the daemon did not start: {line!r}")
+    return proc, SpatterClient(line.split("listening on")[1].split()[0])
+
+
+def _drain(proc):
+    """SIGTERM and wait; the daemon must drain and exit 0."""
+    import signal
+    proc.send_signal(signal.SIGTERM)
+    try:
+        out, _ = proc.communicate(timeout=600)
+    finally:
+        proc.kill()
+    check(proc.returncode == 0 and "drained cleanly" in out,
+          f"phase 7: the daemon exited {proc.returncode}: {out[-2000:]}")
+
+
+def daemon_phase(torch, cli_results, suite_stats):
+    """Phase 7: spatterd on the card through the hand-written kernels.
+
+    In this process: demo cold and warm, appdb at scale 1.0 and the CLI
+    pattern as gather, store and add on hopper, digests held against
+    phase 3's and a numpy reference, each kernel's launches against the
+    buckets the responses report; the CLI gather timed while demo
+    requests run beside it; eight concurrent demo clients, then eight
+    staged behind a paused scheduler.  Then ``python -m
+    repro_torch.serve.daemon --cache-dir D`` in processes of its own: a
+    cold start, a restart with no build and no nvcc run, a restart after
+    one library entry was corrupted, and SIGTERM during a request.
+    Returns the numbers for the records."""
+    import tempfile
+    import threading
+
+    from repro_torch import appdb
+    from repro_torch.kernels import reset_launches
+    from repro_torch.pattern import Pattern
+    from repro_torch.plan import ExecutorCache, SuitePlan
+    from repro_torch.serve import SpatterClient, SpatterDaemon
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    demo = json.loads((ROOT / "suites" / "demo.json").read_text())
+    appdb_pats = appdb.scale_counts(appdb.ALL_PATTERNS, 1.0)
+    want = {name: [r.out_digest for r in st.results]
+            for name, st in suite_stats.items()}
+    t0 = time.perf_counter()
+    cli_ref = _cli_reference_digests()
+    out = {"cli_reference_s": time.perf_counter() - t0}
+    print(f"\nphase 7: spatterd on {torch.cuda.get_device_name(0)} "
+          f"(CLI reference digests in {out['cli_reference_s']:.1f} s)",
+          flush=True)
+
+    reset_launches()
+    expect = {k: 0 for k in _launches()}
+    expect_lock = threading.Lock()
+
+    def account(resp, docs, mode):
+        """Launches an uncoalesced response must have made, by kernel."""
+        plan = SuitePlan.build([Pattern.from_json(d) for d in docs])
+        sv = resp["serve"]
+        check(sv["coalesced_launches"] == 0
+              and sv["launches"] == plan.n_buckets,
+              f"phase 7: {sv} for {plan.n_buckets} buckets")
+        with expect_lock:
+            for b in plan.buckets:
+                expect[_bucket_kernel(b.spec, mode)] += 1 + RUNS
+
+    with SpatterDaemon(port=0, cache=ExecutorCache()) as d:
+        c = SpatterClient(d.url)
+
+        def run(docs, mode="store"):
+            resp = c.run_suite(docs, backend="hopper", runs=RUNS, mode=mode)
+            account(resp, docs, mode)
+            return resp
+
+        r1, r2 = run(demo), run(demo)
+        check(r1["cache"]["misses"] == r1["plan"]["n_buckets"] == 4,
+              f"phase 7: demo cold {r1['cache']}")
+        check(r2["cache"]["misses"] == 0, f"phase 7: demo warm {r2['cache']}")
+        check(_digests_of(r1) == _digests_of(r2) == want["demo"],
+              "phase 7: demo digests differ from phase 3's")
+        out["demo"] = dict(misses_cold=r1["cache"]["misses"],
+                           misses_warm=r2["cache"]["misses"],
+                           elapsed_s_cold=r1["elapsed_s"],
+                           elapsed_s_warm=r2["elapsed_s"])
+
+        t0 = time.perf_counter()
+        got, misses, reqs = [None] * len(appdb_pats), 0, _appdb_requests(
+            appdb_pats)
+        for members in reqs:
+            resp = run([appdb_pats[i].to_json() for i in members])
+            misses += resp["cache"]["misses"]
+            for i, dg in zip(members, _digests_of(resp)):
+                got[i] = dg
+        n_buckets = suite_stats["appdb"].plan.n_buckets
+        check(misses == n_buckets, f"phase 7: appdb built {misses} of "
+                                   f"{n_buckets} buckets")
+        check(got == want["appdb"], "phase 7: appdb digests differ from "
+                                    "phase 3's")
+        out["appdb"] = dict(requests=len(reqs), misses=misses,
+                            n_buckets=n_buckets,
+                            wall_s=time.perf_counter() - t0)
+
+        out["cli"] = {}
+        for kernel, mode in (("Gather", "store"), ("Scatter", "store"),
+                             ("Scatter", "add")):
+            resp = run([_cli_doc(kernel)], mode)
+            row = resp["stats"]["table"][0]
+            ref = cli_ref["gather" if kernel == "Gather" else mode]
+            check(row["digest"] == ref,
+                  f"phase 7: CLI {kernel} {mode} digest differs from numpy")
+            check(resp["cache"]["misses"] == 1, f"phase 7: {resp['cache']}")
+            out["cli"][f"{kernel.lower()}/{mode}"] = dict(
+                time_ms=row["time_s"] * 1e3, gbs=row["measured_gbs"],
+                elapsed_s=resp["elapsed_s"])
+
+        # the CLI gather, warm, while another client keeps sending demo
+        done, side, side_errors = threading.Event(), [], []
+
+        def side_client():
+            sc = SpatterClient(d.url)
+            try:
+                while not done.is_set():
+                    resp = sc.run_suite(demo, backend="hopper", runs=RUNS)
+                    account(resp, demo, "store")
+                    check(_digests_of(resp) == want["demo"],
+                          "phase 7: demo digests changed beside the CLI "
+                          "gather")
+                    side.append(resp["serve"]["lock_wait_ms"])
+            except BaseException as e:         # re-raised below
+                side_errors.append(e)
+                done.set()
+
+        th = threading.Thread(target=side_client)
+        th.start()
+        try:
+            _wait_for(lambda: side or side_errors, "a side demo request")
+            timed = run([_cli_doc("Gather")])
+        finally:
+            done.set()
+            th.join(timeout=600)
+        if side_errors:
+            raise side_errors[0]
+        daemon_ms = timed["stats"]["table"][0]["time_s"] * 1e3
+        phase2_ms = cli_results[("hopper", "gather", "store")].time_s * 1e3
+        ratio = daemon_ms / phase2_ms
+        out["timing"] = dict(daemon_ms=daemon_ms, phase2_ms=phase2_ms,
+                             ratio=ratio, tol=DAEMON_TIME_TOL,
+                             side_requests=len(side),
+                             lock_wait_ms=timed["serve"]["lock_wait_ms"],
+                             side_lock_wait_ms=sum(side))
+        print(f"  CLI gather through the daemon {daemon_ms:.4f} ms, phase 2 "
+              f"{phase2_ms:.4f} ms, ratio {ratio:.4f} (tolerance "
+              f"{DAEMON_TIME_TOL}); {len(side)} demo requests beside it",
+              flush=True)
+        check(abs(ratio - 1) <= DAEMON_TIME_TOL,
+              f"phase 7: CLI gather {daemon_ms:.4f} ms vs phase 2 "
+              f"{phase2_ms:.4f} ms")
+        check(not th.is_alive(), "phase 7: the side client hung")
+
+        # eight concurrent demo clients, then eight staged while paused
+        snap0, cache0 = d.scheduler.snapshot(), d.cache.stats()
+        resps = []
+
+        def client():
+            resps.append(SpatterClient(d.url).run_suite(
+                demo, backend="hopper", runs=RUNS))
+
+        for staged in (False, True):
+            if staged:
+                d.scheduler.pause()
+            threads = [threading.Thread(target=client) for _ in range(8)]
+            for t in threads:
+                t.start()
+            if staged:
+                _wait_for(lambda: d.scheduler.snapshot()["queue_depth"]
+                          == 8 * 4, "a staged queue of 32 items")
+                d.scheduler.resume()
+            for t in threads:
+                t.join(timeout=600)
+        snap1, cache1 = d.scheduler.snapshot(), d.cache.stats()
+        check(len(resps) == 16, "phase 7: a concurrent client failed")
+        coalesced = snap1["coalesced_launches"] - snap0["coalesced_launches"]
+        launches = snap1["total_launches"] - snap0["total_launches"]
+        ticket_misses = sum(r["cache"]["misses"] for r in resps)
+        check(coalesced >= 1, "phase 7: no launch was coalesced")
+        check(ticket_misses == cache1.misses - cache0.misses,
+              f"phase 7: ticket misses {ticket_misses} != cache's "
+              f"{cache1.misses - cache0.misses}")
+        check(all(_digests_of(r) == want["demo"] for r in resps),
+              "phase 7: concurrent demo digests differ from phase 3's")
+        out["concurrency"] = dict(requests=len(resps), launches=launches,
+                                  coalesced_launches=coalesced,
+                                  ticket_misses=ticket_misses,
+                                  cache_misses=cache1.misses - cache0.misses)
+
+    census = _launches()
+    extra = {k: census[k] - expect[k] for k in census}
+    check(all(v >= 0 for v in extra.values())
+          and sum(extra.values()) == (1 + RUNS) * launches
+          and extra["scatter_add_rows"] == 0,
+          f"phase 7: launches {census}, expected {expect} plus "
+          f"{(1 + RUNS) * launches} for the concurrent demo")
+    check(all(census[k] > 0 for k in SPATTER_KERNELS),
+          f"phase 7: a Spatter kernel never launched: {census}")
+    out["launches"] = census
+    print(f"  launches {census} = the responses' buckets x (1 + {RUNS})",
+          flush=True)
+
+    with tempfile.TemporaryDirectory(prefix="spatterd-") as tmp, \
+            open(Path(tmp) / "daemon.log", "w") as log:
+        cache_dir = Path(tmp) / "cache"
+
+        def serve_demo(c):
+            resp = c.run_suite(demo, backend="hopper", runs=RUNS)
+            check(_digests_of(resp) == want["demo"],
+                  "phase 7: the daemon process's demo digests differ")
+            return resp, c.stats()
+
+        t0 = time.perf_counter()
+        proc, c = _spawn_daemon(cache_dir, log)
+        resp, st = serve_demo(c)
+        _drain(proc)
+        check(resp["cache"]["misses"] == 4
+              and st["kernels"]["nvcc_runs"] == 2
+              and st["disk"]["library_stores"] == 2
+              and st["disk"]["stores"] == 4,
+              f"phase 7: cold start {resp['cache']} {st['disk']} "
+              f"{st['kernels']}")
+        out["cold_start"] = dict(misses=resp["cache"]["misses"],
+                                 nvcc_runs=st["kernels"]["nvcc_runs"],
+                                 wall_s=time.perf_counter() - t0)
+
+        t0 = time.perf_counter()
+        proc, c = _spawn_daemon(cache_dir, log)
+        resp, st = serve_demo(c)
+        _drain(proc)
+        life = resp["cache"]["lifetime"]
+        check(resp["cache"]["misses"] == 0 and life["disk_hits"] == 4
+              and st["kernels"]["nvcc_runs"] == 0
+              and st["disk"]["library_loads"] == 2
+              and st["disk"]["quarantined"] == 0,
+              f"phase 7: restart {resp['cache']} {st['disk']} "
+              f"{st['kernels']}")
+        out["restart"] = dict(misses=resp["cache"]["misses"],
+                              disk_hits=life["disk_hits"],
+                              nvcc_runs=st["kernels"]["nvcc_runs"],
+                              wall_s=time.perf_counter() - t0)
+
+        # overwrite bytes in the middle of the gather library's entry
+        lib_entry = None
+        for path in sorted(cache_dir.glob("*.spx")):
+            header = json.loads(path.read_bytes().split(b"\n", 2)[1])
+            if header.get("name") == "gather_rows":
+                lib_entry = path
+        check(lib_entry is not None, "phase 7: no gather_rows entry")
+        raw = bytearray(lib_entry.read_bytes())
+        mid = len(raw) // 2
+        raw[mid:mid + 64] = bytes(b ^ 0xFF for b in raw[mid:mid + 64])
+        lib_entry.write_bytes(bytes(raw))
+        t0 = time.perf_counter()
+        proc, c = _spawn_daemon(cache_dir, log)
+        resp, st = serve_demo(c)
+        disk = st["disk"]
+        check(disk["library_quarantined"] == 1
+              and st["kernels"]["nvcc_runs"] == 1
+              and resp["cache"]["misses"]
+              == disk["quarantined"] - disk["library_quarantined"],
+              f"phase 7: corrupt library {resp['cache']} {disk} "
+              f"{st['kernels']}")
+        out["corrupt_library"] = dict(
+            library_quarantined=disk["library_quarantined"],
+            quarantined=disk["quarantined"],
+            nvcc_runs=st["kernels"]["nvcc_runs"],
+            misses=resp["cache"]["misses"],
+            wall_s=time.perf_counter() - t0)
+
+        # SIGTERM while the CLI gather is in flight: it answers, exit 0
+        got = []
+        th = threading.Thread(target=lambda: got.append(c.run_suite(
+            [_cli_doc("Gather")], backend="hopper", runs=RUNS)))
+        th.start()
+        probe = SpatterClient(c.url)
+        _wait_for(lambda: probe.stats()["scheduler"]["busy"] >= 1,
+                  "the CLI gather in flight")
+        t0 = time.perf_counter()
+        _drain(proc)
+        th.join(timeout=600)
+        check(len(got) == 1 and _digests_of(got[0]) == [cli_ref["gather"]],
+              "phase 7: the request in flight at SIGTERM did not answer")
+        out["drain"] = dict(exit_code=proc.returncode, answered=True,
+                            drain_s=time.perf_counter() - t0)
+    out["wall_s"] = time.perf_counter() - t_phase
+    print(f"phase 7 wall {out['wall_s']:.1f} s", flush=True)
+    return out
+
+
 def main():
     torch = setup()
     build()
@@ -1798,6 +2211,9 @@ def main():
     torch.cuda.empty_cache()
     served_llama, llama_launches = serve_phase(
         torch, LLAMA_ARGS, _dense_launches, LLAMA3_8B_PARAMS)
+    gc.collect()
+    torch.cuda.empty_cache()
+    daemon = daemon_phase(torch, cli_results, suite_stats)
     path_launches = {k: main_launches[k] for k in SPATTER_KERNELS}
     path_launches["selective_scan"] = serve_launches["selective_scan"]
     for k in ("flash_attention", "paged_decode"):
@@ -1831,6 +2247,7 @@ def main():
                       "flash_attention": times["flash_attention"],
                       "paged_decode": times["paged_decode"],
                       "serve": served, "serve_llama": served_llama}))
+    print(json.dumps({"daemon": daemon}))
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -11,6 +11,10 @@ Serving path (falcon-mamba-7b): ``launch.serve`` -> ``models.zoo`` ->
 ``models.transformer`` -> ``models.ssm``, whose prefill runs the Hopper
 selective-scan kernel (``kernels/selective_scan``); configs in ``configs``.
 
+Suite daemon: ``python -m repro_torch.serve.daemon`` (``serve``) runs
+suites over HTTP through the planner, with the disk tier ``diskcache``
+for bucket recipes and the nvcc-built kernels.
+
 Public names load lazily, so importing the package imports no submodule
 and builds nothing; the kernels are compiled at their first launch.  The
 package never imports ``jax`` or ``repro``.
@@ -33,8 +37,9 @@ _EXPORTS = {
     "stream_reference": "suite", "aggregate_stats": "suite",
     "harmonic_mean": "suite", "pearson_r": "suite", "SuiteStats": "suite",
 }
-_SUBMODULES = ("appdb", "backends", "bandwidth", "configs", "engine", "host",
-               "kernels", "launch", "models", "pattern", "plan", "suite")
+_SUBMODULES = ("appdb", "backends", "bandwidth", "configs", "diskcache",
+               "engine", "host", "kernels", "launch", "models", "pattern",
+               "plan", "serve", "suite")
 
 __all__ = sorted(_EXPORTS) + list(_SUBMODULES)
 

@@ -7,15 +7,23 @@ use, on the machine with the card, into its own shared library::
          -Xcompiler -fPIC -Xptxas -v -o _build/<name>-<hash>.so csrc/<name>.cu
 
 then loaded with ``ctypes`` (every pointer and the stream as ``c_void_p``).
-The library's name carries a hash of its source, of the shared headers
-(``csrc/*.cuh``) and of the flags, so a stale library is never loaded;
-``build_all`` starts one ``nvcc`` per source, all at once.  The output
-directory, ``src/repro_torch/_build/``, is listed in ``.gitignore``.
-Nothing here runs at import time.
+A library's identity (``lib_identity``) is a hash of its source, of the
+shared headers (``csrc/*.cuh``), of the flags, of nvcc's version and of
+the card's compute capability, and its file name carries that hash, so a
+stale library is never loaded; ``build_all`` starts one ``nvcc`` per
+source, all at once.  The output directory, ``src/repro_torch/_build/``,
+is listed in ``.gitignore``.  Nothing here runs at import time.
+
+A disk tier (``library(name, tier=...)``, ``repro_torch.diskcache``)
+takes the place of ``_build/``: the library is loaded from the tier's
+verified entry, or built by nvcc and then stored there, so a corrupt or
+torn file is quarantined and rebuilt instead of failing at
+``ctypes.CDLL``.  ``nvcc_runs`` counts the nvcc processes started.
 
 ``launches`` counts kernel launches by kernel name: each wrapper adds one
 where it launches its kernel, and nowhere else, so a caller can show that
 a run went through the kernels (``reset_launches`` sets every count to 0).
+Worker threads launch at once, so every count moves under one lock.
 """
 from __future__ import annotations
 
@@ -39,10 +47,14 @@ KERNELS = ("gather_rows", "gather_rows_smem", "scatter_store_rows",
            "scatter_add_rows", "selective_scan", "flash_attention",
            "paged_decode")
 launches: dict[str, int] = {k: 0 for k in KERNELS}
+nvcc_runs = 0                    # nvcc processes started by this process
 
 _libs: dict[str, ctypes.CDLL] = {}
+_loaded: dict[str, tuple[Path, str]] = {}   # library -> (file, its sha256)
 _fns: dict[tuple[str, str], ctypes._CFuncPtr] = {}   # (library, function)
-_lock = threading.Lock()
+_lock = threading.Lock()         # loads and builds of libraries
+_count_lock = threading.Lock()   # launches and nvcc_runs
+_toolchain: dict[str, str] = {}  # memo of nvcc_version / capability
 
 _P = ctypes.c_void_p
 _I64 = ctypes.c_int64
@@ -89,8 +101,9 @@ _SIGNATURES = {
 
 
 def reset_launches() -> None:
-    for k in launches:
-        launches[k] = 0
+    with _count_lock:
+        for k in launches:
+            launches[k] = 0
 
 
 def nvcc_path() -> str:
@@ -105,34 +118,59 @@ def nvcc_path() -> str:
                        "machine with the CUDA toolkit (PATH or CUDA_HOME)")
 
 
-def _lib_path(name: str) -> Path:
+def nvcc_version() -> str:
+    """The last line of ``nvcc --version`` (its release and build), asked
+    once a process."""
+    if "nvcc" not in _toolchain:
+        out = subprocess.run([nvcc_path(), "--version"], capture_output=True,
+                             text=True, timeout=120, check=True).stdout
+        _toolchain["nvcc"] = out.strip().splitlines()[-1]
+    return _toolchain["nvcc"]
+
+
+def capability() -> str:
+    """The current card's compute capability, as ``"9.0"``."""
+    if "capability" not in _toolchain:
+        import torch
+        major, minor = torch.cuda.get_device_capability()
+        _toolchain["capability"] = f"{major}.{minor}"
+    return _toolchain["capability"]
+
+
+def lib_identity(name: str) -> str:
+    """sha256 of everything a library's binary depends on: its source,
+    the shared headers it includes, the flags, nvcc's version and the
+    card's compute capability."""
     h = hashlib.sha256()
     h.update((CSRC_DIR / f"{name}.cu").read_bytes())
     for header in sorted(CSRC_DIR.glob("*.cuh")):    # what sources include
         h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
-    return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
+    h.update(f"\nnvcc {nvcc_version()}\nsm {capability()}".encode())
+    return h.hexdigest()
 
 
-def build_all() -> dict[str, str]:
-    """Compile every stale source, one ``nvcc`` per source in parallel.
+def _lib_path(name: str) -> Path:
+    return BUILD_DIR / f"{name}-{lib_identity(name)[:16]}.so"
 
-    Returns ``{name: ptxas report}`` for the sources it compiled (empty
-    when every library was already built).  Raises on a failed compile.
+
+def _compile(jobs: dict[str, Path]) -> dict[str, str]:
+    """Compile ``csrc/<name>.cu`` to each ``{name: output path}``, one
+    ``nvcc`` per source, all at once; each output appears atomically.
+
+    Returns ``{name: ptxas report}``; raises on a failed compile.
     """
-    todo = [n for n in SOURCES if not _lib_path(n).exists()]
-    if not todo:
-        return {}
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    global nvcc_runs
     nvcc = nvcc_path()
     procs = {}
-    for name in todo:
-        out = _lib_path(name)
-        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    for name, out in jobs.items():
+        tmp = out.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
         cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC_DIR / f"{name}.cu")]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                         stderr=subprocess.STDOUT, text=True),
                        tmp, out)
+        with _count_lock:
+            nvcc_runs += 1
     reports, failed = {}, []
     for name, (proc, tmp, out) in procs.items():
         log, _ = proc.communicate()
@@ -147,22 +185,78 @@ def build_all() -> dict[str, str]:
     return reports
 
 
-def library(name: str) -> ctypes.CDLL:
-    """The loaded library for ``csrc/<name>.cu``, built on first use."""
+def build_all() -> dict[str, str]:
+    """Compile every stale source into ``_build/``, one ``nvcc`` per
+    source in parallel.
+
+    Returns ``{name: ptxas report}`` for the sources it compiled (empty
+    when every library was already built).  Raises on a failed compile.
+    """
+    todo = {n: _lib_path(n) for n in SOURCES if not _lib_path(n).exists()}
+    if not todo:
+        return {}
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    return _compile(todo)
+
+
+def _load(name: str, path: Path) -> ctypes.CDLL:
+    """``ctypes.CDLL`` the library at ``path`` with its C signatures, and
+    remember it and the sha256 of its bytes; caller holds ``_lock``."""
+    lib = ctypes.CDLL(str(path))
+    for fn, argtypes in _SIGNATURES[name].items():
+        f = getattr(lib, fn)
+        f.argtypes = list(argtypes)
+        f.restype = ctypes.c_int
+    _loaded[name] = (path, hashlib.sha256(path.read_bytes()).hexdigest())
+    _libs[name] = lib
+    return lib
+
+
+def _from_tier(name: str, tier) -> Path:
+    """The path of a verified copy of library ``name`` from ``tier``:
+    its stored bytes, or else a fresh nvcc build that is then stored.
+    Caller holds ``_lock``."""
+    ident = lib_identity(name)
+    payload = tier.load_library(name, ident)
+    if payload is None:
+        scratch = tier.scratch_dir()
+        out = scratch / f"{name}-{ident[:16]}.{os.getpid()}.so"
+        _compile({name: out})
+        payload = out.read_bytes()
+        out.unlink(missing_ok=True)
+        tier.store_library(name, ident, payload)
+    return tier.materialize(name, payload)
+
+
+def library(name: str, tier=None) -> ctypes.CDLL:
+    """The loaded library for ``csrc/<name>.cu``, built on first use.
+
+    Without ``tier`` it comes from ``_build/``.  With a disk tier
+    (``repro_torch.diskcache.DiskTier``) it comes from the tier's
+    verified entry, or is built by nvcc and stored there; a library this
+    process loaded earlier is stored into the tier if the tier lacks it.
+    """
     with _lock:
         lib = _libs.get(name)
         if lib is not None:
+            if tier is not None and not tier.has_library(
+                    name, lib_identity(name)):
+                tier.store_library(name, lib_identity(name),
+                                   _loaded[name][0].read_bytes())
             return lib
+        if tier is not None:
+            return _load(name, _from_tier(name, tier))
         path = _lib_path(name)
         if not path.exists():
             build_all()
-        lib = ctypes.CDLL(str(path))
-        for fn, argtypes in _SIGNATURES[name].items():
-            f = getattr(lib, fn)
-            f.argtypes = list(argtypes)
-            f.restype = ctypes.c_int
-        _libs[name] = lib
-        return lib
+        return _load(name, path)
+
+
+def library_sha256(name: str) -> str | None:
+    """sha256 of the bytes of library ``name`` as this process loaded
+    them (None before it is loaded)."""
+    with _lock:
+        return _loaded[name][1] if name in _loaded else None
 
 
 def check_operand(name: str, t, dtype, ndim: int) -> None:
@@ -228,4 +322,5 @@ def launch(kernel: str, device, lib_name: str, fn: str, *args) -> None:
             err = c_fn(*args, current_stream(device.index))
     if err != 0:
         raise RuntimeError(f"{fn}: CUDA error {err} at launch")
-    launches[kernel] += 1
+    with _count_lock:
+        launches[kernel] += 1

@@ -10,11 +10,18 @@ padded lanes, padded footprint)`` share a bucket.
 Cache.  A bucket runs through a callable fetched from an ``ExecutorCache``,
 an LRU keyed by ``ExecKey`` (backend, kind, shape, dtype, row width, mode,
 padded batch).  PyTorch compiles nothing, so ``misses`` counts the bucket
-callables built, one per ``ExecKey`` (the hopper kernels themselves are
-built once per process by ``kernels._build``).  A second identical run
-builds nothing.  The lookup is batch-polymorphic as in the reference: a
-bucket whose membership shrank reuses a warm key with a larger padded
-batch (``best_batch``).
+callables built, one per ``ExecKey``; on a card, building a hopper bucket
+loads the libraries it launches (``build_bucket``; ``kernels._build``
+compiles each once per process, or takes it from the disk tier).  A
+second identical run builds nothing.  The lookup is batch-polymorphic as
+in the reference: a bucket whose membership shrank reuses a warm key with
+a larger padded batch (``best_batch``).  Builders run outside the cache's
+lock, one per key (racing callers wait on its future), so ``misses`` stays
+exact under threads and ``launch`` reports whether it built
+(``LaunchResult.compiled``).  ``ExecutorCache(disk=)`` adds the disk tier
+(``diskcache.DiskTier``): a build owner first restores the key from disk
+(``disk_hits``, not ``misses``) and stores what it built;
+``fault_hook("compile")`` runs just before a builder (``serve.faults``).
 
 Execute.  Same-bucket patterns are stacked: indices into (B_pad, N_pad)
 int32, tables into (B_pad, F_pad + 1, R).  Row F_pad of every table is a
@@ -31,11 +38,17 @@ Timing.  A bucket launch is timed like ``GSEngine.run``: one warm-up, then
 min over ``runs`` (fresh zeroed dst per scatter run, outside the timed
 region).  Each member is attributed the bucket's time in proportion to its
 real lanes over all launched lanes, scratch patterns included, so padding
-never inflates a member's bandwidth.
+never inflates a member's bandwidth.  Threads (the serving scheduler's
+workers) share the device and its default stream, so a launch holds its
+device's lock (``device_lock``) from its first copy to the device until
+its output is back on the host: no other launch's copies or kernels fall
+between its CUDA events.  The host work (drawing the buffers in numpy,
+hashing the output) runs outside the lock.
 
-Not here yet: placements over several devices, the disk tier, fault
-injection, and the reference's quiet pallas->xla degradation, which the
-port does not carry over: on a CUDA tensor a kernel launches or raises.
+Not here yet: placements over several devices (ROADMAP A5), and the
+reference's quiet pallas->xla degradation, which the port does not carry
+over: on a CUDA tensor a kernel launches or raises, and a failed build
+fails its launch.
 """
 from __future__ import annotations
 
@@ -155,35 +168,64 @@ class CacheStats:
 
     ``misses`` is the exact count of bucket callables built.
     ``batch_hits`` (a subset of ``hits``) counts launches served by a warm
-    key with a larger padded batch.
+    key with a larger padded batch; ``disk_hits`` counts keys restored
+    from the disk tier (built nothing).
     """
     hits: int
     misses: int
     size: int
     batch_hits: int = 0
+    disk_hits: int = 0
 
     def delta(self, before: "CacheStats") -> "CacheStats":
         return CacheStats(hits=self.hits - before.hits,
                           misses=self.misses - before.misses,
                           size=self.size - before.size,
-                          batch_hits=self.batch_hits - before.batch_hits)
+                          batch_hits=self.batch_hits - before.batch_hits,
+                          disk_hits=self.disk_hits - before.disk_hits)
+
+    def to_json(self) -> dict:
+        # the reference's wire document also counts launches served by its
+        # pallas->xla fallback; the port has none, so that count is 0
+        return {**dataclasses.asdict(self), "degraded": 0}
+
+
+class _BuildFuture:
+    """In-flight build of one key: the owning thread publishes the callable
+    (or the builder's exception) and racing threads wait on it."""
+    __slots__ = ("done", "fn", "exc")
+
+    def __init__(self):
+        self.done = threading.Event()
+        self.fn = None
+        self.exc = None
 
 
 class ExecutorCache:
     """LRU of bucket callables; ``misses`` counts the ones built.
 
-    One lock guards the entries and the counters; builders run under it
-    (building a bucket callable only closes over its options).
+    One lock guards the entries and the counters.  Builders run outside
+    it, one per key: a thread that claims a key builds it (or restores it
+    from ``disk``), and threads racing on the same key wait for that build
+    and count a hit, so ``misses`` is exact under concurrency.
+
+    ``disk`` is the optional ``diskcache.DiskTier``; ``fault_hook`` is
+    called with ``"compile"`` just before a builder runs and may raise
+    (``serve.faults``).
     """
 
-    def __init__(self, maxsize: int = 128):
+    def __init__(self, maxsize: int = 128, *, disk=None, fault_hook=None):
         self.maxsize = maxsize
+        self.disk = disk
+        self.fault_hook = fault_hook
         self._entries: OrderedDict[ExecKey, Callable] = OrderedDict()
+        self._pending: dict[ExecKey, _BuildFuture] = {}
         self._families: dict[ExecKey, set[int]] = {}   # family -> batches
         self._lock = threading.Lock()
         self.hits = 0
         self.misses = 0
         self.batch_hits = 0
+        self.disk_hits = 0
 
     def __len__(self) -> int:
         with self._lock:
@@ -216,11 +258,48 @@ class ExecutorCache:
         with self._lock:
             return self._best_batch_locked(key)
 
+    def _build(self, key: ExecKey, fut: _BuildFuture,
+               builder: Callable[[], Callable]) -> tuple[Callable, bool]:
+        """Resolve the build this thread claimed, outside the lock:
+        restore from the disk tier, else run ``builder``.  Returns
+        ``(fn, built)``."""
+        disk = self.disk
+        try:
+            fn = disk.load(key) if disk is not None else None
+            built = fn is None
+            if built:
+                if self.fault_hook is not None:
+                    self.fault_hook("compile")
+                fn = builder()
+        except BaseException as e:
+            # publish the failure: threads waiting on this key raise it too
+            fut.exc = e
+            with self._lock:
+                if self._pending.get(key) is fut:
+                    del self._pending[key]
+            fut.done.set()
+            raise
+        with self._lock:
+            # a clear() while this built emptied _pending: insert nothing,
+            # so the reset counters stay consistent with the entries
+            if self._pending.get(key) is fut:
+                del self._pending[key]
+                self._insert_locked(key, fn)
+                if built:
+                    self.misses += 1
+                else:
+                    self.disk_hits += 1
+        fut.fn = fn
+        fut.done.set()
+        if disk is not None and built:
+            disk.store(key, fn)          # failures are counted, not raised
+        return fn, built
+
     def serve_poly_info(self, key: ExecKey, builder: Callable[[], Callable]
                         ) -> tuple[Callable, ExecKey, bool]:
         """``(fn, served_key, built)``: ``served_key`` is ``key`` or its
         smallest warm larger-batch sibling; ``built`` is True iff this call
-        ran ``builder`` (counted in ``misses``)."""
+        ran ``builder`` (counted in ``misses``; a disk restore is not)."""
         with self._lock:
             best = self._best_batch_locked(key)
             if best is not None:
@@ -229,22 +308,49 @@ class ExecutorCache:
                 if best.batch > key.batch:
                     self.batch_hits += 1
                 return self._entries[best], best, False
-            fn = builder()
-            self.misses += 1
-            self._insert_locked(key, fn)
-            return fn, key, True
+            fut = self._pending.get(key)
+            owner = fut is None
+            if owner:
+                fut = self._pending[key] = _BuildFuture()
+            else:
+                self.hits += 1             # that build is in flight
+        if not owner:
+            fut.done.wait()
+            if fut.exc is not None:
+                raise fut.exc
+            return fut.fn, key, False
+        fn, built = self._build(key, fut, builder)
+        return fn, key, built
+
+    def attach_disk(self, tier, preload: bool = True) -> int:
+        """Adopt a disk tier; with ``preload`` restore every verifiable
+        entry now (each counts ``disk_hits``).  Returns how many."""
+        self.disk = tier
+        if not preload:
+            return 0
+        restored = tier.load_all()
+        n = 0
+        with self._lock:
+            for key, fn in restored:
+                if key not in self._entries:
+                    self._insert_locked(key, fn)
+                    self.disk_hits += 1
+                    n += 1
+        return n
 
     def stats(self) -> CacheStats:
         with self._lock:
             return CacheStats(hits=self.hits, misses=self.misses,
                               size=len(self._entries),
-                              batch_hits=self.batch_hits)
+                              batch_hits=self.batch_hits,
+                              disk_hits=self.disk_hits)
 
     def clear(self) -> None:
         with self._lock:
             self._entries.clear()
             self._families.clear()
-            self.hits = self.misses = self.batch_hits = 0
+            self._pending.clear()
+            self.hits = self.misses = self.batch_hits = self.disk_hits = 0
 
 
 _DEFAULT_CACHE = ExecutorCache()
@@ -268,6 +374,26 @@ def _bucket_fn(backend: str, kind: str, mode: str) -> Callable:
     return fn
 
 
+def bucket_libraries(backend: str, kind: str, platform: str
+                     ) -> tuple[str, ...]:
+    """The nvcc-built libraries a bucket callable launches on
+    ``platform`` (on the CPU the hopper backend runs plain versions)."""
+    if backend != "hopper" or platform != "cuda":
+        return ()
+    return ("gather_rows",) if kind == "gather" else ("scatter_rows",)
+
+
+def build_bucket(backend: str, kind: str, mode: str, device,
+                 tier=None) -> Callable:
+    """Build a bucket callable: load the libraries it launches (from
+    ``tier`` when given, so a corrupt one is rebuilt), then close over
+    its options."""
+    from .kernels import _build
+    for name in bucket_libraries(backend, kind, device.type):
+        _build.library(name, tier=tier)
+    return _bucket_fn(backend, kind, mode)
+
+
 def bucket_key(backend: str, spec: BucketSpec, dtype, row_width: int,
                mode: str, n_members: int) -> ExecKey:
     """The ``ExecKey`` a bucket launch is served under."""
@@ -283,18 +409,33 @@ def bucket_key(backend: str, spec: BucketSpec, dtype, row_width: int,
 # Bucket assembly
 # ---------------------------------------------------------------------------
 
-def _assemble_members(spec: BucketSpec, patterns: Sequence[Pattern],
-                      row_width: int, seeds: Sequence[int], device,
-                      batch: int | None = None, mode: str = "store"):
-    """Stack member patterns (of one bucket shape) into device buffers.
+# One lock per device, for the whole process: every cache and scheduler in
+# the process shares the device and its default stream (module docstring).
+_DEVICE_LOCKS: dict[str, threading.Lock] = {}
+_DEVICE_LOCKS_GUARD = threading.Lock()
 
-    Returns (args, real_lanes): ``args`` is (table, idx) for gathers and
-    (dst, idx, vals, keep) for scatters, on ``device``; real_lanes[b] is
-    member b's un-padded lane count.  ``batch`` (default ``pad_batch`` of
-    the member count) sets the padded batch.  Member b's buffers come from
-    ``make_host_buffers(p, row_width, seeds[b])``.  In add mode and for
-    gathers no keep mask is computed (add's keep is an all-False
-    placeholder it never reads).
+
+def device_lock(device) -> threading.Lock:
+    """The lock a launch holds while it has work on ``device``."""
+    name = str(device)
+    with _DEVICE_LOCKS_GUARD:
+        lock = _DEVICE_LOCKS.get(name)
+        if lock is None:
+            lock = _DEVICE_LOCKS[name] = threading.Lock()
+        return lock
+
+
+def _host_members(spec: BucketSpec, patterns: Sequence[Pattern],
+                  row_width: int, seeds: Sequence[int],
+                  batch: int | None = None, mode: str = "store"):
+    """Stack member patterns (of one bucket shape) into host buffers.
+
+    Returns (host, real_lanes): ``host`` is (table, idx) for gathers and
+    (idx, vals, keep) for scatters, numpy arrays; real_lanes[b] is member
+    b's un-padded lane count.  ``batch`` (default ``pad_batch`` of the
+    member count) sets the padded batch.  Member b's buffers come from
+    ``make_host_buffers(p, row_width, seeds[b])``.  In add mode the keep
+    mask is an all-False placeholder the kernel never reads.
     """
     nb = len(patterns)
     if len(seeds) != nb:
@@ -323,13 +464,28 @@ def _assemble_members(spec: BucketSpec, patterns: Sequence[Pattern],
             vals_b[b, :n] = vals
             if store:
                 keep_b[b, :n] = keep      # n == n_pad overwrites the True
-    idx = torch.from_numpy(idx_b).to(device)
-    if gather:
-        return (torch.from_numpy(table_b).to(device), idx), real_lanes
-    dst = torch.zeros((b_pad, f_pad + 1, r), dtype=torch.float32,
-                      device=device)
-    return (dst, idx, torch.from_numpy(vals_b).to(device),
-            torch.from_numpy(keep_b).to(device)), real_lanes
+    host = (table_b, idx_b) if gather else (idx_b, vals_b, keep_b)
+    return host, real_lanes
+
+
+def _to_device(spec: BucketSpec, host: tuple, device) -> tuple:
+    """The launch's operands on ``device``: (table, idx) for gathers, (dst,
+    idx, vals, keep) for scatters, with a zeroed dst."""
+    if spec.kind == "gather":
+        return tuple(torch.from_numpy(a).to(device) for a in host)
+    idx, vals, keep = (torch.from_numpy(a).to(device) for a in host)
+    dst = torch.zeros((vals.shape[0], spec.footprint + 1, vals.shape[2]),
+                      dtype=torch.float32, device=device)
+    return dst, idx, vals, keep
+
+
+def _assemble_members(spec: BucketSpec, patterns: Sequence[Pattern],
+                      row_width: int, seeds: Sequence[int], device,
+                      batch: int | None = None, mode: str = "store"):
+    """``_host_members`` moved to ``device``: (args, real_lanes)."""
+    host, real_lanes = _host_members(spec, patterns, row_width, seeds,
+                                     batch=batch, mode=mode)
+    return _to_device(spec, host, device), real_lanes
 
 
 # ---------------------------------------------------------------------------
@@ -373,7 +529,13 @@ class BucketWork:
 
 @dataclasses.dataclass(frozen=True)
 class LaunchResult:
-    """What one bucket launch produced; rows are in launch order."""
+    """What one bucket launch produced; rows are in launch order.
+
+    ``compiled`` is True iff this launch built the bucket callable
+    (``ExecutorCache.serve_poly_info``): summed over launches it equals
+    the cache's ``misses`` delta, which is how the serving scheduler
+    attributes each build to one request.
+    """
     key: ExecKey                      # the key actually served
     t_bucket: float                   # min over runs (paper §3.5)
     host_s: float                     # host seconds assembling the buffers
@@ -381,8 +543,10 @@ class LaunchResult:
     lanes: int                        # launched lane dim
     n_members: int                    # real members across all units
     real_lanes: tuple[int, ...]       # per member, launch order
-    out: torch.Tensor | None          # batched output (digest launches)
+    out: torch.Tensor | None          # batched output on the host (digests)
     device: str                       # name of the device that ran it
+    compiled: bool
+    lock_wait_s: float                # waiting for the device's lock
 
 
 def make_work(plan: SuitePlan, *, backend: str = "torch", dtype=None,
@@ -413,7 +577,8 @@ def launch(works: Sequence[BucketWork],
     """Run one bucket launch for one or more work units of one family.
 
     Their members are stacked into ONE padded launch; one warm-up call,
-    then ``runs`` timed calls (a fresh zeroed dst per scatter run).
+    then ``runs`` timed calls (a fresh zeroed dst per scatter run), all
+    under the device's lock.
     """
     if not works:
         raise ValueError("launch needs at least one work unit")
@@ -430,25 +595,33 @@ def launch(works: Sequence[BucketWork],
     n_members = sum(w.n_members for w in works)
     key = bucket_key(w0.backend, spec, w0.dtype, w0.row_width, w0.mode,
                      n_members)
-    fn, served, _ = cache.serve_poly_info(
-        key, lambda: _bucket_fn(w0.backend, spec.kind, key.mode))
+    fn, served, compiled = cache.serve_poly_info(
+        key, lambda: build_bucket(w0.backend, spec.kind, key.mode, dev,
+                                  cache.disk))
     patterns = [p for w in works for p in w.patterns]
     seeds = [w.seed for w in works for _ in w.patterns]
-    t0 = time.perf_counter()
-    args, real_lanes = _assemble_members(spec, patterns, w0.row_width, seeds,
-                                         dev, batch=served.batch,
-                                         mode=w0.mode)
-    if dev.type == "cuda":
-        torch.cuda.synchronize(dev)
-    host_s = time.perf_counter() - t0
-    t_bucket, out = timed_runs(fn, args, runs, dev,
-                               fresh_dst=spec.kind == "scatter")
     want_out = any(w.digest for w in works)
+    t0 = time.perf_counter()
+    host, real_lanes = _host_members(spec, patterns, w0.row_width, seeds,
+                                     batch=served.batch, mode=w0.mode)
+    host_s = time.perf_counter() - t0
+    t_wait = time.perf_counter()
+    with device_lock(dev):
+        lock_wait_s = time.perf_counter() - t_wait
+        t0 = time.perf_counter()
+        args = _to_device(spec, host, dev)
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        host_s += time.perf_counter() - t0
+        t_bucket, out = timed_runs(fn, args, runs, dev,
+                                   fresh_dst=spec.kind == "scatter")
+        out = out.cpu() if want_out else None
+        del args
     return LaunchResult(key=served, t_bucket=t_bucket, host_s=host_s,
                         batch=served.batch, lanes=spec.idx_len,
                         n_members=n_members, real_lanes=tuple(real_lanes),
-                        out=out if want_out else None,
-                        device=device_name(dev))
+                        out=out, device=device_name(dev), compiled=compiled,
+                        lock_wait_s=lock_wait_s)
 
 
 def demux(result: LaunchResult, work: BucketWork,
@@ -474,7 +647,7 @@ def demux(result: LaunchResult, work: BucketWork,
         if work.digest:
             n = (result.real_lanes[b] if work.spec.kind == "gather"
                  else p.footprint())
-            trim = result.out[b, :n].cpu().numpy()
+            trim = result.out[b, :n].numpy()
             dg = hashlib.sha256(
                 np.ascontiguousarray(trim).tobytes()).hexdigest()
         out.append((pos, RunResult(

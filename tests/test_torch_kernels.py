@@ -389,8 +389,14 @@ def test_cuda_sources_export_what_the_loader_binds():
             assert "sm_90a" in " ".join(_build.NVCC_FLAGS)
 
 
-def test_library_path_is_keyed_by_source():
+def test_library_path_is_keyed_by_source(monkeypatch):
+    # the identity also holds nvcc's version and the card's compute
+    # capability, which a CPU-only test run cannot ask for: give both
+    monkeypatch.setattr(_build, "_toolchain",
+                        {"nvcc": "Build cuda_12.8", "capability": "9.0"})
     p = _build._lib_path("gather_rows")
     assert p.parent == _build.BUILD_DIR and p.suffix == ".so"
     assert p != _build._lib_path("scatter_rows")
     assert p == _build._lib_path("gather_rows")
+    monkeypatch.setitem(_build._toolchain, "nvcc", "Build cuda_12.9")
+    assert p != _build._lib_path("gather_rows")
