@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the port's paths on one CUDA card and check them: the Spatter
-main path, falcon-mamba-7b and llama3-8b served at full width, and the
-Spatter suite daemon.
+main path, falcon-mamba-7b and llama3-8b served at full width, the
+Spatter suite daemon, and bucket launches placed over several devices.
 
     python3 chip_smoke.py            # from the root of the repository
 
@@ -9,7 +9,7 @@ Imports ``repro_torch`` (from ``src/``), ``torch``, numpy and the stdlib
 only.  Phases:
 
   0. print the card (``nvidia-smi``), the torch and CUDA versions, and
-     build the seven CUDA kernels of the five sources in
+     build the eight CUDA kernels of the five sources in
      ``src/repro_torch/csrc`` with nvcc (one process per source, all at
      once);
   1. hold each kernel against its plain PyTorch version on the card over
@@ -53,11 +53,13 @@ only.  Phases:
      time from ``torch.profiler``, in turns with ``index_select``,
      ``index_put_`` or ``index_add_``, and the gathers on 2^24 random
      lanes of each table), the add kernel once more on appdb's LULESH-S3
-     (2^25 lanes onto 16 rows), and the selective scan at the serving
-     shape (4, 2048, 8192, 16, bfloat16; device time too), flash attention
-     at the llama3-8b prefill shape and paged decode at its decode shape
-     (``FLASH_SHAPE``, ``PAGED_SHAPE``, bfloat16; paged decode with its
-     split count, CTAs and host time a call);
+     (2^25 lanes onto 16 rows), the store with its coverage map at the
+     shape phase 8's (1, 2) CLI store gives a shard (``cov_store_time``,
+     beside ``index_put_`` plus ``index_fill_``), the selective scan at
+     the serving shape (4, 2048, 8192, 16, bfloat16; device time too),
+     flash attention at the llama3-8b prefill shape and paged decode at
+     its decode shape (``FLASH_SHAPE``, ``PAGED_SHAPE``, bfloat16; paged
+     decode with its split count, CTAs and host time a call);
   5. serve falcon-mamba-7b at its published width and depth (64 layers,
      bfloat16, random weights from a seed) through
      ``repro_torch.launch.serve.main``: 4 prompts of 2048 tokens, 32 greedy
@@ -88,15 +90,31 @@ only.  Phases:
      a cold start (two nvcc runs), a restart (misses 0, disk hits 4, no
      nvcc run), a restart after one library entry was overwritten (it is
      quarantined and rebuilt by nvcc, the request answers), and SIGTERM
-     during a request (it answers, the process exits 0).
+     during a request (it answers, the process exits 0);
+  8. placements on the one card (``placement_phase``), shards on
+     ``[cuda:0] * n``: every store edge case again through the store with
+     its coverage map (``-0.0`` payloads, maps at every alignment, rows
+     past INT32_MAX), bit for bit and exactly; demo, appdb at scale 1.0
+     and the CLI pattern on hopper, unplaced, on one device and at
+     (1, 2), (2, 1), (2, 2) and (1, 4): gather and store digests equal
+     phase 3's (the CLI pattern's: its unplaced run's), adds within
+     ``add_error_bound`` of the unplaced outputs, launches buckets x
+     shards x (1 + runs), the coverage store's where the lane axis is
+     split; ``--mesh auto`` (unplaced on one card, no build on a repeat);
+     an in-process daemon over ``[cuda:0] * 2`` answering a 1x2 demo
+     request with phase 3's digests; then the placed times and peak
+     memory beside the unplaced ones.  One card shows that placements are
+     right, not how they scale.
 
 The launch counts are set to 0 just before phase 2 and read just after
 phase 3, again just before and after the serve calls of phases 5 and 6,
-and just before and after phase 7's daemon.  Any failed check raises, so
+just before and after phase 7's daemon, and just before and after phase
+8's placed suites.  Any failed check raises, so
 the script exits nonzero.  Before the last line it prints a
-``{"daemon": {...}}`` and a ``{"kernels": [...]}`` JSON line; the last
-line is ``{"ok": true, "device": {...}}``.
+``{"daemon": {...}}``, a ``{"placements": {...}}`` and a ``{"kernels":
+[...]}`` JSON line; the last line is ``{"ok": true, "device": {...}}``.
 """
+import contextlib
 import gc
 import itertools
 import json
@@ -129,6 +147,8 @@ KERNEL_INFO = {                  # name -> (source, TPU kernel it replaces)
                          "src/repro/kernels/gather_rows/kernel.py:44"),
     "scatter_store_rows": ("src/repro_torch/csrc/scatter_rows.cu",
                            "src/repro/kernels/scatter_rows/kernel.py:157"),
+    "scatter_store_rows_cov": ("src/repro_torch/csrc/scatter_rows.cu",
+                               "src/repro/kernels/scatter_rows/kernel.py:157"),
     "scatter_add_rows": ("src/repro_torch/csrc/scatter_rows.cu",
                          "src/repro/kernels/scatter_rows/kernel.py:83"),
     "selective_scan": ("src/repro_torch/csrc/selective_scan.cu",
@@ -460,8 +480,8 @@ def gather_route_case(torch, gen):
     return 1
 
 
-def store_edge_cases(torch, gen=None):
-    """Phase 1's store edges, each ``torch.equal`` to
+def store_edge_cases(torch, gen=None, with_cov=False):
+    """Phase 1's store edges, each equal bit for bit to
     ``scatter_store_rows_ref_`` over the whole dst buffer (the floats around
     an offset dst must stay): D in {1, 3, 4, 8}; dst, idx, keep and vals as
     views at element offsets, in phase (a nonzero head) and out of phase;
@@ -469,9 +489,14 @@ def store_edge_cases(torch, gen=None):
     out-of-range lanes and dropped duplicates inside vectors; B in {1, 2,
     3} with N from 1 to 8,191 (vectors straddling patterns); 3 x 1,500,007
     lanes (the deep setting, 16 lanes a thread); and the 64-bit instances
-    (a dst of 2^31 + 16 rows).  Returns the number of cases."""
+    (a dst of 2^31 + 16 rows).  With ``with_cov`` (phase 8) every case
+    runs the store with its coverage map instead, a (B, V) int32 view at
+    dst's element offset (so its 4-row marks fall on and off 16-byte
+    boundaries), with every 7th payload -0.0: dst bit for bit and the map
+    exactly.  Returns the number of cases."""
     from repro_torch.kernels.scatter_rows import ops as s
     from repro_torch.kernels.scatter_rows.ref import scatter_store_rows_ref_
+    kernel = "scatter_store_rows_cov" if with_cov else "scatter_store_rows"
     dev = torch.device("cuda")
     gen = gen or torch.Generator(device="cpu").manual_seed(0)
     dgen = torch.Generator(device=dev).manual_seed(7)   # dst and vals
@@ -523,15 +548,24 @@ def store_edge_cases(torch, gen=None):
             m, dtype=torch.bool, device=dev)).copy_(keep0)
         vals = _at_offset(torch, (bsz, n, d), ov, lambda m: torch.randn(
             m, generator=dgen, device=dev))
-        before = _launches()["scatter_store_rows"]
-        s.scatter_store_rows_(dst, idx, keep, vals)
+        cov = cov_want = None
+        if with_cov:
+            vals.view(-1)[::7] = -0.0
+            cov = _at_offset(torch, (bsz, v), od, lambda m: torch.zeros(
+                m, dtype=torch.int32, device=dev))
+            cov_want = torch.zeros_like(cov)
+        before = _launches()[kernel]
+        s.scatter_store_rows_(dst, idx, keep, vals, cov)
         scatter_store_rows_ref_(want[od:od + numel].view(bsz, v, d), idx,
-                                keep, vals)
-        where = (f"scatter_store_rows B={bsz} V={v} D={d} N={n} {kind} "
+                                keep, vals, cov_want)
+        where = (f"{kernel} B={bsz} V={v} D={d} N={n} {kind} "
                  f"offsets(dst, idx, keep, vals)={offs}")
-        check(_launches()["scatter_store_rows"] == before + 1,
-              f"{where}: did not launch")
-        check(torch.equal(buf, want), f"{where}: not equal")
+        check(_launches()[kernel] == before + 1, f"{where}: did not launch")
+        check(torch.equal(buf.view(torch.int32), want.view(torch.int32)),
+              f"{where}: not equal")
+        if with_cov:
+            check(torch.equal(cov, cov_want), f"{where}: coverage differs")
+            del cov, cov_want
         n_cases += 1
 
     for d in (1, 3, 4, 8):
@@ -939,15 +973,19 @@ def _launches():
 
 # -- phases 2 and 3: the main path ---------------------------------------------
 
-def _bucket_kernel(spec, mode):
-    """The kernel a hopper bucket launch of ``spec`` runs (phase 3's and
-    phase 7's launch census)."""
+def _bucket_kernel(spec, mode, lane_shards=1):
+    """The kernel each shard of a hopper bucket launch of ``spec`` runs,
+    the bucket's lanes split ``lane_shards`` ways (the launch census of
+    phases 3, 7 and 8)."""
     from repro_torch.kernels.gather_rows.ops import use_smem
+    from repro_torch.plan import pad_lanes
     if spec.kind == "gather":
-        return ("gather_rows_smem"
-                if use_smem(spec.footprint + 1, spec.idx_len, 1)
+        lanes = pad_lanes(spec.idx_len, lane_shards) // lane_shards
+        return ("gather_rows_smem" if use_smem(spec.footprint + 1, lanes, 1)
                 else "gather_rows")
-    return "scatter_add_rows" if mode == "add" else "scatter_store_rows"
+    if mode == "add":
+        return "scatter_add_rows"
+    return "scatter_store_rows_cov" if lane_shards > 1 else "scatter_store_rows"
 
 
 def main_path(torch):
@@ -1046,10 +1084,11 @@ def _profiled_ms(torch, fn, iters, tries=3):
     """Device ms a call: torch.profiler's CUDA time of every kernel that
     ``iters`` calls of ``fn`` launched, over ``iters``; and the kernels'
     names with their counts.  The profiler now and then loses a kernel's
-    record (on the H100, 17 of 20 launches once): a trace whose count of
-    device events is not a multiple of ``iters`` is taken again, at most
-    ``tries`` times in all, and the last one is returned as it is (the
-    callers' launch checks then fail on it)."""
+    record (on the H100, 17 of 20 launches once, and every one once): a
+    trace whose count of device events is not a multiple of ``iters`` is
+    taken again, at most ``tries`` times in all, and the last one is
+    returned as it is (the callers' launch checks then fail on it; an
+    empty one fails here)."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -1061,11 +1100,11 @@ def _profiled_ms(torch, fn, iters, tries=3):
             torch.cuda.synchronize()
         evts = [e for e in prof.key_averages()
                 if e.device_type.name == "CUDA"]
-        check(evts, "torch.profiler saw no device time")
-        if sum(e.count for e in evts) % iters == 0:
+        if evts and sum(e.count for e in evts) % iters == 0:
             break
         print(f"  (torch.profiler recorded {sum(e.count for e in evts)} "
               f"device events for {iters} calls: traced again)", flush=True)
+    check(evts, "torch.profiler saw no device time")
     return (sum(_device_ms(e) for e in evts) / iters,
             {k: sum(e.count for e in evts if e.key[:100] == k)
              for k in {e.key[:100] for e in evts}})
@@ -1272,6 +1311,7 @@ def kernel_times(torch, err):
     kernel of the Spatter path and the scan."""
     out = gather_times(torch, err)
     out.update(scatter_times(torch, err))
+    out["scatter_store_rows_cov"] = cov_store_time(torch, err)
     out["selective_scan"] = scan_time(torch, err)
     return out
 
@@ -1395,6 +1435,59 @@ def scatter_times(torch, err):
     del got, want, diff, idx3, vals3, dst3
     torch.cuda.empty_cache()
     return out
+
+
+def cov_store_time(torch, err):
+    """The coverage store at the shape the lane-split CLI store gives each
+    shard at (1, 2): the first 2^26 lanes of UNIFORM:8:1 (rows 0 .. 2^26
+    - 1, every lane kept) into a zeroed (1, 2^27 + 1, 1) dst and its
+    (1, 2^27 + 1) map; beside its plain version and ``index_put_`` plus
+    an ``index_fill_`` of the map (no one PyTorch call gives both)."""
+    from repro_torch.kernels.scatter_rows import ops as s
+    from repro_torch.kernels.scatter_rows.ref import scatter_store_rows_ref_
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(3)
+    n, v = 2 ** 26, 2 ** 27 + 1
+    idx = torch.arange(n, device=dev, dtype=torch.int32)[None]
+    keep = torch.ones_like(idx, dtype=torch.bool)
+    vals = torch.randn(1, n, 1, generator=gen, device=dev)
+    vals.view(-1)[::7] = -0.0
+    dst = torch.zeros(1, v, 1, device=dev)
+    cov = torch.zeros(1, v, dtype=torch.int32, device=dev)
+    got, got_cov = dst.clone(), cov.clone()
+    s.scatter_store_rows_(got, idx, keep, vals, got_cov)
+    want, want_cov = dst.clone(), cov.clone()
+    scatter_store_rows_ref_(want, idx, keep, vals, want_cov)
+    check(torch.equal(got.view(torch.int32), want.view(torch.int32))
+          and torch.equal(got_cov, want_cov),
+          "scatter_store_rows_cov at the lane-split CLI shape")
+    del got, got_cov, want, want_cov
+    rows = idx[0].to(torch.int64)
+    flat, cov_flat, vals_k = dst.view(-1, 1), cov.view(-1), vals[0]
+
+    def library():
+        flat.index_put_((rows,), vals_k)
+        cov_flat.index_fill_(0, rows, 1)
+    row = _turn_times(torch, {
+        "library": library,
+        "kernel": lambda: s.scatter_store_rows_(dst, idx, keep, vals, cov)},
+        20, "store", "scatter_store_rows_cov")
+    nbytes = n * (4 + 1) + n * (4 + 4 + 4)    # idx, keep; vals, row, mark
+    row.update(plain_ms=_time_ms(torch, lambda: scatter_store_rows_ref_(
+                   dst, idx, keep, vals, cov), 5),
+               bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
+               bytes=nbytes, shape=[1, v, 1])
+    err["scatter_store_rows_cov"] = 0.0
+    print(f"  scatter_store_rows_cov {row['shape']} at {n} lanes: kernel ms "
+          f"{row['ms_pair']} device_ms {row['device_ms_pair']}; library "
+          f"ms {row['library_ms_pair']} device_ms "
+          f"{row['library_device_ms_pair']}; plain {row['plain_ms']:.4f} "
+          f"ms; bound {row['bound_ms']:.4f} ms ({nbytes} bytes), "
+          f"{100 * row['bound_ms'] / row['device_ms']:.1f}% of it on "
+          f"device_ms", flush=True)
+    del dst, cov, vals, idx, keep, rows
+    torch.cuda.empty_cache()
+    return row
 
 
 def sm_clock_hz():
@@ -2176,6 +2269,209 @@ def daemon_phase(torch, cli_results, suite_stats):
     return out
 
 
+# -- phase 8: placements on the card -------------------------------------------
+
+PLACEMENT_SHAPES = ((1, 2), (2, 1), (2, 2), (1, 4))
+
+
+@contextlib.contextmanager
+def _host_buffers_once():
+    """Draw each pattern's host buffers once across phase 8's runs: the
+    planner's numpy draws (outside every timed region) would otherwise
+    take most of the phase.  Launches and outputs do not change."""
+    from repro_torch import plan
+    real = plan.make_host_buffers
+    memo = {}
+
+    def once(p, row_width, seed=0):
+        if (p, row_width, seed) not in memo:
+            memo[p, row_width, seed] = real(p, row_width, seed=seed)
+        return memo[p, row_width, seed]
+    plan.make_host_buffers = once
+    try:
+        yield
+    finally:
+        plan.make_host_buffers = real
+
+
+def _placed_suite(torch, pats, mode, mesh, cache):
+    """``pats`` on hopper through the planner's entry points (``make_work``
+    -> ``launch`` -> ``demux``, as ``run_plan`` drives them), with digests,
+    each bucket launch placed on ``mesh`` (None: unplaced).  Returns the
+    digests, the add outputs by position, the summed min-of-``RUNS``
+    bucket times, the peak device memory and the wall."""
+    from repro_torch.plan import SuitePlan, demux, launch, make_work
+    plan = SuitePlan.build(pats)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    digests, outs, ms = [None] * len(pats), {}, 0.0
+    for w in make_work(plan, backend="hopper", runs=RUNS, mode=mode,
+                       digest=True, mesh=mesh):
+        res = launch((w,), cache)
+        ms += res.t_bucket * 1e3
+        for i, (pos, r) in enumerate(demux(res, w)):
+            digests[pos] = r.out_digest
+            if mode == "add":
+                outs[pos] = res.out[i, :w.patterns[i].footprint()].clone()
+    return dict(plan=plan, digests=digests, outs=outs, ms=ms,
+                peak=torch.cuda.max_memory_allocated(),
+                wall_s=time.perf_counter() - t0)
+
+
+def placement_phase(torch, suite_stats):
+    """Phase 8: placements on the one card, shards on ``[cuda:0] * n``.
+
+    (a) every store edge case once more with the coverage map
+    (``store_edge_cases(with_cov=True)``); (b) demo, appdb at scale 1.0
+    and the CLI pattern (gather and scatter at 2^27 lanes) on hopper,
+    unplaced, on a one-device placement and on each of
+    ``PLACEMENT_SHAPES``: gathers and stores (the suite in store mode)
+    must give phase 3's digests (the CLI pattern: its unplaced run's),
+    adds (the scatters in add mode) must lie within ``add_error_bound`` of
+    the unplaced run's outputs, and every kernel's launches must equal the
+    buckets x shards x (1 + ``RUNS``), the counts set to 0 just before
+    (b) and read just after; (c) ``python -m repro_torch --mesh auto``
+    twice on demo (every bucket unplaced, no build on the repeat) and an
+    in-process daemon over ``[cuda:0] * 2`` answering a 1x2 demo request
+    with phase 3's digests and a mesh of 4 with a 400; (d) the times and
+    peak memory of (b) beside the unplaced ones.  One card shows that
+    placements are right, not how they scale: the shards run one after
+    another.  Returns the numbers for the records."""
+    from repro_torch import appdb, load_suite
+    from repro_torch.__main__ import main as cli
+    from repro_torch.kernels import reset_launches
+    from repro_torch.kernels.scatter_rows.ref import add_error_bound
+    from repro_torch.pattern import Pattern
+    from repro_torch.plan import (ExecutorCache, Placement, SuitePlan,
+                                  default_cache, make_host_buffers,
+                                  resolve_mesh)
+    from repro_torch.serve import ServerError, SpatterClient, SpatterDaemon
+    t_phase = time.perf_counter()
+    out = {}
+    print(f"\nphase 8: placements on {torch.cuda.get_device_name(0)}, shards "
+          f"on one card", flush=True)
+    t0 = time.perf_counter()
+    out["cov_cases"] = store_edge_cases(torch, with_cov=True)
+    print(f"  (a) {out['cov_cases']} coverage store cases equal their plain "
+          f"version ({time.perf_counter() - t0:.1f} s)", flush=True)
+
+    cuda0 = torch.device("cuda", 0)
+    meshes = {"unplaced": None, "1x1": Placement.create((1, 1),
+                                                      devices=[cuda0])}
+    for b, l in PLACEMENT_SHAPES:
+        meshes[f"{b}x{l}"] = Placement.create((b, l), devices=[cuda0] * (b * l))
+    suites = {
+        "demo": load_suite(str(ROOT / "suites" / "demo.json")),
+        "appdb": appdb.scale_counts(appdb.ALL_PATTERNS, 1.0),
+        "cli": [Pattern.from_json(_cli_doc(k)) for k in ("Gather",
+                                                         "Scatter")],
+    }
+    reset_launches()
+    expect = {k: 0 for k in _launches()}
+    cache = ExecutorCache()
+    rows = []
+    with _host_buffers_once():
+        for name, pats in suites.items():
+            want = ([r.out_digest for r in suite_stats[name].results]
+                    if name in suite_stats else None)
+            scatters = [p for p in pats if p.kind == "scatter"]
+            bounds, base_add = {}, None
+            for label, mesh in meshes.items():
+                b, l = mesh.grid if mesh else (1, 1)
+                for mode, run in (("store", pats), ("add", scatters)):
+                    r = _placed_suite(torch, run, mode, mesh, cache)
+                    for bucket in r["plan"].buckets:
+                        expect[_bucket_kernel(bucket.spec, mode, l)] += (
+                            (1 + RUNS) * b * l)
+                    if mode == "store":
+                        want = want or r["digests"]
+                        check(r["digests"] == want,
+                              f"phase 8: {name} {label} digests differ at "
+                              f"{[p.name for p, a, z in zip(run, r['digests'], want) if a != z]}")
+                    elif base_add is None:
+                        base_add = r["outs"]
+                    else:
+                        for pos, got in r["outs"].items():
+                            p = run[pos]
+                            if pos not in bounds:
+                                _, idx, vals, _ = make_host_buffers(p, 1)
+                                bounds[pos] = add_error_bound(
+                                    torch.from_numpy(idx)[None].to(cuda0),
+                                    torch.from_numpy(vals)[None].to(cuda0),
+                                    p.footprint())[0].cpu()
+                            diff = (got.double() - base_add[pos].double()).abs()
+                            check(bool((diff <= bounds[pos]).all()),
+                                  f"phase 8: {name} {label} add {p.name} "
+                                  f"over add_error_bound")
+                    rows.append(dict(suite=name, mode=mode, placement=label,
+                                     key=mesh.placement if mesh else "",
+                                     n_buckets=r["plan"].n_buckets,
+                                     ms=r["ms"], peak_bytes=r["peak"],
+                                     wall_s=r["wall_s"]))
+                    print(f"  (b) {name:5s} {mode:5s} {label:8s} "
+                          f"{r['plan'].n_buckets:2d} buckets: "
+                          f"{r['ms']:.4f} ms summed min-of-{RUNS}, peak "
+                          f"{r['peak']} bytes, wall {r['wall_s']:.1f} s",
+                          flush=True)
+            bounds.clear()
+            base_add = None
+    census = _launches()
+    check(census == expect, f"phase 8: launches {census} != {expect}")
+    out["launches"] = census
+    print(f"  (b) launches {census} = buckets x shards x (1 + {RUNS})",
+          flush=True)
+
+    demo_want = [r.out_digest for r in suite_stats["demo"].results]
+    demo_path = str(ROOT / "suites" / "demo.json")
+    argv = ["--json", demo_path, "-b", "hopper", "-r", str(RUNS), "--mesh",
+            "auto"]
+    placed = resolve_mesh(SuitePlan.build(suites["demo"]), "auto",
+                          backend="hopper")
+    check(placed == [None] * len(placed),
+          f"phase 8: auto placed demo on one card: {placed}")
+    misses = []
+    for _ in range(2):
+        print(f"\n$ python -m repro_torch {' '.join(argv)}", flush=True)
+        before = default_cache().stats()
+        cli(argv)
+        misses.append(default_cache().stats().delta(before).misses)
+    check(misses[1] == 0, f"phase 8: --mesh auto rebuilt: misses {misses}")
+    demo_docs = json.loads((ROOT / "suites" / "demo.json").read_text())
+    with SpatterDaemon(port=0, cache=ExecutorCache(),
+                       devices=[cuda0] * 2) as d:
+        c = SpatterClient(d.url)
+        resp = c.run_suite(demo_docs, backend="hopper", runs=RUNS,
+                           mesh=[1, 2])
+        check(resp["plan"]["placement"] == "lane:lane=2/2dev"
+              and _digests_of(resp) == demo_want,
+              f"phase 8: the daemon's 1x2 demo: {resp['plan']}")
+        try:
+            c.run_suite(demo_docs, backend="hopper", runs=1, mesh=4)
+            check(False, "phase 8: a mesh of 4 on 2 devices ran")
+        except ServerError as e:
+            check(e.status == 400 and "have 2 devices listed" in str(e),
+                  f"phase 8: mesh of 4: {e}")
+    out["auto_misses"] = misses
+    print(f"  (c) --mesh auto: every bucket unplaced, misses {misses}; the "
+          f"daemon over [cuda:0] x 2 answered 1x2 demo with phase 3's "
+          f"digests and mesh 4 with a 400", flush=True)
+
+    print(f"  (d) {'suite':5s} {'mode':5s} {'placement':9s} "
+          f"{'ms':>10s} {'x unplaced':>10s} {'peak bytes':>12s}")
+    base = {(r["suite"], r["mode"]): r for r in rows
+            if r["placement"] == "unplaced"}
+    for r in rows:
+        r["ratio"] = r["ms"] / base[r["suite"], r["mode"]]["ms"]
+        print(f"  (d) {r['suite']:5s} {r['mode']:5s} {r['placement']:9s} "
+              f"{r['ms']:10.4f} {r['ratio']:10.3f} {r['peak_bytes']:12d}")
+    out["rows"] = rows
+    out["wall_s"] = time.perf_counter() - t_phase
+    print(f"phase 8 wall {out['wall_s']:.1f} s", flush=True)
+    return out
+
+
 def main():
     torch = setup()
     build()
@@ -2214,7 +2510,10 @@ def main():
     gc.collect()
     torch.cuda.empty_cache()
     daemon = daemon_phase(torch, cli_results, suite_stats)
+    placed = placement_phase(torch, suite_stats)
     path_launches = {k: main_launches[k] for k in SPATTER_KERNELS}
+    path_launches["scatter_store_rows_cov"] = placed["launches"][
+        "scatter_store_rows_cov"]
     path_launches["selective_scan"] = serve_launches["selective_scan"]
     for k in ("flash_attention", "paged_decode"):
         path_launches[k] = llama_launches[k]
@@ -2248,6 +2547,7 @@ def main():
                       "paged_decode": times["paged_decode"],
                       "serve": served, "serve_llama": served_llama}))
     print(json.dumps({"daemon": daemon}))
+    print(json.dumps({"placements": placed}))
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

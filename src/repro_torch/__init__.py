@@ -15,6 +15,10 @@ Suite daemon: ``python -m repro_torch.serve.daemon`` (``serve``) runs
 suites over HTTP through the planner, with the disk tier ``diskcache``
 for bucket recipes and the nvcc-built kernels.
 
+Placements: ``plan.Placement`` lays a bucket launch over a (batch, lane)
+grid of devices (axis rules in ``sharding``, ``mesh="auto"`` by
+``cost``).
+
 Public names load lazily, so importing the package imports no submodule
 and builds nothing; the kernels are compiled at their first launch.  The
 package never imports ``jax`` or ``repro``.
@@ -32,14 +36,14 @@ _EXPORTS = {
     "SuitePlan": "plan", "BucketSpec": "plan", "Bucket": "plan",
     "ExecKey": "plan", "ExecutorCache": "plan", "CacheStats": "plan",
     "run_plan": "plan", "default_cache": "plan", "pad_batch": "plan",
-    "pad_lanes": "plan", "next_pow2": "plan",
+    "pad_lanes": "plan", "next_pow2": "plan", "Placement": "plan",
     "run_suite": "suite",
     "stream_reference": "suite", "aggregate_stats": "suite",
     "harmonic_mean": "suite", "pearson_r": "suite", "SuiteStats": "suite",
 }
-_SUBMODULES = ("appdb", "backends", "bandwidth", "configs", "diskcache",
-               "engine", "host", "kernels", "launch", "models", "pattern",
-               "plan", "serve", "suite")
+_SUBMODULES = ("appdb", "backends", "bandwidth", "configs", "cost",
+               "diskcache", "engine", "host", "kernels", "launch", "models",
+               "pattern", "plan", "serve", "sharding", "suite")
 
 __all__ = sorted(_EXPORTS) + list(_SUBMODULES)
 

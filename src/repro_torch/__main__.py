@@ -8,6 +8,13 @@ becomes
 Prints the paper's output: the min-of-K time and the useful-bytes
 bandwidth, beside the name of the device that ran it.  ``--device`` picks
 the device (default ``cuda``; ``cpu`` runs the kernels' plain versions).
+
+Suite mode places its bucket launches with ``--mesh N|BxL|auto|auto-suite``
+(``plan.Placement``): N devices on the pattern-batch axis, a B x L
+(batch x lane) grid, or the cost model's choice per bucket (``auto``) or
+for the suite (``auto-suite``), over the CUDA devices; it prints each
+bucket's placement.  A mesh of more devices than the machine has is an
+error naming the count (the CPU is one device).
 """
 from __future__ import annotations
 
@@ -39,6 +46,12 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--no-batch", action="store_true",
                     help="suite mode: one engine per pattern instead of the "
                          "bucketed planner (plan.py)")
+    ap.add_argument("--mesh", default="0", metavar="N|BxL|auto",
+                    help="suite mode: place bucket launches over N devices "
+                         "(pattern-batch axis), a BxL (batch x lane) grid, "
+                         "or 'auto' / 'auto-suite' (least predicted "
+                         "traffic, per bucket / per suite); default 0 = "
+                         "one device")
     ap.add_argument("--mode", default="store", choices=["store", "add"],
                     help="scatter write semantics: last-write-wins store "
                          "(paper default) or add accumulation")
@@ -58,15 +71,36 @@ def main(argv=None):
         ap.error("--runs must be >= 1 (min-of-K timing needs a run)")
     if args.stream_r and not args.json:
         ap.error("--stream-r only applies to --json suite mode")
+    from .serve.schema import parse_mesh
+    try:
+        mesh = parse_mesh(args.mesh)
+    except ValueError as e:
+        ap.error(f"--mesh: {e}")
+    if mesh and not args.json:
+        ap.error("--mesh only applies to --json suite mode")
+    if mesh and args.no_batch:
+        ap.error("--mesh requires the bucketed planner (drop --no-batch)")
     from .engine import GSEngine
     from .pattern import load_suite, make_pattern
     from .suite import run_suite
 
     if args.json:
-        stats = run_suite(load_suite(args.json), backend=args.backend,
+        patterns = load_suite(args.json)
+        placements = None
+        if mesh:
+            from .plan import SuitePlan, device_pool, resolve_mesh
+            try:
+                placements = resolve_mesh(
+                    SuitePlan.build(patterns), mesh, backend=args.backend,
+                    row_width=args.row_width,
+                    devices=device_pool(args.device))
+            except ValueError as e:
+                ap.error(f"--mesh: {e}")
+        stats = run_suite(patterns, backend=args.backend,
                           runs=args.runs, row_width=args.row_width,
                           mode=args.mode, stream_r=args.stream_r,
-                          batch=not args.no_batch, device=args.device)
+                          batch=not args.no_batch, device=args.device,
+                          mesh=placements)
         device = stats.results[0].device
         print(f"device: {device}")
         print(f"{'name':24s} {'type':16s} {'GB/s':>10s}")
@@ -78,9 +112,16 @@ def main(argv=None):
         if stats.stream_gbs is not None:
             print(f"stream: {stats.stream_gbs:.2f} GB/s reference")
         if stats.plan is not None:
+            waste = stats.plan.pad_waste_for(
+                placements or [None] * stats.plan.n_buckets)
             print(f"plan : {len(stats.results)} patterns -> "
                   f"{stats.plan.n_buckets} shape buckets "
-                  f"(pad waste {stats.plan.pad_waste():.1%})")
+                  f"(pad waste {waste:.1%})")
+        if placements is not None:
+            for b, pl in zip(stats.plan.buckets, placements):
+                print(f"mesh : {b.spec.kind} lanes {b.spec.idx_len} "
+                      f"footprint {b.spec.footprint} x{len(b.members)}: "
+                      f"{pl.placement if pl else 'single'}")
         return stats
 
     p = make_pattern(args.pattern, kind=args.kernel.lower(),

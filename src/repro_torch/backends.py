@@ -20,7 +20,11 @@ array and donates the old one; the engine and planner hand every timed run
 a fresh zeroed dst.  ``mode="store"`` is last-write-wins: ``keep`` (B, N)
 is the host-computed keep mask (``host.keep_last_mask``), True on at most
 one lane per destination row, and lanes it drops write nothing; nothing
-sorts inside a timed call (DESIGN.md §2.1).  ``mode="add"`` sums
+sorts inside a timed call (DESIGN.md §2.1).  A store given ``cov`` ((B, F)
+int32, zeroed) also marks the rows it wrote there: the hopper backend in
+its kernel's launch, the others through the plain version
+(``store_coverage_``); the lane-sharded combine selects by it
+(``plan.Placement``).  ``mode="add"`` sums
 duplicates into ``dst``.  The per-pattern ``gather``/``scatter`` are the
 B = 1 case.  Indices must lie in [0, F): the planner sends padding lanes
 to its scratch row.  float32 only.
@@ -33,6 +37,7 @@ import torch
 
 from .kernels.gather_rows import ops as gather_ops
 from .kernels.scatter_rows import ops as scatter_ops
+from .kernels.scatter_rows.ref import store_coverage_
 
 BACKENDS = ("torch", "onehot", "scalar", "hopper")
 SCATTER_MODES = ("store", "add")
@@ -164,12 +169,20 @@ def gather_batched(src: torch.Tensor, idx: torch.Tensor, *,
 
 def scatter_batched(dst: torch.Tensor, idx: torch.Tensor, vals: torch.Tensor,
                     *, mode: str = "store", backend: str = "torch",
-                    keep: torch.Tensor | None = None) -> torch.Tensor:
+                    keep: torch.Tensor | None = None,
+                    cov: torch.Tensor | None = None) -> torch.Tensor:
     """dst (B, F, R), idx (B, N), vals (B, N, R): writes dst in place and
-    returns it.  Store mode needs the (B, N) host keep mask."""
+    returns it.  Store mode needs the (B, N) host keep mask; with ``cov``
+    ((B, F) int32, zeroed) a store also marks the rows it wrote."""
     if mode == "store" and keep is None:
         raise ValueError("store mode needs the host keep mask "
                          "(host.keep_last_mask)")
+    if cov is not None:
+        if mode != "store":
+            raise ValueError("coverage is a store's: mode must be 'store'")
+        if backend == "hopper":
+            return scatter_ops.scatter_store_rows_(dst, idx, keep, vals, cov)
+        store_coverage_(cov, idx, keep)
     return SCATTER_FNS[backend](dst, idx, vals, mode, keep)
 
 

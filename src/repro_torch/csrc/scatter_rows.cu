@@ -3,6 +3,9 @@
 // Replaces the two Pallas TPU kernels of src/repro/kernels/scatter_rows/kernel.py:
 //   * scatter_store_rows_f32 <- scatter_store_rows_kernel (last-write-wins
 //     store through a one-hot MXU contraction)
+//   * scatter_store_rows_cov_f32 <- scatter_store_rows_kernel(with_cov=True)
+//     (the same store, plus the (B, V) int32 coverage map of the rows it
+//     wrote, from the same launch: the lane-sharded store combine's ballot)
 //   * scatter_add_rows_f32   <- scatter_add_rows_kernel   (sum-scatter through
 //     a one-hot MXU contraction)
 //
@@ -57,8 +60,17 @@
 // the reference's `dst + sum` up to the order of the additions (atomics
 // reorder them from run to run).  Offsets are 64-bit.
 //
+// Coverage.  The store with coverage also writes cov[b, row] = 1 (cov is
+// (B, V) int32, zeroed by the caller) for each lane it stores, in the same
+// pass and on the same lane test, so cov marks exactly the rows the store
+// wrote.  A row has at most one writer, so no atomics: a float4 row store
+// marks its 4 rows with one int4 where that is 16-byte aligned in cov, else
+// with 4 ints; the element kernel marks a lane's row with its first element.
+// Both store entry points are instances of one template (kCov), so the
+// store without coverage compiles to the code it had before.
+//
 // What bounds them: bytes, (index + keep + rows read + rows written) /
-// 3.35 TB/s.  Add mode with heavy duplication is bound instead by the atomic
+// 3.35 TB/s, and for the coverage 4 bytes a written row more.  Add mode with heavy duplication is bound instead by the atomic
 // throughput on the few hot addresses: LULESH-S3 (delta 0) sends every lane
 // of the pattern into 16 rows, and those atomics serialise in L2.
 #include <cuda_runtime.h>
@@ -79,12 +91,12 @@ constexpr int kElems = 8;         // otherwise: elements a thread (deep)
 // lanes and a tail (< 4).  Block k takes vectors [k, k + 1) * 256 * V4;
 // thread t vectors k * 256 * V4 + j * 256 + t, j < V4, so each warp
 // instruction reads 128 contiguous bytes of keep and 512 of idx and vals.
-template <typename I, int V4>
+template <typename I, int V4, bool kCov>
 __global__ void __launch_bounds__(kThreads)
 store_d1_vec_kernel(float* __restrict__ dst, const int32_t* __restrict__ idx,
                     const uint8_t* __restrict__ keep,
-                    const float* __restrict__ vals, I total, I head, I nv,
-                    I V, FastDiv<I> by_n) {
+                    const float* __restrict__ vals, int32_t* __restrict__ cov,
+                    I total, I head, I nv, I V, FastDiv<I> by_n) {
   const I v0 = static_cast<I>(blockIdx.x) * (kThreads * V4) + threadIdx.x;
   const unsigned int* kv =
       reinterpret_cast<const unsigned int*>(keep + head);
@@ -123,10 +135,20 @@ store_d1_vec_kernel(float* __restrict__ dst, const int32_t* __restrict__ idx,
         int64_t{r[j].z} - q == 2 && int64_t{r[j].w} - q == 3 &&
         aligned16(rows + q)) {
       __stcs(reinterpret_cast<float4*>(rows + q), x[j]);
+      if (kCov) {
+        int32_t* const c = cov + b * V + q;
+        if (aligned16(c)) {
+          *reinterpret_cast<int4*>(c) = make_int4(1, 1, 1, 1);
+        } else {
+          c[0] = c[1] = c[2] = c[3] = 1;
+        }
+      }
     } else {
       auto put = [&](uint32_t k, int32_t row, float val, I lane) {
         if (k != 0 && in_table(row, V)) {
-          (one ? rows : dst + by_n.div(lane) * V)[row] = val;
+          const I base = (one ? b : by_n.div(lane)) * V;
+          dst[base + row] = val;
+          if (kCov) cov[base + row] = 1;
         }
       };
       put(k0, r[j].x, x[j].x, l);
@@ -140,7 +162,11 @@ store_d1_vec_kernel(float* __restrict__ dst, const int32_t* __restrict__ idx,
                                 : head + nv * 4 + (threadIdx.x - 4);
     if (threadIdx.x < 4 ? l < head : l < total) {
       const int32_t row = idx[l];
-      if (keep[l] && in_table(row, V)) dst[by_n.div(l) * V + row] = vals[l];
+      if (keep[l] && in_table(row, V)) {
+        const I base = by_n.div(l) * V;
+        dst[base + row] = vals[l];
+        if (kCov) cov[base + row] = 1;
+      }
     }
   }
 }
@@ -149,12 +175,12 @@ store_d1_vec_kernel(float* __restrict__ dst, const int32_t* __restrict__ idx,
 // aligned) or float; Dv = D in units of T.  Block k takes the flat elements
 // [k, k + 1) * 256 * E of the (B * N, Dv) vals; thread t elements
 // k * 256 * E + j * 256 + t, j < E.
-template <typename T, typename I, int E>
+template <typename T, typename I, int E, bool kCov>
 __global__ void __launch_bounds__(kThreads)
 store_elems_kernel(T* __restrict__ dst, const int32_t* __restrict__ idx,
                    const uint8_t* __restrict__ keep,
-                   const T* __restrict__ vals, I total, I V, I Dv,
-                   FastDiv<I> by_dv, FastDiv<I> by_n) {
+                   const T* __restrict__ vals, int32_t* __restrict__ cov,
+                   I total, I V, I Dv, FastDiv<I> by_dv, FastDiv<I> by_n) {
   const I e0 = static_cast<I>(blockIdx.x) * (kThreads * E) + threadIdx.x;
   I lane[E];
   int32_t row[E];
@@ -176,7 +202,10 @@ store_elems_kernel(T* __restrict__ dst, const int32_t* __restrict__ idx,
   for (int j = 0; j < E; ++j) {
     const I e = e0 + j * kThreads;
     if (kept[j] && in_table(row[j], V)) {
-      dst[(by_n.div(lane[j]) * V + row[j]) * Dv + (e - lane[j] * Dv)] = x[j];
+      const I r = by_n.div(lane[j]) * V + row[j];
+      const I d = e - lane[j] * Dv;
+      dst[r * Dv + d] = x[j];
+      if (kCov && d == 0) cov[r] = 1;
     }
   }
 }
@@ -212,36 +241,37 @@ bool store_in_phase(const void* idx, const void* keep, const void* vals) {
   return in_phase(idx, vals) && (i & 3) == 0 && (((i >> 2) - k) & 3) == 0;
 }
 
-template <typename I, int V4>
+template <typename I, int V4, bool kCov>
 void launch_d1_vec(float* dst, const int32_t* idx, const uint8_t* keep,
-                   const float* vals, I total, I V, FastDiv<I> by_n,
-                   cudaStream_t s) {
+                   const float* vals, int32_t* cov, I total, I V,
+                   FastDiv<I> by_n, cudaStream_t s) {
   const I mis = static_cast<I>(reinterpret_cast<uintptr_t>(keep) & 3);
   const I head = (4 - mis) % 4 < total ? (4 - mis) % 4 : total;
   const I nv = (total - head) / 4;
   const int64_t per_block = kThreads * V4;
   const int64_t blocks = (static_cast<int64_t>(nv) + per_block - 1) /
                          per_block;
-  store_d1_vec_kernel<I, V4><<<static_cast<unsigned>(blocks > 0 ? blocks : 1),
-                               kThreads, 0, s>>>(dst, idx, keep, vals, total,
-                                                 head, nv, V, by_n);
+  store_d1_vec_kernel<I, V4, kCov>
+      <<<static_cast<unsigned>(blocks > 0 ? blocks : 1), kThreads, 0, s>>>(
+          dst, idx, keep, vals, cov, total, head, nv, V, by_n);
 }
 
-template <typename T, typename I, int E>
+template <typename T, typename I, int E, bool kCov>
 void launch_elems(void* dst, const int32_t* idx, const uint8_t* keep,
-                  const void* vals, I elems, I V, I dv, I N, cudaStream_t s) {
+                  const void* vals, int32_t* cov, I elems, I V, I dv, I N,
+                  cudaStream_t s) {
   const int64_t blocks = (static_cast<int64_t>(elems) + kThreads * E - 1) /
                          (kThreads * E);
-  store_elems_kernel<T, I, E><<<static_cast<unsigned>(blocks), kThreads, 0,
-                                s>>>(
-      static_cast<T*>(dst), idx, keep, static_cast<const T*>(vals), elems, V,
-      dv, make_div(dv), make_div(N));
+  store_elems_kernel<T, I, E, kCov>
+      <<<static_cast<unsigned>(blocks), kThreads, 0, s>>>(
+          static_cast<T*>(dst), idx, keep, static_cast<const T*>(vals), cov,
+          elems, V, dv, make_div(dv), make_div(N));
 }
 
-template <typename I>
+template <typename I, bool kCov>
 int launch_store(void* dst, const int32_t* idx, const uint8_t* keep,
-                 const void* vals, int64_t B, int64_t N, int64_t V, int64_t D,
-                 cudaStream_t s) {
+                 const void* vals, int32_t* cov, int64_t B, int64_t N,
+                 int64_t V, int64_t D, cudaStream_t s) {
   const I total = static_cast<I>(B * N);
   int64_t full = 0;
   const cudaError_t err = card_threads(&full);
@@ -251,9 +281,9 @@ int launch_store(void* dst, const int32_t* idx, const uint8_t* keep,
       return static_cast<int>(cudaErrorInvalidConfiguration);
     }
     const bool deep = static_cast<int64_t>(total) / 4 >= full * kVecs;
-    (deep ? &launch_d1_vec<I, kVecs> : &launch_d1_vec<I, 1>)(
+    (deep ? &launch_d1_vec<I, kVecs, kCov> : &launch_d1_vec<I, 1, kCov>)(
         static_cast<float*>(dst), idx, keep, static_cast<const float*>(vals),
-        total, static_cast<I>(V), make_div(static_cast<I>(N)), s);
+        cov, total, static_cast<I>(V), make_div(static_cast<I>(N)), s);
     return static_cast<int>(cudaGetLastError());
   }
   const bool vec = D % 4 == 0 && aligned16(dst) && aligned16(vals);
@@ -265,30 +295,52 @@ int launch_store(void* dst, const int32_t* idx, const uint8_t* keep,
   const bool deep = static_cast<int64_t>(elems) >= full * kElems;
   const I v = static_cast<I>(V), n = static_cast<I>(N);
   if (vec) {
-    (deep ? &launch_elems<float4, I, kElems> : &launch_elems<float4, I, 1>)(
-        dst, idx, keep, vals, elems, v, dv, n, s);
+    (deep ? &launch_elems<float4, I, kElems, kCov>
+          : &launch_elems<float4, I, 1, kCov>)(dst, idx, keep, vals, cov,
+                                               elems, v, dv, n, s);
   } else {
-    (deep ? &launch_elems<float, I, kElems> : &launch_elems<float, I, 1>)(
-        dst, idx, keep, vals, elems, v, dv, n, s);
+    (deep ? &launch_elems<float, I, kElems, kCov>
+          : &launch_elems<float, I, 1, kCov>)(dst, idx, keep, vals, cov,
+                                              elems, v, dv, n, s);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
-}  // namespace
-
-// Both return the cudaError_t of the launch (0 on success).
-extern "C" int scatter_store_rows_f32(void* dst, const void* idx,
-                                      const void* keep, const void* vals,
-                                      int64_t B, int64_t N, int64_t V,
-                                      int64_t D, void* stream) {
+template <bool kCov>
+int store_entry(void* dst, const void* idx, const void* keep,
+                const void* vals, void* cov, int64_t B, int64_t N, int64_t V,
+                int64_t D, void* stream) {
   if (B <= 0 || N <= 0 || D <= 0) return 0;
   if (V < 0) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int32_t* ix = static_cast<const int32_t*>(idx);
   const uint8_t* kp = static_cast<const uint8_t*>(keep);
+  int32_t* cv = static_cast<int32_t*>(cov);
   return fits32(B, N, V, D)
-             ? launch_store<uint32_t>(dst, ix, kp, vals, B, N, V, D, s)
-             : launch_store<uint64_t>(dst, ix, kp, vals, B, N, V, D, s);
+             ? launch_store<uint32_t, kCov>(dst, ix, kp, vals, cv, B, N, V, D,
+                                            s)
+             : launch_store<uint64_t, kCov>(dst, ix, kp, vals, cv, B, N, V, D,
+                                            s);
+}
+
+}  // namespace
+
+// All three return the cudaError_t of the launch (0 on success).
+extern "C" int scatter_store_rows_f32(void* dst, const void* idx,
+                                      const void* keep, const void* vals,
+                                      int64_t B, int64_t N, int64_t V,
+                                      int64_t D, void* stream) {
+  return store_entry<false>(dst, idx, keep, vals, nullptr, B, N, V, D,
+                            stream);
+}
+
+// cov: (B, V) int32, zeroed by the caller; 1 where this call stored a row.
+extern "C" int scatter_store_rows_cov_f32(void* dst, const void* idx,
+                                          const void* keep, const void* vals,
+                                          void* cov, int64_t B, int64_t N,
+                                          int64_t V, int64_t D,
+                                          void* stream) {
+  return store_entry<true>(dst, idx, keep, vals, cov, B, N, V, D, stream);
 }
 
 extern "C" int scatter_add_rows_f32(void* dst, const void* idx,

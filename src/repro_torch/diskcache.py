@@ -63,9 +63,12 @@ DEFAULT_BUDGET_BYTES = 1 << 30          # 1 GiB: libraries are MB-scale
 
 
 def exec_key_str(key: ExecKey) -> str:
-    """Canonical string form of an ``ExecKey``: its disk identity."""
+    """Canonical string form of an ``ExecKey``: its disk identity.  An
+    unplaced key (placement ``""``) leaves the field out, so its string,
+    and so its entry, is the one written before keys had placements."""
     return "|".join(f"{f.name}={getattr(key, f.name)}"
-                    for f in dataclasses.fields(ExecKey))
+                    for f in dataclasses.fields(ExecKey)
+                    if f.name != "placement" or key.placement)
 
 
 def toolchain(device) -> dict:

@@ -181,6 +181,35 @@ class GSEngine:
                                 device=self.device),) + args
         return fn, args
 
+    def sharded(self, placement):
+        """Split the pattern's lanes over a lane-only ``plan.Placement``
+        (the paper's thread dim): returns ``(fn, args)`` like ``build``,
+        where ``fn(*args)`` cuts the lanes by the placement, runs each
+        shard on its device and combines on the first (``Placement.run``).
+        A batch placement belongs to the suite planner: one pattern has
+        no batch dim to split."""
+        if placement.batch_axis is not None:
+            raise ValueError("GSEngine.sharded is per pattern: the placement "
+                             f"must be lane-only, got {placement.placement}")
+        n = self.pattern.count * self.pattern.index_len
+        if n % placement.lane_shards:
+            raise ValueError(f"count*index_len={n} not divisible by "
+                             f"{placement.lane_shards} shards")
+        from .plan import _bucket_fn
+        _, args = self.build()
+        kind, mode = self.pattern.kind, self.mode
+        raw = _bucket_fn(self.backend, kind, mode)
+
+        def sharded_fn(*ops):
+            shards = [tuple(a[None] for a in sh) for sh in placement.place(
+                kind, ops[1:] if kind == "scatter" else ops, batched=False)]
+            if kind == "gather":
+                return placement.run(raw, kind, mode, shards)[0]
+            dst = ops[0][None].to(placement.devices[0])
+            return placement.run(raw, kind, mode, shards,
+                                 placement.scratch(mode, dst), dst)[0]
+        return sharded_fn, args
+
     def run(self, runs: int = 10) -> RunResult:
         fn, args = self.build()
         t, _ = timed_runs(fn, args, runs, self.device,

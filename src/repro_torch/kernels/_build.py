@@ -44,8 +44,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 KERNELS = ("gather_rows", "gather_rows_smem", "scatter_store_rows",
-           "scatter_add_rows", "selective_scan", "flash_attention",
-           "paged_decode")
+           "scatter_store_rows_cov", "scatter_add_rows", "selective_scan",
+           "flash_attention", "paged_decode")
 launches: dict[str, int] = {k: 0 for k in KERNELS}
 nvcc_runs = 0                    # nvcc processes started by this process
 
@@ -75,6 +75,8 @@ _SIGNATURES = {
         # dst, idx, keep, vals, B, N, V, D, stream
         "scatter_store_rows_f32": (_P, _P, _P, _P, _I64, _I64, _I64, _I64,
                                    _P),
+        # dst, idx, keep, vals, cov, B, N, V, D, stream
+        "scatter_store_rows_cov_f32": (_P,) * 5 + (_I64,) * 4 + (_P,),
         # dst, idx, vals, B, N, V, D, stream
         "scatter_add_rows_f32": (_P, _P, _P, _I64, _I64, _I64, _I64, _P),
     },

@@ -7,8 +7,11 @@ launches the last-write-wins store (for ``scatter_store_rows_kernel``) and
 are given and return it, as the reference's engine donates its dst: a
 caller that times them hands in a fresh zeroed dst for every run.  The
 store takes the host keep mask as an operand and drops ``!keep`` and
-out-of-range lanes itself, so a bucket is one launch.  The coverage map of
-the reference's ``with_cov`` (the lane-sharded combine) is not ported yet.
+out-of-range lanes itself, so a bucket is one launch.  Given a ``cov``
+operand the store launches its coverage instance instead (for the
+reference's ``with_cov=True``): the same pass also marks each row it wrote
+in ``cov``, the ballot of the lane-sharded store combine
+(``plan.Placement``).
 
 On CPU tensors the wrappers run the plain versions (``ref``); on CUDA
 tensors they launch the kernel or raise.  Float32 rows, int32 indices and
@@ -42,21 +45,35 @@ def _checked(dst, idx, vals, keep=None):
 
 
 def scatter_store_rows_(dst: torch.Tensor, idx: torch.Tensor,
-                        keep: torch.Tensor,
-                        vals: torch.Tensor) -> torch.Tensor:
+                        keep: torch.Tensor, vals: torch.Tensor,
+                        cov: torch.Tensor | None = None) -> torch.Tensor:
     """In place: dst[b, idx[b, n]] = vals[b, n] for every lane with
     keep[b, n] and idx[b, n] in [0, V).  dst (B, V, D), idx (B, N) int32,
     keep (B, N) bool, vals (B, N, D).  Contract: at most one such lane per
-    row (the host keep mask's), so the result is independent of order."""
+    row (the host keep mask's), so the result is independent of order.
+    With ``cov`` ((B, V) int32, zeroed by the caller) the same launch also
+    sets cov[b, row] = 1 for every row it stored."""
     dev = _checked(dst, idx, vals, keep)
+    if cov is not None:
+        _build.check_operand("cov", cov, torch.int32, 2)
+        if cov.shape != dst.shape[:2]:
+            raise ValueError(f"cov {tuple(cov.shape)} vs dst "
+                             f"{tuple(dst.shape)}")
+        _build.common_device(dst=dst, cov=cov)
     if dev.type == "cpu":
-        return scatter_store_rows_ref_(dst, idx, keep, vals)
+        return scatter_store_rows_ref_(dst, idx, keep, vals, cov)
     bsz, v, d = dst.shape
     if idx.numel() and d:
-        _build.launch("scatter_store_rows", dev, "scatter_rows",
-                      "scatter_store_rows_f32", dst.data_ptr(),
-                      idx.data_ptr(), keep.data_ptr(), vals.data_ptr(),
-                      bsz, idx.shape[1], v, d)
+        if cov is None:
+            _build.launch("scatter_store_rows", dev, "scatter_rows",
+                          "scatter_store_rows_f32", dst.data_ptr(),
+                          idx.data_ptr(), keep.data_ptr(), vals.data_ptr(),
+                          bsz, idx.shape[1], v, d)
+        else:
+            _build.launch("scatter_store_rows_cov", dev, "scatter_rows",
+                          "scatter_store_rows_cov_f32", dst.data_ptr(),
+                          idx.data_ptr(), keep.data_ptr(), vals.data_ptr(),
+                          cov.data_ptr(), bsz, idx.shape[1], v, d)
     return dst
 
 

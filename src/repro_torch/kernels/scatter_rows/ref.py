@@ -20,18 +20,32 @@ def _rows(idx: torch.Tensor, v: int, sel: torch.Tensor) -> torch.Tensor:
 
 
 def scatter_store_rows_ref_(dst: torch.Tensor, idx: torch.Tensor,
-                            keep: torch.Tensor,
-                            vals: torch.Tensor) -> torch.Tensor:
+                            keep: torch.Tensor, vals: torch.Tensor,
+                            cov: torch.Tensor | None = None) -> torch.Tensor:
     """dst[b, idx[b, n]] = vals[b, n] for kept lanes with idx in [0, V).
 
     The caller's keep mask leaves at most one such lane per row (the
     last-write-wins contract), so the order of the stores does not matter.
     dst (B, V, D), idx (B, N) int32, keep (B, N) bool, vals (B, N, D).
+    With ``cov`` ((B, V) int32) also store_coverage_(cov, idx, keep).
     """
     bsz, v, d = dst.shape
     sel = keep & in_range(idx, v)
     dst.view(bsz * v, d)[_rows(idx, v, sel)] = vals[sel]
+    if cov is not None:
+        store_coverage_(cov, idx, keep)
     return dst
+
+
+def store_coverage_(cov: torch.Tensor, idx: torch.Tensor,
+                    keep: torch.Tensor) -> torch.Tensor:
+    """cov[b, idx[b, n]] = 1 for kept lanes with idx in [0, V): the rows a
+    store with this keep mask writes (the reference's ``with_covered``
+    map).  cov (B, V) int32, in place."""
+    bsz, v = cov.shape
+    sel = keep & in_range(idx, v)
+    cov.view(bsz * v)[_rows(idx, v, sel)] = 1
+    return cov
 
 
 def scatter_add_rows_ref_(dst: torch.Tensor, idx: torch.Tensor,

@@ -1,6 +1,7 @@
-"""Suite planner: pow-2 shape buckets, executor cache, one launch per bucket.
+"""Suite planner: pow-2 shape buckets, executor cache, one launch per bucket,
+and placements of a bucket launch over several devices.
 
-The single-device part of ``repro.core.plan``, on PyTorch.
+The port of ``repro.core.plan``, on PyTorch.
 
 Plan.  ``SuitePlan.build`` groups patterns into shape buckets: a pattern's
 flattened lane count ``count * index_len`` and its table ``footprint`` are
@@ -9,11 +10,11 @@ padded lanes, padded footprint)`` share a bucket.
 
 Cache.  A bucket runs through a callable fetched from an ``ExecutorCache``,
 an LRU keyed by ``ExecKey`` (backend, kind, shape, dtype, row width, mode,
-padded batch).  PyTorch compiles nothing, so ``misses`` counts the bucket
-callables built, one per ``ExecKey``; on a card, building a hopper bucket
-loads the libraries it launches (``build_bucket``; ``kernels._build``
-compiles each once per process, or takes it from the disk tier).  A
-second identical run builds nothing.  The lookup is batch-polymorphic as
+padded batch, placement).  PyTorch compiles nothing, so ``misses`` counts
+the bucket callables built, one per ``ExecKey``; on a card, building a
+hopper bucket loads the libraries it launches (``build_bucket``;
+``kernels._build`` compiles each once per process, or takes it from the
+disk tier).  A second identical run builds nothing.  The lookup is batch-polymorphic as
 in the reference: a bucket whose membership shrank reuses a warm key with
 a larger padded batch (``best_batch``).  Builders run outside the cache's
 lock, one per key (racing callers wait on its future), so ``misses`` stays
@@ -45,13 +46,41 @@ its output is back on the host: no other launch's copies or kernels fall
 between its CUDA events.  The host work (drawing the buffers in numpy,
 hashing the output) runs outside the lock.
 
-Not here yet: placements over several devices (ROADMAP A5), and the
-reference's quiet pallas->xla degradation, which the port does not carry
-over: on a CUDA tensor a kernel launches or raises, and a failed build
-fails its launch.
+Placements.  ``make_work(mesh=...)`` / ``run_plan(mesh=...)`` place a
+bucket launch on a ``Placement``: an explicit list of devices arranged as
+a ``(batch, lane)`` grid, run by this one process (one controller, as the
+reference's jitted body over a mesh).  The batch axis splits the pattern
+batch (whole patterns a shard), the lane axis the flattened lanes within
+each pattern; ``sharding.gs_specs`` says which operand splits on which
+axis, and tables are replicated along the lane axis.  ``pad_batch`` and
+``pad_lanes`` round the launched dims up to shard multiples.  The host
+buffers (and the store's keep mask, over the whole padded lane buffer)
+are built as for one device, then cut by the grid and copied to each
+shard's device outside the timed region (``Placement.place``).  A timed
+call launches the bucket callable once on every shard, on its device,
+and combines on the first device (``Placement.run``): gathers
+concatenate their lanes; adds sum the shards' partials (each from zeros)
+onto dst; a lane-split store stores each shard into zeros with its
+coverage map (the store kernel's coverage output) and takes each row
+from the one shard that covered it, else from dst, so it is bit-identical
+to the one-device launch, ``-0.0`` included (the reference's ``psum`` of
+such shards turns ``-0.0`` into ``+0.0``).  A placed launch is timed by
+the host clock between synchronisations of every device it uses, and it
+holds the lock of each distinct device, taken in the order of their
+names (``device_locks``), so two launches over the same devices in
+another order cannot deadlock.  Devices may repeat: the CPU tests place
+shards on ``["cpu"] * n`` and one card on ``[cuda:0] * n``, which shows
+that a placement is right, not how it scales.  The canonical placement
+string is part of the ``ExecKey``, so placed and unplaced callables never
+share an entry.
+
+Not carried over: the reference's quiet pallas->xla degradation.  On a
+CUDA tensor a kernel launches or raises, and a failed build fails its
+launch.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import hashlib
 import threading
@@ -67,6 +96,7 @@ from . import bandwidth as bw
 from .engine import RunResult, device_name, resolve_device, timed_runs
 from .host import make_host_buffers
 from .pattern import Pattern
+from .sharding import gs_specs, shard_of
 
 
 def next_pow2(n: int) -> int:
@@ -138,11 +168,26 @@ class SuitePlan:
     def n_buckets(self) -> int:
         return len(self.buckets)
 
-    def pad_waste(self) -> float:
-        """Fraction of launched lanes that are padding (0 = no waste)."""
+    def pad_waste(self, n_shards: int = 1, lane_shards: int = 1) -> float:
+        """Fraction of launched lanes that are padding (0 = no waste):
+        lane padding (the pow-2 bracket and the ``lane_shards`` multiple)
+        and the scratch patterns of batch padding (the ``n_shards``
+        multiple on the batch axis)."""
+        return self.pad_waste_for([(n_shards, lane_shards)]
+                                  * len(self.buckets))
+
+    def pad_waste_for(self, placements) -> float:
+        """``pad_waste`` under a per-bucket placement list (what
+        ``mesh="auto"`` resolves to): each bucket pads to its own
+        placement's shard multiples.  An entry is a ``Placement``, a
+        ``(batch, lane)`` grid, or ``None`` (one device)."""
         real = sum(p.count * p.index_len for p in self.patterns)
-        launched = sum(b.spec.idx_len * pad_batch(len(b.members))
-                       for b in self.buckets)
+        launched = 0
+        for b, pl in zip(self.buckets, placements):
+            bs, ls = (pl.grid if isinstance(pl, Placement)
+                      else pl or (1, 1))
+            launched += (pad_lanes(b.spec.idx_len, ls)
+                         * pad_batch(len(b.members), bs))
         return 1.0 - real / max(1, launched)
 
 
@@ -160,6 +205,7 @@ class ExecKey:
     row_width: int
     mode: str           # "store" | "add" for scatter, "" for gather
     batch: int          # padded pattern-batch dim (pad_batch)
+    placement: str = ""   # Placement.placement; "" = one device, unplaced
 
 
 @dataclasses.dataclass(frozen=True)
@@ -363,14 +409,15 @@ def default_cache() -> ExecutorCache:
 
 def _bucket_fn(backend: str, kind: str, mode: str) -> Callable:
     """The bucket callable: gather (table, idx) or scatter (dst, idx, vals,
-    keep), one backend call for the whole bucket."""
+    keep[, cov]), one backend call for the whole bucket, or for one shard
+    of a placed launch (a lane-split store passes its coverage map)."""
     if kind == "gather":
         def fn(table, idx):
             return B.gather_batched(table, idx, backend=backend)
     else:
-        def fn(dst, idx, vals, keep):
+        def fn(dst, idx, vals, keep, cov=None):
             return B.scatter_batched(dst, idx, vals, mode=mode,
-                                     backend=backend, keep=keep)
+                                     backend=backend, keep=keep, cov=cov)
     return fn
 
 
@@ -395,14 +442,325 @@ def build_bucket(backend: str, kind: str, mode: str, device,
 
 
 def bucket_key(backend: str, spec: BucketSpec, dtype, row_width: int,
-               mode: str, n_members: int) -> ExecKey:
+               mode: str, n_members: int,
+               placement: "Placement | None" = None) -> ExecKey:
     """The ``ExecKey`` a bucket launch is served under."""
     return ExecKey(backend=backend, kind=spec.kind, idx_len=spec.idx_len,
                    footprint=spec.footprint,
                    dtype=str(dtype).removeprefix("torch."),
                    row_width=row_width,
                    mode=mode if spec.kind == "scatter" else "",
-                   batch=pad_batch(n_members))
+                   batch=pad_batch(n_members, placement.batch_shards
+                                   if placement else 1),
+                   placement=placement.placement if placement else "")
+
+
+# ---------------------------------------------------------------------------
+# Placement: the (pattern-batch x lane) split over devices
+# ---------------------------------------------------------------------------
+
+def _canonical_device(device) -> torch.device:
+    """``device`` with a CUDA index always given (``cuda`` -> ``cuda:N``,
+    the current device), so equal devices compare and print equal."""
+    dev = resolve_device(device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    return dev
+
+
+@dataclasses.dataclass(frozen=True)
+class Placement:
+    """A bucket launch's devices, arranged as a ``(batch, lane)`` grid.
+
+    ``devices`` lists one device per shard, row-major over the grid
+    (shard ``(i, j)`` is ``devices[i * lanes + j]``); a device may be
+    listed more than once.  The batch axis splits the pattern batch, the
+    lane axis the flattened lanes within a pattern; a degenerate axis has
+    no name (``None``), as in the reference's 1-D meshes.  ``placement``
+    is the canonical string of the ``ExecKey``, the reference's: batch-only
+    ``data=8/8dev``, lane-only ``lane:lane=8/8dev``, both
+    ``data=4xlane=2/8dev``.
+    """
+    devices: tuple
+    grid: tuple[int, int]
+    batch_axis: str | None = "data"
+    lane_axis: str | None = None
+
+    def __post_init__(self):
+        b, l = self.grid
+        if b < 1 or l < 1:
+            raise ValueError(f"placement grid must be >= 1, got {self.grid}")
+        if self.batch_axis is None and self.lane_axis is None:
+            raise ValueError("placement needs at least one axis")
+        if self.batch_axis == self.lane_axis:
+            raise ValueError(f"batch and lane axes must differ, both "
+                             f"{self.batch_axis!r}")
+        if (self.batch_axis is None and b != 1) or (
+                self.lane_axis is None and l != 1):
+            raise ValueError(f"grid {b}x{l} splits an axis that has no "
+                             f"name (batch {self.batch_axis!r}, lane "
+                             f"{self.lane_axis!r})")
+        if len(self.devices) != b * l:
+            raise ValueError(f"grid {b}x{l} needs {b * l} devices, "
+                             f"{len(self.devices)} listed")
+        object.__setattr__(self, "devices",
+                           tuple(_canonical_device(d) for d in self.devices))
+
+    @staticmethod
+    def create(shape, *, batch_axis: str = "data", lane_axis: str = "lane",
+               devices=None) -> "Placement":
+        """A placement from a shape: an int ``N`` (batch-only over N
+        devices) or a ``(b, l)`` tuple.  Degenerate dims collapse as in the
+        reference, so ``(8, 1)`` and ``8`` give the same placement and
+        ``(1, 8)`` is lane-only.  It takes the first ``b * l`` of
+        ``devices`` (repeats allowed), by default of the CUDA devices, and
+        raises when there are fewer: a placement never runs on fewer
+        devices than it has shards."""
+        if isinstance(shape, int):
+            shape = (shape,)
+        shape = tuple(int(s) for s in shape)
+        if not 1 <= len(shape) <= 2 or any(s < 1 for s in shape):
+            raise ValueError(f"placement shape must be N or (b, l) with "
+                             f"b, l >= 1, got {shape}")
+        b, l = shape[0], shape[1] if len(shape) == 2 else 1
+        if devices is None:
+            have = (torch.cuda.device_count() if torch.cuda.is_available()
+                    else 0)
+            listed = [torch.device("cuda", i) for i in range(have)]
+            what = "CUDA devices"
+        else:
+            listed = list(devices)
+            what = "devices listed"
+        if b * l > len(listed):
+            raise ValueError(f"placement {b}x{l} needs {b * l} devices, "
+                             f"have {len(listed)} {what}")
+        axes = ((batch_axis, None) if l == 1 else (None, lane_axis)
+                if b == 1 else (batch_axis, lane_axis))
+        return Placement(devices=tuple(listed[:b * l]), grid=(b, l),
+                         batch_axis=axes[0], lane_axis=axes[1])
+
+    @property
+    def batch_shards(self) -> int:
+        return self.grid[0]
+
+    @property
+    def lane_shards(self) -> int:
+        return self.grid[1]
+
+    @property
+    def placement(self) -> str:
+        """Canonical ``ExecKey`` string (the reference's forms)."""
+        ndev = len(self.devices)
+        if self.lane_axis is None:
+            return f"{self.batch_axis}={self.batch_shards}/{ndev}dev"
+        if self.batch_axis is None:
+            return f"lane:{self.lane_axis}={self.lane_shards}/{ndev}dev"
+        return (f"{self.batch_axis}={self.batch_shards}"
+                f"x{self.lane_axis}={self.lane_shards}/{ndev}dev")
+
+    def _coords(self, shard: int) -> dict:
+        b, l = self.grid
+        return {self.batch_axis: (shard // l, b),
+                self.lane_axis: (shard % l, l)}
+
+    def place(self, kind: str, args: Sequence[torch.Tensor], *,
+              batched: bool = True) -> list[tuple]:
+        """Cut the launch operands by ``sharding.gs_specs`` and copy each
+        shard's block to its device: one operand tuple a shard, in
+        ``devices`` order.  ``args`` are all of the kind's operands
+        (gather: table, idx; scatter: dst, idx, vals, keep) or, for a
+        scatter, the last three (its dst is per run: ``scratch``)."""
+        in_specs, _ = gs_specs(kind, batched=batched,
+                               batch_axis=self.batch_axis,
+                               lane_axis=self.lane_axis)
+        specs = in_specs[len(in_specs) - len(args):]
+        return [tuple(shard_of(a, spec, self._coords(s)).to(dev)
+                      .contiguous() for a, spec in zip(args, specs))
+                for s, dev in enumerate(self.devices)]
+
+    def scratch(self, mode: str, dst: torch.Tensor) -> list[tuple]:
+        """Each shard's (dst, cov) for one scatter call, made before the
+        timed region: with one lane shard, a copy of the shard's block of
+        ``dst`` (the call stores or adds into it); with several, zeros
+        (partials for the add, a store's rows) and, for a store, a zeroed
+        (Bs, F) int32 coverage map.  ``dst`` is (B, F, R)."""
+        b, l = self.grid
+        out = []
+        for s, dev in enumerate(self.devices):
+            block = shard_of(dst, (self.batch_axis,), self._coords(s))
+            if l == 1:
+                out.append((block.to(dev, copy=True), None))
+                continue
+            cov = (torch.zeros(block.shape[:2], dtype=torch.int32,
+                               device=dev) if mode == "store" else None)
+            out.append((torch.zeros(block.shape, dtype=block.dtype,
+                                    device=dev), cov))
+        return out
+
+    def run(self, fn: Callable, kind: str, mode: str, shards: list,
+            scratch: list | None = None,
+            dst: torch.Tensor | None = None) -> torch.Tensor:
+        """One placed call: ``fn`` (the bucket callable) on every shard, on
+        its device, then the combine on ``devices[0]``.  ``shards`` come
+        from ``place``; a scatter also takes ``scratch`` and its (B, F,
+        R) ``dst`` on ``devices[0]``, the rows no shard writes."""
+        b, l = self.grid
+        dev0 = self.devices[0]
+        outs = []
+        for s, args in enumerate(shards):
+            if kind == "gather":
+                outs.append(fn(*args))
+            else:
+                d, cov = scratch[s]
+                if cov is None:
+                    fn(d, *args)
+                else:
+                    fn(d, *args, cov)
+                outs.append(d)
+        blocks = []
+        for i in range(b):
+            parts = [outs[i * l + j].to(dev0) for j in range(l)]
+            if kind == "gather" or l == 1:
+                blocks.append(torch.cat(parts, dim=1) if l > 1 else parts[0])
+                continue
+            base = shard_of(dst, (self.batch_axis,), self._coords(i * l))
+            if mode == "add":
+                total = parts[0]
+                for p in parts[1:]:
+                    total = total + p
+                blocks.append(base + total)
+            else:
+                # at most one shard covers a row (the keep mask was made
+                # before the split): a select, exact for every bit
+                for j, p in enumerate(parts):
+                    cov = scratch[i * l + j][1].to(dev0)
+                    base = torch.where(cov[..., None] != 0, p, base)
+                blocks.append(base)
+        return torch.cat(blocks) if b > 1 else blocks[0]
+
+    def synchronize(self) -> None:
+        """Wait for every CUDA device of the placement."""
+        for dev in {d for d in self.devices if d.type == "cuda"}:
+            torch.cuda.synchronize(dev)
+
+
+def as_placement(mesh, mesh_axis: str = "data",
+                 devices=None) -> Placement | None:
+    """Normalise a ``mesh=`` form to a Placement (or None).
+
+    ``None``/``0``/empty -> None (one device, unplaced); a ``Placement``
+    passes through; an int ``N`` or a ``(b, l)`` tuple goes through
+    ``Placement.create`` over ``devices`` (default: the CUDA devices),
+    which raises when there are too few.
+    """
+    if mesh is None or isinstance(mesh, Placement):
+        return mesh
+    if isinstance(mesh, int):
+        return (Placement.create(mesh, batch_axis=mesh_axis, devices=devices)
+                if mesh else None)
+    shape = tuple(mesh)
+    if not shape:
+        return None
+    return Placement.create(shape, batch_axis=mesh_axis, devices=devices)
+
+
+def auto_placements(plan: SuitePlan, mesh: str, *, mesh_axis: str = "data",
+                    backend: str = "torch", dtype=None, row_width: int = 1,
+                    devices=None):
+    """Resolve ``mesh="auto"`` / ``"auto-suite"`` through the cost model
+    (``cost.auto_placement``) over ``devices`` (default: the CUDA
+    devices).
+
+    ``"auto"`` picks a placement per bucket: each bucket's members form a
+    one-bucket plan scored alone, and a per-bucket list comes back.
+    ``"auto-suite"`` picks one shape for the whole suite and returns one
+    Placement (or None).  A ``(1, 1)`` choice is None, the unplaced key
+    ``""``, as on one device.  Equal shapes share one Placement.
+    """
+    from . import cost
+    if devices is None:
+        n_dev = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    else:
+        n_dev = len(devices)
+    kw = dict(n_devices=max(n_dev, 1), dtype=dtype, row_width=row_width,
+              backend=backend)
+    if mesh == "auto-suite":
+        return as_placement(cost.auto_placement(plan, **kw), mesh_axis,
+                            devices)
+    if mesh != "auto":
+        raise ValueError(f"unknown auto mesh mode {mesh!r}; "
+                         f"expected 'auto' or 'auto-suite'")
+    memo: dict = {}
+    out = []
+    for bucket in plan.buckets:
+        sub = SuitePlan(
+            patterns=tuple(plan.patterns[p] for p in bucket.members),
+            buckets=(Bucket(spec=bucket.spec,
+                            members=tuple(range(len(bucket.members)))),))
+        shape = cost.auto_placement(sub, **kw)
+        if shape not in memo:
+            memo[shape] = as_placement(shape, mesh_axis, devices)
+        out.append(memo[shape])
+    return out
+
+
+def resolve_mesh(plan: SuitePlan, mesh, *, mesh_axis: str = "data",
+                 backend: str = "torch", dtype=None, row_width: int = 1,
+                 devices=None) -> list:
+    """Every ``mesh=`` form as one ``Placement | None`` a bucket: an
+    ``as_placement`` form (the same placement for every bucket), a
+    per-bucket list of them, or ``"auto"`` / ``"auto-suite"``."""
+    if isinstance(mesh, str):
+        mesh = auto_placements(plan, mesh, mesh_axis=mesh_axis,
+                               backend=backend, dtype=dtype,
+                               row_width=row_width, devices=devices)
+    if isinstance(mesh, list):
+        if len(mesh) != len(plan.buckets):
+            raise ValueError(f"{len(mesh)} placements for "
+                             f"{len(plan.buckets)} buckets")
+        return [as_placement(m, mesh_axis, devices) for m in mesh]
+    return [as_placement(mesh, mesh_axis, devices)] * len(plan.buckets)
+
+
+def placement_grid(placement: str) -> tuple[int, int, int]:
+    """Parse a canonical ``ExecKey.placement`` string back to
+    ``(batch_shards, lane_shards, n_devices)``; ``""`` is ``(1, 1, 1)``.
+    The inverse of ``Placement.placement`` for its three forms."""
+    if not placement:
+        return (1, 1, 1)
+    body, sep, dev = placement.rpartition("/")
+    if not sep or not dev.endswith("dev"):
+        raise ValueError(f"not a canonical placement string: {placement!r}")
+    ndev = int(dev[:-len("dev")])
+    if body.startswith("lane:"):
+        return (1, int(body.split("=", 1)[1]), ndev)
+    if "x" in body:
+        b_part, l_part = body.split("x", 1)
+        return (int(b_part.split("=", 1)[1]),
+                int(l_part.split("=", 1)[1]), ndev)
+    return (int(body.split("=", 1)[1]), 1, ndev)
+
+
+def placement_axes(placement: str) -> dict[str, int]:
+    """Parse a canonical ``ExecKey.placement`` string to its named axes,
+    e.g. ``"data=4xlane=2/8dev"`` -> ``{"data": 4, "lane": 2}``; ``""`` ->
+    ``{}``."""
+    if not placement:
+        return {}
+    body, sep, dev = placement.rpartition("/")
+    if not sep or not dev.endswith("dev"):
+        raise ValueError(f"not a canonical placement string: {placement!r}")
+    if body.startswith("lane:"):
+        parts = [body[len("lane:"):]]
+    elif "x" in body:
+        parts = body.split("x", 1)
+    else:
+        parts = [body]
+    out = {}
+    for part in parts:
+        name, _, size = part.partition("=")
+        out[name] = int(size)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -416,8 +774,9 @@ _DEVICE_LOCKS_GUARD = threading.Lock()
 
 
 def device_lock(device) -> threading.Lock:
-    """The lock a launch holds while it has work on ``device``."""
-    name = str(device)
+    """The lock a launch holds while it has work on ``device`` (``cuda``
+    and ``cuda:N`` of the current device share one)."""
+    name = str(_canonical_device(device))
     with _DEVICE_LOCKS_GUARD:
         lock = _DEVICE_LOCKS.get(name)
         if lock is None:
@@ -425,17 +784,39 @@ def device_lock(device) -> threading.Lock:
         return lock
 
 
+@contextlib.contextmanager
+def device_locks(devices):
+    """Hold the lock of every distinct device in ``devices``, taken in the
+    order of their names: two launches that lock the same devices take
+    them in one order, so neither waits on the other forever."""
+    names = {str(_canonical_device(d)) for d in devices}
+    locks = [device_lock(name) for name in sorted(names)]
+    held = []
+    try:
+        for lock in locks:
+            lock.acquire()
+            held.append(lock)
+        yield
+    finally:
+        for lock in reversed(held):
+            lock.release()
+
+
 def _host_members(spec: BucketSpec, patterns: Sequence[Pattern],
                   row_width: int, seeds: Sequence[int],
-                  batch: int | None = None, mode: str = "store"):
+                  batch: int | None = None, mode: str = "store",
+                  lanes: int | None = None):
     """Stack member patterns (of one bucket shape) into host buffers.
 
     Returns (host, real_lanes): ``host`` is (table, idx) for gathers and
     (idx, vals, keep) for scatters, numpy arrays; real_lanes[b] is member
     b's un-padded lane count.  ``batch`` (default ``pad_batch`` of the
-    member count) sets the padded batch.  Member b's buffers come from
-    ``make_host_buffers(p, row_width, seeds[b])``.  In add mode the keep
-    mask is an all-False placeholder the kernel never reads.
+    member count) sets the padded batch, ``lanes`` (default the bucket's
+    idx_len) the launched lane dim: a lane-split launch passes
+    ``pad_lanes``' shard multiple, and the extra lanes are padding lanes.
+    Member b's buffers come from ``make_host_buffers(p, row_width,
+    seeds[b])``.  In add mode the keep mask is an all-False placeholder
+    the kernel never reads.
     """
     nb = len(patterns)
     if len(seeds) != nb:
@@ -443,7 +824,10 @@ def _host_members(spec: BucketSpec, patterns: Sequence[Pattern],
     b_pad = pad_batch(nb) if batch is None else batch
     if b_pad < nb:
         raise ValueError(f"batch {b_pad} < member count {nb}")
-    n_pad, f_pad, r = spec.idx_len, spec.footprint, row_width
+    n_pad = spec.idx_len if lanes is None else lanes
+    if n_pad < spec.idx_len:
+        raise ValueError(f"lanes {n_pad} < bucket idx_len {spec.idx_len}")
+    f_pad, r = spec.footprint, row_width
     gather = spec.kind == "gather"
     idx_b = np.full((b_pad, n_pad), f_pad, np.int32)       # pad -> scratch
     table_b = np.zeros((b_pad, f_pad + 1, r), np.float32) if gather else None
@@ -505,7 +889,8 @@ class BucketWork:
     runs: int
     seed: int
     digest: bool
-    device: str
+    device: str                       # placed: its first device
+    placement: Placement | None = None
 
     def __post_init__(self):
         if len(self.patterns) != len(self.positions):
@@ -523,7 +908,8 @@ class BucketWork:
         """Batch-stripped ExecKey: work units of one family may share a
         launch."""
         key = bucket_key(self.backend, self.spec, self.dtype,
-                         self.row_width, self.mode, self.n_members)
+                         self.row_width, self.mode, self.n_members,
+                         self.placement)
         return dataclasses.replace(key, batch=0)
 
 
@@ -540,7 +926,7 @@ class LaunchResult:
     t_bucket: float                   # min over runs (paper §3.5)
     host_s: float                     # host seconds assembling the buffers
     batch: int                        # launched pattern-batch dim
-    lanes: int                        # launched lane dim
+    lanes: int                        # launched lane dim (pad_lanes)
     n_members: int                    # real members across all units
     real_lanes: tuple[int, ...]       # per member, launch order
     out: torch.Tensor | None          # batched output on the host (digests)
@@ -549,17 +935,34 @@ class LaunchResult:
     lock_wait_s: float                # waiting for the device's lock
 
 
+def device_pool(device=None) -> list | None:
+    """The devices a ``mesh=`` shape is placed on for a run on ``device``:
+    the CUDA devices (``None``, ``Placement.create``'s default) or the one
+    CPU, where a placement of several shards raises."""
+    dev = resolve_device(device)
+    return None if dev.type == "cuda" else [dev]
+
+
 def make_work(plan: SuitePlan, *, backend: str = "torch", dtype=None,
               row_width: int = 1, runs: int = 10, mode: str = "store",
-              seed: int = 0, digest: bool = False,
-              device=None) -> list[BucketWork]:
-    """Decompose a suite plan into one ``BucketWork`` per bucket."""
+              seed: int = 0, digest: bool = False, device=None,
+              mesh=None, mesh_axis: str = "data") -> list[BucketWork]:
+    """Decompose a suite plan into one ``BucketWork`` per bucket.
+
+    ``mesh`` places the launches (``resolve_mesh``): a ``Placement``, an
+    int ``N`` or ``(b, l)`` shape over ``device_pool(device)``, a
+    per-bucket list, or ``"auto"`` / ``"auto-suite"``.
+    """
     B.check_backend(backend)
     B.check_mode(mode)
     dtype = B.check_dtype(dtype)
-    dev = resolve_device(device)
+    dev = _canonical_device(device)
     if runs < 1:
         raise ValueError("runs must be >= 1 (min-of-K timing needs a run)")
+    placements = resolve_mesh(plan, mesh, mesh_axis=mesh_axis,
+                              backend=backend, dtype=dtype,
+                              row_width=row_width,
+                              devices=device_pool(dev))
     return [
         BucketWork(spec=bucket.spec,
                    patterns=tuple(plan.patterns[pos]
@@ -567,8 +970,9 @@ def make_work(plan: SuitePlan, *, backend: str = "torch", dtype=None,
                    positions=bucket.members, backend=backend,
                    dtype=str(dtype).removeprefix("torch."),
                    row_width=row_width, mode=mode, runs=runs, seed=seed,
-                   digest=digest, device=str(dev))
-        for bucket in plan.buckets
+                   digest=digest,
+                   device=str(pl.devices[0] if pl else dev), placement=pl)
+        for bucket, pl in zip(plan.buckets, placements)
     ]
 
 
@@ -578,50 +982,92 @@ def launch(works: Sequence[BucketWork],
 
     Their members are stacked into ONE padded launch; one warm-up call,
     then ``runs`` timed calls (a fresh zeroed dst per scatter run), all
-    under the device's lock.
+    under the lock of every device the launch uses.  A placed launch
+    (``BucketWork.placement``) runs every shard and the combine in each
+    call (``Placement.run``), timed by the host clock between
+    synchronisations of its devices.
     """
     if not works:
         raise ValueError("launch needs at least one work unit")
     w0 = works[0]
     fam, runs = w0.family, w0.runs
     for w in works[1:]:
-        if w.family != fam or w.runs != runs or w.device != w0.device:
+        if (w.family != fam or w.runs != runs or w.device != w0.device
+                or w.placement != w0.placement):
             raise ValueError(
                 f"cannot share a launch: {fam}/r{runs}/{w0.device} vs "
                 f"{w.family}/r{w.runs}/{w.device}")
     cache = cache if cache is not None else default_cache()
-    dev = resolve_device(w0.device)
+    placement = w0.placement
+    dev = placement.devices[0] if placement else resolve_device(w0.device)
     spec = w0.spec
     n_members = sum(w.n_members for w in works)
     key = bucket_key(w0.backend, spec, w0.dtype, w0.row_width, w0.mode,
-                     n_members)
+                     n_members, placement)
     fn, served, compiled = cache.serve_poly_info(
         key, lambda: build_bucket(w0.backend, spec.kind, key.mode, dev,
                                   cache.disk))
+    lanes = pad_lanes(spec.idx_len,
+                      placement.lane_shards if placement else 1)
     patterns = [p for w in works for p in w.patterns]
     seeds = [w.seed for w in works for _ in w.patterns]
     want_out = any(w.digest for w in works)
     t0 = time.perf_counter()
     host, real_lanes = _host_members(spec, patterns, w0.row_width, seeds,
-                                     batch=served.batch, mode=w0.mode)
+                                     batch=served.batch, mode=w0.mode,
+                                     lanes=lanes)
     host_s = time.perf_counter() - t0
     t_wait = time.perf_counter()
-    with device_lock(dev):
+    with device_locks(placement.devices if placement else (dev,)):
         lock_wait_s = time.perf_counter() - t_wait
         t0 = time.perf_counter()
-        args = _to_device(spec, host, dev)
-        if dev.type == "cuda":
-            torch.cuda.synchronize(dev)
-        host_s += time.perf_counter() - t0
-        t_bucket, out = timed_runs(fn, args, runs, dev,
-                                   fresh_dst=spec.kind == "scatter")
+        if placement is None:
+            args = _to_device(spec, host, dev)
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+            host_s += time.perf_counter() - t0
+            t_bucket, out = timed_runs(fn, args, runs, dev,
+                                       fresh_dst=spec.kind == "scatter")
+        else:
+            args = placement.place(spec.kind,
+                                   [torch.from_numpy(a) for a in host])
+            placement.synchronize()
+            host_s += time.perf_counter() - t0
+            t_bucket, out = _timed_placed(fn, placement, spec, w0.mode,
+                                          args, runs)
         out = out.cpu() if want_out else None
         del args
     return LaunchResult(key=served, t_bucket=t_bucket, host_s=host_s,
-                        batch=served.batch, lanes=spec.idx_len,
+                        batch=served.batch, lanes=lanes,
                         n_members=n_members, real_lanes=tuple(real_lanes),
                         out=out, device=device_name(dev), compiled=compiled,
                         lock_wait_s=lock_wait_s)
+
+
+def _timed_placed(fn: Callable, placement: Placement, spec: BucketSpec,
+                  mode: str, shards: list, runs: int):
+    """``timed_runs`` for a placed launch: one warm-up call, then ``runs``
+    calls, each timed by the host clock from a synchronisation of every
+    device of the placement to the next, so the region holds every
+    shard's launch and the combine.  A scatter's dst and shard scratch
+    are made fresh for each call, before its timed region.  Returns
+    ``(min seconds, output of the last call)``."""
+    times = []
+    out = None
+    for _ in range(runs + 1):
+        out = dst = scratch = None
+        if spec.kind == "scatter":
+            b = shards[0][0].shape[0] * placement.batch_shards
+            dst = torch.zeros((b, spec.footprint + 1, shards[0][1].shape[2]),
+                              dtype=torch.float32,
+                              device=placement.devices[0])
+            scratch = placement.scratch(mode, dst)
+        placement.synchronize()
+        t0 = time.perf_counter()
+        out = placement.run(fn, spec.kind, mode, shards, scratch, dst)
+        placement.synchronize()
+        times.append(time.perf_counter() - t0)
+    return min(times[1:]), out                         # paper §3.5
 
 
 def demux(result: LaunchResult, work: BucketWork,
@@ -662,18 +1108,22 @@ def demux(result: LaunchResult, work: BucketWork,
 def run_plan(plan: SuitePlan, *, backend: str = "torch", dtype=None,
              row_width: int = 1, runs: int = 10, mode: str = "store",
              seed: int = 0, cache: ExecutorCache | None = None,
-             digest: bool = False, device=None) -> list[RunResult]:
+             digest: bool = False, device=None, mesh=None,
+             mesh_axis: str = "data") -> list[RunResult]:
     """Execute a SuitePlan with paper-style timing (min over ``runs``).
 
     Returns one RunResult per pattern, in the suite's original order: a
     serial driver over ``make_work`` -> ``launch`` -> ``demux``.  With
     ``digest``, each result carries the sha256 of its trimmed output, a
-    pure function of (pattern, seed, mode, row width).
+    pure function of (pattern, seed, mode, row width): placements do not
+    change it.  ``mesh`` places every bucket launch (``make_work``); the
+    bandwidth reported is the launch's over all its shards.
     """
     cache = cache if cache is not None else default_cache()
     works = make_work(plan, backend=backend, dtype=dtype,
                       row_width=row_width, runs=runs, mode=mode, seed=seed,
-                      digest=digest, device=device)
+                      digest=digest, device=device, mesh=mesh,
+                      mesh_axis=mesh_axis)
     results: list[RunResult | None] = [None] * len(plan.patterns)
     for work in works:
         res = launch((work,), cache)

@@ -268,8 +268,9 @@ def main(argv=None) -> None:
     ap.add_argument("--mode", default=None, help="scatter mode store|add")
     ap.add_argument("--mesh", type=parse_mesh, default=None,
                     metavar="N|BxL|auto",
-                    help="placement: 0 or 1 (one device), 'auto' or "
-                         "'auto-suite'; more devices are ROADMAP A5")
+                    help="placement over the daemon's devices: N "
+                         "(batch axis), BxL (batch x lane), 'auto' or "
+                         "'auto-suite'")
     ap.add_argument("--row-width", type=int, default=None)
     ap.add_argument("--metric", default=None,
                     help="gbs column: measured")

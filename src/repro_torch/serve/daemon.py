@@ -9,7 +9,9 @@ hits/misses, where ``misses`` is an exact build count, plus per-pattern
 output digests).  It runs on the card through the hand-written kernels
 (``backend: "hopper"``) unless the caller asks for the CPU
 (``device="cpu"``, ``--device cpu``), where those kernels' plain versions
-run; without CUDA the default raises.
+run; without CUDA the default raises.  Its placements (``mesh``) are laid
+over ``devices`` (default: every CUDA device; on the CPU one CPU), a list
+in which a device may repeat.
 
 Endpoints (all JSON; stdlib ``http.server``), the reference's wire format:
 
@@ -17,9 +19,12 @@ Endpoints (all JSON; stdlib ``http.server``), the reference's wire format:
                    lists work as-is).  503 + ``Retry-After`` when the
                    scheduler's queue is full; ``deadline_ms`` arms a queue
                    deadline answered with 504 when it expires first.
-                   ``mesh`` 0 or 1 runs on the one device, ``auto`` and
-                   ``auto-suite`` resolve to it; a mesh of more devices is
-                   a 400 (ROADMAP A5).
+                   ``mesh``: N or [b, l] places every bucket launch on
+                   the daemon's devices (``plan.Placement``); 0 or
+                   ``auto`` picks a placement per bucket, ``auto-suite``
+                   one for the suite (the cost model; one device gives
+                   the unplaced keys); a mesh of more devices than the
+                   daemon has is a 400 naming the count.
     POST /warm     build (or restore) every bucket callable a suite needs
                    and call each once on zero buffers; nothing is timed
     GET  /healthz  liveness + device/backend inventory + lifetime stats
@@ -49,10 +54,11 @@ Quickstart::
 Concurrency: request handling is multi-threaded (``ThreadingHTTPServer``)
 and execution goes through the coalescing scheduler (``serve.scheduler``):
 each request becomes ``BucketWork`` items on a bounded queue, worker
-threads stack items of one family into one launch, and the handler waits
-on its ticket.  Launches hold the device's lock (``plan.device_lock``)
-while they have work on it, so a timed region holds only its own launch;
-the STREAM reference and ``/warm``'s first calls take the same lock.
+threads stack items of one family (placement included) into one launch,
+and the handler waits on its ticket.  Launches hold the lock of every
+device they use (``plan.device_locks``, in one order) while they have work
+on it, so a timed region holds only its own launch; the STREAM reference
+and ``/warm``'s first calls take the same locks.
 ``workers=0`` keeps the serial baseline: one run lock, telemetry from
 cache-stats deltas.
 """
@@ -94,8 +100,9 @@ def _bounded_put(memo: dict, key, value, bound: int = 32) -> None:
 
 
 def _zero_args(key, device) -> tuple:
-    """Zero operands of ``key``'s bucket callable on ``device``: a gather
-    reads row 0, a store with an all-False keep mask writes nothing."""
+    """Zero operands of ``key``'s bucket callable on ``device``, at the
+    whole launch's shape: a gather reads row 0, a store with an all-False
+    keep mask writes nothing."""
     import torch
     b, n, f, r = key.batch, key.idx_len, key.footprint + 1, key.row_width
     idx = torch.zeros((b, n), dtype=torch.int32, device=device)
@@ -108,11 +115,14 @@ def _zero_args(key, device) -> tuple:
 
 
 class SpatterDaemon:
-    """The serving process around one ExecutorCache, on one device.
+    """The serving process around one ExecutorCache.
 
     ``port=0`` binds an ephemeral port (read it back from ``.port``).
     ``start()`` serves from a background thread; ``serve_forever()``
-    blocks (the CLI path).  ``device=None`` means ``"cuda"``.
+    blocks (the CLI path).  ``device=None`` means ``"cuda"``: unplaced
+    launches run there.  ``devices`` lists the devices placements are laid
+    over (repeats allowed; default every CUDA device, or the one CPU);
+    its first is then the unplaced device.
     """
 
     def __init__(self, host: str = "127.0.0.1", port: int = 8089, *,
@@ -120,10 +130,19 @@ class SpatterDaemon:
                  workers: int = DEFAULT_WORKERS,
                  max_queue: int = DEFAULT_MAX_QUEUE,
                  cache_dir: str | None = None,
-                 faults: FaultInjector | None = None, device=None):
-        from ..engine import resolve_device
-        from ..plan import default_cache
-        self.device = resolve_device(device)
+                 faults: FaultInjector | None = None, device=None,
+                 devices=None):
+        import torch
+
+        from ..plan import _canonical_device, default_cache
+        self.device = _canonical_device(devices[0] if devices else device)
+        if devices:
+            self.devices = [_canonical_device(d) for d in devices]
+        elif self.device.type == "cuda":
+            self.devices = [torch.device("cuda", i)
+                            for i in range(torch.cuda.device_count())]
+        else:
+            self.devices = [self.device]
         self.cache = cache if cache is not None else default_cache()
         self.quiet = quiet
         self.started_at = time.time()
@@ -241,18 +260,25 @@ class SpatterDaemon:
             self._state_lock.notify_all()
 
     # -- request execution ---------------------------------------------------
-    def _resolve_mesh(self, req: SuiteRequest):
-        """The request's placement: ``None`` (unplaced, one device), or
-        ``"auto"`` / ``"auto-suite"``, which resolve to it too.  A mesh of
-        more than one device is a request-shaped failure (400)."""
-        if req.mesh in ("auto", "auto-suite"):
-            return req.mesh
-        need = req.devices_needed
-        if need > 1:
-            raise ValueError(
-                f"mesh={req.mesh} needs {need} devices; placements over "
-                f"several devices are not ported yet (ROADMAP A5)")
-        return None
+    def _resolve_mesh(self, req: SuiteRequest, plan):
+        """The request's placements, one ``Placement | None`` a bucket of
+        ``plan``.  An explicit N or [b, l] places every bucket; ``auto``
+        (and a mesh of 0) picks a shape per bucket and ``auto-suite`` one
+        for the suite, through the cost model over the daemon's devices
+        (``plan.auto_placements``), so an auto-placed bucket runs under
+        exactly the keys an explicit mesh of its shape would.  A mesh of
+        more devices than the daemon has raises ValueError (a 400)."""
+        from ..plan import Placement, auto_placements
+        if req.mesh in ("auto", "auto-suite") or not req.mesh:
+            placed = auto_placements(
+                plan, "auto" if not req.mesh else req.mesh,
+                mesh_axis=req.mesh_axis, backend=req.backend,
+                row_width=req.row_width, devices=self.devices)
+            if isinstance(placed, list):
+                return placed
+            return [placed] * plan.n_buckets
+        return [Placement.create(req.mesh, batch_axis=req.mesh_axis,
+                                 devices=self.devices)] * plan.n_buckets
 
     def _stream_ref_for(self, req: SuiteRequest):
         """Memoized STREAM reference RunResult for a stream_r request, per
@@ -284,30 +310,31 @@ class SpatterDaemon:
         # wait for the startup preload: serving a known suite while its
         # entries are still restoring would break the misses == 0 proof
         self._ready.wait(TICKET_TIMEOUT_S)
+        from ..plan import SuitePlan
         patterns = req.build_patterns()
-        mesh = self._resolve_mesh(req)
+        plan = SuitePlan.build(patterns)
+        mesh = self._resolve_mesh(req, plan)
         if self.scheduler is None:
             doc = self._run_serial(req, patterns, mesh)
         else:
-            doc = self._run_scheduled(req, patterns, mesh)
+            doc = self._run_scheduled(req, plan, mesh)
         with self._state_lock:
             self.n_requests += 1
         return doc
 
-    def _run_scheduled(self, req: SuiteRequest, patterns, mesh) -> dict:
+    def _run_scheduled(self, req: SuiteRequest, plan, mesh) -> dict:
         """Submit the request's work units and wait.  ``elapsed_s`` covers
         submit to resolve, queue wait included (``serve.queued_ms``).  A
         ticket abandoned by its deadline or a timeout is cancelled, so no
         worker launches work nobody will read."""
-        from ..plan import SuitePlan, make_work
+        from ..plan import make_work
         from ..suite import aggregate_stats
         t0 = time.perf_counter()
         stream_ref = self._stream_ref_for(req) if req.stream_r else None
-        plan = SuitePlan.build(patterns)
         works = make_work(plan, backend=req.backend, runs=req.runs,
                           row_width=req.row_width, mode=req.mode,
                           seed=req.seed, digest=req.digest,
-                          device=self.device)
+                          device=self.device, mesh=mesh)
         deadline_s = req.deadline_ms / 1e3 if req.deadline_ms else None
         ticket = self.scheduler.submit(works, deadline_s=deadline_s)
         wait_s = (TICKET_TIMEOUT_S if deadline_s is None
@@ -321,7 +348,7 @@ class SpatterDaemon:
                     f"deadline_ms={req.deadline_ms} expired before the "
                     f"request's work launched") from None
             raise
-        results = [ticket.results[i] for i in range(len(patterns))]
+        results = [ticket.results[i] for i in range(len(plan.patterns))]
         stats = aggregate_stats(results, metric=req.metric, plan=plan,
                                 stream_ref=stream_ref)
         return self._response(req, stats, mesh,
@@ -342,7 +369,7 @@ class SpatterDaemon:
                 row_width=req.row_width, metric=req.metric, mode=req.mode,
                 seed=req.seed, cache=self.cache, stream_r=req.stream_r,
                 stream_n=req.stream_n, stream_ref=stream_ref,
-                digest=req.digest, device=self.device)
+                digest=req.digest, device=self.device, mesh=mesh)
             after = self.cache.stats()
         delta = after.delta(before)
         return self._response(req, stats, mesh,
@@ -353,10 +380,10 @@ class SpatterDaemon:
     def _response(self, req: SuiteRequest, stats, mesh, *, hits: int,
                   misses: int, serve: dict | None,
                   elapsed_s: float) -> dict:
-        # one device: "auto" reports its per-bucket choice, as the
-        # reference does on one device, everything else one placement
-        placement = (["single"] * stats.plan.n_buckets if mesh == "auto"
-                     else "single")
+        # the placements the run used, as the reference reports them: one
+        # per bucket for auto (and mesh 0), else the one every bucket took
+        names = [m.placement if m is not None else "single" for m in mesh]
+        placement = names if req.mesh in ("auto", 0) else names[0]
         lifetime = self.cache.stats()
         return {
             "ok": True,
@@ -370,7 +397,7 @@ class SpatterDaemon:
             },
             "plan": {
                 "n_buckets": stats.plan.n_buckets,
-                "pad_waste": stats.plan.pad_waste(),
+                "pad_waste": stats.plan.pad_waste_for(mesh),
                 "placement": placement,
             },
             # scheduler telemetry (null on the workers=0 baseline)
@@ -385,26 +412,27 @@ class SpatterDaemon:
         import torch
 
         from ..plan import (SuitePlan, bucket_key, build_bucket,
-                            device_lock)
+                            device_locks)
         t0 = time.perf_counter()
         self._ready.wait(TICKET_TIMEOUT_S)
         patterns = req.build_patterns()
-        self._resolve_mesh(req)
         plan = SuitePlan.build(patterns)
+        placements = self._resolve_mesh(req, plan)
         before = self.cache.stats()
         compiled = 0
-        for bucket in plan.buckets:
+        for bucket, pl in zip(plan.buckets, placements):
             key = bucket_key(req.backend, bucket.spec, torch.float32,
-                             req.row_width, req.mode, len(bucket.members))
+                             req.row_width, req.mode, len(bucket.members),
+                             pl)
+            dev = pl.devices[0] if pl else self.device
             fn, served, built = self.cache.serve_poly_info(
-                key, lambda key=key: build_bucket(
-                    req.backend, key.kind, key.mode, self.device,
-                    self.cache.disk))
+                key, lambda key=key, dev=dev: build_bucket(
+                    req.backend, key.kind, key.mode, dev, self.cache.disk))
             compiled += built
-            with device_lock(self.device):
-                fn(*_zero_args(served, self.device))
-                if self.device.type == "cuda":
-                    torch.cuda.synchronize(self.device)
+            with device_locks(pl.devices if pl else (dev,)):
+                fn(*_zero_args(served, dev))
+                if dev.type == "cuda":
+                    torch.cuda.synchronize(dev)
         delta = self.cache.stats().delta(before)
         with self._state_lock:
             self.n_requests += 1
@@ -450,16 +478,13 @@ class SpatterDaemon:
         }
 
     def health(self) -> dict:
-        import torch
-
         from .. import backends as B
         from ..engine import device_name
-        cuda = self.device.type == "cuda"
         return {
             "ok": True,
             "service": "spatterd",
             "device": device_name(self.device),
-            "n_devices": torch.cuda.device_count() if cuda else 1,
+            "n_devices": len(self.devices),
             "backends": sorted(B.BACKENDS),
             "n_requests": self.n_requests,
             "uptime_s": time.time() - self.started_at,

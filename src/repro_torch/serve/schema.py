@@ -12,7 +12,7 @@ unmodified) or an envelope::
      "mode": "store",              # scatter semantics: "store" | "add"
      "metric": "measured",         # table's uniform gbs column
      "row_width": 1,
-     "mesh": 0,                    # 0 or 1: one device; more is ROADMAP A5
+     "mesh": 0,                    # N, [b, l], "auto", "auto-suite"
      "mesh_axis": "data",
      "seed": 0,                    # host-buffer RNG seed
      "stream_r": false,            # also time the STREAM-like reference
@@ -183,7 +183,7 @@ class SuiteRequest:
 
     @property
     def devices_needed(self) -> int:
-        """Devices an explicit mesh asks for (``auto`` needs one here)."""
+        """Devices an explicit mesh asks for (``auto`` fits any count)."""
         if isinstance(self.mesh, tuple):
             return self.mesh[0] * self.mesh[1]
         return self.mesh if isinstance(self.mesh, int) else 1

@@ -8,8 +8,8 @@ bandwidth, and the port has no modeled column yet, so ``stream_r`` stays
 None.
 
 Execution goes through the suite planner (``batch=True``, plan.py): one
-launch per shape bucket.  ``batch=False`` runs one ``GSEngine`` per
-pattern.
+launch per shape bucket, placed over several devices with ``mesh=``.
+``batch=False`` runs one ``GSEngine`` per pattern.
 """
 from __future__ import annotations
 
@@ -119,16 +119,27 @@ def run_suite(patterns: list[Pattern], *, backend: str = "torch",
               cache: ExecutorCache | None = None,
               stream_r: bool = False, stream_n: int = 2 ** 22,
               stream_ref: RunResult | None = None,
-              digest: bool = False, device=None) -> SuiteStats:
+              digest: bool = False, device=None, mesh=None,
+              mesh_axis: str = "data") -> SuiteStats:
     """Run a pattern suite and aggregate the paper's §3.5 statistics.
 
     ``digest`` attaches each pattern's output sha256 (planner path only).
-    ``device=None`` means ``"cuda"``.
+    ``device=None`` means ``"cuda"``.  ``mesh`` places the bucket
+    launches (``plan.make_work``): an int ``N``, a ``(b, l)`` tuple, a
+    ``Placement``, a per-bucket list, ``"auto"`` (a shape per bucket) or
+    ``"auto-suite"`` (one for the suite); shapes and auto take
+    ``plan.device_pool(device)``.  A mesh needs the batched planner.
     """
     if not patterns:
         raise ValueError("run_suite needs at least one pattern")
     _metric_column(metric)                  # reject typos up front
     B.check_mode(mode)
+    if isinstance(mesh, str) and mesh not in ("auto", "auto-suite"):
+        raise ValueError(f"unknown mesh string {mesh!r}; "
+                         f"expected 'auto' or 'auto-suite'")
+    if mesh and not batch:
+        raise ValueError("mesh execution requires the batched planner "
+                         "(batch=True)")
     if digest and not batch:
         raise ValueError("digest requires the batched planner (batch=True)")
     plan = None
@@ -137,7 +148,7 @@ def run_suite(patterns: list[Pattern], *, backend: str = "torch",
         results = run_plan(plan, backend=backend, dtype=dtype,
                            row_width=row_width, runs=runs, mode=mode,
                            seed=seed, cache=cache, digest=digest,
-                           device=device)
+                           device=device, mesh=mesh, mesh_axis=mesh_axis)
     else:
         results = [GSEngine(p, backend=backend, dtype=dtype,
                             row_width=row_width, mode=mode, seed=seed,
