@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the port's paths on one CUDA card and check them: the Spatter
 main path, falcon-mamba-7b and llama3-8b served at full width, the
-Spatter suite daemon, and bucket launches placed over several devices.
+Spatter suite daemon, bucket launches placed over several devices, and
+the static analysis with the modeled H100 column.
 
     python3 chip_smoke.py            # from the root of the repository
 
@@ -90,7 +91,9 @@ only.  Phases:
      a cold start (two nvcc runs), a restart (misses 0, disk hits 4, no
      nvcc run), a restart after one library entry was overwritten (it is
      quarantined and rebuilt by nvcc, the request answers), and SIGTERM
-     during a request (it answers, the process exits 0);
+     during a request (it answers, the process exits 0); ``GET /lint``
+     and ``GET /cost`` answer 200 with clean reports and leave the cache's
+     counters and the launch counts as they were;
   8. placements on the one card (``placement_phase``), shards on
      ``[cuda:0] * n``: every store edge case again through the store with
      its coverage map (``-0.0`` payloads, maps at every alignment, rows
@@ -104,15 +107,31 @@ only.  Phases:
      an in-process daemon over ``[cuda:0] * 2`` answering a 1x2 demo
      request with phase 3's digests; then the placed times and peak
      memory beside the unplaced ones.  One card shows that placements are
-     right, not how they scale.
+     right, not how they scale;
+  9. (run right after phase 3, whose suites it reads) the static
+     analysis (``repro_torch.analysis``, ``analysis_phase``):
+     the sector model's L2 against the card's; a bench record tagged with
+     the card, written from phase 3's demo hmeans into ``_chip/``,
+     calibrates the cost report (the repository's ``BENCH_suite.json``
+     must not); lint and cost of demo, appdb at scale 1.0 and the CLI
+     pattern (gather, store, add) on hopper and torch, unplaced and at
+     (1, 2) and (2, 1) over ``[cuda:0] * n``, one census call a unit,
+     each hopper census under torch.profiler (its Spatter kernels must
+     equal the census's launches): hopper must lint clean and every cost
+     report must be clean; three poisoned bucket callables (two launches,
+     an ``.item()``, a sort) must each fire their rule; then predicted
+     against measured GB/s per bucket, and ``modeled_h100_gbs`` with
+     paper Eq. 1's R for demo and appdb.
 
 The launch counts are set to 0 just before phase 2 and read just after
 phase 3, again just before and after the serve calls of phases 5 and 6,
-just before and after phase 7's daemon, and just before and after phase
-8's placed suites.  Any failed check raises, so
+just before and after phase 7's daemon, just before and after phase 8's
+placed suites, and just before and after phase 9's lint and cost passes
+(where they must equal the censuses' sum).  Any failed check raises, so
 the script exits nonzero.  Before the last line it prints a
-``{"daemon": {...}}``, a ``{"placements": {...}}`` and a ``{"kernels":
-[...]}`` JSON line; the last line is ``{"ok": true, "device": {...}}``.
+``{"daemon": {...}}``, a ``{"placements": {...}}``, an ``{"analysis":
+{...}}`` and a ``{"kernels": [...]}`` JSON line; the last line is
+``{"ok": true, "device": {...}}``.
 """
 import contextlib
 import gc
@@ -988,9 +1007,11 @@ def _bucket_kernel(spec, mode, lane_shards=1):
     return "scatter_store_rows_cov" if lane_shards > 1 else "scatter_store_rows"
 
 
-def main_path(torch):
+def main_path(torch, torch_stats=None):
     """The CLI and the planner on hopper and torch; returns the CLI
-    results by (backend, kind, mode) and the per-bucket launch check."""
+    results by (backend, kind, mode) and the hopper suites' stats by suite
+    (their launches checked per bucket).  ``torch_stats``, when given, is
+    filled with the torch backend's suite stats by suite."""
     from repro_torch import appdb, load_suite, run_suite
     from repro_torch.__main__ import main as cli
 
@@ -1040,6 +1061,8 @@ def main_path(torch):
                 print(f"  launches per kernel {got} "
                       f"(= buckets x (1 + {RUNS}))", flush=True)
                 suite_stats[name] = st
+            elif torch_stats is not None:
+                torch_stats[name] = st
             torch.cuda.empty_cache()
         check(digests["hopper"] == digests["torch"],
               f"{name}: hopper and torch digests differ at "
@@ -2168,6 +2191,22 @@ def daemon_phase(torch, cli_results, suite_stats):
                                   ticket_misses=ticket_misses,
                                   cache_misses=cache1.misses - cache0.misses)
 
+        # GET /lint and /cost: 200, clean, and read-only
+        before = (d.cache.stats(), _launches(), d.cache.entries())
+        lint_doc, cost_doc = c.lint(), c.cost()
+        check(before == (d.cache.stats(), _launches(), d.cache.entries()),
+              "phase 7: /lint or /cost moved the cache or the launches")
+        check(lint_doc["ok"] and cost_doc["ok"]
+              and lint_doc["report"]["n_units"] == before[0].size
+              and lint_doc["report"]["meta"]["restored"] == 0,
+              f"phase 7: /lint {lint_doc['report']['violations'][:3]} "
+              f"/cost {cost_doc['report']['violations'][:3]}")
+        out["lint"] = dict(n_units=lint_doc["report"]["n_units"],
+                           n_violations=lint_doc["report"]["n_violations"],
+                           cost_units=cost_doc["report"]["n_units"])
+        print(f"  GET /lint and /cost: {out['lint']}, counters unchanged",
+              flush=True)
+
     census = _launches()
     extra = {k: census[k] - expect[k] for k in census}
     check(all(v >= 0 for v in extra.values())
@@ -2472,6 +2511,299 @@ def placement_phase(torch, suite_stats):
     return out
 
 
+# -- phase 9: the static analysis and the modeled column on the card ----------
+
+ANALYSIS_SHAPES = (None, (1, 2), (2, 1))
+# kernel-name fragments of the Spatter kernels in a torch.profiler trace, by
+# the census's family (the two stores share their kernels' names)
+_SPATTER_FRAGMENTS = (("gather_rows_smem", ("gather_rows_smem_kernel",)),
+                      ("gather_rows", ("gather_d1_vec_kernel",
+                                       "gather_elems_kernel")),
+                      ("scatter_store", ("store_d1_vec_kernel",
+                                         "store_elems_kernel")),
+                      ("scatter_add_rows", ("scatter_add_rows_kernel",)))
+
+
+def _family(kernel):
+    return "scatter_store" if kernel.startswith("scatter_store") else kernel
+
+
+def _profiled_kernels(prof):
+    """The Spatter kernels in a trace, by family."""
+    out = {}
+    for e in prof.events():
+        fam = next((f for f, frags in _SPATTER_FRAGMENTS
+                    if any(x in e.name for x in frags)), None)
+        if fam is not None and e.device_type.name == "CUDA":
+            out[fam] = out.get(fam, 0) + 1
+    return out
+
+
+def _settle_profiler(torch):
+    """Small kernels, waited for, at the start of a trace: the profiler
+    can miss a session's first device records (seen on the card after
+    phases 4-6), so the call it must hold comes after these."""
+    x = torch.zeros(8, device="cuda")
+    for _ in range(4):
+        x.add_(1)
+    torch.cuda.synchronize()
+    time.sleep(0.002)
+
+
+@contextlib.contextmanager
+def _censuses(torch, seen, profiled, tries=5):
+    """List ``(key, census launches by family, profiled by family or
+    None, attempts, launches of every attempt by family)`` for every
+    census taken in the block; with ``profiled``, each under
+    torch.profiler.  A trace that disagrees with its census is taken again
+    with a new call (the profiler can lose records), at most ``tries``
+    times; the last pair is listed as it is."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.analysis import census as C
+    real = C.of_key
+
+    def families(launches, into=None):
+        into = {} if into is None else into
+        for k, n in launches.items():
+            into[_family(k)] = into.get(_family(k), 0) + n
+        return into
+
+    def recorded(key, fn, **kw):
+        spent = {}
+        for attempt in range(1, (tries if profiled else 1) + 1):
+            got = None
+            if profiled:
+                with profile(activities=[ProfilerActivity.CPU,
+                                         ProfilerActivity.CUDA]) as prof:
+                    _settle_profiler(torch)
+                    c = real(key, fn, **kw)
+                got = _profiled_kernels(prof)
+            else:
+                c = real(key, fn, **kw)
+            want = families(c.launches)
+            families(c.launches, spent)
+            if got is None or got == want:
+                break
+        seen.append((key, want, got, attempt, spent))
+        return c
+    C.of_key = recorded
+    try:
+        yield
+    finally:
+        C.of_key = real
+
+
+def _bucket_gbs(plan, results):
+    """Measured GB/s of each bucket: its members' useful bytes over their
+    summed times (each member's share of the bucket's min-of-K time)."""
+    out = []
+    for b in plan.buckets:
+        useful = sum(results[i].pattern.count * results[i].pattern.index_len
+                     * results[i].elem_bytes for i in b.members)
+        out.append(useful / sum(results[i].time_s for i in b.members) / 1e9)
+    return out
+
+
+def analysis_phase(torch, suite_stats, torch_stats):
+    """Phase 9: the static analysis (``repro_torch.analysis``) and the
+    modeled H100 column on the card.
+
+    (a) the sector model's L2 against the card's (checked last); (b) a
+    device-tagged bench record written from phase 3's demo hmeans into
+    ``_chip/`` (git-ignored) calibrates, and the repository's
+    ``BENCH_suite.json`` does not; (c)
+    lint and cost of demo, appdb at scale 1.0 and the CLI pattern (gather
+    and store, then the scatter as an add, 2^27 lanes) on hopper and
+    torch, unplaced and at (1, 2) and (2, 1) over ``[cuda:0] * n``: one
+    census call a unit, each hopper census under torch.profiler, whose
+    Spatter kernels must equal the census's launches; hopper must lint
+    clean, every cost report must be clean, and the launch counts, set to
+    0 just before, must equal the censuses' sum (a trace that lost a
+    record is taken again with a new call, counted too); (d) three poisoned
+    bucket callables, each of which must fire its rule: one launches
+    twice, one calls ``.item()``, one sorts; (e) predicted (calibrated)
+    against measured GB/s per bucket, and ``modeled_h100_gbs`` with paper
+    Eq. 1's R for appdb and demo.  Returns the numbers for the records."""
+    from repro_torch import appdb, bandwidth, load_suite
+    from repro_torch.analysis import cost, lint
+    from repro_torch.kernels import reset_launches
+    from repro_torch.kernels.gather_rows.ops import gather_rows
+    from repro_torch.pattern import Pattern
+    from repro_torch.plan import Placement
+    from repro_torch.suite import aggregate_stats, stream_reference
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    cuda0 = torch.device("cuda", 0)
+    out = {}
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True, timeout=60).stdout.strip().splitlines()[0]
+    name, power = (x.strip() for x in card.rsplit(",", 1))
+    print(f"\nphase 9: the static analysis on {name}, {power}", flush=True)
+
+    record = {"meta": {"platform": "cuda", "device": name,
+                       "power_limit": power, "suite": "suites/demo.json",
+                       "runs": RUNS, "torch": torch.__version__,
+                       "source": "chip_smoke.py phase 3"},
+              "backends": {b: {"hmean_measured_gbs": st["demo"].hmean_gbs}
+                           for b, st in (("hopper", suite_stats),
+                                         ("torch", torch_stats))}}
+    rec_path = ROOT / "_chip" / "bench_torch.json"
+    rec_path.parent.mkdir(exist_ok=True)
+    rec_path.write_text(json.dumps(record, indent=1))
+    cal = cost.Calibration.from_record(str(rec_path))
+    check(cal.source == str(rec_path) and set(cal.bw_gbs) ==
+          {"hopper", "torch"}, f"phase 9: the record did not calibrate: {cal}")
+    check(cost.Calibration.from_record(str(ROOT / "BENCH_suite.json"))
+          .source == "uncalibrated", "phase 9: a CPU record calibrated")
+    print(f"  (b) calibrated from {rec_path.name}: {cal.bw_gbs}", flush=True)
+
+    cli_store = [Pattern.from_json(_cli_doc(k)) for k in ("Gather",
+                                                          "Scatter")]
+    cells = (("demo", load_suite(str(ROOT / "suites" / "demo.json")),
+              "store"),
+             ("appdb", appdb.scale_counts(appdb.ALL_PATTERNS, 1.0), "store"),
+             ("cli", cli_store, "store"),
+             ("cli", cli_store[1:], "add"))
+    seen, lint_rows, cost_rows = [], [], []
+    violations = {"hopper": [], "torch": []}
+    reset_launches()
+    t0 = time.perf_counter()
+    for label, pats, mode in cells:
+        for shape in ANALYSIS_SHAPES:
+            mesh = (None if shape is None else Placement.create(
+                shape, devices=[cuda0] * (shape[0] * shape[1])))
+            for backend in ("hopper", "torch"):
+                kw = dict(backend=backend, mode=mode, placement=mesh,
+                          label=f"{label}.json", device=cuda0)
+                with _censuses(torch, seen, profiled=backend == "hopper"):
+                    rep = lint.lint_plan(pats, **kw)
+                with _censuses(torch, seen, profiled=False):
+                    crep = cost.cost_plan(pats, calibration=cal, **kw)
+                violations[backend] += [v.to_json() for v in
+                                        rep.violations + crep.violations]
+                place = mesh.placement if mesh else "single"
+                lint_rows.append(dict(suite=label, mode=mode, backend=backend,
+                                      placement=place, units=rep.n_units,
+                                      violations=rep.n_violations))
+                cost_rows.append(dict(suite=label, mode=mode, backend=backend,
+                                      placement=place, units=crep.n_units,
+                                      ok=crep.ok, predicted_gbs=[
+                                          u.predicted_gbs
+                                          for u in crep.units]))
+                check(crep.ok, f"phase 9: cost {label} {mode} {backend} "
+                               f"{place}: {crep.summary()}")
+                if backend == "hopper":
+                    check(rep.ok, f"phase 9: hopper lint {label} {mode} "
+                                  f"{place}: {rep.summary()}")
+            torch.cuda.empty_cache()
+    lint_s = time.perf_counter() - t0
+    census_launches = {}
+    for *_, spent in seen:
+        for fam, n in spent.items():
+            census_launches[fam] = census_launches.get(fam, 0) + n
+    after = _launches()
+    counted = {}
+    for k, n in after.items():
+        counted[_family(k)] = counted.get(_family(k), 0) + n
+    counted = {k: n for k, n in counted.items() if n}
+    profiled = [(str(k), w, g, a) for k, w, g, a, _ in seen if g is not None]
+    mismatched = [p for p in profiled if p[1] != p[2]]
+    retried = sum(a - 1 for *_, a in profiled)
+    print(f"  (c) {len(profiled)} profiled censuses, {retried} taken again "
+          f"after a trace that lost a record", flush=True)
+    check(not mismatched, f"phase 9: census launches differ from "
+                          f"torch.profiler's: {mismatched[:3]}")
+    check(counted == census_launches,
+          f"phase 9: launches {after} != the censuses' {census_launches}")
+    check(all(after[k] > 0 for k in SPATTER_KERNELS +
+              ("scatter_store_rows_cov",)),
+          f"phase 9: a Spatter kernel never launched in the lint: {after}")
+    out.update(lint_s=lint_s, launches=after, censuses=len(seen),
+               profiled_units=len(profiled), retraced=retried,
+               lint=lint_rows, torch_violations=violations["torch"])
+    print(f"  (c) {sum(r['units'] for r in lint_rows)} lint units in "
+          f"{len(lint_rows)} cells ({lint_s:.1f} s): hopper clean, torch "
+          f"{len(violations['torch'])} violation(s); {len(profiled)} "
+          f"hopper censuses equal torch.profiler's kernels; launches "
+          f"{after}",
+          flush=True)
+    for v in violations["torch"][:5]:
+        print(f"    torch: {v['rule']} [{v['exec_key']}] {v['location']}")
+
+    table = torch.zeros((1, 32769, 1), device=cuda0)
+    idx = torch.zeros((1, 32768), dtype=torch.int32, device=cuda0)
+
+    def twice(table, idx):
+        gather_rows(table, idx)
+        return gather_rows(table, idx)
+
+    def reads_back(table, idx):
+        return gather_rows(table, idx.clamp(max=int(idx.max().item())))
+
+    def sorts(table, idx):
+        return gather_rows(table, torch.sort(idx, dim=1).values)
+
+    fired = {}
+    for fn, rule in ((twice, "single-kernel-launch-per-bucket"),
+                     (reads_back, "no-host-sync-in-timed-region"),
+                     (sorts, "no-sort-in-hot-path")):
+        unit = lint.unit_for(fn, (table, idx), backend="hopper",
+                             kind="gather")
+        got = sorted({v.rule for v in lint.run_rules(unit)})
+        check(got == [rule], f"phase 9: {fn.__name__} fired {got}, not "
+                             f"{rule}")
+        fired[fn.__name__] = got
+    torch.cuda.synchronize()
+    out["poisoned"] = fired
+    print(f"  (d) poisoned callables fired {fired}", flush=True)
+
+    out["buckets"] = []
+    print(f"  (e) {'suite':5s} {'bucket':28s} {'predicted':>10s} "
+          f"{'measured':>10s} GB/s (hopper, unplaced)")
+    for label in ("demo", "appdb"):
+        st = suite_stats[label]
+        crep = cost.cost_plan(st.plan, backend="hopper", calibration=cal,
+                              census=False, device=cuda0)
+        for b, u, gbs in zip(st.plan.buckets, crep.units,
+                             _bucket_gbs(st.plan, st.results)):
+            what = f"{b.spec.kind} {b.spec.idx_len}x{b.spec.footprint}"
+            out["buckets"].append(dict(suite=label, bucket=what,
+                                       predicted_gbs=u.predicted_gbs,
+                                       measured_gbs=gbs))
+            print(f"  (e) {label:5s} {what:28s} {u.predicted_gbs:10.4g} "
+                  f"{gbs:10.4g}")
+    ref = stream_reference(runs=RUNS, backend="hopper", device=cuda0)
+    out["modeled"] = {}
+    for label in ("demo", "appdb"):
+        st = aggregate_stats(suite_stats[label].results, stream_ref=ref,
+                             plan=suite_stats[label].plan)
+        modeled = aggregate_stats(st.results, metric="modeled")
+        check(st.stream_r == st.stream_r, f"phase 9: {label} R is NaN")
+        out["modeled"][label] = dict(
+            stream_r=st.stream_r, stream_gbs=st.stream_gbs,
+            hmean_measured_gbs=st.hmean_gbs,
+            hmean_modeled_h100_gbs=modeled.hmean_gbs,
+            modeled_h100_gbs=[r.modeled_gbs for r in st.results],
+            measured_gbs=[r.measured_gbs for r in st.results])
+        print(f"  (e) {label}: hmean {st.hmean_gbs:.2f} GB/s measured, "
+              f"{modeled.hmean_gbs:.1f} modeled(h100); Pearson R "
+              f"{st.stream_r:.4f} (paper Eq. 1); STREAM-like "
+              f"{st.stream_gbs:.2f} GB/s", flush=True)
+    del table, idx
+    l2 = torch.cuda.get_device_properties(0).L2_cache_size
+    print(f"  (a) L2: the card's {l2} bytes, the sector model's "
+          f"{bandwidth.L2_BYTES}", flush=True)
+    check(l2 == bandwidth.L2_BYTES, "phase 9: the model's L2 is not the "
+                                    "card's")
+    out["l2_bytes"] = l2
+    out["wall_s"] = time.perf_counter() - t_phase
+    print(f"phase 9 wall {out['wall_s']:.1f} s", flush=True)
+    return out
+
+
 def main():
     torch = setup()
     build()
@@ -2486,17 +2818,25 @@ def main():
     from repro_torch.kernels import reset_launches
     reset_launches()
     t0 = time.perf_counter()
-    cli_results, suite_stats = main_path(torch)
+    torch_stats = {}
+    cli_results, suite_stats = main_path(torch, torch_stats)
     main_launches = _launches()
     print(f"\nmain path launches {main_launches}; phases 2-3 wall "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     check(all(main_launches[k] > 0 for k in SPATTER_KERNELS),
           f"a kernel of the main path never launched: {main_launches}")
+    # phase 9 needs only phase 3's suites; it runs here, before phases 4-6
+    # have used the profiler (whose sessions then lose records more often)
+    peak_1_3 = torch.cuda.max_memory_allocated()
+    analysis = analysis_phase(torch, suite_stats, torch_stats)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
 
     times = kernel_times(torch, err)
     times.update(attention_times(torch, err))
     lulesh_s3_add = times.pop("lulesh_s3_add")
-    peak_1_4 = torch.cuda.max_memory_allocated()
+    peak_1_4 = max(peak_1_3, torch.cuda.max_memory_allocated())
     served, serve_launches = serve_phase(torch)
     steady = profile_serve(torch)           # falcon-mamba-7b, steady state
     times["selective_scan"].update(
@@ -2536,7 +2876,8 @@ def main():
                          hmean_gbs=st.hmean_gbs, n_buckets=st.plan.n_buckets,
                          host_s=st.host_s)
               for name, st in suite_stats.items()}
-    print(f"\nmax_memory_allocated {peak_1_4} bytes in phases 1-4, "
+    print(f"\nmax_memory_allocated {peak_1_4} bytes in phases 1-4 (phase "
+          f"9's own lint calls apart), "
           f"{served['max_memory_allocated']} bytes in phase 5, "
           f"{served_llama['max_memory_allocated']} bytes in phase 6")
     print(json.dumps({"cli": cli, "suites_hopper": suites,
@@ -2548,6 +2889,7 @@ def main():
                       "serve": served, "serve_llama": served_llama}))
     print(json.dumps({"daemon": daemon}))
     print(json.dumps({"placements": placed}))
+    print(json.dumps({"analysis": analysis}))
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

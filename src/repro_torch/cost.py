@@ -20,8 +20,8 @@ Prices come from ``ExecKey`` geometry alone (or a plan's buckets at a
 for ``pallas``, a ``hopper`` lane split is charged no replication bytes
 (its shards run the kernel on their own lanes), so each choice equals the
 reference's; its combine still moves one table a lane shard, which the
-model does not count.  The calibrated roofline, the cost report and its
-baselines are not ported (ROADMAP A3).
+model does not count.  The calibration, the cost report and its baseline
+build on these prices in ``analysis.cost``.
 """
 from __future__ import annotations
 
@@ -36,15 +36,19 @@ _LANE_SPLIT_BACKENDS = ("hopper",)   # lane shards move no replication bytes
 
 @dataclasses.dataclass(frozen=True)
 class UnitCost:
-    """Traffic of one ``(bucket, placement)`` launch; ``-1`` marks what a
-    bare ``ExecKey`` cannot know (useful and pad bytes need the member
-    patterns)."""
+    """Traffic of one ``(bucket, placement)`` launch, in the reference's
+    report schema; ``-1`` marks what is not known: useful and pad bytes
+    need the member patterns, ``lowered_bytes`` (the bytes a census saw
+    cross the launch: operands plus result; the reference's lowered
+    signature) a census, ``predicted_gbs`` a calibration."""
     exec_key: str
+    label: str = ""
     backend: str = ""
     kind: str = ""
     placement: str = ""
     batch: int = 0
     lanes: int = 0
+    n_members: int = -1
     useful_bytes: int = -1
     pad_bytes: int = -1
     index_bytes: int = 0
@@ -53,16 +57,34 @@ class UnitCost:
     replicated_bytes: int = 0
     io_bytes: int = 0
     device_bytes: int = 0
+    lowered_bytes: int = -1
+    predicted_gbs: float = -1.0
+
+    def to_json(self) -> dict:
+        return dataclasses.asdict(self)
+
+    @classmethod
+    def from_json(cls, doc: dict) -> "UnitCost":
+        known = {f.name for f in dataclasses.fields(cls)}
+        bad = set(doc) - known
+        if bad:
+            raise ValueError(f"unknown UnitCost fields: {sorted(bad)}")
+        return cls(**doc)
 
 
 def _repl_shards(backend: str | None, lane_shards: int) -> int:
     return 1 if backend in _LANE_SPLIT_BACKENDS else lane_shards
 
 
-def key_cost(key, *, real_elems: int = -1) -> UnitCost:
+def key_cost(key, *, real_elems: int = -1, n_members: int = -1,
+             lowered_bytes: int = -1, calibration=None,
+             label: str = "") -> UnitCost:
     """Traffic of the launch ``key`` names, from its geometry alone;
     ``real_elems`` (the members' summed ``count * index_len``) splits the
-    lane data into useful and pad."""
+    lane data into useful and pad.  With a ``calibration``
+    (``analysis.cost.Calibration``) that measured ``key.backend``, the
+    predicted rate is its measured rate scaled by useful over device
+    bytes."""
     import torch
 
     from .plan import pad_lanes, placement_grid
@@ -80,12 +102,19 @@ def key_cost(key, *, real_elems: int = -1) -> UnitCost:
     io_b = copies * table_b + index_b + lane_data + keep_b
     repl_b = copies * table_b * (_repl_shards(key.backend, l_shards) - 1)
     useful = real_elems * e * r if real_elems >= 0 else -1
+    gbs = -1.0
+    if calibration is not None and useful > 0:
+        rate = calibration.bw_gbs.get(key.backend, 0.0)
+        if rate > 0:
+            gbs = rate * useful / (io_b + repl_b)
     return UnitCost(
-        exec_key=str(key), backend=key.backend, kind=key.kind,
+        exec_key=str(key), label=label, backend=key.backend, kind=key.kind,
         placement=key.placement, batch=key.batch, lanes=lanes,
-        useful_bytes=useful, pad_bytes=lane_data - useful if useful >= 0
-        else -1, index_bytes=index_b, table_bytes=table_b, keep_bytes=keep_b,
-        replicated_bytes=repl_b, io_bytes=io_b, device_bytes=io_b + repl_b)
+        n_members=n_members, useful_bytes=useful,
+        pad_bytes=lane_data - useful if useful >= 0 else -1,
+        index_bytes=index_b, table_bytes=table_b, keep_bytes=keep_b,
+        replicated_bytes=repl_b, io_bytes=io_b, device_bytes=io_b + repl_b,
+        lowered_bytes=lowered_bytes, predicted_gbs=gbs)
 
 
 def shape_cost(plan, shape=(1, 1), *, elem_bytes: int = 4,

@@ -4,7 +4,9 @@ The port's counterpart of ``repro.core.engine``: the engine materializes a
 Pattern's host buffers (``host.make_host_buffers``), moves them to the
 device, and times the backend's call the way the paper does: minimum over
 K runs (§3.5), reported as the paper's useful-bytes bandwidth beside the
-name of the device that ran it.
+name of the device that ran it, and beside the modeled H100 rate
+(``bandwidth.h100_sector_model``; a model, never mixed with the measured
+number).
 
 Timing.  On the card, CUDA events on the current stream bracket each call
 and the run waits on the end event; on the CPU, ``perf_counter`` brackets
@@ -51,17 +53,21 @@ def device_name(device: torch.device) -> str:
 
 
 def timed_runs(fn: Callable, args: tuple, runs: int, device: torch.device,
-               fresh_dst: bool = False):
+               fresh_dst: bool = False, warmup: Callable | None = None):
     """One warm-up call, then ``runs`` timed calls of ``fn(*args)``.
 
     Returns ``(min seconds, output of the last call)``.  With
     ``fresh_dst``, ``args[0]`` is a dst the call writes in place: each
     timed call gets a zeroed copy, made before the timed region opens.
+    ``warmup(call)``, when given, makes the warm-up call and returns its
+    output, where ``call(f)`` calls ``f(*args)`` (the planner takes the
+    census of a new cache entry there, untimed).
     """
     if runs < 1:
         raise ValueError("runs must be >= 1 (min-of-K timing needs a run)")
     cuda = device.type == "cuda"
-    out = fn(*args)                                    # warm-up
+    out = (fn(*args) if warmup is None                 # warm-up
+           else warmup(lambda f: f(*args)))
     if cuda:
         torch.cuda.synchronize(device)
     times = []
@@ -95,6 +101,8 @@ class RunResult:
     runs: int
     time_s: float                 # min over runs (paper §3.5)
     measured_gbs: float           # paper formula over time_s
+    modeled_gbs: float            # paper formula over the modeled H100 time
+    sector_efficiency: float      # useful / fetched bytes of that model
     host_s: float = 0.0           # host seconds building the input buffers
     out_digest: str | None = None   # sha256 of the output (digest runs)
 
@@ -110,6 +118,8 @@ class RunResult:
             "count": self.pattern.count,
             "time_s": self.time_s,
             "measured_gbs": self.measured_gbs,
+            "modeled_h100_gbs": self.modeled_gbs,
+            "sector_eff": self.sector_efficiency,
             "digest": self.out_digest,
         }
 
@@ -214,6 +224,7 @@ class GSEngine:
         fn, args = self.build()
         t, _ = timed_runs(fn, args, runs, self.device,
                           fresh_dst=self.pattern.kind == "scatter")
+        sm = bw.h100_sector_model(self.pattern, self.elem_bytes)
         return RunResult(
             pattern=self.pattern, backend=self.backend,
             device=device_name(self.device),
@@ -221,4 +232,5 @@ class GSEngine:
             runs=runs, time_s=t,
             measured_gbs=bw.paper_bandwidth(self.pattern, t,
                                             self.elem_bytes) / 1e9,
-            host_s=self.host_s)
+            modeled_gbs=sm.modeled_gbs,
+            sector_efficiency=sm.sector_efficiency, host_s=self.host_s)

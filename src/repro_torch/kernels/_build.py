@@ -24,9 +24,13 @@ torn file is quarantined and rebuilt instead of failing at
 where it launches its kernel, and nowhere else, so a caller can show that
 a run went through the kernels (``reset_launches`` sets every count to 0).
 Worker threads launch at once, so every count moves under one lock.
+``observe_launches`` also lists each launch that one thread makes inside a
+block, with its device (the census of ``repro_torch.analysis.census``):
+a process-wide count cannot say which thread launched.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -55,6 +59,7 @@ _fns: dict[tuple[str, str], ctypes._CFuncPtr] = {}   # (library, function)
 _lock = threading.Lock()         # loads and builds of libraries
 _count_lock = threading.Lock()   # launches and nvcc_runs
 _toolchain: dict[str, str] = {}  # memo of nvcc_version / capability
+_observers = threading.local()   # per thread: lists observe_launches fills
 
 _P = ctypes.c_void_p
 _I64 = ctypes.c_int64
@@ -106,6 +111,22 @@ def reset_launches() -> None:
     with _count_lock:
         for k in launches:
             launches[k] = 0
+
+
+@contextlib.contextmanager
+def observe_launches():
+    """Yield a list that gets one ``(kernel, device)`` entry for each
+    launch this thread makes inside the block (``device`` as ``cuda:N``);
+    other threads' launches are not listed.  Blocks may nest."""
+    stack = getattr(_observers, "stack", None)
+    if stack is None:
+        stack = _observers.stack = []
+    seen: list[tuple[str, str]] = []
+    stack.append(seen)
+    try:
+        yield seen
+    finally:
+        stack.pop()
 
 
 def nvcc_path() -> str:
@@ -326,3 +347,8 @@ def launch(kernel: str, device, lib_name: str, fn: str, *args) -> None:
         raise RuntimeError(f"{fn}: CUDA error {err} at launch")
     with _count_lock:
         launches[kernel] += 1
+    stack = getattr(_observers, "stack", None)
+    if stack:
+        where = f"cuda:{here if device.index is None else device.index}"
+        for seen in stack:
+            seen.append((kernel, where))

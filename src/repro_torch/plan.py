@@ -23,6 +23,12 @@ exact under threads and ``launch`` reports whether it built
 (``diskcache.DiskTier``): a build owner first restores the key from disk
 (``disk_hits``, not ``misses``) and stores what it built;
 ``fault_hook("compile")`` runs just before a builder (``serve.faults``).
+The launch that builds an entry takes the census of its untimed warm-up
+call (``analysis.census``) and stores it beside the entry, so an audit of
+the live cache (``ExecutorCache.entries``, spatterd's ``GET /lint``) reads
+what each entry did and runs nothing; an entry restored from disk has no
+census.  ``enumerate_executables`` lists every ``ExecKey`` a plan launches
+under, through the same ``bucket_key``, without running anything.
 
 Execute.  Same-bucket patterns are stacked: indices into (B_pad, N_pad)
 int32, tables into (B_pad, F_pad + 1, R).  Row F_pad of every table is a
@@ -82,6 +88,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import hashlib
 import threading
 import time
@@ -267,6 +274,7 @@ class ExecutorCache:
         self._entries: OrderedDict[ExecKey, Callable] = OrderedDict()
         self._pending: dict[ExecKey, _BuildFuture] = {}
         self._families: dict[ExecKey, set[int]] = {}   # family -> batches
+        self._censuses: dict[ExecKey, object] = {}     # key -> its census
         self._lock = threading.Lock()
         self.hits = 0
         self.misses = 0
@@ -287,6 +295,7 @@ class ExecutorCache:
         self._families.setdefault(self._family(key), set()).add(key.batch)
         while len(self._entries) > self.maxsize:
             old, _ = self._entries.popitem(last=False)
+            self._censuses.pop(old, None)
             batches = self._families[self._family(old)]
             batches.discard(old.batch)
             if not batches:
@@ -391,10 +400,27 @@ class ExecutorCache:
                               batch_hits=self.batch_hits,
                               disk_hits=self.disk_hits)
 
+    def set_census(self, key: ExecKey, census) -> None:
+        """Keep ``key``'s census (``analysis.census.Census``) beside its
+        entry while the entry lives."""
+        with self._lock:
+            if key in self._entries:
+                self._censuses[key] = census
+
+    def entries(self) -> list[tuple[ExecKey, Callable, object]]:
+        """``(key, callable, census or None)`` of every entry, LRU order.
+
+        For auditors (spatterd's ``GET /lint`` and ``/cost``): touches
+        neither the LRU order nor the counters."""
+        with self._lock:
+            return [(k, fn, self._censuses.get(k))
+                    for k, fn in self._entries.items()]
+
     def clear(self) -> None:
         with self._lock:
             self._entries.clear()
             self._families.clear()
+            self._censuses.clear()
             self._pending.clear()
             self.hits = self.misses = self.batch_hits = self.disk_hits = 0
 
@@ -453,6 +479,62 @@ def bucket_key(backend: str, spec: BucketSpec, dtype, row_width: int,
                    batch=pad_batch(n_members, placement.batch_shards
                                    if placement else 1),
                    placement=placement.placement if placement else "")
+
+
+OPERAND_NAMES = {"gather": ("table", "idx"),
+                 "scatter": ("dst", "idx", "vals", "keep")}
+
+
+def key_operands(key: ExecKey, device) -> tuple[torch.Tensor, ...]:
+    """Zero operands of ``key``'s whole launch on ``device``, at its global
+    shapes (``OPERAND_NAMES[key.kind]``; the lane dim is ``pad_lanes`` of
+    the placement's lane shards): a gather reads row 0, a store with an
+    all-False keep mask writes nothing, an add adds zeros to row 0."""
+    _, l_shards, _ = placement_grid(key.placement)
+    b, f, r = key.batch, key.footprint + 1, key.row_width
+    n = pad_lanes(key.idx_len, l_shards)
+    dtype = getattr(torch, key.dtype)
+    idx = torch.zeros((b, n), dtype=torch.int32, device=device)
+    table = torch.zeros((b, f, r), dtype=dtype, device=device)
+    if key.kind == "gather":
+        return table, idx
+    vals = torch.zeros((b, n, r), dtype=dtype, device=device)
+    keep = torch.zeros((b, n), dtype=torch.bool, device=device)
+    return table, idx, vals, keep
+
+
+def enumerate_executables(plan: "SuitePlan", *, backend: str = "torch",
+                          dtype=None, row_width: int = 1,
+                          mode: str = "store", placement=None,
+                          mesh_axis: str = "data", device=None,
+                          devices=None) -> list[tuple]:
+    """Every bucket callable a run of ``plan`` asks the cache for, without
+    building or running anything: ``[(key, builder, placement), ...]``,
+    one per bucket, in bucket order.
+
+    The keys come from ``bucket_key`` at each bucket's member count, so
+    they equal the live cache's keys after the same ``run_plan``; a
+    builder is ``build_bucket`` on the launch's first device.
+    ``placement`` takes every ``make_work`` ``mesh=`` form, resolved over
+    ``devices`` (default ``device_pool(device)``).
+    """
+    B.check_backend(backend)
+    B.check_mode(mode)
+    dtype = B.check_dtype(dtype)
+    dev = _canonical_device(device)
+    placements = resolve_mesh(plan, placement, mesh_axis=mesh_axis,
+                              backend=backend, dtype=dtype,
+                              row_width=row_width,
+                              devices=(device_pool(dev) if devices is None
+                                       else devices))
+    out = []
+    for bucket, pl in zip(plan.buckets, placements):
+        key = bucket_key(backend, bucket.spec, dtype, row_width, mode,
+                         len(bucket.members), pl)
+        where = pl.devices[0] if pl else dev
+        out.append((key, functools.partial(build_bucket, backend, key.kind,
+                                           key.mode, where), pl))
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -1017,6 +1099,28 @@ def launch(works: Sequence[BucketWork],
                                      batch=served.batch, mode=w0.mode,
                                      lanes=lanes)
     host_s = time.perf_counter() - t0
+
+    def warm(shards):
+        """The warm-up that takes a new entry's census (None: not new);
+        its operand bytes are the launch's global ones: the host buffers
+        and, for a scatter, the dst."""
+        if not compiled:
+            return None
+        nbytes = sum(a.nbytes for a in host)
+        if spec.kind == "scatter":
+            nbytes += (served.batch * (spec.footprint + 1) * w0.row_width
+                       * getattr(torch, w0.dtype).itemsize)
+        names = OPERAND_NAMES[spec.kind][-len(shards[0]):]
+        held = {n: [sh[i] for sh in shards] for i, n in enumerate(names)}
+
+        def warmup(call):
+            from .analysis.census import take
+            c, out = take(lambda wrap: call(wrap(fn)), device=dev,
+                          operands=held, operand_bytes=nbytes)
+            cache.set_census(served, c)
+            return out
+        return warmup
+
     t_wait = time.perf_counter()
     with device_locks(placement.devices if placement else (dev,)):
         lock_wait_s = time.perf_counter() - t_wait
@@ -1027,14 +1131,15 @@ def launch(works: Sequence[BucketWork],
                 torch.cuda.synchronize(dev)
             host_s += time.perf_counter() - t0
             t_bucket, out = timed_runs(fn, args, runs, dev,
-                                       fresh_dst=spec.kind == "scatter")
+                                       fresh_dst=spec.kind == "scatter",
+                                       warmup=warm([args]))
         else:
             args = placement.place(spec.kind,
                                    [torch.from_numpy(a) for a in host])
             placement.synchronize()
             host_s += time.perf_counter() - t0
             t_bucket, out = _timed_placed(fn, placement, spec, w0.mode,
-                                          args, runs)
+                                          args, runs, warmup=warm(args))
         out = out.cpu() if want_out else None
         del args
     return LaunchResult(key=served, t_bucket=t_bucket, host_s=host_s,
@@ -1045,16 +1150,17 @@ def launch(works: Sequence[BucketWork],
 
 
 def _timed_placed(fn: Callable, placement: Placement, spec: BucketSpec,
-                  mode: str, shards: list, runs: int):
+                  mode: str, shards: list, runs: int, warmup=None):
     """``timed_runs`` for a placed launch: one warm-up call, then ``runs``
     calls, each timed by the host clock from a synchronisation of every
     device of the placement to the next, so the region holds every
     shard's launch and the combine.  A scatter's dst and shard scratch
-    are made fresh for each call, before its timed region.  Returns
-    ``(min seconds, output of the last call)``."""
+    are made fresh for each call, before its timed region.  ``warmup`` as
+    for ``timed_runs``.  Returns ``(min seconds, output of the last
+    call)``."""
     times = []
     out = None
-    for _ in range(runs + 1):
+    for i in range(runs + 1):
         out = dst = scratch = None
         if spec.kind == "scatter":
             b = shards[0][0].shape[0] * placement.batch_shards
@@ -1064,7 +1170,11 @@ def _timed_placed(fn: Callable, placement: Placement, spec: BucketSpec,
             scratch = placement.scratch(mode, dst)
         placement.synchronize()
         t0 = time.perf_counter()
-        out = placement.run(fn, spec.kind, mode, shards, scratch, dst)
+        if i == 0 and warmup is not None:
+            out = warmup(lambda f: placement.run(f, spec.kind, mode, shards,
+                                                 scratch, dst))
+        else:
+            out = placement.run(fn, spec.kind, mode, shards, scratch, dst)
         placement.synchronize()
         times.append(time.perf_counter() - t0)
     return min(times[1:]), out                         # paper §3.5
@@ -1096,11 +1206,14 @@ def demux(result: LaunchResult, work: BucketWork,
             trim = result.out[b, :n].numpy()
             dg = hashlib.sha256(
                 np.ascontiguousarray(trim).tobytes()).hexdigest()
+        sm = bw.h100_sector_model(p, elem_bytes)
         out.append((pos, RunResult(
             pattern=p, backend=work.backend, device=result.device,
             elem_bytes=elem_bytes, row_width=work.row_width, runs=work.runs,
             time_s=t_i,
             measured_gbs=bw.paper_bandwidth(p, t_i, elem_bytes) / 1e9,
+            modeled_gbs=sm.modeled_gbs,
+            sector_efficiency=sm.sector_efficiency,
             host_s=result.host_s * share, out_digest=dg)))
     return out
 

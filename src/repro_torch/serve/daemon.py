@@ -33,8 +33,11 @@ Endpoints (all JSON; stdlib ``http.server``), the reference's wire format:
     GET  /cache    lifetime ExecutorCache counters
     GET  /stats    cache counters + scheduler snapshot + disk tier, fault
                    injection, kernel launches and nvcc runs
-    GET  /lint, /cost   501: the static analysis is not ported yet
-                   (ROADMAP A3)
+    GET  /lint     spatterlint over the live cache: every entry audited
+                   from the census its first call kept (``analysis.lint.
+                   lint_cache``); read-only, runs nothing
+    GET  /cost     spattercost over the live cache (``analysis.cost.
+                   cost_cache``); read-only, runs nothing
 
 Fault tolerance: ``cache_dir=`` attaches the crash-safe disk tier
 (``diskcache.DiskTier``: exec entries and the nvcc-built libraries),
@@ -87,9 +90,6 @@ DEADLINE_GRACE_S = 0.25
 # how long a drain waits for in-flight requests to answer
 DRAIN_TIMEOUT_S = 600.0
 
-NOT_PORTED_A3 = ("static analysis (/lint, /cost) is not ported to the "
-                 "PyTorch port yet (ROADMAP A3)")
-
 
 def _bounded_put(memo: dict, key, value, bound: int = 32) -> None:
     """FIFO-bounded insert: client-controlled memo keys must never grow a
@@ -97,21 +97,6 @@ def _bounded_put(memo: dict, key, value, bound: int = 32) -> None:
     while len(memo) >= bound:
         memo.pop(next(iter(memo)))
     memo[key] = value
-
-
-def _zero_args(key, device) -> tuple:
-    """Zero operands of ``key``'s bucket callable on ``device``, at the
-    whole launch's shape: a gather reads row 0, a store with an all-False
-    keep mask writes nothing."""
-    import torch
-    b, n, f, r = key.batch, key.idx_len, key.footprint + 1, key.row_width
-    idx = torch.zeros((b, n), dtype=torch.int32, device=device)
-    table = torch.zeros((b, f, r), dtype=torch.float32, device=device)
-    if key.kind == "gather":
-        return table, idx
-    vals = torch.zeros((b, n, r), dtype=torch.float32, device=device)
-    keep = torch.zeros((b, n), dtype=torch.bool, device=device)
-    return table, idx, vals, keep
 
 
 class SpatterDaemon:
@@ -408,11 +393,14 @@ class SpatterDaemon:
     def warm(self, req: SuiteRequest) -> dict:
         """POST /warm: build (or restore) every bucket callable the suite
         needs, then call each once on zero buffers at its served batch,
-        under the device's lock.  Nothing is timed."""
+        under the device's lock; a new entry's call runs as its launch
+        would (through its placement's shards) and keeps its census
+        (``analysis.census.of_key``).  Nothing is timed."""
         import torch
 
+        from ..analysis.census import of_key
         from ..plan import (SuitePlan, bucket_key, build_bucket,
-                            device_locks)
+                            device_locks, key_operands)
         t0 = time.perf_counter()
         self._ready.wait(TICKET_TIMEOUT_S)
         patterns = req.build_patterns()
@@ -430,7 +418,11 @@ class SpatterDaemon:
                     req.backend, key.kind, key.mode, dev, self.cache.disk))
             compiled += built
             with device_locks(pl.devices if pl else (dev,)):
-                fn(*_zero_args(served, dev))
+                if built:
+                    self.cache.set_census(served, of_key(
+                        served, fn, placement=pl, device=dev))
+                else:
+                    fn(*key_operands(served, dev))
                 if dev.type == "cuda":
                     torch.cuda.synchronize(dev)
         delta = self.cache.stats().delta(before)
@@ -476,6 +468,24 @@ class SpatterDaemon:
                        if self.faults is not None else None),
             "kernels": kernels,
         }
+
+    def lint(self) -> dict:
+        """GET /lint: spatterlint over the live cache, from the census each
+        entry kept from its first call.  Read-only: runs nothing, takes no
+        device lock, and moves neither the cache's counters nor its LRU
+        order, so it may run beside requests."""
+        from ..analysis.lint import lint_cache
+        report = lint_cache(self.cache)
+        return {"ok": report.ok, "report": report.to_json()}
+
+    def cost(self) -> dict:
+        """GET /cost: the traffic of every live cache entry, held against
+        its census and the committed baseline; an entry restored from
+        disk has no census and gets its key's geometry only.  Read-only,
+        as ``lint``."""
+        from ..analysis.cost import cost_cache
+        report = cost_cache(self.cache)
+        return {"ok": report.ok, "report": report.to_json()}
 
     def health(self) -> dict:
         from .. import backends as B
@@ -532,8 +542,10 @@ def _make_handler(daemon: SpatterDaemon):
                                   "cache": daemon.cache.stats().to_json()})
             elif self.path == "/stats":
                 self._reply(200, daemon.stats())
-            elif self.path in ("/lint", "/cost"):
-                self._reply(501, {"ok": False, "error": NOT_PORTED_A3})
+            elif self.path == "/lint":
+                self._reply(200, daemon.lint())
+            elif self.path == "/cost":
+                self._reply(200, daemon.cost())
             else:
                 self._reply(404, {"ok": False,
                                   "error": f"no such path {self.path!r}"})
@@ -650,7 +662,8 @@ def main(argv=None) -> None:
 
     signal.signal(signal.SIGTERM, _on_sigterm)
     print(f"spatterd listening on {daemon.url}  (device {daemon.device}; "
-          f"POST /run /warm, GET /healthz /readyz /stats)", flush=True)
+          f"POST /run /warm, GET /healthz /readyz /stats /lint /cost)",
+          flush=True)
     try:
         daemon.serve_forever()
         daemon.wait_drained(DRAIN_TIMEOUT_S + 60)

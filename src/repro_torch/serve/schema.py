@@ -22,9 +22,10 @@ unmodified) or an envelope::
 
 Every field is validated HERE, before any device work, so a bad request
 is a 400 with a one-line reason and never takes a queue slot; unknown
-envelope keys are rejected too.  The metric is ``measured`` (or its
-column name ``measured_gbs``): the port has no modeled column yet, so a
-``modeled*`` metric is a 400 that names ROADMAP A2.
+envelope keys are rejected too.  The metric is ``measured`` or
+``modeled`` (or their column names ``measured_gbs``,
+``modeled_h100_gbs``); the reference's ``modeled_v5e_gbs`` names a TPU
+model the port does not have, and is a 400 like any unknown metric.
 
 ``MAX_SUITE_LANES`` bounds one request's assembled buffers AND how many
 requests' work units the scheduler may stack into one launch, so a
@@ -54,7 +55,7 @@ MAX_MESH_DIM = 1 << 16
 # suite._METRIC_COLUMNS, copied to stay import-light; a test pins them)
 WIRE_BACKENDS = ("torch", "onehot", "scalar", "hopper")
 WIRE_MODES = ("store", "add")
-WIRE_METRICS = ("measured", "measured_gbs")
+WIRE_METRICS = ("measured", "measured_gbs", "modeled", "modeled_h100_gbs")
 DEFAULT_BACKEND = "torch"          # the port CLI's default
 
 
@@ -144,11 +145,6 @@ class SuiteRequest:
             raise ValueError(f"unknown mode {self.mode!r}; "
                              f"expected one of {WIRE_MODES}")
         if self.metric not in WIRE_METRICS:
-            if isinstance(self.metric, str) \
-                    and self.metric.startswith("modeled"):
-                raise ValueError(
-                    f"metric {self.metric!r}: the port has no modeled "
-                    f"bandwidth yet (ROADMAP A2); use 'measured'")
             raise ValueError(f"unknown metric {self.metric!r}; "
                              f"expected one of {sorted(WIRE_METRICS)}")
         _check_int("runs", self.runs, 1, MAX_RUNS)

@@ -1,11 +1,13 @@
 """Multi-pattern suite runner — the paper's JSON-input mode (§3.3, §3.5).
 
 Runs many patterns, then reports the paper's aggregates: per-pattern
-bandwidths, suite min/max and harmonic mean.  ``stream_r=True`` also times
-the STREAM-like reference (paper §3.4) and reports its bandwidth as
-``stream_gbs``; paper Eq. 1's Pearson R correlates measured with modeled
-bandwidth, and the port has no modeled column yet, so ``stream_r`` stays
-None.
+bandwidths, suite min/max and harmonic mean over the measured column, or
+over the modeled H100 column (``metric="modeled"``;
+``bandwidth.h100_sector_model``).  ``stream_r=True`` also times the
+STREAM-like reference (paper §3.4), reports its bandwidth as
+``stream_gbs``, and paper Eq. 1's Pearson R between each pattern's
+measured and modeled bandwidth as ``stream_r`` (R is scale-invariant, so
+dividing both series by their STREAM rates cannot change it).
 
 Execution goes through the suite planner (``batch=True``, plan.py): one
 launch per shape bucket, placed over several devices with ``mesh=``.
@@ -23,8 +25,11 @@ from .engine import GSEngine, RunResult
 from .pattern import Pattern, make_pattern
 from .plan import ExecutorCache, SuitePlan, run_plan
 
+# metric aliases -> the RunResult.row() column they select
 _METRIC_COLUMNS = {"measured": "measured_gbs",
-                   "measured_gbs": "measured_gbs"}
+                   "measured_gbs": "measured_gbs",
+                   "modeled": "modeled_h100_gbs",
+                   "modeled_h100_gbs": "modeled_h100_gbs"}
 
 
 def _metric_column(metric: str) -> str:
@@ -43,7 +48,7 @@ class SuiteStats:
     hmean_gbs: float
     plan: SuitePlan | None = None        # set when the planner ran
     stream_gbs: float | None = None      # STREAM-like reference GB/s
-    stream_r: float | None = None        # paper Eq. 1 R: no modeled series
+    stream_r: float | None = None        # paper Eq. 1 R, measured vs modeled
 
     @property
     def host_s(self) -> float:
@@ -99,17 +104,24 @@ def pearson_r(xs, ys) -> float:
 def aggregate_stats(results: list[RunResult], *, metric: str = "measured",
                     plan: SuitePlan | None = None,
                     stream_ref: RunResult | None = None) -> SuiteStats:
-    """Fold per-pattern RunResults into the paper's §3.5 aggregates."""
+    """Fold per-pattern RunResults into the paper's §3.5 aggregates over
+    the ``metric`` column; with a STREAM reference run, also paper Eq. 1's
+    Pearson R of the measured against the modeled column."""
     if not results:
         raise ValueError("aggregate_stats needs at least one result")
     col = _metric_column(metric)
-    vals = [getattr(r, col) for r in results]
+    vals = [r.measured_gbs if col == "measured_gbs" else r.modeled_gbs
+            for r in results]
+    stream_gbs = r_val = None
+    if stream_ref is not None:
+        stream_gbs = stream_ref.measured_gbs
+        r_val = pearson_r([r.measured_gbs for r in results],
+                          [r.modeled_gbs for r in results])
     return SuiteStats(
         results=list(results),
         min_gbs=min(vals), max_gbs=max(vals),
         hmean_gbs=harmonic_mean(vals),
-        plan=plan,
-        stream_gbs=None if stream_ref is None else stream_ref.measured_gbs)
+        plan=plan, stream_gbs=stream_gbs, stream_r=r_val)
 
 
 def run_suite(patterns: list[Pattern], *, backend: str = "torch",

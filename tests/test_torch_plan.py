@@ -183,16 +183,16 @@ def test_run_suite_on_cpu():
                          stream_n=1 << 12)
     assert len(st.results) == 10 and st.plan.n_buckets == 4
     assert 0 < st.min_gbs <= st.hmean_gbs <= st.max_gbs
-    assert st.stream_gbs > 0 and st.stream_r is None
+    assert st.stream_gbs > 0 and -1 <= st.stream_r <= 1
     doc = json.loads(json.dumps(st.to_json()))
-    assert doc["device"] == "cpu" and doc["stream_r"] is None
+    assert doc["device"] == "cpu" and doc["stream_r"] == st.stream_r
     assert doc["table"][0]["gbs"] == st.results[0].measured_gbs
     per = suite.run_suite(pats, runs=1, device="cpu", batch=False)
     assert per.plan is None and len(per.results) == 10
     with pytest.raises(ValueError, match="digest"):
         suite.run_suite(pats, device="cpu", batch=False, digest=True)
     with pytest.raises(ValueError, match="metric"):
-        suite.run_suite(pats, device="cpu", metric="modeled")
+        suite.run_suite(pats, device="cpu", metric="modeled_v5e_gbs")
     with pytest.raises(ValueError, match="mode"):
         suite.run_suite(pats, device="cpu", mode="max")
 
