@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Drive the port's paths on one CUDA card and check them: the Spatter
 main path, falcon-mamba-7b and llama3-8b served at full width, the
-Spatter suite daemon, bucket launches placed over several devices, and
-the static analysis with the modeled H100 column.
+Spatter suite daemon, bucket launches placed over several devices, the
+static analysis with the modeled H100 column, and the launch-parameter
+choice (``kernels/autotune.py``) with the CLI's serve modes.
 
     python3 chip_smoke.py            # from the root of the repository
 
@@ -103,7 +104,8 @@ only.  Phases:
      phase 3's (the CLI pattern's: its unplaced run's), adds within
      ``add_error_bound`` of the unplaced outputs, launches buckets x
      shards x (1 + runs), the coverage store's where the lane axis is
-     split; ``--mesh auto`` (unplaced on one card, no build on a repeat);
+     split, the CLI add at (2, 1) within ``CLI_ADD_2X1_RATIO`` of its
+     unplaced time (the add kernel skips +-0.0 payloads); ``--mesh auto`` (unplaced on one card, no build on a repeat);
      an in-process daemon over ``[cuda:0] * 2`` answering a 1x2 demo
      request with phase 3's digests; then the placed times and peak
      memory beside the unplaced ones.  One card shows that placements are
@@ -115,30 +117,48 @@ only.  Phases:
      calibrates the cost report (the repository's ``BENCH_suite.json``
      must not); lint and cost of demo, appdb at scale 1.0 and the CLI
      pattern (gather, store, add) on hopper and torch, unplaced and at
-     (1, 2) and (2, 1) over ``[cuda:0] * n``, one census call a unit,
+     (1, 2) and (2, 1) over ``[cuda:0] * n``, and demo again under
+     ``autotune.disabled()`` (the legacy rules' smem route), one census
+     call a unit,
      each hopper census under torch.profiler (its Spatter kernels must
      equal the census's launches): hopper must lint clean and every cost
      report must be clean; three poisoned bucket callables (two launches,
      an ``.item()``, a sort) must each fire their rule; then predicted
      against measured GB/s per bucket, and ``modeled_h100_gbs`` with
-     paper Eq. 1's R for demo and appdb.
+     paper Eq. 1's R for demo and appdb;
+ 10. (last, reusing phase 8's host draws) the launch-parameter choice
+     (``autotune_phase``): every candidate launch of each chosen kernel
+     against its plain version (``candidate_cases``); demo and appdb at
+     scale 1.0 under the legacy rules and under the search,
+     digests equal to phase 3's, launches by route, ``searched`` equal to
+     the keys the builds chose and 0 on a repeat, each bucket's choice and
+     device time in both legs; ``python -m repro_torch --serve``,
+     ``--client --json`` (phase 3's digests) and ``--stats`` in processes
+     of their own, a fresh process over that daemon's disk tier that
+     searches nothing and runs no nvcc, ``examples/quickstart_torch.py``;
+     ``pipeline_model`` beside the CLI gather at ``vecs`` 1 and 4.
 
 The launch counts are set to 0 just before phase 2 and read just after
 phase 3, again just before and after the serve calls of phases 5 and 6,
 just before and after phase 7's daemon, just before and after phase 8's
-placed suites, and just before and after phase 9's lint and cost passes
-(where they must equal the censuses' sum).  Any failed check raises, so
+placed suites, just before and after phase 9's lint and cost passes
+(where they must equal the censuses' sum), and just before and after
+phase 10's two legs (whose legacy leg gives the smem gather's launches:
+the search routes no bucket of phases 2-3 to it on an H100).  Any failed check raises, so
 the script exits nonzero.  Before the last line it prints a
-``{"daemon": {...}}``, a ``{"placements": {...}}``, an ``{"analysis":
-{...}}`` and a ``{"kernels": [...]}`` JSON line; the last line is
+``{"daemon": {...}}``, a ``{"placements": {...}}``, an ``{"autotune":
+{...}}``, an ``{"analysis": {...}}`` and a ``{"kernels": [...]}`` JSON
+line; the last line is
 ``{"ok": true, "device": {...}}``.
 """
 import contextlib
 import gc
 import itertools
 import json
+import re
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 
@@ -179,6 +199,9 @@ KERNEL_INFO = {                  # name -> (source, TPU kernel it replaces)
 }
 GATHER_LINES = ("gather_rows", "gather_rows_random", "gather_rows_smem",
                 "gather_rows_smem_2p24")
+# the kernels the main path's buckets take under the launch-parameter search
+# on an H100 (the smem gather runs in phase 10's legacy leg)
+MAIN_PATH_KERNELS = ("gather_rows", "scatter_store_rows", "scatter_add_rows")
 SPATTER_KERNELS = ("gather_rows", "gather_rows_smem", "scatter_store_rows",
                    "scatter_add_rows")
 
@@ -274,12 +297,12 @@ def kernel_cases(torch):
                     err[name] = max(err[name],
                                     (got - want).abs().max().item())
                     n_cases += 1
-                # auto picks the regime use_smem names
+                # auto takes the regime autotune names
                 for v in (limit_v, limit_v + 1):
                     table = torch.randn(bsz, v, r, generator=gen).to(dev)
                     idx = rand_idx(bsz, n, v).to(dev)
-                    want_k = ("gather_rows_smem" if g.use_smem(v, n, r)
-                              else "gather_rows")
+                    want_k = ("gather_rows_smem" if g.gather_tiles(
+                        bsz, n, v, r, table.device).smem else "gather_rows")
                     before = dict(_launches())
                     got = g.gather_rows(table, idx)
                     torch.cuda.synchronize()
@@ -345,7 +368,7 @@ def gather_edge_cases(torch, gen):
     straddle patterns) and N below one CTA, a table of exactly 232,448
     bytes (D in {1, 4}), more patterns than clusters fit at once, and both
     kernels' 64-bit instances.  Returns the number of cases."""
-    from repro_torch.kernels import _build
+    from repro_torch.kernels import _build, autotune
     from repro_torch.kernels.gather_rows import ops as g
     from repro_torch.kernels.gather_rows.ref import gather_rows_ref
     dev = torch.device("cuda")
@@ -373,12 +396,13 @@ def gather_edge_cases(torch, gen):
         n = idx.shape[1]
         buf = torch.full((bsz * n * d + oo + 4,), float("nan"), device=dev)
         out = buf[oo:oo + bsz * n * d].view(bsz, n, d)
-        lanes = ((g.smem_lanes_per_cta(bsz, n, v,
-                                       g.smem_resident_ctas(v, d, 0)),)
-                 if kernel == "gather_rows_smem" else ())
+        # the smem kernel at its legacy lanes a CTA, the global one at
+        # vecs 0 (the kernel's own rule)
+        param = (g.smem_lanes_per_cta(bsz, n, v, g.smem_resident_ctas(v, d, 0))
+                 if kernel == "gather_rows_smem" else 0)
         _build.launch(kernel, dev, "gather_rows", f"{kernel}_f32",
                       table.data_ptr(), idx.data_ptr(), out.data_ptr(), bsz,
-                      n, v, d, *lanes)
+                      n, v, d, param)
         guards = torch.cat([buf[:oo], buf[oo + bsz * n * d:]])
         return out, bool(torch.isnan(guards).all())
 
@@ -415,12 +439,15 @@ def gather_edge_cases(torch, gen):
             for kernel, v in both:
                 case(kernel, bsz, v, 1, n)
     # exactly 227 KB: the last floats of the table stay in global memory;
-    # gather_rows must still pick the smem kernel for it
+    # gather_rows under the legacy rule must still pick the smem kernel
+    def legacy_route(table, idx):
+        with autotune.disabled():
+            return g.gather_rows(table, idx)
     for d in (1, 4):
         v = g.SMEM_TABLE_BYTES // (4 * d)
         for bsz in (1, 2):
             for offs in ((0, 0, 0), (1, 1, 0), (1, 1, 1)):
-                case("gather_rows_smem", bsz, v, d, v, offs, g.gather_rows)
+                case("gather_rows_smem", bsz, v, d, v, offs, legacy_route)
     # more clusters than the card holds at once
     for bsz, v, n in ((40, 5000, 8192), (20, 32769, 32768)):
         resident = g.smem_resident_ctas(v, 1, 0)
@@ -507,7 +534,7 @@ def store_edge_cases(torch, gen=None, with_cov=False):
     consecutive rows (the float4 stores) and random ones, with !keep lanes,
     out-of-range lanes and dropped duplicates inside vectors; B in {1, 2,
     3} with N from 1 to 8,191 (vectors straddling patterns); 3 x 1,500,007
-    lanes (the deep setting, 16 lanes a thread); and the 64-bit instances
+    lanes (both instances: ``vecs`` 1 and 4); and the 64-bit instances
     (a dst of 2^31 + 16 rows).  With ``with_cov`` (phase 8) every case
     runs the store with its coverage map instead, a (B, V) int32 view at
     dst's element offset (so its 4-row marks fall on and off 16-byte
@@ -553,7 +580,7 @@ def store_edge_cases(torch, gen=None, with_cov=False):
         return idx, keep
 
     def case(bsz, v, d, n, kind="consecutive", offs=(0, 0, 0, 0),
-             top=None):
+             top=None, vecs=None):
         nonlocal n_cases
         od, oi, ok, ov = offs
         idx0, keep0 = make(bsz, n, v, kind, top)
@@ -574,11 +601,11 @@ def store_edge_cases(torch, gen=None, with_cov=False):
                 m, dtype=torch.int32, device=dev))
             cov_want = torch.zeros_like(cov)
         before = _launches()[kernel]
-        s.scatter_store_rows_(dst, idx, keep, vals, cov)
+        s.scatter_store_rows_(dst, idx, keep, vals, cov, vecs=vecs)
         scatter_store_rows_ref_(want[od:od + numel].view(bsz, v, d), idx,
                                 keep, vals, cov_want)
         where = (f"{kernel} B={bsz} V={v} D={d} N={n} {kind} "
-                 f"offsets(dst, idx, keep, vals)={offs}")
+                 f"offsets(dst, idx, keep, vals)={offs} vecs={vecs}")
         check(_launches()[kernel] == before + 1, f"{where}: did not launch")
         check(torch.equal(buf.view(torch.int32), want.view(torch.int32)),
               f"{where}: not equal")
@@ -597,7 +624,8 @@ def store_edge_cases(torch, gen=None, with_cov=False):
         for n in (1, 2, 3, 5, 15, 16, 17, 100, 1001, 4099, 8191):
             case(bsz, 8192, 1, n)
     for offs in ((0, 0, 0, 0), (0, 1, 1, 1), (1, 0, 0, 0)):
-        case(3, 1 << 21, 1, 1_500_007, offs=offs)
+        for vecs in (1, 4):          # both instances, 4 or 1 vector a thread
+            case(3, 1 << 21, 1, 1_500_007, offs=offs, vecs=vecs)
     # the 64-bit instances: rows up to INT32_MAX of a 2^31 + 16-row dst, in
     # phase (float4 stores) and with idx out of phase (the element kernel)
     for offs in ((0, 0, 0, 0), (0, 1, 0, 0)):
@@ -917,7 +945,8 @@ def paged_cases(torch):
 
 def paged_split_cases(torch):
     """Phase 1's cases for the split of each row's pages over CTAs and
-    their merge in the same launch (``ops.paged_splits``): rows of 130
+    their merge in the same launch (at ``ops.paged_splits``'s count, the
+    legacy rule, passed explicitly): rows of 130
     pages whose lengths end on a split's last position, one past it, and
     in the first page (most splits empty); a shape where B x KVH fills the
     card (one split); calls back to back on one stream with other lengths
@@ -944,7 +973,7 @@ def paged_split_cases(torch):
                             bool(i % 2), lengths)
         err = max(err, check_paged(torch, ins, (
             f"paged_decode split KVH={kvh} G={g} dh={dh} {dtype} {s} "
-            f"splits lengths={lengths}")))
+            f"splits lengths={lengths}"), paged(*ins, splits=s)))
         n += 1
     # B x KVH alone fills the card: one split, no workspace
     kvh = 8
@@ -992,16 +1021,21 @@ def _launches():
 
 # -- phases 2 and 3: the main path ---------------------------------------------
 
-def _bucket_kernel(spec, mode, lane_shards=1):
-    """The kernel each shard of a hopper bucket launch of ``spec`` runs,
-    the bucket's lanes split ``lane_shards`` ways (the launch census of
-    phases 3, 7 and 8)."""
-    from repro_torch.kernels.gather_rows.ops import use_smem
-    from repro_torch.plan import pad_lanes
+def _bucket_kernel(bucket, mode, grid=(1, 1)):
+    """The kernel each shard of a hopper launch of ``bucket`` runs on
+    ``cuda:0`` over a (batch, lane) ``grid`` (the launch census of phases
+    3, 7, 8 and 10): for a gather, the regime its launch parameters name
+    (``gather_tiles``, under ``autotune.disabled()`` the legacy one)."""
+    import torch
+    from repro_torch.kernels.gather_rows.ops import gather_tiles
+    from repro_torch.plan import pad_batch, pad_lanes
+    spec, (b_shards, lane_shards) = bucket.spec, grid
     if spec.kind == "gather":
+        bsz = pad_batch(len(bucket.members), b_shards) // b_shards
         lanes = pad_lanes(spec.idx_len, lane_shards) // lane_shards
-        return ("gather_rows_smem" if use_smem(spec.footprint + 1, lanes, 1)
-                else "gather_rows")
+        smem = gather_tiles(bsz, lanes, spec.footprint + 1, 1,
+                            torch.device("cuda", 0)).smem
+        return "gather_rows_smem" if smem else "gather_rows"
     if mode == "add":
         return "scatter_add_rows"
     return "scatter_store_rows_cov" if lane_shards > 1 else "scatter_store_rows"
@@ -1055,7 +1089,7 @@ def main_path(torch, torch_stats=None):
             if backend == "hopper":
                 want = {k: 0 for k in before}
                 for b in st.plan.buckets:
-                    want[_bucket_kernel(b.spec, "store")] += 1 + RUNS
+                    want[_bucket_kernel(b, "store")] += 1 + RUNS
                 got = {k: after[k] - before[k] for k in before}
                 check(got == want, f"{name}: launches {got} != {want}")
                 print(f"  launches per kernel {got} "
@@ -1150,8 +1184,9 @@ def _in_turns(torch, fns, iters):
 
 
 def _smem_layout(g, bsz, n, v):
-    """The smem kernel's lanes per CTA, its CTAs, and the CTAs that fit at
-    once, for a (B, V, 1) table gathered at N lanes on ``cuda:0``."""
+    """The smem kernel's lanes per CTA by the legacy rule (phase 4 times
+    it there, as PRs 15-20 did), its CTAs, and the CTAs that fit at once,
+    for a (B, V, 1) table gathered at N lanes on ``cuda:0``."""
     resident = g.smem_resident_ctas(v, 1, 0)
     return dict(lanes_per_cta=g.smem_lanes_per_cta(bsz, n, v, resident),
                 ctas=g.smem_grid(bsz, n, v, resident),
@@ -1279,15 +1314,18 @@ def gather_times(torch, err=None):
     flat = (ib.to(torch.int64) + torch.arange(
         ib.shape[0], device=dev)[:, None] * tb.shape[1]).reshape(-1)
     bsz, nd, vd = ib.shape[0], ib.shape[1], tb.shape[1]
+    smem = _smem_layout(g, bsz, nd, vd)
     line("gather_rows_smem",
-         lambda: g.gather_rows_smem(tb, ib),
+         lambda: g.gather_rows_smem(tb, ib,
+                                    lanes_per_cta=smem["lanes_per_cta"]),
          lambda: torch.index_select(tb.reshape(-1, 1), 0, flat),
          lambda: gather_rows_ref(tb, ib),
          ib.numel() * 4 + torch.unique(flat).numel() * 4 + ib.numel() * 4,
-         list(tb.shape), g.gather_rows_smem(tb, ib), gather_rows_ref(tb, ib),
-         200, 50, others={"gather_rows_global":
-                          lambda: g.gather_rows_global(tb, ib)},
-         **_smem_layout(g, bsz, nd, vd))
+         list(tb.shape), g.gather_rows_smem(
+             tb, ib, lanes_per_cta=smem["lanes_per_cta"]),
+         gather_rows_ref(tb, ib), 200, 50,
+         others={"gather_rows_global": lambda: g.gather_rows_global(tb, ib)},
+         **smem)
     del ib, flat
 
     # demo's table read at 2^24 uniform-random lanes: does staging on chip
@@ -1296,15 +1334,18 @@ def gather_times(torch, err=None):
                         dtype=torch.int32)
     tb2 = tb[:1].contiguous()
     n2 = ib2.shape[1]
+    smem = _smem_layout(g, 1, n2, vd)
     line("gather_rows_smem_2p24",
-         lambda: g.gather_rows_smem(tb2, ib2),
+         lambda: g.gather_rows_smem(tb2, ib2,
+                                    lanes_per_cta=smem["lanes_per_cta"]),
          lambda: torch.index_select(tb2[0], 0, ib2[0]),
          None, n2 * 8 + torch.unique(ib2).numel() * 4,
-         [1, vd, 1, "random", n2], g.gather_rows_smem(tb2, ib2),
+         [1, vd, 1, "random", n2], g.gather_rows_smem(
+             tb2, ib2, lanes_per_cta=smem["lanes_per_cta"]),
          gather_rows_ref(tb2, ib2), 50, 0,
          others={"gather_rows_global":
                  lambda: g.gather_rows_global(tb2, ib2)},
-         **_smem_layout(g, 1, n2, vd))
+         **smem)
     del tb, tb2, ib2
     torch.cuda.empty_cache()
     return rows
@@ -2060,7 +2101,7 @@ def daemon_phase(torch, cli_results, suite_stats):
               f"phase 7: {sv} for {plan.n_buckets} buckets")
         with expect_lock:
             for b in plan.buckets:
-                expect[_bucket_kernel(b.spec, mode)] += 1 + RUNS
+                expect[_bucket_kernel(b, mode)] += 1 + RUNS
 
     with SpatterDaemon(port=0, cache=ExecutorCache()) as d:
         c = SpatterClient(d.url)
@@ -2214,8 +2255,8 @@ def daemon_phase(torch, cli_results, suite_stats):
           and extra["scatter_add_rows"] == 0,
           f"phase 7: launches {census}, expected {expect} plus "
           f"{(1 + RUNS) * launches} for the concurrent demo")
-    check(all(census[k] > 0 for k in SPATTER_KERNELS),
-          f"phase 7: a Spatter kernel never launched: {census}")
+    check(all(census[k] > 0 for k, n in expect.items() if n),
+          f"phase 7: a kernel the routes name never launched: {census}")
     out["launches"] = census
     print(f"  launches {census} = the responses' buckets x (1 + {RUNS})",
           flush=True)
@@ -2311,6 +2352,9 @@ def daemon_phase(torch, cli_results, suite_stats):
 # -- phase 8: placements on the card -------------------------------------------
 
 PLACEMENT_SHAPES = ((1, 2), (2, 1), (2, 2), (1, 4))
+# the CLI add at (2, 1) over its unplaced time, at most (fixed before the
+# skip of +-0.0 payloads first ran on the card)
+CLI_ADD_2X1_RATIO = 2.0
 
 
 @contextlib.contextmanager
@@ -2320,12 +2364,16 @@ def _host_buffers_once():
     take most of the phase.  Launches and outputs do not change."""
     from repro_torch import plan
     real = plan.make_host_buffers
+    if getattr(real, "memo", None) is not None:   # already drawing once
+        yield
+        return
     memo = {}
 
     def once(p, row_width, seed=0):
         if (p, row_width, seed) not in memo:
             memo[p, row_width, seed] = real(p, row_width, seed=seed)
         return memo[p, row_width, seed]
+    once.memo = memo
     plan.make_host_buffers = once
     try:
         yield
@@ -2422,7 +2470,7 @@ def placement_phase(torch, suite_stats):
                 for mode, run in (("store", pats), ("add", scatters)):
                     r = _placed_suite(torch, run, mode, mesh, cache)
                     for bucket in r["plan"].buckets:
-                        expect[_bucket_kernel(bucket.spec, mode, l)] += (
+                        expect[_bucket_kernel(bucket, mode, (b, l))] += (
                             (1 + RUNS) * b * l)
                     if mode == "store":
                         want = want or r["digests"]
@@ -2506,6 +2554,15 @@ def placement_phase(torch, suite_stats):
         print(f"  (d) {r['suite']:5s} {r['mode']:5s} {r['placement']:9s} "
               f"{r['ms']:10.4f} {r['ratio']:10.3f} {r['peak_bytes']:12d}")
     out["rows"] = rows
+    # the add kernel skips +-0.0 payloads, so a batch split's scratch
+    # pattern no longer serialises on the scratch row (294 x before it)
+    cli_add = base["cli", "add"]["ms"]
+    for r in rows:
+        if (r["suite"], r["mode"], r["placement"]) == ("cli", "add", "2x1"):
+            check(r["ratio"] <= CLI_ADD_2X1_RATIO,
+                  f"phase 8: the CLI add at (2, 1) took {r['ms']:.4f} ms, "
+                  f"{r['ratio']:.2f} x its unplaced {cli_add:.4f} ms")
+            out["cli_add_2x1_ratio"] = r["ratio"]
     out["wall_s"] = time.perf_counter() - t_phase
     print(f"phase 8 wall {out['wall_s']:.1f} s", flush=True)
     return out
@@ -2615,7 +2672,9 @@ def analysis_phase(torch, suite_stats, torch_stats):
     ``BENCH_suite.json`` does not; (c)
     lint and cost of demo, appdb at scale 1.0 and the CLI pattern (gather
     and store, then the scatter as an add, 2^27 lanes) on hopper and
-    torch, unplaced and at (1, 2) and (2, 1) over ``[cuda:0] * n``: one
+    torch, unplaced and at (1, 2) and (2, 1) over ``[cuda:0] * n``, and
+    demo once more under ``autotune.disabled()`` (whose legacy rules route
+    its UNIFORM:8:1 bucket to the smem gather): one
     census call a unit, each hopper census under torch.profiler, whose
     Spatter kernels must equal the census's launches; hopper must lint
     clean, every cost report must be clean, and the launch counts, set to
@@ -2627,7 +2686,7 @@ def analysis_phase(torch, suite_stats, torch_stats):
     Eq. 1's R for appdb and demo.  Returns the numbers for the records."""
     from repro_torch import appdb, bandwidth, load_suite
     from repro_torch.analysis import cost, lint
-    from repro_torch.kernels import reset_launches
+    from repro_torch.kernels import autotune, reset_launches
     from repro_torch.kernels.gather_rows.ops import gather_rows
     from repro_torch.pattern import Pattern
     from repro_torch.plan import Placement
@@ -2662,26 +2721,34 @@ def analysis_phase(torch, suite_stats, torch_stats):
 
     cli_store = [Pattern.from_json(_cli_doc(k)) for k in ("Gather",
                                                           "Scatter")]
-    cells = (("demo", load_suite(str(ROOT / "suites" / "demo.json")),
-              "store"),
-             ("appdb", appdb.scale_counts(appdb.ALL_PATTERNS, 1.0), "store"),
-             ("cli", cli_store, "store"),
-             ("cli", cli_store[1:], "add"))
+    demo = load_suite(str(ROOT / "suites" / "demo.json"))
+    # (label, patterns, mode, under autotune.disabled()): the search routes
+    # no bucket to the smem gather on this card, the legacy rules route
+    # demo's UNIFORM:8:1 bucket there
+    cells = (("demo", demo, "store", False),
+             ("appdb", appdb.scale_counts(appdb.ALL_PATTERNS, 1.0), "store",
+              False),
+             ("cli", cli_store, "store", False),
+             ("cli", cli_store[1:], "add", False),
+             ("demo-legacy", demo, "store", True))
     seen, lint_rows, cost_rows = [], [], []
     violations = {"hopper": [], "torch": []}
     reset_launches()
     t0 = time.perf_counter()
-    for label, pats, mode in cells:
+    for label, pats, mode, legacy in cells:
         for shape in ANALYSIS_SHAPES:
             mesh = (None if shape is None else Placement.create(
                 shape, devices=[cuda0] * (shape[0] * shape[1])))
             for backend in ("hopper", "torch"):
                 kw = dict(backend=backend, mode=mode, placement=mesh,
                           label=f"{label}.json", device=cuda0)
-                with _censuses(torch, seen, profiled=backend == "hopper"):
-                    rep = lint.lint_plan(pats, **kw)
-                with _censuses(torch, seen, profiled=False):
-                    crep = cost.cost_plan(pats, calibration=cal, **kw)
+                with (autotune.disabled() if legacy
+                      else contextlib.nullcontext()):
+                    with _censuses(torch, seen,
+                                   profiled=backend == "hopper"):
+                        rep = lint.lint_plan(pats, **kw)
+                    with _censuses(torch, seen, profiled=False):
+                        crep = cost.cost_plan(pats, calibration=cal, **kw)
                 violations[backend] += [v.to_json() for v in
                                         rep.violations + crep.violations]
                 place = mesh.placement if mesh else "single"
@@ -2803,6 +2870,455 @@ def analysis_phase(torch, suite_stats, torch_stats):
     print(f"phase 9 wall {out['wall_s']:.1f} s", flush=True)
     return out
 
+# -- phase 10: the launch-parameter choice (kernels/autotune.py) ---------------
+
+# kernel-name fragments of the Spatter kernels, by the launch they are
+_TUNED_FRAGMENTS = ("gather_d1_vec_kernel", "gather_elems_kernel",
+                    "gather_rows_smem_kernel", "store_d1_vec_kernel",
+                    "store_elems_kernel", "scatter_add_rows_kernel")
+
+
+def candidate_cases(torch):
+    """Phase 10 (a): every candidate launch of each chosen kernel at phase
+    1's shapes against its plain version: the global gather at ``vecs`` 0
+    (the kernel's own rule), 1 and deep; the smem gather at three lanes a
+    CTA (the legacy rule's, 256 and one cluster a pattern), each also
+    through ``gather_rows`` with that choice; the store at ``vecs`` 0, 1
+    and deep, with and without its coverage map; the add with +0.0 and
+    -0.0 payloads among its lanes (skipped by the kernel); paged decode at
+    three split counts.  Gathers and stores ``torch.equal``, adds within
+    ``add_error_bound`` (and rows that receive only +-0.0 stay +0.0),
+    paged decode within ``attn_tolerance``.  Returns the number of cases."""
+    from repro_torch.host import keep_last_mask
+    from repro_torch.kernels import autotune
+    from repro_torch.kernels.gather_rows import ops as g
+    from repro_torch.kernels.gather_rows.ref import gather_rows_ref
+    from repro_torch.kernels.paged_decode import ops as pops
+    from repro_torch.kernels.scatter_rows import ops as s
+    from repro_torch.kernels.scatter_rows.ref import (add_error_bound,
+                                                      scatter_add_rows_ref_,
+                                                      scatter_store_rows_ref_)
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device="cpu").manual_seed(10)
+    n_cases = 0
+
+    def rand_idx(bsz, n, v):
+        idx = torch.randint(0, v, (bsz, n), generator=gen, dtype=torch.int32)
+        flat = idx.view(-1)
+        k = max(1, n // 17)                   # out-of-range lanes
+        flat[:k] = INT32_MAX
+        flat[k:2 * k] = -1
+        flat[2 * k:3 * k] = v
+        return idx[:, torch.randperm(n, generator=gen)].contiguous()
+
+    for bsz in (1, 3):
+        for r in (1, 3, 8, 17):
+            limit_v = g.SMEM_TABLE_BYTES // (4 * r)
+            deep = autotune.deep_vecs(r)
+            for n in (1000, 4099):
+                for v in (37, limit_v, limit_v + 1, 1 << 16):
+                    table = torch.randn(bsz, v, r, generator=gen).to(dev)
+                    idx = rand_idx(bsz, n, v).to(dev)
+                    want = gather_rows_ref(table, idx)
+                    calls = {f"gather_rows_global vecs={x}": (
+                        lambda x=x: g.gather_rows_global(table, idx, vecs=x))
+                        for x in (0, 1, deep)}
+                    calls["gather_rows vecs=1"] = lambda: g.gather_rows(
+                        table, idx, autotune.TileChoice(vecs=1))
+                    if v * r * 4 <= g.SMEM_TABLE_BYTES:
+                        legacy = g.smem_lanes_per_cta(
+                            bsz, n, v, g.smem_resident_ctas(v, r, 0))
+                        for lanes in sorted({legacy, 256, -(-n // 8)}):
+                            calls[f"gather_rows_smem lanes={lanes}"] = (
+                                lambda lanes=lanes: g.gather_rows_smem(
+                                    table, idx, lanes_per_cta=lanes))
+                        calls["gather_rows smem"] = lambda: g.gather_rows(
+                            table, idx, autotune.TileChoice(
+                                smem=1, lanes_per_cta=legacy))
+                    for name, call in calls.items():
+                        got = call()
+                        torch.cuda.synchronize()
+                        check(torch.equal(got, want),
+                              f"{name} B={bsz} R={r} N={n} V={v}: not equal")
+                        n_cases += 1
+                for v in (16, 5000):
+                    idx = rand_idx(bsz, n, v)
+                    keep = torch.stack([torch.from_numpy(
+                        keep_last_mask(idx[b].numpy())) for b in range(bsz)])
+                    keep[idx == INT32_MAX] = True
+                    dst = torch.randn(bsz, v, r, generator=gen).to(dev)
+                    vals = torch.randn(bsz, n, r, generator=gen).to(dev)
+                    idx, keep = idx.to(dev), keep.to(dev)
+                    want = scatter_store_rows_ref_(dst.clone(), idx, keep,
+                                                   vals)
+                    cov_want = torch.zeros(bsz, v, dtype=torch.int32,
+                                           device=dev)
+                    scatter_store_rows_ref_(dst.clone(), idx, keep, vals,
+                                            cov_want)
+                    for x in (0, 1, deep):
+                        got = s.scatter_store_rows_(dst.clone(), idx, keep,
+                                                    vals, vecs=x)
+                        cov = torch.zeros_like(cov_want)
+                        got_cov = s.scatter_store_rows_(dst.clone(), idx,
+                                                        keep, vals, cov,
+                                                        vecs=x)
+                        torch.cuda.synchronize()
+                        check(torch.equal(got, want) and torch.equal(
+                            got_cov, want) and torch.equal(cov, cov_want),
+                              f"scatter_store_rows vecs={x} B={bsz} R={r} "
+                              f"N={n} V={v}: not equal")
+                        n_cases += 2
+                    # adds: every 5th payload +0.0, every 7th -0.0, and
+                    # row 0 receiving nothing else
+                    idx_a = rand_idx(bsz, n, v).to(dev)
+                    vals_a = torch.randn(bsz, n, r, generator=gen).to(dev)
+                    vals_a[:, ::5] = 0.0
+                    vals_a[:, ::7] = -0.0
+                    zero_lanes = torch.zeros(bsz, n, dtype=torch.bool)
+                    zero_lanes[:, ::5] = zero_lanes[:, ::7] = True
+                    idx_a[idx_a == 0] = 1
+                    idx_a[zero_lanes.to(dev)] = 0
+                    zeros = torch.zeros(bsz, v, r, device=dev)
+                    got = s.scatter_add_rows_(zeros.clone(), idx_a, vals_a)
+                    want = scatter_add_rows_ref_(zeros.clone(), idx_a,
+                                                 vals_a)
+                    torch.cuda.synchronize()
+                    diff = (got - want).abs().double()
+                    check(bool((diff <= add_error_bound(idx_a, vals_a,
+                                                        v)).all()),
+                          f"scatter_add_rows B={bsz} R={r} N={n} V={v} "
+                          f"with +-0.0 payloads: over add_error_bound")
+                    check(torch.equal(got[:, 0].view(torch.int32),
+                                      torch.zeros_like(got[:, 0]).view(
+                                          torch.int32)),
+                          f"scatter_add_rows B={bsz} R={r} N={n} V={v}: "
+                          f"row 0 (+-0.0 payloads only) is not +0.0")
+                    n_cases += 1
+    pgen = torch.Generator(device="cuda").manual_seed(12)
+    for (kvh, gq), dh, dtype, pps in itertools.product(
+            ((8, 4), (2, 16), (1, 1)), (64, 128),
+            (torch.float32, torch.bfloat16), (9, 130)):
+        bsz, page = 4, 16
+        ins = _paged_inputs(torch, pgen, bsz, kvh, gq, dh, page, pps, dtype,
+                            False, [1, pps * page, 1 + (pps * page) // 3, 0])
+        auto = autotune.choose(pops.tile_key(
+            bsz, kvh, gq, dh, page, pps, dtype,
+            autotune.cuda_platform(0))).splits
+        for splits in sorted({1, auto, min(pps, pops.MAX_SPLITS)}):
+            check_paged(torch, ins, f"paged_decode splits={splits} KVH={kvh} "
+                        f"G={gq} dh={dh} {dtype} pps={pps}",
+                        pops.paged_decode_attention(*ins, splits=splits))
+            n_cases += 1
+    return n_cases
+
+
+def _tuned_suite(torch, pats, cache, expect):
+    """``pats`` on hopper through ``make_work`` -> ``launch`` -> ``demux``
+    with digests, under one torch.profiler session (its first device
+    records can be lost, so settling kernels open it): the digests and, a
+    bucket, its launch parameters (``bucket_tiles`` of the served key), its
+    Spatter kernel's names, ``ms`` (min-of-``RUNS`` CUDA events) and
+    ``device_ms`` (the least of its 1 + ``RUNS`` launches' device times,
+    the trace's Spatter kernels taken in order; None for every bucket
+    where the trace lost one).  ``expect`` gets the launches, by kernel."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.plan import SuitePlan, bucket_tiles, demux, launch, \
+        make_work
+    plan = SuitePlan.build(pats)
+    digests, launched = [None] * len(pats), []
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        _settle_profiler(torch)
+        for bucket, w in zip(plan.buckets, make_work(
+                plan, backend="hopper", runs=RUNS, digest=True)):
+            route = _bucket_kernel(bucket, "store")
+            res = launch((w,), cache)
+            expect[route] += 1 + RUNS
+            for pos, r in demux(res, w):
+                digests[pos] = r.out_digest
+            launched.append((bucket, route, res))
+        torch.cuda.synchronize()
+    evts = sorted((e for e in prof.events() if e.device_type.name == "CUDA"
+                   and any(f in e.name for f in _TUNED_FRAGMENTS)),
+                  key=lambda e: e.time_range.start)
+    per = 1 + RUNS
+    whole = len(evts) == per * len(launched)
+    rows = []
+    for i, (bucket, route, res) in enumerate(launched):
+        mine = evts[i * per:(i + 1) * per] if whole else []
+        times = [getattr(e, "device_time", None) or e.cuda_time
+                 for e in mine]
+        rows.append(dict(
+            kind=bucket.spec.kind, batch=res.batch, lanes=res.lanes,
+            rows=bucket.spec.footprint + 1, route=route,
+            tiles=bucket_tiles(res.key, torch.device("cuda", 0)).to_wire(),
+            kernels=sorted({re.search(r"\w+_kernel(<[^()]*>)?",
+                                      e.name).group(0) for e in mine}),
+            ms=res.t_bucket * 1e3,
+            device_ms=min(times) / 1e3 if times else None))
+    return digests, rows, plan
+
+
+def autotune_phase(torch, suite_stats):
+    """Phase 10: the launch-parameter choice on the card.
+
+    (a) ``candidate_cases``; (b) demo and appdb at scale 1.0 on hopper,
+    first under ``autotune.disabled()`` (the legacy rules) and then under
+    the search from an empty memo, then demo once more: the digests must
+    equal phase 3's, each kernel's launches the buckets x (1 + ``RUNS``)
+    its routes name, ``searched`` the distinct ``TileKey``s the builds
+    recorded and 0 more on the repeat; each bucket's choice and
+    ``device_ms`` in both legs, and demo's UNIFORM:8:1 bucket's route and
+    time; (c) ``python -m repro_torch --serve --cache-dir D`` in a process
+    of its own, ``--client URL --json suites/demo.json`` giving phase 3's
+    digests (their printed 12-character heads), ``--client URL --stats``
+    answering, then a fresh process over D serving demo with nothing
+    searched (``autotune.stats()["searched"] == 0``) and no nvcc run;
+    ``examples/quickstart_torch.py`` exits 0; (d) ``pipeline_model`` at the
+    CLI gather's shape beside the global gather's device time at ``vecs``
+    1 and 4 (read, not gated).  Returns the numbers for the records and
+    the launches of (b)."""
+    import os
+    import tempfile
+
+    from repro_torch import appdb, bandwidth, load_suite, make_pattern
+    from repro_torch.kernels import autotune, reset_launches
+    from repro_torch.kernels.gather_rows import ops as g
+    from repro_torch.kernels.gather_rows.ref import gather_rows_ref
+    from repro_torch.plan import ExecutorCache
+    t_phase = time.perf_counter()
+    out = {}
+    name = torch.cuda.get_device_name(0)
+    print(f"\nphase 10: the launch-parameter choice on {name}", flush=True)
+    suites = {"demo": load_suite(str(ROOT / "suites" / "demo.json")),
+              "appdb": appdb.scale_counts(appdb.ALL_PATTERNS, 1.0)}
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src"),
+           "PYTHONUNBUFFERED": "1"}
+    tmp = tempfile.TemporaryDirectory(prefix="autotune-")
+    cache_dir = Path(tmp.name) / "cache"
+    # the daemon builds its libraries with nvcc (a cold disk tier) and the
+    # quickstart runs while (a) and (b) do
+    daemon = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch", "--serve", "--port", "0",
+         "--cache-dir", str(cache_dir)], cwd=str(ROOT), env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    quick = subprocess.Popen(
+        [sys.executable, str(ROOT / "examples" / "quickstart_torch.py")],
+        cwd=str(ROOT), env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True)
+    try:
+        t0 = time.perf_counter()
+        out["candidate_cases"] = candidate_cases(torch)
+        print(f"  (a) {out['candidate_cases']} candidate launches equal "
+              f"their plain versions (adds within add_error_bound, paged "
+              f"decode within attn_tolerance) "
+              f"({time.perf_counter() - t0:.1f} s)", flush=True)
+        qout, _ = quick.communicate(timeout=300)    # before (b) times
+        check(quick.returncode == 0 and "modeled(h100)" in qout,
+              f"phase 10: the quickstart exited {quick.returncode}: "
+              f"{qout[-2000:]}")
+        serve_out = {}
+        serve = threading.Thread(target=_serve_modes, daemon=True, args=(
+            daemon, cache_dir, env, suite_stats["demo"].results, serve_out))
+        serve.start()
+
+        reset_launches()
+        expect = {k: 0 for k in _launches()}
+        legs = {}
+        t0 = time.perf_counter()
+        for leg in ("legacy", "search"):
+            autotune.reset()
+            before = autotune.stats()
+            recorded = {}
+            for sname, pats in suites.items():
+                with (autotune.disabled() if leg == "legacy"
+                      else contextlib.nullcontext()), \
+                        autotune.recording() as rec:
+                    digests, rows, _ = _tuned_suite(torch, pats,
+                                                    ExecutorCache(), expect)
+                recorded.update(rec)
+                want = [r.out_digest for r in suite_stats[sname].results]
+                check(digests == want, f"phase 10: {sname} {leg} digests "
+                      f"differ from phase 3's")
+                legs[leg, sname] = rows
+            searched = autotune.stats()["searched"] - before["searched"]
+            check(searched == (0 if leg == "legacy" else len(recorded)),
+                  f"phase 10: {leg} searched {searched} for "
+                  f"{len(recorded)} keys")
+            legs[leg, "searched"] = searched
+        with autotune.recording() as rec:
+            searched = autotune.stats()["searched"]
+            digests, rows, _ = _tuned_suite(torch, suites["demo"],
+                                            ExecutorCache(), expect)
+        check(autotune.stats()["searched"] == searched and rec,
+              f"phase 10: the repeat searched "
+              f"{autotune.stats()['searched'] - searched}")
+        check(digests == [r.out_digest for r in suite_stats["demo"].results],
+              "phase 10: the repeat's demo digests differ from phase 3's")
+        census = _launches()
+        check(census == expect, f"phase 10: launches {census} != {expect}")
+        check(census["gather_rows_smem"] > 0,
+              f"phase 10: the legacy leg never launched the smem gather")
+        out["launches"] = census
+        out["searched"] = legs["search", "searched"]
+        print(f"  (b) launches {census} = buckets x (1 + {RUNS}) by route; "
+              f"searched {out['searched']} keys, 0 on the repeat "
+              f"({time.perf_counter() - t0:.1f} s)", flush=True)
+        print(f"  (b) {'suite':5s} {'kind':7s} {'B':>2s} {'lanes':>9s} "
+              f"{'rows':>10s}  legacy: route tiles device_ms ms | "
+              f"search: route tiles device_ms ms")
+        table = []
+        for sname in suites:
+            for a, b in zip(legs["legacy", sname], legs["search", sname]):
+                table.append(dict(suite=sname, legacy=a, search=b))
+                print(f"  (b) {sname:5s} {a['kind']:7s} {a['batch']:2d} "
+                      f"{a['lanes']:9d} {a['rows']:10d}  {a['route']} "
+                      f"{a['tiles']} {a['device_ms']} {a['ms']:.4f} | "
+                      f"{b['route']} {b['tiles']} {b['device_ms']} "
+                      f"{b['ms']:.4f}", flush=True)
+        out["buckets"] = table
+        uni = next(r for r in table if r["suite"] == "demo"
+                   and r["legacy"]["route"] == "gather_rows_smem")
+        out["uniform_8_1"] = dict(legacy=uni["legacy"], search=uni["search"])
+        print(f"  (b) demo's UNIFORM:8:1 bucket: legacy "
+              f"{uni['legacy']['route']} {uni['legacy']['device_ms']} ms "
+              f"device, search {uni['search']['route']} "
+              f"{uni['search']['device_ms']} ms device", flush=True)
+
+        # (d) pipeline_model beside the card at the CLI gather's shape
+        p = make_pattern("UNIFORM:8:1", delta=8, count=2 ** 24)
+        idx = torch.arange(p.count * 8, device="cuda",
+                           dtype=torch.int32)[None]
+        table = torch.randn(1, p.footprint(), 1, device="cuda")
+        pipe = {}
+        for vecs in (1, bandwidth.K_VECS):
+            got = g.gather_rows_global(table, idx, vecs=vecs)
+            check(torch.equal(got, gather_rows_ref(table, idx)),
+                  f"phase 10: the CLI gather at vecs {vecs}: not equal")
+            dms, _ = _profiled_ms(torch, lambda vecs=vecs:
+                                  g.gather_rows_global(table, idx,
+                                                       vecs=vecs), 10)
+            model = bandwidth.pipeline_model(p, 4, vecs=vecs)
+            pipe[vecs] = dict(device_ms=dms,
+                              modeled_ms=model["modeled_time_s"] * 1e3,
+                              modeled_gbs=model["modeled_gbs"])
+        del idx, table, got
+        torch.cuda.empty_cache()
+        one, deep = pipe[1], pipe[bandwidth.K_VECS]
+        out["pipeline"] = dict(pipe, measured_ratio=one["device_ms"]
+                               / deep["device_ms"], modeled_ratio=one[
+                                   "modeled_ms"] / deep["modeled_ms"])
+        print(f"  (d) CLI gather, vecs 1 against {bandwidth.K_VECS}: "
+              f"device {one['device_ms']:.4f} / {deep['device_ms']:.4f} ms "
+              f"(ratio {out['pipeline']['measured_ratio']:.3f}); "
+              f"pipeline_model {one['modeled_ms']:.4f} / "
+              f"{deep['modeled_ms']:.4f} ms (ratio "
+              f"{out['pipeline']['modeled_ratio']:.3f})", flush=True)
+
+        # (c), run beside (b) and (d): its processes' few small kernels
+        # are not in this process's traces
+        serve.join(timeout=600)
+        check(not serve.is_alive(), "phase 10: the serve modes hung")
+        if "error" in serve_out:
+            raise serve_out["error"]
+        out["restart"] = serve_out["restart"]
+        print(f"  (c) --serve/--client gave phase 3's digests, --stats "
+              f"{serve_out['cache']}; a fresh process over its disk tier: "
+              f"{out['restart']}; quickstart_torch.py exit 0 "
+              f"({serve_out['wall_s']:.1f} s beside (b))", flush=True)
+    finally:
+        for proc in (daemon, quick):
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+        tmp.cleanup()
+    out["wall_s"] = time.perf_counter() - t_phase
+    print(f"phase 10 wall {out['wall_s']:.1f} s", flush=True)
+    return out
+
+
+def _serve_modes(daemon, cache_dir, env, demo_results, out):
+    """Phase 10 (c), on a thread: ``--client URL --json`` demo through the
+    ``--serve`` process ``daemon`` (its digests' 12-character heads must
+    be ``demo_results``'), ``--client URL --stats`` (4 builds, 2 nvcc
+    runs), SIGTERM (exit 0), then a fresh process over its disk tier at
+    ``cache_dir`` (nothing searched, no nvcc run, 4 disk hits, the same
+    digests).  Fills ``out``; a failed check is put there as
+    ``out["error"]``."""
+    try:
+        t0 = time.perf_counter()
+        demo = str(ROOT / "suites" / "demo.json")
+        lines = []
+        while not lines or "listening on" not in lines[-1]:
+            lines.append(daemon.stdout.readline())
+            check(lines[-1] or daemon.poll() is None,
+                  f"phase 10: --serve did not start: {lines[-20:]}")
+        url = lines[-1].split("listening on")[1].split()[0]
+        posted = subprocess.run(
+            [sys.executable, "-m", "repro_torch", "--client", url, "--json",
+             demo, "-b", "hopper", "-r", str(RUNS)], cwd=str(ROOT), env=env,
+            capture_output=True, text=True, timeout=300)
+        check(posted.returncode == 0, f"phase 10: --client: "
+                                      f"{posted.stderr[-2000:]}")
+        names = tuple(r.pattern.name for r in demo_results)
+        heads = [ln.split()[-1] for ln in posted.stdout.splitlines()
+                 if ln.startswith(names)]
+        check(heads == [r.out_digest[:12] for r in demo_results],
+              f"phase 10: --client digests {heads}")
+        stats = subprocess.run(
+            [sys.executable, "-m", "repro_torch", "--client", url,
+             "--stats"], cwd=str(ROOT), env=env, capture_output=True,
+            text=True, timeout=120)
+        check(stats.returncode == 0, f"phase 10: --stats: "
+                                     f"{stats.stderr[-2000:]}")
+        served = json.loads(stats.stdout)
+        nvcc = served["kernels"]["nvcc_runs"]
+        check(served["cache"]["misses"] == 4 and nvcc == 2,
+              f"phase 10: --stats {served['cache']}, {nvcc} nvcc runs")
+        out["cache"] = served["cache"]
+        daemon.send_signal(15)
+        dout, _ = daemon.communicate(timeout=120)
+        check(daemon.returncode == 0, f"phase 10: --serve exited "
+                                      f"{daemon.returncode}: {dout[-2000:]}")
+        warm = subprocess.run(
+            [sys.executable, "-c", _WARM_RESTART, str(cache_dir), demo],
+            cwd=str(ROOT), env=env, capture_output=True, text=True,
+            timeout=300)
+        check(warm.returncode == 0, f"phase 10: the warm restart: "
+                                    f"{warm.stderr[-2000:]}")
+        restart = json.loads(warm.stdout.strip().splitlines()[-1])
+        check(restart["searched"] == 0 and restart["seeded"] > 0
+              and restart["nvcc_runs"] == 0 and restart["misses"] == 0
+              and restart["disk_hits"] == 4
+              and restart["digests"] == [r.out_digest for r in demo_results],
+              f"phase 10: the warm restart {restart}")
+        out["restart"] = {k: v for k, v in restart.items() if k != "digests"}
+        out["wall_s"] = time.perf_counter() - t0
+    except Exception as e:                  # raised again on the phase's thread
+        out["error"] = e
+
+
+# a fresh process over a disk tier: demo on hopper, from the tier alone
+_WARM_RESTART = """
+import json, sys
+import torch
+from repro_torch import load_suite
+from repro_torch.diskcache import DiskTier
+from repro_torch.kernels import _build, autotune
+from repro_torch.plan import ExecutorCache, SuitePlan, run_plan
+cache = ExecutorCache()
+cache.attach_disk(DiskTier(sys.argv[1], device="cuda"), preload=True)
+res = run_plan(SuitePlan.build(load_suite(sys.argv[2])), backend="hopper",
+               runs=1, digest=True, cache=cache, device="cuda")
+st = autotune.stats()
+print(json.dumps(dict(searched=st["searched"], seeded=st["seeded"],
+                      nvcc_runs=_build.nvcc_runs,
+                      misses=cache.stats().misses,
+                      disk_hits=cache.stats().disk_hits,
+                      digests=[r.out_digest for r in res])))
+"""
+
 
 def main():
     torch = setup()
@@ -2823,7 +3339,7 @@ def main():
     main_launches = _launches()
     print(f"\nmain path launches {main_launches}; phases 2-3 wall "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
-    check(all(main_launches[k] > 0 for k in SPATTER_KERNELS),
+    check(all(main_launches[k] > 0 for k in MAIN_PATH_KERNELS),
           f"a kernel of the main path never launched: {main_launches}")
     # phase 9 needs only phase 3's suites; it runs here, before phases 4-6
     # have used the profiler (whose sessions then lose records more often)
@@ -2850,10 +3366,19 @@ def main():
     gc.collect()
     torch.cuda.empty_cache()
     daemon = daemon_phase(torch, cli_results, suite_stats)
-    placed = placement_phase(torch, suite_stats)
+    # phase 10 last: it reuses phase 8's host draws, and its profiler
+    # sessions come after every phase that checks a trace's launch count
+    with _host_buffers_once():
+        placed = placement_phase(torch, suite_stats)
+        tuned = autotune_phase(torch, suite_stats)
     path_launches = {k: main_launches[k] for k in SPATTER_KERNELS}
     path_launches["scatter_store_rows_cov"] = placed["launches"][
         "scatter_store_rows_cov"]
+    # the search routes no bucket of phases 2-3 to the smem gather on this
+    # card; phase 10's legacy leg drives it through the same entry points
+    path_launches["gather_rows_smem"] = (main_launches["gather_rows_smem"]
+                                         or tuned["launches"][
+                                             "gather_rows_smem"])
     path_launches["selective_scan"] = serve_launches["selective_scan"]
     for k in ("flash_attention", "paged_decode"):
         path_launches[k] = llama_launches[k]
@@ -2889,6 +3414,7 @@ def main():
                       "serve": served, "serve_llama": served_llama}))
     print(json.dumps({"daemon": daemon}))
     print(json.dumps({"placements": placed}))
+    print(json.dumps({"autotune": tuned}))
     print(json.dumps({"analysis": analysis}))
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

@@ -35,7 +35,7 @@ def host_us(fn, n=200, rounds=10):
 
 def main():
     sys.path.insert(0, str(ROOT / "src"))
-    from repro_torch.kernels import _build
+    from repro_torch.kernels import _build, autotune
     from repro_torch.kernels.paged_decode import ops
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -52,7 +52,9 @@ def main():
     lengths = torch.full((bsz,), pps * page, dtype=torch.int32, device=dev)
     ins = (q, kp, vp, table, lengths)
     ops.paged_decode_attention(*ins)            # builds and loads the kernel
-    splits = ops.paged_splits(bsz, kvh, pps, ops._sm_count(0))
+    key = ops.tile_key(bsz, kvh, g, dh, page, pps, q.dtype,
+                       autotune.cuda_platform(0))
+    splits = autotune.choose(key).splits
     ws, cnt = ops._workspace(0, bsz * kvh * splits * g * (dh + 2), bsz * kvh)
     out = torch.empty_like(q)
     args = (q.data_ptr(), kp.data_ptr(), vp.data_ptr(), table.data_ptr(),
@@ -71,8 +73,9 @@ def main():
     steps = {
         "five check_operand + common_device": checks,
         "torch.empty_like(q)": lambda: torch.empty_like(q),
-        "paged_splits + _sm_count + _workspace": lambda: (
-            ops.paged_splits(bsz, kvh, pps, ops._sm_count(0)),
+        "tile_key + autotune.choose + _workspace": lambda: (
+            autotune.choose(ops.tile_key(bsz, kvh, g, dh, page, pps, q.dtype,
+                                         autotune.cuda_platform(0))),
             ops._workspace(0, 1, 1)),
         "six data_ptr()": lambda: (q.data_ptr(), kp.data_ptr(),
                                    vp.data_ptr(), table.data_ptr(),

@@ -24,6 +24,16 @@ zero operands, on ``--device``) plus the serving layer's concurrency lint;
 run-shaped options, write their JSON report with ``--lint-out`` /
 ``--cost-out`` (the schema of spatterd's ``GET /lint`` and ``GET /cost``)
 and exit 1 on any violation.
+
+``--serve`` runs spatterd (``repro_torch.serve.daemon``) on ``--host``,
+``--port`` and ``--device``, with ``--cache-dir`` as its disk tier;
+``--client URL --json SUITE`` posts a suite to a running one (forwarding
+``--backend``, ``--runs``, ``--mode``, ``--mesh``, ``--row-width`` and
+``--stream-r`` where given), and ``--client URL --stats`` prints its
+``/stats``.  The modes refuse the options of another, as the reference's
+CLI does (``examples/spatter_cli.py``): per-request options with
+``--serve``, serve options with ``--client``, ``--no-batch`` with
+``--client``, ``--stats`` without ``--client``.
 """
 from __future__ import annotations
 
@@ -85,11 +95,35 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--cost-out", default=None, metavar="FILE",
                     help="--cost: also write the JSON report (the schema "
                          "GET /cost serves)")
+    ap.add_argument("--serve", action="store_true",
+                    help="run spatterd: serve JSON suites over HTTP from "
+                         "a warm executor cache (repro_torch.serve)")
+    ap.add_argument("--client", default=None, metavar="URL",
+                    help="POST --json to a running spatterd instead of "
+                         "running it here")
+    ap.add_argument("--stats", action="store_true",
+                    help="--client: print the daemon's /stats document "
+                         "instead of posting a suite")
+    ap.add_argument("--host", default="127.0.0.1",
+                    help="--serve bind address (default 127.0.0.1)")
+    ap.add_argument("--port", type=int, default=8089,
+                    help="--serve port (default 8089; 0 = any free one)")
+    ap.add_argument("--cache-dir", default=None, metavar="DIR",
+                    help="--serve: the disk tier (bucket recipes, their "
+                         "launch parameters and the nvcc-built libraries) "
+                         "a restarted daemon starts warm from")
     return ap
 
 
 # options a static audit takes; every other one shapes a run
 _AUDIT_OPTIONS = ("mesh", "backend", "mode", "row_width", "device")
+# the reference CLI's option lists for its serve modes
+# (examples/spatter_cli.py), as dests
+_PER_REQUEST = ("json", "no_batch", "mesh", "mode", "backend", "row_width",
+                "runs", "kernel", "pattern", "delta", "count", "stream_r",
+                "stats")
+_SERVE_OPTIONS = ("host", "port", "cache_dir", "device")
+_SINGLE = ("kernel", "pattern", "delta", "count")
 
 
 def _given(ap, argv) -> set[str]:
@@ -140,9 +174,63 @@ def _audit(ap, args, given):
     return report
 
 
+def _flags(dests) -> str:
+    return ", ".join("--" + d.replace("_", "-") for d in sorted(dests))
+
+
+def _serve(ap, args, given):
+    """--serve: spatterd in this process, until SIGTERM."""
+    if args.client is not None:
+        ap.error("--serve and --client are exclusive modes: run the daemon "
+                 "OR talk to one")
+    dropped = given & set(_PER_REQUEST)
+    if dropped:
+        ap.error(f"{_flags(dropped)}: per-request options; pass them to "
+                 f"--client (or in the POST body), not --serve")
+    from .serve import daemon
+    argv = ["--host", args.host, "--port", str(args.port), "--device",
+            args.device]
+    if args.cache_dir is not None:
+        argv += ["--cache-dir", args.cache_dir]
+    daemon.main(argv)
+
+
+def _client(ap, args, given):
+    """--client URL: post --json to a running spatterd, or --stats."""
+    from .serve import client
+    if args.stats:
+        extra = given & (set(_PER_REQUEST) - {"stats"}
+                         | set(_SERVE_OPTIONS))
+        if extra:
+            ap.error(f"{_flags(extra)}: --stats is a read-only query; it "
+                     f"takes only --client URL")
+        client.main(["--url", args.client, "--stats"])
+        return
+    if not args.json:
+        ap.error("--client needs --json SUITE to post (or --stats)")
+    if args.no_batch:
+        ap.error("--no-batch is local-only: spatterd always runs the "
+                 "bucketed planner")
+    single = given & set(_SINGLE)
+    if single:
+        ap.error(f"{_flags(single)}: single-pattern options do not apply "
+                 f"to --client suite posts (use --json)")
+    local = given & set(_SERVE_OPTIONS)
+    if local:
+        ap.error(f"{_flags(local)}: --serve options; the target daemon is "
+                 f"the --client URL")
+    argv = ["--url", args.client, "--json", args.json]
+    for name in ("backend", "runs", "mode", "mesh", "row_width"):
+        if name in given:
+            argv += ["--" + name.replace("_", "-"), str(getattr(args, name))]
+    if args.stream_r:
+        argv.append("--stream-r")
+    client.main(argv)
+
+
 def main(argv=None):
     """Run the CLI; returns the RunResult (one pattern), the SuiteStats,
-    or the --lint / --cost report."""
+    or the --lint / --cost report (None for --serve and --client)."""
     import sys
     ap = _parser()
     argv = sys.argv[1:] if argv is None else list(argv)
@@ -156,6 +244,16 @@ def main(argv=None):
         if opt in given:
             ap.error(f"--{opt.replace('_', '-')} requires "
                      f"--{opt.split('_')[0]} SUITE")
+    if args.serve:
+        return _serve(ap, args, given)
+    if args.client is not None:
+        return _client(ap, args, given)
+    stray = given & (set(_SERVE_OPTIONS) - {"device"})
+    if stray:
+        ap.error(f"{_flags(stray)}: --serve options (add --serve, or "
+                 f"target a running daemon with --client URL)")
+    if args.stats:
+        ap.error("--stats queries a running daemon: add --client URL")
     if args.runs < 1:
         ap.error("--runs must be >= 1 (min-of-K timing needs a run)")
     if args.stream_r and not args.json:

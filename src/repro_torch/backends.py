@@ -121,14 +121,15 @@ def scatter_scalar(dst, idx, vals, mode, keep):
 
 # -- hopper -------------------------------------------------------------------
 
-def gather_hopper(src, idx):
-    return gather_ops.gather_rows(src, idx)
+def gather_hopper(src, idx, tiles=None):
+    return gather_ops.gather_rows(src, idx, tiles)
 
 
-def scatter_hopper(dst, idx, vals, mode, keep):
+def scatter_hopper(dst, idx, vals, mode, keep, tiles=None, cov=None):
     if mode == "add":
         return scatter_ops.scatter_add_rows_(dst, idx, vals)
-    return scatter_ops.scatter_store_rows_(dst, idx, keep, vals)
+    return scatter_ops.scatter_store_rows_(
+        dst, idx, keep, vals, cov, vecs=None if tiles is None else tiles.vecs)
 
 
 GATHER_FNS: dict[str, Callable] = {
@@ -161,28 +162,44 @@ def check_dtype(dtype) -> torch.dtype:
     return dtype
 
 
+def _check_tiles(backend: str, tiles) -> None:
+    if tiles is not None and backend != "hopper":
+        raise ValueError(f"launch parameters are the hopper backend's, "
+                         f"not {backend!r}'s")
+
+
 def gather_batched(src: torch.Tensor, idx: torch.Tensor, *,
-                   backend: str = "torch") -> torch.Tensor:
-    """src (B, F, R), idx (B, N) int32 -> (B, N, R); one call per bucket."""
+                   backend: str = "torch", tiles=None) -> torch.Tensor:
+    """src (B, F, R), idx (B, N) int32 -> (B, N, R); one call per bucket.
+    ``tiles``: the hopper kernel's launch parameters
+    (``autotune.TileChoice``; None: its wrapper chooses)."""
+    _check_tiles(backend, tiles)
+    if tiles is not None:
+        return gather_hopper(src, idx, tiles)
     return GATHER_FNS[backend](src, idx)
 
 
 def scatter_batched(dst: torch.Tensor, idx: torch.Tensor, vals: torch.Tensor,
                     *, mode: str = "store", backend: str = "torch",
                     keep: torch.Tensor | None = None,
-                    cov: torch.Tensor | None = None) -> torch.Tensor:
+                    cov: torch.Tensor | None = None,
+                    tiles=None) -> torch.Tensor:
     """dst (B, F, R), idx (B, N), vals (B, N, R): writes dst in place and
     returns it.  Store mode needs the (B, N) host keep mask; with ``cov``
-    ((B, F) int32, zeroed) a store also marks the rows it wrote."""
+    ((B, F) int32, zeroed) a store also marks the rows it wrote.
+    ``tiles`` as for ``gather_batched``."""
     if mode == "store" and keep is None:
         raise ValueError("store mode needs the host keep mask "
                          "(host.keep_last_mask)")
+    _check_tiles(backend, tiles)
     if cov is not None:
         if mode != "store":
             raise ValueError("coverage is a store's: mode must be 'store'")
         if backend == "hopper":
-            return scatter_ops.scatter_store_rows_(dst, idx, keep, vals, cov)
+            return scatter_hopper(dst, idx, vals, mode, keep, tiles, cov)
         store_coverage_(cov, idx, keep)
+    if tiles is not None:
+        return scatter_hopper(dst, idx, vals, mode, keep, tiles)
     return SCATTER_FNS[backend](dst, idx, vals, mode, keep)
 
 

@@ -17,7 +17,9 @@ Every run reports two numbers under two names, never mixed (DESIGN.md
     that lets app patterns beat STREAM (paper Table 4).  It is a model: no
     number of it was measured.
 
-The reference's ``pipeline_model`` (paper Fig 4) has no counterpart yet.
+``pipeline_model`` is paper Fig 4's (multi-buffering on and off) on
+Hopper: the loads a thread of the global gather keeps in flight, one or
+``kVecs``, the choice ``kernels.autotune`` makes for each launch.
 """
 from __future__ import annotations
 
@@ -44,6 +46,17 @@ SECTOR_BYTES = 32
 # published rate (NVIDIA publishes none for the H100's L2); it only sets
 # where an L2-resident pattern's modeled rate saturates
 L2_BW = 10e12                     # bytes/s
+# threads the card holds at once: 132 SMs x 2,048 threads an SM (the same
+# data sheet; what csrc/common.cuh card_threads asks of the runtime)
+CARD_THREADS = 132 * 2048
+# the time a wave of dependent loads takes, the latency a thread with one
+# load in flight waits out: this repository's own measurement, a
+# parameter.  The shallow global gather took 1.36 us of device time at
+# 4,096 lanes (one wave, launch included), of which ~0.35 us is its
+# threads' own vector (probes/autotune_probe.py on an NVIDIA H100 80GB
+# HBM3 at 700.00 W; PERF.md)
+LOAD_LATENCY_S = 1.0e-6
+K_VECS = 4                        # csrc: kVecs, 16-byte vectors a thread
 
 
 def useful_bytes(p: Pattern, elem_bytes: int) -> int:
@@ -134,3 +147,34 @@ def h100_sector_model(p: Pattern, elem_bytes: int, *, sim_ops: int = 256,
         sector_efficiency=useful / max(1, total_fetched),
         hbm_time_s=hbm_t, l2_time_s=l2_t, modeled_time_s=modeled_t,
         modeled_gbs=useful / modeled_t / 1e9)
+
+
+def pipeline_model(p: Pattern, elem_bytes: int, *, vecs: int = K_VECS,
+                   load_latency_s: float = LOAD_LATENCY_S,
+                   card_threads: int = CARD_THREADS) -> dict:
+    """Paper Fig 4's analogue on Hopper: loads in flight a thread.
+
+    The global gather's threads each keep ``vecs`` vectors in flight (the
+    deep instance ``kVecs``, or 1).  The card holds ``card_threads``
+    threads, so a pattern's lanes, 4 to a vector, take ``ceil(lanes / (4
+    * vecs * card_threads))`` waves, each waiting out ``load_latency_s``.
+    With one vector a thread, each wave waits out its latency before its
+    bytes move (serialised: prefetch off); with more, the latency overlaps
+    the bytes (prefetch on).  The bytes' time is ``h100_sector_model``'s.
+    Returns the reference's keys, with ``vecs`` in place of ``buffers``.
+    """
+    if vecs < 1:
+        raise ValueError(f"vecs must be >= 1, got {vecs}")
+    sm = h100_sector_model(p, elem_bytes)
+    lanes = p.index_len * p.count
+    waves = -(-lanes // (4 * vecs * card_threads))
+    lat_time = waves * load_latency_s
+    bw_time = sm.modeled_time_s
+    total = bw_time + lat_time if vecs == 1 else max(bw_time, lat_time)
+    return {
+        "vecs": vecs,
+        "modeled_time_s": total,
+        "modeled_gbs": sm.useful_bytes / total / 1e9,
+        "bw_time_s": bw_time,
+        "latency_time_s": lat_time,
+    }

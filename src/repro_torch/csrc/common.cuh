@@ -74,9 +74,11 @@ __host__ __device__ inline bool aligned16(const void* p) {
 }
 
 // Threads the current card holds at once (SMs x threads an SM), asked of
-// the runtime: below this many threads at the deep setting, a global gather
-// or scatter takes one vector (or element) a thread, so that a small one
-// spreads its lanes over every SM instead of a few.
+// the runtime: the rule a global gather or store takes when its caller
+// leaves `vecs` at 0 (below this many threads at the deep setting, one
+// vector or element a thread, so that a small one spreads its lanes over
+// every SM instead of a few).  The wrappers choose `vecs` themselves from
+// the same two numbers (kernels/autotune.py).
 cudaError_t card_threads(int64_t* threads) {
   int dev = 0, sms = 0, per_sm = 0;
   cudaError_t err = cudaGetDevice(&dev);
@@ -88,6 +90,20 @@ cudaError_t card_threads(int64_t* threads) {
                                  cudaDevAttrMaxThreadsPerMultiProcessor, dev);
   }
   *threads = int64_t{sms} * per_sm;
+  return err;
+}
+
+// Whether a launch of `work` vectors or elements takes the deep instance
+// (`per` of them a thread): as `vecs` says, or for vecs = 0 the rule of the
+// note at card_threads, from the card's threads.
+cudaError_t deep_for(int64_t vecs, int64_t work, int per, bool* deep) {
+  if (vecs != 0) {
+    *deep = vecs > 1;
+    return cudaSuccess;
+  }
+  int64_t full = 0;
+  const cudaError_t err = card_threads(&full);
+  *deep = work >= full * per;
   return err;
 }
 

@@ -34,7 +34,9 @@
 // load issued before any is used.  A gather too small to fill the card that
 // way (fewer threads than the card holds at once, 132 x 2048 on an H100 SXM)
 // takes one vector or element a thread instead: it is bound by latency, and
-// more threads put more SMs on it.
+// more threads put more SMs on it.  That choice is the wrapper's (the `vecs`
+// argument, kernels/autotune.py): 1 for one vector or element a thread, kVecs
+// or kElems for the deep instance, 0 for the rule above.
 //
 // The shared-memory kernel stages one pattern's whole (V, D) table (at most
 // 227 KB = 232,448 bytes a block) in shared memory and gathers from there, so
@@ -435,16 +437,16 @@ void launch_elems(const void* table, const int32_t* idx, void* out, I elems,
 
 template <typename I>
 int launch_global(const void* table, const int32_t* idx, void* out, int64_t B,
-                  int64_t N, int64_t V, int64_t D, cudaStream_t s) {
+                  int64_t N, int64_t V, int64_t D, int64_t vecs,
+                  cudaStream_t s) {
   const I total = static_cast<I>(B * N);
-  int64_t full = 0;
-  const cudaError_t err = card_threads(&full);
-  if (err != cudaSuccess) return static_cast<int>(err);
+  bool deep = false;
   if (D == 1 && in_phase(idx, out)) {
     const I mis = static_cast<I>((reinterpret_cast<uintptr_t>(idx) & 15) / 4);
     const I head = (4 - mis) % 4 < total ? (4 - mis) % 4 : total;
     const I nv = (total - head) / 4;
-    const bool deep = static_cast<int64_t>(nv) >= full * kVecs;
+    const cudaError_t err = deep_for(vecs, nv, kVecs, &deep);
+    if (err != cudaSuccess) return static_cast<int>(err);
     const int64_t per_block = kThreads * (deep ? kVecs : 1);
     const int64_t blocks = (static_cast<int64_t>(nv) + per_block - 1) /
                            per_block;
@@ -461,7 +463,8 @@ int launch_global(const void* table, const int32_t* idx, void* out, int64_t B,
   if ((static_cast<int64_t>(elems) + kThreads - 1) / kThreads > INT_MAX) {
     return static_cast<int>(cudaErrorInvalidConfiguration);
   }
-  const bool deep = static_cast<int64_t>(elems) >= full * kElems;
+  const cudaError_t err = deep_for(vecs, elems, kElems, &deep);
+  if (err != cudaSuccess) return static_cast<int>(err);
   const I v = static_cast<I>(V), n = static_cast<I>(N);
   if (vec) {
     (deep ? &launch_elems<float4, I, kElems> : &launch_elems<float4, I, 1>)(
@@ -573,17 +576,21 @@ int launch_smem(const void* table, const int32_t* idx, void* out, int64_t B,
 
 }  // namespace
 
-// Returns the cudaError_t of the launch (0 on success).
+// Returns the cudaError_t of the launch (0 on success).  vecs: loads in
+// flight a thread, 1, kVecs (4) or kElems (8; either deep value takes the
+// deep instance of the path the operands take), or 0 for the card rule.
 extern "C" int gather_rows_f32(const void* table, const void* idx, void* out,
                                int64_t B, int64_t N, int64_t V, int64_t D,
-                               void* stream) {
+                               int64_t vecs, void* stream) {
   if (B <= 0 || N <= 0 || D <= 0) return 0;
-  if (V < 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (V < 0 || !(vecs == 0 || vecs == 1 || vecs == kVecs || vecs == kElems)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int32_t* ix = static_cast<const int32_t*>(idx);
   return fits32(B, N, V, D)
-             ? launch_global<uint32_t>(table, ix, out, B, N, V, D, s)
-             : launch_global<uint64_t>(table, ix, out, B, N, V, D, s);
+             ? launch_global<uint32_t>(table, ix, out, B, N, V, D, vecs, s)
+             : launch_global<uint64_t>(table, ix, out, B, N, V, D, vecs, s);
 }
 
 // Returns the cudaError_t of the launch (0 on success); refuses a table over

@@ -50,7 +50,9 @@
 // vector a thread: it is bound by latency, and more threads put more SMs on
 // it.  Everything else (D > 1, operands out of phase) takes 8 elements a
 // thread, a float4 where D % 4 == 0 and dst and vals are 16-byte aligned,
-// else a float, again with every load issued before any store.  (A first
+// else a float, again with every load issued before any store.  Which of
+// the two instances runs is the wrapper's choice (`vecs`,
+// kernels/autotune.py); 0 leaves it to the rule above.  (A first
 // version gave each thread 16 consecutive lanes, keep as one 16-byte load:
 // each warp instruction then read 16 bytes of every 64, and it reached 76%
 // of the byte bound against this layout's 90% on an NVIDIA H100 80GB HBM3
@@ -58,7 +60,14 @@
 //
 // Add.  One float atomicAdd per element into the zeroed dst, which equals
 // the reference's `dst + sum` up to the order of the additions (atomics
-// reorder them from run to run).  Offsets are 64-bit.
+// reorder them from run to run).  Offsets are 64-bit.  A lane whose payload
+// is +0.0 or -0.0 is skipped before its index is read: x + (-0.0) = x, and
+// x + (+0.0) = x unless x is -0.0, which a zeroed dst never holds (no sum
+// that starts at +0.0 is -0.0), so the result is unchanged.  The planner's
+// padding lanes and scratch patterns all carry +0.0 onto one scratch row
+// (plan._host_members), and their atomics used to serialise there: 2^27
+// of them took 237.7 ms in a batch-split CLI add on an NVIDIA H100 80GB
+// HBM3 at 700 W, against 0.81 ms unplaced (PERF.md).
 //
 // Coverage.  The store with coverage also writes cov[b, row] = 1 (cov is
 // (B, V) int32, zeroed by the caller) for each lane it stores, in the same
@@ -227,10 +236,11 @@ scatter_add_rows_kernel(float* __restrict__ dst,
     d = e - n * D;
   }
   const int64_t lane = static_cast<int64_t>(b) * N + n;
+  const float x = __ldg(vals + lane * D + d);
+  if (x == 0.f) return;            // +-0.0 adds nothing (see the note)
   const int32_t row = __ldg(idx + lane);
   if (row < 0 || row >= V) return;
-  atomicAdd(dst + (static_cast<int64_t>(b) * V + row) * D + d,
-            __ldg(vals + lane * D + d));
+  atomicAdd(dst + (static_cast<int64_t>(b) * V + row) * D + d, x);
 }
 
 // keep, idx and vals in phase: where a lane's keep byte is 4-byte aligned,
@@ -271,16 +281,16 @@ void launch_elems(void* dst, const int32_t* idx, const uint8_t* keep,
 template <typename I, bool kCov>
 int launch_store(void* dst, const int32_t* idx, const uint8_t* keep,
                  const void* vals, int32_t* cov, int64_t B, int64_t N,
-                 int64_t V, int64_t D, cudaStream_t s) {
+                 int64_t V, int64_t D, int64_t vecs, cudaStream_t s) {
   const I total = static_cast<I>(B * N);
-  int64_t full = 0;
-  const cudaError_t err = card_threads(&full);
-  if (err != cudaSuccess) return static_cast<int>(err);
+  bool deep = false;
   if (D == 1 && store_in_phase(idx, keep, vals)) {
     if (static_cast<int64_t>(total) / (4 * kThreads) > INT_MAX) {
       return static_cast<int>(cudaErrorInvalidConfiguration);
     }
-    const bool deep = static_cast<int64_t>(total) / 4 >= full * kVecs;
+    const cudaError_t err =
+        deep_for(vecs, static_cast<int64_t>(total) / 4, kVecs, &deep);
+    if (err != cudaSuccess) return static_cast<int>(err);
     (deep ? &launch_d1_vec<I, kVecs, kCov> : &launch_d1_vec<I, 1, kCov>)(
         static_cast<float*>(dst), idx, keep, static_cast<const float*>(vals),
         cov, total, static_cast<I>(V), make_div(static_cast<I>(N)), s);
@@ -292,7 +302,8 @@ int launch_store(void* dst, const int32_t* idx, const uint8_t* keep,
   if ((static_cast<int64_t>(elems) + kThreads - 1) / kThreads > INT_MAX) {
     return static_cast<int>(cudaErrorInvalidConfiguration);
   }
-  const bool deep = static_cast<int64_t>(elems) >= full * kElems;
+  const cudaError_t err = deep_for(vecs, elems, kElems, &deep);
+  if (err != cudaSuccess) return static_cast<int>(err);
   const I v = static_cast<I>(V), n = static_cast<I>(N);
   if (vec) {
     (deep ? &launch_elems<float4, I, kElems, kCov>
@@ -309,28 +320,33 @@ int launch_store(void* dst, const int32_t* idx, const uint8_t* keep,
 template <bool kCov>
 int store_entry(void* dst, const void* idx, const void* keep,
                 const void* vals, void* cov, int64_t B, int64_t N, int64_t V,
-                int64_t D, void* stream) {
+                int64_t D, int64_t vecs, void* stream) {
   if (B <= 0 || N <= 0 || D <= 0) return 0;
-  if (V < 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (V < 0 || !(vecs == 0 || vecs == 1 || vecs == kVecs || vecs == kElems)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int32_t* ix = static_cast<const int32_t*>(idx);
   const uint8_t* kp = static_cast<const uint8_t*>(keep);
   int32_t* cv = static_cast<int32_t*>(cov);
   return fits32(B, N, V, D)
              ? launch_store<uint32_t, kCov>(dst, ix, kp, vals, cv, B, N, V, D,
-                                            s)
+                                            vecs, s)
              : launch_store<uint64_t, kCov>(dst, ix, kp, vals, cv, B, N, V, D,
-                                            s);
+                                            vecs, s);
 }
 
 }  // namespace
 
-// All three return the cudaError_t of the launch (0 on success).
+// All three return the cudaError_t of the launch (0 on success).  The
+// stores' vecs: loads in flight a thread, 1, kVecs (4) or kElems (8; either
+// deep value takes the deep instance of the path the operands take), or 0
+// for the card rule (common.cuh card_threads).
 extern "C" int scatter_store_rows_f32(void* dst, const void* idx,
                                       const void* keep, const void* vals,
                                       int64_t B, int64_t N, int64_t V,
-                                      int64_t D, void* stream) {
-  return store_entry<false>(dst, idx, keep, vals, nullptr, B, N, V, D,
+                                      int64_t D, int64_t vecs, void* stream) {
+  return store_entry<false>(dst, idx, keep, vals, nullptr, B, N, V, D, vecs,
                             stream);
 }
 
@@ -338,9 +354,10 @@ extern "C" int scatter_store_rows_f32(void* dst, const void* idx,
 extern "C" int scatter_store_rows_cov_f32(void* dst, const void* idx,
                                           const void* keep, const void* vals,
                                           void* cov, int64_t B, int64_t N,
-                                          int64_t V, int64_t D,
+                                          int64_t V, int64_t D, int64_t vecs,
                                           void* stream) {
-  return store_entry<true>(dst, idx, keep, vals, cov, B, N, V, D, stream);
+  return store_entry<true>(dst, idx, keep, vals, cov, B, N, V, D, vecs,
+                           stream);
 }
 
 extern "C" int scatter_add_rows_f32(void* dst, const void* idx,

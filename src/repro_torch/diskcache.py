@@ -12,9 +12,12 @@ kinds of entry, one file each:
   the library with nvcc and stores it here.
 * **exec**: one per ``ExecKey``: the bucket recipe ``plan._bucket_fn``
   needs (backend, kind, mode) and the sha256 of each library that recipe
-  launches.  Restoring it loads those libraries through the tier and
-  builds nothing, so it counts ``disk_hits``, not ``misses``; an entry
-  whose library now has other bytes than it recorded is stale.
+  launches; its header also carries ``tiles``, the launch parameters the
+  callable closed over (``kernels.autotune``'s wire format).  Restoring it
+  seeds those choices, loads the libraries through the tier and builds
+  nothing, so it counts ``disk_hits``, not ``misses``, and searches no
+  launch parameter; an entry whose library now has other bytes than it
+  recorded is stale.
 
 The contract is the reference's:
 
@@ -37,7 +40,7 @@ The contract is the reference's:
 Entry format (``<sha256(identity)[:40]>.spx``)::
 
     SPTC1\\n
-    {json header: format, entry, key or name, identity, toolchain, sha256, nbytes}\\n
+    {json header: format, entry, key or name, identity, tiles, toolchain, sha256, nbytes}\\n
     <payload: the recipe as JSON, or the library's bytes>
 
 A library is loaded with ``ctypes``, which needs a file: verified bytes
@@ -53,8 +56,8 @@ import threading
 from pathlib import Path
 from typing import Callable
 
-from .kernels import _build
-from .plan import ExecKey, _bucket_fn, bucket_libraries
+from .kernels import _build, autotune
+from .plan import ExecKey, bucket_callable, bucket_libraries, bucket_tiles
 
 MAGIC = b"SPTC1\n"
 SUFFIX = ".spx"
@@ -209,9 +212,12 @@ class DiskTier:
         payload = json.dumps({"backend": key.backend, "kind": key.kind,
                               "mode": key.mode, "libs": libs},
                              sort_keys=True).encode()
+        with autotune.recording() as tiles:   # memo hits: the build chose
+            bucket_tiles(key, self.device)
         ok = self._write(self.path_for(key),
                          {"entry": "exec", "key": dataclasses.asdict(key),
-                          "key_str": exec_key_str(key)}, payload)
+                          "key_str": exec_key_str(key),
+                          "tiles": autotune.to_wire(tiles)}, payload)
         if ok:
             self._count("stores")
         return ok
@@ -350,10 +356,10 @@ class DiskTier:
             if _build.library_sha256(name) != sha:
                 self._quarantine(path)   # recorded against other bytes
                 return None
+        autotune.seed_wire(header.get("tiles"))
         self._touch(path)
         self._count("loads")
-        return RestoredBucket(_bucket_fn(expect.backend, expect.kind,
-                                         expect.mode))
+        return RestoredBucket(bucket_callable(expect, self.device))
 
     @staticmethod
     def _touch(path: str) -> None:

@@ -68,8 +68,8 @@ _F32 = ctypes.c_float
 # C signatures: (argtypes) -> int (cudaError_t of the launch)
 _SIGNATURES = {
     "gather_rows": {
-        # table, idx, out, B, N, V, D, stream
-        "gather_rows_f32": (_P, _P, _P, _I64, _I64, _I64, _I64, _P),
+        # table, idx, out, B, N, V, D, vecs, stream
+        "gather_rows_f32": (_P, _P, _P, _I64, _I64, _I64, _I64, _I64, _P),
         # table, idx, out, B, N, V, D, lanes_per_cta, stream
         "gather_rows_smem_f32": (_P, _P, _P, _I64, _I64, _I64, _I64, _I64,
                                  _P),
@@ -77,11 +77,10 @@ _SIGNATURES = {
         "gather_rows_smem_clusters": (_I64, _I64, _P),
     },
     "scatter_rows": {
-        # dst, idx, keep, vals, B, N, V, D, stream
-        "scatter_store_rows_f32": (_P, _P, _P, _P, _I64, _I64, _I64, _I64,
-                                   _P),
-        # dst, idx, keep, vals, cov, B, N, V, D, stream
-        "scatter_store_rows_cov_f32": (_P,) * 5 + (_I64,) * 4 + (_P,),
+        # dst, idx, keep, vals, B, N, V, D, vecs, stream
+        "scatter_store_rows_f32": (_P,) * 4 + (_I64,) * 5 + (_P,),
+        # dst, idx, keep, vals, cov, B, N, V, D, vecs, stream
+        "scatter_store_rows_cov_f32": (_P,) * 5 + (_I64,) * 5 + (_P,),
         # dst, idx, vals, B, N, V, D, stream
         "scatter_add_rows_f32": (_P, _P, _P, _I64, _I64, _I64, _I64, _P),
     },

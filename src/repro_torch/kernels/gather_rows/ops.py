@@ -8,16 +8,21 @@ and ``gather_rows`` picks between them from the shapes, as the reference's
 
 The switch point.  The reference stages a table in VMEM up to 4 MiB, a TPU
 figure.  On the H100 the on-chip store is shared memory, at most 227 KB
-(232,448 bytes) for one block, so a pattern's (V, D) float32 table is
+(232,448 bytes) for one block, so a pattern's (V, D) float32 table may be
 staged only when ``V * D * 4 <= SMEM_TABLE_BYTES``, and only where the
-pattern reads at least half as many rows as it stages (``V <= 2 * N``).
-``suites/demo.json`` reaches this kernel through its UNIFORM:8:1 gather
-bucket: V = 32,769 rows of 4 bytes (128 KiB) for N = 32,768 lanes.
+pattern reads at least half as many rows as it stages (``V <= 2 * N``):
+the legacy rule ``use_smem``.  Within it ``kernels.autotune`` takes the
+smem kernel only where its cost model (fitted to the card) says it beats
+the global kernel: on an H100 that is no bucket of demo or appdb, and
+demo's UNIFORM:8:1 gather bucket (V = 32,769 rows of 4 bytes, 128 KiB,
+for N = 32,768 lanes), which the legacy rule stages, takes the global
+kernel.
 
-Lanes per CTA (``smem_lanes_per_cta``).  The kernel runs in clusters of
-``SMEM_CLUSTER`` = 8 CTAs, one pattern a cluster: the cluster reads its
-table from L2 once (multicast to its 8 shared memories), and each CTA
-gathers one run of lanes.  Three terms set the run:
+Lanes per CTA (``smem_lanes_per_cta``, the legacy rule).  The kernel runs
+in clusters of ``SMEM_CLUSTER`` = 8 CTAs, one pattern a cluster: the
+cluster reads its table from L2 once (multicast to its 8 shared
+memories), and each CTA gathers one run of lanes.  Three terms set the
+run:
 
 - fill: the batch's lanes spread over the CTAs the card holds at once
   (``smem_resident_ctas``: the clusters that the CUDA runtime's
@@ -34,9 +39,17 @@ whole cluster (``smem_grid``); a CTA past the last lane stages and exits.
 Demo's bucket takes one cluster of 4,096 lanes a CTA; 2^24 lanes on the
 same table take 15 clusters of 139,811 on an H100 SXM.
 
-On CPU tensors the wrappers run the plain version (``ref``); on CUDA
-tensors they launch the kernel or raise.  Float32 tables and int32
-indices only.
+Launch parameters.  The regime, the global kernel's loads in flight a
+thread (``vecs``) and the smem kernel's lanes a CTA are chosen by
+``kernels.autotune`` for the geometry and the card, unless the caller
+passes them (a bucket callable passes what it chose when it was built,
+``plan.build_bucket``).  ``use_smem`` and ``smem_lanes_per_cta`` are the
+legacy rules, which ``autotune.disabled()`` serves; the search takes the
+smem regime only where ``use_smem`` allows it.
+
+On CPU tensors the wrappers run the plain version (``ref``), which
+ignores every launch parameter; on CUDA tensors they launch the kernel or
+raise.  Float32 tables and int32 indices only.
 """
 from __future__ import annotations
 
@@ -44,7 +57,7 @@ import functools
 
 import torch
 
-from .. import _build
+from .. import _build, autotune
 from .ref import gather_rows_ref
 
 SMEM_TABLE_BYTES = 232448        # 227 KB: the H100's shared memory per block
@@ -97,8 +110,38 @@ def _checked(table: torch.Tensor, idx: torch.Tensor):
     return _build.common_device(table=table, idx=idx)
 
 
-def gather_rows_global(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """Batched gather from global memory: (B, V, D), (B, N) -> (B, N, D)."""
+def tile_key(op: str, bsz: int, n: int, v: int, d: int, platform: str
+             ) -> autotune.TileKey:
+    """The ``autotune`` key of a (B, V, D) float32 gather at N lanes."""
+    return autotune.TileKey(op=op, batch=bsz, lanes=n, rows=v, width=d,
+                            dtype="float32", platform=platform)
+
+
+def gather_tiles(bsz: int, n: int, v: int, d: int, device
+                 ) -> autotune.TileChoice:
+    """The launch a (B, V, D) gather at N lanes takes on ``device``: the
+    regime (``smem``) and its parameter (``lanes_per_cta`` or ``vecs``),
+    as ``gather_rows`` chooses them (on the CPU, for ``autotune.CPU_FACTS``).
+    """
+    cpu = device.type == "cpu"
+    platform = "cpu" if cpu else autotune.cuda_platform(device.index)
+    if use_smem(v, n, d):
+        resident = (autotune.CPU_FACTS.resident_ctas if cpu
+                    else smem_resident_ctas(v, d, device.index))
+        smem_platform = ("cpu" if cpu
+                         else autotune.cuda_platform(device.index, resident))
+        if resident > 0 and autotune.choose(tile_key(
+                "gather", bsz, n, v, d, smem_platform)).smem:
+            return autotune.choose(tile_key("gather_smem", bsz, n, v, d,
+                                            smem_platform))
+    return autotune.choose(tile_key("gather_global", bsz, n, v, d, platform))
+
+
+def gather_rows_global(table: torch.Tensor, idx: torch.Tensor, *,
+                       vecs: int | None = None) -> torch.Tensor:
+    """Batched gather from global memory: (B, V, D), (B, N) -> (B, N, D).
+    ``vecs``: loads in flight a thread (1, or 4 for D = 1 and 8 otherwise:
+    the deep instance; 0: the kernel's own rule); None: ``autotune``'s."""
     dev = _checked(table, idx)
     if dev.type == "cpu":
         return gather_rows_ref(table, idx)
@@ -106,16 +149,22 @@ def gather_rows_global(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     n = idx.shape[1]
     out = torch.empty((bsz, n, d), dtype=table.dtype, device=dev)
     if out.numel():
+        if vecs is None:
+            vecs = autotune.choose(tile_key(
+                "gather_global", bsz, n, v, d,
+                autotune.cuda_platform(dev.index))).vecs
         _build.launch("gather_rows", dev, "gather_rows", "gather_rows_f32",
                       table.data_ptr(), idx.data_ptr(), out.data_ptr(),
-                      bsz, n, v, d)
+                      bsz, n, v, d, vecs)
     return out
 
 
-def gather_rows_smem(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+def gather_rows_smem(table: torch.Tensor, idx: torch.Tensor, *,
+                     lanes_per_cta: int | None = None) -> torch.Tensor:
     """Batched gather with each pattern's table staged in shared memory:
     (B, V, D), (B, N) -> (B, N, D).  Raises if a table exceeds 227 KB, and
-    on a card where no cluster of its CTAs fits."""
+    on a card where no cluster of its CTAs fits.  ``lanes_per_cta``: None
+    for ``autotune``'s choice."""
     dev = _checked(table, idx)
     bsz, v, d = table.shape
     if v * d * 4 > SMEM_TABLE_BYTES:
@@ -131,22 +180,42 @@ def gather_rows_smem(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
                            f"({v}, {d}) table")
     out = torch.empty((bsz, n, d), dtype=table.dtype, device=dev)
     if out.numel():
-        lanes = smem_lanes_per_cta(bsz, n, v, resident)
+        if lanes_per_cta is None:
+            lanes_per_cta = autotune.choose(tile_key(
+                "gather_smem", bsz, n, v, d,
+                autotune.cuda_platform(dev.index, resident))).lanes_per_cta
         _build.launch("gather_rows_smem", dev, "gather_rows",
                       "gather_rows_smem_f32", table.data_ptr(),
-                      idx.data_ptr(), out.data_ptr(), bsz, n, v, d, lanes)
+                      idx.data_ptr(), out.data_ptr(), bsz, n, v, d,
+                      lanes_per_cta)
     return out
 
 
-def gather_rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """Batched gather, (B, V, D), (B, N) -> (B, N, D), in the regime
-    ``use_smem`` picks: one kernel launch for the whole batch.  On a card
-    where no cluster of the smem kernel fits (``smem_resident_ctas`` is 0),
-    its buckets take ``gather_rows_global``, exact as well, and count as
-    ``gather_rows`` launches: a route chosen before launching."""
-    _, v, d = table.shape
-    if use_smem(v, idx.shape[-1], d):
+def gather_rows(table: torch.Tensor, idx: torch.Tensor,
+                choice: autotune.TileChoice | None = None) -> torch.Tensor:
+    """Batched gather, (B, V, D), (B, N) -> (B, N, D): one kernel launch
+    for the whole batch, in the regime ``choice`` names (its ``smem``, with
+    its ``lanes_per_cta`` or ``vecs``).  Without one, the smem regime is
+    weighed only where ``use_smem`` allows it and ``autotune`` takes it
+    only where it is the cheaper; on a card where no cluster of the smem
+    kernel fits (``smem_resident_ctas`` is 0), such buckets take
+    ``gather_rows_global``, exact as well, and count as ``gather_rows``
+    launches: a route chosen before launching.  On the CPU the regime
+    follows ``use_smem`` (both run the plain version)."""
+    if choice is not None:
+        if choice.smem:
+            return gather_rows_smem(table, idx,
+                                    lanes_per_cta=choice.lanes_per_cta)
+        return gather_rows_global(table, idx, vecs=choice.vecs)
+    bsz, v, d = table.shape
+    n = idx.shape[-1]
+    if use_smem(v, n, d):
         dev = _checked(table, idx)
-        if dev.type == "cpu" or smem_resident_ctas(v, d, dev.index) > 0:
+        if dev.type == "cpu":
+            return gather_rows_smem(table, idx)
+        resident = smem_resident_ctas(v, d, dev.index)
+        if resident > 0 and autotune.choose(tile_key(
+                "gather", bsz, n, v, d,
+                autotune.cuda_platform(dev.index, resident))).smem:
             return gather_rows_smem(table, idx)
     return gather_rows_global(table, idx)

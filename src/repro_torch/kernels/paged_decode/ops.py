@@ -8,9 +8,11 @@ The head size (64 or 128) and the query heads per KV head (1, 2, 4, 8 or
 16) are templates of the kernel: on CUDA tensors others raise
 (``check_kernel_shape``).  The plain version takes any.
 
-The launch splits each row's pages over ``paged_splits`` CTAs and merges
-their partial softmax sums in the same launch: the last CTA of a (row,
-head) to finish merges.  That takes a float32 workspace (the partials) and
+The launch splits each row's pages over several CTAs (``splits``, chosen
+by ``kernels.autotune`` unless the caller passes it; ``paged_splits`` is
+the legacy rule, which ``autotune.disabled()`` serves) and merges their
+partial softmax sums in the same launch: the last CTA of a (row, head) to
+finish merges.  That takes a float32 workspace (the partials) and
 a counter per (row, head), which the wrapper keeps per (device, stream),
 grown when a call needs more and never freed.  The counters are zeroed
 once, when they are allocated, and every launch leaves them zero, so no
@@ -34,7 +36,7 @@ import math
 
 import torch
 
-from .. import _build
+from .. import _build, autotune
 from .ref import paged_decode_attention_ref
 
 HEAD_DIMS = (64, 128)
@@ -43,7 +45,6 @@ CTAS_PER_SM = 3       # csrc/paged_decode.cu kCtasPerSm: CTAs an SM holds
 MAX_SPLITS = 128      # csrc/paged_decode.cu kMaxSplits
 _ENTRY = {torch.float32: "paged_decode_f32",
           torch.bfloat16: "paged_decode_bf16"}
-_SMS: dict[int, int] = {}                  # device index -> SMs
 # (device index, stream handle) -> (float32 workspace, int32 counters)
 _WORKSPACES: dict[tuple[int, int], tuple[torch.Tensor, torch.Tensor]] = {}
 
@@ -66,14 +67,6 @@ def paged_splits(bsz: int, kvh: int, pps: int, sms: int) -> int:
     return max(1, min(pps, MAX_SPLITS, CTAS_PER_SM * sms // (bsz * kvh)))
 
 
-def _sm_count(index: int) -> int:
-    sms = _SMS.get(index)
-    if sms is None:
-        sms = _SMS[index] = torch.cuda.get_device_properties(
-            index).multi_processor_count
-    return sms
-
-
 def _workspace(index: int, floats: int, rows: int) -> tuple[int, int]:
     """Pointers to the workspace (``floats`` float32) and counters
     (``rows`` int32 zeros) of device ``index``'s current stream, allocated
@@ -91,12 +84,25 @@ def _workspace(index: int, floats: int, rows: int) -> tuple[int, int]:
     return ws[0].data_ptr(), ws[1].data_ptr()
 
 
+def tile_key(bsz: int, kvh: int, g: int, dh: int, page: int, pps: int,
+             dtype: torch.dtype, platform: str) -> autotune.TileKey:
+    """The ``autotune`` key of a paged-decode launch (its fields as the
+    ``TileKey`` note says)."""
+    return autotune.TileKey(op="paged_decode", batch=bsz * kvh, lanes=pps,
+                            rows=page, width=g * dh,
+                            dtype=str(dtype).removeprefix("torch."),
+                            platform=platform)
+
+
 def paged_decode_attention(q, k_pages, v_pages, page_table, lengths, *,
-                           scale: float | None = None):
+                           scale: float | None = None,
+                           splits: int | None = None):
     """q (B, KVH, G, dh); k_pages/v_pages (KVH, P, page, dh); page_table
     (B, pages_per_seq) int32; lengths (B,) int32 -> (B, KVH, G, dh).
 
-    ``scale=None`` means 1/sqrt(dh).
+    ``scale=None`` means 1/sqrt(dh).  ``splits``: CTAs a row's pages are
+    split over, in [1, min(pages_per_seq, MAX_SPLITS)]; None for
+    ``autotune``'s choice.
     """
     _build.check_operand("q", q, getattr(q, "dtype", None), 4)
     if q.dtype not in _ENTRY:
@@ -133,9 +139,15 @@ def paged_decode_attention(q, k_pages, v_pages, page_table, lengths, *,
     for name, t in (("q", q), ("k_pages", k_pages), ("v_pages", v_pages)):
         if t.data_ptr() % 16:            # the kernel reads 16 bytes at a time
             raise ValueError(f"{name}: data not 16-byte aligned")
+    if splits is not None and not 1 <= splits <= min(pps, MAX_SPLITS):
+        raise ValueError(f"splits {splits} outside [1, "
+                         f"{min(pps, MAX_SPLITS)}]")
     out = torch.empty_like(q)
     if bsz * kvh:
-        splits = paged_splits(bsz, kvh, pps, _sm_count(dev.index))
+        if splits is None:
+            splits = autotune.choose(tile_key(
+                bsz, kvh, g, dh, page, pps, q.dtype,
+                autotune.cuda_platform(dev.index))).splits
         ws = cnt = None
         if splits > 1:
             ws, cnt = _workspace(dev.index, bsz * kvh * splits * g * (dh + 2),

@@ -13,15 +13,20 @@ reference's ``with_cov=True``): the same pass also marks each row it wrote
 in ``cov``, the ballot of the lane-sharded store combine
 (``plan.Placement``).
 
-On CPU tensors the wrappers run the plain versions (``ref``); on CUDA
-tensors they launch the kernel or raise.  Float32 rows, int32 indices and
-a bool keep mask only.
+The store's loads in flight a thread (``vecs``: its deep or shallow
+instance) are chosen by ``kernels.autotune`` for the geometry and the
+card unless the caller passes them; ``autotune.disabled()`` serves the
+kernel's legacy rule.  The add has no launch parameter.
+
+On CPU tensors the wrappers run the plain versions (``ref``), which
+ignore ``vecs``; on CUDA tensors they launch the kernel or raise.
+Float32 rows, int32 indices and a bool keep mask only.
 """
 from __future__ import annotations
 
 import torch
 
-from .. import _build
+from .. import _build, autotune
 from .ref import scatter_add_rows_ref_, scatter_store_rows_ref_
 
 
@@ -44,15 +49,25 @@ def _checked(dst, idx, vals, keep=None):
     return _build.common_device(**ops)
 
 
+def tile_key(op: str, bsz: int, n: int, v: int, d: int, platform: str
+             ) -> autotune.TileKey:
+    """The ``autotune`` key of a (B, V, D) float32 scatter of N lanes."""
+    return autotune.TileKey(op=op, batch=bsz, lanes=n, rows=v, width=d,
+                            dtype="float32", platform=platform)
+
+
 def scatter_store_rows_(dst: torch.Tensor, idx: torch.Tensor,
                         keep: torch.Tensor, vals: torch.Tensor,
-                        cov: torch.Tensor | None = None) -> torch.Tensor:
+                        cov: torch.Tensor | None = None, *,
+                        vecs: int | None = None) -> torch.Tensor:
     """In place: dst[b, idx[b, n]] = vals[b, n] for every lane with
     keep[b, n] and idx[b, n] in [0, V).  dst (B, V, D), idx (B, N) int32,
     keep (B, N) bool, vals (B, N, D).  Contract: at most one such lane per
     row (the host keep mask's), so the result is independent of order.
     With ``cov`` ((B, V) int32, zeroed by the caller) the same launch also
-    sets cov[b, row] = 1 for every row it stored."""
+    sets cov[b, row] = 1 for every row it stored.  ``vecs``: loads in
+    flight a thread (1, or 4 for D = 1 and 8 otherwise: the deep instance;
+    0: the kernel's own rule); None: ``autotune``'s."""
     dev = _checked(dst, idx, vals, keep)
     if cov is not None:
         _build.check_operand("cov", cov, torch.int32, 2)
@@ -63,17 +78,22 @@ def scatter_store_rows_(dst: torch.Tensor, idx: torch.Tensor,
     if dev.type == "cpu":
         return scatter_store_rows_ref_(dst, idx, keep, vals, cov)
     bsz, v, d = dst.shape
+    n = idx.shape[1]
     if idx.numel() and d:
+        if vecs is None:
+            vecs = autotune.choose(tile_key(
+                "scatter_store", bsz, n, v, d,
+                autotune.cuda_platform(dev.index))).vecs
         if cov is None:
             _build.launch("scatter_store_rows", dev, "scatter_rows",
                           "scatter_store_rows_f32", dst.data_ptr(),
                           idx.data_ptr(), keep.data_ptr(), vals.data_ptr(),
-                          bsz, idx.shape[1], v, d)
+                          bsz, n, v, d, vecs)
         else:
             _build.launch("scatter_store_rows_cov", dev, "scatter_rows",
                           "scatter_store_rows_cov_f32", dst.data_ptr(),
                           idx.data_ptr(), keep.data_ptr(), vals.data_ptr(),
-                          cov.data_ptr(), bsz, idx.shape[1], v, d)
+                          cov.data_ptr(), bsz, n, v, d, vecs)
     return dst
 
 
@@ -81,7 +101,15 @@ def scatter_add_rows_(dst: torch.Tensor, idx: torch.Tensor,
                       vals: torch.Tensor) -> torch.Tensor:
     """In place: dst[b, idx[b, n]] += vals[b, n] for every lane with
     idx[b, n] in [0, V); duplicates add in no fixed order.  dst (B, V, D),
-    idx (B, N) int32, vals (B, N, D)."""
+    idx (B, N) int32, vals (B, N, D).
+
+    The kernel skips a lane whose payload is +0.0 or -0.0 before it reads
+    the lane's index: adding either changes no value of a dst that holds
+    no -0.0, and a zeroed dst never does (no sum that starts at +0.0 is
+    -0.0).  The planner's padding lanes and scratch patterns carry +0.0
+    onto its scratch row (``plan._host_members``), so they cost a read of
+    their payload, not an atomic each on one row.  The plain version adds
+    every lane."""
     dev = _checked(dst, idx, vals)
     if dev.type == "cpu":
         return scatter_add_rows_ref_(dst, idx, vals)

@@ -65,12 +65,14 @@ are built as for one device, then cut by the grid and copied to each
 shard's device outside the timed region (``Placement.place``).  A timed
 call launches the bucket callable once on every shard, on its device,
 and combines on the first device (``Placement.run``): gathers
-concatenate their lanes; adds sum the shards' partials (each from zeros)
-onto dst; a lane-split store stores each shard into zeros with its
-coverage map (the store kernel's coverage output) and takes each row
-from the one shard that covered it, else from dst, so it is bit-identical
-to the one-device launch, ``-0.0`` included (the reference's ``psum`` of
-such shards turns ``-0.0`` into ``+0.0``).  A placed launch is timed by
+concatenate their lanes; a batch split's scatters write their blocks of
+dst in place (no concatenation); a lane split's adds sum the shards'
+partials (each from zeros) onto dst; a lane-split store stores each
+shard into zeros with its coverage map (the store kernel's coverage
+output) and takes each row from the one shard that covered it, else
+from dst, so it is bit-identical to the one-device launch, ``-0.0``
+included (the reference's ``psum`` of such shards turns ``-0.0`` into
+``+0.0``).  A placed launch is timed by
 the host clock between synchronisations of every device it uses, and it
 holds the lock of each distinct device, taken in the order of their
 names (``device_locks``), so two launches over the same devices in
@@ -102,6 +104,7 @@ from . import backends as B
 from . import bandwidth as bw
 from .engine import RunResult, device_name, resolve_device, timed_runs
 from .host import make_host_buffers
+from .kernels import autotune
 from .pattern import Pattern
 from .sharding import gs_specs, shard_of
 
@@ -433,17 +436,21 @@ def default_cache() -> ExecutorCache:
     return _DEFAULT_CACHE
 
 
-def _bucket_fn(backend: str, kind: str, mode: str) -> Callable:
+def _bucket_fn(backend: str, kind: str, mode: str,
+               tiles: "autotune.TileChoice | None" = None) -> Callable:
     """The bucket callable: gather (table, idx) or scatter (dst, idx, vals,
     keep[, cov]), one backend call for the whole bucket, or for one shard
-    of a placed launch (a lane-split store passes its coverage map)."""
+    of a placed launch (a lane-split store passes its coverage map).
+    ``tiles``: the hopper launch's parameters, closed over (None: the
+    kernels' wrappers choose at each call)."""
     if kind == "gather":
         def fn(table, idx):
-            return B.gather_batched(table, idx, backend=backend)
+            return B.gather_batched(table, idx, backend=backend, tiles=tiles)
     else:
         def fn(dst, idx, vals, keep, cov=None):
             return B.scatter_batched(dst, idx, vals, mode=mode,
-                                     backend=backend, keep=keep, cov=cov)
+                                     backend=backend, keep=keep, cov=cov,
+                                     tiles=tiles)
     return fn
 
 
@@ -456,15 +463,46 @@ def bucket_libraries(backend: str, kind: str, platform: str
     return ("gather_rows",) if kind == "gather" else ("scatter_rows",)
 
 
-def build_bucket(backend: str, kind: str, mode: str, device,
-                 tier=None) -> Callable:
-    """Build a bucket callable: load the libraries it launches (from
-    ``tier`` when given, so a corrupt one is rebuilt), then close over
-    its options."""
+def bucket_tiles(key: ExecKey, device) -> "autotune.TileChoice | None":
+    """The launch parameters of ``key``'s hopper kernel (None for another
+    backend), chosen by ``autotune`` for the geometry each shard's launch
+    sees on ``device``: B / batch shards patterns of ``pad_lanes`` / lane
+    shards lanes, into F + 1 rows (on the CPU, as on ``CPU_FACTS``)."""
+    if key.backend != "hopper":
+        return None
+    from .kernels.gather_rows import ops as gather_ops
+    from .kernels.scatter_rows import ops as scatter_ops
+    dev = _canonical_device(device)
+    b_shards, l_shards, _ = placement_grid(key.placement)
+    bsz = key.batch // b_shards
+    n = pad_lanes(key.idx_len, l_shards) // l_shards
+    v, d = key.footprint + 1, key.row_width
+    if key.kind == "gather":
+        return gather_ops.gather_tiles(bsz, n, v, d, dev)
+    platform = ("cpu" if dev.type == "cpu"
+                else autotune.cuda_platform(dev.index))
+    op = "scatter_add" if key.mode == "add" else "scatter_store"
+    return autotune.choose(scatter_ops.tile_key(op, bsz, n, v, d, platform))
+
+
+def bucket_callable(key: ExecKey, device) -> Callable:
+    """``key``'s bucket callable on ``device``: on a card it closes over
+    the launch parameters ``bucket_tiles`` chooses (the plain versions on
+    the CPU take none: there they are chosen and recorded all the same)."""
+    tiles = bucket_tiles(key, device)
+    if tiles is None or _canonical_device(device).type != "cuda":
+        return _bucket_fn(key.backend, key.kind, key.mode)
+    return _bucket_fn(key.backend, key.kind, key.mode, tiles)
+
+
+def build_bucket(key: ExecKey, device, tier=None) -> Callable:
+    """Build ``key``'s bucket callable: load the libraries it launches
+    (from ``tier`` when given, so a corrupt one is rebuilt), then choose
+    its launch parameters and close over them (``bucket_callable``)."""
     from .kernels import _build
-    for name in bucket_libraries(backend, kind, device.type):
+    for name in bucket_libraries(key.backend, key.kind, device.type):
         _build.library(name, tier=tier)
-    return _bucket_fn(backend, kind, mode)
+    return bucket_callable(key, device)
 
 
 def bucket_key(backend: str, spec: BucketSpec, dtype, row_width: int,
@@ -532,8 +570,7 @@ def enumerate_executables(plan: "SuitePlan", *, backend: str = "torch",
         key = bucket_key(backend, bucket.spec, dtype, row_width, mode,
                          len(bucket.members), pl)
         where = pl.devices[0] if pl else dev
-        out.append((key, functools.partial(build_bucket, backend, key.kind,
-                                           key.mode, where), pl))
+        out.append((key, functools.partial(build_bucket, key, where), pl))
     return out
 
 
@@ -662,16 +699,19 @@ class Placement:
 
     def scratch(self, mode: str, dst: torch.Tensor) -> list[tuple]:
         """Each shard's (dst, cov) for one scatter call, made before the
-        timed region: with one lane shard, a copy of the shard's block of
-        ``dst`` (the call stores or adds into it); with several, zeros
-        (partials for the add, a store's rows) and, for a store, a zeroed
-        (Bs, F) int32 coverage map.  ``dst`` is (B, F, R)."""
+        timed region: with one lane shard, the shard's block of ``dst``
+        itself where the shard runs on dst's device (the call stores or
+        adds into it in place), else a copy on the shard's device; with
+        several, zeros (partials for the add, a store's rows) and, for a
+        store, a zeroed (Bs, F) int32 coverage map.  ``dst`` is (B, F,
+        R)."""
         b, l = self.grid
         out = []
         for s, dev in enumerate(self.devices):
             block = shard_of(dst, (self.batch_axis,), self._coords(s))
             if l == 1:
-                out.append((block.to(dev, copy=True), None))
+                out.append((block if block.device == dev
+                            else block.to(dev, copy=True), None))
                 continue
             cov = (torch.zeros(block.shape[:2], dtype=torch.int32,
                                device=dev) if mode == "store" else None)
@@ -685,7 +725,9 @@ class Placement:
         """One placed call: ``fn`` (the bucket callable) on every shard, on
         its device, then the combine on ``devices[0]``.  ``shards`` come
         from ``place``; a scatter also takes ``scratch`` and its (B, F,
-        R) ``dst`` on ``devices[0]``, the rows no shard writes."""
+        R) ``dst`` on ``devices[0]``, the rows no shard writes.  A scatter
+        with one lane shard writes ``dst`` in place (a shard on another
+        device is copied back into its block) and returns it."""
         b, l = self.grid
         dev0 = self.devices[0]
         outs = []
@@ -699,6 +741,12 @@ class Placement:
                 else:
                     fn(d, *args, cov)
                 outs.append(d)
+        if kind == "scatter" and l == 1:
+            for s, d in enumerate(outs):
+                block = shard_of(dst, (self.batch_axis,), self._coords(s))
+                if d.device != block.device:
+                    block.copy_(d)
+            return dst
         blocks = []
         for i in range(b):
             parts = [outs[i * l + j].to(dev0) for j in range(l)]
@@ -1087,8 +1135,7 @@ def launch(works: Sequence[BucketWork],
     key = bucket_key(w0.backend, spec, w0.dtype, w0.row_width, w0.mode,
                      n_members, placement)
     fn, served, compiled = cache.serve_poly_info(
-        key, lambda: build_bucket(w0.backend, spec.kind, key.mode, dev,
-                                  cache.disk))
+        key, lambda: build_bucket(key, dev, cache.disk))
     lanes = pad_lanes(spec.idx_len,
                       placement.lane_shards if placement else 1)
     patterns = [p for w in works for p in w.patterns]

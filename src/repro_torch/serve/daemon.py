@@ -415,7 +415,7 @@ class SpatterDaemon:
             dev = pl.devices[0] if pl else self.device
             fn, served, built = self.cache.serve_poly_info(
                 key, lambda key=key, dev=dev: build_bucket(
-                    req.backend, key.kind, key.mode, dev, self.cache.disk))
+                    key, dev, self.cache.disk))
             compiled += built
             with device_locks(pl.devices if pl else (dev,)):
                 if built:
