@@ -2,8 +2,9 @@
 """Drive the port's paths on one CUDA card and check them: the Spatter
 main path, falcon-mamba-7b and llama3-8b served at full width, the
 Spatter suite daemon, bucket launches placed over several devices, the
-static analysis with the modeled H100 column, and the launch-parameter
-choice (``kernels/autotune.py``) with the CLI's serve modes.
+static analysis with the modeled H100 column, the launch-parameter
+choice (``kernels/autotune.py``) with the CLI's serve modes, and the
+Spatter path on bfloat16 and float16 tables.
 
     python3 chip_smoke.py            # from the root of the repository
 
@@ -11,7 +12,7 @@ Imports ``repro_torch`` (from ``src/``), ``torch``, numpy and the stdlib
 only.  Phases:
 
   0. print the card (``nvidia-smi``), the torch and CUDA versions, and
-     build the eight CUDA kernels of the five sources in
+     build the fourteen CUDA kernels of the five sources in
      ``src/repro_torch/csrc`` with nvcc (one process per source, all at
      once);
   1. hold each kernel against its plain PyTorch version on the card over
@@ -41,7 +42,14 @@ only.  Phases:
      lengths at a split's end, one past it and in the first page of 130, a
      shape where B x KVH fills the card, calls back to back and on two
      streams); both within ``attn_tolerance`` (flash in bf16 with 2^-8
-     more for its rounded weights);
+     more for its rounded weights); the Spatter grid
+     (``spatter_cases``) runs first in float32, and again on the 16-bit
+     instances in bfloat16 and float16 with D = 2 added, both sides of
+     the smem switch at 2 bytes and every 7th payload -0.0: gathers and
+     stores bit for bit, adds within ``add_error_bound`` at their dtype
+     (inf rows finite) and bit for bit at K = 1; then the gather and store
+     edges again in bfloat16 (views in and out of 8-lane phase, the
+     coverage store);
   2. the paper's CLI invocation ``-k Gather -p UNIFORM:8:1 -d 8 -l 2^24``
      through the port's CLI, as a gather, a store and an add scatter, on
      ``-b hopper`` and then on ``-b torch`` (the library yardstick);
@@ -61,7 +69,11 @@ only.  Phases:
      the serving shape (4, 2048, 8192, 16, bfloat16; device time too),
      flash attention at the llama3-8b prefill shape and paged decode at
      its decode shape (``FLASH_SHAPE``, ``PAGED_SHAPE``, bfloat16; paged
-     decode with its split count, CTAs and host time a call);
+     decode with its split count, CTAs and host time a call); the
+     Spatter lines run once a kernel instance (``kernel_times``): the
+     gathers, the store and the coverage store in float32 and bfloat16
+     (one instance serves both 16-bit types), the add in all three, each
+     beside its library call at the same dtype;
   5. serve falcon-mamba-7b at its published width and depth (64 layers,
      bfloat16, random weights from a seed) through
      ``repro_torch.launch.serve.main``: 4 prompts of 2048 tokens, 32 greedy
@@ -98,8 +110,8 @@ only.  Phases:
   8. placements on the one card (``placement_phase``), shards on
      ``[cuda:0] * n``: every store edge case again through the store with
      its coverage map (``-0.0`` payloads, maps at every alignment, rows
-     past INT32_MAX), bit for bit and exactly; demo, appdb at scale 1.0
-     and the CLI pattern on hopper, unplaced, on one device and at
+     past INT32_MAX), bit for bit and exactly; demo, the CLI pattern
+     and appdb at scale 1.0 on hopper, unplaced, on one device and at
      (1, 2), (2, 1), (2, 2) and (1, 4): gather and store digests equal
      phase 3's (the CLI pattern's: its unplaced run's), adds within
      ``add_error_bound`` of the unplaced outputs, launches buckets x
@@ -136,7 +148,16 @@ only.  Phases:
      ``--client --json`` (phase 3's digests) and ``--stats`` in processes
      of their own, a fresh process over that daemon's disk tier that
      searches nothing and runs no nvcc, ``examples/quickstart_torch.py``;
-     ``pipeline_model`` beside the CLI gather at ``vecs`` 1 and 4.
+     ``pipeline_model`` beside the CLI gather at ``vecs`` 1 and 4;
+ 11. (inside phase 8's host draws) the Spatter path in bfloat16 and
+     float16 (``dtype_phase``): demo and the CLI pattern in both, appdb
+     at scale 1.0 in bfloat16, on hopper and torch, gather and store
+     digests equal, adds within the bound, launches buckets x (1 +
+     ``RUNS``) under the 16-bit names and none under the float32 ones, the
+     16-bit tile keys searched once; ``run_suite(dtype=bfloat16)``; demo
+     under the legacy rules (the 16-bit smem gather); demo at (1, 2) and
+     (2, 1) (the 16-bit coverage store; its adds within the bound of the
+     unplaced ones); lint and cost with 2-byte rows.
 
 The launch counts are set to 0 just before phase 2 and read just after
 phase 3, again just before and after the serve calls of phases 5 and 6,
@@ -144,10 +165,13 @@ just before and after phase 7's daemon, just before and after phase 8's
 placed suites, just before and after phase 9's lint and cost passes
 (where they must equal the censuses' sum), and just before and after
 phase 10's two legs (whose legacy leg gives the smem gather's launches:
-the search routes no bucket of phases 2-3 to it on an H100).  Any failed check raises, so
+the search routes no bucket of phases 2-3 to it on an H100), and just
+before and after each of phase 11's runs (its legacy leg, likewise, the
+16-bit smem gather's).  Any failed check raises, so
 the script exits nonzero.  Before the last line it prints a
 ``{"daemon": {...}}``, a ``{"placements": {...}}``, an ``{"autotune":
-{...}}``, an ``{"analysis": {...}}`` and a ``{"kernels": [...]}`` JSON
+{...}}``, a ``{"dtypes": {...}}``, an ``{"analysis": {...}}`` and a
+``{"kernels": [...]}`` JSON
 line; the last line is
 ``{"ok": true, "device": {...}}``.
 """
@@ -196,14 +220,31 @@ KERNEL_INFO = {                  # name -> (source, TPU kernel it replaces)
                         "src/repro/kernels/flash_attention/kernel.py:70"),
     "paged_decode": ("src/repro_torch/csrc/paged_decode.cu",
                      "src/repro/kernels/paged_decode/kernel.py:71"),
+    # the 16-bit instances of the Spatter kernels (bfloat16 and float16)
+    "gather_rows_b16": ("src/repro_torch/csrc/gather_rows.cu",
+                        "src/repro/kernels/gather_rows/kernel.py:102"),
+    "gather_rows_smem_b16": ("src/repro_torch/csrc/gather_rows.cu",
+                             "src/repro/kernels/gather_rows/kernel.py:44"),
+    "scatter_store_rows_b16": ("src/repro_torch/csrc/scatter_rows.cu",
+                               "src/repro/kernels/scatter_rows/kernel.py:157"),
+    "scatter_store_rows_cov_b16": (
+        "src/repro_torch/csrc/scatter_rows.cu",
+        "src/repro/kernels/scatter_rows/kernel.py:157"),
+    "scatter_add_rows_bf16": ("src/repro_torch/csrc/scatter_rows.cu",
+                              "src/repro/kernels/scatter_rows/kernel.py:83"),
+    "scatter_add_rows_f16": ("src/repro_torch/csrc/scatter_rows.cu",
+                             "src/repro/kernels/scatter_rows/kernel.py:83"),
 }
-GATHER_LINES = ("gather_rows", "gather_rows_random", "gather_rows_smem",
-                "gather_rows_smem_2p24")
+B16_KERNELS = ("gather_rows_b16", "gather_rows_smem_b16",
+               "scatter_store_rows_b16", "scatter_store_rows_cov_b16",
+               "scatter_add_rows_bf16", "scatter_add_rows_f16")
 # the kernels the main path's buckets take under the launch-parameter search
 # on an H100 (the smem gather runs in phase 10's legacy leg)
 MAIN_PATH_KERNELS = ("gather_rows", "scatter_store_rows", "scatter_add_rows")
 SPATTER_KERNELS = ("gather_rows", "gather_rows_smem", "scatter_store_rows",
                    "scatter_add_rows")
+# the float32 Spatter kernels, none of which phase 11 may launch
+F32_SPATTER = SPATTER_KERNELS + ("scatter_store_rows_cov",)
 
 
 class SmokeFailure(Exception):
@@ -255,8 +296,52 @@ def build():
 
 def kernel_cases(torch):
     """Each kernel's wrapper vs its plain version; returns max |err| per
-    kernel."""
+    kernel.  The Spatter kernels take ``spatter_cases`` in float32, then
+    the gathers' and the store's edges; then their 16-bit instances in
+    bfloat16 and float16, and the edges again in bfloat16 (the gathers and
+    stores have one instance for both 16-bit types), the store's with and
+    without the coverage map."""
+    err = {k: 0.0 for k in KERNEL_INFO}
+    gen = torch.Generator(device="cpu").manual_seed(0)
+    n_cases, _ = spatter_cases(torch, gen, err, torch.float32)
+    n_cases += gather_edge_cases(torch, gen)
+    n_cases += gather_route_case(torch, gen)
+    n_cases += store_edge_cases(torch, gen)
+    print(f"phase 1: {n_cases} kernel cases equal their plain versions "
+          f"(add within add_error_bound); max |err| {err}", flush=True)
+    gen = torch.Generator(device="cpu").manual_seed(11)
+    n_cases = inf_rows = 0
+    for dtype in (torch.bfloat16, torch.float16):
+        n, inf = spatter_cases(torch, gen, err, dtype)
+        n_cases, inf_rows = n_cases + n, inf_rows + inf
+    t0 = time.perf_counter()
+    n_cases += gather_edge_cases(torch, gen, torch.bfloat16)
+    n_cases += store_edge_cases(torch, gen, dtype=torch.bfloat16)
+    n_cases += store_edge_cases(torch, gen, with_cov=True,
+                                dtype=torch.bfloat16)
+    print(f"phase 1 (16-bit): {n_cases} cases equal their plain versions "
+          f"(adds within add_error_bound; {inf_rows} rows with an inf bound "
+          f"checked finite); edges {time.perf_counter() - t0:.1f} s; max "
+          f"|err| { {k: err[k] for k in B16_KERNELS} }", flush=True)
+    return err
+
+
+def spatter_cases(torch, gen, err, dtype):
+    """Phase 1's grid for the Spatter kernels' instance of ``dtype``: B in
+    {1, 3}, R in {1, 3, 8, 17}, N in {1000, 4099}, out-of-range, INT32_MAX
+    and duplicate lanes (``_rand_idx``), tables on both sides of the smem
+    switch at the dtype's size (V * R * bytes <= 232,448) and the route
+    ``gather_rows`` takes there; gathers and stores (into a nonzero dst)
+    must equal their plain versions bit for bit, adds into zeros lie within
+    ``add_error_bound`` of theirs at the dtype (rows whose bound is inf,
+    K * u >= 1/2: finite only, counted), and each call must launch the
+    instance.  At 2 bytes R = 2 (a 4-byte pair of elements) joins the
+    grid, every 7th payload is -0.0, and an add where no row takes two
+    lanes (K = 1) must be bit-equal; float32's grid stays as it was first
+    measured.  Sets ``err[name]`` of the adds; returns (cases, rows with
+    an inf bound)."""
     from repro_torch.host import keep_last_mask
+    from repro_torch.kernels import _build
     from repro_torch.kernels.gather_rows import ops as g
     from repro_torch.kernels.gather_rows.ref import gather_rows_ref
     from repro_torch.kernels.scatter_rows import ops as s
@@ -264,92 +349,137 @@ def kernel_cases(torch):
                                                       scatter_add_rows_ref_,
                                                       scatter_store_rows_ref_)
     dev = torch.device("cuda")
-    gen = torch.Generator(device="cpu").manual_seed(0)
-    err = {k: 0.0 for k in KERNEL_INFO}
-    n_cases = 0
+    elem = torch.tensor([], dtype=dtype).element_size()
+    b16 = elem == 2
+    name = {k: _build.spatter_instance(k, dtype)[0]
+            for k in ("gather_rows", "gather_rows_smem",
+                      "scatter_store_rows", "scatter_add_rows")}
+    n_cases = inf_rows = 0
+
+    def launched(k, before, where):
+        check(_launches()[k] == before[k] + 1, f"{where}: did not launch {k}")
 
     def rand_idx(bsz, n, v):
-        idx = torch.randint(0, v, (bsz, n), generator=gen, dtype=torch.int32)
-        flat = idx.view(-1)
-        k = max(1, n // 17)                   # out-of-range lanes
-        flat[:k] = INT32_MAX
-        flat[k:2 * k] = -1
-        flat[2 * k:3 * k] = v
-        return idx[:, torch.randperm(n, generator=gen)].contiguous()
+        return _rand_idx(torch, gen, bsz, n, v)
+
+    def payload(bsz, n, r):
+        vals = torch.randn(bsz, n, r, generator=gen).to(dev, dtype)
+        if b16:
+            vals.view(-1)[::7] = -0.0
+        return vals
 
     for bsz in (1, 3):
-        for r in (1, 3, 8, 17):
-            limit_v = g.SMEM_TABLE_BYTES // (4 * r)
+        for r in (1, 2, 3, 8, 17) if b16 else (1, 3, 8, 17):
+            limit_v = g.SMEM_TABLE_BYTES // (elem * r)
             for n in (1000, 4099):
                 # gathers: smem at and below the limit, global above it
-                for v, wrapper, name in (
+                for v, wrapper, fam in (
                         (37, g.gather_rows_smem, "gather_rows_smem"),
                         (limit_v, g.gather_rows_smem, "gather_rows_smem"),
                         (limit_v + 1, g.gather_rows_global, "gather_rows"),
                         (1 << 16, g.gather_rows_global, "gather_rows")):
-                    table = torch.randn(bsz, v, r, generator=gen).to(dev)
+                    where = f"{name[fam]} B={bsz} R={r} N={n} V={v}"
+                    table = torch.randn(bsz, v, r, generator=gen).to(dev,
+                                                                     dtype)
                     idx = rand_idx(bsz, n, v).to(dev)
+                    before = _launches()
                     got = wrapper(table, idx)
-                    want = gather_rows_ref(table, idx)
                     torch.cuda.synchronize()
-                    check(torch.equal(got, want),
-                          f"{name} B={bsz} R={r} N={n} V={v}: not equal")
-                    err[name] = max(err[name],
-                                    (got - want).abs().max().item())
+                    launched(name[fam], before, where)
+                    check(_bits_equal(torch, got, gather_rows_ref(table, idx)),
+                          f"{where}: not equal")
                     n_cases += 1
                 # auto takes the regime autotune names
                 for v in (limit_v, limit_v + 1):
-                    table = torch.randn(bsz, v, r, generator=gen).to(dev)
+                    table = torch.randn(bsz, v, r, generator=gen).to(dev,
+                                                                     dtype)
                     idx = rand_idx(bsz, n, v).to(dev)
-                    want_k = ("gather_rows_smem" if g.gather_tiles(
-                        bsz, n, v, r, table.device).smem else "gather_rows")
-                    before = dict(_launches())
+                    want_k = name["gather_rows_smem" if g.gather_tiles(
+                        bsz, n, v, r, dev, dtype).smem else "gather_rows"]
+                    before = _launches()
                     got = g.gather_rows(table, idx)
                     torch.cuda.synchronize()
-                    check(_launches()[want_k] == before[want_k] + 1,
-                          f"gather_rows(V={v}) did not launch {want_k}")
-                    check(torch.equal(got, gather_rows_ref(table, idx)),
-                          f"gather_rows auto V={v}: not equal")
+                    launched(want_k, before, f"gather_rows {dtype} V={v}")
+                    check(_bits_equal(torch, got, gather_rows_ref(table, idx)),
+                          f"gather_rows auto {dtype} V={v}: not equal")
+                    n_cases += 1
                 # store: nonzero dst (untouched rows must stay), keep mask
                 for v in (16, 5000):
+                    where = f"{name['scatter_store_rows']} B={bsz} R={r} " \
+                            f"N={n} V={v}"
                     idx = rand_idx(bsz, n, v)
                     # at most one kept in-range lane per row, per pattern;
                     # kept INT32_MAX lanes must be dropped by the range test
                     keep = torch.stack([torch.from_numpy(
                         keep_last_mask(idx[b].numpy())) for b in range(bsz)])
                     keep[idx == INT32_MAX] = True
-                    dst = torch.randn(bsz, v, r, generator=gen).to(dev)
-                    vals = torch.randn(bsz, n, r, generator=gen).to(dev)
+                    dst = torch.randn(bsz, v, r, generator=gen).to(dev, dtype)
+                    vals = payload(bsz, n, r)
                     idx, keep = idx.to(dev), keep.to(dev)
+                    before = _launches()
                     got = s.scatter_store_rows_(dst.clone(), idx, keep, vals)
                     want = scatter_store_rows_ref_(dst.clone(), idx, keep,
                                                    vals)
                     torch.cuda.synchronize()
-                    check(torch.equal(got, want),
-                          f"scatter_store_rows B={bsz} R={r} N={n} V={v}")
+                    launched(name["scatter_store_rows"], before, where)
+                    check(_bits_equal(torch, got, want), where)
                     n_cases += 1
                 # add: heavy duplication (16 rows) and a wide table
                 for v in (16, 5000):
+                    where = f"{name['scatter_add_rows']} B={bsz} R={r} " \
+                            f"N={n} V={v}"
                     idx = rand_idx(bsz, n, v).to(dev)
-                    vals = torch.randn(bsz, n, r, generator=gen).to(dev)
-                    zeros = torch.zeros(bsz, v, r, device=dev)
+                    vals = payload(bsz, n, r)
+                    zeros = torch.zeros(bsz, v, r, device=dev, dtype=dtype)
+                    before = _launches()
                     got = s.scatter_add_rows_(zeros.clone(), idx, vals)
                     want = scatter_add_rows_ref_(zeros.clone(), idx, vals)
                     torch.cuda.synchronize()
-                    diff = (got - want).abs().double()
+                    launched(name["scatter_add_rows"], before, where)
                     bound = add_error_bound(idx, vals, v)
-                    check(bool((diff <= bound).all()),
-                          f"scatter_add_rows B={bsz} R={r} N={n} V={v}: "
-                          f"max err {diff.max().item()} over bound")
-                    err["scatter_add_rows"] = max(err["scatter_add_rows"],
-                                                  diff.max().item())
+                    inf = torch.isinf(bound)
+                    diff = (got.double() - want.double()).abs()
+                    worst = (diff[~inf].max().item()
+                             if bool((~inf).any()) else 0.0)
+                    check(bool((diff[~inf] <= bound[~inf]).all())
+                          and bool(torch.isfinite(got).all()),
+                          f"{where}: max err {worst} over bound or not "
+                          f"finite")
+                    inf_rows += int(inf.any(-1).sum())
+                    err[name["scatter_add_rows"]] = max(
+                        err[name["scatter_add_rows"]], worst)
                     n_cases += 1
-    n_cases += gather_edge_cases(torch, gen)
-    n_cases += gather_route_case(torch, gen)
-    n_cases += store_edge_cases(torch, gen)
-    print(f"phase 1: {n_cases} kernel cases equal their plain versions "
-          f"(add within add_error_bound); max |err| {err}", flush=True)
-    return err
+                if not b16:
+                    continue
+                # the add at K = 1 (no row takes two lanes): exact
+                v = 2 * n
+                idx = torch.stack([torch.randperm(v, generator=gen)[:n]
+                                   for _ in range(bsz)]).to(torch.int32)
+                idx[:, :3] = torch.tensor([INT32_MAX, -1, v],
+                                          dtype=torch.int32)
+                idx = idx.to(dev)
+                vals = payload(bsz, n, r)
+                zeros = torch.zeros(bsz, v, r, device=dev, dtype=dtype)
+                got = s.scatter_add_rows_(zeros.clone(), idx, vals)
+                want = scatter_add_rows_ref_(zeros.clone(), idx, vals)
+                torch.cuda.synchronize()
+                check(_bits_equal(torch, got, want),
+                      f"{name['scatter_add_rows']} K=1 B={bsz} R={r} N={n}: "
+                      f"not bit-equal")
+                n_cases += 1
+    return n_cases, inf_rows
+
+
+def _rand_idx(torch, gen, bsz, n, v):
+    """(B, N) int32 rows of a V-row table, uniform with duplicates, with
+    INT32_MAX, -1 and V lanes (out of range) among them."""
+    idx = torch.randint(0, v, (bsz, n), generator=gen, dtype=torch.int32)
+    flat = idx.view(-1)
+    k = max(1, n // 17)                   # out-of-range lanes
+    flat[:k] = INT32_MAX
+    flat[k:2 * k] = -1
+    flat[2 * k:3 * k] = v
+    return idx[:, torch.randperm(n, generator=gen)].contiguous()
 
 
 def _at_offset(torch, shape, off, make):
@@ -361,18 +491,36 @@ def _at_offset(torch, shape, off, make):
     return make(numel + off)[off:off + numel].view(shape)
 
 
-def gather_edge_cases(torch, gen):
-    """Phase 1's gather edges, each ``torch.equal`` to ``gather_rows_ref``:
-    table, idx and out as views at element offsets (unaligned; idx and out
-    in and out of phase), N % 4 != 0 with B in {2, 3} (vectors that
-    straddle patterns) and N below one CTA, a table of exactly 232,448
-    bytes (D in {1, 4}), more patterns than clusters fit at once, and both
-    kernels' 64-bit instances.  Returns the number of cases."""
+def _words(torch, t):
+    """``t``'s raw bits, so that -0.0 and +0.0 differ: int32 words of a
+    float32 tensor, int16 of a 16-bit one."""
+    return t.view(torch.int16 if t.element_size() == 2 else torch.int32)
+
+
+def _bits_equal(torch, a, b):
+    return a.dtype == b.dtype and torch.equal(_words(torch, a),
+                                              _words(torch, b))
+
+
+def gather_edge_cases(torch, gen, dtype=None):
+    """Phase 1's gather edges, each equal bit for bit to
+    ``gather_rows_ref``: table, idx and out as views at element offsets
+    (unaligned; idx and out in and out of phase), N off the vector's lanes
+    with B in {2, 3} (vectors that straddle patterns) and N below one CTA,
+    a table of exactly 232,448 bytes (D in {1, 4}), more patterns than
+    clusters fit at once, and both kernels' 64-bit instances.  ``dtype``
+    (default float32) is the table's: bfloat16 runs the 2-byte instances
+    (``gather_rows_b16``, ``gather_rows_smem_b16``), whose vectors hold 8
+    lanes.  Returns the number of cases."""
     from repro_torch.kernels import _build, autotune
     from repro_torch.kernels.gather_rows import ops as g
     from repro_torch.kernels.gather_rows.ref import gather_rows_ref
+    dtype = dtype or torch.float32
     dev = torch.device("cuda")
+    eb = dtype.itemsize
     n_cases = 0
+    name = {k: _build.spatter_instance(k, dtype)
+            for k in ("gather_rows", "gather_rows_smem")}
     wrappers = {"gather_rows": g.gather_rows_global,
                 "gather_rows_smem": g.gather_rows_smem}
 
@@ -389,18 +537,19 @@ def gather_edge_cases(torch, gen):
             m, dtype=torch.int32, device=dev)).copy_(idx)
 
     def into(kernel, table, idx, oo):
-        """``kernel`` launched into a (B, N, D) view ``oo`` floats into a
+        """``kernel`` launched into a (B, N, D) view ``oo`` elements into a
         NaN buffer (the wrappers allocate their own, aligned, result), and
-        whether the floats around the view stayed NaN."""
+        whether the elements around the view stayed NaN."""
         bsz, v, d = table.shape
         n = idx.shape[1]
-        buf = torch.full((bsz * n * d + oo + 4,), float("nan"), device=dev)
+        buf = torch.full((bsz * n * d + oo + 8,), float("nan"), device=dev,
+                         dtype=dtype)
         out = buf[oo:oo + bsz * n * d].view(bsz, n, d)
         # the smem kernel at its legacy lanes a CTA, the global one at
         # vecs 0 (the kernel's own rule)
-        param = (g.smem_lanes_per_cta(bsz, n, v, g.smem_resident_ctas(v, d, 0))
-                 if kernel == "gather_rows_smem" else 0)
-        _build.launch(kernel, dev, "gather_rows", f"{kernel}_f32",
+        param = (g.smem_lanes_per_cta(bsz, n, v, g.smem_resident_ctas(
+            v, d, 0, eb)) if kernel == "gather_rows_smem" else 0)
+        _build.launch(name[kernel][0], dev, "gather_rows", name[kernel][1],
                       table.data_ptr(), idx.data_ptr(), out.data_ptr(), bsz,
                       n, v, d, param)
         guards = torch.cat([buf[:oo], buf[oo + bsz * n * d:]])
@@ -412,9 +561,9 @@ def gather_edge_cases(torch, gen):
         nonlocal n_cases
         ot, oi, oo = offs
         table = _at_offset(torch, (bsz, v, d), ot, lambda m: torch.randn(
-            m, generator=gen).to(dev))
+            m, generator=gen).to(dev, dtype))
         idx = make_idx(bsz, n, v, oi)
-        where = (f"{kernel} B={bsz} V={v} D={d} N={n} "
+        where = (f"{name[kernel][0]} B={bsz} V={v} D={d} N={n} "
                  f"offsets(table, idx, out)={offs}")
         before = _launches()
         if oo:
@@ -422,20 +571,30 @@ def gather_edge_cases(torch, gen):
             check(kept, f"{where}: wrote outside out")
         else:
             got = (via or wrappers[kernel])(table, idx)
-        check(_launches()[kernel] == before[kernel] + 1,
-              f"{where}: did not launch {kernel}")
-        check(torch.equal(got, gather_rows_ref(table, idx)),
+        launched = name[kernel][0]
+        check(_launches()[launched] == before[launched] + 1,
+              f"{where}: did not launch {launched}")
+        check(_bits_equal(torch, got, gather_rows_ref(table, idx)),
               f"{where}: not equal")
         n_cases += 1
 
     both = (("gather_rows", 5000), ("gather_rows_smem", 300))
-    for d in (1, 3, 4):
-        for offs in ((0, 0, 0), (1, 1, 1), (3, 3, 3), (1, 0, 0), (0, 1, 0),
-                     (0, 0, 1), (2, 3, 1)):
+    # at 2 bytes idx and out are in phase where their offsets agree mod 4
+    # lanes (8-lane vectors): (1, 1, 1), (3, 3, 3), (0, 1, 5) and (2, 3,
+    # 7) are, (1, 0, 0) ... (2, 3, 1) are not
+    offsets = ((0, 0, 0), (1, 1, 1), (3, 3, 3), (1, 0, 0), (0, 1, 0),
+               (0, 0, 1), (2, 3, 1))
+    if eb == 2:
+        offsets += ((0, 1, 5), (2, 3, 7), (0, 0, 4))
+    for d in ((1, 3, 4) if eb == 4 else (1, 3, 8, 16)):
+        for offs in offsets:
             for kernel, v in both:
                 case(kernel, 2, v, d, 1001, offs)
+    ns = (1, 2, 3, 5, 100, 1001, 4099, 8191)
+    if eb == 2:
+        ns += (7, 9, 15, 17)
     for bsz in (1, 2, 3):
-        for n in (1, 2, 3, 5, 100, 1001, 4099, 8191):
+        for n in ns:
             for kernel, v in both:
                 case(kernel, bsz, v, 1, n)
     # exactly 227 KB: the last floats of the table stay in global memory;
@@ -444,19 +603,19 @@ def gather_edge_cases(torch, gen):
         with autotune.disabled():
             return g.gather_rows(table, idx)
     for d in (1, 4):
-        v = g.SMEM_TABLE_BYTES // (4 * d)
+        v = g.SMEM_TABLE_BYTES // (eb * d)
         for bsz in (1, 2):
             for offs in ((0, 0, 0), (1, 1, 0), (1, 1, 1)):
                 case("gather_rows_smem", bsz, v, d, v, offs, legacy_route)
     # more clusters than the card holds at once
     for bsz, v, n in ((40, 5000, 8192), (20, 32769, 32768)):
-        resident = g.smem_resident_ctas(v, 1, 0)
+        resident = g.smem_resident_ctas(v, 1, 0, eb)
         fit = resident // g.SMEM_CLUSTER
         clusters = g.smem_grid(bsz, n, v, resident) // g.SMEM_CLUSTER
         check(clusters > fit, f"B={bsz} V={v}: {clusters} clusters fit at "
               f"once ({fit})")
-        print(f"  gather_rows_smem B={bsz} V={v} N={n}: {clusters} clusters, "
-              f"{fit} fit at once", flush=True)
+        print(f"  {name['gather_rows_smem'][0]} B={bsz} V={v} N={n}: "
+              f"{clusters} clusters, {fit} fit at once", flush=True)
         case("gather_rows_smem", bsz, v, 1, n)
     # the 64-bit instances: a table of 2^31 + 16 rows (global), 2^31 + 5
     # and 2^31 + 12 output floats (smem), compared in slices of 2^28 lanes
@@ -464,15 +623,15 @@ def gather_edge_cases(torch, gen):
         nonlocal n_cases
         step = 1 << 28
         for a in range(0, idx.shape[1], step):
-            part = got[:, a:a + step]
-            want = gather_rows_ref(table, idx[:, a:a + step])
+            part = _words(torch, got[:, a:a + step])
+            want = _words(torch, gather_rows_ref(table, idx[:, a:a + step]))
             bad = (part != want).any(-1).nonzero()[:4, 1].tolist()
             check(not bad, f"{where}: {len(bad)}+ lanes differ in "
                   f"{a}.., e.g. {[(a + i, idx[0, a + i].item(), part[0, i].tolist(), want[0, i].tolist()) for i in bad]}")
         n_cases += 1
 
     v = 2 ** 31 + 16
-    table = torch.randn(1, v, 1, device=dev)
+    table = torch.randn(1, v, 1, device=dev, dtype=dtype)
     for oi in (0, 1):                 # vectors; idx and out out of phase
         idx = _at_offset(torch, (1, 1 << 20), oi, lambda m: torch.randint(
             0, INT32_MAX, (m,), device=dev, dtype=torch.int32))
@@ -481,7 +640,7 @@ def gather_edge_cases(torch, gen):
                         f"gather_rows_global V=2^31+16 idx offset {oi}")
     del table, idx
     for d, n in ((1, 2 ** 31 + 5), (4, 2 ** 29 + 3)):
-        table = torch.randn(1, 1000, d, device=dev)
+        table = torch.randn(1, 1000, d, device=dev, dtype=dtype)
         idx = torch.randint(-8, 1008, (1, n), device=dev, dtype=torch.int32)
         equal_in_slices(g.gather_rows_smem(table, idx), table, idx,
                         f"gather_rows_smem D={d} N={n}")
@@ -501,9 +660,9 @@ def gather_route_case(torch, gen):
     table = torch.randn(2, 300, 1, generator=gen).to(dev)
     idx = torch.randint(-2, 302, (2, 1000), generator=gen,
                         dtype=torch.int32).to(dev)
-    check(g.use_smem(300, 1000, 1), "route case: not a smem bucket")
+    check(g.use_smem(300, 1000, 1, 4), "route case: not a smem bucket")
     asked = g.smem_resident_ctas
-    g.smem_resident_ctas = lambda v, d, index: 0
+    g.smem_resident_ctas = lambda v, d, index, elem_bytes: 0
     try:
         before = _launches()
         got = g.gather_rows(table, idx)
@@ -526,7 +685,7 @@ def gather_route_case(torch, gen):
     return 1
 
 
-def store_edge_cases(torch, gen=None, with_cov=False):
+def store_edge_cases(torch, gen=None, with_cov=False, dtype=None):
     """Phase 1's store edges, each equal bit for bit to
     ``scatter_store_rows_ref_`` over the whole dst buffer (the floats around
     an offset dst must stay): D in {1, 3, 4, 8}; dst, idx, keep and vals as
@@ -539,10 +698,16 @@ def store_edge_cases(torch, gen=None, with_cov=False):
     runs the store with its coverage map instead, a (B, V) int32 view at
     dst's element offset (so its 4-row marks fall on and off 16-byte
     boundaries), with every 7th payload -0.0: dst bit for bit and the map
-    exactly.  Returns the number of cases."""
+    exactly.  ``dtype`` (default float32) is dst's and vals': bfloat16
+    runs the 2-byte instances (8-lane vectors; D in {1, 3, 8, 16}, where
+    (1, 1, 1, 1), (0, 1, 1, 1) and (3, 2, 6, 2) stay in phase).  Returns
+    the number of cases."""
+    from repro_torch.kernels import _build
     from repro_torch.kernels.scatter_rows import ops as s
     from repro_torch.kernels.scatter_rows.ref import scatter_store_rows_ref_
-    kernel = "scatter_store_rows_cov" if with_cov else "scatter_store_rows"
+    dtype = dtype or torch.float32
+    kernel, _ = _build.spatter_instance(
+        "scatter_store_rows_cov" if with_cov else "scatter_store_rows", dtype)
     dev = torch.device("cuda")
     gen = gen or torch.Generator(device="cpu").manual_seed(0)
     dgen = torch.Generator(device=dev).manual_seed(7)   # dst and vals
@@ -585,7 +750,8 @@ def store_edge_cases(torch, gen=None, with_cov=False):
         od, oi, ok, ov = offs
         idx0, keep0 = make(bsz, n, v, kind, top)
         numel = bsz * v * d
-        buf = torch.randn(numel + od + 4, generator=dgen, device=dev)
+        buf = torch.randn(numel + od + 8, generator=dgen, device=dev
+                          ).to(dtype)
         want = buf.clone()
         dst = buf[od:od + numel].view(bsz, v, d)
         idx = _at_offset(torch, (bsz, n), oi, lambda m: torch.empty(
@@ -593,10 +759,11 @@ def store_edge_cases(torch, gen=None, with_cov=False):
         keep = _at_offset(torch, (bsz, n), ok, lambda m: torch.empty(
             m, dtype=torch.bool, device=dev)).copy_(keep0)
         vals = _at_offset(torch, (bsz, n, d), ov, lambda m: torch.randn(
-            m, generator=dgen, device=dev))
+            m, generator=dgen, device=dev).to(dtype))
         cov = cov_want = None
-        if with_cov:
+        if with_cov or dtype.itemsize == 2:
             vals.view(-1)[::7] = -0.0
+        if with_cov:
             cov = _at_offset(torch, (bsz, v), od, lambda m: torch.zeros(
                 m, dtype=torch.int32, device=dev))
             cov_want = torch.zeros_like(cov)
@@ -607,14 +774,13 @@ def store_edge_cases(torch, gen=None, with_cov=False):
         where = (f"{kernel} B={bsz} V={v} D={d} N={n} {kind} "
                  f"offsets(dst, idx, keep, vals)={offs} vecs={vecs}")
         check(_launches()[kernel] == before + 1, f"{where}: did not launch")
-        check(torch.equal(buf.view(torch.int32), want.view(torch.int32)),
-              f"{where}: not equal")
+        check(_bits_equal(torch, buf, want), f"{where}: not equal")
         if with_cov:
             check(torch.equal(cov, cov_want), f"{where}: coverage differs")
             del cov, cov_want
         n_cases += 1
 
-    for d in (1, 3, 4, 8):
+    for d in ((1, 3, 4, 8) if dtype.itemsize == 4 else (1, 3, 8, 16)):
         for offs in ((0, 0, 0, 0), (1, 1, 1, 1), (0, 1, 1, 1),
                      (3, 2, 6, 2), (0, 0, 1, 0), (0, 1, 0, 1),
                      (0, 0, 0, 1), (1, 0, 0, 0)):
@@ -1021,24 +1187,30 @@ def _launches():
 
 # -- phases 2 and 3: the main path ---------------------------------------------
 
-def _bucket_kernel(bucket, mode, grid=(1, 1)):
+def _bucket_kernel(bucket, mode, grid=(1, 1), dtype=None):
     """The kernel each shard of a hopper launch of ``bucket`` runs on
     ``cuda:0`` over a (batch, lane) ``grid`` (the launch census of phases
-    3, 7, 8 and 10): for a gather, the regime its launch parameters name
+    3, 7, 8, 10 and 11), by its launch-count name at ``dtype`` (default
+    float32): for a gather, the regime its launch parameters name
     (``gather_tiles``, under ``autotune.disabled()`` the legacy one)."""
     import torch
+    from repro_torch.kernels._build import spatter_instance
     from repro_torch.kernels.gather_rows.ops import gather_tiles
     from repro_torch.plan import pad_batch, pad_lanes
+    dtype = dtype or torch.float32
     spec, (b_shards, lane_shards) = bucket.spec, grid
     if spec.kind == "gather":
         bsz = pad_batch(len(bucket.members), b_shards) // b_shards
         lanes = pad_lanes(spec.idx_len, lane_shards) // lane_shards
         smem = gather_tiles(bsz, lanes, spec.footprint + 1, 1,
-                            torch.device("cuda", 0)).smem
-        return "gather_rows_smem" if smem else "gather_rows"
-    if mode == "add":
-        return "scatter_add_rows"
-    return "scatter_store_rows_cov" if lane_shards > 1 else "scatter_store_rows"
+                            torch.device("cuda", 0), dtype).smem
+        kernel = "gather_rows_smem" if smem else "gather_rows"
+    elif mode == "add":
+        kernel = "scatter_add_rows"
+    else:
+        kernel = ("scatter_store_rows_cov" if lane_shards > 1
+                  else "scatter_store_rows")
+    return spatter_instance(kernel, dtype)[0]
 
 
 def main_path(torch, torch_stats=None):
@@ -1137,11 +1309,12 @@ def _keep_last_dev(torch, idx):
     return keep
 
 
-def _profiled_ms(torch, fn, iters, tries=3):
+def _profiled_ms(torch, fn, iters, tries=8):
     """Device ms a call: torch.profiler's CUDA time of every kernel that
     ``iters`` calls of ``fn`` launched, over ``iters``; and the kernels'
     names with their counts.  The profiler now and then loses a kernel's
-    record (on the H100, 17 of 20 launches once, and every one once): a
+    record (on the H100, 17 of 20 launches once, every one once, and
+    three traces in a row short of 20 once): a
     trace whose count of device events is not a multiple of ``iters`` is
     taken again, at most ``tries`` times in all, and the last one is
     returned as it is (the callers' launch checks then fail on it; an
@@ -1183,11 +1356,12 @@ def _in_turns(torch, fns, iters):
     return res
 
 
-def _smem_layout(g, bsz, n, v):
+def _smem_layout(g, bsz, n, v, elem_bytes=4):
     """The smem kernel's lanes per CTA by the legacy rule (phase 4 times
     it there, as PRs 15-20 did), its CTAs, and the CTAs that fit at once,
-    for a (B, V, 1) table gathered at N lanes on ``cuda:0``."""
-    resident = g.smem_resident_ctas(v, 1, 0)
+    for a (B, V, 1) table of ``elem_bytes`` elements gathered at N lanes
+    on ``cuda:0``."""
+    resident = g.smem_resident_ctas(v, 1, 0, elem_bytes)
     return dict(lanes_per_cta=g.smem_lanes_per_cta(bsz, n, v, resident),
                 ctas=g.smem_grid(bsz, n, v, resident),
                 resident_ctas=resident)
@@ -1215,32 +1389,45 @@ def gather_suites(torch, runs=RUNS):
                       "gathers": rows, "suites_hopper": suites}), flush=True)
 
 
-def gather_times(torch, err=None):
-    """Both gathers in phase 4, each beside ``index_select`` on the same
-    inputs, in turns (``_in_turns``): ``gather_rows`` at the CLI shape
-    (contiguous indices) and on 2^24 random lanes of the same table;
-    ``gather_rows_smem`` at demo's UNIFORM:8:1 bucket and on 2^24 random
-    lanes of that table, with ``gather_rows_global`` beside it.  Returns
-    the rows by name (``gather_rows``, ``gather_rows_smem``, and the two
-    new lines ``gather_rows_random``, ``gather_rows_smem_2p24``)."""
+def _dtype_tag(dtype):
+    """The dtype's name where a shape is not float32's, for the rows."""
+    name = str(dtype).removeprefix("torch.")
+    return [] if name == "float32" else [name]
+
+
+def gather_times(torch, err=None, dtype=None):
+    """Both gathers' instances of ``dtype`` (default float32) in phase 4,
+    each beside ``index_select`` on the same inputs, in turns
+    (``_in_turns``): ``gather_rows`` at the CLI shape (contiguous indices)
+    and on 2^24 random lanes of the same table; ``gather_rows_smem`` at
+    demo's UNIFORM:8:1 bucket and on 2^24 random lanes of that table, with
+    ``gather_rows_global`` beside it.  Bytes count a lane's 4-byte index
+    and the dtype's rows.  Returns the rows by name (the instances'
+    names, e.g. ``gather_rows`` or ``gather_rows_b16``, and the two lines
+    ``gather_rows_random``, ``gather_rows_smem_2p24`` with the instance's
+    suffix)."""
     from repro_torch import SuitePlan, load_suite, make_pattern
+    from repro_torch.kernels import _build
     from repro_torch.kernels.gather_rows import ops as g
     from repro_torch.kernels.gather_rows.ref import gather_rows_ref
     from repro_torch.plan import _assemble_members
+    dtype = dtype or torch.float32
+    e = torch.tensor([], dtype=dtype).element_size()
+    glob, smem_k = (_build.spatter_instance(k, dtype)[0]
+                    for k in ("gather_rows", "gather_rows_smem"))
+    sfx = glob.removeprefix("gather_rows")
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
     err = {} if err is None else err
     rows = {}
-    print("\nphase 4: kernel times (ms: CUDA events over repeated Python "
-          "calls; device_ms: torch.profiler's time of the kernels they "
-          "launched)", flush=True)
 
     def line(name, kernel, library, plain, nbytes, shape, got, want, iters,
              plain_iters, others=None, **extra):
-        check(torch.equal(got, want), f"{name} {shape}: not equal")
-        if name in ("gather_rows", "gather_rows_smem"):
+        shape = shape + _dtype_tag(dtype)
+        check(_bits_equal(torch, got, want), f"{name} {shape}: not equal")
+        if name in KERNEL_INFO:
             err[name] = max(err.get(name, 0.0),
-                            (got - want).abs().max().item())
+                            (got.double() - want.double()).abs().max().item())
         fns = {"library": library, "kernel": kernel, **(others or {})}
         t = _in_turns(torch, fns, iters)
         ms, dms, knames = t["kernel"]
@@ -1276,51 +1463,52 @@ def gather_times(torch, err=None):
     idx1 = (base[:, None] + torch.tensor(p.index, device=dev)[None, :]
             ).reshape(1, -1).to(torch.int32)
     n, v = idx1.shape[1], p.footprint()
-    table = torch.randn(1, v, 1, generator=gen, device=dev)
-    line("gather_rows",
+    table = torch.randn(1, v, 1, generator=gen, device=dev).to(dtype)
+    line(glob,
          lambda: g.gather_rows_global(table, idx1),
          lambda: torch.index_select(table[0], 0, idx1[0]),
          lambda: gather_rows_ref(table, idx1),
-         n * 4 + torch.unique(idx1).numel() * 4 + n * 4, [1, v, 1],
+         n * 4 + torch.unique(idx1).numel() * e + n * e, [1, v, 1],
          g.gather_rows_global(table, idx1), gather_rows_ref(table, idx1),
          20, 5)
     del idx1, base
 
     # the same table read at 2^24 uniform-random lanes: each unique row is
-    # read once in the bound, but each random 4-byte read pulls a 32-byte
-    # sector, so the sector bound is the one in reach
+    # read once in the bound, but each random read pulls a 32-byte sector,
+    # so the sector bound is the one in reach
     idx_r = torch.randint(0, v, (1, 2 ** 24), generator=gen, device=dev,
                           dtype=torch.int32)
     uniq = torch.unique(idx_r)
-    sectors = torch.unique(uniq // 8).numel()
+    sectors = torch.unique(uniq // (32 // e)).numel()
     nr = idx_r.shape[1]
-    line("gather_rows_random",
+    line(f"gather_rows_random{sfx}",
          lambda: g.gather_rows_global(table, idx_r),
          lambda: torch.index_select(table[0], 0, idx_r[0]),
-         None, nr * 8 + uniq.numel() * 4, [1, v, 1, "random", nr],
+         None, nr * (4 + e) + uniq.numel() * e, [1, v, 1, "random", nr],
          g.gather_rows_global(table, idx_r), gather_rows_ref(table, idx_r),
-         20, 0, sector_bytes=nr * 8 + sectors * 32,
-         sector_bound_ms=(nr * 8 + sectors * 32) / HBM_BYTES_PER_S * 1e3)
+         20, 0, sector_bytes=nr * (4 + e) + sectors * 32,
+         sector_bound_ms=(nr * (4 + e) + sectors * 32) / HBM_BYTES_PER_S
+         * 1e3)
     del table, idx_r, uniq
     torch.cuda.empty_cache()
 
     # gather_rows_smem: demo.json's UNIFORM:8:1 gather bucket
     demo = SuitePlan.build(load_suite(str(ROOT / "suites" / "demo.json")))
     bucket = next(b for b in demo.buckets if b.spec.kind == "gather"
-                  and g.use_smem(b.spec.footprint + 1, b.spec.idx_len, 1))
+                  and g.use_smem(b.spec.footprint + 1, b.spec.idx_len, 1, e))
     members = [demo.patterns[i] for i in bucket.members]
     (tb, ib), _ = _assemble_members(bucket.spec, members, 1,
-                                    [0] * len(members), dev)
+                                    [0] * len(members), dev, dtype=dtype)
     flat = (ib.to(torch.int64) + torch.arange(
         ib.shape[0], device=dev)[:, None] * tb.shape[1]).reshape(-1)
     bsz, nd, vd = ib.shape[0], ib.shape[1], tb.shape[1]
-    smem = _smem_layout(g, bsz, nd, vd)
-    line("gather_rows_smem",
+    smem = _smem_layout(g, bsz, nd, vd, e)
+    line(smem_k,
          lambda: g.gather_rows_smem(tb, ib,
                                     lanes_per_cta=smem["lanes_per_cta"]),
          lambda: torch.index_select(tb.reshape(-1, 1), 0, flat),
          lambda: gather_rows_ref(tb, ib),
-         ib.numel() * 4 + torch.unique(flat).numel() * 4 + ib.numel() * 4,
+         ib.numel() * 4 + torch.unique(flat).numel() * e + ib.numel() * e,
          list(tb.shape), g.gather_rows_smem(
              tb, ib, lanes_per_cta=smem["lanes_per_cta"]),
          gather_rows_ref(tb, ib), 200, 50,
@@ -1334,12 +1522,12 @@ def gather_times(torch, err=None):
                         dtype=torch.int32)
     tb2 = tb[:1].contiguous()
     n2 = ib2.shape[1]
-    smem = _smem_layout(g, 1, n2, vd)
-    line("gather_rows_smem_2p24",
+    smem = _smem_layout(g, 1, n2, vd, e)
+    line(f"gather_rows_smem_2p24{sfx}",
          lambda: g.gather_rows_smem(tb2, ib2,
                                     lanes_per_cta=smem["lanes_per_cta"]),
          lambda: torch.index_select(tb2[0], 0, ib2[0]),
-         None, n2 * 8 + torch.unique(ib2).numel() * 4,
+         None, n2 * (4 + e) + torch.unique(ib2).numel() * e,
          [1, vd, 1, "random", n2], g.gather_rows_smem(
              tb2, ib2, lanes_per_cta=smem["lanes_per_cta"]),
          gather_rows_ref(tb2, ib2), 50, 0,
@@ -1372,10 +1560,26 @@ def _turn_times(torch, fns, iters, frag, where):
 
 def kernel_times(torch, err):
     """ms, device_ms, plain_ms, library_ms, bound_ms and max |err| per
-    kernel of the Spatter path and the scan."""
-    out = gather_times(torch, err)
-    out.update(scatter_times(torch, err))
-    out["scatter_store_rows_cov"] = cov_store_time(torch, err)
+    kernel of the Spatter path, each instance of each dtype (the gathers
+    and stores serve both 16-bit types with one instance, timed in
+    bfloat16; the add has one a type), and the scan."""
+    from repro_torch.kernels._build import DTYPES, spatter_instance
+    print("\nphase 4: kernel times (ms: CUDA events over repeated Python "
+          "calls; device_ms: torch.profiler's time of the kernels they "
+          "launched)", flush=True)
+    out = {}
+    for dtype in DTYPES:
+        def new(kernel):
+            return spatter_instance(kernel, dtype)[0] not in out
+        if new("gather_rows"):
+            out.update(gather_times(torch, err, dtype))
+        out.update(scatter_times(torch, err, dtype,
+                                 store=new("scatter_store_rows")))
+        if new("scatter_store_rows_cov"):
+            out[spatter_instance("scatter_store_rows_cov", dtype)[0]] = (
+                cov_store_time(torch, err, dtype))
+        if dtype == torch.float32:
+            out["lulesh_s3_add"] = lulesh_add_time(torch)
     out["selective_scan"] = scan_time(torch, err)
     return out
 
@@ -1393,15 +1597,23 @@ def store_scan_times(torch):
     return rows
 
 
-def scatter_times(torch, err):
-    """Both scatters at the CLI's shapes, each beside its library call in
-    turns (``_turn_times``: ``index_put_`` for the store, ``index_add_``
-    for the add), and the add once more on appdb's LULESH-S3."""
+def scatter_times(torch, err, dtype=None, store=True):
+    """The scatters' instances of ``dtype`` (default float32) at the CLI's
+    shapes, each beside its library call at the same dtype in turns
+    (``_turn_times``: ``index_put_`` for the store, ``index_add_`` for the
+    add; ``store=False``: the add only).  Bytes count a lane's 4-byte
+    index, 1-byte keep and the dtype's rows."""
     from repro_torch import appdb, make_pattern
+    from repro_torch.kernels import _build
     from repro_torch.kernels.scatter_rows import ops as s
     from repro_torch.kernels.scatter_rows.ref import (add_error_bound,
                                                       scatter_add_rows_ref_,
                                                       scatter_store_rows_ref_)
+    dtype = dtype or torch.float32
+    e = torch.tensor([], dtype=dtype).element_size()
+    store_k, add_k = (_build.spatter_instance(k, dtype)[0]
+                      for k in ("scatter_store_rows", "scatter_add_rows"))
+    tag = _dtype_tag(dtype)
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(1)     # the scatters'
     out = {}
@@ -1432,48 +1644,63 @@ def scatter_times(torch, err):
     uniq = torch.unique(idx1).numel()
 
     # scatter_store_rows: the CLI store scatter, dst (1, 2^27, 1)
-    vals = torch.randn(1, n, 1, generator=gen, device=dev)
-    keep = _keep_last_dev(torch, idx1[0])[None]
-    dst = torch.zeros(1, v, 1, device=dev)
-    got = s.scatter_store_rows_(dst.clone(), idx1, keep, vals)
-    want = scatter_store_rows_ref_(dst.clone(), idx1, keep, vals)
-    check(torch.equal(got, want), "scatter_store_rows at CLI shape")
-    del got, want
-    rows_k = idx1[0][keep[0]].to(torch.int64)
-    vals_k = vals[0][keep[0]]
-    kept = rows_k.numel()
-    record("scatter_store_rows",
-           _turn_times(torch, {
-               "library": lambda: dst.view(-1, 1).index_put_((rows_k,),
-                                                             vals_k),
-               "kernel": lambda: s.scatter_store_rows_(dst, idx1, keep,
-                                                       vals)},
-               20, "store", "scatter_store_rows"),
-           _time_ms(torch, lambda: scatter_store_rows_ref_(dst, idx1, keep,
-                                                           vals), 5),
-           n * 4 + n * 1 + kept * 4 + kept * 4, [1, v, 1], 0.0)
-    del rows_k, vals_k, keep
+    vals = torch.randn(1, n, 1, generator=gen, device=dev).to(dtype)
+    dst = torch.zeros(1, v, 1, device=dev, dtype=dtype)
+    if store:
+        keep = _keep_last_dev(torch, idx1[0])[None]
+        got = s.scatter_store_rows_(dst.clone(), idx1, keep, vals)
+        want = scatter_store_rows_ref_(dst.clone(), idx1, keep, vals)
+        check(_bits_equal(torch, got, want), f"{store_k} at CLI shape")
+        del got, want
+        rows_k = idx1[0][keep[0]].to(torch.int64)
+        vals_k = vals[0][keep[0]]
+        kept = rows_k.numel()
+        record(store_k,
+               _turn_times(torch, {
+                   "library": lambda: dst.view(-1, 1).index_put_((rows_k,),
+                                                                 vals_k),
+                   "kernel": lambda: s.scatter_store_rows_(dst, idx1, keep,
+                                                           vals)},
+                   20, "store", store_k),
+               _time_ms(torch, lambda: scatter_store_rows_ref_(
+                   dst, idx1, keep, vals), 5),
+               n * 4 + n * 1 + kept * e + kept * e, [1, v, 1] + tag, 0.0)
+        del rows_k, vals_k, keep
 
     # scatter_add_rows: the CLI add scatter into zeros
     dst.zero_()
     got = s.scatter_add_rows_(dst.clone(), idx1, vals)
     want = scatter_add_rows_ref_(dst.clone(), idx1, vals)
-    diff = (got - want).abs().double()
+    diff = (got.double() - want.double()).abs()
     check(bool((diff <= add_error_bound(idx1, vals, v)).all()),
-          "scatter_add_rows at CLI shape: over add_error_bound")
-    del got, want
-    record("scatter_add_rows",
+          f"{add_k} at CLI shape: over add_error_bound")
+    worst = diff.max().item()
+    del got, want, diff
+    record(add_k,
            _turn_times(torch, {
                "library": lambda: dst.view(-1, 1).index_add_(0, idx1[0],
                                                              vals[0]),
                "kernel": lambda: s.scatter_add_rows_(dst, idx1, vals)},
-               20, "scatter_add", "scatter_add_rows"),
+               20, "scatter_add", add_k),
            _time_ms(torch, lambda: scatter_add_rows_ref_(dst, idx1, vals), 5),
-           n * 4 + n * 4 + 2 * uniq * 4, [1, v, 1], diff.max().item())
-    del dst, vals, idx1, diff
+           n * 4 + n * e + 2 * uniq * e, [1, v, 1] + tag, worst)
+    del dst, vals, idx1
+    torch.cuda.empty_cache()
+    return out
 
-    # scatter_add_rows on appdb's LULESH-S3 (delta 0): all 2^25 lanes land
-    # on 16 rows, so the atomics serialise there; timed, not redesigned
+
+def lulesh_add_time(torch):
+    """The float32 add on appdb's LULESH-S3 (delta 0): all 2^25 lanes land
+    on 16 rows, so the atomics serialise there; timed, not redesigned,
+    beside ``index_add_``.  (At 16 bits such a row has no error bound, K *
+    u >= 1/2, and the hot rows' atomics take far longer:
+    ``probes/hot_row_add_probe.py``.)"""
+    from repro_torch import appdb
+    from repro_torch.kernels.scatter_rows import ops as s
+    from repro_torch.kernels.scatter_rows.ref import (add_error_bound,
+                                                      scatter_add_rows_ref_)
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(5)
     p3 = appdb.scale_counts([appdb.get("LULESH-S3")], 1.0)[0]
     idx3 = torch.tensor(p3.index, device=dev, dtype=torch.int32).repeat(
         p3.count)[None]
@@ -1490,41 +1717,44 @@ def scatter_times(torch, err):
                                                              vals3), 5),
               library_ms=_time_ms(torch, lambda: dst3.view(-1, 1).index_add_(
                   0, idx3[0], vals3[0]), 5),
-              bound_ms=bound(n3 * 4 * 2 + 2 * v3 * 4))
+              bound_ms=(n3 * 4 * 2 + 2 * v3 * 4) / HBM_BYTES_PER_S * 1e3)
     print(f"  scatter_add_rows on LULESH-S3 ({n3} lanes -> {v3} rows): "
           f"kernel {s3['ms']:.4f} ms, library {s3['library_ms']:.4f} ms, "
           f"bytes bound {s3['bound_ms']:.4f} ms, max |err| "
           f"{s3['max_abs_err']}", flush=True)
-    out["lulesh_s3_add"] = s3
     del got, want, diff, idx3, vals3, dst3
     torch.cuda.empty_cache()
-    return out
+    return s3
 
 
-def cov_store_time(torch, err):
-    """The coverage store at the shape the lane-split CLI store gives each
-    shard at (1, 2): the first 2^26 lanes of UNIFORM:8:1 (rows 0 .. 2^26
-    - 1, every lane kept) into a zeroed (1, 2^27 + 1, 1) dst and its
-    (1, 2^27 + 1) map; beside its plain version and ``index_put_`` plus
-    an ``index_fill_`` of the map (no one PyTorch call gives both)."""
+def cov_store_time(torch, err, dtype=None):
+    """The coverage store's instance of ``dtype`` (default float32) at the
+    shape the lane-split CLI store gives each shard at (1, 2): the first
+    2^26 lanes of UNIFORM:8:1 (rows 0 .. 2^26 - 1, every lane kept) into a
+    zeroed (1, 2^27 + 1, 1) dst and its (1, 2^27 + 1) map; beside its
+    plain version and ``index_put_`` plus an ``index_fill_`` of the map (no
+    one PyTorch call gives both)."""
+    from repro_torch.kernels import _build
     from repro_torch.kernels.scatter_rows import ops as s
     from repro_torch.kernels.scatter_rows.ref import scatter_store_rows_ref_
+    dtype = dtype or torch.float32
+    e = torch.tensor([], dtype=dtype).element_size()
+    name = _build.spatter_instance("scatter_store_rows_cov", dtype)[0]
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(3)
     n, v = 2 ** 26, 2 ** 27 + 1
     idx = torch.arange(n, device=dev, dtype=torch.int32)[None]
     keep = torch.ones_like(idx, dtype=torch.bool)
-    vals = torch.randn(1, n, 1, generator=gen, device=dev)
+    vals = torch.randn(1, n, 1, generator=gen, device=dev).to(dtype)
     vals.view(-1)[::7] = -0.0
-    dst = torch.zeros(1, v, 1, device=dev)
+    dst = torch.zeros(1, v, 1, device=dev, dtype=dtype)
     cov = torch.zeros(1, v, dtype=torch.int32, device=dev)
     got, got_cov = dst.clone(), cov.clone()
     s.scatter_store_rows_(got, idx, keep, vals, got_cov)
     want, want_cov = dst.clone(), cov.clone()
     scatter_store_rows_ref_(want, idx, keep, vals, want_cov)
-    check(torch.equal(got.view(torch.int32), want.view(torch.int32))
-          and torch.equal(got_cov, want_cov),
-          "scatter_store_rows_cov at the lane-split CLI shape")
+    check(_bits_equal(torch, got, want) and torch.equal(got_cov, want_cov),
+          f"{name} at the lane-split CLI shape")
     del got, got_cov, want, want_cov
     rows = idx[0].to(torch.int64)
     flat, cov_flat, vals_k = dst.view(-1, 1), cov.view(-1), vals[0]
@@ -1535,14 +1765,14 @@ def cov_store_time(torch, err):
     row = _turn_times(torch, {
         "library": library,
         "kernel": lambda: s.scatter_store_rows_(dst, idx, keep, vals, cov)},
-        20, "store", "scatter_store_rows_cov")
-    nbytes = n * (4 + 1) + n * (4 + 4 + 4)    # idx, keep; vals, row, mark
+        20, "store", name)
+    nbytes = n * (4 + 1) + n * (e + e + 4)    # idx, keep; vals, row, mark
     row.update(plain_ms=_time_ms(torch, lambda: scatter_store_rows_ref_(
                    dst, idx, keep, vals, cov), 5),
                bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
-               bytes=nbytes, shape=[1, v, 1])
-    err["scatter_store_rows_cov"] = 0.0
-    print(f"  scatter_store_rows_cov {row['shape']} at {n} lanes: kernel ms "
+               bytes=nbytes, shape=[1, v, 1] + _dtype_tag(dtype))
+    err[name] = 0.0
+    print(f"  {name} {row['shape']} at {n} lanes: kernel ms "
           f"{row['ms_pair']} device_ms {row['device_ms_pair']}; library "
           f"ms {row['library_ms_pair']} device_ms "
           f"{row['library_device_ms_pair']}; plain {row['plain_ms']:.4f} "
@@ -2359,34 +2589,49 @@ CLI_ADD_2X1_RATIO = 2.0
 
 @contextlib.contextmanager
 def _host_buffers_once():
-    """Draw each pattern's host buffers once across phase 8's runs: the
-    planner's numpy draws (outside every timed region) would otherwise
-    take most of the phase.  Launches and outputs do not change."""
+    """Draw each pattern's host buffers once, and stack each bucket's
+    members once for each launched (batch, lanes, mode), across phases 8,
+    10 and 11: the planner's numpy draws and stacking (outside every timed
+    region) would otherwise take most of those phases (appdb's buckets
+    stack ~14 GB).  The launch copies the stacked arrays to the device and
+    writes only there, so they are reused as they are.  Launches and
+    outputs do not change."""
     from repro_torch import plan
-    real = plan.make_host_buffers
+    real, real_stack = plan.make_host_buffers, plan._host_members
     if getattr(real, "memo", None) is not None:   # already drawing once
         yield
         return
-    memo = {}
+    memo, stacked = {}, {}
 
     def once(p, row_width, seed=0):
         if (p, row_width, seed) not in memo:
             memo[p, row_width, seed] = real(p, row_width, seed=seed)
         return memo[p, row_width, seed]
+
+    def stack_once(spec, patterns, row_width, seeds, batch=None,
+                   mode="store", lanes=None):
+        key = (spec, tuple(patterns), row_width, tuple(seeds), batch, mode,
+               lanes)
+        if key not in stacked:
+            stacked[key] = real_stack(spec, patterns, row_width, seeds,
+                                      batch=batch, mode=mode, lanes=lanes)
+        return stacked[key]
     once.memo = memo
-    plan.make_host_buffers = once
+    plan.make_host_buffers, plan._host_members = once, stack_once
     try:
         yield
     finally:
-        plan.make_host_buffers = real
+        plan.make_host_buffers, plan._host_members = real, real_stack
 
 
-def _placed_suite(torch, pats, mode, mesh, cache):
-    """``pats`` on hopper through the planner's entry points (``make_work``
-    -> ``launch`` -> ``demux``, as ``run_plan`` drives them), with digests,
-    each bucket launch placed on ``mesh`` (None: unplaced).  Returns the
-    digests, the add outputs by position, the summed min-of-``RUNS``
-    bucket times, the peak device memory and the wall."""
+def _placed_suite(torch, pats, mode, mesh, cache, backend="hopper",
+                  dtype=None):
+    """``pats`` on ``backend`` through the planner's entry points
+    (``make_work`` -> ``launch`` -> ``demux``, as ``run_plan`` drives
+    them), with digests, each bucket launch placed on ``mesh`` (None:
+    unplaced), in ``dtype`` (default float32).  Returns the digests, the
+    add outputs by position, the results by position, the summed
+    min-of-``RUNS`` bucket times, the peak device memory and the wall."""
     from repro_torch.plan import SuitePlan, demux, launch, make_work
     plan = SuitePlan.build(pats)
     gc.collect()
@@ -2394,16 +2639,17 @@ def _placed_suite(torch, pats, mode, mesh, cache):
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     digests, outs, ms = [None] * len(pats), {}, 0.0
-    for w in make_work(plan, backend="hopper", runs=RUNS, mode=mode,
-                       digest=True, mesh=mesh):
+    results = [None] * len(pats)
+    for w in make_work(plan, backend=backend, runs=RUNS, mode=mode,
+                       digest=True, mesh=mesh, dtype=dtype):
         res = launch((w,), cache)
         ms += res.t_bucket * 1e3
         for i, (pos, r) in enumerate(demux(res, w)):
-            digests[pos] = r.out_digest
+            digests[pos], results[pos] = r.out_digest, r
             if mode == "add":
                 outs[pos] = res.out[i, :w.patterns[i].footprint()].clone()
-    return dict(plan=plan, digests=digests, outs=outs, ms=ms,
-                peak=torch.cuda.max_memory_allocated(),
+    return dict(plan=plan, digests=digests, outs=outs, results=results,
+                ms=ms, peak=torch.cuda.max_memory_allocated(),
                 wall_s=time.perf_counter() - t0)
 
 
@@ -2927,7 +3173,7 @@ def candidate_cases(torch):
                         table, idx, autotune.TileChoice(vecs=1))
                     if v * r * 4 <= g.SMEM_TABLE_BYTES:
                         legacy = g.smem_lanes_per_cta(
-                            bsz, n, v, g.smem_resident_ctas(v, r, 0))
+                            bsz, n, v, g.smem_resident_ctas(v, r, 0, 4))
                         for lanes in sorted({legacy, 256, -(-n // 8)}):
                             calls[f"gather_rows_smem lanes={lanes}"] = (
                                 lambda lanes=lanes: g.gather_rows_smem(
@@ -3299,6 +3545,205 @@ def _serve_modes(daemon, cache_dir, env, demo_results, out):
         out["error"] = e
 
 
+# -- phase 11: the Spatter main path in bfloat16 and float16 ------------------
+
+def dtype_phase(torch):
+    """Phase 11: the Spatter path on 16-bit tables, inside
+    ``_host_buffers_once()`` (phase 8's float32 draws, converted by
+    ``host.as_dtype``; nothing is drawn anew).  (a) demo and the CLI
+    pattern (gather and store in store mode, the scatter in add mode) in
+    bfloat16 and float16, and appdb at scale 1.0 in bfloat16 (store
+    mode), each on hopper and torch through the planner's entry points:
+    gather and store digests equal between the two, every add output
+    within ``add_error_bound`` at its dtype of the other's (rows whose
+    bound is inf: finite only); the launch counts, set to 0 just before,
+    rise by buckets x (1 + ``RUNS``) under the 16-bit kernels' names, and
+    no float32 Spatter kernel launches; the first runs search the new
+    16-bit tile keys.  (b) ``run_suite(demo, dtype=bfloat16,
+    digest=True)`` on hopper: (a)'s digests, and no search.  (c) demo in
+    bfloat16 at (1, 2) and (2, 1) over ``[cuda:0] * n``: its unplaced
+    digests, the 16-bit coverage store at (1, 2), and its scatters in add
+    mode within ``add_error_bound`` of (a)'s unplaced hopper outputs (at
+    (1, 2) the shards' partials are summed in bfloat16).  (d) lint and cost of
+    demo in bfloat16 on hopper: clean, with 2-byte rows (useful and table
+    bytes half float32's).  Returns the numbers for the records."""
+    from repro_torch import appdb, load_suite, run_suite
+    from repro_torch.analysis import cost, lint
+    from repro_torch.host import as_dtype
+    from repro_torch.kernels import autotune, reset_launches
+    from repro_torch.kernels.scatter_rows.ref import add_error_bound
+    from repro_torch.pattern import Pattern
+    from repro_torch.plan import ExecutorCache, Placement, make_host_buffers
+    from repro_torch.suite import harmonic_mean
+    t_phase = time.perf_counter()
+    bf16, f16 = torch.bfloat16, torch.float16
+    cuda0 = torch.device("cuda", 0)
+    out = {}
+    print(f"\nphase 11: Spatter in bfloat16 and float16 on "
+          f"{torch.cuda.get_device_name(0)}", flush=True)
+    demo = load_suite(str(ROOT / "suites" / "demo.json"))
+    cli = [Pattern.from_json(_cli_doc(k)) for k in ("Gather", "Scatter")]
+    cells = (("demo", demo, bf16, ("store", "add")),
+             ("demo", demo, f16, ("store", "add")),
+             ("cli", cli, bf16, ("store", "add")),
+             ("cli", cli, f16, ("store", "add")),
+             ("appdb", appdb.scale_counts(appdb.ALL_PATTERNS, 1.0), bf16,
+              ("store",)))
+    searched0 = autotune.stats()["searched"]
+    reset_launches()
+    expect = {k: 0 for k in _launches()}
+    cache = ExecutorCache()
+    rows, digests, adds = [], {}, {}
+    inf_rows = 0
+
+    def within_bound(got, other, pat, dtype, where):
+        """``got`` within ``add_error_bound`` at ``dtype`` of ``other``
+        (rows whose bound is inf: finite only); returns those rows."""
+        _, idx, vals, _ = make_host_buffers(pat, 1)
+        bound = add_error_bound(torch.from_numpy(idx)[None].to(cuda0),
+                                as_dtype(vals, dtype)[None].to(cuda0),
+                                pat.footprint())[0].cpu()
+        inf = torch.isinf(bound)
+        diff = (got.double() - other.double()).abs()
+        check(bool((diff[~inf] <= bound[~inf]).all())
+              and bool(torch.isfinite(got).all()),
+              f"phase 11: {where} add {pat.name} over add_error_bound or "
+              f"not finite")
+        return int(inf.any(-1).sum())
+
+    for name, pats, dtype, modes in cells:
+        dname = str(dtype).removeprefix("torch.")
+        for mode in modes:
+            run = pats if mode == "store" else [x for x in pats
+                                               if x.kind == "scatter"]
+            res = {b: _placed_suite(torch, run, mode, None, cache, b, dtype)
+                   for b in ("hopper", "torch")}
+            for bucket in res["hopper"]["plan"].buckets:
+                expect[_bucket_kernel(bucket, mode, dtype=dtype)] += 1 + RUNS
+            if mode == "store":
+                mine, theirs = res["hopper"]["digests"], res["torch"]["digests"]
+                check(mine == theirs,
+                      f"phase 11: {name} {dname} hopper and torch digests "
+                      f"differ at {[x.name for x, a, b in zip(run, mine, theirs) if a != b]}")
+                digests[name, dname] = mine
+            else:
+                adds[name, dname] = res["hopper"]["outs"]
+                for pos, got in res["hopper"]["outs"].items():
+                    inf_rows += within_bound(got, res["torch"]["outs"][pos],
+                                             run[pos], dtype,
+                                             f"{name} {dname}")
+            for b in ("hopper", "torch"):
+                r = res[b]
+                gbs = [x.measured_gbs for x in r["results"]]
+                rows.append(dict(suite=name, dtype=dname, mode=mode,
+                                 backend=b, n_buckets=r["plan"].n_buckets,
+                                 ms=r["ms"], hmean_gbs=harmonic_mean(gbs),
+                                 min_gbs=min(gbs), max_gbs=max(gbs),
+                                 elem_bytes=r["results"][0].elem_bytes,
+                                 wall_s=r["wall_s"]))
+                check(r["results"][0].elem_bytes == 2,
+                      f"phase 11: {name} {dname}: elem_bytes "
+                      f"{r['results'][0].elem_bytes}")
+                print(f"  (a) {name:5s} {dname:8s} {mode:5s} {b:6s} "
+                      f"{r['plan'].n_buckets:2d} buckets: {r['ms']:.4f} ms "
+                      f"summed min-of-{RUNS}, hmean "
+                      f"{rows[-1]['hmean_gbs']:.2f} GB/s, wall "
+                      f"{r['wall_s']:.1f} s", flush=True)
+    census = _launches()
+    check(census == expect, f"phase 11: launches {census} != {expect}")
+    check(all(census[k] == 0 for k in F32_SPATTER),
+          f"phase 11: a float32 Spatter kernel launched: {census}")
+    searched = autotune.stats()["searched"] - searched0
+    check(searched > 0, "phase 11: no 16-bit tile key was searched")
+    # -0.0 in float16: float32 draws below 2^-25 in magnitude round to it
+    _, _, vals, _ = make_host_buffers(cli[1], 1)
+    v16 = as_dtype(vals, f16)
+    neg_zero = int(((v16 == 0) & torch.signbit(v16)).sum())
+    print(f"  (a) launches {census} = buckets x (1 + {RUNS}); no float32 "
+          f"Spatter kernel; {searched} 16-bit tile keys searched; "
+          f"{inf_rows} add rows with an inf bound checked finite; the CLI "
+          f"scatter's float16 payloads hold {neg_zero} -0.0", flush=True)
+    out.update(rows=rows, launches=census, searched=searched,
+               inf_rows=inf_rows, cli_f16_neg_zero=neg_zero)
+
+    before = autotune.stats()["searched"]
+    st = run_suite(demo, backend="hopper", runs=RUNS, dtype=bf16,
+                   digest=True)
+    check([r.out_digest for r in st.results] == digests["demo", "bfloat16"],
+          "phase 11: run_suite(demo, bfloat16) digests differ")
+    check(autotune.stats()["searched"] == before,
+          "phase 11: a repeat searched a tile key")
+    print(f"  (b) run_suite(demo, dtype=bfloat16): the same digests, hmean "
+          f"{st.hmean_gbs:.2f} GB/s, no search", flush=True)
+
+    # the legacy rules stage demo's UNIFORM:8:1 table (64 KiB at 2 bytes):
+    # the search sends no bucket to the smem gather on an H100
+    reset_launches()
+    with autotune.disabled():
+        r = _placed_suite(torch, demo, "store", None, ExecutorCache(),
+                          "hopper", bf16)
+    legacy = _launches()
+    check(r["digests"] == digests["demo", "bfloat16"]
+          and legacy["gather_rows_smem_b16"] > 0,
+          f"phase 11: demo bfloat16 under the legacy rules: launches "
+          f"{legacy}, digests equal {r['digests'] == digests['demo', 'bfloat16']}")
+    out["legacy_launches"] = legacy
+    print(f"  (b) demo bfloat16 under the legacy rules: the same digests; "
+          f"launches {legacy}", flush=True)
+
+    reset_launches()
+    expect = {k: 0 for k in _launches()}
+    scatters = [x for x in demo if x.kind == "scatter"]
+    for b, l in ((1, 2), (2, 1)):
+        mesh = Placement.create((b, l), devices=[cuda0] * (b * l))
+        for mode, run in (("store", demo), ("add", scatters)):
+            r = _placed_suite(torch, run, mode, mesh, cache, "hopper", bf16)
+            for bucket in r["plan"].buckets:
+                expect[_bucket_kernel(bucket, mode, (b, l), bf16)] += (
+                    (1 + RUNS) * b * l)
+            if mode == "store":
+                check(r["digests"] == digests["demo", "bfloat16"],
+                      f"phase 11: demo bfloat16 at ({b}, {l}): digests "
+                      f"differ")
+                continue
+            # a lane split sums the shards' partials in bfloat16
+            for pos, got in r["outs"].items():
+                inf_rows += within_bound(got, adds["demo", "bfloat16"][pos],
+                                         run[pos], bf16,
+                                         f"demo bfloat16 at ({b}, {l})")
+    census = _launches()
+    check(census == expect and census["scatter_store_rows_cov_b16"] > 0
+          and census["scatter_add_rows_bf16"] > 0,
+          f"phase 11: placed launches {census} != {expect}")
+    out.update(placed_launches=census, inf_rows=inf_rows)
+    print(f"  (c) demo bfloat16 at (1, 2) and (2, 1): unplaced digests, "
+          f"adds within add_error_bound of the unplaced ones; launches "
+          f"{census}", flush=True)
+
+    reps = {}
+    for dtype in (torch.float32, bf16):
+        kw = dict(backend="hopper", dtype=dtype, label="demo.json",
+                  device=cuda0)
+        rep = lint.lint_plan(demo, **kw)
+        crep = cost.cost_plan(demo, **kw)
+        check(rep.ok and crep.ok, f"phase 11: lint or cost of demo "
+              f"{dtype}: {rep.summary()} {crep.summary()}")
+        reps[dtype] = (rep, crep)
+    half = {k: sum(getattr(u, k) for u in reps[bf16][1].units)
+            for k in ("useful_bytes", "table_bytes")}
+    full = {k: sum(getattr(u, k) for u in reps[torch.float32][1].units)
+            for k in ("useful_bytes", "table_bytes")}
+    check(all(2 * half[k] == full[k] for k in half),
+          f"phase 11: cost of demo bfloat16 {half} vs float32 {full}")
+    out.update(lint_units=reps[bf16][0].n_units, cost_bytes=half)
+    print(f"  (d) demo bfloat16 on hopper: {reps[bf16][0].n_units} lint "
+          f"units clean, cost clean, useful and table bytes {half} (float32 "
+          f"{full})", flush=True)
+    out["wall_s"] = time.perf_counter() - t_phase
+    print(f"phase 11 wall {out['wall_s']:.1f} s", flush=True)
+    return out
+
+
 # a fresh process over a disk tier: demo on hopper, from the tier alone
 _WARM_RESTART = """
 import json, sys
@@ -3371,6 +3816,7 @@ def main():
     with _host_buffers_once():
         placed = placement_phase(torch, suite_stats)
         tuned = autotune_phase(torch, suite_stats)
+        halves = dtype_phase(torch)
     path_launches = {k: main_launches[k] for k in SPATTER_KERNELS}
     path_launches["scatter_store_rows_cov"] = placed["launches"][
         "scatter_store_rows_cov"]
@@ -3379,6 +3825,12 @@ def main():
     path_launches["gather_rows_smem"] = (main_launches["gather_rows_smem"]
                                          or tuned["launches"][
                                              "gather_rows_smem"])
+    for k in B16_KERNELS:                  # phase 11's runs
+        path_launches[k] = (halves["launches"][k]
+                            or halves["placed_launches"][k]
+                            or halves["legacy_launches"][k])
+    check(all(path_launches[k] > 0 for k in B16_KERNELS),
+          f"a 16-bit kernel never launched in phase 11: {path_launches}")
     path_launches["selective_scan"] = serve_launches["selective_scan"]
     for k in ("flash_attention", "paged_decode"):
         path_launches[k] = llama_launches[k]
@@ -3406,7 +3858,8 @@ def main():
           f"{served['max_memory_allocated']} bytes in phase 5, "
           f"{served_llama['max_memory_allocated']} bytes in phase 6")
     print(json.dumps({"cli": cli, "suites_hopper": suites,
-                      "gathers": {k: times[k] for k in GATHER_LINES},
+                      "gathers": {k: v for k, v in times.items()
+                                  if k.startswith("gather_rows")},
                       "lulesh_s3_add": lulesh_s3_add,
                       "selective_scan": times["selective_scan"],
                       "flash_attention": times["flash_attention"],
@@ -3415,6 +3868,7 @@ def main():
     print(json.dumps({"daemon": daemon}))
     print(json.dumps({"placements": placed}))
     print(json.dumps({"autotune": tuned}))
+    print(json.dumps({"dtypes": halves}))
     print(json.dumps({"analysis": analysis}))
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

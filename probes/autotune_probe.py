@@ -60,7 +60,7 @@ def regime(torch, g, out):
     for nbytes in TABLE_BYTES:
         v = nbytes // 4
         table = torch.randn(1, v, 1, device=dev, generator=gen)
-        resident = g.smem_resident_ctas(v, 1, 0)
+        resident = g.smem_resident_ctas(v, 1, 0, 4)
         for ratio in RATIOS:
             n = int(v * ratio)
             for pattern in ("contiguous", "random"):
@@ -75,7 +75,7 @@ def regime(torch, g, out):
                                                   if x < whole})
                 row = dict(sweep="regime", bytes=nbytes, v=v, n=n, b=1, d=1,
                            pattern=pattern, resident=resident)
-                if g.use_smem(v, n, 1):
+                if g.use_smem(v, n, 1, 4):
                     for lp in lanes:
                         us = device_us(torch, lambda: g.gather_rows_smem(
                             table, idx, lanes_per_cta=lp), iters)

@@ -49,13 +49,23 @@ SYNC_EXEMPT = {
 # (restored from disk) gets
 KEY_ONLY_RULES = ("canonical-exec-key", "cost-regression")
 
-# the hand-written kernel each shard of a hopper launch may run
+# the hand-written kernel each shard of a hopper launch may run (their
+# float32 names: ``_instances`` names those of the key's dtype)
 _HOPPER_KERNELS = {
     ("gather", ""): ("gather_rows", "gather_rows_smem"),
     ("scatter", "store"): ("scatter_store_rows",),
     ("scatter", "add"): ("scatter_add_rows",),
 }
 _LANE_SPLIT_STORE = ("scatter_store_rows_cov",)
+
+
+def _instances(names, dtype: str) -> tuple:
+    """The launch-count names of kernels ``names`` at ``dtype`` (a dtype
+    no Spatter kernel takes: the names as they are)."""
+    from ..kernels import _build
+    if dtype not in _build.SPATTER_DTYPES:
+        return tuple(names)
+    return tuple(_build.spatter_instance(n, dtype)[0] for n in names)
 
 
 def _adhoc(key) -> bool:
@@ -190,8 +200,9 @@ def _single_launch(unit: ExecUnit) -> list[Violation]:
     _, l, ndev = placement_grid(k.placement)
     hopper = k.backend == "hopper"
     want = ndev if hopper else 0
-    allowed = (_LANE_SPLIT_STORE if k.kind == "scatter" and k.mode == "store"
-               and l > 1 else _HOPPER_KERNELS.get((k.kind, k.mode), ()))
+    allowed = _instances(
+        _LANE_SPLIT_STORE if k.kind == "scatter" and k.mode == "store"
+        and l > 1 else _HOPPER_KERNELS.get((k.kind, k.mode), ()), k.dtype)
     stray = sorted(set(c.launches) - set(allowed)) if hopper \
         else sorted(c.launches)
     shards = sorted(d for d, _ in c.calls)

@@ -27,7 +27,9 @@ its kernel's launch, the others through the plain version
 (``plan.Placement``).  ``mode="add"`` sums
 duplicates into ``dst``.  The per-pattern ``gather``/``scatter`` are the
 B = 1 case.  Indices must lie in [0, F): the planner sends padding lanes
-to its scratch row.  float32 only.
+to its scratch row.  Tables and payloads are float32, bfloat16 or float16
+(``DTYPES``); every backend runs in their dtype (hopper through its
+kernels' instance of that dtype).
 """
 from __future__ import annotations
 
@@ -35,6 +37,7 @@ from typing import Callable
 
 import torch
 
+from .kernels._build import DTYPES   # float32, bfloat16, float16
 from .kernels.gather_rows import ops as gather_ops
 from .kernels.scatter_rows import ops as scatter_ops
 from .kernels.scatter_rows.ref import store_coverage_
@@ -155,10 +158,12 @@ def check_mode(mode: str) -> None:
 
 
 def check_dtype(dtype) -> torch.dtype:
-    """float32 is the one dtype this slice runs; anything else raises."""
+    """The run's dtype: one of ``DTYPES`` (None: float32); anything else,
+    float64 included, raises."""
     dtype = torch.float32 if dtype is None else dtype
-    if dtype != torch.float32:
-        raise TypeError(f"dtype {dtype} not supported: float32 only")
+    if dtype not in DTYPES:
+        raise TypeError(f"dtype {dtype} not supported: one of "
+                        f"{', '.join(str(d) for d in DTYPES)}")
     return dtype
 
 

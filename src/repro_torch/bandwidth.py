@@ -154,10 +154,12 @@ def pipeline_model(p: Pattern, elem_bytes: int, *, vecs: int = K_VECS,
                    card_threads: int = CARD_THREADS) -> dict:
     """Paper Fig 4's analogue on Hopper: loads in flight a thread.
 
-    The global gather's threads each keep ``vecs`` vectors in flight (the
-    deep instance ``kVecs``, or 1).  The card holds ``card_threads``
-    threads, so a pattern's lanes, 4 to a vector, take ``ceil(lanes / (4
-    * vecs * card_threads))`` waves, each waiting out ``load_latency_s``.
+    The global gather's threads each keep ``vecs`` 16-byte vectors in
+    flight (the deep instance ``kVecs``, or 1).  The card holds
+    ``card_threads`` threads, so a pattern's lanes, ``16 // elem_bytes``
+    to a vector (4 float32 lanes, 8 16-bit ones; 1 where a row fills 16
+    bytes or more), take ``ceil(lanes / (per_vec * vecs * card_threads))``
+    waves, each waiting out ``load_latency_s``.
     With one vector a thread, each wave waits out its latency before its
     bytes move (serialised: prefetch off); with more, the latency overlaps
     the bytes (prefetch on).  The bytes' time is ``h100_sector_model``'s.
@@ -167,7 +169,8 @@ def pipeline_model(p: Pattern, elem_bytes: int, *, vecs: int = K_VECS,
         raise ValueError(f"vecs must be >= 1, got {vecs}")
     sm = h100_sector_model(p, elem_bytes)
     lanes = p.index_len * p.count
-    waves = -(-lanes // (4 * vecs * card_threads))
+    per_vec = max(1, 16 // elem_bytes)
+    waves = -(-lanes // (per_vec * vecs * card_threads))
     lat_time = waves * load_latency_s
     bw_time = sm.modeled_time_s
     total = bw_time + lat_time if vecs == 1 else max(bw_time, lat_time)

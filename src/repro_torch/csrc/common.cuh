@@ -73,6 +73,59 @@ __host__ __device__ inline bool aligned16(const void* p) {
   return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
 }
 
+// A 16-byte vector of lanes of element E (the gathers' and the store's D = 1
+// paths): 4 floats, or 8 16-bit words.  A gather or a store moves bits, so
+// one instance on uint16_t serves bfloat16 and float16 alike.  Its lanes'
+// indices are kLanes / 4 int4 loads.
+template <typename E>
+struct Vec16;
+
+template <>
+struct Vec16<float> {
+  using T = float4;
+  static constexpr int kLanes = 4;
+  __device__ __forceinline__ static float4 pack(const float (&e)[4]) {
+    return make_float4(e[0], e[1], e[2], e[3]);
+  }
+  __device__ __forceinline__ static float lane(const float4& v, int k) {
+    return k == 0 ? v.x : k == 1 ? v.y : k == 2 ? v.z : v.w;
+  }
+};
+
+template <>
+struct Vec16<uint16_t> {
+  using T = uint4;
+  static constexpr int kLanes = 8;
+  __device__ __forceinline__ static uint32_t two(uint16_t lo, uint16_t hi) {
+    return uint32_t{lo} | (uint32_t{hi} << 16);
+  }
+  __device__ __forceinline__ static uint4 pack(const uint16_t (&e)[8]) {
+    return make_uint4(two(e[0], e[1]), two(e[2], e[3]), two(e[4], e[5]),
+                      two(e[6], e[7]));
+  }
+  __device__ __forceinline__ static uint16_t lane(const uint4& v, int k) {
+    const uint32_t w = k < 2 ? v.x : k < 4 ? v.y : k < 6 ? v.z : v.w;
+    return static_cast<uint16_t>(w >> (16 * (k & 1)));
+  }
+};
+
+// Lane m of an int4 (m constant after unrolling).
+__device__ __forceinline__ int32_t int4_lane(const int4& r, int m) {
+  return m == 0 ? r.x : m == 1 ? r.y : m == 2 ? r.z : r.w;
+}
+
+// Where a D = 1 run of E lanes starts its 16-byte vectors: the lanes before
+// out's (or vals') first 16-byte boundary, written to *head; true when idx
+// is 16-byte aligned at that lane too (idx and out "in phase"), so every
+// vector of kLanes lanes after the head reads whole int4s of indices.
+template <typename E>
+bool d1_phase(const void* idx, const void* out, int64_t* head) {
+  const uintptr_t o = reinterpret_cast<uintptr_t>(out);
+  *head = static_cast<int64_t>(((16 - (o & 15)) & 15) / sizeof(E));
+  return o % sizeof(E) == 0 &&
+         aligned16(static_cast<const int32_t*>(idx) + *head);
+}
+
 // Threads the current card holds at once (SMs x threads an SM), asked of
 // the runtime: the rule a global gather or store takes when its caller
 // leaves `vecs` at 0 (below this many threads at the deep setting, one

@@ -28,7 +28,7 @@ import torch
 
 from . import backends as B
 from . import bandwidth as bw
-from .host import make_host_buffers
+from .host import as_dtype, make_host_buffers
 from .pattern import Pattern
 
 SCATTER_MODES = B.SCATTER_MODES       # where repro.core.engine keeps it
@@ -163,9 +163,9 @@ class GSEngine:
         dev = self.device
         idx_t = torch.from_numpy(idx).to(dev)
         if self.pattern.kind == "gather":
-            out = (torch.from_numpy(src).to(dev), idx_t, None, None)
+            out = (as_dtype(src, self.dtype).to(dev), idx_t, None, None)
         else:
-            out = (None, idx_t, torch.from_numpy(vals).to(dev),
+            out = (None, idx_t, as_dtype(vals, self.dtype).to(dev),
                    torch.from_numpy(keep).to(dev))
         self.host_s = time.perf_counter() - t0
         return out

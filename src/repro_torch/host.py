@@ -4,11 +4,13 @@ The same draws as the JAX package (``repro.core.engine.make_host_buffers``
 and ``repro.core.backends.keep_last_mask``): one ``default_rng(seed)`` per
 pattern, ``src`` drawn first and ``vals`` second, so both packages feed
 their devices bit-identical inputs and their outputs can be compared by
-digest.
+digest.  Draws are float32 at every dtype, as in the reference;
+``as_dtype`` makes the operand of a run's dtype from them.
 """
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from .pattern import Pattern
 
@@ -49,3 +51,13 @@ def make_host_buffers(pattern: Pattern, row_width: int, seed: int = 0):
     vals = rng.standard_normal((abs_idx.shape[0], row_width),
                                dtype=np.float32)
     return src, abs_idx, vals, keep_last_mask(abs_idx)
+
+
+def as_dtype(x: np.ndarray, dtype: torch.dtype) -> torch.Tensor:
+    """The float32 draw ``x`` as a CPU tensor of ``dtype``: the one place
+    a 16-bit operand is made.  ``torch.from_numpy(x).to(dtype)`` rounds to
+    nearest even, as ``jnp.asarray(x, dtype)`` does, and gives the same
+    bits for bfloat16 and float16 (-0.0, overflow to inf and subnormals
+    included), so both packages' operands, and their gathers' and stores'
+    digests, agree bit for bit.  float32 passes through uncopied."""
+    return torch.from_numpy(x).to(dtype)

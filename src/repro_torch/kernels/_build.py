@@ -39,6 +39,8 @@ import subprocess
 import threading
 from pathlib import Path
 
+import torch
+
 PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
@@ -49,7 +51,15 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 KERNELS = ("gather_rows", "gather_rows_smem", "scatter_store_rows",
            "scatter_store_rows_cov", "scatter_add_rows", "selective_scan",
-           "flash_attention", "paged_decode")
+           "flash_attention", "paged_decode", "gather_rows_b16",
+           "gather_rows_smem_b16", "scatter_store_rows_b16",
+           "scatter_store_rows_cov_b16", "scatter_add_rows_bf16",
+           "scatter_add_rows_f16")
+# the Spatter kernels' element types and their bytes: float32, and the two
+# 16-bit types, which the gathers and stores serve with one instance on
+# 2-byte words
+SPATTER_DTYPES = {"float32": 4, "bfloat16": 2, "float16": 2}
+DTYPES = tuple(getattr(torch, n) for n in SPATTER_DTYPES)
 launches: dict[str, int] = {k: 0 for k in KERNELS}
 nvcc_runs = 0                    # nvcc processes started by this process
 
@@ -73,16 +83,23 @@ _SIGNATURES = {
         # table, idx, out, B, N, V, D, lanes_per_cta, stream
         "gather_rows_smem_f32": (_P, _P, _P, _I64, _I64, _I64, _I64, _I64,
                                  _P),
-        # V, D, int *clusters (no stream: a query, not a launch)
-        "gather_rows_smem_clusters": (_I64, _I64, _P),
+        # the same on 2-byte elements
+        "gather_rows_b16": (_P, _P, _P, _I64, _I64, _I64, _I64, _I64, _P),
+        "gather_rows_smem_b16": (_P, _P, _P, _I64, _I64, _I64, _I64, _I64,
+                                 _P),
+        # V, D, elem_bytes, int *clusters (no stream: a query, not a launch)
+        "gather_rows_smem_clusters": (_I64, _I64, _I64, _P),
     },
     "scatter_rows": {
         # dst, idx, keep, vals, B, N, V, D, vecs, stream
         "scatter_store_rows_f32": (_P,) * 4 + (_I64,) * 5 + (_P,),
         # dst, idx, keep, vals, cov, B, N, V, D, vecs, stream
         "scatter_store_rows_cov_f32": (_P,) * 5 + (_I64,) * 5 + (_P,),
+        "scatter_store_rows_b16": (_P,) * 4 + (_I64,) * 5 + (_P,),
+        "scatter_store_rows_cov_b16": (_P,) * 5 + (_I64,) * 5 + (_P,),
         # dst, idx, vals, B, N, V, D, stream
-        "scatter_add_rows_f32": (_P, _P, _P, _I64, _I64, _I64, _I64, _P),
+        **{f"scatter_add_rows_{t}": (_P, _P, _P, _I64, _I64, _I64, _I64, _P)
+           for t in ("f32", "bf16", "f16")},
     },
     "selective_scan": {
         # u, dt, b, c, a, d_skip, y, h_final, B, L, D, N, stream
@@ -104,6 +121,24 @@ _SIGNATURES = {
         for t in ("f32", "bf16")
     },
 }
+
+
+def spatter_instance(kernel: str, dtype) -> tuple[str, str]:
+    """(launch-count name, C function) of Spatter kernel ``kernel`` (its
+    float32 name, e.g. ``gather_rows``) on elements of ``dtype`` (a
+    ``torch.dtype`` or its name): float32 keeps the name and calls
+    ``<name>_f32``; the gathers and stores take the one 2-byte instance
+    ``<name>_b16`` for bfloat16 and float16, the add one instance a type
+    (``scatter_add_rows_bf16``, ``_f16``).  Any other dtype raises."""
+    name = str(dtype).removeprefix("torch.")
+    if name not in SPATTER_DTYPES:
+        raise TypeError(f"{kernel}: dtype {name} not supported: one of "
+                        f"{', '.join(SPATTER_DTYPES)}")
+    if name == "float32":
+        return kernel, f"{kernel}_f32"
+    suffix = {"bfloat16": "bf16", "float16": "f16"}[name] \
+        if kernel == "scatter_add_rows" else "b16"
+    return f"{kernel}_{suffix}", f"{kernel}_{suffix}"
 
 
 def reset_launches() -> None:
@@ -153,7 +188,6 @@ def nvcc_version() -> str:
 def capability() -> str:
     """The current card's compute capability, as ``"9.0"``."""
     if "capability" not in _toolchain:
-        import torch
         major, minor = torch.cuda.get_device_capability()
         _toolchain["capability"] = f"{major}.{minor}"
     return _toolchain["capability"]
@@ -282,12 +316,15 @@ def library_sha256(name: str) -> str | None:
 
 
 def check_operand(name: str, t, dtype, ndim: int) -> None:
-    """Raise unless ``t`` is a contiguous ``ndim``-d tensor of ``dtype``."""
-    import torch
+    """Raise unless ``t`` is a contiguous ``ndim``-d tensor of ``dtype`` (or
+    of one of a tuple of dtypes)."""
     if not isinstance(t, torch.Tensor):
         raise TypeError(f"{name}: expected a tensor, got {type(t).__name__}")
-    if t.dtype != dtype:
-        raise TypeError(f"{name}: expected {dtype}, got {t.dtype}")
+    allowed = dtype if isinstance(dtype, tuple) else (dtype,)
+    if t.dtype not in allowed:
+        want = (dtype if len(allowed) == 1
+                else "one of " + ", ".join(map(str, allowed)))
+        raise TypeError(f"{name}: expected {want}, got {t.dtype}")
     if t.dim() != ndim:
         raise ValueError(f"{name}: expected {ndim} dims, got {tuple(t.shape)}")
     if not t.is_contiguous():
@@ -322,7 +359,6 @@ def current_stream(index: int) -> int:
     object that makes ``torch.cuda.current_stream(...).cuda_stream`` cost
     microseconds of host time a launch; the public call stands in where a
     PyTorch lacks the getter."""
-    import torch
     raw = getattr(torch._C, "_cuda_getCurrentRawStream", None)
     if raw is not None:
         return raw(index)
@@ -334,7 +370,6 @@ def launch(kernel: str, device, lib_name: str, fn: str, *args) -> None:
     current stream (no synchronisation) and count one launch of
     ``kernel``; raises if the launch reported a CUDA error.  The device
     is made current only when it is not already."""
-    import torch
     c_fn = c_function(lib_name, fn)
     here = torch.cuda.current_device()
     if device.index is None or device.index == here:

@@ -17,7 +17,10 @@ it runs on; a ``TileChoice`` holds Hopper's parameters:
 
 Candidates are only launches the compiled kernels already take: the deep
 and shallow instances (``vecs`` 1, or ``kVecs`` = 4 for a D = 1 row and
-``kElems`` = 8 otherwise), any lanes a CTA, any split count.  Each is
+``kElems`` = 8 otherwise), any lanes a CTA, any split count.  Keys carry
+the operands' dtype (``TileKey.dtype``), so a 16-bit bucket never takes a
+float32 bucket's choice; its costs count its 2-byte elements (8 lanes to
+a 16-byte vector), with the constants fitted on float32.  Each is
 scored by a closed-form cost in seconds (no timing, no RNG) and the
 cheapest wins; ties go to the first candidate in ascending order, so a
 choice is the same in every process.  The cost constants were fitted to a
@@ -64,8 +67,8 @@ class TileKey:
     chooses for 2^26 lanes.  For ``paged_decode``: ``batch`` the (row, KV
     head) pairs B x KVH, ``lanes`` the pages a row's table holds,
     ``rows`` the positions a page, ``width`` G x dh.  ``dtype`` is the
-    operands' (``float32``, ``bfloat16``).  ``platform`` as in the module
-    note.
+    operands' (``float32``, ``bfloat16``, ``float16``; ``itemsize``
+    gives its bytes).  ``platform`` as in the module note.
     """
     op: str
     batch: int
@@ -142,7 +145,10 @@ def facts(platform: str) -> CardFacts:
 
 # -- cost model ---------------------------------------------------------------
 # Every constant comes from probes/autotune_probe.py's sweep on an NVIDIA
-# H100 80GB HBM3 at 700.00 W (device time by torch.profiler; PERF.md).
+# H100 80GB HBM3 at 700.00 W (device time by torch.profiler; PERF.md), of
+# float32 tables.  16-bit keys use them unchanged: the bytes and vectors
+# each cost counts follow the key's element size; the rates were not
+# fitted at 2 bytes.
 #
 # vecs (the global gather and the store; LOAD_LATENCY_S is bandwidth's):
 # the deep instance took 2.42 us against the shallow one's 1.36 at 4,096
@@ -170,27 +176,42 @@ def _ceil(a: int, b: int) -> int:
     return -(-a // b)
 
 
+def itemsize(key: TileKey) -> int:
+    """Bytes an element of the key's dtype."""
+    from ._build import SPATTER_DTYPES
+    return SPATTER_DTYPES[key.dtype]
+
+
+def vec_lanes(key: TileKey) -> int:
+    """Elements a 16-byte vector of the key's dtype: 4 floats, 8 16-bit
+    values."""
+    return 16 // itemsize(key)
+
+
 def deep_vecs(width: int) -> int:
     """The deep instance's loads a thread: kVecs for a D = 1 row (16-byte
-    vectors of 4 lanes), kElems otherwise."""
+    vectors of 4 float32 or 8 16-bit lanes), kElems otherwise."""
     return K_VECS if width == 1 else K_ELEMS
 
 
 def _work(key: TileKey) -> int:
-    """Vectors (D = 1) or elements (float4 where D % 4 == 0, else float)
-    the global kernel's threads share, for operands in phase at a 16-byte
+    """Vectors (D = 1: ``vec_lanes`` lanes each) or elements (a 16-byte
+    vector where D is a multiple of ``vec_lanes``, else one element) the
+    global kernel's threads share, for operands in phase at a 16-byte
     boundary, as the planner's are."""
     total = key.batch * key.lanes
+    lanes = vec_lanes(key)
     if key.width == 1:
-        return total // 4
-    return total * (key.width // 4 if key.width % 4 == 0 else key.width)
+        return total // lanes
+    return total * (key.width // lanes if key.width % lanes == 0
+                    else key.width)
 
 
 def _global_bytes(key: TileKey) -> int:
     """Bytes a global gather or store moves: index, keep mask (store),
     row read, row written."""
     lanes = key.batch * key.lanes
-    row = 4 * key.width
+    row = itemsize(key) * key.width
     if key.op == "scatter_store":
         return lanes * (4 + 1 + 2 * row)
     return lanes * (4 + 2 * row)
@@ -225,10 +246,11 @@ def smem_cost(key: TileKey, lanes_per_cta: int) -> float:
     clusters = key.batch * _ceil(_ceil(key.lanes, lanes_per_cta),
                                  SMEM_CLUSTER)
     waves = _ceil(clusters, max(1, card.resident_ctas // SMEM_CLUSTER))
-    table = key.rows * key.width * 4
+    table = key.rows * key.width * itemsize(key)
     per_wave = (SMEM_WAVE_S + table / STAGE_BYTES_PER_S
                 + lanes_per_cta * key.width * SMEM_LANE_S)
-    stream = key.batch * key.lanes * (4 + 4 * key.width) / SMEM_BYTES_PER_S
+    stream = (key.batch * key.lanes * (4 + itemsize(key) * key.width)
+              / SMEM_BYTES_PER_S)
     return SMEM_LAUNCH_S + max(waves * per_wave, stream)
 
 
@@ -249,7 +271,7 @@ def smem_feasible(key: TileKey) -> bool:
     (``use_smem``: the table fits in 227 KB, V <= 2N) on a card where a
     cluster of its CTAs fits."""
     from .gather_rows.ops import SMEM_CLUSTER, use_smem
-    return (use_smem(key.rows, key.lanes, key.width)
+    return (use_smem(key.rows, key.lanes, key.width, itemsize(key))
             and facts(key.platform).resident_ctas >= SMEM_CLUSTER)
 
 
@@ -328,7 +350,7 @@ def legacy_vecs(key: TileKey) -> int:
 def _legacy_gather(key: TileKey) -> TileChoice:
     from .gather_rows.ops import SMEM_CLUSTER, use_smem
     return TileChoice(smem=int(
-        use_smem(key.rows, key.lanes, key.width)
+        use_smem(key.rows, key.lanes, key.width, itemsize(key))
         and facts(key.platform).resident_ctas >= SMEM_CLUSTER))
 
 

@@ -6,12 +6,20 @@ launches the global-memory kernel (for ``gather_rows_dma``),
 and ``gather_rows`` picks between them from the shapes, as the reference's
 ``ops.gather_rows_batched`` picks by table size.
 
+Element types.  Tables of float32, bfloat16 or float16
+(``_build.SPATTER_DTYPES``), indices int32.  A gather moves bits, so one
+instance of each kernel on 2-byte words serves both 16-bit types
+(``gather_rows_b16``, ``gather_rows_smem_b16``, each counted under its
+own name); float32 takes the ``_f32`` instances.  Nothing converts a
+16-bit table to float32 and back.
+
 The switch point.  The reference stages a table in VMEM up to 4 MiB, a TPU
 figure.  On the H100 the on-chip store is shared memory, at most 227 KB
-(232,448 bytes) for one block, so a pattern's (V, D) float32 table may be
-staged only when ``V * D * 4 <= SMEM_TABLE_BYTES``, and only where the
-pattern reads at least half as many rows as it stages (``V <= 2 * N``):
-the legacy rule ``use_smem``.  Within it ``kernels.autotune`` takes the
+(232,448 bytes) for one block, so a pattern's (V, D) table of
+``elem_bytes`` elements may be staged only when ``V * D * elem_bytes <=
+SMEM_TABLE_BYTES`` (at D = 1: 58,112 float32 rows, 116,224 16-bit ones),
+and only where the pattern reads at least half as many rows as it stages
+(``V <= 2 * N``): the legacy rule ``use_smem``.  Within it ``kernels.autotune`` takes the
 smem kernel only where its cost model (fitted to the card) says it beats
 the global kernel: on an H100 that is no bucket of demo or appdb, and
 demo's UNIFORM:8:1 gather bucket (V = 32,769 rows of 4 bytes, 128 KiB,
@@ -26,8 +34,9 @@ run:
 
 - fill: the batch's lanes spread over the CTAs the card holds at once
   (``smem_resident_ctas``: the clusters that the CUDA runtime's
-  ``cudaOccupancyMaxActiveClusters`` says fit, times 8; 15 clusters, 120
-  CTAs on an H100 SXM, a cluster's SMs being drawn from one GPC), so a
+  ``cudaOccupancyMaxActiveClusters`` says fit for that (V, D) and element
+  size, times 8; 15 clusters, 120 CTAs on an H100 SXM for demo's float32
+  table, a cluster's SMs being drawn from one GPC), so a
   large batch stages each table once per SM and streams its lanes in one
   wave;
 - at least ``max(256, ceil(V / 8))`` lanes, so a cluster gathers at least
@@ -47,9 +56,9 @@ passes them (a bucket callable passes what it chose when it was built,
 legacy rules, which ``autotune.disabled()`` serves; the search takes the
 smem regime only where ``use_smem`` allows it.
 
-On CPU tensors the wrappers run the plain version (``ref``), which
-ignores every launch parameter; on CUDA tensors they launch the kernel or
-raise.  Float32 tables and int32 indices only.
+On CPU tensors the wrappers run the plain version (``ref``), in the
+table's dtype, which ignores every launch parameter; on CUDA tensors they
+launch the kernel of the table's dtype or raise.
 """
 from __future__ import annotations
 
@@ -64,9 +73,10 @@ SMEM_TABLE_BYTES = 232448        # 227 KB: the H100's shared memory per block
 SMEM_CLUSTER = 8                 # CTAs a cluster (csrc: kCluster)
 
 
-def use_smem(v: int, n: int, d: int) -> bool:
-    """Whether a (V, D) table gathered at N lanes takes the smem regime."""
-    return v * d * 4 <= SMEM_TABLE_BYTES and v <= 2 * n
+def use_smem(v: int, n: int, d: int, elem_bytes: int) -> bool:
+    """Whether a (V, D) table of ``elem_bytes`` elements gathered at N
+    lanes takes the smem regime."""
+    return v * d * elem_bytes <= SMEM_TABLE_BYTES and v <= 2 * n
 
 
 @functools.lru_cache(maxsize=256)
@@ -85,24 +95,25 @@ def smem_grid(bsz: int, n: int, v: int, resident: int) -> int:
 
 
 @functools.lru_cache(maxsize=256)
-def smem_resident_ctas(v: int, d: int, index: int) -> int:
+def smem_resident_ctas(v: int, d: int, index: int, elem_bytes: int) -> int:
     """CTAs of the smem kernel that card ``index`` holds at once for a
-    (V, D) table: the clusters the CUDA runtime says fit, times
-    ``SMEM_CLUSTER``.  Asked once per card and shape (builds the kernel);
-    0 where no cluster fits (a smaller card, a MIG slice); raises on a CUDA
-    error."""
+    (V, D) table of ``elem_bytes`` elements (4 or 2: the instance and its
+    shared memory differ): the clusters the CUDA runtime says fit, times
+    ``SMEM_CLUSTER``.  Asked once per card, shape and element size (builds
+    the kernel); 0 where no cluster fits (a smaller card, a MIG slice);
+    raises on a CUDA error."""
     import ctypes
     clusters = ctypes.c_int(0)
     fn = _build.c_function("gather_rows", "gather_rows_smem_clusters")
     with torch.cuda.device(index):
-        err = fn(v, d, ctypes.addressof(clusters))
+        err = fn(v, d, elem_bytes, ctypes.addressof(clusters))
     if err != 0:
         raise RuntimeError(f"gather_rows_smem_clusters: CUDA error {err}")
     return max(clusters.value, 0) * SMEM_CLUSTER
 
 
 def _checked(table: torch.Tensor, idx: torch.Tensor):
-    _build.check_operand("table", table, torch.float32, 3)
+    _build.check_operand("table", table, _build.DTYPES, 3)
     _build.check_operand("idx", idx, torch.int32, 2)
     if table.shape[0] != idx.shape[0]:
         raise ValueError(f"batch mismatch: table {tuple(table.shape)} vs "
@@ -110,31 +121,35 @@ def _checked(table: torch.Tensor, idx: torch.Tensor):
     return _build.common_device(table=table, idx=idx)
 
 
-def tile_key(op: str, bsz: int, n: int, v: int, d: int, platform: str
-             ) -> autotune.TileKey:
-    """The ``autotune`` key of a (B, V, D) float32 gather at N lanes."""
+def tile_key(op: str, bsz: int, n: int, v: int, d: int, platform: str,
+             dtype) -> autotune.TileKey:
+    """The ``autotune`` key of a (B, V, D) gather at N lanes of a table of
+    ``dtype`` (a ``torch.dtype`` or its name)."""
     return autotune.TileKey(op=op, batch=bsz, lanes=n, rows=v, width=d,
-                            dtype="float32", platform=platform)
+                            dtype=str(dtype).removeprefix("torch."),
+                            platform=platform)
 
 
-def gather_tiles(bsz: int, n: int, v: int, d: int, device
+def gather_tiles(bsz: int, n: int, v: int, d: int, device, dtype
                  ) -> autotune.TileChoice:
-    """The launch a (B, V, D) gather at N lanes takes on ``device``: the
-    regime (``smem``) and its parameter (``lanes_per_cta`` or ``vecs``),
-    as ``gather_rows`` chooses them (on the CPU, for ``autotune.CPU_FACTS``).
-    """
+    """The launch a (B, V, D) gather at N lanes of a ``dtype`` table takes
+    on ``device``: the regime (``smem``) and its parameter
+    (``lanes_per_cta`` or ``vecs``), as ``gather_rows`` chooses them (on
+    the CPU, for ``autotune.CPU_FACTS``)."""
     cpu = device.type == "cpu"
     platform = "cpu" if cpu else autotune.cuda_platform(device.index)
-    if use_smem(v, n, d):
+    eb = _build.SPATTER_DTYPES[str(dtype).removeprefix("torch.")]
+    if use_smem(v, n, d, eb):
         resident = (autotune.CPU_FACTS.resident_ctas if cpu
-                    else smem_resident_ctas(v, d, device.index))
+                    else smem_resident_ctas(v, d, device.index, eb))
         smem_platform = ("cpu" if cpu
                          else autotune.cuda_platform(device.index, resident))
         if resident > 0 and autotune.choose(tile_key(
-                "gather", bsz, n, v, d, smem_platform)).smem:
+                "gather", bsz, n, v, d, smem_platform, dtype)).smem:
             return autotune.choose(tile_key("gather_smem", bsz, n, v, d,
-                                            smem_platform))
-    return autotune.choose(tile_key("gather_global", bsz, n, v, d, platform))
+                                            smem_platform, dtype))
+    return autotune.choose(tile_key("gather_global", bsz, n, v, d, platform,
+                                    dtype))
 
 
 def gather_rows_global(table: torch.Tensor, idx: torch.Tensor, *,
@@ -152,10 +167,10 @@ def gather_rows_global(table: torch.Tensor, idx: torch.Tensor, *,
         if vecs is None:
             vecs = autotune.choose(tile_key(
                 "gather_global", bsz, n, v, d,
-                autotune.cuda_platform(dev.index))).vecs
-        _build.launch("gather_rows", dev, "gather_rows", "gather_rows_f32",
-                      table.data_ptr(), idx.data_ptr(), out.data_ptr(),
-                      bsz, n, v, d, vecs)
+                autotune.cuda_platform(dev.index), table.dtype)).vecs
+        name, fn = _build.spatter_instance("gather_rows", table.dtype)
+        _build.launch(name, dev, "gather_rows", fn, table.data_ptr(),
+                      idx.data_ptr(), out.data_ptr(), bsz, n, v, d, vecs)
     return out
 
 
@@ -167,13 +182,14 @@ def gather_rows_smem(table: torch.Tensor, idx: torch.Tensor, *,
     for ``autotune``'s choice."""
     dev = _checked(table, idx)
     bsz, v, d = table.shape
-    if v * d * 4 > SMEM_TABLE_BYTES:
-        raise ValueError(f"table of {v * d * 4} bytes exceeds the "
+    eb = table.element_size()
+    if v * d * eb > SMEM_TABLE_BYTES:
+        raise ValueError(f"table of {v * d * eb} bytes exceeds the "
                          f"{SMEM_TABLE_BYTES}-byte shared-memory limit")
     if dev.type == "cpu":
         return gather_rows_ref(table, idx)
     n = idx.shape[1]
-    resident = smem_resident_ctas(v, d, dev.index)
+    resident = smem_resident_ctas(v, d, dev.index, eb)
     if resident < 1:
         raise RuntimeError(f"no cluster of {SMEM_CLUSTER} CTAs of the "
                            f"shared-memory gather fits on {dev} for a "
@@ -183,9 +199,10 @@ def gather_rows_smem(table: torch.Tensor, idx: torch.Tensor, *,
         if lanes_per_cta is None:
             lanes_per_cta = autotune.choose(tile_key(
                 "gather_smem", bsz, n, v, d,
-                autotune.cuda_platform(dev.index, resident))).lanes_per_cta
-        _build.launch("gather_rows_smem", dev, "gather_rows",
-                      "gather_rows_smem_f32", table.data_ptr(),
+                autotune.cuda_platform(dev.index, resident),
+                table.dtype)).lanes_per_cta
+        name, fn = _build.spatter_instance("gather_rows_smem", table.dtype)
+        _build.launch(name, dev, "gather_rows", fn, table.data_ptr(),
                       idx.data_ptr(), out.data_ptr(), bsz, n, v, d,
                       lanes_per_cta)
     return out
@@ -199,8 +216,9 @@ def gather_rows(table: torch.Tensor, idx: torch.Tensor,
     weighed only where ``use_smem`` allows it and ``autotune`` takes it
     only where it is the cheaper; on a card where no cluster of the smem
     kernel fits (``smem_resident_ctas`` is 0), such buckets take
-    ``gather_rows_global``, exact as well, and count as ``gather_rows``
-    launches: a route chosen before launching.  On the CPU the regime
+    ``gather_rows_global``, exact as well, and count as its launches
+    (``gather_rows`` or ``gather_rows_b16``): a route chosen before
+    launching.  On the CPU the regime
     follows ``use_smem`` (both run the plain version)."""
     if choice is not None:
         if choice.smem:
@@ -209,13 +227,15 @@ def gather_rows(table: torch.Tensor, idx: torch.Tensor,
         return gather_rows_global(table, idx, vecs=choice.vecs)
     bsz, v, d = table.shape
     n = idx.shape[-1]
-    if use_smem(v, n, d):
+    eb = table.element_size()
+    if use_smem(v, n, d, eb):
         dev = _checked(table, idx)
         if dev.type == "cpu":
             return gather_rows_smem(table, idx)
-        resident = smem_resident_ctas(v, d, dev.index)
+        resident = smem_resident_ctas(v, d, dev.index, eb)
         if resident > 0 and autotune.choose(tile_key(
                 "gather", bsz, n, v, d,
-                autotune.cuda_platform(dev.index, resident))).smem:
+                autotune.cuda_platform(dev.index, resident),
+                table.dtype)).smem:
             return gather_rows_smem(table, idx)
     return gather_rows_global(table, idx)

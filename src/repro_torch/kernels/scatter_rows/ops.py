@@ -13,14 +13,23 @@ reference's ``with_cov=True``): the same pass also marks each row it wrote
 in ``cov``, the ballot of the lane-sharded store combine
 (``plan.Placement``).
 
+Element types.  dst and vals of float32, bfloat16 or float16 (one dtype
+for both), int32 indices, a bool keep mask.  A store moves bits, so one
+instance on 2-byte words serves both 16-bit types
+(``scatter_store_rows_b16``, ``scatter_store_rows_cov_b16``); the add
+sums in its operands' type, by native atomics, so it has an instance a
+type (``scatter_add_rows_bf16``, ``scatter_add_rows_f16``).  float32
+takes the ``_f32`` instances, each counted under its float32 name.
+Nothing converts a 16-bit operand to float32 and back.
+
 The store's loads in flight a thread (``vecs``: its deep or shallow
 instance) are chosen by ``kernels.autotune`` for the geometry and the
 card unless the caller passes them; ``autotune.disabled()`` serves the
 kernel's legacy rule.  The add has no launch parameter.
 
-On CPU tensors the wrappers run the plain versions (``ref``), which
-ignore ``vecs``; on CUDA tensors they launch the kernel or raise.
-Float32 rows, int32 indices and a bool keep mask only.
+On CPU tensors the wrappers run the plain versions (``ref``), in the
+operands' dtype, which ignore ``vecs``; on CUDA tensors they launch the
+kernel of that dtype or raise.
 """
 from __future__ import annotations
 
@@ -31,9 +40,9 @@ from .ref import scatter_add_rows_ref_, scatter_store_rows_ref_
 
 
 def _checked(dst, idx, vals, keep=None):
-    _build.check_operand("dst", dst, torch.float32, 3)
+    _build.check_operand("dst", dst, _build.DTYPES, 3)
     _build.check_operand("idx", idx, torch.int32, 2)
-    _build.check_operand("vals", vals, torch.float32, 3)
+    _build.check_operand("vals", vals, dst.dtype, 3)
     if keep is not None:
         _build.check_operand("keep", keep, torch.bool, 2)
         if keep.shape != idx.shape:
@@ -49,11 +58,13 @@ def _checked(dst, idx, vals, keep=None):
     return _build.common_device(**ops)
 
 
-def tile_key(op: str, bsz: int, n: int, v: int, d: int, platform: str
-             ) -> autotune.TileKey:
-    """The ``autotune`` key of a (B, V, D) float32 scatter of N lanes."""
+def tile_key(op: str, bsz: int, n: int, v: int, d: int, platform: str,
+             dtype) -> autotune.TileKey:
+    """The ``autotune`` key of a (B, V, D) scatter of N lanes of ``dtype``
+    (a ``torch.dtype`` or its name)."""
     return autotune.TileKey(op=op, batch=bsz, lanes=n, rows=v, width=d,
-                            dtype="float32", platform=platform)
+                            dtype=str(dtype).removeprefix("torch."),
+                            platform=platform)
 
 
 def scatter_store_rows_(dst: torch.Tensor, idx: torch.Tensor,
@@ -83,15 +94,17 @@ def scatter_store_rows_(dst: torch.Tensor, idx: torch.Tensor,
         if vecs is None:
             vecs = autotune.choose(tile_key(
                 "scatter_store", bsz, n, v, d,
-                autotune.cuda_platform(dev.index))).vecs
+                autotune.cuda_platform(dev.index), dst.dtype)).vecs
         if cov is None:
-            _build.launch("scatter_store_rows", dev, "scatter_rows",
-                          "scatter_store_rows_f32", dst.data_ptr(),
+            name, fn = _build.spatter_instance("scatter_store_rows",
+                                               dst.dtype)
+            _build.launch(name, dev, "scatter_rows", fn, dst.data_ptr(),
                           idx.data_ptr(), keep.data_ptr(), vals.data_ptr(),
                           bsz, n, v, d, vecs)
         else:
-            _build.launch("scatter_store_rows_cov", dev, "scatter_rows",
-                          "scatter_store_rows_cov_f32", dst.data_ptr(),
+            name, fn = _build.spatter_instance("scatter_store_rows_cov",
+                                               dst.dtype)
+            _build.launch(name, dev, "scatter_rows", fn, dst.data_ptr(),
                           idx.data_ptr(), keep.data_ptr(), vals.data_ptr(),
                           cov.data_ptr(), bsz, n, v, d, vecs)
     return dst
@@ -103,8 +116,10 @@ def scatter_add_rows_(dst: torch.Tensor, idx: torch.Tensor,
     idx[b, n] in [0, V); duplicates add in no fixed order.  dst (B, V, D),
     idx (B, N) int32, vals (B, N, D).
 
-    The kernel skips a lane whose payload is +0.0 or -0.0 before it reads
-    the lane's index: adding either changes no value of a dst that holds
+    The kernel adds in the operands' dtype (at 16 bits, each atomic's sum
+    is rounded to 16 bits).  It skips a lane whose payload is +0.0 or -0.0
+    before it reads the lane's index: adding either changes no value of a
+    dst that holds
     no -0.0, and a zeroed dst never does (no sum that starts at +0.0 is
     -0.0).  The planner's padding lanes and scratch patterns carry +0.0
     onto its scratch row (``plan._host_members``), so they cost a read of
@@ -115,7 +130,8 @@ def scatter_add_rows_(dst: torch.Tensor, idx: torch.Tensor,
         return scatter_add_rows_ref_(dst, idx, vals)
     bsz, v, d = dst.shape
     if idx.numel() and d:
-        _build.launch("scatter_add_rows", dev, "scatter_rows",
-                      "scatter_add_rows_f32", dst.data_ptr(), idx.data_ptr(),
-                      vals.data_ptr(), bsz, idx.shape[1], v, d)
+        name, fn = _build.spatter_instance("scatter_add_rows", dst.dtype)
+        _build.launch(name, dev, "scatter_rows", fn, dst.data_ptr(),
+                      idx.data_ptr(), vals.data_ptr(), bsz, idx.shape[1], v,
+                      d)
     return dst

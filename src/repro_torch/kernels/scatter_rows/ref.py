@@ -60,17 +60,28 @@ def scatter_add_rows_ref_(dst: torch.Tensor, idx: torch.Tensor,
     return dst
 
 
+# unit roundoff of each type the add runs in: 2^-(significand bits)
+UNIT_ROUNDOFF = {torch.float32: 2.0 ** -24, torch.bfloat16: 2.0 ** -8,
+                 torch.float16: 2.0 ** -11}
+
+
 def add_error_bound(idx: torch.Tensor, vals: torch.Tensor,
                     v: int) -> torch.Tensor:
     """Per-element bound on |a - b| for two sum-scatters of ``vals`` into
     zeros that add in different orders (the kernel's atomics reorder the
-    additions from run to run).
+    additions from run to run), each rounding every sum to ``vals``'
+    dtype.
 
-    A row that receives K values sums them in float32 with error at most
-    gamma_K * sum|v_i| in any order, gamma_K = K*u / (1 - K*u) with
-    u = 2^-24 (Higham, Accuracy and Stability of Numerical Algorithms,
-    §4.2), so two orders differ by at most twice that.  Returns a
-    (B, V, D) tensor; rows nothing is added to get 0.
+    A row that receives K values sums them with error at most
+    gamma_K * sum|v_i| in any order, gamma_K = K*u / (1 - K*u), where u is
+    the dtype's unit roundoff (``UNIT_ROUNDOFF``: 2^-24 for float32, 2^-8
+    for bfloat16, 2^-11 for float16; Higham, Accuracy and Stability of
+    Numerical Algorithms, §4.2), so two orders differ by at most twice
+    that.  gamma_K is defined only for K*u < 1, and is no use past 1: a row
+    with K*u >= 1/2 gets ``inf`` (a 16-bit sum of that many values has no
+    useful bound; LULESH-S3's 2^21 lanes a row at bfloat16, say).  A sum
+    that accumulates in float32 and rounds once is within the same bound.
+    Returns a (B, V, D) float64 tensor; rows nothing is added to get 0.
     """
     bsz, n, d = vals.shape
     sel = in_range(idx, v)
@@ -79,6 +90,9 @@ def add_error_bound(idx: torch.Tensor, vals: torch.Tensor,
     absum.index_add_(0, rows, vals[sel].abs().to(torch.float64))
     k = torch.zeros(bsz * v, dtype=torch.float64, device=vals.device)
     k.index_add_(0, rows, torch.ones_like(rows, dtype=torch.float64))
-    u = 2.0 ** -24
-    gamma = k * u / (1 - k * u)
-    return (2 * gamma[:, None] * absum).reshape(bsz, v, d)
+    u = UNIT_ROUNDOFF[vals.dtype]
+    ku = k * u
+    gamma = torch.where(ku < 0.5, ku / (1 - ku), torch.inf)
+    # a row of zeros sums to 0 in any order, whatever its K
+    bound = torch.where(absum > 0, 2 * gamma[:, None] * absum, 0.0)
+    return bound.reshape(bsz, v, d)

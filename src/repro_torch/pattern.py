@@ -7,8 +7,8 @@ A memory access pattern (paper §3.1, §3.3) is the triple
 
 meaning: for i in 0..count-1, perform one gather/scatter at base address
 ``delta * i`` using the offsets in the index buffer.  The *element* is a
-float32 table row of ``row_width`` values; ``row_width=1`` is the paper's
-scalar element (DESIGN.md §2).
+table row of ``row_width`` values (float32, bfloat16 or float16);
+``row_width=1`` is the paper's scalar element (DESIGN.md §2).
 
 Built-in generators follow the released Spatter semantics:
 

@@ -103,7 +103,7 @@ import torch
 from . import backends as B
 from . import bandwidth as bw
 from .engine import RunResult, device_name, resolve_device, timed_runs
-from .host import make_host_buffers
+from .host import as_dtype, make_host_buffers
 from .kernels import autotune
 from .pattern import Pattern
 from .sharding import gs_specs, shard_of
@@ -478,11 +478,12 @@ def bucket_tiles(key: ExecKey, device) -> "autotune.TileChoice | None":
     n = pad_lanes(key.idx_len, l_shards) // l_shards
     v, d = key.footprint + 1, key.row_width
     if key.kind == "gather":
-        return gather_ops.gather_tiles(bsz, n, v, d, dev)
+        return gather_ops.gather_tiles(bsz, n, v, d, dev, key.dtype)
     platform = ("cpu" if dev.type == "cpu"
                 else autotune.cuda_platform(dev.index))
     op = "scatter_add" if key.mode == "add" else "scatter_store"
-    return autotune.choose(scatter_ops.tile_key(op, bsz, n, v, d, platform))
+    return autotune.choose(scatter_ops.tile_key(op, bsz, n, v, d, platform,
+                                                key.dtype))
 
 
 def bucket_callable(key: ExecKey, device) -> Callable:
@@ -982,24 +983,36 @@ def _host_members(spec: BucketSpec, patterns: Sequence[Pattern],
     return host, real_lanes
 
 
-def _to_device(spec: BucketSpec, host: tuple, device) -> tuple:
+def _host_tensors(host: tuple, dtype: torch.dtype) -> list[torch.Tensor]:
+    """``_host_members``' numpy buffers as CPU tensors, the float32 draws
+    (table, vals) made ``dtype`` by ``host.as_dtype``."""
+    return [as_dtype(a, dtype) if a.dtype == np.float32
+            else torch.from_numpy(a) for a in host]
+
+
+def _to_device(spec: BucketSpec, host: tuple, device,
+               dtype: torch.dtype) -> tuple:
     """The launch's operands on ``device``: (table, idx) for gathers, (dst,
-    idx, vals, keep) for scatters, with a zeroed dst."""
+    idx, vals, keep) for scatters, with a zeroed dst; table, vals and dst
+    of ``dtype``."""
+    ops = tuple(t.to(device) for t in _host_tensors(host, dtype))
     if spec.kind == "gather":
-        return tuple(torch.from_numpy(a).to(device) for a in host)
-    idx, vals, keep = (torch.from_numpy(a).to(device) for a in host)
+        return ops
+    idx, vals, keep = ops
     dst = torch.zeros((vals.shape[0], spec.footprint + 1, vals.shape[2]),
-                      dtype=torch.float32, device=device)
+                      dtype=dtype, device=device)
     return dst, idx, vals, keep
 
 
 def _assemble_members(spec: BucketSpec, patterns: Sequence[Pattern],
                       row_width: int, seeds: Sequence[int], device,
-                      batch: int | None = None, mode: str = "store"):
-    """``_host_members`` moved to ``device``: (args, real_lanes)."""
+                      batch: int | None = None, mode: str = "store",
+                      dtype: torch.dtype = torch.float32):
+    """``_host_members`` moved to ``device`` in ``dtype``: (args,
+    real_lanes)."""
     host, real_lanes = _host_members(spec, patterns, row_width, seeds,
                                      batch=batch, mode=mode)
-    return _to_device(spec, host, device), real_lanes
+    return _to_device(spec, host, device, dtype), real_lanes
 
 
 # ---------------------------------------------------------------------------
@@ -1141,6 +1154,7 @@ def launch(works: Sequence[BucketWork],
     patterns = [p for w in works for p in w.patterns]
     seeds = [w.seed for w in works for _ in w.patterns]
     want_out = any(w.digest for w in works)
+    dtype = getattr(torch, w0.dtype)
     t0 = time.perf_counter()
     host, real_lanes = _host_members(spec, patterns, w0.row_width, seeds,
                                      batch=served.batch, mode=w0.mode,
@@ -1153,10 +1167,11 @@ def launch(works: Sequence[BucketWork],
         and, for a scatter, the dst."""
         if not compiled:
             return None
-        nbytes = sum(a.nbytes for a in host)
+        nbytes = sum(a.size * (dtype.itemsize if a.dtype == np.float32
+                               else a.itemsize) for a in host)
         if spec.kind == "scatter":
             nbytes += (served.batch * (spec.footprint + 1) * w0.row_width
-                       * getattr(torch, w0.dtype).itemsize)
+                       * dtype.itemsize)
         names = OPERAND_NAMES[spec.kind][-len(shards[0]):]
         held = {n: [sh[i] for sh in shards] for i, n in enumerate(names)}
 
@@ -1173,7 +1188,7 @@ def launch(works: Sequence[BucketWork],
         lock_wait_s = time.perf_counter() - t_wait
         t0 = time.perf_counter()
         if placement is None:
-            args = _to_device(spec, host, dev)
+            args = _to_device(spec, host, dev, dtype)
             if dev.type == "cuda":
                 torch.cuda.synchronize(dev)
             host_s += time.perf_counter() - t0
@@ -1181,8 +1196,7 @@ def launch(works: Sequence[BucketWork],
                                        fresh_dst=spec.kind == "scatter",
                                        warmup=warm([args]))
         else:
-            args = placement.place(spec.kind,
-                                   [torch.from_numpy(a) for a in host])
+            args = placement.place(spec.kind, _host_tensors(host, dtype))
             placement.synchronize()
             host_s += time.perf_counter() - t0
             t_bucket, out = _timed_placed(fn, placement, spec, w0.mode,
@@ -1211,9 +1225,9 @@ def _timed_placed(fn: Callable, placement: Placement, spec: BucketSpec,
         out = dst = scratch = None
         if spec.kind == "scatter":
             b = shards[0][0].shape[0] * placement.batch_shards
-            dst = torch.zeros((b, spec.footprint + 1, shards[0][1].shape[2]),
-                              dtype=torch.float32,
-                              device=placement.devices[0])
+            vals = shards[0][1]
+            dst = torch.zeros((b, spec.footprint + 1, vals.shape[2]),
+                              dtype=vals.dtype, device=placement.devices[0])
             scratch = placement.scratch(mode, dst)
         placement.synchronize()
         t0 = time.perf_counter()
@@ -1234,10 +1248,12 @@ def demux(result: LaunchResult, work: BucketWork,
     ``offset`` is the unit's first row in the launch.  Time (and host
     assembly time) is attributed by each member's real lanes over the
     launch's total lanes, scratch patterns included.  Digests hash the
-    member's trimmed float32 rows: its (count*index_len, R) gathered rows,
-    or its (footprint, R) scattered table.
+    raw bytes of the member's trimmed rows in the run's dtype (16-bit rows
+    as their 2-byte words, the bytes of the reference's ``ml_dtypes``
+    arrays): its (count*index_len, R) gathered rows, or its (footprint, R)
+    scattered table.
     """
-    elem_bytes = 4 * work.row_width
+    elem_bytes = getattr(torch, work.dtype).itemsize * work.row_width
     total_lanes = (sum(result.real_lanes)
                    + (result.batch - result.n_members) * result.lanes)
     out: list[tuple[int, RunResult]] = []
@@ -1250,9 +1266,11 @@ def demux(result: LaunchResult, work: BucketWork,
         if work.digest:
             n = (result.real_lanes[b] if work.spec.kind == "gather"
                  else p.footprint())
-            trim = result.out[b, :n].numpy()
+            trim = result.out[b, :n]
+            if trim.element_size() == 2:    # numpy has no bfloat16
+                trim = trim.view(torch.int16)
             dg = hashlib.sha256(
-                np.ascontiguousarray(trim).tobytes()).hexdigest()
+                np.ascontiguousarray(trim.numpy()).tobytes()).hexdigest()
         sm = bw.h100_sector_model(p, elem_bytes)
         out.append((pos, RunResult(
             pattern=p, backend=work.backend, device=result.device,

@@ -176,7 +176,7 @@ def test_legacy_equals_the_rules_before_the_search(platform, sms,
         k = dict(batch=b, lanes=n, rows=v, width=d, dtype="float32")
         gather = autotune.LEGACY["gather"](autotune.TileKey(
             op="gather", platform=smem_platform, **k))
-        assert gather.smem == int(gather_ops.use_smem(v, n, d))
+        assert gather.smem == int(gather_ops.use_smem(v, n, d, 4))
         smem = autotune.LEGACY["gather_smem"](autotune.TileKey(
             op="gather_smem", platform=smem_platform, **k))
         assert smem.lanes_per_cta == gather_ops.smem_lanes_per_cta(
@@ -198,7 +198,7 @@ def test_legacy_equals_the_rules_before_the_search(platform, sms,
 def test_legacy_smem_needs_a_cluster_that_fits():
     key = _key("gather", 1, 32768, 32769, 1,
                platform=H100 + ":0cta")
-    assert gather_ops.use_smem(32769, 32768, 1)
+    assert gather_ops.use_smem(32769, 32768, 1, 4)
     assert autotune.LEGACY["gather"](key).smem == 0
     assert autotune.choose(key).smem == 0
 

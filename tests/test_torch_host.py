@@ -165,10 +165,13 @@ def test_entry_points_without_device_raise_when_no_cuda():
 
 
 def test_float32_only():
+    # the entry points take float32, bfloat16 and float16
+    # (tests/test_torch_dtype.py); float64 and integer dtypes still raise,
+    # with a message naming the three
     from repro_torch import GSEngine, SuitePlan, run_plan
     p = _capped(_suite("demo"))[0]
-    for dtype in (torch.float64, torch.bfloat16, torch.float16):
-        with pytest.raises(TypeError, match="float32"):
+    for dtype in (torch.float64, torch.int32, torch.int64):
+        with pytest.raises(TypeError, match="float32.*bfloat16.*float16"):
             GSEngine(p, dtype=dtype, device="cpu")
-        with pytest.raises(TypeError, match="float32"):
+        with pytest.raises(TypeError, match="float32.*bfloat16.*float16"):
             run_plan(SuitePlan.build([p]), dtype=dtype, device="cpu")

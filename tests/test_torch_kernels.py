@@ -153,11 +153,11 @@ def test_smem_switch_point():
     limit = gather_ops.SMEM_TABLE_BYTES
     assert limit == 227 * 1024
     # demo.json's UNIFORM:8:1 gather bucket: 32,769 rows of 4 bytes
-    assert gather_ops.use_smem(32769, 32768, 1)
-    assert not gather_ops.use_smem(65537, 32768, 1)       # 256 KiB
-    assert not gather_ops.use_smem(limit // 4, 100, 1)   # too few lanes
-    assert gather_ops.use_smem(limit // 68, limit // 68, 17)
-    assert not gather_ops.use_smem(limit // 68 + 1, 10 ** 6, 17)
+    assert gather_ops.use_smem(32769, 32768, 1, 4)
+    assert not gather_ops.use_smem(65537, 32768, 1, 4)       # 256 KiB
+    assert not gather_ops.use_smem(limit // 4, 100, 1, 4)   # too few lanes
+    assert gather_ops.use_smem(limit // 68, limit // 68, 17, 4)
+    assert not gather_ops.use_smem(limit // 68 + 1, 10 ** 6, 17, 4)
     # runs: the batch over the resident CTAs (120 on an H100 SXM), at least
     # V / 8 (and 256) lanes, at most N / 8; demo's bucket takes one cluster
     # of 4,096 lanes
@@ -202,8 +202,8 @@ def test_smem_resident_ctas_asks_once_per_card_and_shape(
     import ctypes
     calls = []
 
-    def query(v, d, where):
-        calls.append((v, d, torch_device[-1]))
+    def query(v, d, elem_bytes, where):
+        calls.append((v, d, elem_bytes, torch_device[-1]))
         ctypes.c_int.from_address(where).value = clusters
         return err
 
@@ -222,13 +222,13 @@ def test_smem_resident_ctas_asks_once_per_card_and_shape(
             for index in (0, 1):
                 if raises:
                     with pytest.raises(RuntimeError, match=raises):
-                        gather_ops.smem_resident_ctas(32769, 1, index)
+                        gather_ops.smem_resident_ctas(32769, 1, index, 4)
                 else:
-                    assert gather_ops.smem_resident_ctas(32769, 1, index) \
+                    assert gather_ops.smem_resident_ctas(32769, 1, index, 4) \
                         == clusters * gather_ops.SMEM_CLUSTER
         # each card is asked with itself current; a failed query is asked
         # again, an answer is kept
-        want = [(32769, 1, 0), (32769, 1, 1)]
+        want = [(32769, 1, 4, 0), (32769, 1, 4, 1)]
         assert calls == (want * 2 if raises else want)
     finally:
         gather_ops.smem_resident_ctas.cache_clear()
@@ -300,16 +300,17 @@ def test_gather_rows_routes_to_global_where_no_cluster_fits(monkeypatch):
     monkeypatch.setattr(gather_ops, "_checked",
                         lambda table, idx: torch.device("cuda", 0))
     monkeypatch.setattr(gather_ops, "smem_resident_ctas",
-                        lambda v, d, index: calls.append((v, d, index)) or 0)
+                        lambda v, d, index, eb: calls.append(
+                            (v, d, index, eb)) or 0)
     monkeypatch.setattr(gather_ops, "gather_rows_ref", None)
     table = torch.zeros(1, 300, 1)
     idx = torch.zeros(1, 1000, dtype=torch.int32)
-    assert gather_ops.use_smem(300, 1000, 1)
+    assert gather_ops.use_smem(300, 1000, 1, 4)
     routed = []
     monkeypatch.setattr(gather_ops, "gather_rows_global",
                         lambda t, i: routed.append("global") or "out")
     assert gather_ops.gather_rows(table, idx) == "out"
-    assert routed == ["global"] and calls == [(300, 1, 0)]
+    assert routed == ["global"] and calls == [(300, 1, 0, 4)]
     before = dict(launches)
     with pytest.raises(RuntimeError, match="no cluster"):
         gather_ops.gather_rows_smem(table, idx)
