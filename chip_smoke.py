@@ -49,7 +49,12 @@ only.  Phases:
      stores bit for bit, adds within ``add_error_bound`` at their dtype
      (inf rows finite) and bit for bit at K = 1; then the gather and store
      edges again in bfloat16 (views in and out of 8-lane phase, the
-     coverage store);
+     coverage store); then the add's two routes (``add_route_cases``:
+     streaming and hot rows, forced and at the rule's switch, in all
+     three dtypes, V in {1, 2, 16, 17, 4096}, N up to 2^16, B in {1, 3},
+     D in {1, 2, 3, 8}, dst at an odd element offset and vals out of
+     phase, within ``add_error_bound`` of the plain version and within
+     ``hot_row_error_bound`` of the float64 sum, bit for bit at K = 1);
   2. the paper's CLI invocation ``-k Gather -p UNIFORM:8:1 -d 8 -l 2^24``
      through the port's CLI, as a gather, a store and an add scatter, on
      ``-b hopper`` and then on ``-b torch`` (the library yardstick);
@@ -62,8 +67,10 @@ only.  Phases:
      ``gather_times`` and ``scatter_times``, also by their kernels' device
      time from ``torch.profiler``, in turns with ``index_select``,
      ``index_put_`` or ``index_add_``, and the gathers on 2^24 random
-     lanes of each table), the add kernel once more on appdb's LULESH-S3
-     (2^25 lanes onto 16 rows), the store with its coverage map at the
+     lanes of each table), the add on appdb's LULESH-S3 (2^25 lanes onto
+     16 rows, the hot-row route) in each dtype beside ``index_add_`` at
+     that dtype, within ``hot_row_error_bound`` of the float64 sum, the
+     store with its coverage map at the
      shape phase 8's (1, 2) CLI store gives a shard (``cov_store_time``,
      beside ``index_put_`` plus ``index_fill_``), the selective scan at
      the serving shape (4, 2048, 8192, 16, bfloat16; device time too),
@@ -151,7 +158,8 @@ only.  Phases:
      ``pipeline_model`` beside the CLI gather at ``vecs`` 1 and 4;
  11. (inside phase 8's host draws) the Spatter path in bfloat16 and
      float16 (``dtype_phase``): demo and the CLI pattern in both, appdb
-     at scale 1.0 in bfloat16, on hopper and torch, gather and store
+     at scale 1.0 in bfloat16 (store and add mode), on hopper and torch,
+     gather and store
      digests equal, adds within the bound, launches buckets x (1 +
      ``RUNS``) under the 16-bit names and none under the float32 ones, the
      16-bit tile keys searched once; ``run_suite(dtype=bfloat16)``; demo
@@ -191,6 +199,14 @@ INT32_MAX = 2 ** 31 - 1
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM device memory (NVIDIA data sheet)
 CLI_ARGS = ["-k", "Gather", "-p", "UNIFORM:8:1", "-d", "8", "-l", "16777216"]
 RUNS = 10                        # min-of-K runs of the CLI and the suites
+# an add whose error passes this many of ``ref.add_rms_error`` (the rounding
+# model's standard deviation) went wrong: a right sum stays within one of
+# them (tests/test_torch_add_routes.py holds the hot-row route's emulation
+# and a lane-by-lane sum to that), and none at all is many of them off
+RMS_ERRORS = 6
+# +-1 payloads a row of LULESH-S3's exact add: its sums stay integers of at
+# most 256, which bfloat16's 8 bits hold (the draw's counts are checked)
+LULESH_EXACT_A_ROW = 200
 SERVE_ARGS = ["--arch", "falcon-mamba-7b", "--batch", "4", "--prompt-len",
               "2048", "--gen", "32"]
 FALCON_MAMBA_PARAMS = 7_272_665_088
@@ -300,7 +316,8 @@ def kernel_cases(torch):
     the gathers' and the store's edges; then their 16-bit instances in
     bfloat16 and float16, and the edges again in bfloat16 (the gathers and
     stores have one instance for both 16-bit types), the store's with and
-    without the coverage map."""
+    without the coverage map; then the add's two routes in all three
+    dtypes (``add_route_cases``)."""
     err = {k: 0.0 for k in KERNEL_INFO}
     gen = torch.Generator(device="cpu").manual_seed(0)
     n_cases, _ = spatter_cases(torch, gen, err, torch.float32)
@@ -323,7 +340,124 @@ def kernel_cases(torch):
           f"(adds within add_error_bound; {inf_rows} rows with an inf bound "
           f"checked finite); edges {time.perf_counter() - t0:.1f} s; max "
           f"|err| { {k: err[k] for k in B16_KERNELS} }", flush=True)
+    t0 = time.perf_counter()
+    n_cases, inf_rows = add_route_cases(torch, gen, err)
+    print(f"phase 1 (the add's routes): {n_cases} cases of both routes in "
+          f"three dtypes within their bounds ({inf_rows} rows with an inf "
+          f"add_error_bound checked finite and within hot_row_error_bound "
+          f"or the streaming sum's), {time.perf_counter() - t0:.1f} s",
+          flush=True)
     return err
+
+
+ADD_ROUTE_V = (1, 2, 16, 17, 4096)
+ADD_ROUTE_N = (1, 7, 1000, 1 << 16)
+
+
+def add_route_cases(torch, gen, err):
+    """Phase 1's cases of the add's two routes, ``scatter_add_rows_`` with
+    ``smem`` 0 (streaming) and 1 (hot rows, in shared memory), in float32,
+    bfloat16 and float16: V in ``ADD_ROUTE_V``, N in ``ADD_ROUTE_N``, B in
+    {1, 3}, D in {1, 2, 3, 8}, with ``_rand_idx``'s out-of-range and
+    INT32_MAX lanes, every 7th payload -0.0 and every 11th +0.0, and the
+    operands in turns aligned, dst at an odd element offset (16-bit words
+    straddling its first and last bytes) and vals one element off (out of
+    phase with idx; vectors straddle patterns wherever N is not a multiple
+    of 8).  Each call must launch its instance; its output must be finite,
+    within ``add_error_bound`` of the plain version where that is finite,
+    and within ``hot_row_error_bound`` (hot rows; at ``hot_ctas`` blocks a
+    pattern) or ``add_error_bound`` / 2 (streaming) of the float64 sum.
+    With K = 1 (no row takes two lanes) both routes must be bit-equal to
+    the plain version.  At the switch (B, V) in {(1, 1), (1, 2), (3, 16)},
+    ``add_tiles`` must name the hot-row route at ``autotune.hot_min_lanes``
+    (``HOT_MIN_LANES_A_ROW`` x V) lanes and streaming one lane fewer, and
+    the wrapper's own choice must hold the same bounds.  Returns (cases, rows
+    whose ``add_error_bound`` is inf)."""
+    from repro_torch.kernels import _build, autotune
+    from repro_torch.kernels.scatter_rows import ops as s
+    from repro_torch.kernels.scatter_rows.ref import (add_error_bound,
+                                                      hot_row_error_bound,
+                                                      scatter_add_rows_ref_)
+    dev = torch.device("cuda")
+    n_cases = inf_rows = 0
+    turn = itertools.count()
+
+    def operands(bsz, n, v, d, dtype, idx):
+        """(dst zeros, vals) laid out as the next turn says."""
+        lay = next(turn) % 3
+        dst = _at_offset(torch, (bsz, v, d), int(lay == 1),
+                         lambda k: torch.zeros(k, device=dev, dtype=dtype))
+        x = torch.randn(bsz * n * d, generator=gen).to(dev, dtype)
+        x[::7] = -0.0
+        x[::11] = 0.0
+        vals = _at_offset(torch, (bsz, n, d), int(lay == 2),
+                          lambda k: torch.cat([x[:k - x.numel()], x]))
+        return dst, vals
+
+    def one(dtype, idx, v, d, smem, where, bit_equal=False):
+        nonlocal n_cases, inf_rows
+        name = _build.spatter_instance("scatter_add_rows", dtype)[0]
+        bsz, n = idx.shape
+        dst, vals = operands(bsz, n, v, d, dtype, idx)
+        before = _launches()
+        got = s.scatter_add_rows_(dst, idx, vals, smem=smem)
+        want = scatter_add_rows_ref_(torch.zeros_like(dst), idx, vals)
+        torch.cuda.synchronize()
+        where = (f"{name} {where} smem={smem} B={bsz} N={n} V={v} D={d} "
+                 f"dst+{dst.storage_offset()} vals+{vals.storage_offset()}")
+        check(_launches()[name] == before[name] + 1,
+              f"{where}: did not launch {name}")
+        n_cases += 1
+        if bit_equal:
+            check(_bits_equal(torch, got, want), f"{where}: K=1 not "
+                  f"bit-equal")
+            return
+        route = smem if smem is not None else s.add_tiles(
+            bsz, n, v, d, dev, dtype).smem
+        bound = add_error_bound(idx, vals, v)
+        inf = torch.isinf(bound)
+        diff = (got.double() - want.double()).abs()
+        off = (got.double() - _exact_sum(torch, idx, vals, v)).abs()
+        own = (hot_row_error_bound(idx, vals, v, s.hot_ctas(
+            bsz, n, v, d, dev, dtype)) if route else bound / 2)
+        check(bool(torch.isfinite(got).all())
+              and bool((diff[~inf] <= bound[~inf]).all())
+              and bool((off <= own).all()),
+              f"{where}: not finite, or over a bound (max err "
+              f"{diff.max().item()} against the plain version, "
+              f"{off.max().item()} against the float64 sum)")
+        inf_rows += int(inf.any(-1).sum())
+        err[name] = max(err[name], diff[~inf].max().item()
+                        if bool((~inf).any()) else 0.0)
+
+    for dtype in (torch.float32, torch.bfloat16, torch.float16):
+        for bsz, v, n, d in itertools.product((1, 3), ADD_ROUTE_V,
+                                              ADD_ROUTE_N, (1, 2, 3, 8)):
+            idx = _rand_idx(torch, gen, bsz, n, v).to(dev)
+            for smem in (0, 1):
+                one(dtype, idx, v, d, smem, "route")
+        # K = 1: unique rows, out-of-range lanes among them
+        for bsz, d in itertools.product((1, 3), (1, 2, 3, 8)):
+            n, v = 1000, 2000
+            idx = torch.stack([torch.randperm(v, generator=gen)[:n]
+                               for _ in range(bsz)]).to(torch.int32)
+            idx[:, :3] = torch.tensor([INT32_MAX, -1, v], dtype=torch.int32)
+            idx = idx.to(dev)
+            for smem in (0, 1):
+                one(dtype, idx, v, d, smem, "K=1", bit_equal=True)
+        # the switch
+        for bsz, v in ((1, 1), (1, 2), (3, 16)):
+            at = autotune.hot_min_lanes(s.tile_key(
+                "scatter_add", bsz, 0, v, 1, autotune.cuda_platform(0),
+                dtype))
+            for n, want in ((at, 1), (at - 1, 0)):
+                got = s.add_tiles(bsz, n, v, 1, dev, dtype).smem
+                check(got == want, f"add_tiles B={bsz} N={n} V={v} {dtype}: "
+                      f"smem {got}, not {want}")
+                idx = (torch.arange(bsz * n, device=dev) % v).view(
+                    bsz, n).to(torch.int32)
+                one(dtype, idx, v, 1, None, "switch")
+    return n_cases, inf_rows
 
 
 def spatter_cases(torch, gen, err, dtype):
@@ -495,6 +629,17 @@ def _words(torch, t):
     """``t``'s raw bits, so that -0.0 and +0.0 differ: int32 words of a
     float32 tensor, int16 of a 16-bit one."""
     return t.view(torch.int16 if t.element_size() == 2 else torch.int32)
+
+
+def _exact_sum(torch, idx, vals, v):
+    """The sum-scatter of ``vals`` into (B, v, D) zeros in float64 (the
+    plain version at float64): its own error, below K 2^-53 sum |v_i|, is
+    far inside every tolerance it is the yardstick of, and nil where the
+    sums are small integers."""
+    from repro_torch.kernels.scatter_rows.ref import scatter_add_rows_ref_
+    return scatter_add_rows_ref_(
+        torch.zeros(idx.shape[0], v, vals.shape[2], dtype=torch.float64,
+                    device=vals.device), idx, vals.double())
 
 
 def _bits_equal(torch, a, b):
@@ -1578,8 +1723,8 @@ def kernel_times(torch, err):
         if new("scatter_store_rows_cov"):
             out[spatter_instance("scatter_store_rows_cov", dtype)[0]] = (
                 cov_store_time(torch, err, dtype))
-        if dtype == torch.float32:
-            out["lulesh_s3_add"] = lulesh_add_time(torch)
+        out.setdefault("lulesh_s3_add", {})[
+            str(dtype).removeprefix("torch.")] = lulesh_add_time(torch, dtype)
     out["selective_scan"] = scan_time(torch, err)
     return out
 
@@ -1684,47 +1829,111 @@ def scatter_times(torch, err, dtype=None, store=True):
                20, "scatter_add", add_k),
            _time_ms(torch, lambda: scatter_add_rows_ref_(dst, idx1, vals), 5),
            n * 4 + n * e + 2 * uniq * e, [1, v, 1] + tag, worst)
+    out[add_k]["route"] = ("smem" if s.add_tiles(1, n, v, 1, dev, dtype).smem
+                           else "streaming")
     del dst, vals, idx1
     torch.cuda.empty_cache()
     return out
 
 
-def lulesh_add_time(torch):
-    """The float32 add on appdb's LULESH-S3 (delta 0): all 2^25 lanes land
-    on 16 rows, so the atomics serialise there; timed, not redesigned,
-    beside ``index_add_``.  (At 16 bits such a row has no error bound, K *
-    u >= 1/2, and the hot rows' atomics take far longer:
-    ``probes/hot_row_add_probe.py``.)"""
+def lulesh_add_time(torch, dtype):
+    """The add on appdb's LULESH-S3 (delta 0) at ``dtype``: all 2^25 lanes
+    land on its 16 rows, K = 2^21 lanes a row, on the route ``add_tiles``
+    names (the hot-row route on an H100).  Two calls are held to the
+    float64 sum.  An exact one: +-1 on ``LULESH_EXACT_A_ROW`` random lanes
+    a row (at most 256, checked), +0.0 on the rest, so that every partial
+    and running sum, in whatever order and over whatever blocks, is an
+    integer of at most 256, which each dtype holds: the output must be
+    bit-equal to the float64 sum.  The timed one, N(0, 1) payloads: finite,
+    within ``RMS_ERRORS`` x ``add_rms_error`` at the route's blocks, and
+    within the route's worst-case bound (``hot_row_error_bound``; on the
+    streaming route ``add_error_bound`` of the plain version, inf at 16
+    bits: K u >= 1/2).  Timed in turns with ``index_add_`` at the same
+    dtype (``_turn_times``: ms and device_ms); the errors of both against
+    the float64 sum are recorded."""
     from repro_torch import appdb
+    from repro_torch.kernels import _build
     from repro_torch.kernels.scatter_rows import ops as s
     from repro_torch.kernels.scatter_rows.ref import (add_error_bound,
+                                                      add_rms_error,
+                                                      hot_row_error_bound,
                                                       scatter_add_rows_ref_)
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(5)
+    name = _build.spatter_instance("scatter_add_rows", dtype)[0]
     p3 = appdb.scale_counts([appdb.get("LULESH-S3")], 1.0)[0]
     idx3 = torch.tensor(p3.index, device=dev, dtype=torch.int32).repeat(
         p3.count)[None]
     n3, v3 = idx3.shape[1], p3.footprint()
-    vals3 = torch.randn(1, n3, 1, generator=gen, device=dev)
-    dst3 = torch.zeros(1, v3, 1, device=dev)
+    e = torch.tensor([], dtype=dtype).element_size()
+    vals3 = torch.randn(1, n3, 1, generator=gen, device=dev).to(dtype)
+    dst3 = torch.zeros(1, v3, 1, device=dev, dtype=dtype)
+    smem = s.add_tiles(1, n3, v3, 1, dev, dtype).smem
+    ctas = s.hot_ctas(1, n3, v3, 1, dev, dtype) if smem else 0
+    where = f"{name} on LULESH-S3 ({'smem' if smem else 'streaming'} route)"
+
+    ones = torch.zeros_like(vals3)
+    pos = torch.randint(0, n3, (LULESH_EXACT_A_ROW * v3,), generator=gen,
+                        device=dev)
+    ones.view(-1)[pos] = (torch.randint(0, 2, pos.shape, generator=gen,
+                                        device=dev) * 2 - 1).to(dtype)
+    nonzero = _exact_sum(torch, idx3, (ones != 0).to(dtype), v3)
+    want1 = _exact_sum(torch, idx3, ones, v3)
+    check(nonzero.max().item() <= 256 and bool((want1 != 0).any()),
+          f"{where}: the +-1 draw puts {nonzero.max().item()} lanes on a "
+          f"row (at most 256), or sums to 0 everywhere")
+    got1 = s.scatter_add_rows_(dst3.clone(), idx3, ones)
+    check(_bits_equal(torch, got1, want1.to(dtype)),
+          f"{where}: +-1 payloads not bit-equal to the float64 sum (max "
+          f"|err| {(got1.double() - want1).abs().max().item()})")
+    del ones, pos, nonzero, want1, got1
+
+    exact = _exact_sum(torch, idx3, vals3, v3)
     got = s.scatter_add_rows_(dst3.clone(), idx3, vals3)
-    want = scatter_add_rows_ref_(dst3.clone(), idx3, vals3)
-    diff = (got - want).abs().double()
-    check(bool((diff <= add_error_bound(idx3, vals3, v3)).all()),
-          "scatter_add_rows on LULESH-S3: over add_error_bound")
-    s3 = dict(lanes=n3, rows=v3, max_abs_err=diff.max().item(),
-              ms=_time_ms(torch, lambda: s.scatter_add_rows_(dst3, idx3,
-                                                             vals3), 5),
-              library_ms=_time_ms(torch, lambda: dst3.view(-1, 1).index_add_(
-                  0, idx3[0], vals3[0]), 5),
-              bound_ms=(n3 * 4 * 2 + 2 * v3 * 4) / HBM_BYTES_PER_S * 1e3)
-    print(f"  scatter_add_rows on LULESH-S3 ({n3} lanes -> {v3} rows): "
-          f"kernel {s3['ms']:.4f} ms, library {s3['library_ms']:.4f} ms, "
-          f"bytes bound {s3['bound_ms']:.4f} ms, max |err| "
-          f"{s3['max_abs_err']}", flush=True)
-    del got, want, diff, idx3, vals3, dst3
+    lib = dst3.clone().view(-1, 1).index_add_(0, idx3[0], vals3[0]).view(
+        1, v3, 1)
+    sigma = add_rms_error(idx3, vals3, v3, ctas if smem else None)
+    if smem:
+        bound = hot_row_error_bound(idx3, vals3, v3, ctas)
+        ok = bool(((got.double() - exact).abs() <= bound).all())
+        tol = f"hot_row_error_bound at {ctas} blocks"
+    else:
+        want = scatter_add_rows_ref_(dst3.clone(), idx3, vals3)
+        bound = add_error_bound(idx3, vals3, v3)
+        ok = bool(((got.double() - want.double()).abs()[~bound.isinf()]
+                   <= bound[~bound.isinf()]).all())
+        tol = "add_error_bound of the plain version"
+    err = (got.double() - exact).abs()
+    check(ok and bool(torch.isfinite(got).all())
+          and bool((err <= RMS_ERRORS * sigma).all()),
+          f"{where}: not finite, over {tol}, or over {RMS_ERRORS} x "
+          f"add_rms_error (max |err| / add_rms_error "
+          f"{(err / sigma).max().item()})")
+    row = _turn_times(torch, {
+        "library": lambda: dst3.view(-1, 1).index_add_(0, idx3[0], vals3[0]),
+        "kernel": lambda: s.scatter_add_rows_(dst3, idx3, vals3)},
+        20, "scatter_add", name)
+    row.update(dtype=str(dtype).removeprefix("torch."), lanes=n3, rows=v3,
+               route="smem" if smem else "streaming", ctas=ctas,
+               err=err.max().item(),
+               err_rms=(err / sigma).max().item(),
+               library_err=(lib.double() - exact).abs().max().item(),
+               max_bound=bound.max().item(),
+               rms_error=sigma.max().item(),
+               bound_ms=(n3 * (4 + e) + 2 * v3 * e) / HBM_BYTES_PER_S * 1e3)
+    print(f"  {name} on LULESH-S3 ({n3} lanes -> {v3} rows, "
+          f"{row['route']} route, {ctas} blocks): ms {row['ms_pair']} "
+          f"device_ms {row['device_ms_pair']}; index_add_ ms "
+          f"{row['library_ms_pair']} device_ms "
+          f"{row['library_device_ms_pair']}; bytes bound "
+          f"{row['bound_ms']:.4f} ms; +-1 payloads bit-equal to the float64 "
+          f"sum; |err| against it {row['err']:.6g} = {row['err_rms']:.4g} x "
+          f"add_rms_error (up to {row['rms_error']:.6g}; limit "
+          f"{RMS_ERRORS}), index_add_'s {row['library_err']:.6g}; {tol} up "
+          f"to {row['max_bound']:.6g}", flush=True)
+    del got, lib, exact, sigma, err, idx3, vals3, dst3
     torch.cuda.empty_cache()
-    return s3
+    return row
 
 
 def cov_store_time(torch, err, dtype=None):
@@ -2630,15 +2839,16 @@ def _placed_suite(torch, pats, mode, mesh, cache, backend="hopper",
     (``make_work`` -> ``launch`` -> ``demux``, as ``run_plan`` drives
     them), with digests, each bucket launch placed on ``mesh`` (None:
     unplaced), in ``dtype`` (default float32).  Returns the digests, the
-    add outputs by position, the results by position, the summed
-    min-of-``RUNS`` bucket times, the peak device memory and the wall."""
+    add outputs and the keys served by position, the results by position,
+    the summed min-of-``RUNS`` bucket times, the peak device memory and
+    the wall."""
     from repro_torch.plan import SuitePlan, demux, launch, make_work
     plan = SuitePlan.build(pats)
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    digests, outs, ms = [None] * len(pats), {}, 0.0
+    digests, outs, keys, ms = [None] * len(pats), {}, {}, 0.0
     results = [None] * len(pats)
     for w in make_work(plan, backend=backend, runs=RUNS, mode=mode,
                        digest=True, mesh=mesh, dtype=dtype):
@@ -2648,9 +2858,24 @@ def _placed_suite(torch, pats, mode, mesh, cache, backend="hopper",
             digests[pos], results[pos] = r.out_digest, r
             if mode == "add":
                 outs[pos] = res.out[i, :w.patterns[i].footprint()].clone()
-    return dict(plan=plan, digests=digests, outs=outs, results=results,
+                keys[pos] = res.key
+    return dict(plan=plan, digests=digests, outs=outs, keys=keys,
+                results=results,
                 ms=ms, peak=torch.cuda.max_memory_allocated(),
                 wall_s=time.perf_counter() - t0)
+
+
+def _add_ctas(key, device):
+    """Blocks a pattern that the hot-row route of ``key``'s unplaced
+    hopper add takes, as ``plan.bucket_tiles`` chooses it on ``device``
+    (the patterns' lanes padded, onto F + 1 rows), or None on the
+    streaming route."""
+    from repro_torch.kernels.scatter_rows import ops as s
+    from repro_torch.plan import bucket_tiles, pad_lanes
+    if not bucket_tiles(key, device).smem:
+        return None
+    return s.hot_ctas(key.batch, pad_lanes(key.idx_len), key.footprint + 1,
+                      key.row_width, device, key.dtype)
 
 
 def placement_phase(torch, suite_stats):
@@ -2663,7 +2888,10 @@ def placement_phase(torch, suite_stats):
     ``PLACEMENT_SHAPES``: gathers and stores (the suite in store mode)
     must give phase 3's digests (the CLI pattern: its unplaced run's),
     adds (the scatters in add mode) must lie within ``add_error_bound`` of
-    the unplaced run's outputs, and every kernel's launches must equal the
+    the unplaced run's outputs and, unplaced too, within ``RMS_ERRORS`` x
+    ``add_rms_error`` of the float64 sum (at float32 the same on either
+    route and placement: K - 1 float32 roundings a row), and every
+    kernel's launches must equal the
     buckets x shards x (1 + ``RUNS``), the counts set to 0 just before
     (b) and read just after; (c) ``python -m repro_torch --mesh auto``
     twice on demo (every bucket unplaced, no build on the repeat) and an
@@ -2675,7 +2903,8 @@ def placement_phase(torch, suite_stats):
     from repro_torch import appdb, load_suite
     from repro_torch.__main__ import main as cli
     from repro_torch.kernels import reset_launches
-    from repro_torch.kernels.scatter_rows.ref import add_error_bound
+    from repro_torch.kernels.scatter_rows.ref import (add_error_bound,
+                                                      add_rms_error)
     from repro_torch.pattern import Pattern
     from repro_torch.plan import (ExecutorCache, Placement, SuitePlan,
                                   default_cache, make_host_buffers,
@@ -2723,21 +2952,32 @@ def placement_phase(torch, suite_stats):
                         check(r["digests"] == want,
                               f"phase 8: {name} {label} digests differ at "
                               f"{[p.name for p, a, z in zip(run, r['digests'], want) if a != z]}")
-                    elif base_add is None:
-                        base_add = r["outs"]
                     else:
                         for pos, got in r["outs"].items():
                             p = run[pos]
                             if pos not in bounds:
                                 _, idx, vals, _ = make_host_buffers(p, 1)
-                                bounds[pos] = add_error_bound(
-                                    torch.from_numpy(idx)[None].to(cuda0),
-                                    torch.from_numpy(vals)[None].to(cuda0),
-                                    p.footprint())[0].cpu()
-                            diff = (got.double() - base_add[pos].double()).abs()
-                            check(bool((diff <= bounds[pos]).all()),
+                                idx = torch.from_numpy(idx)[None].to(cuda0)
+                                vals = torch.from_numpy(vals)[None].to(cuda0)
+                                v = p.footprint()
+                                bounds[pos] = (
+                                    add_error_bound(idx, vals, v)[0].cpu(),
+                                    _exact_sum(torch, idx, vals, v)[0].cpu(),
+                                    RMS_ERRORS * add_rms_error(
+                                        idx, vals, v)[0].cpu())
+                            bound, exact, limit = bounds[pos]
+                            check(bool(((got.double() - exact).abs()
+                                        <= limit).all()),
                                   f"phase 8: {name} {label} add {p.name} "
-                                  f"over add_error_bound")
+                                  f"over {RMS_ERRORS} x add_rms_error of "
+                                  f"the float64 sum")
+                            if base_add is not None:
+                                diff = (got.double()
+                                        - base_add[pos].double()).abs()
+                                check(bool((diff <= bound).all()),
+                                      f"phase 8: {name} {label} add "
+                                      f"{p.name} over add_error_bound")
+                        base_add = base_add or r["outs"]
                     rows.append(dict(suite=name, mode=mode, placement=label,
                                      key=mesh.placement if mesh else "",
                                      n_buckets=r["plan"].n_buckets,
@@ -2824,7 +3064,7 @@ _SPATTER_FRAGMENTS = (("gather_rows_smem", ("gather_rows_smem_kernel",)),
                                        "gather_elems_kernel")),
                       ("scatter_store", ("store_d1_vec_kernel",
                                          "store_elems_kernel")),
-                      ("scatter_add_rows", ("scatter_add_rows_kernel",)))
+                      ("scatter_add_rows", ("scatter_add_rows_",)))
 
 
 def _family(kernel):
@@ -3121,7 +3361,7 @@ def analysis_phase(torch, suite_stats, torch_stats):
 # kernel-name fragments of the Spatter kernels, by the launch they are
 _TUNED_FRAGMENTS = ("gather_d1_vec_kernel", "gather_elems_kernel",
                     "gather_rows_smem_kernel", "store_d1_vec_kernel",
-                    "store_elems_kernel", "scatter_add_rows_kernel")
+                    "store_elems_kernel", "scatter_add_rows_")
 
 
 def candidate_cases(torch):
@@ -3130,8 +3370,11 @@ def candidate_cases(torch):
     (the kernel's own rule), 1 and deep; the smem gather at three lanes a
     CTA (the legacy rule's, 256 and one cluster a pattern), each also
     through ``gather_rows`` with that choice; the store at ``vecs`` 0, 1
-    and deep, with and without its coverage map; the add with +0.0 and
-    -0.0 payloads among its lanes (skipped by the kernel); paged decode at
+    and deep, with and without its coverage map; the add on both routes
+    (``smem`` 0 and 1; the hot-row kernel must refuse, and count no
+    launch, where its V x D float32 sums pass a block's 227 KB) with +0.0
+    and -0.0 payloads among its lanes (skipped by the kernel); paged
+    decode at
     three split counts.  Gathers and stores ``torch.equal``, adds within
     ``add_error_bound`` (and rows that receive only +-0.0 stay +0.0),
     paged decode within ``attn_tolerance``.  Returns the number of cases."""
@@ -3225,21 +3468,39 @@ def candidate_cases(torch):
                     idx_a[idx_a == 0] = 1
                     idx_a[zero_lanes.to(dev)] = 0
                     zeros = torch.zeros(bsz, v, r, device=dev)
-                    got = s.scatter_add_rows_(zeros.clone(), idx_a, vals_a)
                     want = scatter_add_rows_ref_(zeros.clone(), idx_a,
                                                  vals_a)
-                    torch.cuda.synchronize()
-                    diff = (got - want).abs().double()
-                    check(bool((diff <= add_error_bound(idx_a, vals_a,
-                                                        v)).all()),
-                          f"scatter_add_rows B={bsz} R={r} N={n} V={v} "
-                          f"with +-0.0 payloads: over add_error_bound")
-                    check(torch.equal(got[:, 0].view(torch.int32),
-                                      torch.zeros_like(got[:, 0]).view(
-                                          torch.int32)),
-                          f"scatter_add_rows B={bsz} R={r} N={n} V={v}: "
-                          f"row 0 (+-0.0 payloads only) is not +0.0")
-                    n_cases += 1
+                    bound = add_error_bound(idx_a, vals_a, v)
+                    for smem in (0, 1):
+                        where = (f"scatter_add_rows smem={smem} B={bsz} "
+                                 f"R={r} N={n} V={v}")
+                        fits = v * r * 4 <= g.SMEM_TABLE_BYTES
+                        before = _launches()["scatter_add_rows"]
+                        try:
+                            got = s.scatter_add_rows_(zeros.clone(), idx_a,
+                                                      vals_a, smem=smem)
+                        except RuntimeError:
+                            # the hot-row kernel's refusal: its float32
+                            # sums pass a block's shared memory
+                            check(smem and not fits and _launches()[
+                                "scatter_add_rows"] == before,
+                                  f"{where}: refused")
+                            n_cases += 1
+                            continue
+                        check(not smem or fits, f"{where}: V x R float32 "
+                              f"sums past {g.SMEM_TABLE_BYTES} bytes, not "
+                              f"refused")
+                        torch.cuda.synchronize()
+                        diff = (got - want).abs().double()
+                        check(bool((diff <= bound).all()),
+                              f"{where} with +-0.0 payloads: over "
+                              f"add_error_bound")
+                        check(torch.equal(got[:, 0].view(torch.int32),
+                                          torch.zeros_like(got[:, 0]).view(
+                                              torch.int32)),
+                              f"{where}: row 0 (+-0.0 payloads only) is not "
+                              f"+0.0")
+                        n_cases += 1
     pgen = torch.Generator(device="cuda").manual_seed(12)
     for (kvh, gq), dh, dtype, pps in itertools.product(
             ((8, 4), (2, 16), (1, 1)), (64, 128),
@@ -3552,11 +3813,14 @@ def dtype_phase(torch):
     ``_host_buffers_once()`` (phase 8's float32 draws, converted by
     ``host.as_dtype``; nothing is drawn anew).  (a) demo and the CLI
     pattern (gather and store in store mode, the scatter in add mode) in
-    bfloat16 and float16, and appdb at scale 1.0 in bfloat16 (store
-    mode), each on hopper and torch through the planner's entry points:
+    bfloat16 and float16, and appdb at scale 1.0 in bfloat16 (store and
+    add mode: LULESH-S3 takes the add's hot-row route), each on hopper and
+    torch through the planner's entry points:
     gather and store digests equal between the two, every add output
     within ``add_error_bound`` at its dtype of the other's (rows whose
-    bound is inf: finite only); the launch counts, set to 0 just before,
+    bound is inf: hopper's finite and within ``RMS_ERRORS`` x
+    ``add_rms_error`` of the float64 sum, at its bucket's route); the
+    launch counts, set to 0 just before,
     rise by buckets x (1 + ``RUNS``) under the 16-bit kernels' names, and
     no float32 Spatter kernel launches; the first runs search the new
     16-bit tile keys.  (b) ``run_suite(demo, dtype=bfloat16,
@@ -3571,7 +3835,8 @@ def dtype_phase(torch):
     from repro_torch.analysis import cost, lint
     from repro_torch.host import as_dtype
     from repro_torch.kernels import autotune, reset_launches
-    from repro_torch.kernels.scatter_rows.ref import add_error_bound
+    from repro_torch.kernels.scatter_rows.ref import (add_error_bound,
+                                                      add_rms_error)
     from repro_torch.pattern import Pattern
     from repro_torch.plan import ExecutorCache, Placement, make_host_buffers
     from repro_torch.suite import harmonic_mean
@@ -3588,7 +3853,7 @@ def dtype_phase(torch):
              ("cli", cli, bf16, ("store", "add")),
              ("cli", cli, f16, ("store", "add")),
              ("appdb", appdb.scale_counts(appdb.ALL_PATTERNS, 1.0), bf16,
-              ("store",)))
+              ("store", "add")))
     searched0 = autotune.stats()["searched"]
     reset_launches()
     expect = {k: 0 for k in _launches()}
@@ -3596,19 +3861,29 @@ def dtype_phase(torch):
     rows, digests, adds = [], {}, {}
     inf_rows = 0
 
-    def within_bound(got, other, pat, dtype, where):
-        """``got`` within ``add_error_bound`` at ``dtype`` of ``other``
-        (rows whose bound is inf: finite only); returns those rows."""
+    def within_bound(got, other, pat, dtype, where, key=None):
+        """``got`` (hopper's, from the unplaced add ``key`` names) within
+        ``add_error_bound`` at ``dtype`` of ``other``; rows whose bound is
+        inf finite and within ``RMS_ERRORS`` x ``add_rms_error`` of the
+        float64 sum, at ``key``'s route (None, for placed runs: the
+        streaming route's K - 1 roundings a row in the dtype, the most a
+        row takes); returns those rows."""
         _, idx, vals, _ = make_host_buffers(pat, 1)
-        bound = add_error_bound(torch.from_numpy(idx)[None].to(cuda0),
-                                as_dtype(vals, dtype)[None].to(cuda0),
-                                pat.footprint())[0].cpu()
+        idx = torch.from_numpy(idx)[None].to(cuda0)
+        vals = as_dtype(vals, dtype)[None].to(cuda0)
+        v = pat.footprint()
+        bound = add_error_bound(idx, vals, v)[0].cpu()
         inf = torch.isinf(bound)
         diff = (got.double() - other.double()).abs()
+        off = (got.double() - _exact_sum(torch, idx, vals, v)[0].cpu()).abs()
+        limit = RMS_ERRORS * add_rms_error(
+            idx, vals, v, key and _add_ctas(key, cuda0))[0].cpu()
         check(bool((diff[~inf] <= bound[~inf]).all())
+              and bool((off[inf] <= limit[inf]).all())
               and bool(torch.isfinite(got).all()),
-              f"phase 11: {where} add {pat.name} over add_error_bound or "
-              f"not finite")
+              f"phase 11: {where} add {pat.name} over add_error_bound, "
+              f"over {RMS_ERRORS} x add_rms_error of the float64 sum where "
+              f"that bound is inf, or not finite")
         return int(inf.any(-1).sum())
 
     for name, pats, dtype, modes in cells:
@@ -3631,7 +3906,8 @@ def dtype_phase(torch):
                 for pos, got in res["hopper"]["outs"].items():
                     inf_rows += within_bound(got, res["torch"]["outs"][pos],
                                              run[pos], dtype,
-                                             f"{name} {dname}")
+                                             f"{name} {dname}",
+                                             res["hopper"]["keys"][pos])
             for b in ("hopper", "torch"):
                 r = res[b]
                 gbs = [x.measured_gbs for x in r["results"]]
@@ -3661,7 +3937,8 @@ def dtype_phase(torch):
     neg_zero = int(((v16 == 0) & torch.signbit(v16)).sum())
     print(f"  (a) launches {census} = buckets x (1 + {RUNS}); no float32 "
           f"Spatter kernel; {searched} 16-bit tile keys searched; "
-          f"{inf_rows} add rows with an inf bound checked finite; the CLI "
+          f"{inf_rows} add rows with an inf bound checked finite and within "
+          f"{RMS_ERRORS} x add_rms_error; the CLI "
           f"scatter's float16 payloads hold {neg_zero} -0.0", flush=True)
     out.update(rows=rows, launches=census, searched=searched,
                inf_rows=inf_rows, cli_f16_neg_zero=neg_zero)
@@ -3846,6 +4123,11 @@ def main():
                          device_ms=t.get("device_ms"),
                          library_device_ms=t.get("library_device_ms"),
                          shape=t["shape"]))
+        if name.startswith("scatter_add_rows"):
+            dname = t["shape"][-1] if len(t["shape"]) > 3 else "float32"
+            rows[-1]["add_routes"] = {
+                "cli": t["route"],
+                "lulesh_s3": lulesh_s3_add[dname]["route"]}
     cli = {f"{b}/{k}/{m}": dict(time_ms=r.time_s * 1e3, gbs=r.measured_gbs,
                                 host_s=r.host_s)
            for (b, k, m), r in cli_results.items()}

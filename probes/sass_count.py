@@ -9,7 +9,9 @@ default this checkout's ``src/``) with nvcc, disassembles each with
 ``cuobjdump -sass`` and prints, for every kernel whose name holds
 ``--match``, its instruction count by opcode class (MUFU.EX2, FFMA, FMUL,
 FADD, SHFL, LDS, LDG, STG, BAR, ...) and its local-memory accesses (spills
-show as LDL/STL).  Prints one JSON line at the end; ``--dump`` writes the
+show as LDL/STL).  Atomics and reductions keep their whole opcode
+(``ATOMG.E.CAS.STRONG.GPU``, ``REDG.E.ADD.F16x2.FTZ.RN.STRONG.GPU``, ...):
+the suffix says whether an add is native or a compare-and-swap loop.  Prints one JSON line at the end; ``--dump`` writes the
 matching kernels' whole SASS to FILE.  Needs the CUDA
 toolkit (nvcc, cuobjdump); no card.
 """
@@ -34,12 +36,13 @@ def counts(sass: str, match: str):
             name = m.group(1)
             out[name] = collections.Counter() if match in name else None
             continue
-        m = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z0-9_.]+)",
+        m = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Za-z0-9_.]*)",
                      line)
         if m and name and out.get(name) is not None:
             op = m.group(1)
             base = op.split(".")[0]
-            out[name][op if base == "MUFU" else base] += 1
+            full = base == "MUFU" or base.startswith(("ATOM", "RED"))
+            out[name][op if full else base] += 1
     return {k: v for k, v in out.items() if v is not None}
 
 

@@ -130,7 +130,8 @@ def gather_hopper(src, idx, tiles=None):
 
 def scatter_hopper(dst, idx, vals, mode, keep, tiles=None, cov=None):
     if mode == "add":
-        return scatter_ops.scatter_add_rows_(dst, idx, vals)
+        return scatter_ops.scatter_add_rows_(
+            dst, idx, vals, smem=None if tiles is None else tiles.smem)
     return scatter_ops.scatter_store_rows_(
         dst, idx, keep, vals, cov, vecs=None if tiles is None else tiles.vecs)
 

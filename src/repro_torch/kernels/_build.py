@@ -97,8 +97,8 @@ _SIGNATURES = {
         "scatter_store_rows_cov_f32": (_P,) * 5 + (_I64,) * 5 + (_P,),
         "scatter_store_rows_b16": (_P,) * 4 + (_I64,) * 5 + (_P,),
         "scatter_store_rows_cov_b16": (_P,) * 5 + (_I64,) * 5 + (_P,),
-        # dst, idx, vals, B, N, V, D, stream
-        **{f"scatter_add_rows_{t}": (_P, _P, _P, _I64, _I64, _I64, _I64, _P)
+        # dst, idx, vals, B, N, V, D, ctas (0: the streaming route), stream
+        **{f"scatter_add_rows_{t}": (_P,) * 3 + (_I64,) * 5 + (_P,)
            for t in ("f32", "bf16", "f16")},
     },
     "selective_scan": {

@@ -12,7 +12,8 @@ it runs on; a ``TileChoice`` holds Hopper's parameters:
                     thread, 1 or deep          ``deep_for``) in Python
     gather_smem     lanes_per_cta              ``smem_lanes_per_cta``
     scatter_store   vecs, as the gather        the C rule
-    scatter_add     nothing (recorded)         --
+    scatter_add     smem: the hot-row route    the streaming route (0)
+                    (0/1)
     paged_decode    splits of a row's pages    ``paged_splits``
 
 Candidates are only launches the compiled kernels already take: the deep
@@ -82,7 +83,8 @@ class TileKey:
 @dataclasses.dataclass(frozen=True)
 class TileChoice:
     """A launch's parameters; the fields an op does not use stay 0."""
-    smem: int = 0           # gather: 1 = the shared-memory kernel
+    smem: int = 0           # gather, scatter_add: 1 = the shared-memory
+                            # kernel (the add's hot-row route)
     lanes_per_cta: int = 0  # gather_smem
     vecs: int = 0           # gather_global, scatter_store
     splits: int = 0         # paged_decode
@@ -304,8 +306,47 @@ def _search_gather(key: TileKey) -> TileChoice:
     return TileChoice(smem=int(s < global_cost(key)))
 
 
+# the add's hot-row route (csrc/scatter_rows.cu, scatter_add_rows_hot_kernel),
+# from probes/hot_row_add_probe.py's sweep (D = 1 tables of V rows taking K
+# lanes a row in random order, V 1 to 16384, K 4 to 16384, B 1 and 8,
+# float32 and bfloat16, both routes forced; CUDA events a call, an NVIDIA
+# H100 80GB HBM3 at 700.00 W, PERF.md).  Below K = 256 the streaming route
+# was as fast or faster, but at B = 8 with V >= 4096 (K = 64, V = 4096:
+# 0.074 against 0.040 ms in bfloat16) and in a few calls of ~0.03 ms
+# where both are launch-bound; from K = 256 the hot-row route won or
+# tied (within 0.005 ms, calls of ~0.03-0.05 ms) up to V = 4096, and at V
+# = 16384 (64 KB of accumulators) won from K = 1024 (0.127 against 0.284
+# ms in bfloat16) and lost at K = 256, B = 1 (0.096 against 0.086); at K
+# = 16384 it won by 2-40 x.  Past 64 KB it was not measured: there only a
+# forced ``smem`` takes the route, up to the kernel's own limit (a block's
+# 227 KB, ``kHotSmemMax``; past it the launch is refused).
+HOT_SMEM_BYTES = 64 * 1024   # a pattern's V x D float32 sums, at most
+HOT_MIN_LANES_A_ROW = 256    # K from which the rule takes the route
+HOT_CTAS_PER_SM = 2          # blocks an SM of a grid that fills the card
+HOT_LANES_PER_ACC = 4        # lanes a block takes an accumulator, least
+
+
+def hot_ctas(key: TileKey) -> int:
+    """Blocks a pattern on the hot-row route: enough to fill the card
+    (``HOT_CTAS_PER_SM`` an SM over the key's B patterns), but no more than
+    leave each block ``HOT_LANES_PER_ACC`` lanes an accumulator; at least
+    one.  Each rounds its sums to the dtype once, so a row takes at most
+    this many roundings (``ref.hot_row_rounds``)."""
+    fill = _ceil(HOT_CTAS_PER_SM * facts(key.platform).sms, key.batch)
+    work = key.lanes // (HOT_LANES_PER_ACC * max(1, key.rows))
+    return max(1, min(fill, work))
+
+
+def hot_min_lanes(key: TileKey) -> int:
+    """The lanes a pattern from which the rule takes the hot-row route
+    (``HOT_MIN_LANES_A_ROW`` a row)."""
+    return HOT_MIN_LANES_A_ROW * key.rows
+
+
 def _search_scatter_add(key: TileKey) -> TileChoice:
-    return TileChoice()
+    return TileChoice(smem=int(
+        0 < key.rows * key.width * 4 <= HOT_SMEM_BYTES
+        and key.lanes >= hot_min_lanes(key)))
 
 
 def paged_cost(key: TileKey, splits: int) -> float:
@@ -372,7 +413,7 @@ LEGACY: dict[str, Callable[[TileKey], TileChoice]] = {
     "gather_global": lambda k: TileChoice(vecs=legacy_vecs(k)),
     "gather_smem": _legacy_gather_smem,
     "scatter_store": lambda k: TileChoice(vecs=legacy_vecs(k)),
-    "scatter_add": _search_scatter_add,
+    "scatter_add": lambda k: TileChoice(),
     "paged_decode": _legacy_paged,
 }
 

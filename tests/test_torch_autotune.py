@@ -120,7 +120,11 @@ def test_choices_lie_within_their_bracket(key):
         assert c == autotune.TileChoice(splits=c.splits)
         assert 1 <= c.splits <= min(key.lanes, paged_ops.MAX_SPLITS)
     else:
-        assert c == autotune.TileChoice()
+        assert key.op == "scatter_add"
+        assert c == autotune.TileChoice(smem=c.smem)
+        assert c.smem in (0, 1)
+        assert not c.smem or (key.rows * key.width * 4
+                              <= autotune.HOT_SMEM_BYTES)
 
 
 _CHILD = """
