@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the port's paths on one CUDA card and check them: the Spatter
-main path, falcon-mamba-7b and llama3-8b served at full width, the
-Spatter suite daemon, bucket launches placed over several devices, the
+main path, falcon-mamba-7b and llama3-8b served at full width,
+deepseek-v2-236b served at full width through the MoE dispatch on the
+row kernels, the Spatter suite daemon, bucket launches placed over several devices, the
 static analysis with the modeled H100 column, the launch-parameter
 choice (``kernels/autotune.py``) with the CLI's serve modes, and the
 Spatter path on bfloat16 and float16 tables.
@@ -165,25 +166,51 @@ only.  Phases:
      16-bit tile keys searched once; ``run_suite(dtype=bfloat16)``; demo
      under the legacy rules (the 16-bit smem gather); demo at (1, 2) and
      (2, 1) (the 16-bit coverage store; its adds within the bound of the
-     unplaced ones); lint and cost with 2-byte rows.
+     unplaced ones); lint and cost with 2-byte rows;
+ 12. (right after phase 6) deepseek-v2-236b at its published width, cut
+     to 7 layers (the dense one and six MoE layers, 25,219,261,440
+     parameters; 60 layers would be 471 GB), bfloat16, random weights
+     from seed 0, through ``launch.serve.run`` with ``gs_backend=
+     "hopper"`` (``deepseek_phase``): 4 prompts of 2048 tokens, 32 greedy
+     steps.  The prefill and each decode step must launch
+     ``gather_rows_b16`` 1 + 2 x 6 times (the embedding, then each MoE
+     layer's gather of token rows and gather back) and
+     ``scatter_add_rows_bf16`` 2 x 6 times (the buffer fill and the
+     combine), and flash attention, paged decode and the scan never;
+     every logit finite.  From the same input a layer, the dispatch on
+     ``hopper`` and ``torch``: gathered rows, buffers and rows gathered
+     back bit for bit, the combine within ``add_error_bound``; the
+     dropped share a layer at the capacity factor 1.25; the model end to
+     end against ``torch`` (the last 256 positions' logits) and, at the
+     no-drop factor n_experts / top_k on 2 x 64-token prompts, 32 decode
+     steps against the teacher-forced forward and the iterated decode's
+     cache against the prefill's: each with one run's routing imposed
+     on the other (routing is discontinuous at near-ties, and a changed
+     choice spreads through attention), within ``SERVE_TOL`` or, where
+     larger, ``NOISE_MARGIN`` times the spread of two torch runs, the
+     share of decisions that differ when both route freely printed; a
+     traced prefill and decode split by class; the dispatch's four ops
+     at the served shapes beside ``index_select`` / ``index_add_``.  The
+     model is freed before the next phase.
 
 The launch counts are set to 0 just before phase 2 and read just after
-phase 3, again just before and after the serve calls of phases 5 and 6,
-just before and after phase 7's daemon, just before and after phase 8's
-placed suites, just before and after phase 9's lint and cost passes
+phase 3, again just before and after the serve calls of phases 5, 6
+and 12, just before and after phase 7's daemon, just before and after
+phase 8's placed suites, just before and after phase 9's lint and cost passes
 (where they must equal the censuses' sum), and just before and after
 phase 10's two legs (whose legacy leg gives the smem gather's launches:
 the search routes no bucket of phases 2-3 to it on an H100), and just
 before and after each of phase 11's runs (its legacy leg, likewise, the
 16-bit smem gather's).  Any failed check raises, so
 the script exits nonzero.  Before the last line it prints a
-``{"daemon": {...}}``, a ``{"placements": {...}}``, an ``{"autotune":
+``{"deepseek": {...}}``, a ``{"daemon": {...}}``, a ``{"placements": {...}}``, an ``{"autotune":
 {...}}``, a ``{"dtypes": {...}}``, an ``{"analysis": {...}}`` and a
 ``{"kernels": [...]}`` JSON
 line; the last line is
 ``{"ok": true, "device": {...}}``.
 """
 import contextlib
+import dataclasses
 import gc
 import itertools
 import json
@@ -2309,14 +2336,14 @@ _KERNEL_CLASSES = (("selective_scan", ("selective_scan_kernel",)),
                    ("gemm", ("gemm", "gemv", "nvjet", "cutlass", "xmma")))
 
 
-def _by_class(evts):
+def _by_class(evts, classes=_KERNEL_CLASSES):
     """Device ms by class: the port's kernels, matrix products, the rest
     (elementwise passes, copies, reductions)."""
-    out = {name: 0.0 for name, _ in _KERNEL_CLASSES}
+    out = {name: 0.0 for name, _ in classes}
     out["other"] = 0.0
     for e in evts:
         key = e.key.lower()
-        name = next((n for n, frags in _KERNEL_CLASSES
+        name = next((n for n, frags in classes
                      if any(f in key for f in frags)), "other")
         out[name] += _device_ms(e)
     return out
@@ -2377,6 +2404,542 @@ def profile_serve(torch, argv=SERVE_ARGS, decode_steps=8):
         out[f"{name}_device_ms_by_class"] = _by_class(evts)
     print(json.dumps(out), flush=True)
     return out
+
+
+# -- phase 12: deepseek-v2-236b at full width, through the MoE dispatch -------
+
+# the depth cut: 60 layers hold 235,741,434,880 parameters, 471 GB in
+# bfloat16, six cards' memory; 7 (the dense layer and six MoE layers, every
+# width as published) hold 25,219,261,440, 50.44 GB
+DEEPSEEK_LAYERS = 7
+DEEPSEEK_PARAMS = 25_219_261_440
+DEEPSEEK_SERVE = dict(batch=4, prompt_len=2048, gen=32)
+# the consistency checks' prompt: 2 x 64 tokens, then 32 greedy steps
+DEEPSEEK_CHECK_PROMPT = 64
+# routing is discontinuous: where a layer's input moves by a rounding, a
+# token whose k-th and (k+1)-th router logits lie within that rounding
+# takes another expert, and the change spreads to other tokens through
+# attention.  The checks that compare two runs of the model impose one
+# run's routing on the other (``_imposed_routing``) and print the share of
+# decisions that differ when each routes freely.  With routing imposed,
+# two runs of the torch backend itself still differ by ~1.2 x SERVE_TOL at
+# the served shape (index_add_'s atomics sum each token's 6 expert rows in
+# a new order each run, and the random experts, drawn at 1/sqrt(160),
+# amplify the rounding; PERF.md, on an H100 80GB HBM3 at 700 W): so each
+# comparison is held within SERVE_TOL or, where larger, NOISE_MARGIN times
+# that spread, measured in the same phase.  On that card hopper vs torch
+# came to 1.116-1.505 x SERVE_TOL over three runs, 0.92-1.24 x the torch
+# runs' own spread in the same run (a maximum over 10^8 logits, which
+# varies from draw to draw); a wrong cache or kernel moves logits by 5-20
+# x SERVE_TOL
+NOISE_MARGIN = 2.0
+# the dispatch's kernels by name fragment in a trace, then the matrix
+# products, then the rest
+_MOE_CLASSES = (("gather_rows", ("gather_d1_vec_kernel",
+                                 "gather_elems_kernel")),
+                ("scatter_add_rows", ("scatter_add_rows_",)),
+                ("gemm", ("gemm", "gemv", "nvjet", "cutlass", "xmma")))
+
+
+def _deepseek_launches(cfg, gen):
+    """Launches a deepseek-v2-236b serve call on ``hopper`` must make: the
+    embedding gather, then in each MoE layer the dispatch's two gathers and
+    two scatter-adds, in the prefill and in each decode step; flash
+    attention, paged decode and the scan never."""
+    moe_layers = cfg.n_layers - cfg.n_dense_layers
+    step = {"gather_rows_b16": 1 + 2 * moe_layers,
+            "scatter_add_rows_bf16": 2 * moe_layers}
+    return step, {k: v * gen for k, v in step.items()}
+
+
+@contextlib.contextmanager
+def _moe_taps(torch, keep_inputs=False):
+    """Record each ``moe_apply`` call of the model code, in call order: its
+    top-k experts (``tope``, (N, k)), its routing decisions (``dec``, (N,
+    E) int8: 0 an expert not in the token's top k, 1 in it and dropped by
+    the capacity, 2 in it and kept) and, with ``keep_inputs``, its
+    parameters and input.  Both are recomputed from the same input by
+    ``moe.route`` and ``moe.dispatch_plan`` (no kernel launches)."""
+    from repro_torch.models import moe
+    taps, orig, route = [], moe.moe_apply, moe.route
+
+    def tapped(cfg, p, x, backend="torch"):
+        xt = x.reshape(-1, x.shape[-1])
+        cap = moe.capacity(cfg, xt.shape[0])
+        tope, topw, _ = route(cfg, p, xt)
+        plan = moe.dispatch_plan(cfg, tope, topw, cap)
+        dec = torch.zeros((xt.shape[0], cfg.n_experts), dtype=torch.int8,
+                          device=x.device).scatter_(1, tope, 1)
+        keep = plan["keep"]
+        dec[plan["tok"][keep].long(), plan["slot"][keep].long() // cap] = 2
+        taps.append(dict(tope=tope, dec=dec,
+                         **(dict(p=p, x=x) if keep_inputs else {})))
+        return orig(cfg, p, x, backend)
+    moe.moe_apply = tapped
+    try:
+        yield taps
+    finally:
+        moe.moe_apply = orig
+
+
+@contextlib.contextmanager
+def _imposed_routing(torch, topes):
+    """Impose ``topes`` (one (N, k) tensor of experts a ``moe_apply`` call,
+    in call order) on the model code's routing: each call takes the next
+    one's experts, weighted by its own router's softmax there (normalised
+    and scaled as ``moe.route`` does), so only the discrete choice comes
+    from the other run.  Every tensor must be used."""
+    from repro_torch.models import moe
+    it, orig, used = iter(topes), moe.route, [0]
+
+    def imposed(cfg, p, xt):
+        tope = next(it)
+        check(tope.shape[0] == xt.shape[0],
+              f"imposed routing: {tope.shape[0]} tokens for {xt.shape[0]}")
+        probs = torch.softmax((xt @ p.router).to(torch.float32), dim=-1)
+        topw = probs.gather(1, tope)
+        topw = topw / topw.sum(-1, keepdim=True).clamp(min=1e-9)
+        used[0] += 1
+        return tope, topw * cfg.router_scale, probs.new_zeros(())
+    moe.route = imposed
+    try:
+        yield
+    finally:
+        moe.route = orig
+    check(used[0] == len(topes),
+          f"imposed routing: {used[0]} of {len(topes)} calls")
+
+
+def _at(topes, b, sl):
+    """Each layer's (B * S, k) experts of a forward at positions ``sl``,
+    as (B * len, k) tensors in layer order."""
+    return [t.reshape(b, -1, t.shape[-1])[:, sl].reshape(-1, t.shape[-1])
+            for t in topes]
+
+
+def _routes(torch, taps, n_moe, b):
+    """Taps of whole calls (prefill, forward, decode steps) -> routing
+    decisions (n_moe, B, positions, E), positions in call order."""
+    calls = [taps[i:i + n_moe] for i in range(0, len(taps), n_moe)]
+    return torch.cat([torch.stack([t["dec"].reshape(b, -1, t["dec"].shape[
+        -1]) for t in call]) for call in calls], dim=2)
+
+
+def _flip_shares(a, b):
+    """Two runs' routing decisions (``_routes``) -> the share of tokens
+    whose decisions differ, a layer, and the share of positions where they
+    differ in any layer."""
+    diff = (a != b).any(-1)                           # (L, B, S)
+    return (diff.float().mean((1, 2)).tolist(),
+            diff.any(0).float().mean().item())
+
+
+def dispatch_check(torch, cfg, taps):
+    """The dispatch of each MoE layer from the hopper run's input, on
+    ``hopper`` and ``torch``: the gathered rows, the buffers (the scratch
+    row apart), the rows gathered back bit for bit; the combine within
+    ``add_error_bound`` at bfloat16.  Returns the dropped share a layer at
+    the served capacity factor and the largest combine error."""
+    from repro_torch import backends
+    from repro_torch.kernels.scatter_rows.ref import add_error_bound
+    from repro_torch.models import moe
+    e = cfg.n_experts
+    dropped, worst = [], 0.0
+    for i, t in enumerate(taps):
+        xt = t["x"].reshape(-1, cfg.d_model)
+        n = xt.shape[0]
+        cap = moe.capacity(cfg, n)
+        tope, topw, _ = moe.route(cfg, t["p"], xt)
+        plan = moe.dispatch_plan(cfg, tope, topw, cap)
+        dropped.append(1.0 - plan["keep"].float().mean().item())
+        g_h, b_h = moe.fill(cfg, xt, plan, cap, "hopper")
+        g_t, b_t = moe.fill(cfg, xt, plan, cap, "torch")
+        check(_bits_equal(torch, g_h, g_t), f"MoE layer {i}: gathered rows")
+        check(_bits_equal(torch, b_h[:-1], b_t[:-1]),
+              f"MoE layer {i}: buffers")
+        del g_t, b_t
+        out = moe.experts_ffn(t["p"].experts,
+                              b_h[:e * cap].view(e, cap, cfg.d_model))
+        flat = out.reshape(e * cap, cfg.d_model)
+        back_h = backends.gather(flat, plan["back"], backend="hopper")
+        back_t = backends.gather(flat, plan["back"], backend="torch")
+        check(_bits_equal(torch, back_h, back_t),
+              f"MoE layer {i}: rows gathered back")
+        vals = back_h * plan["weight"][:, None].to(back_h.dtype)
+        del back_h, back_t, g_h, b_h
+        y_h = moe.combine(out, plan, n, "hopper")
+        y_t = moe.combine(out, plan, n, "torch")
+        diff = (y_h.double() - y_t.double()).abs()
+        bound = add_error_bound(plan["tok"][None], vals[None], n)[0]
+        check(bool((diff <= bound).all()),
+              f"MoE layer {i}: combine over add_error_bound")
+        worst = max(worst, diff.max().item())
+        del out, flat, vals, y_h, y_t, diff, bound
+    return dropped, worst
+
+
+def dispatch_times(torch, cfg, tap, err):
+    """The dispatch's four ops at the served shapes (the first MoE layer's
+    input and plan), each beside its library call in turns
+    (``_turn_times``): the gather of token rows (``index_select``), the
+    fill of the (E cap + 1, d) buffers (``index_add_``), the gather back
+    and the combine; with each one's plain version and byte bound (a
+    lane's 4-byte index and its row read and written; an add reads and
+    writes each row it touches once).  Returns rows keyed
+    ``<kernel>/moe_<op>``."""
+    from repro_torch.kernels.gather_rows import ops as g
+    from repro_torch.kernels.gather_rows.ref import gather_rows_ref
+    from repro_torch.kernels.scatter_rows import ops as s
+    from repro_torch.kernels.scatter_rows.ref import (add_error_bound,
+                                                      scatter_add_rows_ref_)
+    from repro_torch.models import moe
+    xt = tap["x"].reshape(-1, cfg.d_model).contiguous()
+    n, d = xt.shape
+    e = cfg.n_experts
+    cap = moe.capacity(cfg, n)
+    tope, topw, _ = moe.route(cfg, tap["p"], xt)
+    plan = moe.dispatch_plan(cfg, tope, topw, cap)
+    tok, slot, back = (plan[k][None] for k in ("tok", "slot", "back"))
+    lanes = tok.shape[1]
+    row_b = d * xt.element_size()
+    gathered = g.gather_rows(xt[None], tok)
+    buffers = torch.zeros((1, e * cap + 1, d), dtype=xt.dtype,
+                          device=xt.device)
+    s.scatter_add_rows_(buffers, slot, gathered)
+    out = moe.experts_ffn(tap["p"].experts,
+                          buffers[0, :e * cap].view(e, cap, d))
+    table = out.reshape(1, e * cap, d)
+    vals = (g.gather_rows(table, back)
+            * plan["weight"][None, :, None].to(xt.dtype))
+    rows = {}
+
+    def gather_row(name, src, idx):
+        got = g.gather_rows(src, idx)
+        want = gather_rows_ref(src, idx)
+        check(_bits_equal(torch, got, want), f"{name}: not the plain one")
+        flat = idx[0].to(torch.int64)
+        t = _turn_times(torch, {
+            "library": lambda: src[0].index_select(0, flat),
+            "kernel": lambda: g.gather_rows(src, idx)}, 20, "gather", name)
+        nbytes = lanes * (4 + 2 * row_b)
+        t.update(plain_ms=_time_ms(torch, lambda: gather_rows_ref(src, idx),
+                                   3),
+                 bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
+                 bytes=nbytes, max_abs_err=0.0,
+                 shape=[1, src.shape[1], d, lanes, "bfloat16"])
+        rows[name] = t
+
+    def add_row(name, rows_v, idx, v):
+        dst = torch.zeros((1, rows_v, d), dtype=xt.dtype, device=xt.device)
+        got = s.scatter_add_rows_(dst.clone(), idx, v)
+        want = scatter_add_rows_ref_(dst.clone(), idx, v)
+        diff = (got.double() - want.double()).abs()
+        check(bool((diff <= add_error_bound(idx, v, rows_v)).all()),
+              f"{name}: over add_error_bound")
+        worst = diff.max().item()
+        del got, want, diff
+        flat = idx[0].to(torch.int64)
+        t = _turn_times(torch, {
+            "library": lambda: dst[0].index_add_(0, flat, v[0]),
+            "kernel": lambda: s.scatter_add_rows_(dst, idx, v)}, 20,
+            "scatter_add", name)
+        touched = torch.unique(idx).numel()
+        nbytes = lanes * (4 + row_b) + 2 * touched * row_b
+        t.update(plain_ms=_time_ms(torch, lambda: scatter_add_rows_ref_(
+                     dst, idx, v), 3),
+                 bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
+                 bytes=nbytes, max_abs_err=worst,
+                 route=("smem" if s.add_tiles(1, lanes, rows_v, d, xt.device,
+                                              xt.dtype).smem
+                        else "streaming"),
+                 shape=[1, rows_v, d, lanes, "bfloat16"])
+        rows[name] = t
+        err[name.split("/")[0]] = max(err[name.split("/")[0]], worst)
+
+    print(f"\n  the dispatch's ops at the served shapes ({n} tokens x top "
+          f"{cfg.top_k} = {lanes} lanes, d {d}, cap {cap}):", flush=True)
+    gather_row("gather_rows_b16/moe_gather", xt[None], tok)
+    add_row("scatter_add_rows_bf16/moe_fill", e * cap + 1, slot, gathered)
+    gather_row("gather_rows_b16/moe_gather_back", table, back)
+    add_row("scatter_add_rows_bf16/moe_combine", n, tok, vals)
+    for name, r in rows.items():
+        print(f"  {name} {r['shape']}: kernel ms {r['ms_pair']} device_ms "
+              f"{r['device_ms_pair']}; library ms {r['library_ms_pair']} "
+              f"device_ms {r['library_device_ms_pair']} "
+              f"({r['library_kernels']}); plain {r['plain_ms']:.4f} ms; "
+              f"bound {r['bound_ms']:.4f} ms ({r['bytes']} bytes), "
+              f"{100 * r['bound_ms'] / r['device_ms']:.1f}% of it on "
+              f"device_ms; max |err| {r['max_abs_err']}", flush=True)
+    return rows
+
+
+def _profile_moe(torch, model, lm, prompts, gen, decode_steps=4):
+    """One traced prefill and ``decode_steps`` traced decode steps of the
+    served model: wall, device busy and device ms by class (the dispatch's
+    gathers and adds, the matrix products, the rest)."""
+    from torch.profiler import ProfilerActivity, profile
+    plen = prompts.shape[1]
+
+    def prefill():
+        return model.prefill(lm, prompts, max_len=plen + gen,
+                             gs_backend="hopper")
+
+    out = {}
+    _, cache = prefill()
+    tok = prompts[:, -1:]
+
+    def decode():
+        c, t = cache, tok
+        for i in range(decode_steps):
+            logits, c = model.decode_step(lm, c, t, plen + i,
+                                          gs_backend="hopper")
+            t = logits.argmax(-1, keepdim=True)
+
+    for name, fn in (("prefill", prefill), ("decode", decode)):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        evts = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
+        busy = sum(_device_ms(e) for e in evts)
+        steps = 1 if name == "prefill" else decode_steps
+        by = {k: v / steps for k, v in _by_class(evts, _MOE_CLASSES).items()}
+        out[name] = dict(traced_wall_ms=wall_ms / steps,
+                         device_busy_ms=busy / steps,
+                         busy_share=busy / wall_ms,
+                         device_ms_by_class=by)
+        print(f"  profile {name} (a {'prefill' if steps == 1 else 'step'}): "
+              f"wall {wall_ms / steps:.1f} ms traced, device busy "
+              f"{busy / steps:.1f} ms ({100 * busy / wall_ms:.1f}%); by "
+              f"class {json.dumps({k: round(v, 3) for k, v in by.items()})}",
+              flush=True)
+    del cache
+    return out
+
+
+def deepseek_phase(torch, err):
+    """Phase 12: serve deepseek-v2-236b at its published width, cut to
+    ``DEEPSEEK_LAYERS`` layers, through ``launch.serve.run`` on
+    ``hopper``; check launches, logits, the dispatch a layer against
+    ``torch``, the model end to end against ``torch``, the two
+    consistency checks at the no-drop capacity factor; profile, and time
+    the dispatch's ops.  Returns the numbers for the records, the serve
+    window's launches, and the dispatch's kernel rows."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import KERNELS, reset_launches
+    from repro_torch.launch import serve
+    from repro_torch.models import transformer
+    from repro_torch.models.zoo import Model
+    from repro_torch.plan import default_cache
+    default_cache().clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t_phase = time.perf_counter()
+    cfg = dataclasses.replace(get_config("deepseek-v2-236b"),
+                              n_layers=DEEPSEEK_LAYERS)
+    n_moe = cfg.n_layers - cfg.n_dense_layers
+    sv = DEEPSEEK_SERVE
+    print(f"\nphase 12: serve.run(deepseek-v2-236b at {cfg.n_layers} layers, "
+          f"{sv}, gs_backend='hopper')", flush=True)
+    reset_launches()
+    t0 = time.perf_counter()
+    res = serve.run(cfg, sv["batch"], sv["prompt_len"], sv["gen"], seed=0,
+                    device="cuda", gs_backend="hopper")
+    serve_launches = _launches()
+    wall = time.perf_counter() - t0
+    lm, model, dev = res.params, res.model, res.logits.device
+    n_params = sum(p.numel() for p in lm.parameters())
+    check(n_params == DEEPSEEK_PARAMS,
+          f"{n_params} parameters, not {DEEPSEEK_PARAMS}")
+    want_prefill, want_decode = ({k: w.get(k, 0) for k in KERNELS}
+                                 for w in _deepseek_launches(cfg, res.gen))
+    check(res.launches_prefill == want_prefill,
+          f"prefill launches {res.launches_prefill} != {want_prefill}")
+    check(res.launches_decode == want_decode,
+          f"decode launches {res.launches_decode} != {want_decode}")
+    check(serve_launches == {k: want_prefill[k] + want_decode[k]
+                             for k in KERNELS},
+          f"serve window launches {serve_launches}")
+    check(bool(torch.isfinite(res.logits.float()).all()), "non-finite logits")
+    peak = torch.cuda.max_memory_allocated()
+    print(f"  serve: prefill {res.prefill_ms:.1f} ms, decode "
+          f"{res.decode_ms / res.gen:.2f} ms/step, {res.tok_s:.1f} tok/s, "
+          f"{n_params} params ({res.weight_bytes} weight bytes), "
+          f"max_memory_allocated {peak} bytes, wall {wall:.1f} s; launches "
+          f"prefill {want_prefill['gather_rows_b16']} gathers + "
+          f"{want_prefill['scatter_add_rows_bf16']} adds, each step the "
+          f"same", flush=True)
+
+    # the dispatch a layer from the same input; the model end to end,
+    # hopper against torch, at the served shape (the last 256 positions'
+    # logits), with the hopper run's routing imposed on torch's
+    tail, b = 256, sv["batch"]
+    with torch.no_grad():
+        with _moe_taps(torch, keep_inputs=True) as taps:
+            h = transformer.forward(cfg, lm, res.prompts,
+                                    gs_backend="hopper")
+        want = transformer.unembed_logits(cfg, lm.embed,
+                                          h[:, -tail:]).float()
+        del h
+        routes_h = _routes(torch, taps, n_moe, b)
+        topes_h = [t["tope"] for t in taps]
+        dropped, combine_err = dispatch_check(torch, cfg, taps)
+        print(f"  dispatch a layer, hopper vs torch from the same input: "
+              f"gathers, buffers and rows gathered back bit for bit, the "
+              f"combine within add_error_bound (max |err| {combine_err}); "
+              f"dropped share a MoE layer at capacity_factor "
+              f"{cfg.capacity_factor}: {[round(x, 5) for x in dropped]}",
+              flush=True)
+        rows = dispatch_times(torch, cfg, taps[0], err)
+        del taps
+        with _moe_taps(torch) as taps:
+            transformer.forward(cfg, lm, res.prompts, gs_backend="torch")
+        e2e_flips, _ = _flip_shares(routes_h, _routes(torch, taps, n_moe, b))
+        del taps, routes_h
+        got = []
+        for _ in range(2):               # torch twice: its own spread
+            with _imposed_routing(torch, topes_h):
+                h = transformer.forward(cfg, lm, res.prompts,
+                                        gs_backend="torch")
+            got.append(transformer.unembed_logits(cfg, lm.embed,
+                                                  h[:, -tail:]).float())
+            del h
+        del topes_h
+    noise = _rel_err(got[1], got[0])
+    tol = max(1.0, NOISE_MARGIN * noise)
+    e2e_err = _rel_err(got[0], want)
+    check(e2e_err <= tol, f"hopper vs torch logits, routing imposed: "
+          f"{e2e_err} x SERVE_TOL > {tol}")
+    print(f"  end to end, routing imposed: two torch runs differ by "
+          f"{noise:.3f} x SERVE_TOL (the checks' tolerance: {tol:.3f} x "
+          f"SERVE_TOL); hopper vs torch, the last {tail} positions' logits "
+          f"within {e2e_err:.3f} x; routing freely, tokens whose decisions "
+          f"differ a MoE layer {[round(x, 5) for x in e2e_flips]}",
+          flush=True)
+    del got, want
+
+    # the consistency checks at the no-drop capacity factor (cap >= n),
+    # on 2 x 64-token prompts
+    nd = dataclasses.replace(cfg, capacity_factor=cfg.n_experts / cfg.top_k)
+    model_nd = Model(nd)
+    plen, gen = DEEPSEEK_CHECK_PROMPT, sv["gen"]
+    prompt = res.prompts[:2, :plen].contiguous()
+    with torch.no_grad():
+        with _moe_taps(torch) as taps:               # greedy, routing freely
+            lg, cache = model_nd.prefill(lm, prompt, max_len=plen + gen,
+                                         gs_backend="hopper")
+            toks = [lg.argmax(-1, keepdim=True)]
+            for i in range(gen):
+                lg, cache = model_nd.decode_step(lm, cache, toks[-1],
+                                                 plen + i,
+                                                 gs_backend="hopper")
+                toks.append(lg.argmax(-1, keepdim=True))
+        served = _routes(torch, taps, n_moe, 2)
+        seq = torch.cat([prompt] + toks[:-1], 1)
+        with _moe_taps(torch) as taps:
+            h = transformer.forward(nd, lm, seq, gs_backend="hopper")
+        tf = transformer.unembed_logits(nd, lm.embed, h[:, plen - 1:]).float()
+        del h
+        _, tf_flips = _flip_shares(served, _routes(torch, taps, n_moe, 2))
+        topes = [t["tope"] for t in taps]
+        imposed = _at(topes, 2, slice(0, plen)) + [
+            c for i in range(gen)
+            for c in _at(topes, 2, slice(plen + i, plen + i + 1))]
+        del taps, served
+        with _imposed_routing(torch, imposed):       # the same tokens fed
+            lg, cache = model_nd.prefill(lm, prompt, max_len=plen + gen,
+                                         gs_backend="hopper")
+            lgs = [lg]
+            for i in range(gen):
+                lg, cache = model_nd.decode_step(lm, cache, toks[i],
+                                                 plen + i,
+                                                 gs_backend="hopper")
+                lgs.append(lg)
+        del cache, imposed, topes
+    got = torch.stack(lgs, 1).float()
+    tf_err = _rel_err(got, tf)
+    check(tf_err <= tol, f"decode logits vs teacher-forced forward, routing "
+          f"imposed: {tf_err} x SERVE_TOL > {tol}")
+    top2 = tf.topk(2, dim=-1).values
+    wide = (top2[..., 0] - top2[..., 1]) > 2 * (
+        SERVE_TOL["atol"] + SERVE_TOL["rtol"] * top2[..., 0].abs())
+    agree = tf.argmax(-1) == got.argmax(-1)
+    check(bool(agree[wide].all()), "a greedy token differs from the "
+          "teacher-forced argmax where the top-2 margin is wide")
+    print(f"  no-drop factor {nd.capacity_factor:.4f}: decode steps vs the "
+          f"teacher-forced forward over {tuple(seq.shape)}, its routing "
+          f"imposed: within {tf_err:.3f} x SERVE_TOL, argmax equal at "
+          f"{int(agree.sum())} of {agree.numel()} positions, at all "
+          f"{int(wide.sum())} with a wide top-2 margin; routing freely, "
+          f"positions whose decisions differ in a layer: "
+          f"{100 * tf_flips:.1f}%", flush=True)
+    del tf, got, lgs, seq, toks
+
+    with torch.no_grad():
+        with _moe_taps(torch) as taps:
+            _, pre = model_nd.prefill(lm, prompt, gs_backend="hopper")
+        pre_routes = _routes(torch, taps, n_moe, 2)
+        topes = [t["tope"] for t in taps]
+        with _moe_taps(torch) as taps:               # routing freely
+            it = model_nd.init_cache(2, plen, device=dev)
+            for t in range(plen):
+                _, it = model_nd.decode_step(lm, it, prompt[:, t:t + 1], t,
+                                             gs_backend="hopper")
+        _, cache_flips = _flip_shares(pre_routes,
+                                      _routes(torch, taps, n_moe, 2))
+        del taps, it, pre_routes
+        with _imposed_routing(torch, [c for t in range(plen)
+                                      for c in _at(topes, 2,
+                                                   slice(t, t + 1))]):
+            it = model_nd.init_cache(2, plen, device=dev)
+            for t in range(plen):
+                _, it = model_nd.decode_step(lm, it, prompt[:, t:t + 1], t,
+                                             gs_backend="hopper")
+        del topes
+    check(len(pre) == len(it) == cfg.n_layers, "cache layers")
+    cache_err = max(_rel_err(p[k], i[k]) for p, i in zip(pre, it)
+                    for k in ("c_kv", "k_pe"))
+    check(cache_err <= tol, f"prefill cache vs iterated decode, routing "
+          f"imposed: {cache_err} x SERVE_TOL > {tol}")
+    print(f"  prefill cache of 2 x {plen} tokens vs decode_step iterated, "
+          f"the prefill's routing imposed: within {cache_err:.3f} x "
+          f"SERVE_TOL, all {cfg.n_layers} layers; routing freely, positions "
+          f"whose decisions differ in a layer: {100 * cache_flips:.1f}%",
+          flush=True)
+    del pre, it
+
+    prof = _profile_moe(torch, model, lm, res.prompts, res.gen)
+    out = dict(arch=res.arch, n_layers=cfg.n_layers, batch=res.batch,
+               prompt_len=res.prompt_len, gen=res.gen,
+               prefill_ms=res.prefill_ms,
+               decode_ms_per_step=res.decode_ms / res.gen, tok_s=res.tok_s,
+               params=n_params, weight_bytes=res.weight_bytes,
+               max_memory_allocated=peak, serve_wall_s=wall,
+               launches_prefill=res.launches_prefill,
+               launches_decode=res.launches_decode,
+               dropped_share=dropped, combine_max_abs_err=combine_err,
+               route_flips_hopper_vs_torch=e2e_flips,
+               torch_spread_x_tol=noise, tol_x_serve_tol=tol,
+               e2e_err_x_tol=e2e_err,
+               logit_err_x_tol=tf_err, logit_route_flip_share=tf_flips,
+               cache_err_x_tol=cache_err, cache_route_flip_share=cache_flips,
+               profile=prof,
+               dispatch={k: {kk: v[kk] for kk in ("ms", "device_ms",
+                                                  "library_ms",
+                                                  "library_device_ms",
+                                                  "plain_ms", "bound_ms",
+                                                  "shape")}
+                         for k, v in rows.items()})
+    del res, lm, model, model_nd, prompt
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"  phase 12 wall {out['phase_s']:.1f} s", flush=True)
+    return out, serve_launches, rows
 
 
 # -- phase 7: spatterd on the card ---------------------------------------------
@@ -4087,6 +4650,8 @@ def main():
         torch, LLAMA_ARGS, _dense_launches, LLAMA3_8B_PARAMS)
     gc.collect()
     torch.cuda.empty_cache()
+    # phase 12 frees its 50 GB model before it returns
+    deepseek, deepseek_launches, moe_rows = deepseek_phase(torch, err)
     daemon = daemon_phase(torch, cli_results, suite_stats)
     # phase 10 last: it reuses phase 8's host draws, and its profiler
     # sessions come after every phase that checks a trace's launch count
@@ -4128,6 +4693,24 @@ def main():
             rows[-1]["add_routes"] = {
                 "cli": t["route"],
                 "lulesh_s3": lulesh_s3_add[dname]["route"]}
+    # the MoE dispatch's ops at deepseek-v2-236b's served shapes (phase
+    # 12): the embedding takes one gather a call, each op one of each MoE
+    # layer's two gathers or two adds
+    calls = 1 + deepseek["gen"]
+    for name, t in moe_rows.items():
+        kernel = name.split("/")[0]
+        source, replaces = KERNEL_INFO[kernel]
+        n = deepseek_launches[kernel] - (calls if kernel.startswith(
+            "gather") else 0)
+        rows.append(dict(name=name, route="cuda", source=source,
+                         replaces=replaces, launches=n // 2,
+                         max_abs_err=t["max_abs_err"], ms=t["ms"],
+                         time_ms=t["ms"], plain_ms=t["plain_ms"],
+                         bound_ms=t["bound_ms"], bound_by=t["bound_by"],
+                         library_ms=t["library_ms"],
+                         device_ms=t["device_ms"],
+                         library_device_ms=t["library_device_ms"],
+                         shape=t["shape"]))
     cli = {f"{b}/{k}/{m}": dict(time_ms=r.time_s * 1e3, gbs=r.measured_gbs,
                                 host_s=r.host_s)
            for (b, k, m), r in cli_results.items()}
@@ -4138,7 +4721,8 @@ def main():
     print(f"\nmax_memory_allocated {peak_1_4} bytes in phases 1-4 (phase "
           f"9's own lint calls apart), "
           f"{served['max_memory_allocated']} bytes in phase 5, "
-          f"{served_llama['max_memory_allocated']} bytes in phase 6")
+          f"{served_llama['max_memory_allocated']} bytes in phase 6, "
+          f"{deepseek['max_memory_allocated']} bytes in phase 12's serve")
     print(json.dumps({"cli": cli, "suites_hopper": suites,
                       "gathers": {k: v for k, v in times.items()
                                   if k.startswith("gather_rows")},
@@ -4147,6 +4731,7 @@ def main():
                       "flash_attention": times["flash_attention"],
                       "paged_decode": times["paged_decode"],
                       "serve": served, "serve_llama": served_llama}))
+    print(json.dumps({"deepseek": deepseek}))
     print(json.dumps({"daemon": daemon}))
     print(json.dumps({"placements": placed}))
     print(json.dumps({"autotune": tuned}))

@@ -2,6 +2,8 @@
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3-8b \\
         --smoke --device cpu --batch 2 --prompt-len 8 --gen 4
+    PYTHONPATH=src python -m repro_torch.launch.serve \\
+        --arch deepseek-v2-236b --layers 7 --gs-backend hopper   # the card
 
 The port of ``repro/launch/serve.py`` for the ported architectures.  The
 weights are random, drawn on the device from a ``torch.Generator`` seeded
@@ -11,8 +13,14 @@ gen`` positions (``Model.prefill``; a dense model's KV cache is paged, its
 page table drawn from ``--seed``), so decode starts at position
 ``prompt_len`` with no splice.  ``--device`` defaults to
 ``cuda`` and raises without it; ``--device cpu`` runs the kernels' plain
-versions.  Times are host clocks around work that ends in a device
-synchronise.
+versions.  ``--gs-backend`` (default ``torch``) is the backend of the
+indexed ops (the embedding gather, the MoE dispatch's gathers and
+scatter-adds; the JAX package's ``gs_backend``): ``hopper`` runs the
+hand-written row kernels.  ``--layers N`` cuts the depth to N layers at
+the published width (deepseek-v2-236b's 60 layers hold 471 GB in
+bfloat16, six cards' memory; 7 layers, 50 GB, fit one).  ``run`` serves
+a config object, so a caller may cut it otherwise.  Times are host
+clocks around work that ends in a device synchronise.
 """
 from __future__ import annotations
 
@@ -23,6 +31,7 @@ import time
 import numpy as np
 import torch
 
+from ..backends import BACKENDS
 from ..configs import ARCH_IDS, get_config, get_smoke_config
 from ..engine import resolve_device
 from ..kernels import launches
@@ -36,6 +45,7 @@ class ServeResult:
     batch: int
     prompt_len: int
     gen: int
+    gs_backend: str
     prefill_ms: float
     decode_ms: float                 # all ``gen`` decode steps
     tok_s: float                     # batch * gen / decode time
@@ -60,6 +70,12 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default=None,
                     help="default cuda; cpu runs the kernels' plain versions")
+    ap.add_argument("--gs-backend", default="torch", choices=BACKENDS,
+                    help="backend of the embedding gather and the MoE "
+                         "dispatch; hopper: the hand-written row kernels")
+    ap.add_argument("--layers", type=int, default=None,
+                    help="cut the depth to this many layers (default: the "
+                         "config's)")
     return ap
 
 
@@ -69,13 +85,23 @@ def _delta(before: dict) -> dict:
 
 def main(argv=None) -> ServeResult:
     args = _parser().parse_args(argv)
-    dev = resolve_device(args.device)
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
+    if args.layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=args.layers)
+    return run(cfg, args.batch, args.prompt_len, args.gen, args.seed,
+               args.device, args.gs_backend)
+
+
+def run(cfg, batch: int, prompt_len: int, gen: int, seed: int = 0,
+        device=None, gs_backend: str = "torch") -> ServeResult:
+    """Draw ``cfg``'s weights from ``seed`` on ``device`` (default cuda),
+    prefill ``batch`` prompts of ``prompt_len`` tokens, then decode
+    ``gen`` greedy steps, the indexed ops on ``gs_backend``."""
+    dev = resolve_device(device)
     model = Model(cfg)
-    params = model.init(torch.Generator(device=dev).manual_seed(args.seed),
-                        dev)
-    rng = np.random.default_rng(args.seed)
-    b, plen = args.batch, args.prompt_len
+    params = model.init(torch.Generator(device=dev).manual_seed(seed), dev)
+    rng = np.random.default_rng(seed)
+    b, plen = batch, prompt_len
     prompts = torch.from_numpy(
         rng.integers(2, cfg.vocab, (b, plen))).to(dev)
 
@@ -87,8 +113,8 @@ def main(argv=None) -> ServeResult:
     sync()
     before = dict(launches)
     t0 = time.perf_counter()
-    logits, cache = model.prefill(params, prompts, max_len=plen + args.gen,
-                                  seed=args.seed)
+    logits, cache = model.prefill(params, prompts, max_len=plen + gen,
+                                  seed=seed, gs_backend=gs_backend)
     sync()
     t_prefill = time.perf_counter() - t0
     launches_prefill = _delta(before)
@@ -99,23 +125,24 @@ def main(argv=None) -> ServeResult:
     all_logits, all_tokens = [logits], [tok]
     before = dict(launches)
     t0 = time.perf_counter()
-    for i in range(args.gen):
-        logits, cache = model.decode_step(params, cache, tok, plen + i)
+    for i in range(gen):
+        logits, cache = model.decode_step(params, cache, tok, plen + i,
+                                          gs_backend=gs_backend)
         tok = logits.argmax(-1, keepdim=True)
         all_logits.append(logits)
         all_tokens.append(tok)
     sync()
     t_dec = time.perf_counter() - t0
     launches_decode = _delta(before)
-    toks_s = b * args.gen / t_dec if t_dec > 0 else float("inf")
+    toks_s = b * gen / t_dec if t_dec > 0 else float("inf")
     tokens = torch.cat(all_tokens, dim=1)
-    print(f"[serve] decode: {args.gen} steps x batch {b} in "
+    print(f"[serve] decode: {gen} steps x batch {b} in "
           f"{t_dec * 1e3:.1f} ms  ({toks_s:.1f} tok/s)")
     print("[serve] sample:", tokens[0, 1:13].tolist())
     return ServeResult(
         arch=cfg.arch_id, device=str(dev), batch=b, prompt_len=plen,
-        gen=args.gen, prefill_ms=t_prefill * 1e3, decode_ms=t_dec * 1e3,
-        tok_s=toks_s,
+        gen=gen, gs_backend=gs_backend, prefill_ms=t_prefill * 1e3,
+        decode_ms=t_dec * 1e3, tok_s=toks_s,
         weight_bytes=sum(p.numel() * p.element_size()
                          for p in params.parameters()),
         prompts=prompts, tokens=tokens, logits=torch.stack(all_logits, 1),

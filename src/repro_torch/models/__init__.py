@@ -1,10 +1,10 @@
-"""Model code of the port: ``common``, ``ssm``, ``attention``,
+"""Model code of the port: ``common``, ``ssm``, ``attention``, ``moe``,
 ``transformer``, ``zoo``, ``convert``.  Submodules load on first use;
 importing the package loads none of them and builds nothing."""
 import importlib
 
-_SUBMODULES = ("attention", "common", "convert", "ssm", "transformer",
-               "zoo")
+_SUBMODULES = ("attention", "common", "convert", "moe", "ssm",
+               "transformer", "zoo")
 _EXPORTS = {"Model": "zoo", "count_params": "zoo"}
 
 __all__ = sorted(_EXPORTS) + list(_SUBMODULES)

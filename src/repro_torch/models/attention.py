@@ -1,7 +1,8 @@
-"""GQA attention (llama3-8b) over a paged KV cache.
+"""GQA attention (llama3-8b) over a paged KV cache, and MLA (deepseek-v2)
+over a contiguous latent cache.
 
-The port of ``repro/models/attention.py:29-134`` (GQA only; MLA is not
-ported), with its parameter names and layouts: ``wq`` (d, H, dh), ``wk`` and
+The port of ``repro/models/attention.py``, with its parameter names and
+layouts.  GQA: ``wq`` (d, H, dh), ``wk`` and
 ``wv`` (d, KVH, dh), ``wo`` (H, dh, d).  The projections, RoPE and the cache
 writes are plain torch, as they are plain ``jnp`` there.  Prefill attention
 runs the Hopper flash-attention kernel (``kernels/flash_attention``), decode
@@ -19,8 +20,19 @@ each sequence's pages lie scattered through it and the kernel gathers
 through the table for real.  Position t of row b is slot t % PAGE_SIZE of
 page ``page_table[b, t // PAGE_SIZE]``.  Prefill and decode write the pages
 in place (a cache is updated, not copied, which saves a pool per step).
+
+MLA (``mla_*``, the port of ``:141-252``) keeps the JAX package's cache:
+contiguous, ``{"c_kv": (B, max_len, kv_lora_rank), "k_pe": (B, max_len,
+qk_rope_dim)}`` a layer, written in place.  Its prefill materialises each
+head's K and V from the latent and attends through ``chunked_attention``
+(q.k over qk_nope + qk_rope = 192 dims, v over 128 at deepseek-v2's
+width), plain torch as it is plain ``jnp`` there: the flash kernel takes
+one head size of 64 or 128.  Its decode is the absorbed form, scores
+against the compressed cache in float32.
 """
 from __future__ import annotations
+
+import math
 
 import numpy as np
 import torch
@@ -28,7 +40,8 @@ from torch import nn
 
 from ..kernels.flash_attention.ops import flash_attention
 from ..kernels.paged_decode.ops import paged_decode_attention
-from .common import _NOT_PORTED, ParamDef, apply_rope, make_params
+from .common import (_NOT_PORTED, ParamDef, RMSNorm, apply_rope,
+                     chunked_attention, make_params, rms_norm)
 
 PAGE_SIZE = 16
 
@@ -66,8 +79,8 @@ def _qkv(cfg, p: GQA, x: torch.Tensor, positions: torch.Tensor):
     return q.reshape(b, s, kvh, cfg.n_heads // kvh, dh), k, v
 
 
-def _out(p: GQA, o: torch.Tensor) -> torch.Tensor:
-    """o (B,S,H,dh) -> einsum("bshe,hed->bsd", o, wo)."""
+def _out(p: nn.Module, o: torch.Tensor) -> torch.Tensor:
+    """o (B,S,H,e) -> einsum("bshe,hed->bsd", o, wo)."""
     h, e, d = p.wo.shape
     return o.reshape(*o.shape[:2], h * e) @ p.wo.reshape(h * e, d)
 
@@ -168,3 +181,112 @@ def contiguous_kv(cache: dict, length: int):
                                                pps * PAGE_SIZE, -1)
         out.append(x.permute(1, 2, 0, 3)[:, :length])
     return tuple(out)
+
+
+# -- MLA (deepseek-v2 multi-head latent attention) ----------------------------
+
+def mla_defs(cfg) -> dict:
+    """The matrices of ``repro/models/attention.py:141-155``; its two norms
+    (``q_norm`` over q_lora_rank, ``kv_norm`` over kv_lora_rank) are
+    ``RMSNorm`` submodules of ``MLA``."""
+    d, h = cfg.d_model, cfg.n_heads
+    r_kv, r_q = cfg.kv_lora_rank, cfg.q_lora_rank
+    dn, dr, dv = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
+    return {"w_dq": ParamDef((d, r_q)), "w_uq": ParamDef((r_q, h, dn + dr)),
+            "w_dkv": ParamDef((d, r_kv)), "w_kr": ParamDef((d, dr)),
+            "w_uk": ParamDef((r_kv, h, dn)), "w_uv": ParamDef((r_kv, h, dv)),
+            "wo": ParamDef((h, dv, d))}
+
+
+class MLA(nn.Module):
+    def __init__(self, cfg, *, device=None, dtype=None):
+        super().__init__()
+        self.defs = mla_defs(cfg)
+        make_params(self, self.defs, device, dtype)
+        self.q_norm = RMSNorm(cfg.q_lora_rank, device=device, dtype=dtype)
+        self.kv_norm = RMSNorm(cfg.kv_lora_rank, device=device, dtype=dtype)
+
+
+def _mla_q(cfg, p: MLA, x: torch.Tensor, positions: torch.Tensor):
+    """x (B,S,d) -> q_nope (B,S,H,dn), q_rope (B,S,H,dr), RoPE applied."""
+    dn = cfg.qk_nope_dim
+    cq = rms_norm(p.q_norm, x @ p.w_dq, cfg.norm_eps)
+    q = _proj(cq, p.w_uq)                                  # (B,S,H,dn+dr)
+    return q[..., :dn], apply_rope(q[..., dn:], positions, cfg.rope_theta,
+                                   "full")
+
+
+def _mla_ckv(cfg, p: MLA, x: torch.Tensor, positions: torch.Tensor):
+    """x (B,S,d) -> the latent c_kv (B,S,r_kv) and k_pe (B,S,dr)."""
+    c_kv = rms_norm(p.kv_norm, x @ p.w_dkv, cfg.norm_eps)
+    k_pe = apply_rope((x @ p.w_kr)[:, :, None, :], positions, cfg.rope_theta,
+                      "full")[:, :, 0]
+    return c_kv, k_pe
+
+
+def mla_apply(cfg, p: MLA, x: torch.Tensor, positions: torch.Tensor, *,
+              cache: dict | None = None):
+    """Prefill MLA: each head's K/V materialised from the latent.  x
+    (B,S,d); positions (S,) or (B,S).  With a ``cache`` (``mla_init_cache``)
+    its positions 0..S-1 receive this sequence's c_kv and k_pe (the JAX
+    package's ``mla_apply_cache``).  Returns (y (B,S,d), cache)."""
+    if positions.dim() == 1:
+        positions = positions[None, :]
+    b, s, _ = x.shape
+    h, dn, dr, dv = (cfg.n_heads, cfg.qk_nope_dim, cfg.qk_rope_dim,
+                     cfg.v_head_dim)
+    q_nope, q_rope = _mla_q(cfg, p, x, positions)
+    c_kv, k_pe = _mla_ckv(cfg, p, x, positions)
+    k_nope = _proj(c_kv, p.w_uk)
+    v = _proj(c_kv, p.w_uv)
+    # every MLA head has its own K: KVH = H groups of G = 1
+    q = torch.cat([q_nope, q_rope], dim=-1)[:, :, :, None, :]
+    k = torch.cat([k_nope, k_pe[:, :, None, :].expand(b, s, h, dr)], dim=-1)
+    o = chunked_attention(q, k, v, chunk=cfg.attn_chunk, causal=True,
+                          scale=1.0 / math.sqrt(dn + dr))
+    y = _out(p, o.reshape(b, s, h, dv))
+    if cache is not None:
+        if s > cache["c_kv"].shape[1]:
+            raise ValueError(f"{s} positions do not fit the cache's "
+                             f"{cache['c_kv'].shape[1]}")
+        cache["c_kv"][:, :s] = c_kv
+        cache["k_pe"][:, :s] = k_pe
+    return y, cache
+
+
+def mla_init_cache(cfg, batch: int, max_len: int, dtype, device) -> dict:
+    """Zeroed latent cache of one layer, contiguous as in the JAX
+    package."""
+    return {"c_kv": torch.zeros((batch, max_len, cfg.kv_lora_rank),
+                                dtype=dtype, device=device),
+            "k_pe": torch.zeros((batch, max_len, cfg.qk_rope_dim),
+                                dtype=dtype, device=device)}
+
+
+def mla_decode(cfg, p: MLA, x: torch.Tensor, pos: int, cache: dict):
+    """Absorbed-matrix MLA decode (``repro/models/attention.py:220-252``).
+    x (B,1,d); pos: this token's position.  Writes its c_kv and k_pe at
+    ``pos`` and scores q against the compressed cache (W_uk folded into
+    q), float32, positions 0..pos valid; o_c is cast back to the model
+    dtype before W_uv.  Returns (y (B,1,d), cache)."""
+    b = x.shape[0]
+    t = cache["c_kv"].shape[1]
+    if not 0 <= pos < t:
+        raise ValueError(f"position {pos} outside the cache's {t}")
+    positions = torch.full((b, 1), pos, dtype=torch.int32, device=x.device)
+    q_nope, q_rope = _mla_q(cfg, p, x, positions)           # (B,1,H,*)
+    c_new, kpe_new = _mla_ckv(cfg, p, x, positions)
+    cache["c_kv"][:, pos] = c_new[:, 0]
+    cache["k_pe"][:, pos] = kpe_new[:, 0]
+    c_kv = cache["c_kv"].to(torch.float32)
+    k_pe = cache["k_pe"].to(torch.float32)
+    q_c = torch.einsum("bshe,rhe->bshr", q_nope, p.w_uk)
+    scores = (torch.einsum("bshr,btr->bhst", q_c.to(torch.float32), c_kv)
+              + torch.einsum("bshe,bte->bhst", q_rope.to(torch.float32),
+                             k_pe))
+    scores *= 1.0 / math.sqrt(cfg.qk_nope_dim + cfg.qk_rope_dim)
+    valid = torch.arange(t, device=x.device) <= pos
+    prob = torch.softmax(scores.masked_fill_(~valid, -1e30), dim=-1)
+    o_c = torch.einsum("bhst,btr->bshr", prob, c_kv)
+    o = torch.einsum("bshr,rhe->bshe", o_c.to(x.dtype), p.w_uv)
+    return _out(p, o), cache

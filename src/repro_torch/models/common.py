@@ -1,7 +1,7 @@
 """Shared model machinery: declared parameters and their init, the RMS norm,
-the MLP, RoPE.
+the MLP, RoPE, query-chunked attention.
 
-The port of ``repro/models/common.py:24-159``.  A module declares its
+The port of ``repro/models/common.py:24-229``.  A module declares its
 parameters as ``ParamDef``s (shape, init, scale) in the JAX package's
 names and layouts (weights are (in, out), so a layer is ``x @ w``);
 ``make_params`` allocates them, uninitialised, on a device (``meta``
@@ -74,7 +74,7 @@ def rms_norm(p: RMSNorm, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
 
 
 # block kinds and families of the JAX package that the port does not run yet
-_NOT_PORTED = "ROADMAP A12 (model-side consumers)"
+_NOT_PORTED = "ROADMAP A7 (the model side)"
 
 
 def mlp_def(cfg, d_in: int, d_ff: int) -> dict:
@@ -127,3 +127,43 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
     x1, x2 = x.to(torch.float32).chunk(2, dim=-1)
     return torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos],
                      dim=-1).to(x.dtype)
+
+
+def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                      chunk: int, causal: bool = True, window: int = 0,
+                      attn_softcap: float = 0.0, q_offset: int = 0,
+                      scale: float | None = None) -> torch.Tensor:
+    """Query-chunked attention, plain torch: the port of the JAX package's
+    ``chunked_attention`` (``repro/models/common.py:166-229``), which is
+    plain ``jnp`` there too (no Pallas kernel).
+
+    q (B, S, KVH, G, dh); k (B, T, KVH, dh); v (B, T, KVH, dv), dv may
+    differ from dh (MLA) -> (B, S, KVH, G, dv) in q's dtype.  Scores in
+    float32, masked at -1e30, softmax.  Chunking the queries keeps the
+    scores at (B, KVH, G, chunk, T); where S is no multiple of ``chunk``
+    one chunk takes all S queries, as there.
+    """
+    b, s, kvh, g, dh = q.shape
+    t = k.shape[1]
+    dv = v.shape[-1]
+    scale = scale if scale is not None else 1.0 / math.sqrt(dh)
+    chunk = min(chunk, s)
+    if s % chunk:
+        chunk = s  # ragged: fall back to a single chunk
+    k32 = k.to(torch.float32).permute(0, 2, 3, 1)[:, :, None]  # B,KVH,1,dh,T
+    v32 = v.to(torch.float32).transpose(1, 2)[:, :, None]      # B,KVH,1,T,dv
+    kv_pos = torch.arange(t, device=q.device)
+    out = torch.empty((b, s, kvh, g, dv), dtype=q.dtype, device=q.device)
+    for q0 in range(0, s, chunk):
+        qc = q[:, q0:q0 + chunk].to(torch.float32).permute(0, 2, 3, 1, 4)
+        scores = softcap((qc @ k32) * scale, attn_softcap)  # B,KVH,G,c,T
+        q_pos = q0 + q_offset + torch.arange(chunk, device=q.device)
+        mask = torch.ones((chunk, t), dtype=torch.bool, device=q.device)
+        if causal:
+            mask &= q_pos[:, None] >= kv_pos[None, :]
+        if window > 0:
+            mask &= (q_pos[:, None] - kv_pos[None, :]) < window
+        p = torch.softmax(scores.masked_fill_(~mask, -1e30), dim=-1)
+        del scores
+        out[:, q0:q0 + chunk] = (p @ v32).permute(0, 3, 1, 2, 4).to(q.dtype)
+    return out

@@ -4,11 +4,15 @@ The JAX package scan-stacks each stage's layers on a leading axis
 (``params["stages"][s]["b<i>_<kind>"]``, one slice per group); the port
 keeps one ``Block`` per layer.  ``params_from_jax`` unstacks a JAX
 ``Model.init`` tree, given as numpy arrays, into a state dict for
-``LM.load_state_dict`` (which casts to the module's dtype);
-``cache_from_jax`` and ``cache_to_jax`` do the same for decode caches, and
-between the JAX package's contiguous K/V cache (count, B, max_len, KVH, dh)
-and the port's paged one they gather the pages through the table, and
-scatter them back.
+``LM.load_state_dict`` (which casts to the module's dtype): a MoE layer's
+stacked (L, E, d, ff) experts become one (E, d, ff) tensor a layer, MLA's
+norms ``mixer.q_norm.scale`` and ``mixer.kv_norm.scale``.
+``cache_from_jax`` and ``cache_to_jax`` do the same for decode caches: an
+MLA layer's latent cache (``c_kv``, ``k_pe``) and a mamba layer's state
+are contiguous on both sides and carried a layer at a time; between the
+JAX package's contiguous K/V cache (count, B, max_len, KVH, dh) and the
+port's paged one they gather the pages through the table, and scatter
+them back.
 JAX's bfloat16 arrays arrive as ``ml_dtypes.bfloat16``, which
 ``torch.from_numpy`` refuses, so every leaf goes through float32, which
 holds every bfloat16 value exactly.
@@ -58,8 +62,9 @@ def params_from_jax(cfg, tree: dict) -> dict[str, torch.Tensor]:
 
 def cache_from_jax(cfg, caches: list, seed: int = 0) -> list[dict]:
     """JAX decode cache (numpy leaves) -> the port's per-layer list, as
-    float32 CPU tensors (``ssm`` is float32 on both sides).  Contiguous
-    K/V go into pages through one table drawn from ``seed``."""
+    float32 CPU tensors (``ssm`` is float32 on both sides; an MLA latent
+    is carried as it is).  Contiguous K/V go into pages through one table
+    drawn from ``seed``."""
     out, table = [], None
     for _, g, block in _layers(cfg, caches):
         if "k" not in block:

@@ -2,11 +2,15 @@
 
 The port of ``repro/models/transformer.py`` for the families ported so far
 (``ssm``: falcon-mamba-7b; ``dense`` without local/global layers:
-llama3-8b).  The JAX package scan-stacks each stage's layers on a leading
-axis; here each layer is its own ``Block`` in an ``nn.ModuleList``, in
-``stage_layout`` order, and a cache is a list with one entry per layer
-(a dense layer's is paged, ``attention.py``).  Other block kinds and
-families raise, naming the ROADMAP item that will port them.
+llama3-8b; ``moe`` with MLA: deepseek-v2-236b).  The JAX package
+scan-stacks each stage's layers on a leading axis; here each layer is its
+own ``Block`` in an ``nn.ModuleList``, in ``stage_layout`` order, and a
+cache is a list with one entry per layer (a GQA layer's is paged, an MLA
+layer's contiguous, ``attention.py``).  ``gs_backend`` (default
+``torch``, the counterpart of the JAX package's ``xla``) selects the
+``repro_torch.backends`` implementation of the indexed ops: the embedding
+gather and the MoE dispatch's gathers and scatter-adds.  Other block
+kinds and families raise, naming the ROADMAP item that will port them.
 """
 from __future__ import annotations
 
@@ -17,6 +21,7 @@ from torch import nn
 
 from .. import backends as gs_backends
 from . import attention as attn
+from . import moe as moe_mod
 from . import ssm as ssm_mod
 from .common import (_NOT_PORTED, MLP, ParamDef, RMSNorm, init_params,
                      make_params, mlp_apply, rms_norm)
@@ -40,9 +45,10 @@ def embed_lookup(cfg, p: Embed, tokens: torch.Tensor,
                  backend: str = "torch") -> torch.Tensor:
     """(B,S) int -> (B,S,d): a row gather over the vocab table, through the
     port's gather backends (``torch`` is the framework's own, as ``xla``
-    is the JAX package's default)."""
+    is the JAX package's default), with int32 indices as there."""
     b, s = tokens.shape
-    flat = gs_backends.gather(p.table, tokens.reshape(-1), backend=backend)
+    flat = gs_backends.gather(p.table, tokens.reshape(-1).to(torch.int32),
+                              backend=backend)
     return flat.reshape(b, s, cfg.d_model)
 
 
@@ -57,17 +63,25 @@ def stage_layout(cfg) -> list[tuple[int, tuple[str, ...]]]:
         return [(cfg.n_layers, ("mamba",))]
     if cfg.family == "dense" and cfg.attn_kind == "full":
         return [(cfg.n_layers, ("dense",))]
+    if cfg.family == "moe":
+        out = []
+        if cfg.n_dense_layers:
+            out.append((cfg.n_dense_layers, ("dense",)))
+        out.append((cfg.n_layers - cfg.n_dense_layers, ("moe",)))
+        return out
     raise NotImplementedError(
         f"family {cfg.family!r} ({cfg.arch_id}) is not ported: {_NOT_PORTED}")
 
 
 class Block(nn.Module):
-    """ln1 -> mixer -> residual, then (``dense``) ln2 -> MLP -> residual;
-    a ``mamba`` block has no channel MLP."""
+    """ln1 -> mixer (GQA, or MLA where ``attn_kind`` is ``mla``) ->
+    residual, then ln2 -> channel mixer -> residual: the SwiGLU MLP
+    (``dense``; at ``d_ff_dense`` in a model with leading dense layers) or
+    the ``MoE`` (``moe``).  A ``mamba`` block has no channel mixer."""
 
     def __init__(self, cfg, kind: str, *, device=None, dtype=None):
         super().__init__()
-        if kind not in ("mamba", "dense"):
+        if kind not in ("mamba", "dense", "moe"):
             raise NotImplementedError(
                 f"block kind {kind!r} is not ported: {_NOT_PORTED}")
         self.kind = kind
@@ -75,9 +89,15 @@ class Block(nn.Module):
         if kind == "mamba":
             self.mixer = ssm_mod.Mamba(cfg, device=device, dtype=dtype)
             return
-        self.mixer = attn.GQA(cfg, device=device, dtype=dtype)
+        mixer = attn.MLA if cfg.attn_kind == "mla" else attn.GQA
+        self.mixer = mixer(cfg, device=device, dtype=dtype)
         self.ln2 = RMSNorm(cfg.d_model, device=device, dtype=dtype)
-        self.mlp = MLP(cfg, cfg.d_model, cfg.d_ff, device=device, dtype=dtype)
+        if kind == "moe":
+            self.mlp = moe_mod.MoE(cfg, device=device, dtype=dtype)
+        else:
+            d_ff = (cfg.d_ff_dense if cfg.n_dense_layers and cfg.d_ff_dense
+                    else cfg.d_ff)
+            self.mlp = MLP(cfg, cfg.d_model, d_ff, device=device, dtype=dtype)
 
 
 class LM(nn.Module):
@@ -88,8 +108,7 @@ class LM(nn.Module):
         self.embed = Embed(cfg, device=device, dtype=dtype)
         self.layers = nn.ModuleList(
             Block(cfg, kind, device=device, dtype=dtype)
-            for count, kinds in stage_layout(cfg)
-            for _ in range(count) for kind in kinds)
+            for kind in layer_kinds(cfg))
         self.ln_f = RMSNorm(cfg.d_model, device=device, dtype=dtype)
 
     def init_(self, generator: torch.Generator) -> "LM":
@@ -100,11 +119,19 @@ class LM(nn.Module):
         return self
 
 
+def _channel_mix(cfg, blk: Block, h: torch.Tensor, gs_backend: str):
+    if blk.kind == "moe":
+        return moe_mod.moe_apply(cfg, blk.mlp, h, gs_backend)[0]
+    return mlp_apply(cfg, blk.mlp, h)
+
+
 def block_apply(cfg, blk: Block, x: torch.Tensor, positions: torch.Tensor,
-                cache=None):
+                cache=None, gs_backend: str = "torch"):
     """Returns (x', cache).  Given a ``cache`` entry (from ``init_cache``),
     the block writes into it what decode continues from: a mamba block its
-    final state, a dense block its K/V into the pages."""
+    final state, a GQA block its K/V into the pages, an MLA block its
+    latent.  (A ``moe`` block's aux loss is ``moe.moe_apply``'s; the port
+    serves, so nothing sums it.)"""
     h = rms_norm(blk.ln1, x, cfg.norm_eps)
     if blk.kind == "mamba":
         y, state = ssm_mod.mamba_prefill(cfg, blk.mixer, h)
@@ -112,47 +139,64 @@ def block_apply(cfg, blk: Block, x: torch.Tensor, positions: torch.Tensor,
             for k, v in state.items():
                 cache[k].copy_(v)
         return x + y, cache
-    y, cache = attn.gqa_apply(cfg, blk.mixer, h, positions, cache=cache)
+    if cfg.attn_kind == "mla":
+        y, cache = attn.mla_apply(cfg, blk.mixer, h, positions, cache=cache)
+    else:
+        y, cache = attn.gqa_apply(cfg, blk.mixer, h, positions, cache=cache)
     x = x + y
-    return x + mlp_apply(cfg, blk.mlp, rms_norm(blk.ln2, x, cfg.norm_eps)), \
-        cache
+    return x + _channel_mix(cfg, blk, rms_norm(blk.ln2, x, cfg.norm_eps),
+                            gs_backend), cache
 
 
-def block_decode(cfg, blk: Block, x: torch.Tensor, pos: int, cache):
+def block_decode(cfg, blk: Block, x: torch.Tensor, pos: int, cache,
+                 gs_backend: str = "torch"):
     """Single-token decode through one block. Returns (x', cache')."""
     h = rms_norm(blk.ln1, x, cfg.norm_eps)
     if blk.kind == "mamba":  # a mamba block keeps no positions
         y, cache = ssm_mod.mamba_decode(cfg, blk.mixer, h, cache)
         return x + y, cache
-    y, cache = attn.gqa_decode(cfg, blk.mixer, h, pos, cache)
+    if cfg.attn_kind == "mla":
+        y, cache = attn.mla_decode(cfg, blk.mixer, h, pos, cache)
+    else:
+        y, cache = attn.gqa_decode(cfg, blk.mixer, h, pos, cache)
     x = x + y
-    return x + mlp_apply(cfg, blk.mlp, rms_norm(blk.ln2, x, cfg.norm_eps)), \
-        cache
+    return x + _channel_mix(cfg, blk, rms_norm(blk.ln2, x, cfg.norm_eps),
+                            gs_backend), cache
 
 
-def forward(cfg, lm: LM, tokens: torch.Tensor, *, caches: list | None = None):
+def forward(cfg, lm: LM, tokens: torch.Tensor, *, caches: list | None = None,
+            gs_backend: str = "torch"):
     """tokens (B,S) -> hidden (B,S,d).  Given ``caches`` (from
     ``init_cache``), also returns the per-layer caches that ``decode_step``
     continues from at position S."""
-    x = embed_lookup(cfg, lm.embed, tokens)
+    x = embed_lookup(cfg, lm.embed, tokens, backend=gs_backend)
     x = x * math.sqrt(cfg.d_model)
     positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
     out = []
     for i, blk in enumerate(lm.layers):
         x, c = block_apply(cfg, blk, x, positions,
-                           None if caches is None else caches[i])
+                           None if caches is None else caches[i], gs_backend)
         out.append(c)
     x = rms_norm(lm.ln_f, x, cfg.norm_eps)
     return x if caches is None else (x, out)
 
 
+def layer_kinds(cfg) -> list[str]:
+    """Each layer's block kind, in layer order."""
+    return [kind for count, ks in stage_layout(cfg)
+            for _ in range(count) for kind in ks]
+
+
 def init_cache(cfg, batch: int, max_len: int, dtype, device,
                seed: int = 0) -> list:
-    """Zeroed per-layer caches.  Dense layers share one page table, drawn
-    from ``seed``, of ceil(max_len / PAGE_SIZE) pages a row; a mamba cache
+    """Zeroed per-layer caches.  GQA layers share one page table, drawn
+    from ``seed``, of ceil(max_len / PAGE_SIZE) pages a row; an MLA
+    layer's latent cache is contiguous, (B, max_len, ...); a mamba cache
     does not grow with the context."""
-    kinds = [kind for count, ks in stage_layout(cfg)
-             for _ in range(count) for kind in ks]
+    kinds = layer_kinds(cfg)
+    if cfg.attn_kind == "mla":
+        return [attn.mla_init_cache(cfg, batch, max_len, dtype, device)
+                for _ in kinds]
     table = None
     if "dense" in kinds:
         table = attn.page_table(batch, attn.n_pages(max_len), seed, device)
@@ -161,13 +205,14 @@ def init_cache(cfg, batch: int, max_len: int, dtype, device,
             attn.gqa_init_cache(cfg, table, dtype, device) for kind in kinds]
 
 
-def decode_step(cfg, lm: LM, caches: list, tokens: torch.Tensor, pos):
+def decode_step(cfg, lm: LM, caches: list, tokens: torch.Tensor, pos, *,
+                gs_backend: str = "torch"):
     """One decode step: tokens (B,1) + caches -> (logits (B,V), caches')."""
-    x = embed_lookup(cfg, lm.embed, tokens)
+    x = embed_lookup(cfg, lm.embed, tokens, backend=gs_backend)
     x = x * math.sqrt(cfg.d_model)
     new_caches = []
     for blk, cache in zip(lm.layers, caches):
-        x, c = block_decode(cfg, blk, x, pos, cache)
+        x, c = block_decode(cfg, blk, x, pos, cache, gs_backend)
         new_caches.append(c)
     x = rms_norm(lm.ln_f, x, cfg.norm_eps)
     return unembed_logits(cfg, lm.embed, x)[:, 0], new_caches

@@ -1,6 +1,6 @@
 """Model zoo: one interface over the ported architectures.
 
-    model = Model(get_config("llama3-8b"))
+    model = Model(get_config("llama3-8b"))      # or deepseek-v2-236b, ...
     params = model.init(torch.Generator("cuda").manual_seed(0))   # an LM
     logits, cache = model.prefill(params, tokens, max_len)   # ready to decode
     logits, cache = model.decode_step(params, cache, tokens, pos)
@@ -40,18 +40,20 @@ class Model:
         return transformer.forward(self.cfg, params, tokens, **kw)
 
     def prefill(self, params, tokens: torch.Tensor, max_len: int | None = None,
-                seed: int = 0):
+                seed: int = 0, gs_backend: str = "torch"):
         """tokens (B,S) -> (last-position logits (B,V), per-layer caches
         that ``decode_step`` continues from at position S, with room for
         ``max_len`` positions (default S; a paged cache's table is drawn
-        from ``seed``).  A mamba cache does not grow: ``max_len`` is
-        ignored there."""
+        from ``seed``; an MLA cache is contiguous).  A mamba cache does not
+        grow: ``max_len`` is ignored there.  ``gs_backend``: the backend
+        of the embedding gather and the MoE dispatch."""
         b, s = tokens.shape
         caches = transformer.init_cache(self.cfg, b, max_len or s,
                                         params.embed.table.dtype,
                                         tokens.device, seed)
         hidden, caches = transformer.forward(self.cfg, params, tokens,
-                                             caches=caches)
+                                             caches=caches,
+                                             gs_backend=gs_backend)
         last = transformer.unembed_logits(self.cfg, params.embed,
                                           hidden[:, -1:])[:, 0]
         return last, caches
@@ -62,8 +64,10 @@ class Model:
                                       dtype or model_dtype(self.cfg),
                                       resolve_device(device), seed)
 
-    def decode_step(self, params, cache, tokens, pos):
-        return transformer.decode_step(self.cfg, params, cache, tokens, pos)
+    def decode_step(self, params, cache, tokens, pos,
+                    gs_backend: str = "torch"):
+        return transformer.decode_step(self.cfg, params, cache, tokens, pos,
+                                       gs_backend=gs_backend)
 
 
 def count_params(cfg) -> int:
