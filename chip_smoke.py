@@ -1482,21 +1482,27 @@ def _keep_last_dev(torch, idx):
 
 
 def _profiled_ms(torch, fn, iters, tries=8):
-    """Device ms a call: torch.profiler's CUDA time of every kernel that
-    ``iters`` calls of ``fn`` launched, over ``iters``; and the kernels'
-    names with their counts.  The profiler now and then loses a kernel's
-    record (on the H100, 17 of 20 launches once, every one once, and
-    three traces in a row short of 20 once): a
-    trace whose count of device events is not a multiple of ``iters`` is
-    taken again, at most ``tries`` times in all, and the last one is
-    returned as it is (the callers' launch checks then fail on it; an
-    empty one fails here)."""
+    """Device ms a call: torch.profiler's CUDA time of the kernels that
+    ``iters`` calls of ``fn`` launched; those kernels' names with the
+    counts the trace holds; and the port's launches in the traced calls
+    by count name (``observe_launches``, the wrappers' own count).  The
+    profiler now and then loses a kernel's record (on the H100, 17 of 20
+    launches once, every one once, and in a late phase of a long run
+    the same 3 of 20 in fifteen traces in a row): a trace whose count of
+    device events is not a multiple of ``iters`` is taken again, at most
+    ``tries`` times in all, and the last one is kept: each kernel name
+    then stands in the time for its recorded mean times the launches a
+    call makes (its count over ``iters``, rounded up), where a whole
+    trace gives its total over ``iters``.  An empty trace fails here."""
     from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels._build import observe_launches
     fn()
     torch.cuda.synchronize()
     for _ in range(tries):
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+        with observe_launches() as seen, profile(
+                activities=[ProfilerActivity.CPU,
+                            ProfilerActivity.CUDA]) as prof:
             for _ in range(iters):
                 fn()
             torch.cuda.synchronize()
@@ -1507,24 +1513,47 @@ def _profiled_ms(torch, fn, iters, tries=8):
         print(f"  (torch.profiler recorded {sum(e.count for e in evts)} "
               f"device events for {iters} calls: traced again)", flush=True)
     check(evts, "torch.profiler saw no device time")
-    return (sum(_device_ms(e) for e in evts) / iters,
+    launched = {}
+    for kernel, _ in seen:
+        launched[kernel] = launched.get(kernel, 0) + 1
+    whole = sum(e.count for e in evts) % iters == 0
+    return (sum(_device_ms(e) if whole else
+                _device_ms(e) / e.count * -(-e.count // iters)
+                for e in evts) / (iters if whole else 1),
             {k: sum(e.count for e in evts if e.key[:100] == k)
-             for k in {e.key[:100] for e in evts}})
+             for k in {e.key[:100] for e in evts}},
+            launched)
 
 
-def _in_turns(torch, fns, iters):
+def _launch_check(names, launched, iters, frag, where):
+    """The calls of a timed turn launched ``iters`` of the port's kernels
+    whose count names hold ``frag``, by the wrappers' own count; and the
+    trace holds such a kernel, at most ``iters`` times, so its device
+    time is that kernel's (the profiler may have lost a record: see
+    ``_profiled_ms``)."""
+    ran = sum(c for k, c in launched.items() if frag in k)
+    traced = sum(c for k, c in names.items() if frag in k)
+    check(ran == iters and 0 < traced <= iters,
+          f"{where}: launched {launched}, traced {names}, in {iters} calls")
+
+
+def _in_turns(torch, fns, iters, checks=None):
     """Each of ``fns`` (name -> call) timed twice, in turns: the names in
     order, then in reverse (library, kernel, kernel, library).  Each turn
     takes ``ms`` (CUDA events around ``iters`` back-to-back Python calls)
     and ``device_ms`` (``_profiled_ms`` over as many).  Returns name ->
-    (ms pair, device_ms pair, kernel names)."""
-    res = {k: ([], [], None) for k in fns}
+    (ms pair, device_ms pair, kernel names, port launches), the names and
+    launches of the last turn; ``checks[name]`` (names, launches) is
+    called on each of its turns'."""
+    res = {k: ([], [], None, None) for k in fns}
     for name in list(fns) + list(reversed(fns)):
-        ms, dev, _ = res[name]
+        ms, dev, _, _ = res[name]
         ms.append(_time_ms(torch, fns[name], iters))
-        d, names = _profiled_ms(torch, fns[name], iters)
+        d, names, launched = _profiled_ms(torch, fns[name], iters)
+        if checks and name in checks:
+            checks[name](names, launched)
         dev.append(d)
-        res[name] = (ms, dev, names)
+        res[name] = (ms, dev, names, launched)
     return res
 
 
@@ -1601,11 +1630,10 @@ def gather_times(torch, err=None, dtype=None):
             err[name] = max(err.get(name, 0.0),
                             (got.double() - want.double()).abs().max().item())
         fns = {"library": library, "kernel": kernel, **(others or {})}
-        t = _in_turns(torch, fns, iters)
-        ms, dms, knames = t["kernel"]
-        lms, ldms, lnames = t["library"]
-        launched = sum(c for k, c in knames.items() if "gather" in k)
-        check(launched == iters, f"{name}: {knames} in {iters} calls")
+        t = _in_turns(torch, fns, iters, {"kernel": lambda names, ran: (
+            _launch_check(names, ran, iters, "gather", name))})
+        ms, dms, knames, _ = t["kernel"]
+        lms, ldms, lnames, _ = t["library"]
         bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
         row = dict(ms=min(ms), ms_pair=ms, device_ms=min(dms),
                    device_ms_pair=dms, library_ms=min(lms),
@@ -1715,15 +1743,15 @@ def _turn_times(torch, fns, iters, frag, where):
     """``fns`` ("kernel" and, where one exists, "library") timed in turns
     (``_in_turns``): each one's ms and device_ms, the lower of two turns,
     beside the pairs; checks that the kernel's calls launched ``iters``
-    kernels whose names hold ``frag``."""
-    t = _in_turns(torch, fns, iters)
-    ms, dms, names = t["kernel"]
-    launched = sum(c for k, c in names.items() if frag in k)
-    check(launched == iters, f"{where}: {names} in {iters} calls")
+    of the port's kernels whose names hold ``frag`` in each turn
+    (``_launch_check``)."""
+    t = _in_turns(torch, fns, iters, {"kernel": lambda names, ran: (
+        _launch_check(names, ran, iters, frag, where))})
+    ms, dms, names, _ = t["kernel"]
     row = dict(ms=min(ms), ms_pair=ms, device_ms=min(dms),
                device_ms_pair=dms, kernels=names)
     if "library" in t:
-        lms, ldms, lnames = t["library"]
+        lms, ldms, lnames, _ = t["library"]
         row.update(library_ms=min(lms), library_ms_pair=lms,
                    library_device_ms=min(ldms), library_device_ms_pair=ldms,
                    library_kernels=lnames)
@@ -4266,7 +4294,7 @@ def autotune_phase(torch, suite_stats):
             got = g.gather_rows_global(table, idx, vecs=vecs)
             check(torch.equal(got, gather_rows_ref(table, idx)),
                   f"phase 10: the CLI gather at vecs {vecs}: not equal")
-            dms, _ = _profiled_ms(torch, lambda vecs=vecs:
+            dms, _, _ = _profiled_ms(torch, lambda vecs=vecs:
                                   g.gather_rows_global(table, idx,
                                                        vecs=vecs), 10)
             model = bandwidth.pipeline_model(p, 4, vecs=vecs)
