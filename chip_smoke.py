@@ -2,7 +2,9 @@
 """Drive the port's paths on one CUDA card and check them: the Spatter
 main path, falcon-mamba-7b and llama3-8b served at full width,
 deepseek-v2-236b served at full width through the MoE dispatch on the
-row kernels, the Spatter suite daemon, bucket launches placed over several devices, the
+row kernels, gemma2-27b served at full width through windowed, softcapped
+flash attention and paged decode, the trace of a model's gathers and
+scatters replayed as Spatter patterns, the Spatter suite daemon, bucket launches placed over several devices, the
 static analysis with the modeled H100 column, the launch-parameter
 choice (``kernels/autotune.py``) with the CLI's serve modes, and the
 Spatter path on bfloat16 and float16 tables.
@@ -36,13 +38,19 @@ only.  Phases:
      then over S = T in {1, 17, 128, 300, 2048}, (KVH, G) in {(1, 1), (2,
      4), (8, 4)}, dh in {64, 128}, float32 and bfloat16, with B in {1, 2},
      causal, window in {0, 64} and softcap in {0, 50} cycled, then rows
-     that a window leaves no key (S >= T + window); paged decode over page
+     that a window leaves no key (S >= T + window), then cases where the
+     softcap bites (``flash_cap_cases``: caps 5 and 50 with q scaled so
+     that the scores reach them, at gemma2's heads and others, both
+     dtypes, with and without a window); paged decode over page
      in {8, 16}, six (KVH, G), dh in {64, 128}, both dtypes, a permuted
      table and one with repeats, lengths 1, full and ragged, then rows of
      length 0, then the split of each row's pages (``paged_split_cases``:
      lengths at a split's end, one past it and in the first page of 130, a
      shape where B x KVH fills the card, calls back to back and on two
-     streams); both within ``attn_tolerance`` (flash in bf16 with 2^-8
+     streams), then gemma2's options (``paged_option_cases``: softcap 50
+     and 5, windows of 1, 7, 100 and 4096 positions, alone and together,
+     lengths 0, 1, around the window and full, at 1, the chosen and the
+     most splits the window admits); both within ``attn_tolerance`` (flash in bf16 with 2^-8
      more for its rounded weights); the Spatter grid
      (``spatter_cases``) runs first in float32, and again on the 16-bit
      instances in bfloat16 and float16 with D = 2 added, both sides of
@@ -77,7 +85,14 @@ only.  Phases:
      the serving shape (4, 2048, 8192, 16, bfloat16; device time too),
      flash attention at the llama3-8b prefill shape and paged decode at
      its decode shape (``FLASH_SHAPE``, ``PAGED_SHAPE``, bfloat16; paged
-     decode with its split count, CTAs and host time a call); the
+     decode with its split count, CTAs and host time a call), then both
+     at gemma2-27b's served shapes (``gemma2_attention_times``: flash with
+     softcap 50 and window 4096 or none at the prefill shape, and at one
+     row of it where the softcap bites (``gemma2_flash_cap_cases``), paged decode
+     with softcap 50 and window 4096 or none at the decode shape and
+     lengths past the window, each against its plain version, and at
+     llama3-8b's shape with neither option; with the embedding gather
+     beside ``index_select``); the
      Spatter lines run once a kernel instance (``kernel_times``): the
      gathers, the store and the coverage store in float32 and bfloat16
      (one instance serves both 16-bit types), the add in all three, each
@@ -91,13 +106,16 @@ only.  Phases:
      logits within ``SERVE_TOL``, and the same greedy token wherever its
      top-2 margin is wider than that; and a 2 x 64-token prefill's cache
      must equal the cache of ``decode_step`` iterated over the prompt;
+     then the trace of its forward (``trace_model``, as in phase 12),
      then ``profile_serve`` times a steady prefill and traces it, and the
      scan's row carries the prefill's scan time;
   6. the same for llama3-8b (32 layers, d_model 4096, GQA 32/8 heads,
      bfloat16): the prefill must launch flash attention once per layer and
      paged decode never, each decode step paged decode once per layer and
      flash attention never; the prefill's paged cache, gathered through
-     its table, must equal the iterated decode's;
+     its table, must equal the iterated decode's; the attention layers'
+     calls in the serve window, counted by layer kind
+     (``_attention_calls``), must sum to the launches;
   7. spatterd (``repro_torch.serve``) on the card, on hopper
      (``daemon_phase``): demo cold then warm (misses 4, then 0), appdb at
      scale 1.0 in the requests the schema's budget admits (misses summing
@@ -190,12 +208,32 @@ only.  Phases:
      larger, ``NOISE_MARGIN`` times the spread of two torch runs, the
      share of decisions that differ when both route freely printed; a
      traced prefill and decode split by class; the dispatch's four ops
-     at the served shapes beside ``index_select`` / ``index_add_``.  The
-     model is freed before the next phase.
+     at the served shapes beside ``index_select`` / ``index_add_``; the
+     trace (``trace_model``): one forward of 1 x 2048 tokens on hopper
+     under ``tracing.trace_gs``, each backend call one row-kernel launch,
+     its summary (G/S MB and share), its distinct distilled patterns
+     replayed through ``run_suite`` on hopper and torch with equal digests,
+     each scatter in its own mode (the dispatch's adds through the add
+     kernel).
+     The model is freed before the next phase;
+ 13. (right after phase 12) gemma2-27b at its published width and depth
+     (46 layers, 27,226,704,384 parameters, bfloat16, random weights from
+     seed 0) through ``launch.serve.main`` with ``--gs-backend hopper``
+     (``gemma2_phase``): 2 prompts of 8192 tokens (past the window of
+     4096, so that it cuts keys in prefill and decode), 32 greedy steps;
+     the prefill must launch flash attention once a layer and
+     ``gather_rows_b16`` once, each step paged decode once a layer and
+     the gather once, nothing else, 23 local and 23 global layers'
+     calls each; the checks of ``serve_phase``, whose logits are held to
+     ``SERVE_TOL`` with its atol in units of max(1, their rms) (gemma2's
+     tied table, drawn at scale 1, gives logits of rms ~25 where
+     llama3-8b's and falcon-mamba-7b's have ~1); the trace as in phase
+     12 (its kernels' checks and times at these shapes run in phase 4).  The model is freed before the
+     next phase.
 
 The launch counts are set to 0 just before phase 2 and read just after
-phase 3, again just before and after the serve calls of phases 5, 6
-and 12, just before and after phase 7's daemon, just before and after
+phase 3, again just before and after the serve calls of phases 5, 6,
+12 and 13, just before and after phase 7's daemon, just before and after
 phase 8's placed suites, just before and after phase 9's lint and cost passes
 (where they must equal the censuses' sum), and just before and after
 phase 10's two legs (whose legacy leg gives the smem gather's launches:
@@ -203,7 +241,7 @@ the search routes no bucket of phases 2-3 to it on an H100), and just
 before and after each of phase 11's runs (its legacy leg, likewise, the
 16-bit smem gather's).  Any failed check raises, so
 the script exits nonzero.  Before the last line it prints a
-``{"deepseek": {...}}``, a ``{"daemon": {...}}``, a ``{"placements": {...}}``, an ``{"autotune":
+``{"deepseek": {...}}``, a ``{"gemma2": {...}}``, a ``{"daemon": {...}}``, a ``{"placements": {...}}``, an ``{"autotune":
 {...}}``, a ``{"dtypes": {...}}``, an ``{"analysis": {...}}`` and a
 ``{"kernels": [...]}`` JSON
 line; the last line is
@@ -1187,12 +1225,62 @@ def flash_cases(torch):
         err = max(err, check_flash(torch, q, k, v, causal, window, softcap,
                                    where))
         cases.append(None)
-    n_cases = len(cases)
-    print(f"phase 1: {n_cases} flash_attention cases within attn_tolerance "
+    cap_err, n_cap = flash_cap_cases(torch)
+    err, n_cases = max(err, cap_err), len(cases) + n_cap
+    print(f"phase 1: {n_cases} flash_attention cases ({n_cap} where the "
+          f"softcap bites) within attn_tolerance "
           f"(+ 2^-8 for bf16's rounded weights) of their plain versions; "
           f"max |err| {err} "
           f"({time.perf_counter() - t0:.1f} s)", flush=True)
     return err
+
+
+# softcaps with the factor on q that makes the scores reach them: at cap 50
+# unit-normal q and k give scaled scores under ~7, which tanh(s/50) 50 moves
+# by under 1%, so dropping the cap would pass attn_tolerance; these move the
+# output by 15x (cap 50) to 100x (cap 5) of it
+FLASH_CAP_BITES = ((5.0, 2.5), (50.0, 20.0))
+
+
+def _flash_cap_case_list():
+    """Phase 1's cases where the softcap bites, as (B, KVH, G, S, dh,
+    dtype name, causal, window, softcap, q factor): gemma2's heads (16, 2,
+    dh 128) and (2, 4, dh 64), both dtypes (the float32 kernel and the
+    bf16 tensor-core one), causal with and without a window of 64, and one
+    cross case without causality."""
+    out = []
+    for (kvh, g, dh), s, dtype, window, (cap, fac) in itertools.product(
+            ((16, 2, 128), (2, 4, 64)), (300, 2048),
+            ("float32", "bfloat16"), (0, 64), FLASH_CAP_BITES):
+        out.append((1, kvh, g, s, dh, dtype, True, window, cap, fac))
+    out.append((2, 2, 4, 129, 128, "bfloat16", False, 0, 5.0, 2.5))
+    return out
+
+
+def flash_cap_checks(torch):
+    """Yield ``(where, check)`` for each case of ``_flash_cap_case_list``:
+    ``check()`` holds the flash kernel to its plain version there and
+    returns max |err| (``probes/softcap_mutant.py`` runs them on a kernel
+    without the softcap, where each must fail)."""
+    gen = torch.Generator(device="cuda").manual_seed(14)
+    for bsz, kvh, g, s, dh, dtype, causal, window, cap, fac in (
+            _flash_cap_case_list()):
+        q, k, v = _flash_inputs(torch, gen, bsz, kvh, g, s, dh,
+                                getattr(torch, dtype))
+        q = (q.float() * fac).to(q.dtype)
+        where = (f"flash_attention B={bsz} KVH={kvh} G={g} S=T={s} dh={dh} "
+                 f"{dtype} causal={causal} window={window} softcap={cap} "
+                 f"q x {fac}")
+        yield where, (lambda q=q, k=k, v=v, causal=causal, window=window,
+                      cap=cap, where=where: check_flash(
+                          torch, q, k, v, causal, window, cap, where))
+
+
+def flash_cap_cases(torch):
+    """Phase 1's cases where the softcap bites (``flash_cap_checks``);
+    returns (max |err|, cases)."""
+    errs = [run() for _, run in flash_cap_checks(torch)]
+    return max(errs), len(errs)
 
 
 def _paged_inputs(torch, gen, bsz, kvh, g, dh, page, pps, dtype, repeats,
@@ -1212,21 +1300,22 @@ def _paged_inputs(torch, gen, bsz, kvh, g, dh, page, pps, dtype, repeats,
             torch.tensor(lengths, dtype=torch.int32, device="cuda"))
 
 
-def check_paged(torch, ins, where, got=None):
+def check_paged(torch, ins, where, got=None, **opts):
     """The kernel's output on ``ins`` (``got``, or a call made here) against
-    the plain version's; returns max |err|."""
+    the plain version's, both with ``opts`` (``softcap``, ``window``);
+    returns max |err|."""
     from repro_torch.kernels.paged_decode.ops import paged_decode_attention
     from repro_torch.kernels.paged_decode.ref import (
         paged_decode_attention_ref)
     q, kp, vp, table, lengths = ins
     scale = q.shape[-1] ** -0.5
     if got is None:
-        got = paged_decode_attention(*ins)
+        got = paged_decode_attention(*ins, **opts)
     q32, k32, v32 = q.float(), kp.float(), vp.float()
     plain = paged_decode_attention_ref(q32, k32, v32, table, lengths,
-                                       scale=scale)
+                                       scale=scale, **opts)
     plain_abs = paged_decode_attention_ref(q32, k32, v32.abs(), table,
-                                           lengths, scale=scale)
+                                           lengths, scale=scale, **opts)
     bsz, kvh, _, dh = q.shape
     keys = k32.index_select(1, table.reshape(-1).long()).reshape(
         kvh, bsz, -1, dh)
@@ -1274,11 +1363,53 @@ def paged_cases(torch):
         err = max(err, check_paged(torch, ins, where))
         n_cases += 1
     split_err, n_split = paged_split_cases(torch)
-    err, n_cases = max(err, split_err), n_cases + n_split
-    print(f"phase 1: {n_cases} paged_decode cases ({n_split} for the split) "
-          f"within attn_tolerance of their plain versions; max |err| {err} "
+    opt_err, n_opt = paged_option_cases(torch)
+    err, n_cases = max(err, split_err, opt_err), n_cases + n_split + n_opt
+    print(f"phase 1: {n_cases} paged_decode cases ({n_split} for the split, "
+          f"{n_opt} with softcap or window) within attn_tolerance of their "
+          f"plain versions; max |err| {err} "
           f"({time.perf_counter() - t0:.1f} s)", flush=True)
     return err
+
+
+def paged_option_cases(torch):
+    """Phase 1's cases for gemma2's options of paged decode: the softcap
+    alone (50, and 5, where it bites), the window alone and both, over
+    gemma2's (KVH, G) = (16, 2) and others, dh 64 and 128, both dtypes,
+    page 8 and 16; windows of 1 position, inside one page, straddling
+    pages and longer than every row; lengths 0, 1, below the window, at
+    it, one past it, ragged and full; each at the split ``autotune``
+    chooses and at one and at the most the window admits
+    (``window_pages``).  Returns (max |err|, cases)."""
+    from repro_torch.kernels.paged_decode import ops
+    from repro_torch.kernels.paged_decode.ref import window_pages
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    err, n = 0.0, 0
+    combos = itertools.product(((16, 2), (8, 4), (1, 1), (2, 16)), (64, 128),
+                               (torch.float32, torch.bfloat16), (8, 16))
+    opts = [(50.0, 0), (5.0, 0), (0.0, 1), (0.0, 7), (50.0, 100),
+            (50.0, 4096)]
+    for i, ((kvh, g), dh, dtype, page) in enumerate(combos):
+        pps = 130 if i % 4 == 0 else 23
+        full = pps * page
+        softcap, window = opts[i % len(opts)]
+        w = window or 50
+        lengths = [0, 1, min(w - 1, full) or 1, min(w, full),
+                   min(w + 1, full), 1 + (41 * i + 3) % full, full]
+        ins = _paged_inputs(torch, gen, len(lengths), kvh, g, dh, page, pps,
+                            dtype, bool(i % 2), lengths)
+        span = window_pages(window, page, pps)
+        for splits in sorted({None, 1, min(span, ops.MAX_SPLITS)},
+                             key=lambda x: x or 0):
+            got = ops.paged_decode_attention(*ins, splits=splits,
+                                             softcap=softcap, window=window)
+            err = max(err, check_paged(
+                torch, ins, f"paged_decode KVH={kvh} G={g} dh={dh} "
+                f"{dtype} page={page} pps={pps} softcap={softcap} "
+                f"window={window} splits={splits} lengths={lengths}", got,
+                softcap=softcap, window=window))
+            n += 1
+    return err, n
 
 
 def paged_split_cases(torch):
@@ -2226,12 +2357,13 @@ def _bound_row(ms, plain_ms, library_ms, flops, nbytes, shape, library,
 
 # -- phases 5 and 6: falcon-mamba-7b and llama3-8b served at full width --------
 
-def _rel_err(got, want):
-    """max |got - want| / (atol + rtol * |want|) under SERVE_TOL (<= 1
-    passes)."""
+def _rel_err(got, want, scale=1.0):
+    """max |got - want| / (atol scale + rtol |want|) under SERVE_TOL (<= 1
+    passes); ``scale`` is the magnitude the tolerance's atol stands for
+    (SERVE_TOL is stated for values of magnitude ~1)."""
     got, want = got.float(), want.float()
     return ((got - want).abs()
-            / (SERVE_TOL["atol"] + SERVE_TOL["rtol"] * want.abs())
+            / (SERVE_TOL["atol"] * scale + SERVE_TOL["rtol"] * want.abs())
             ).max().item()
 
 
@@ -2257,12 +2389,46 @@ def _cache_tensors(cache, length):
     return cache["conv"], cache["ssm"]
 
 
+@contextlib.contextmanager
+def _attention_calls():
+    """Count the attention layers' calls of flash attention and paged
+    decode (``models.attention``) by layer kind: ``{kernel}/local`` with a
+    window, ``{kernel}/global`` without.  Each call is one launch of the
+    wrapper (``serve_phase`` holds the sums to the wrappers' counts)."""
+    from repro_torch.models import attention
+    calls = {}
+    saved = {"flash_attention": attention.flash_attention,
+             "paged_decode": attention.paged_decode_attention}
+
+    def counted(kernel, fn):
+        def call(*args, window=0, **kw):
+            key = f"{kernel}/{'local' if window else 'global'}"
+            calls[key] = calls.get(key, 0) + 1
+            return fn(*args, window=window, **kw)
+        return call
+    attention.flash_attention = counted("flash_attention",
+                                        saved["flash_attention"])
+    attention.paged_decode_attention = counted("paged_decode",
+                                               saved["paged_decode"])
+    try:
+        yield calls
+    finally:
+        attention.flash_attention = saved["flash_attention"]
+        attention.paged_decode_attention = saved["paged_decode"]
+
+
 def serve_phase(torch, argv=SERVE_ARGS, want=_mamba_launches,
                 params=FALCON_MAMBA_PARAMS, cache_prompt=64):
-    """Serve through ``launch.serve.main`` and check the result; returns
-    the numbers for the records and the serve window's launch counts.
-    ``want(cfg, gen)`` gives the launches the prefill and the decode must
-    make (every other kernel: none)."""
+    """Serve through ``launch.serve.main`` and check the result, then trace
+    the served model's forward (``trace_model``); returns the numbers for
+    the records and the serve window's launch counts.  ``want(cfg, gen)``
+    gives the launches the prefill and the decode must make (every other
+    kernel: none); the attention layers' calls in the serve window are
+    counted by layer kind (``_attention_calls``).  The logits are held to
+    SERVE_TOL with its atol in units of max(1, their rms): SERVE_TOL is
+    stated for values of magnitude ~1, and gemma2's tied table, drawn at
+    scale 1 as the JAX package declares it, gives logits of rms ~25 at
+    full width."""
     from repro_torch.kernels import KERNELS, reset_launches
     from repro_torch.launch import serve
     from repro_torch.models import transformer
@@ -2275,7 +2441,8 @@ def serve_phase(torch, argv=SERVE_ARGS, want=_mamba_launches,
           flush=True)
     reset_launches()
     t0 = time.perf_counter()
-    res = serve.main(list(argv))
+    with _attention_calls() as calls:
+        res = serve.main(list(argv))
     serve_launches = _launches()
     wall = time.perf_counter() - t0
     cfg, lm, dev = res.model.cfg, res.params, res.logits.device
@@ -2290,6 +2457,10 @@ def serve_phase(torch, argv=SERVE_ARGS, want=_mamba_launches,
     check(serve_launches == {k: want_prefill[k] + want_decode[k]
                              for k in KERNELS},
           f"serve window launches {serve_launches}")
+    check(all(sum(n for key, n in calls.items() if key.startswith(k + "/"))
+              == serve_launches[k] for k in ("flash_attention",
+                                             "paged_decode")),
+          f"attention calls {calls} are not the launches {serve_launches}")
     check(bool(torch.isfinite(res.logits.float()).all()),
           "non-finite logits")
     peak = torch.cuda.max_memory_allocated()
@@ -2301,18 +2472,21 @@ def serve_phase(torch, argv=SERVE_ARGS, want=_mamba_launches,
         tf = transformer.unembed_logits(
             cfg, lm.embed, hidden[:, res.prompt_len - 1:]).float()
         del hidden
-    logit_err = _rel_err(res.logits, tf)
+    rms = tf.pow(2).mean().sqrt().item()
+    scale = max(1.0, rms)
+    logit_err = _rel_err(res.logits, tf, scale)
     check(logit_err <= 1.0, f"decode logits vs teacher-forced forward: "
-          f"{logit_err} x SERVE_TOL")
+          f"{logit_err} x SERVE_TOL (logits of rms {rms}, atol x {scale})")
     top2 = tf.topk(2, dim=-1).values
     margin = top2[..., 0] - top2[..., 1]
-    wide = margin > 2 * (SERVE_TOL["atol"]
+    wide = margin > 2 * (SERVE_TOL["atol"] * scale
                          + SERVE_TOL["rtol"] * top2[..., 0].abs())
     agree = tf.argmax(-1) == res.tokens
     check(bool(agree[wide].all()), "a greedy token differs from the "
           "teacher-forced argmax where the top-2 margin is wide")
     print(f"  teacher-forced forward over {tuple(seq.shape)}: decode logits "
-          f"within {logit_err:.3f} x SERVE_TOL {SERVE_TOL}; greedy tokens "
+          f"(rms {rms:.4f}; atol in units of {scale:.4f}) within "
+          f"{logit_err:.3f} x SERVE_TOL {SERVE_TOL}; greedy tokens "
           f"agree at {int(agree.sum())} of {agree.numel()} positions, at all "
           f"{int(wide.sum())} with a wide top-2 margin", flush=True)
     del tf, seq
@@ -2339,8 +2513,11 @@ def serve_phase(torch, argv=SERVE_ARGS, want=_mamba_launches,
                max_memory_allocated=peak, serve_wall_s=wall,
                launches_prefill=res.launches_prefill,
                launches_decode=res.launches_decode,
-               logit_err_x_tol=logit_err, cache_err_x_tol=cache_err,
-               greedy_agree=int(agree.sum()), greedy_positions=agree.numel())
+               logit_err_x_tol=logit_err, logit_rms=rms, logit_scale=scale,
+               cache_err_x_tol=cache_err,
+               greedy_agree=int(agree.sum()), greedy_positions=agree.numel(),
+               attention_calls=dict(sorted(calls.items())),
+               trace=trace_model(torch, cfg, lm))
     print(f"  serve: prefill {res.prefill_ms:.1f} ms, decode "
           f"{out['decode_ms_per_step']:.2f} ms/step, {res.tok_s:.1f} tok/s, "
           f"{n_params} params ({res.weight_bytes} weight bytes), "
@@ -2941,6 +3118,7 @@ def deepseek_phase(torch, err):
     del pre, it
 
     prof = _profile_moe(torch, model, lm, res.prompts, res.gen)
+    trace = trace_model(torch, cfg, lm)
     out = dict(arch=res.arch, n_layers=cfg.n_layers, batch=res.batch,
                prompt_len=res.prompt_len, gen=res.gen,
                prefill_ms=res.prefill_ms,
@@ -2955,7 +3133,7 @@ def deepseek_phase(torch, err):
                e2e_err_x_tol=e2e_err,
                logit_err_x_tol=tf_err, logit_route_flip_share=tf_flips,
                cache_err_x_tol=cache_err, cache_route_flip_share=cache_flips,
-               profile=prof,
+               profile=prof, trace=trace,
                dispatch={k: {kk: v[kk] for kk in ("ms", "device_ms",
                                                   "library_ms",
                                                   "library_device_ms",
@@ -2968,6 +3146,350 @@ def deepseek_phase(torch, err):
     out["phase_s"] = time.perf_counter() - t_phase
     print(f"  phase 12 wall {out['phase_s']:.1f} s", flush=True)
     return out, serve_launches, rows
+
+
+# -- the trace of a model's gathers and scatters (phases 12 and 13) -----------
+
+TRACE_TOKENS = (1, 2048)
+
+
+def trace_model(torch, cfg, lm):
+    """One forward of ``TRACE_TOKENS`` through the served model on
+    ``hopper``, traced (``tracing.trace_gs``): each backend call of the
+    trace must be one launch of a row kernel (``observe_launches``); then
+    the distilled patterns, each distinct geometry once (a model's layers
+    repeat theirs), replayed through ``run_suite`` on hopper (min of
+    ``RUNS``) and on torch, each scatter in its own mode (an add through
+    the add kernels, a store through the store's), digests equal.  Returns
+    the numbers."""
+    import numpy as np
+
+    from repro_torch import run_suite
+    from repro_torch.kernels._build import observe_launches
+    from repro_torch.models import transformer
+    from repro_torch.tracing import trace_gs
+    t0 = time.perf_counter()
+    toks = torch.from_numpy(np.random.default_rng(1).integers(
+        2, cfg.vocab, TRACE_TOKENS)).cuda()
+    with observe_launches() as seen:
+        report = trace_gs(lambda t: transformer.forward(
+            cfg, lm, t, gs_backend="hopper"), toks)
+    torch.cuda.synchronize()
+    trace_s = time.perf_counter() - t0
+    launched = {}
+    for k, _ in seen:
+        launched[k] = launched.get(k, 0) + 1
+    rows = sum(v for k, v in launched.items()
+               if k.startswith(("gather_rows", "scatter_")))
+    calls = [a for a in report.accesses if a.eqn_str.startswith("backends.")]
+    check(calls and rows == len(calls),
+          f"trace: {len(calls)} backend calls, row-kernel launches "
+          f"{launched}")
+    print(f"\n  trace of {cfg.arch_id}, one forward of {TRACE_TOKENS} tokens "
+          f"on hopper ({trace_s:.1f} s; launches {launched}):", flush=True)
+    print("  " + report.summary().replace("\n", "\n  "), flush=True)
+    pats = [(a.mode, a.to_pattern()) for a in report.accesses
+            if a.n_lookups > 0]
+    distinct = {}
+    for mode, p in pats:
+        distinct.setdefault((mode, p.kind, p.index, p.delta, p.count),
+                            (mode, p))
+    replay = {"store": [], "add": []}     # each scatter in its own mode
+    for i, (mode, p) in enumerate(distinct.values()):
+        replay[mode].append(dataclasses.replace(p, name=f"{p.name}/{i}"))
+    hop, ref, hopper_s, torch_s, replay_launches = [], [], 0.0, 0.0, {}
+    for mode, ps in replay.items():
+        if not ps:
+            continue
+        t0 = time.perf_counter()
+        with observe_launches() as seen:
+            hop += [(mode, r) for r in run_suite(
+                ps, backend="hopper", runs=RUNS, mode=mode, digest=True,
+                device="cuda").results]
+        torch.cuda.synchronize()
+        hopper_s += time.perf_counter() - t0
+        t0 = time.perf_counter()
+        ref += run_suite(ps, backend="torch", runs=1, mode=mode, digest=True,
+                         device="cuda").results
+        torch.cuda.synchronize()
+        torch_s += time.perf_counter() - t0
+        for k, _ in seen:
+            replay_launches[k] = replay_launches.get(k, 0) + 1
+    check(all(r.out_digest for _, r in hop)
+          and [r.out_digest for _, r in hop] == [r.out_digest for r in ref],
+          f"trace replay of {cfg.arch_id}: hopper digests differ from "
+          f"torch's")
+    check(replay_launches, "trace replay launched no kernel")
+    n_adds = sum(1 for mode, p in distinct.values() if mode == "add"
+                 and p.kind == "scatter")
+    check(n_adds == 0 or any(k.startswith("scatter_add_rows")
+                             for k in replay_launches),
+          f"trace replay of {cfg.arch_id}: {n_adds} add patterns, but no "
+          f"add kernel launched ({replay_launches})")
+    per = [dict(name=r.pattern.name, kind=r.pattern.kind, mode=mode,
+                rows=r.pattern.count, row_elems=r.pattern.index_len,
+                lanes=r.pattern.useful_elements(), time_ms=r.time_s * 1e3,
+                gbs=r.measured_gbs) for mode, r in hop]
+    for r in per:
+        kind = r["kind"] if r["kind"] == "gather" else r["mode"]
+        print(f"  replay {r['name']:28s} {kind:7s} rows={r['rows']:<7} "
+              f"row_elems={r['row_elems']:<5} lanes={r['lanes']:<10} "
+              f"{r['time_ms']:.4f} ms {r['gbs']:.1f} GB/s", flush=True)
+    print(f"  replay: {len(pats)} patterns, {len(distinct)} distinct, "
+          f"each scatter in its mode, digests equal to torch's; hopper "
+          f"{hopper_s:.1f} s (runs "
+          f"{RUNS}), torch {torch_s:.1f} s; launches {replay_launches}",
+          flush=True)
+    out = dict(tokens=list(TRACE_TOKENS), trace_s=trace_s,
+               accesses=len(report.accesses), gathers=len(report.gathers()),
+               scatters=len(report.scatters()), gs_bytes=report.gs_bytes,
+               total_bytes=report.total_bytes, gs_fraction=report.gs_fraction,
+               trace_launches=launched, patterns=len(pats),
+               distinct=len(distinct), replay=per,
+               replay_hopper_s=hopper_s, replay_torch_s=torch_s,
+               replay_launches=replay_launches)
+    del hop, ref
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+# -- phase 13: gemma2-27b at full width ------------------------------------------
+
+GEMMA2_ARGS = ["--arch", "gemma2-27b", "--batch", "2", "--prompt-len", "8192",
+               "--gen", "32", "--gs-backend", "hopper"]
+GEMMA2_PARAMS = 27_226_704_384
+GEMMA2_LAYERS = 46
+GEMMA2_WINDOW = 4096
+GEMMA2_SOFTCAP = 50.0
+# the served shapes: prefill B 2 x S 8192 (a prompt past the window, so
+# that it cuts keys); decode at 8193..8224 positions, timed at 8208 (the
+# window's first position 4112 inside a page)
+GEMMA2_FLASH_SHAPE = (2, 16, 2, 8192, 128)          # B, KVH, G, S = T, dh
+GEMMA2_PAGED_SHAPE = (2, 16, 2, 128, 16, 514, 8208)  # as PAGED_SHAPE
+GEMMA2_EMBED = (256000, 4608, 2 * 8192)            # vocab, d, lanes
+
+
+def _gemma2_launches(cfg, gen):
+    """Launches a gemma2-27b serve call on ``hopper`` must make: flash
+    attention once a layer and the embedding gather once in the prefill;
+    paged decode once a layer and the gather once in each step."""
+    return ({"flash_attention": cfg.n_layers, "gather_rows_b16": 1},
+            {"paged_decode": cfg.n_layers * gen, "gather_rows_b16": gen})
+
+
+def _causal_pairs(s, window):
+    """(query, key) pairs of a causal attention over s positions, each
+    query keeping at most ``window`` keys (0: all)."""
+    if not window or window >= s:
+        return s * (s + 1) // 2
+    return window * (window + 1) // 2 + (s - window) * window
+
+
+def _flash_plain_sliced(torch, q, k, v, **kw):
+    """The plain flash version on q, k, v in float32, one (row, KV head) at
+    a time (the whole float32 score tensor of gemma2's prefill would take
+    17 GB)."""
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+    out = torch.empty(q.shape, dtype=torch.float32, device=q.device)
+    for b in range(q.shape[0]):
+        for h in range(q.shape[1]):
+            out[b:b + 1, h:h + 1] = flash_attention_ref(
+                *(x[b:b + 1, h:h + 1].float() for x in (q, k, v)),
+                scale=q.shape[-1] ** -0.5, **kw)
+    return out
+
+
+def check_flash_sliced(torch, q, k, v, kw, where):
+    """``check_flash`` at a shape too large for the plain version's whole
+    score tensor (``_flash_plain_sliced``); returns (max |err|, the plain
+    version's ms)."""
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    bsz, kvh, _, s, dh = q.shape
+    got = flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    plain = _flash_plain_sliced(torch, q, k, v, **kw)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    plain_abs = _flash_plain_sliced(torch, q, k, v.abs(), **kw)
+    smax = max(torch.einsum(
+        "bhgqd,bhtd->bhgqt", q[b:b + 1, h:h + 1].float(),
+        k[b:b + 1, h:h + 1].float()).abs().max().item()
+        for b in range(bsz) for h in range(kvh)) * dh ** -0.5
+    # as check_flash: bf16's rounded weights p add 2^-8
+    e = check_attention(torch, got, plain, plain_abs, dh + s, smax, where,
+                        2.0 ** -8)
+    del got, plain, plain_abs
+    return e, plain_ms
+
+
+def gemma2_flash_cap_checks(torch):
+    """Yield ``(where, check)`` as ``flash_cap_checks`` does, at gemma2's
+    head shape and prompt, one row (B 1, KVH 16, G 2, S 8192, dh 128,
+    bf16), local (window 4096) and global, where the softcap bites
+    (``FLASH_CAP_BITES``: gemma2's cap 50 with scores reaching it, and
+    cap 5)."""
+    gen = torch.Generator(device="cuda").manual_seed(15)
+    _, kvh, gq, s, dh = GEMMA2_FLASH_SHAPE
+    q, k, v = _flash_inputs(torch, gen, 1, kvh, gq, s, dh, torch.bfloat16)
+    for window, (cap, fac) in itertools.product((GEMMA2_WINDOW, 0),
+                                                FLASH_CAP_BITES):
+        kw = dict(causal=True, window=window, softcap=cap)
+        where = (f"flash_attention gemma2 (1, {kvh}, {gq}, {s}, {dh}) {kw} "
+                 f"q x {fac}")
+        yield where, (lambda kw=kw, fac=fac, where=where: check_flash_sliced(
+            torch, (q.float() * fac).to(q.dtype), k, v, kw, where)[0])
+
+
+def gemma2_flash_cap_cases(torch):
+    """The cases of ``gemma2_flash_cap_checks``; returns max |err|."""
+    errs = [run() for _, run in gemma2_flash_cap_checks(torch)]
+    print(f"  flash_attention at gemma2's heads, 1 x "
+          f"{GEMMA2_FLASH_SHAPE[3]}: {len(errs)} cases where the softcap "
+          f"bites within attn_tolerance; max |err| {max(errs)}", flush=True)
+    torch.cuda.empty_cache()
+    return max(errs)
+
+
+def gemma2_attention_times(torch, err):
+    """Phase 4's kernel checks and timed rows at gemma2-27b's served shapes
+    (phase 13), in bfloat16: flash attention with the softcap, on its local (window
+    4096) and global layers (``GEMMA2_FLASH_SHAPE``), against the plain
+    version (computed a head at a time), and where the softcap bites
+    (``gemma2_flash_cap_cases``); paged decode with the softcap,
+    local and global, at ``GEMMA2_PAGED_SHAPE`` and at lengths past the
+    window, and at llama3-8b's shape without either option, against the
+    plain version; the embedding's gather of 16,384 token rows of the
+    (256,000, 4608) table beside ``index_select``.  Neither SDPA nor any
+    other single PyTorch call computes a softcapped attention, or attends
+    through a page table: those rows have no library call."""
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.gather_rows import ops as g
+    from repro_torch.kernels.gather_rows.ref import gather_rows_ref
+    from repro_torch.kernels.paged_decode import ops
+    from repro_torch.kernels.paged_decode.ref import (
+        paged_decode_attention_ref, window_pages)
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    rows = {}
+    bsz, kvh, gq, s, dh = GEMMA2_FLASH_SHAPE
+    q, k, v = _flash_inputs(torch, gen, bsz, kvh, gq, s, dh, torch.bfloat16)
+    for name, window in (("local", GEMMA2_WINDOW), ("global", 0)):
+        kw = dict(causal=True, window=window, softcap=GEMMA2_SOFTCAP)
+        e, plain_ms = check_flash_sliced(
+            torch, q, k, v, kw,
+            f"flash_attention gemma2 {name} {GEMMA2_FLASH_SHAPE} {kw}")
+        err["flash_attention"] = max(err["flash_attention"], e)
+        pairs = bsz * kvh * gq * _causal_pairs(s, window)
+        turns = _turn_times(torch, {
+            "kernel": lambda: flash_attention(q, k, v, **kw)}, 5,
+            "flash_attention", f"flash_attention gemma2 {name}")
+        rows[f"flash_attention/gemma2_{name}"] = dict(_bound_row(
+            ms=turns["ms"], plain_ms=plain_ms, library_ms=None,
+            flops=2 * 2 * pairs * dh,
+            nbytes=2 * (q.numel() * 2 + k.numel() + v.numel()),
+            shape=list(GEMMA2_FLASH_SHAPE) + [
+                "bfloat16", "causal", f"window {window}",
+                f"softcap {GEMMA2_SOFTCAP}"],
+            library="none: no PyTorch call computes a softcapped attention",
+            turns=turns), max_abs_err=e)
+    del q, k, v
+    torch.cuda.empty_cache()
+    err["flash_attention"] = max(err["flash_attention"],
+                                 gemma2_flash_cap_cases(torch))
+
+    bsz, kvh, gq, dh, page, pps, length = GEMMA2_PAGED_SHAPE
+    for name, window in (("local", GEMMA2_WINDOW), ("global", 0)):
+        kw = dict(softcap=GEMMA2_SOFTCAP, window=window)
+        # the timed length, and the decode's first and last past the window
+        for lengths in ([length] * bsz, [8193, 8224], [4097, 5000]):
+            ins = _paged_inputs(torch, gen, bsz, kvh, gq, dh, page, pps,
+                                torch.bfloat16, False, lengths)
+            e = check_paged(torch, ins, f"paged_decode gemma2 {name} "
+                            f"{GEMMA2_PAGED_SHAPE} {kw} lengths {lengths}",
+                            **kw)
+            err["paged_decode"] = max(err["paged_decode"], e)
+        ins = _paged_inputs(torch, gen, bsz, kvh, gq, dh, page, pps,
+                            torch.bfloat16, False, [length] * bsz)
+        keys = min(length, window or length)
+        span = window_pages(window, page, pps)
+        nbytes = (2 * bsz * kvh * keys * dh * 2 + 2 * bsz * kvh * gq * dh * 2
+                  + bsz * span * 4 + bsz * 4)
+        turns = _turn_times(torch, {
+            "kernel": lambda: ops.paged_decode_attention(*ins, **kw)}, 50,
+            "paged_decode", f"paged_decode gemma2 {name}")
+        rows[f"paged_decode/gemma2_{name}"] = dict(_bound_row(
+            ms=turns["ms"],
+            plain_ms=_time_ms(torch, lambda: paged_decode_attention_ref(
+                *ins, scale=dh ** -0.5, **kw), 10),
+            library_ms=None, flops=2 * 2 * bsz * kvh * gq * keys * dh,
+            nbytes=nbytes,
+            shape=list(GEMMA2_PAGED_SHAPE) + [
+                "bfloat16", f"window {window}", f"softcap {GEMMA2_SOFTCAP}"],
+            library="none: no PyTorch call attends through a page table",
+            turns=turns), max_abs_err=e, span=span)
+        del ins
+    # llama3-8b's decode shape, neither option: as before
+    bsz, kvh, gq, dh, page, pps, length = PAGED_SHAPE
+    ins = _paged_inputs(torch, gen, bsz, kvh, gq, dh, page, pps,
+                        torch.bfloat16, False, [length] * bsz)
+    err["paged_decode"] = max(err["paged_decode"], check_paged(
+        torch, ins, f"paged_decode at {PAGED_SHAPE}, no option"))
+    del ins
+
+    vocab, d, lanes = GEMMA2_EMBED
+    table = torch.randn((1, vocab, d), generator=gen, device="cuda").to(
+        torch.bfloat16)
+    idx = torch.randint(0, vocab, (1, lanes), generator=gen, device="cuda",
+                        dtype=torch.int32)
+    check(_bits_equal(torch, g.gather_rows(table, idx),
+                      gather_rows_ref(table, idx)),
+          "gather_rows_b16 at gemma2's embedding: not the plain one")
+    flat = idx[0].long()
+    turns = _turn_times(torch, {
+        "library": lambda: table[0].index_select(0, flat),
+        "kernel": lambda: g.gather_rows(table, idx)}, 20, "gather",
+        "gather_rows_b16 gemma2 embedding")
+    nbytes = lanes * (4 + 2 * d * 2)
+    rows["gather_rows_b16/gemma2_embed"] = dict(
+        turns, plain_ms=_time_ms(torch, lambda: gather_rows_ref(table, idx),
+                                 3),
+        bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
+        bytes=nbytes, max_abs_err=0.0,
+        shape=[1, vocab, d, lanes, "bfloat16"])
+    del table, idx
+    torch.cuda.empty_cache()
+    for name, r in rows.items():
+        print(f"  {name}: device_ms {r['device_ms_pair']} bound "
+              f"{r['bound_ms']:.4f} ms by {r['bound_by']} "
+              f"({100 * r['bound_ms'] / r['device_ms']:.1f}% of it); plain "
+              f"{r['plain_ms']:.4f} ms; library device_ms "
+              f"{r.get('library_device_ms_pair')}", flush=True)
+    return rows
+
+
+def gemma2_phase(torch):
+    """Phase 13: serve gemma2-27b at its published width and depth through
+    ``launch.serve.main`` on ``hopper`` (``serve_phase``: launches, logits,
+    the teacher-forced forward, the cache) and trace its forward
+    (``trace_model``) before the model is freed.  Its kernels' checks and
+    rows at its shapes run in phase 4 (``gemma2_attention_times``), with
+    the other timed rows: on the card a profiler session this late once
+    recorded no device event in eight tries.  Returns the numbers and the
+    serve window's launches."""
+    t0 = time.perf_counter()
+    print("\nphase 13: gemma2-27b at full width", flush=True)
+    served, launches = serve_phase(torch, GEMMA2_ARGS, _gemma2_launches,
+                                   GEMMA2_PARAMS)
+    half = GEMMA2_LAYERS // 2                    # local, global alternate
+    want = {"flash_attention/global": half, "flash_attention/local": half,
+            "paged_decode/global": half * served["gen"],
+            "paged_decode/local": half * served["gen"]}
+    check(served["attention_calls"] == want,
+          f"gemma2 attention calls {served['attention_calls']} != {want}")
+    served["phase_s"] = time.perf_counter() - t0
+    print(f"  phase 13 wall {served['phase_s']:.1f} s", flush=True)
+    return served, launches
 
 
 # -- phase 7: spatterd on the card ---------------------------------------------
@@ -4664,6 +5186,7 @@ def main():
 
     times = kernel_times(torch, err)
     times.update(attention_times(torch, err))
+    gemma2_rows = gemma2_attention_times(torch, err)   # phase 13's shapes
     lulesh_s3_add = times.pop("lulesh_s3_add")
     peak_1_4 = max(peak_1_3, torch.cuda.max_memory_allocated())
     served, serve_launches = serve_phase(torch)
@@ -4678,8 +5201,9 @@ def main():
         torch, LLAMA_ARGS, _dense_launches, LLAMA3_8B_PARAMS)
     gc.collect()
     torch.cuda.empty_cache()
-    # phase 12 frees its 50 GB model before it returns
+    # phase 12 frees its 50 GB model before it returns, phase 13 its 54 GB
     deepseek, deepseek_launches, moe_rows = deepseek_phase(torch, err)
+    gemma2, gemma2_launches = gemma2_phase(torch)
     daemon = daemon_phase(torch, cli_results, suite_stats)
     # phase 10 last: it reuses phase 8's host draws, and its profiler
     # sessions come after every phase that checks a trace's launch count
@@ -4739,6 +5263,24 @@ def main():
                          device_ms=t["device_ms"],
                          library_device_ms=t["library_device_ms"],
                          shape=t["shape"]))
+    # gemma2-27b's kernels at its served shapes (phase 13): flash attention
+    # and paged decode as the serve window's local and global layers called
+    # them (``_attention_calls``); the embedding's gather once a prefill and
+    # a step
+    for name, t in gemma2_rows.items():
+        kernel = name.split("/")[0]
+        source, replaces = KERNEL_INFO[kernel]
+        n = (gemma2_launches[kernel] if kernel.startswith("gather") else
+             gemma2["attention_calls"][f"{kernel}/{name.split('_')[-1]}"])
+        rows.append(dict(name=name, route="cuda", source=source,
+                         replaces=replaces, launches=n,
+                         max_abs_err=t["max_abs_err"], ms=t["ms"],
+                         time_ms=t["ms"], plain_ms=t["plain_ms"],
+                         bound_ms=t["bound_ms"], bound_by=t["bound_by"],
+                         library_ms=t["library_ms"],
+                         device_ms=t["device_ms"],
+                         library_device_ms=t.get("library_device_ms"),
+                         shape=t["shape"]))
     cli = {f"{b}/{k}/{m}": dict(time_ms=r.time_s * 1e3, gbs=r.measured_gbs,
                                 host_s=r.host_s)
            for (b, k, m), r in cli_results.items()}
@@ -4750,7 +5292,8 @@ def main():
           f"9's own lint calls apart), "
           f"{served['max_memory_allocated']} bytes in phase 5, "
           f"{served_llama['max_memory_allocated']} bytes in phase 6, "
-          f"{deepseek['max_memory_allocated']} bytes in phase 12's serve")
+          f"{deepseek['max_memory_allocated']} bytes in phase 12's serve, "
+          f"{gemma2['max_memory_allocated']} bytes in phase 13's")
     print(json.dumps({"cli": cli, "suites_hopper": suites,
                       "gathers": {k: v for k, v in times.items()
                                   if k.startswith("gather_rows")},
@@ -4760,6 +5303,7 @@ def main():
                       "paged_decode": times["paged_decode"],
                       "serve": served, "serve_llama": served_llama}))
     print(json.dumps({"deepseek": deepseek}))
+    print(json.dumps({"gemma2": gemma2}))
     print(json.dumps({"daemon": daemon}))
     print(json.dumps({"placements": placed}))
     print(json.dumps({"autotune": tuned}))

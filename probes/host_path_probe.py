@@ -59,7 +59,7 @@ def main():
     out = torch.empty_like(q)
     args = (q.data_ptr(), kp.data_ptr(), vp.data_ptr(), table.data_ptr(),
             lengths.data_ptr(), out.data_ptr(), ws, cnt, bsz, kvh, g,
-            bsz * pps, page, pps, dh, splits, dh ** -0.5)
+            bsz * pps, page, pps, dh, splits, dh ** -0.5, 0.0, 0)
 
     def checks():
         _build.check_operand("q", q, q.dtype, 4)

@@ -145,7 +145,7 @@ def main():
                              table.data_ptr(), lengths.data_ptr(),
                              out.data_ptr(), ws.data_ptr(), cnt.data_ptr(),
                              bsz, kvh, g, n_pages, page, pps, dh, s, scale,
-                             stream)
+                             0.0, 0, stream)
                     assert err == 0, f"{name}: CUDA error {err}"
                 out.zero_()
                 cnt.zero_()                # no_merge leaves them counting

@@ -7,9 +7,11 @@ Main path: pattern string / JSON suite (``pattern``) -> host buffers
 (``plan``) -> suite statistics (``suite``) -> CLI (``python -m
 repro_torch``).
 
-Serving path (falcon-mamba-7b): ``launch.serve`` -> ``models.zoo`` ->
-``models.transformer`` -> ``models.ssm``, whose prefill runs the Hopper
-selective-scan kernel (``kernels/selective_scan``); configs in ``configs``.
+Serving path (falcon-mamba-7b, llama3-8b, deepseek-v2-236b, gemma2-27b):
+``launch.serve`` -> ``models.zoo`` -> ``models.transformer`` ->
+``models.ssm`` (the Hopper selective-scan kernel), ``models.attention``
+(flash attention and paged decode) or ``models.moe`` (the row kernels);
+configs in ``configs``.
 
 Suite daemon: ``python -m repro_torch.serve.daemon`` (``serve``) runs
 suites over HTTP through the planner, with the disk tier ``diskcache``
@@ -18,6 +20,9 @@ for bucket recipes and the nvcc-built kernels.
 Placements: ``plan.Placement`` lays a bucket launch over a (batch, lane)
 grid of devices (axis rules in ``sharding``, ``mesh="auto"`` by
 ``cost``).
+
+Traces: ``tracing.trace_gs`` records a model's gathers and scatters and
+distils them into patterns that the engine replays (the paper's §2).
 
 Public names load lazily, so importing the package imports no submodule
 and builds nothing; the kernels are compiled at their first launch.  The
@@ -40,10 +45,12 @@ _EXPORTS = {
     "run_suite": "suite",
     "stream_reference": "suite", "aggregate_stats": "suite",
     "harmonic_mean": "suite", "pearson_r": "suite", "SuiteStats": "suite",
+    "trace_gs": "tracing", "TraceReport": "tracing",
+    "TracedAccess": "tracing",
 }
 _SUBMODULES = ("appdb", "backends", "bandwidth", "configs", "cost",
                "diskcache", "engine", "host", "kernels", "launch", "models",
-               "pattern", "plan", "serve", "sharding", "suite")
+               "pattern", "plan", "serve", "sharding", "suite", "tracing")
 
 __all__ = sorted(_EXPORTS) + list(_SUBMODULES)
 

@@ -33,6 +33,8 @@ kernels' instance of that dtype).
 """
 from __future__ import annotations
 
+import contextvars
+import functools
 from typing import Callable
 
 import torch
@@ -168,12 +170,36 @@ def check_dtype(dtype) -> torch.dtype:
     return dtype
 
 
+# The observer of a trace (``tracing.trace_gs``) in this context, or None:
+# called as ``observer(name, args, kwargs, run)`` for each outermost call of
+# the four entry points below; ``run()`` makes the call, and the calls it
+# makes in turn are not observed.  A context of its own per thread.
+OBSERVER: contextvars.ContextVar = contextvars.ContextVar("gs_observer",
+                                                         default=None)
+
+
+def _observed(fn: Callable) -> Callable:
+    @functools.wraps(fn)
+    def call(*args, **kwargs):
+        observer = OBSERVER.get()
+        if observer is None:
+            return fn(*args, **kwargs)
+        token = OBSERVER.set(None)
+        try:
+            return observer(fn.__name__, args, kwargs,
+                            lambda: fn(*args, **kwargs))
+        finally:
+            OBSERVER.reset(token)
+    return call
+
+
 def _check_tiles(backend: str, tiles) -> None:
     if tiles is not None and backend != "hopper":
         raise ValueError(f"launch parameters are the hopper backend's, "
                          f"not {backend!r}'s")
 
 
+@_observed
 def gather_batched(src: torch.Tensor, idx: torch.Tensor, *,
                    backend: str = "torch", tiles=None) -> torch.Tensor:
     """src (B, F, R), idx (B, N) int32 -> (B, N, R); one call per bucket.
@@ -185,6 +211,7 @@ def gather_batched(src: torch.Tensor, idx: torch.Tensor, *,
     return GATHER_FNS[backend](src, idx)
 
 
+@_observed
 def scatter_batched(dst: torch.Tensor, idx: torch.Tensor, vals: torch.Tensor,
                     *, mode: str = "store", backend: str = "torch",
                     keep: torch.Tensor | None = None,
@@ -209,12 +236,14 @@ def scatter_batched(dst: torch.Tensor, idx: torch.Tensor, vals: torch.Tensor,
     return SCATTER_FNS[backend](dst, idx, vals, mode, keep)
 
 
+@_observed
 def gather(src: torch.Tensor, idx: torch.Tensor, *,
            backend: str = "torch") -> torch.Tensor:
     """src (F, R), idx (N,) -> (N, R): the B = 1 case."""
     return gather_batched(src[None], idx[None], backend=backend)[0]
 
 
+@_observed
 def scatter(dst: torch.Tensor, idx: torch.Tensor, vals: torch.Tensor, *,
             mode: str = "store", backend: str = "torch",
             keep: torch.Tensor | None = None) -> torch.Tensor:

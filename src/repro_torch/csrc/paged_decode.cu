@@ -17,6 +17,25 @@
 // pages_per_seq * page positions of its pages, so every query head the mean
 // of their V rows.
 //
+// Two options, gemma2's, both uniform across a launch.  softcap > 0 caps
+// each scaled score: x = tanh(s scale / softcap) softcap (tanhf, then
+// log2(e) folded in, as flash_attention.cu does).  window > 0
+// keeps only the positions t >= length - window of a row, the keys the
+// JAX package's ring buffer of window slots holds after the write at
+// position length - 1.  With a window a row's CTAs split not its
+// pages_per_seq table entries but the span = ceil((window - 1) / page) + 1
+// entries that window consecutive positions can touch, starting at the
+// window's first page (moved back to pages_per_seq - span where the span
+// would pass the table's end), and the first page's positions before the
+// window are left out: the host sizes the split by the span, so at gemma2's
+// decode (window 4096, page 16, 8224 positions) the local layers' CTAs read
+// 257 pages a row, not 514.  A row of length 0 ignores the window (its
+// splits cut all pages_per_seq entries, as without one).  A launch with
+// either option runs an instance compiled with them (kOpts); one without
+// runs an instance that has none of their code: in one set of instances
+// the option code made the bf16 G = 4, DH = 128 instance spill (160 bytes)
+// and llama3-8b's decode, which takes neither, 9% slower on an H100.
+//
 // What bounds it: bytes.  At the llama3-8b decode (B 4, KVH 8, G 4, DH 128,
 // page 16, 130 pages a row, length 2080, bf16) K and V are 4 x 8 x 2080 x
 // 128 x 2 B x 2 = 34.1 MB: 10.2 us at 3.35 TB/s.  The scores and P V are
@@ -136,6 +155,7 @@ __device__ __forceinline__ float ex2(float x) {   // 2^x; -inf and -1e30 give 0
   return y;
 }
 
+
 __device__ __forceinline__ void fma4(float4& o, float f, const float4& x) {
   o.x = fmaf(x.x, f, o.x);
   o.y = fmaf(x.y, f, o.y);
@@ -219,7 +239,7 @@ __device__ __forceinline__ void reduce_dots(float (&x)[G], int lane, int sl) {
   }
 }
 
-template <typename T, int G, int DH>
+template <typename T, int G, int DH, bool kOpts>
 __global__ void __launch_bounds__(kThreads, kCtasPerSm)
 paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
                     const T* __restrict__ v_pages,
@@ -227,7 +247,8 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
                     const int* __restrict__ lengths, T* __restrict__ out,
                     float* __restrict__ ws, unsigned* __restrict__ counters,
                     int kvh, int64_t P, int page, FastDiv<uint32_t> page_div,
-                    int pps, int splits, float scale_log2) {
+                    int pps, int splits, float scale_log2, float cap_in,
+                    float cap_out, int window, int span) {
   using L = Layout<T, G, DH>;
   constexpr int kTpr = L::kTpr, kE = L::kE, kVecE = L::kVecE;
   constexpr int kRows = L::kRows, kSlots = L::kSlots;
@@ -240,11 +261,29 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
   const int64_t b = blockIdx.y;
   const int64_t bh = b * kvh + h;
 
-  // this split's positions [t_lo, t_top): its pages; then [t_lo, t_end), up
-  // to the length (all of them for a row of length 0)
-  const int p_lo = static_cast<int>(int64_t{split} * pps / splits);
-  const int p_hi = static_cast<int>(int64_t{split + 1} * pps / splits);
-  const int t_lo = p_lo * page, t_top = p_hi * page;
+  const int cap = pps * page;
+  auto clamp_len = [&](int v) { return v < 0 ? 0 : (v > cap ? cap : v); };
+  // the row's split range: span table entries from e0 (all pps from 0
+  // without a window), positions from w_lo on.  With a window the range
+  // needs the length; without one its load is left until after stage 0's
+  // table entries and q are on their way, as it always was.
+  int len = 0, e0 = 0, w_lo = 0, n_span = pps;
+  if (kOpts && window > 0) {
+    len = clamp_len(lengths[b]);
+    if (len > 0) {
+      w_lo = max(0, len - window);
+      n_span = span;
+      e0 = min(static_cast<int>(page_div.div(static_cast<uint32_t>(w_lo))),
+               pps - span);
+    }
+  }
+  // this split's positions [t_lo, t_top): its pages, past the window's
+  // start; then [t_lo, t_end), up to the length (all of them for a row of
+  // length 0)
+  const int p_lo = e0 + static_cast<int>(int64_t{split} * n_span / splits);
+  const int p_hi =
+      e0 + static_cast<int>(int64_t{split + 1} * n_span / splits);
+  const int t_lo = max(p_lo * page, w_lo), t_top = p_hi * page;
   const int* trow = page_table + b * pps;
   // the table entries of stage st's rows that this thread copies (the
   // split's last page stands in for rows past it)
@@ -270,9 +309,7 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
                          &qr[g][j * kVecE]);
     }
   }
-  const int cap = pps * page;
-  int len = lengths[b];
-  len = len < 0 ? 0 : (len > cap ? cap : len);
+  if (!kOpts || window == 0) len = clamp_len(lengths[b]);
   const bool zero = len == 0;
   const int t_end = min(t_top, zero ? cap : len);
 
@@ -356,10 +393,17 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
           }
         }
         reduce_dots<G, kTpr>(x, lane, sl);
+        if (kOpts && cap_in > 0.f) {   // uniform: a softcapped launch
+#pragma unroll
+          for (int g = 0; g < G; ++g) x[g] = tanhf(x[g] * cap_in) * cap_out;
+        } else {
+#pragma unroll
+          for (int g = 0; g < G; ++g) x[g] *= scale_log2;
+        }
         bool over = false;
 #pragma unroll
         for (int g = 0; g < G; ++g) {
-          x[g] = !valid ? -INFINITY : (zero ? kMasked : x[g] * scale_log2);
+          x[g] = !valid ? -INFINITY : (zero ? kMasked : x[g]);
           over |= x[g] > m[g] + kSlack;
         }
         if (__any_sync(0xffffffffu, over)) {   // rare once m has settled
@@ -549,7 +593,7 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
 // Dynamic shared memory of 48 KB beside the static (past the default) and
 // the carveout that lets kCtasPerSm CTAs share an SM, set once per device
 // for each instance.
-template <typename T, int G, int DH>
+template <typename T, int G, int DH, bool kOpts>
 cudaError_t configure() {
   static std::atomic<uint64_t> done{0};
   int dev = 0;
@@ -559,11 +603,11 @@ cudaError_t configure() {
   if (bit != 0 && (done.load(std::memory_order_relaxed) & bit) != 0) {
     return cudaSuccess;
   }
-  err = cudaFuncSetAttribute(paged_decode_kernel<T, G, DH>,
+  err = cudaFuncSetAttribute(paged_decode_kernel<T, G, DH, kOpts>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              kSmemBytes);
   if (err == cudaSuccess) {
-    err = cudaFuncSetAttribute(paged_decode_kernel<T, G, DH>,
+    err = cudaFuncSetAttribute(paged_decode_kernel<T, G, DH, kOpts>,
                                cudaFuncAttributePreferredSharedMemoryCarveout,
                                cudaSharedmemCarveoutMaxShared);
   }
@@ -581,31 +625,48 @@ struct Args {
   float* ws;
   unsigned* counters;
   int64_t B, KVH, P, page, pps, splits;
-  float scale;
+  float scale, softcap;
+  int64_t window;
   cudaStream_t stream;
 };
 
-template <typename T, int G, int DH>
+// The table entries a row's CTAs split: pps, or with a window the pages
+// that window consecutive positions can touch (kernels/paged_decode/ref.py
+// window_pages).
+int64_t span_of(const Args& a) {
+  if (a.window <= 0) return a.pps;
+  const int64_t n = (a.window - 1 + a.page - 1) / a.page + 1;
+  return n < a.pps ? n : a.pps;
+}
+
+template <typename T, int G, int DH, bool kOpts>
 int launch_instance(const Args& a) {
-  const cudaError_t err = configure<T, G, DH>();
+  const cudaError_t err = configure<T, G, DH, kOpts>();
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid(static_cast<unsigned>(a.splits * a.KVH),
                   static_cast<unsigned>(a.B));
-  paged_decode_kernel<T, G, DH><<<grid, kThreads, kSmemBytes, a.stream>>>(
+  paged_decode_kernel<T, G, DH, kOpts>
+      <<<grid, kThreads, kSmemBytes, a.stream>>>(
       static_cast<const T*>(a.q), static_cast<const T*>(a.k),
       static_cast<const T*>(a.v), a.table, a.lengths, static_cast<T*>(a.out),
       a.ws, a.counters, static_cast<int>(a.KVH), a.P,
       static_cast<int>(a.page), make_div32(static_cast<uint32_t>(a.page)),
-      static_cast<int>(a.pps), static_cast<int>(a.splits),
-      a.scale * kLog2e);
+      static_cast<int>(a.pps), static_cast<int>(a.splits), a.scale * kLog2e,
+      a.softcap > 0.f ? a.scale / a.softcap : 0.f, a.softcap * kLog2e,
+      static_cast<int>(a.window), static_cast<int>(span_of(a)));
   return static_cast<int>(cudaGetLastError());
 }
 
+// An instance with the options (kOpts) serves a launch that takes a softcap
+// or a window; one without them, whose code has neither, every other.
 template <typename T, int G>
 int launch_g(const Args& a, int64_t DH) {
+  const bool opts = a.softcap > 0.f || a.window > 0;
   switch (DH) {
-    case 64: return launch_instance<T, G, 64>(a);
-    case 128: return launch_instance<T, G, 128>(a);
+    case 64: return opts ? launch_instance<T, G, 64, true>(a)
+                         : launch_instance<T, G, 64, false>(a);
+    case 128: return opts ? launch_instance<T, G, 128, true>(a)
+                          : launch_instance<T, G, 128, false>(a);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -614,7 +675,8 @@ template <typename T>
 int launch(const Args& a, int64_t G, int64_t DH) {
   if (a.B <= 0 || a.KVH <= 0) return 0;
   if (a.P < 1 || a.page < 1 || a.pps < 1 || a.pps * a.page > INT_MAX ||
-      a.B > 65535 || a.splits < 1 || a.splits > a.pps ||
+      a.B > 65535 || a.splits < 1 || a.splits > span_of(a) ||
+      a.window < 0 || a.window > INT_MAX || !(a.softcap >= 0.f) ||
       a.splits > kMaxSplits || a.splits * a.KVH > INT_MAX ||
       (a.splits > 1 && (a.ws == nullptr || a.counters == nullptr))) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -631,7 +693,10 @@ int launch(const Args& a, int64_t G, int64_t DH) {
 
 }  // namespace
 
-// Both return the cudaError_t of the launch (0 on success).  workspace
+// Both return the cudaError_t of the launch (0 on success).  softcap and
+// window are 0 when off; splits lies in [1, min(span, 128)], span the
+// table entries a row's window touches (pages_per_seq without one).
+// workspace
 // holds B * KVH * splits * G * (DH + 2) floats and counters B * KVH zeros
 // (both unused, and may be null, when splits is 1); the kernel leaves the
 // counters zero, and calls that share them must be ordered (one stream).
@@ -641,12 +706,14 @@ extern "C" int paged_decode_f32(const void* q, const void* k_pages,
                                 void* workspace, void* counters, int64_t B,
                                 int64_t KVH, int64_t G, int64_t P,
                                 int64_t page, int64_t pps, int64_t DH,
-                                int64_t splits, float scale, void* stream) {
+                                int64_t splits, float scale, float softcap,
+                                int64_t window, void* stream) {
   const Args a{q, k_pages, v_pages, static_cast<const int*>(page_table),
                static_cast<const int*>(lengths), out,
                static_cast<float*>(workspace),
                static_cast<unsigned*>(counters), B, KVH, P, page, pps,
-               splits, scale, static_cast<cudaStream_t>(stream)};
+               splits, scale, softcap, window,
+               static_cast<cudaStream_t>(stream)};
   return launch<float>(a, G, DH);
 }
 
@@ -656,11 +723,13 @@ extern "C" int paged_decode_bf16(const void* q, const void* k_pages,
                                  void* workspace, void* counters, int64_t B,
                                  int64_t KVH, int64_t G, int64_t P,
                                  int64_t page, int64_t pps, int64_t DH,
-                                 int64_t splits, float scale, void* stream) {
+                                 int64_t splits, float scale, float softcap,
+                                 int64_t window, void* stream) {
   const Args a{q, k_pages, v_pages, static_cast<const int*>(page_table),
                static_cast<const int*>(lengths), out,
                static_cast<float*>(workspace),
                static_cast<unsigned*>(counters), B, KVH, P, page, pps,
-               splits, scale, static_cast<cudaStream_t>(stream)};
+               splits, scale, softcap, window,
+               static_cast<cudaStream_t>(stream)};
   return launch<__nv_bfloat16>(a, G, DH);
 }

@@ -116,8 +116,8 @@ _SIGNATURES = {
     "paged_decode": {
         # q, k_pages, v_pages, page_table, lengths, out, workspace,
         # counters, B, KVH, G, P, page, pages_per_seq, DH, splits, scale,
-        # stream
-        f"paged_decode_{t}": (_P,) * 8 + (_I64,) * 8 + (_F32, _P)
+        # softcap, window, stream
+        f"paged_decode_{t}": (_P,) * 8 + (_I64,) * 8 + (_F32, _F32, _I64, _P)
         for t in ("f32", "bf16")
     },
 }

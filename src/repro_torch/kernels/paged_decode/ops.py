@@ -8,6 +8,13 @@ The head size (64 or 128) and the query heads per KV head (1, 2, 4, 8 or
 16) are templates of the kernel: on CUDA tensors others raise
 (``check_kernel_shape``).  The plain version takes any.
 
+Two options, gemma2's: ``softcap`` > 0 caps each scaled score with
+``tanh(x / cap) * cap``; ``window`` > 0 attends only to the last
+``window`` positions of each row (those >= length - window).  With a
+window the kernel reads only the pages the window covers: its CTAs split
+``ref.window_pages`` table entries a row, starting at the window's first
+page (``ref.window_start``), and mask that page's earlier positions.
+
 The launch splits each row's pages over several CTAs (``splits``, chosen
 by ``kernels.autotune`` unless the caller passes it; ``paged_splits`` is
 the legacy rule, which ``autotune.disabled()`` serves) and merges their
@@ -37,7 +44,7 @@ import math
 import torch
 
 from .. import _build, autotune
-from .ref import paged_decode_attention_ref
+from .ref import paged_decode_attention_ref, window_pages
 
 HEAD_DIMS = (64, 128)
 GROUPS = (1, 2, 4, 8, 16)
@@ -87,7 +94,8 @@ def _workspace(index: int, floats: int, rows: int) -> tuple[int, int]:
 def tile_key(bsz: int, kvh: int, g: int, dh: int, page: int, pps: int,
              dtype: torch.dtype, platform: str) -> autotune.TileKey:
     """The ``autotune`` key of a paged-decode launch (its fields as the
-    ``TileKey`` note says)."""
+    ``TileKey`` note says; ``pps``: the table entries the launch splits a
+    row's, ``window_pages``)."""
     return autotune.TileKey(op="paged_decode", batch=bsz * kvh, lanes=pps,
                             rows=page, width=g * dh,
                             dtype=str(dtype).removeprefix("torch."),
@@ -96,13 +104,16 @@ def tile_key(bsz: int, kvh: int, g: int, dh: int, page: int, pps: int,
 
 def paged_decode_attention(q, k_pages, v_pages, page_table, lengths, *,
                            scale: float | None = None,
-                           splits: int | None = None):
+                           splits: int | None = None, softcap: float = 0.0,
+                           window: int = 0):
     """q (B, KVH, G, dh); k_pages/v_pages (KVH, P, page, dh); page_table
     (B, pages_per_seq) int32; lengths (B,) int32 -> (B, KVH, G, dh).
 
     ``scale=None`` means 1/sqrt(dh).  ``splits``: CTAs a row's pages are
-    split over, in [1, min(pages_per_seq, MAX_SPLITS)]; None for
-    ``autotune``'s choice.
+    split over, in [1, min(n, MAX_SPLITS)], n the table entries a row's
+    window can touch (``window_pages``: pages_per_seq without a window);
+    None for ``autotune``'s choice.  ``softcap`` and ``window`` as the
+    module says (0: off).
     """
     _build.check_operand("q", q, getattr(q, "dtype", None), 4)
     if q.dtype not in _ENTRY:
@@ -126,12 +137,16 @@ def paged_decode_attention(q, k_pages, v_pages, page_table, lengths, *,
     if n_pages < 1 or page < 1 or pps < 1:
         raise ValueError(f"empty pool or table: pages {tuple(k_pages.shape)},"
                          f" table {tuple(page_table.shape)}")
+    if window < 0 or softcap < 0:
+        raise ValueError(f"window {window} and softcap {softcap} must be "
+                         f">= 0")
     scale = 1.0 / math.sqrt(dh) if scale is None else float(scale)
     dev = _build.common_device(q=q, k_pages=k_pages, v_pages=v_pages,
                                page_table=page_table, lengths=lengths)
     if dev.type == "cpu":
         return paged_decode_attention_ref(q, k_pages, v_pages, page_table,
-                                          lengths, scale=scale)
+                                          lengths, scale=scale,
+                                          softcap=softcap, window=window)
     check_kernel_shape(dh, g)
     if pps * page >= 2 ** 31:
         raise ValueError(f"pages_per_seq * page = {pps * page}: the kernel "
@@ -139,14 +154,15 @@ def paged_decode_attention(q, k_pages, v_pages, page_table, lengths, *,
     for name, t in (("q", q), ("k_pages", k_pages), ("v_pages", v_pages)):
         if t.data_ptr() % 16:            # the kernel reads 16 bytes at a time
             raise ValueError(f"{name}: data not 16-byte aligned")
-    if splits is not None and not 1 <= splits <= min(pps, MAX_SPLITS):
+    span = window_pages(window, page, pps)
+    if splits is not None and not 1 <= splits <= min(span, MAX_SPLITS):
         raise ValueError(f"splits {splits} outside [1, "
-                         f"{min(pps, MAX_SPLITS)}]")
+                         f"{min(span, MAX_SPLITS)}]")
     out = torch.empty_like(q)
     if bsz * kvh:
         if splits is None:
             splits = autotune.choose(tile_key(
-                bsz, kvh, g, dh, page, pps, q.dtype,
+                bsz, kvh, g, dh, page, span, q.dtype,
                 autotune.cuda_platform(dev.index))).splits
         ws = cnt = None
         if splits > 1:
@@ -156,5 +172,5 @@ def paged_decode_attention(q, k_pages, v_pages, page_table, lengths, *,
                       q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
                       page_table.data_ptr(), lengths.data_ptr(),
                       out.data_ptr(), ws, cnt, bsz, kvh, g, n_pages, page,
-                      pps, dh, splits, scale)
+                      pps, dh, splits, scale, float(softcap), int(window))
     return out

@@ -4,6 +4,8 @@
         --smoke --device cpu --batch 2 --prompt-len 8 --gen 4
     PYTHONPATH=src python -m repro_torch.launch.serve \\
         --arch deepseek-v2-236b --layers 7 --gs-backend hopper   # the card
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma2-27b \\
+        --batch 2 --prompt-len 8192 --gen 32 --gs-backend hopper  # the card
 
 The port of ``repro/launch/serve.py`` for the ported architectures.  The
 weights are random, drawn on the device from a ``torch.Generator`` seeded

@@ -1,5 +1,6 @@
-"""GQA attention (llama3-8b) over a paged KV cache, and MLA (deepseek-v2)
-over a contiguous latent cache.
+"""GQA attention (llama3-8b; gemma2-27b's local and global layers with its
+softcap) over a paged KV cache, and MLA (deepseek-v2) over a contiguous
+latent cache.
 
 The port of ``repro/models/attention.py``, with its parameter names and
 layouts.  GQA: ``wq`` (d, H, dh), ``wk`` and
@@ -20,6 +21,16 @@ each sequence's pages lie scattered through it and the kernel gathers
 through the table for real.  Position t of row b is slot t % PAGE_SIZE of
 page ``page_table[b, t // PAGE_SIZE]``.  Prefill and decode write the pages
 in place (a cache is updated, not copied, which saves a pool per step).
+
+Local layers (gemma2: ``window`` > 0, the JAX package's ``_block_window``)
+and the attention softcap.  Prefill passes the window and
+``cfg.attn_softcap`` to the flash kernel, decode to the paged-decode
+kernel.  A local layer's paged cache keeps every position, as a global
+layer's does, and only the kernel's range is windowed (the last
+``window`` positions).  The JAX package instead keeps a ring of
+``window`` slots for a local layer (``gqa_init_cache``), written at ``pos
+% window``: the two attend to the same keys at every step, kept in other
+places (``convert``'s cache carriers know only the contiguous layout).
 
 MLA (``mla_*``, the port of ``:141-252``) keeps the JAX package's cache:
 contiguous, ``{"c_kv": (B, max_len, kv_lora_rank), "k_pe": (B, max_len,
@@ -55,10 +66,9 @@ def gqa_defs(cfg) -> dict:
 class GQA(nn.Module):
     def __init__(self, cfg, *, device=None, dtype=None):
         super().__init__()
-        if cfg.attn_kind != "full" or cfg.attn_softcap:
+        if cfg.attn_kind not in ("full", "local_global"):
             raise NotImplementedError(
-                f"attention {cfg.attn_kind!r} (softcap {cfg.attn_softcap}) "
-                f"is not ported: {_NOT_PORTED}")
+                f"attention {cfg.attn_kind!r} is not ported: {_NOT_PORTED}")
         self.defs = gqa_defs(cfg)
         make_params(self, self.defs, device, dtype)
 
@@ -86,17 +96,18 @@ def _out(p: nn.Module, o: torch.Tensor) -> torch.Tensor:
 
 
 def gqa_apply(cfg, p: GQA, x: torch.Tensor, positions: torch.Tensor, *,
-              cache: dict | None = None):
-    """Prefill attention. x (B,S,d); positions (S,) or (B,S).  With a
-    ``cache``, its pages receive this sequence's K/V at positions 0..S-1.
-    Returns (y (B,S,d), cache)."""
+              cache: dict | None = None, window: int = 0):
+    """Prefill attention. x (B,S,d); positions (S,) or (B,S); ``window``
+    > 0 for a local layer.  With a ``cache``, its pages receive this
+    sequence's K/V at positions 0..S-1.  Returns (y (B,S,d), cache)."""
     if positions.dim() == 1:
         positions = positions[None, :]
     q, k, v = _qkv(cfg, p, x, positions)
     b, s, kvh, g, dh = q.shape
     o = flash_attention(q.permute(0, 2, 3, 1, 4).contiguous(),
                         k.transpose(1, 2).contiguous(),
-                        v.transpose(1, 2).contiguous(), causal=True)
+                        v.transpose(1, 2).contiguous(), causal=True,
+                        window=window, softcap=cfg.attn_softcap)
     y = _out(p, o.permute(0, 3, 1, 2, 4).reshape(b, s, kvh * g, dh))
     if cache is not None:
         write_prefill(cache, k, v)
@@ -143,12 +154,16 @@ def write_prefill(cache: dict, k: torch.Tensor, v: torch.Tensor) -> None:
                                 .to(cache[name].dtype))
 
 
-def gqa_decode(cfg, p: GQA, x: torch.Tensor, pos: int, cache: dict):
-    """Single-token decode. x (B,1,d); pos: the position of this token.
+def gqa_decode(cfg, p: GQA, x: torch.Tensor, pos: int, cache: dict, *,
+               window: int = 0):
+    """Single-token decode. x (B,1,d); pos: the position of this token;
+    ``window`` > 0 for a local layer.
 
     Writes its K/V at slot ``pos`` and attends over positions 0..pos of
     every row through the paged-decode kernel (lengths pos + 1, as
-    ``repro/models/attention.py:128`` keeps ``kv_pos <= pos``).  Returns (y (B,1,d), cache).
+    ``repro/models/attention.py:128`` keeps ``kv_pos <= pos``), over the
+    last ``window`` of them for a local layer (``:122-127``: the ring's
+    slots after the write).  Returns (y (B,1,d), cache).
     """
     b = x.shape[0]
     table = cache["page_table"]
@@ -162,7 +177,8 @@ def gqa_decode(cfg, p: GQA, x: torch.Tensor, pos: int, cache: dict):
     cache["v_pages"][:, page, pos % PAGE_SIZE] = v[:, 0].transpose(0, 1)
     lengths = torch.full((b,), pos + 1, dtype=torch.int32, device=x.device)
     o = paged_decode_attention(q[:, 0].contiguous(), cache["k_pages"],
-                               cache["v_pages"], table, lengths)
+                               cache["v_pages"], table, lengths,
+                               softcap=cfg.attn_softcap, window=window)
     return _out(p, o.reshape(b, 1, cfg.n_heads, cfg.dh)), cache
 
 

@@ -1,5 +1,5 @@
 """Shared model machinery: declared parameters and their init, the RMS norm,
-the MLP, RoPE, query-chunked attention.
+the gated MLP (SwiGLU, GeGLU), RoPE, query-chunked attention.
 
 The port of ``repro/models/common.py:24-229``.  A module declares its
 parameters as ``ParamDef``s (shape, init, scale) in the JAX package's
@@ -78,8 +78,9 @@ _NOT_PORTED = "ROADMAP A7 (the model side)"
 
 
 def mlp_def(cfg, d_in: int, d_ff: int) -> dict:
-    """``wi``, ``wg`` (d_in, d_ff) and ``wo`` (d_ff, d_in): SwiGLU only."""
-    if cfg.mlp_kind != "swiglu":
+    """``wi``, ``wg`` (d_in, d_ff) and ``wo`` (d_ff, d_in): the gated MLPs,
+    SwiGLU and GeGLU."""
+    if cfg.mlp_kind not in ("swiglu", "geglu"):
         raise NotImplementedError(
             f"mlp_kind {cfg.mlp_kind!r} is not ported: {_NOT_PORTED}")
     return {"wi": ParamDef((d_in, d_ff)), "wg": ParamDef((d_in, d_ff)),
@@ -95,8 +96,13 @@ class MLP(nn.Module):
 
 
 def mlp_apply(cfg, p: MLP, x: torch.Tensor) -> torch.Tensor:
-    del cfg                      # swiglu: the only kind ``mlp_def`` builds
-    return (F.silu(x @ p.wg) * (x @ p.wi)) @ p.wo
+    """act(x wg) * (x wi), then wo: SiLU for ``swiglu``; for ``geglu`` the
+    tanh approximation of GELU, as ``jax.nn.gelu`` defaults to (the exact
+    erf GELU differs by up to a few 1e-4)."""
+    g = x @ p.wg
+    act = (F.silu(g) if cfg.mlp_kind == "swiglu"
+           else F.gelu(g, approximate="tanh"))
+    return (act * (x @ p.wi)) @ p.wo
 
 
 def softcap(x: torch.Tensor, cap: float) -> torch.Tensor:

@@ -1,8 +1,9 @@
 """Decoder-LM assembly: embedding (a Spatter gather), blocks, decode.
 
 The port of ``repro/models/transformer.py`` for the families ported so far
-(``ssm``: falcon-mamba-7b; ``dense`` without local/global layers:
-llama3-8b; ``moe`` with MLA: deepseek-v2-236b).  The JAX package
+(``ssm``: falcon-mamba-7b; ``dense``: llama3-8b, and gemma2-27b with its
+alternating local and global layers, tied table and softcaps; ``moe``
+with MLA: deepseek-v2-236b).  The JAX package
 scan-stacks each stage's layers on a leading axis; here each layer is its
 own ``Block`` in an ``nn.ModuleList``, in ``stage_layout`` order, and a
 cache is a list with one entry per layer (a GQA layer's is paged, an MLA
@@ -24,14 +25,16 @@ from . import attention as attn
 from . import moe as moe_mod
 from . import ssm as ssm_mod
 from .common import (_NOT_PORTED, MLP, ParamDef, RMSNorm, init_params,
-                     make_params, mlp_apply, rms_norm)
+                     make_params, mlp_apply, rms_norm, softcap)
 
 
 def embed_defs(cfg) -> dict:
-    """Untied table and unembedding, no logit softcap: the ported
-    architectures have neither a tied table nor a softcap."""
-    return {"table": ParamDef((cfg.vocab, cfg.d_model), scale=1.0),
-            "unembed": ParamDef((cfg.d_model, cfg.vocab))}
+    """The (vocab, d) table and, unless the config ties them (gemma2), the
+    (d, vocab) unembedding."""
+    defs = {"table": ParamDef((cfg.vocab, cfg.d_model), scale=1.0)}
+    if not cfg.tie_embeddings:
+        defs["unembed"] = ParamDef((cfg.d_model, cfg.vocab))
+    return defs
 
 
 class Embed(nn.Module):
@@ -53,14 +56,22 @@ def embed_lookup(cfg, p: Embed, tokens: torch.Tensor,
 
 
 def unembed_logits(cfg, p: Embed, x: torch.Tensor) -> torch.Tensor:
-    del cfg
-    return x @ p.unembed
+    """x (..., d) -> logits (..., vocab): through the table itself where it
+    is tied (``x @ table.T``), then the logit softcap where the config has
+    one."""
+    logits = x @ (p.table.T if cfg.tie_embeddings else p.unembed)
+    return softcap(logits, cfg.logit_softcap)
 
 
 def stage_layout(cfg) -> list[tuple[int, tuple[str, ...]]]:
     """[(n_groups, kinds_per_group), ...] — total layers must match."""
     if cfg.family == "ssm":
         return [(cfg.n_layers, ("mamba",))]
+    if cfg.family == "dense" and cfg.attn_kind == "local_global":
+        if cfg.n_layers % 2:
+            raise ValueError("local/global alternation needs an even "
+                             f"n_layers, not {cfg.n_layers}")
+        return [(cfg.n_layers // 2, ("local", "global"))]
     if cfg.family == "dense" and cfg.attn_kind == "full":
         return [(cfg.n_layers, ("dense",))]
     if cfg.family == "moe":
@@ -75,16 +86,19 @@ def stage_layout(cfg) -> list[tuple[int, tuple[str, ...]]]:
 
 class Block(nn.Module):
     """ln1 -> mixer (GQA, or MLA where ``attn_kind`` is ``mla``) ->
-    residual, then ln2 -> channel mixer -> residual: the SwiGLU MLP
-    (``dense``; at ``d_ff_dense`` in a model with leading dense layers) or
-    the ``MoE`` (``moe``).  A ``mamba`` block has no channel mixer."""
+    residual, then ln2 -> channel mixer -> residual: the gated MLP
+    (``dense``, ``local``, ``global``; at ``d_ff_dense`` in a model with
+    leading dense layers) or the ``MoE`` (``moe``).  A ``local`` block
+    attends over the last ``cfg.window`` positions.  A ``mamba`` block
+    has no channel mixer."""
 
     def __init__(self, cfg, kind: str, *, device=None, dtype=None):
         super().__init__()
-        if kind not in ("mamba", "dense", "moe"):
+        if kind not in ("mamba", "dense", "local", "global", "moe"):
             raise NotImplementedError(
                 f"block kind {kind!r} is not ported: {_NOT_PORTED}")
         self.kind = kind
+        self.window = cfg.window if kind == "local" else 0
         self.ln1 = RMSNorm(cfg.d_model, device=device, dtype=dtype)
         if kind == "mamba":
             self.mixer = ssm_mod.Mamba(cfg, device=device, dtype=dtype)
@@ -142,7 +156,8 @@ def block_apply(cfg, blk: Block, x: torch.Tensor, positions: torch.Tensor,
     if cfg.attn_kind == "mla":
         y, cache = attn.mla_apply(cfg, blk.mixer, h, positions, cache=cache)
     else:
-        y, cache = attn.gqa_apply(cfg, blk.mixer, h, positions, cache=cache)
+        y, cache = attn.gqa_apply(cfg, blk.mixer, h, positions, cache=cache,
+                                  window=blk.window)
     x = x + y
     return x + _channel_mix(cfg, blk, rms_norm(blk.ln2, x, cfg.norm_eps),
                             gs_backend), cache
@@ -158,7 +173,8 @@ def block_decode(cfg, blk: Block, x: torch.Tensor, pos: int, cache,
     if cfg.attn_kind == "mla":
         y, cache = attn.mla_decode(cfg, blk.mixer, h, pos, cache)
     else:
-        y, cache = attn.gqa_decode(cfg, blk.mixer, h, pos, cache)
+        y, cache = attn.gqa_decode(cfg, blk.mixer, h, pos, cache,
+                                   window=blk.window)
     x = x + y
     return x + _channel_mix(cfg, blk, rms_norm(blk.ln2, x, cfg.norm_eps),
                             gs_backend), cache
@@ -198,7 +214,7 @@ def init_cache(cfg, batch: int, max_len: int, dtype, device,
         return [attn.mla_init_cache(cfg, batch, max_len, dtype, device)
                 for _ in kinds]
     table = None
-    if "dense" in kinds:
+    if any(kind != "mamba" for kind in kinds):
         table = attn.page_table(batch, attn.n_pages(max_len), seed, device)
     return [ssm_mod.mamba_init_cache(cfg, batch, dtype, device)
             if kind == "mamba" else
