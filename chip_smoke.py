@@ -3,7 +3,8 @@
 main path, falcon-mamba-7b and llama3-8b served at full width,
 deepseek-v2-236b served at full width through the MoE dispatch on the
 row kernels, gemma2-27b served at full width through windowed, softcapped
-flash attention and paged decode, the trace of a model's gathers and
+flash attention and paged decode, chatglm3-6b and starcoder2-15b served at
+full width (half-head RoPE, the plain GELU MLP, G 16 and G 12), the trace of a model's gathers and
 scatters replayed as Spatter patterns, the Spatter suite daemon, bucket launches placed over several devices, the
 static analysis with the modeled H100 column, the launch-parameter
 choice (``kernels/autotune.py``) with the CLI's serve modes, and the
@@ -37,8 +38,10 @@ only.  Phases:
      128, 129, 255, 257}, G = 3, a causal window of 64, a softcap of 50),
      then over S = T in {1, 17, 128, 300, 2048}, (KVH, G) in {(1, 1), (2,
      4), (8, 4)}, dh in {64, 128}, float32 and bfloat16, with B in {1, 2},
-     causal, window in {0, 64} and softcap in {0, 50} cycled, then rows
-     that a window leaves no key (S >= T + window), then cases where the
+     causal, window in {0, 64} and softcap in {0, 50} cycled, then G 12
+     and 16 at dh 128 over S = T in {17, 300, 4097}, both dtypes, causal
+     and not, then rows that a window leaves no key (S >= T + window; G
+     12 and 16 among them), then cases where the
      softcap bites (``flash_cap_cases``: caps 5 and 50 with q scaled so
      that the scores reach them, at gemma2's heads and others, both
      dtypes, with and without a window); paged decode over page
@@ -50,7 +53,10 @@ only.  Phases:
      streams), then gemma2's options (``paged_option_cases``: softcap 50
      and 5, windows of 1, 7, 100 and 4096 positions, alone and together,
      lengths 0, 1, around the window and full, at 1, the chosen and the
-     most splits the window admits); both within ``attn_tolerance`` (flash in bf16 with 2^-8
+     most splits the window admits), then the G-12 instances
+     (``paged_g12_cases``: page 8 and 16, both dtypes, both tables,
+     lengths 0, 1, full and ragged, at the chosen split, one and the
+     most); both within ``attn_tolerance`` (flash in bf16 with 2^-8
      more for its rounded weights); the Spatter grid
      (``spatter_cases``) runs first in float32, and again on the 16-bit
      instances in bfloat16 and float16 with D = 2 added, both sides of
@@ -92,7 +98,10 @@ only.  Phases:
      with softcap 50 and window 4096 or none at the decode shape and
      lengths past the window, each against its plain version, and at
      llama3-8b's shape with neither option; with the embedding gather
-     beside ``index_select``); the
+     beside ``index_select``), then at chatglm3-6b's and starcoder2-15b's
+     (``dense_attention_times``: flash at G 16 and G 12 beside
+     ``scaled_dot_product_attention``, paged decode at G 16 and G 12 at
+     the decode shape, the embedding gather beside ``index_select``); the
      Spatter lines run once a kernel instance (``kernel_times``): the
      gathers, the store and the coverage store in float32 and bfloat16
      (one instance serves both 16-bit types), the add in all three, each
@@ -229,11 +238,22 @@ only.  Phases:
      tied table, drawn at scale 1, gives logits of rms ~25 where
      llama3-8b's and falcon-mamba-7b's have ~1); the trace as in phase
      12 (its kernels' checks and times at these shapes run in phase 4).  The model is freed before the
-     next phase.
+     next phase;
+ 14. (right after phase 13) chatglm3-6b (28 layers, d_model 4096, GQA
+     32/2 heads, half-head RoPE, 6,243,454,976 parameters) and then
+     starcoder2-15b (40 layers, d_model 6144, GQA 48/4, the plain GELU
+     MLP, 15,955,630,080 parameters) at their published widths and
+     depths, bfloat16, random weights from seed 0, through
+     ``launch.serve.main`` with ``--gs-backend hopper``
+     (``dense_archs_phase``): 4 prompts of 8192 (chatglm3-6b's published
+     context) and of 4096 tokens, 32 greedy steps each; the launches as
+     in phase 13, every attention layer global; the checks of
+     ``serve_phase`` and the trace; each model is freed before the next
+     (their kernels' checks and times at these shapes run in phase 4).
 
 The launch counts are set to 0 just before phase 2 and read just after
 phase 3, again just before and after the serve calls of phases 5, 6,
-12 and 13, just before and after phase 7's daemon, just before and after
+12, 13 and 14, just before and after phase 7's daemon, just before and after
 phase 8's placed suites, just before and after phase 9's lint and cost passes
 (where they must equal the censuses' sum), and just before and after
 phase 10's two legs (whose legacy leg gives the smem gather's launches:
@@ -241,7 +261,8 @@ the search routes no bucket of phases 2-3 to it on an H100), and just
 before and after each of phase 11's runs (its legacy leg, likewise, the
 16-bit smem gather's).  Any failed check raises, so
 the script exits nonzero.  Before the last line it prints a
-``{"deepseek": {...}}``, a ``{"gemma2": {...}}``, a ``{"daemon": {...}}``, a ``{"placements": {...}}``, an ``{"autotune":
+``{"deepseek": {...}}``, a ``{"gemma2": {...}}``, a ``{"dense_archs":
+{...}}``, a ``{"daemon": {...}}``, a ``{"placements": {...}}``, an ``{"autotune":
 {...}}``, a ``{"dtypes": {...}}``, an ``{"analysis": {...}}`` and a
 ``{"kernels": [...]}`` JSON
 line; the last line is
@@ -1198,8 +1219,17 @@ def flash_cases(torch):
     # the inputs they had before the edge cases were added
     edge_gen = torch.Generator(device="cuda").manual_seed(6)
     cycled_gen = torch.Generator(device="cuda").manual_seed(3)
+    # starcoder2-15b's G 12 and chatglm3-6b's G 16 at dh 128, from their
+    # own generator: S = T in {17, 300, 4097} (4097 no multiple of the bf16
+    # kernel's bq of 10 or 8 query rows a tile), causal and not
+    group_gen = torch.Generator(device="cuda").manual_seed(16)
+    groups = [(1, 2, g, s, 128, dtype, bool(i % 2), 0, 0.0)
+              for i, (g, dtype, s) in enumerate(itertools.product(
+                  (12, 16), (torch.float32, torch.bfloat16),
+                  (17, 300, 4097)))]
     cases = ([(c, edge_gen) for c in _flash_edge_cases(torch)]
-             + [(c, cycled_gen) for c in cycled])
+             + [(c, cycled_gen) for c in cycled]
+             + [(c, group_gen) for c in groups])
     err, t0 = 0.0, time.perf_counter()
     for (bsz, kvh, g, s, dh, dtype, causal, window, softcap), gen in cases:
         q, k, v = _flash_inputs(torch, gen, bsz, kvh, g, s, dh, dtype)
@@ -1214,7 +1244,9 @@ def flash_cases(torch):
              (1, 2, 4, 300, 64, 128, False, 64, 50.0),
              (2, 1, 1, 200, 17, 128, True, 8, 0.0),
              (1, 8, 4, 257, 1, 64, False, 1, 0.0),
-             (1, 2, 3, 700, 129, 128, True, 300, 50.0)]
+             (1, 2, 3, 700, 129, 128, True, 300, 50.0),
+             (1, 4, 12, 300, 129, 128, True, 64, 0.0),
+             (1, 2, 16, 300, 129, 128, False, 64, 0.0)]
     for (bsz, kvh, g, s, t, dh, causal, window, softcap), dtype in (
             itertools.product(empty, (torch.float32, torch.bfloat16))):
         q = _flash_inputs(torch, no_key, bsz, kvh, g, s, dh, dtype)[0]
@@ -1364,10 +1396,12 @@ def paged_cases(torch):
         n_cases += 1
     split_err, n_split = paged_split_cases(torch)
     opt_err, n_opt = paged_option_cases(torch)
-    err, n_cases = max(err, split_err, opt_err), n_cases + n_split + n_opt
+    g12_err, n_g12 = paged_g12_cases(torch)
+    err = max(err, split_err, opt_err, g12_err)
+    n_cases += n_split + n_opt + n_g12
     print(f"phase 1: {n_cases} paged_decode cases ({n_split} for the split, "
-          f"{n_opt} with softcap or window) within attn_tolerance of their "
-          f"plain versions; max |err| {err} "
+          f"{n_opt} with softcap or window, {n_g12} at G 12) within "
+          f"attn_tolerance of their plain versions; max |err| {err} "
           f"({time.perf_counter() - t0:.1f} s)", flush=True)
     return err
 
@@ -1408,6 +1442,33 @@ def paged_option_cases(torch):
                 f"{dtype} page={page} pps={pps} softcap={softcap} "
                 f"window={window} splits={splits} lengths={lengths}", got,
                 softcap=softcap, window=window))
+            n += 1
+    return err, n
+
+
+def paged_g12_cases(torch):
+    """Phase 1's cases for the G-12 instances (starcoder2-15b's 48 query
+    heads over 4 KV heads, dh 128, no option): page 8 and 16, both dtypes,
+    a permuted table and one with repeats, rows of length 0, 1, full and
+    ragged, 130 or 9 pages a row; each at the split ``autotune`` chooses,
+    at one split and at the most the row admits.  Returns (max |err|,
+    cases)."""
+    from repro_torch.kernels.paged_decode import ops
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    err, n = 0.0, 0
+    for i, (page, dtype, repeats) in enumerate(itertools.product(
+            (8, 16), (torch.float32, torch.bfloat16), (False, True))):
+        pps = 130 if i % 2 == 0 else 9
+        full = pps * page
+        lengths = [0, 1, full, 1 + (53 * i + 7) % full]
+        ins = _paged_inputs(torch, gen, len(lengths), 4, 12, 128, page, pps,
+                            dtype, repeats, lengths)
+        for splits in (None, 1, min(pps, ops.MAX_SPLITS)):
+            err = max(err, check_paged(
+                torch, ins, f"paged_decode KVH=4 G=12 dh=128 {dtype} "
+                f"page={page} pps={pps} repeats={repeats} splits={splits} "
+                f"lengths={lengths}", ops.paged_decode_attention(
+                    *ins, splits=splits)))
             n += 1
     return err, n
 
@@ -3270,10 +3331,11 @@ GEMMA2_PAGED_SHAPE = (2, 16, 2, 128, 16, 514, 8208)  # as PAGED_SHAPE
 GEMMA2_EMBED = (256000, 4608, 2 * 8192)            # vocab, d, lanes
 
 
-def _gemma2_launches(cfg, gen):
-    """Launches a gemma2-27b serve call on ``hopper`` must make: flash
-    attention once a layer and the embedding gather once in the prefill;
-    paged decode once a layer and the gather once in each step."""
+def _hopper_dense_launches(cfg, gen):
+    """Launches a serve call of a dense GQA model (gemma2-27b, chatglm3-6b,
+    starcoder2-15b) on ``hopper`` must make: flash attention once a layer
+    and the embedding gather once in the prefill; paged decode once a layer
+    and the gather once in each step."""
     return ({"flash_attention": cfg.n_layers, "gather_rows_b16": 1},
             {"paged_decode": cfg.n_layers * gen, "gather_rows_b16": gen})
 
@@ -3352,6 +3414,109 @@ def gemma2_flash_cap_cases(torch):
     return max(errs)
 
 
+def embed_gather_row(torch, gen, vocab, d, lanes, where):
+    """``gather_rows_b16`` on an embedding's (1, vocab, d) bf16 table at
+    ``lanes`` token rows, bit for bit against its plain version, timed
+    beside ``index_select``: its row."""
+    from repro_torch.kernels.gather_rows import ops as g
+    from repro_torch.kernels.gather_rows.ref import gather_rows_ref
+    table = torch.randn((1, vocab, d), generator=gen, device="cuda").to(
+        torch.bfloat16)
+    idx = torch.randint(0, vocab, (1, lanes), generator=gen, device="cuda",
+                        dtype=torch.int32)
+    check(_bits_equal(torch, g.gather_rows(table, idx),
+                      gather_rows_ref(table, idx)),
+          f"gather_rows_b16 at {where}'s embedding: not the plain one")
+    flat = idx[0].long()
+    turns = _turn_times(torch, {
+        "library": lambda: table[0].index_select(0, flat),
+        "kernel": lambda: g.gather_rows(table, idx)}, 20, "gather",
+        f"gather_rows_b16 {where} embedding")
+    nbytes = lanes * (4 + 2 * d * 2)
+    row = dict(
+        turns, plain_ms=_time_ms(torch, lambda: gather_rows_ref(table, idx),
+                                 3),
+        bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
+        bytes=nbytes, max_abs_err=0.0,
+        shape=[1, vocab, d, lanes, "bfloat16"])
+    del table, idx
+    torch.cuda.empty_cache()
+    return row
+
+
+NO_SOFTCAP_CALL = "none: no PyTorch call computes a softcapped attention"
+NO_PAGED_CALL = "none: no PyTorch call attends through a page table"
+
+
+def flash_row(torch, q, k, v, kw, where, shape, library=(NO_SOFTCAP_CALL,
+                                                         None)):
+    """Flash attention on bf16 q, k, v with ``kw`` (causal): held to its
+    plain version (``check_flash_sliced``), then timed in turns beside
+    ``library``, (name, call) of one PyTorch call that computes the same
+    function (call None where none does); its row, with max |err|."""
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    bsz, kvh, g, s, dh = q.shape
+    e, plain_ms = check_flash_sliced(torch, q, k, v, kw, where)
+    name, call = library
+    fns = {"kernel": lambda: flash_attention(q, k, v, **kw)}
+    if call is not None:
+        fns = {"library": call, **fns}
+    turns = _turn_times(torch, fns, 5, "flash_attention", where)
+    return dict(_bound_row(
+        ms=turns["ms"], plain_ms=plain_ms, library_ms=turns.get("library_ms"),
+        flops=2 * 2 * bsz * kvh * g * _causal_pairs(s, kw["window"]) * dh,
+        nbytes=2 * (q.numel() * 2 + k.numel() + v.numel()), shape=shape,
+        library=name, turns=turns), max_abs_err=e)
+
+
+def paged_row(torch, gen, shape, kw, where, lengths):
+    """Paged decode at ``shape`` (as ``PAGED_SHAPE``) in bfloat16 with
+    ``kw`` (``softcap``, ``window``; none for neither): held to its plain
+    version with every row at the timed length and at each of ``lengths``
+    (lists of B lengths), then timed at the timed length; its row, with
+    max |err| and the table entries a row's CTAs split (``span``).  The
+    bound counts the K and V rows the window keeps."""
+    from repro_torch.kernels.paged_decode import ops
+    from repro_torch.kernels.paged_decode.ref import (
+        paged_decode_attention_ref, window_pages)
+    bsz, kvh, g, dh, page, pps, length = shape
+    e = 0.0
+    for ls in [[length] * bsz] + lengths:
+        ins = _paged_inputs(torch, gen, bsz, kvh, g, dh, page, pps,
+                            torch.bfloat16, False, ls)
+        e = max(e, check_paged(torch, ins, f"{where} lengths {ls}", **kw))
+    ins = _paged_inputs(torch, gen, bsz, kvh, g, dh, page, pps,
+                        torch.bfloat16, False, [length] * bsz)
+    window = kw.get("window", 0)
+    keys = min(length, window or length)
+    span = window_pages(window, page, pps)
+    turns = _turn_times(torch, {
+        "kernel": lambda: ops.paged_decode_attention(*ins, **kw)}, 50,
+        "paged_decode", where)
+    row = dict(_bound_row(
+        ms=turns["ms"],
+        plain_ms=_time_ms(torch, lambda: paged_decode_attention_ref(
+            *ins, scale=dh ** -0.5, **kw), 10),
+        library_ms=None, flops=2 * 2 * bsz * kvh * g * keys * dh,
+        nbytes=(2 * bsz * kvh * keys * dh * 2 + 2 * bsz * kvh * g * dh * 2
+                + bsz * span * 4 + bsz * 4),
+        shape=list(shape) + ["bfloat16"] + [f"{k} {x}" for k, x in
+                                            kw.items()],
+        library=NO_PAGED_CALL, turns=turns), max_abs_err=e, span=span)
+    del ins
+    torch.cuda.empty_cache()
+    return row
+
+
+def print_rows(rows):
+    for name, r in rows.items():
+        print(f"  {name}: device_ms {r['device_ms_pair']} bound "
+              f"{r['bound_ms']:.4f} ms by {r['bound_by']} "
+              f"({100 * r['bound_ms'] / r['device_ms']:.1f}% of it); plain "
+              f"{r['plain_ms']:.4f} ms; library device_ms "
+              f"{r.get('library_device_ms_pair')}", flush=True)
+
+
 def gemma2_attention_times(torch, err):
     """Phase 4's kernel checks and timed rows at gemma2-27b's served shapes
     (phase 13), in bfloat16: flash attention with the softcap, on its local (window
@@ -3364,71 +3529,32 @@ def gemma2_attention_times(torch, err):
     (256,000, 4608) table beside ``index_select``.  Neither SDPA nor any
     other single PyTorch call computes a softcapped attention, or attends
     through a page table: those rows have no library call."""
-    from repro_torch.kernels.flash_attention.ops import flash_attention
-    from repro_torch.kernels.gather_rows import ops as g
-    from repro_torch.kernels.gather_rows.ref import gather_rows_ref
-    from repro_torch.kernels.paged_decode import ops
-    from repro_torch.kernels.paged_decode.ref import (
-        paged_decode_attention_ref, window_pages)
     gen = torch.Generator(device="cuda").manual_seed(13)
     rows = {}
-    bsz, kvh, gq, s, dh = GEMMA2_FLASH_SHAPE
-    q, k, v = _flash_inputs(torch, gen, bsz, kvh, gq, s, dh, torch.bfloat16)
+    q, k, v = _flash_inputs(torch, gen, *GEMMA2_FLASH_SHAPE, torch.bfloat16)
     for name, window in (("local", GEMMA2_WINDOW), ("global", 0)):
         kw = dict(causal=True, window=window, softcap=GEMMA2_SOFTCAP)
-        e, plain_ms = check_flash_sliced(
+        rows[f"flash_attention/gemma2_{name}"] = row = flash_row(
             torch, q, k, v, kw,
-            f"flash_attention gemma2 {name} {GEMMA2_FLASH_SHAPE} {kw}")
-        err["flash_attention"] = max(err["flash_attention"], e)
-        pairs = bsz * kvh * gq * _causal_pairs(s, window)
-        turns = _turn_times(torch, {
-            "kernel": lambda: flash_attention(q, k, v, **kw)}, 5,
-            "flash_attention", f"flash_attention gemma2 {name}")
-        rows[f"flash_attention/gemma2_{name}"] = dict(_bound_row(
-            ms=turns["ms"], plain_ms=plain_ms, library_ms=None,
-            flops=2 * 2 * pairs * dh,
-            nbytes=2 * (q.numel() * 2 + k.numel() + v.numel()),
-            shape=list(GEMMA2_FLASH_SHAPE) + [
+            f"flash_attention gemma2 {name} {GEMMA2_FLASH_SHAPE} {kw}",
+            list(GEMMA2_FLASH_SHAPE) + [
                 "bfloat16", "causal", f"window {window}",
-                f"softcap {GEMMA2_SOFTCAP}"],
-            library="none: no PyTorch call computes a softcapped attention",
-            turns=turns), max_abs_err=e)
+                f"softcap {GEMMA2_SOFTCAP}"])
+        err["flash_attention"] = max(err["flash_attention"],
+                                     row["max_abs_err"])
     del q, k, v
     torch.cuda.empty_cache()
     err["flash_attention"] = max(err["flash_attention"],
                                  gemma2_flash_cap_cases(torch))
 
-    bsz, kvh, gq, dh, page, pps, length = GEMMA2_PAGED_SHAPE
     for name, window in (("local", GEMMA2_WINDOW), ("global", 0)):
         kw = dict(softcap=GEMMA2_SOFTCAP, window=window)
         # the timed length, and the decode's first and last past the window
-        for lengths in ([length] * bsz, [8193, 8224], [4097, 5000]):
-            ins = _paged_inputs(torch, gen, bsz, kvh, gq, dh, page, pps,
-                                torch.bfloat16, False, lengths)
-            e = check_paged(torch, ins, f"paged_decode gemma2 {name} "
-                            f"{GEMMA2_PAGED_SHAPE} {kw} lengths {lengths}",
-                            **kw)
-            err["paged_decode"] = max(err["paged_decode"], e)
-        ins = _paged_inputs(torch, gen, bsz, kvh, gq, dh, page, pps,
-                            torch.bfloat16, False, [length] * bsz)
-        keys = min(length, window or length)
-        span = window_pages(window, page, pps)
-        nbytes = (2 * bsz * kvh * keys * dh * 2 + 2 * bsz * kvh * gq * dh * 2
-                  + bsz * span * 4 + bsz * 4)
-        turns = _turn_times(torch, {
-            "kernel": lambda: ops.paged_decode_attention(*ins, **kw)}, 50,
-            "paged_decode", f"paged_decode gemma2 {name}")
-        rows[f"paged_decode/gemma2_{name}"] = dict(_bound_row(
-            ms=turns["ms"],
-            plain_ms=_time_ms(torch, lambda: paged_decode_attention_ref(
-                *ins, scale=dh ** -0.5, **kw), 10),
-            library_ms=None, flops=2 * 2 * bsz * kvh * gq * keys * dh,
-            nbytes=nbytes,
-            shape=list(GEMMA2_PAGED_SHAPE) + [
-                "bfloat16", f"window {window}", f"softcap {GEMMA2_SOFTCAP}"],
-            library="none: no PyTorch call attends through a page table",
-            turns=turns), max_abs_err=e, span=span)
-        del ins
+        rows[f"paged_decode/gemma2_{name}"] = row = paged_row(
+            torch, gen, GEMMA2_PAGED_SHAPE, kw,
+            f"paged_decode gemma2 {name} {GEMMA2_PAGED_SHAPE} {kw}",
+            [[8193, 8224], [4097, 5000]])
+        err["paged_decode"] = max(err["paged_decode"], row["max_abs_err"])
     # llama3-8b's decode shape, neither option: as before
     bsz, kvh, gq, dh, page, pps, length = PAGED_SHAPE
     ins = _paged_inputs(torch, gen, bsz, kvh, gq, dh, page, pps,
@@ -3437,34 +3563,9 @@ def gemma2_attention_times(torch, err):
         torch, ins, f"paged_decode at {PAGED_SHAPE}, no option"))
     del ins
 
-    vocab, d, lanes = GEMMA2_EMBED
-    table = torch.randn((1, vocab, d), generator=gen, device="cuda").to(
-        torch.bfloat16)
-    idx = torch.randint(0, vocab, (1, lanes), generator=gen, device="cuda",
-                        dtype=torch.int32)
-    check(_bits_equal(torch, g.gather_rows(table, idx),
-                      gather_rows_ref(table, idx)),
-          "gather_rows_b16 at gemma2's embedding: not the plain one")
-    flat = idx[0].long()
-    turns = _turn_times(torch, {
-        "library": lambda: table[0].index_select(0, flat),
-        "kernel": lambda: g.gather_rows(table, idx)}, 20, "gather",
-        "gather_rows_b16 gemma2 embedding")
-    nbytes = lanes * (4 + 2 * d * 2)
-    rows["gather_rows_b16/gemma2_embed"] = dict(
-        turns, plain_ms=_time_ms(torch, lambda: gather_rows_ref(table, idx),
-                                 3),
-        bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
-        bytes=nbytes, max_abs_err=0.0,
-        shape=[1, vocab, d, lanes, "bfloat16"])
-    del table, idx
-    torch.cuda.empty_cache()
-    for name, r in rows.items():
-        print(f"  {name}: device_ms {r['device_ms_pair']} bound "
-              f"{r['bound_ms']:.4f} ms by {r['bound_by']} "
-              f"({100 * r['bound_ms'] / r['device_ms']:.1f}% of it); plain "
-              f"{r['plain_ms']:.4f} ms; library device_ms "
-              f"{r.get('library_device_ms_pair')}", flush=True)
+    rows["gather_rows_b16/gemma2_embed"] = embed_gather_row(
+        torch, gen, *GEMMA2_EMBED, "gemma2")
+    print_rows(rows)
     return rows
 
 
@@ -3479,7 +3580,7 @@ def gemma2_phase(torch):
     serve window's launches."""
     t0 = time.perf_counter()
     print("\nphase 13: gemma2-27b at full width", flush=True)
-    served, launches = serve_phase(torch, GEMMA2_ARGS, _gemma2_launches,
+    served, launches = serve_phase(torch, GEMMA2_ARGS, _hopper_dense_launches,
                                    GEMMA2_PARAMS)
     half = GEMMA2_LAYERS // 2                    # local, global alternate
     want = {"flash_attention/global": half, "flash_attention/local": half,
@@ -3490,6 +3591,99 @@ def gemma2_phase(torch):
     served["phase_s"] = time.perf_counter() - t0
     print(f"  phase 13 wall {served['phase_s']:.1f} s", flush=True)
     return served, launches
+
+
+# -- phase 14: chatglm3-6b and starcoder2-15b at full width ----------------------
+
+# each model's serve call (on ``hopper``: the embedding through the row
+# gather) and its parameters; the kernels' served shapes: flash attention
+# at the prefill (B, KVH, G, S = T, dh), paged decode as PAGED_SHAPE with
+# room for prompt + 32 positions, timed at prompt + 16 (mid-decode), and
+# the embedding's (vocab, d, B x prompt lanes)
+DENSE_ARCHS = {
+    "chatglm3-6b": dict(
+        args=["--arch", "chatglm3-6b", "--batch", "4", "--prompt-len",
+              "8192", "--gen", "32", "--gs-backend", "hopper"],
+        params=6_243_454_976, flash=(4, 2, 16, 8192, 128),
+        paged=(4, 2, 16, 128, 16, 514, 8208), embed=(65024, 4096, 4 * 8192)),
+    "starcoder2-15b": dict(
+        args=["--arch", "starcoder2-15b", "--batch", "4", "--prompt-len",
+              "4096", "--gen", "32", "--gs-backend", "hopper"],
+        params=15_955_630_080, flash=(4, 4, 12, 4096, 128),
+        paged=(4, 4, 12, 128, 16, 258, 4112), embed=(49152, 6144, 4 * 4096)),
+}
+
+
+def dense_attention_times(torch, err):
+    """Phase 4's kernel checks and timed rows at phase 14's served shapes,
+    in bfloat16, for each of ``DENSE_ARCHS``: flash attention (causal, no
+    window or softcap, at G 16 and G 12) against its plain version
+    (computed a head at a time) and beside ``scaled_dot_product_attention``
+    with ``enable_gqa``, which computes the same function; paged decode at
+    the decode shape (G 16 and the G-12 instance) against its plain
+    version at the timed length and at the decode's first and last; the
+    embedding's gather beside ``index_select``."""
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    gen = torch.Generator(device="cuda").manual_seed(18)
+    rows = {}
+    for arch, spec in DENSE_ARCHS.items():
+        bsz, kvh, g, s, dh = spec["flash"]
+        q, k, v = _flash_inputs(torch, gen, bsz, kvh, g, s, dh,
+                                torch.bfloat16)
+        qh = q.view(bsz, kvh * g, s, dh)
+        rows[f"flash_attention/{arch}"] = row = flash_row(
+            torch, q, k, v, dict(causal=True, window=0, softcap=0.0),
+            f"flash_attention {arch} {spec['flash']}",
+            list(spec["flash"]) + ["bfloat16", "causal"],
+            ("scaled_dot_product_attention(is_causal, enable_gqa)",
+             lambda: sdpa(qh, k, v, is_causal=True, enable_gqa=True)))
+        err["flash_attention"] = max(err["flash_attention"],
+                                     row["max_abs_err"])
+        del q, k, v, qh
+        torch.cuda.empty_cache()
+
+        prompt = int(spec["args"][spec["args"].index("--prompt-len") + 1])
+        pps, page = spec["paged"][5], spec["paged"][4]
+        rows[f"paged_decode/{arch}"] = row = paged_row(
+            torch, gen, spec["paged"], {},
+            f"paged_decode {arch} {spec['paged']}",
+            [[prompt + 1, prompt + 32, 1, pps * page]])
+        err["paged_decode"] = max(err["paged_decode"], row["max_abs_err"])
+
+        rows[f"gather_rows_b16/{arch}_embed"] = embed_gather_row(
+            torch, gen, *spec["embed"], arch)
+    print_rows(rows)
+    return rows
+
+
+def dense_archs_phase(torch):
+    """Phase 14: serve chatglm3-6b, then starcoder2-15b, at their published
+    widths and depths through ``launch.serve.main`` on ``hopper``
+    (``serve_phase``: launches, logits, the teacher-forced forward, the
+    cache, the trace), each model freed before the next; every attention
+    layer is global.  Their kernels' checks and rows at these shapes run in
+    phase 4 (``dense_attention_times``).  Returns the numbers and each
+    serve window's launches, by arch."""
+    from repro_torch.configs import get_config
+    t0 = time.perf_counter()
+    print("\nphase 14: chatglm3-6b and starcoder2-15b at full width",
+          flush=True)
+    served, launched = {}, {}
+    for arch, spec in DENSE_ARCHS.items():
+        t1 = time.perf_counter()
+        out, launched[arch] = serve_phase(torch, spec["args"],
+                                          _hopper_dense_launches,
+                                          spec["params"])
+        layers = get_config(arch).n_layers
+        want = {"flash_attention/global": layers,
+                "paged_decode/global": layers * out["gen"]}
+        check(out["attention_calls"] == want,
+              f"{arch} attention calls {out['attention_calls']} != {want}")
+        out["phase_s"] = time.perf_counter() - t1
+        served[arch] = out
+    wall = time.perf_counter() - t0
+    print(f"  phase 14 wall {wall:.1f} s", flush=True)
+    return dict(served, phase_s=wall), launched
 
 
 # -- phase 7: spatterd on the card ---------------------------------------------
@@ -5187,6 +5381,7 @@ def main():
     times = kernel_times(torch, err)
     times.update(attention_times(torch, err))
     gemma2_rows = gemma2_attention_times(torch, err)   # phase 13's shapes
+    dense_rows = dense_attention_times(torch, err)     # phase 14's shapes
     lulesh_s3_add = times.pop("lulesh_s3_add")
     peak_1_4 = max(peak_1_3, torch.cuda.max_memory_allocated())
     served, serve_launches = serve_phase(torch)
@@ -5204,6 +5399,7 @@ def main():
     # phase 12 frees its 50 GB model before it returns, phase 13 its 54 GB
     deepseek, deepseek_launches, moe_rows = deepseek_phase(torch, err)
     gemma2, gemma2_launches = gemma2_phase(torch)
+    dense, dense_launches = dense_archs_phase(torch)
     daemon = daemon_phase(torch, cli_results, suite_stats)
     # phase 10 last: it reuses phase 8's host draws, and its profiler
     # sessions come after every phase that checks a trace's launch count
@@ -5281,6 +5477,24 @@ def main():
                          device_ms=t["device_ms"],
                          library_device_ms=t.get("library_device_ms"),
                          shape=t["shape"]))
+    # chatglm3-6b's and starcoder2-15b's at theirs (phase 14): every
+    # attention layer global; the embedding's gather once a prefill and a
+    # step
+    for name, t in dense_rows.items():
+        kernel, arch = name.split("/")
+        arch = arch.removesuffix("_embed")
+        source, replaces = KERNEL_INFO[kernel]
+        n = (dense_launches[arch][kernel] if kernel.startswith("gather")
+             else dense[arch]["attention_calls"][f"{kernel}/global"])
+        rows.append(dict(name=name, route="cuda", source=source,
+                         replaces=replaces, launches=n,
+                         max_abs_err=t["max_abs_err"], ms=t["ms"],
+                         time_ms=t["ms"], plain_ms=t["plain_ms"],
+                         bound_ms=t["bound_ms"], bound_by=t["bound_by"],
+                         library_ms=t["library_ms"],
+                         device_ms=t["device_ms"],
+                         library_device_ms=t.get("library_device_ms"),
+                         shape=t["shape"]))
     cli = {f"{b}/{k}/{m}": dict(time_ms=r.time_s * 1e3, gbs=r.measured_gbs,
                                 host_s=r.host_s)
            for (b, k, m), r in cli_results.items()}
@@ -5293,7 +5507,10 @@ def main():
           f"{served['max_memory_allocated']} bytes in phase 5, "
           f"{served_llama['max_memory_allocated']} bytes in phase 6, "
           f"{deepseek['max_memory_allocated']} bytes in phase 12's serve, "
-          f"{gemma2['max_memory_allocated']} bytes in phase 13's")
+          f"{gemma2['max_memory_allocated']} bytes in phase 13's, "
+          f"{dense['chatglm3-6b']['max_memory_allocated']} and "
+          f"{dense['starcoder2-15b']['max_memory_allocated']} bytes in "
+          f"phase 14's")
     print(json.dumps({"cli": cli, "suites_hopper": suites,
                       "gathers": {k: v for k, v in times.items()
                                   if k.startswith("gather_rows")},
@@ -5304,6 +5521,7 @@ def main():
                       "serve": served, "serve_llama": served_llama}))
     print(json.dumps({"deepseek": deepseek}))
     print(json.dumps({"gemma2": gemma2}))
+    print(json.dumps({"dense_archs": dense}))
     print(json.dumps({"daemon": daemon}))
     print(json.dumps({"placements": placed}))
     print(json.dumps({"autotune": tuned}))

@@ -35,6 +35,11 @@
 // runs an instance that has none of their code: in one set of instances
 // the option code made the bf16 G = 4, DH = 128 instance spill (160 bytes)
 // and llama3-8b's decode, which takes neither, 9% slower on an H100.
+// G, the query heads per KV head, is 1, 2, 4, 8 or 16 at DH 64 and 128,
+// and 12 at DH 128 without the options (starcoder2-15b's 48 / 4): Layout
+// and reduce_dots pad a G that is no power of two to the next one (16
+// lanes' worth of dot sums for 12 heads), and leave the others' code as it
+// was.
 //
 // What bounds it: bytes.  At the llama3-8b decode (B 4, KVH 8, G 4, DH 128,
 // page 16, 130 pages a row, length 2080, bf16) K and V are 4 x 8 x 2080 x
@@ -104,12 +109,19 @@ constexpr float kMasked = -1e30f;
 // merge divides it out like any other m.
 constexpr float kSlack = 8.f;
 
+// The least power of two >= n (n >= 1).
+__host__ __device__ constexpr int pow2_ceil(int n) {
+  return n <= 1 ? 1 : 2 * pow2_ceil((n + 1) / 2);
+}
+
 // The thread layout of one (T, G, DH) instance.  kTpr lanes share a
 // position (8, 16 or 32, so that G x kE <= 64 query values sit in
-// registers); each holds kE of its DH columns, kVecE at a time.
+// registers; G x DH / 64 rounded up to a power of two, which a G that is
+// not one, such as 12, needs for kE to divide DH); each holds kE of its DH
+// columns, kVecE at a time.
 template <typename T, int G, int DH>
 struct Layout {
-  static constexpr int kTprWant = G * DH / 64;
+  static constexpr int kTprWant = pow2_ceil(G * DH / 64);
   static constexpr int kTpr = kTprWant < 8 ? 8 : (kTprWant > 32 ? 32 : kTprWant);
   static constexpr int kE = DH / kTpr;
   static constexpr int kVecE = kE * static_cast<int>(sizeof(T)) < 16
@@ -207,19 +219,23 @@ __device__ __forceinline__ void cp_async_wait() {
 }
 
 // The kTpr lanes of a position hold partial dots x[G] over their columns;
-// leave the whole dots in every one of them.  The first log2(G) xor steps
-// halve the sums a lane keeps (it sends the other half), the rest add its
-// one sum over the remaining lanes, so lane sl holds head sl / (kTpr / G);
-// then each head's sum is read from its lane: G - 1 + log2(kTpr / G) + G
-// shuffles where a butterfly per head takes G log2(kTpr).
+// leave the whole dots in every one of them.  The heads are padded with
+// zero dots to GP, the least power of two >= G (GP = G where G is one).
+// The first log2(GP) xor steps halve the sums a lane keeps (it sends the
+// other half), the rest add its one sum over the remaining lanes, so lane
+// sl holds head sl / (kTpr / GP); then each real head's sum is read from
+// its lane: GP - 1 + log2(kTpr / GP) + G shuffles where a butterfly per
+// head takes G log2(kTpr) (at G 12 and kTpr 32: 28, not 60).
 template <int G, int kTpr>
 __device__ __forceinline__ void reduce_dots(float (&x)[G], int lane, int sl) {
-  float v[G];
+  constexpr int GP = pow2_ceil(G);
+  static_assert(GP <= kTpr, "a lane a padded head");
+  float v[GP];
 #pragma unroll
-  for (int g = 0; g < G; ++g) v[g] = x[g];
+  for (int g = 0; g < GP; ++g) v[g] = g < G ? x[g] : 0.f;
 #pragma unroll
-  for (int k = 0; (G >> k) > 1; ++k) {
-    const int off = kTpr >> (k + 1), half = G >> (k + 1);
+  for (int k = 0; (GP >> k) > 1; ++k) {
+    const int off = kTpr >> (k + 1), half = GP >> (k + 1);
     const bool low = (sl & off) == 0;
 #pragma unroll
     for (int j = 0; j < half; ++j) {
@@ -229,13 +245,13 @@ __device__ __forceinline__ void reduce_dots(float (&x)[G], int lane, int sl) {
     }
   }
 #pragma unroll
-  for (int off = kTpr / G / 2; off > 0; off >>= 1) {
+  for (int off = kTpr / GP / 2; off > 0; off >>= 1) {
     v[0] += __shfl_xor_sync(0xffffffffu, v[0], off);
   }
   const int base = lane & ~(kTpr - 1);
 #pragma unroll
   for (int g = 0; g < G; ++g) {
-    x[g] = __shfl_sync(0xffffffffu, v[0], base + g * (kTpr / G));
+    x[g] = __shfl_sync(0xffffffffu, v[0], base + g * (kTpr / GP));
   }
 }
 
@@ -671,6 +687,17 @@ int launch_g(const Args& a, int64_t DH) {
   }
 }
 
+// G 12 (starcoder2-15b's 48 query heads over 4 KV heads) has one instance
+// a type, at DH 128 without the options: the one a served config launches
+// (the wrapper refuses the others before it gets here).
+template <typename T>
+int launch_g12(const Args& a, int64_t DH) {
+  if (DH != 128 || a.softcap > 0.f || a.window > 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return launch_instance<T, 12, 128, false>(a);
+}
+
 template <typename T>
 int launch(const Args& a, int64_t G, int64_t DH) {
   if (a.B <= 0 || a.KVH <= 0) return 0;
@@ -686,6 +713,7 @@ int launch(const Args& a, int64_t G, int64_t DH) {
     case 2: return launch_g<T, 2>(a, DH);
     case 4: return launch_g<T, 4>(a, DH);
     case 8: return launch_g<T, 8>(a, DH);
+    case 12: return launch_g12<T>(a, DH);
     case 16: return launch_g<T, 16>(a, DH);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -4,9 +4,11 @@ Replaces ``repro/kernels/paged_decode`` (``paged_decode_kernel``): one
 launch attends every (batch row, KV head) over the pages its table row
 names, up to its length, with an online softmax, gathering each K/V row
 through the table as it reads it.  Any page size; repeated pages are fine.
-The head size (64 or 128) and the query heads per KV head (1, 2, 4, 8 or
-16) are templates of the kernel: on CUDA tensors others raise
-(``check_kernel_shape``).  The plain version takes any.
+The head size and the query heads per KV head are templates of the kernel,
+built for the (dh, G) pairs of ``SHAPES``: G 1, 2, 4, 8 and 16 at dh 64 and
+128, and G 12 (starcoder2-15b's) at dh 128 without the options; on CUDA
+tensors others raise (``check_kernel_shape``).  The plain version takes
+any.
 
 Two options, gemma2's: ``softcap`` > 0 caps each scaled score with
 ``tanh(x / cap) * cap``; ``window`` > 0 attends only to the last
@@ -39,6 +41,7 @@ synchronisation).
 """
 from __future__ import annotations
 
+import itertools
 import math
 
 import torch
@@ -46,8 +49,10 @@ import torch
 from .. import _build, autotune
 from .ref import paged_decode_attention_ref, window_pages
 
-HEAD_DIMS = (64, 128)
-GROUPS = (1, 2, 4, 8, 16)
+# the (head size, query heads per KV head) pairs the kernel library holds,
+# with the options (``OPTION_SHAPES``) and without them (``SHAPES``)
+OPTION_SHAPES = tuple(itertools.product((64, 128), (1, 2, 4, 8, 16)))
+SHAPES = OPTION_SHAPES + ((128, 12),)
 CTAS_PER_SM = 3       # csrc/paged_decode.cu kCtasPerSm: CTAs an SM holds
 MAX_SPLITS = 128      # csrc/paged_decode.cu kMaxSplits
 _ENTRY = {torch.float32: "paged_decode_f32",
@@ -56,15 +61,15 @@ _ENTRY = {torch.float32: "paged_decode_f32",
 _WORKSPACES: dict[tuple[int, int], tuple[torch.Tensor, torch.Tensor]] = {}
 
 
-def check_kernel_shape(dh: int, g: int) -> None:
+def check_kernel_shape(dh: int, g: int, options: bool = False) -> None:
     """Raise unless the kernel takes head size ``dh`` and ``g`` query heads
-    per KV head."""
-    if dh not in HEAD_DIMS:
-        raise ValueError(f"head size {dh} not supported; the kernel takes "
-                         f"dh in {HEAD_DIMS}")
-    if g not in GROUPS:
-        raise ValueError(f"{g} query heads per KV head not supported; the "
-                         f"kernel takes G in {GROUPS}")
+    per KV head, with the options (softcap or window) if ``options``."""
+    pairs = OPTION_SHAPES if options else SHAPES
+    if (dh, g) not in pairs:
+        raise ValueError(
+            f"head size {dh} with {g} query heads per KV head is not "
+            f"supported{' with softcap or window' if options else ''}; the "
+            f"kernel takes (dh, G) in {pairs}")
 
 
 def paged_splits(bsz: int, kvh: int, pps: int, sms: int) -> int:
@@ -147,7 +152,7 @@ def paged_decode_attention(q, k_pages, v_pages, page_table, lengths, *,
         return paged_decode_attention_ref(q, k_pages, v_pages, page_table,
                                           lengths, scale=scale,
                                           softcap=softcap, window=window)
-    check_kernel_shape(dh, g)
+    check_kernel_shape(dh, g, options=softcap > 0 or window > 0)
     if pps * page >= 2 ** 31:
         raise ValueError(f"pages_per_seq * page = {pps * page}: the kernel "
                          f"takes fewer than 2^31 positions a row")

@@ -6,6 +6,10 @@
         --arch deepseek-v2-236b --layers 7 --gs-backend hopper   # the card
     PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma2-27b \\
         --batch 2 --prompt-len 8192 --gen 32 --gs-backend hopper  # the card
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch chatglm3-6b \\
+        --batch 4 --prompt-len 8192 --gen 32 --gs-backend hopper  # the card
+    PYTHONPATH=src python -m repro_torch.launch.serve \\
+        --arch starcoder2-15b --smoke --device cpu
 
 The port of ``repro/launch/serve.py`` for the ported architectures.  The
 weights are random, drawn on the device from a ``torch.Generator`` seeded

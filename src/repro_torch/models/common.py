@@ -1,5 +1,6 @@
 """Shared model machinery: declared parameters and their init, the RMS norm,
-the gated MLP (SwiGLU, GeGLU), RoPE, query-chunked attention.
+the MLPs (SwiGLU, GeGLU and plain GELU), RoPE over the whole head or its
+first half, query-chunked attention.
 
 The port of ``repro/models/common.py:24-229``.  A module declares its
 parameters as ``ParamDef``s (shape, init, scale) in the JAX package's
@@ -78,11 +79,14 @@ _NOT_PORTED = "ROADMAP A7 (the model side)"
 
 
 def mlp_def(cfg, d_in: int, d_ff: int) -> dict:
-    """``wi``, ``wg`` (d_in, d_ff) and ``wo`` (d_ff, d_in): the gated MLPs,
-    SwiGLU and GeGLU."""
-    if cfg.mlp_kind not in ("swiglu", "geglu"):
+    """``wi``, ``wg`` (d_in, d_ff) and ``wo`` (d_ff, d_in) for the gated
+    MLPs, SwiGLU and GeGLU; ``wi`` and ``wo`` alone for the plain GELU
+    MLP (``gelu``)."""
+    if cfg.mlp_kind not in ("swiglu", "geglu", "gelu"):
         raise NotImplementedError(
             f"mlp_kind {cfg.mlp_kind!r} is not ported: {_NOT_PORTED}")
+    if cfg.mlp_kind == "gelu":
+        return {"wi": ParamDef((d_in, d_ff)), "wo": ParamDef((d_ff, d_in))}
     return {"wi": ParamDef((d_in, d_ff)), "wg": ParamDef((d_in, d_ff)),
             "wo": ParamDef((d_ff, d_in))}
 
@@ -98,11 +102,15 @@ class MLP(nn.Module):
 def mlp_apply(cfg, p: MLP, x: torch.Tensor) -> torch.Tensor:
     """act(x wg) * (x wi), then wo: SiLU for ``swiglu``; for ``geglu`` the
     tanh approximation of GELU, as ``jax.nn.gelu`` defaults to (the exact
-    erf GELU differs by up to a few 1e-4)."""
+    erf GELU differs by up to a few 1e-4).  ``gelu``: that GELU of x wi,
+    then wo."""
+    h = x @ p.wi
+    if cfg.mlp_kind == "gelu":
+        return F.gelu(h, approximate="tanh") @ p.wo
     g = x @ p.wg
     act = (F.silu(g) if cfg.mlp_kind == "swiglu"
            else F.gelu(g, approximate="tanh"))
-    return (act * (x @ p.wi)) @ p.wo
+    return (act * h) @ p.wo
 
 
 def softcap(x: torch.Tensor, cap: float) -> torch.Tensor:
@@ -118,21 +126,27 @@ def rope_freqs(dh: int, theta: float, device=None) -> torch.Tensor:
 
 def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
                mode: str = "full") -> torch.Tensor:
-    """x (..., S, H, dh); positions (..., S).  mode: full | none.  Float32
-    inside, rounded once to x's dtype, as the JAX package's ``apply_rope``."""
+    """x (..., S, H, dh); positions (..., S).  mode: full | none, or any
+    other (``2d``, ``partial``) for half the head: as the JAX package's
+    ``apply_rope`` computes it, the first rot = dh // 2 columns are
+    rotated as two split halves (not interleaved pairs), at frequencies
+    over rot, and the last dh - rot pass through.  Float32 inside, rounded
+    once to x's dtype."""
     if mode == "none":
         return x
-    if mode != "full":
-        raise NotImplementedError(f"rope {mode!r} is not ported: "
-                                  f"{_NOT_PORTED}")
     dh = x.shape[-1]
-    freqs = rope_freqs(dh, theta, x.device)                  # (dh/2,)
-    ang = positions[..., None].to(torch.float32) * freqs     # (..., S, dh/2)
-    cos = torch.cos(ang)[..., None, :]                       # (..., S, 1, dh/2)
+    rot = dh if mode == "full" else dh // 2
+    freqs = rope_freqs(rot, theta, x.device)                 # (rot/2,)
+    ang = positions[..., None].to(torch.float32) * freqs     # (..., S, rot/2)
+    cos = torch.cos(ang)[..., None, :]                       # (..., S, 1, rot/2)
     sin = torch.sin(ang)[..., None, :]
-    x1, x2 = x.to(torch.float32).chunk(2, dim=-1)
-    return torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos],
-                     dim=-1).to(x.dtype)
+    xr = x[..., :rot].to(torch.float32)
+    x1, x2 = xr[..., :rot // 2], xr[..., rot // 2:]
+    rotated = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos],
+                        dim=-1).to(x.dtype)
+    if rot == dh:
+        return rotated
+    return torch.cat([rotated, x[..., rot:]], dim=-1)
 
 
 def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

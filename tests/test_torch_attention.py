@@ -229,12 +229,13 @@ def test_paged_wrapper_rejects_what_the_kernel_does_not_take():
         paged_decode_attention(q, kp, vp, pt[:1], ln)
     with pytest.raises(ValueError, match="contiguous"):
         paged_decode_attention(q, kp, vp, pt.T.contiguous().T, ln)
-    for dh, g in ((16, 4), (96, 4), (64, 3), (64, 32)):
+    for dh, g in ((16, 4), (96, 4), (64, 3), (64, 32), (64, 12), (128, 3)):
         with pytest.raises(ValueError):
             paged_ops.check_kernel_shape(dh, g)
-    for dh in paged_ops.HEAD_DIMS:
-        for g in paged_ops.GROUPS:
-            paged_ops.check_kernel_shape(dh, g)
+    for dh, g in paged_ops.SHAPES:
+        paged_ops.check_kernel_shape(dh, g)
+    for dh, g in paged_ops.OPTION_SHAPES:
+        paged_ops.check_kernel_shape(dh, g, options=True)
 
 
 # -- the GQA block -------------------------------------------------------------------

@@ -315,7 +315,7 @@ def test_full_width_params_convert_and_count():
 
 def test_unported_archs_raise_naming_roadmap():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_config("starcoder2-15b")
+        get_config("recurrentgemma-9b")
     with pytest.raises(ValueError, match="unknown"):
         get_config("no-such-arch")
 
