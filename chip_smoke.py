@@ -4,7 +4,9 @@ main path, falcon-mamba-7b and llama3-8b served at full width,
 deepseek-v2-236b served at full width through the MoE dispatch on the
 row kernels, gemma2-27b served at full width through windowed, softcapped
 flash attention and paged decode, chatglm3-6b and starcoder2-15b served at
-full width (half-head RoPE, the plain GELU MLP, G 16 and G 12), the trace of a model's gathers and
+full width (half-head RoPE, the plain GELU MLP, G 16 and G 12),
+recurrentgemma-9b served at full width (the RG-LRU recurrence, attention at
+head size 256), the trace of a model's gathers and
 scatters replayed as Spatter patterns, the Spatter suite daemon, bucket launches placed over several devices, the
 static analysis with the modeled H100 column, the launch-parameter
 choice (``kernels/autotune.py``) with the CLI's serve modes, and the
@@ -16,7 +18,7 @@ Imports ``repro_torch`` (from ``src/``), ``torch``, numpy and the stdlib
 only.  Phases:
 
   0. print the card (``nvidia-smi``), the torch and CUDA versions, and
-     build the fourteen CUDA kernels of the five sources in
+     build the fifteen CUDA kernels of the six sources in
      ``src/repro_torch/csrc`` with nvcc (one process per source, all at
      once);
   1. hold each kernel against its plain PyTorch version on the card over
@@ -56,8 +58,16 @@ only.  Phases:
      most splits the window admits), then the G-12 instances
      (``paged_g12_cases``: page 8 and 16, both dtypes, both tables,
      lengths 0, 1, full and ragged, at the chosen split, one and the
-     most); both within ``attn_tolerance`` (flash in bf16 with 2^-8
-     more for its rounded weights); the Spatter grid
+     most), then head size 256 (``flash_dh256_cases``: MQA G 16 and
+     (2, 4), S = T from 1 to 2049 across the 64-key tile, both dtypes,
+     causal and not, windows of 64 and 2048, a softcap; rows the window
+     leaves no key; ``paged_dh256_cases``: G 16 as two groups of 8 heads,
+     KVH 1 and 2, windows of 2048, 100 and 7 and none, lengths 0, 1,
+     around the window, ragged and full, at 1, the chosen and the most
+     splits); both within ``attn_tolerance`` (flash in bf16 with 2^-8
+     more for its rounded weights); the RG-LRU recurrence
+     (``rglru_cases``: S from 0 to 2049, W from 1 to 8192, the decode
+     step at (2, 1, 4096)) bit for bit; the Spatter grid
      (``spatter_cases``) runs first in float32, and again on the 16-bit
      instances in bfloat16 and float16 with D = 2 added, both sides of
      the smem switch at 2 bytes and every 7th payload -0.0: gathers and
@@ -101,7 +111,12 @@ only.  Phases:
      beside ``index_select``), then at chatglm3-6b's and starcoder2-15b's
      (``dense_attention_times``: flash at G 16 and G 12 beside
      ``scaled_dot_product_attention``, paged decode at G 16 and G 12 at
-     the decode shape, the embedding gather beside ``index_select``); the
+     the decode shape, the embedding gather beside ``index_select``), then
+     at recurrentgemma-9b's (``recurrentgemma_times``: flash at dh 256, G
+     16, window 2048 beside ``scaled_dot_product_attention`` with the band
+     as a boolean mask, paged decode's dh-256 instance with the window,
+     the embedding gather, the RG-LRU recurrence at (2, 8192, 4096) and
+     at a decode step's (2, 1, 4096), bit for bit, no library call); the
      Spatter lines run once a kernel instance (``kernel_times``): the
      gathers, the store and the coverage store in float32 and bfloat16
      (one instance serves both 16-bit types), the add in all three, each
@@ -113,7 +128,7 @@ only.  Phases:
      the decode never; every logit must be finite; a teacher-forced
      ``forward`` over prompt + fed tokens must give each decode step's
      logits within ``SERVE_TOL``, and the same greedy token wherever its
-     top-2 margin is wider than that; and a 2 x 64-token prefill's cache
+     top-2 margin is wider than that; and a 2 x 32-token prefill's cache
      must equal the cache of ``decode_step`` iterated over the prompt;
      then the trace of its forward (``trace_model``, as in phase 12),
      then ``profile_serve`` times a steady prefill and traces it, and the
@@ -249,11 +264,24 @@ only.  Phases:
      context) and of 4096 tokens, 32 greedy steps each; the launches as
      in phase 13, every attention layer global; the checks of
      ``serve_phase`` and the trace; each model is freed before the next
-     (their kernels' checks and times at these shapes run in phase 4).
+     (their kernels' checks and times at these shapes run in phase 4);
+ 15. (right after phase 14) recurrentgemma-9b at its published width and
+     depth (38 layers: 26 RG-LRU blocks and 12 local attention layers,
+     MQA 16/1 at head size 256, window 2048; 9,396,408,320 parameters),
+     bfloat16, random weights from seed 0, through ``launch.serve.main``
+     with ``--gs-backend hopper`` (``recurrentgemma_phase``): 2 prompts of
+     8192 tokens (the published context, four windows), 32 greedy steps;
+     the prefill must launch flash attention 12 times, the recurrence 26
+     and the gather once, each step paged decode 12 times, the recurrence
+     26 and the gather once, nothing else, every attention call local;
+     the checks of ``serve_phase`` (the RG-LRU caches by name; its cache
+     check over a 2 x 64-token prompt, where the other model phases take
+     32 to keep the script within its time) and the trace (its kernels'
+     checks and times at these shapes run in phase 4).
 
 The launch counts are set to 0 just before phase 2 and read just after
 phase 3, again just before and after the serve calls of phases 5, 6,
-12, 13 and 14, just before and after phase 7's daemon, just before and after
+12, 13, 14 and 15, just before and after phase 7's daemon, just before and after
 phase 8's placed suites, just before and after phase 9's lint and cost passes
 (where they must equal the censuses' sum), and just before and after
 phase 10's two legs (whose legacy leg gives the smem gather's launches:
@@ -262,7 +290,7 @@ before and after each of phase 11's runs (its legacy leg, likewise, the
 16-bit smem gather's).  Any failed check raises, so
 the script exits nonzero.  Before the last line it prints a
 ``{"deepseek": {...}}``, a ``{"gemma2": {...}}``, a ``{"dense_archs":
-{...}}``, a ``{"daemon": {...}}``, a ``{"placements": {...}}``, an ``{"autotune":
+{...}}``, a ``{"recurrentgemma": {...}}``, a ``{"daemon": {...}}``, a ``{"placements": {...}}``, an ``{"autotune":
 {...}}``, a ``{"dtypes": {...}}``, an ``{"analysis": {...}}`` and a
 ``{"kernels": [...]}`` JSON
 line; the last line is
@@ -336,6 +364,9 @@ KERNEL_INFO = {                  # name -> (source, TPU kernel it replaces)
                               "src/repro/kernels/scatter_rows/kernel.py:83"),
     "scatter_add_rows_f16": ("src/repro_torch/csrc/scatter_rows.cu",
                              "src/repro/kernels/scatter_rows/kernel.py:83"),
+    # no TPU kernel: the JAX package runs the RG-LRU recurrence as lax.scan
+    "rglru_scan": ("src/repro_torch/csrc/rglru_scan.cu",
+                   "none: src/repro/models/rglru.py:96 (lax.scan)"),
 }
 B16_KERNELS = ("gather_rows_b16", "gather_rows_smem_b16",
                "scatter_store_rows_b16", "scatter_store_rows_cov_b16",
@@ -1246,7 +1277,9 @@ def flash_cases(torch):
              (1, 8, 4, 257, 1, 64, False, 1, 0.0),
              (1, 2, 3, 700, 129, 128, True, 300, 50.0),
              (1, 4, 12, 300, 129, 128, True, 64, 0.0),
-             (1, 2, 16, 300, 129, 128, False, 64, 0.0)]
+             (1, 2, 16, 300, 129, 128, False, 64, 0.0),
+             (1, 1, 16, 300, 129, 256, True, 64, 0.0),
+             (1, 2, 4, 200, 65, 256, False, 32, 0.0)]
     for (bsz, kvh, g, s, t, dh, causal, window, softcap), dtype in (
             itertools.product(empty, (torch.float32, torch.bfloat16))):
         q = _flash_inputs(torch, no_key, bsz, kvh, g, s, dh, dtype)[0]
@@ -1258,13 +1291,41 @@ def flash_cases(torch):
                                    where))
         cases.append(None)
     cap_err, n_cap = flash_cap_cases(torch)
-    err, n_cases = max(err, cap_err), len(cases) + n_cap
+    dh256_err, n_dh256 = flash_dh256_cases(torch)
+    err = max(err, cap_err, dh256_err)
+    n_cases = len(cases) + n_cap + n_dh256
     print(f"phase 1: {n_cases} flash_attention cases ({n_cap} where the "
-          f"softcap bites) within attn_tolerance "
+          f"softcap bites, {n_dh256} at dh 256) within attn_tolerance "
           f"(+ 2^-8 for bf16's rounded weights) of their plain versions; "
           f"max |err| {err} "
           f"({time.perf_counter() - t0:.1f} s)", flush=True)
     return err
+
+
+def flash_dh256_cases(torch):
+    """Phase 1's cases at head size 256 (recurrentgemma-9b's MQA, G 16;
+    the bf16 kernel's 64-key tiles): S = T across one tile, its edge, two
+    tiles, a ring wrap and a ragged 2048 and 2049 (no multiple of the 8
+    positions a G-16 tile holds), (KVH, G) in {(1, 16), (2, 4)}, both
+    dtypes, causal and not, windows of 64 and 2048 cycled, one softcap of
+    50; from their own generator.  Returns (max |err|, cases)."""
+    gen = torch.Generator(device="cuda").manual_seed(19)
+    err, n = 0.0, 0
+    combos = itertools.product(((1, 16), (2, 4)),
+                               (1, 17, 63, 64, 65, 129, 300, 2048, 2049),
+                               (torch.float32, torch.bfloat16))
+    cases = [(1 + i % 2, kvh, g, s, dtype, i % 3 != 1, (0, 64, 2048)[i % 3],
+              0.0) for i, ((kvh, g), s, dtype) in enumerate(combos)]
+    cases += [(1, 1, 16, 300, torch.bfloat16, True, 64, 50.0),
+              (1, 1, 16, 300, torch.float32, True, 0, 50.0)]
+    for bsz, kvh, g, s, dtype, causal, window, softcap in cases:
+        q, k, v = _flash_inputs(torch, gen, bsz, kvh, g, s, 256, dtype)
+        err = max(err, check_flash(
+            torch, q, k, v, causal, window, softcap,
+            f"flash_attention B={bsz} KVH={kvh} G={g} S=T={s} dh=256 "
+            f"{dtype} causal={causal} window={window} softcap={softcap}"))
+        n += 1
+    return err, n
 
 
 # softcaps with the factor on q that makes the scores reach them: at cap 50
@@ -1397,10 +1458,12 @@ def paged_cases(torch):
     split_err, n_split = paged_split_cases(torch)
     opt_err, n_opt = paged_option_cases(torch)
     g12_err, n_g12 = paged_g12_cases(torch)
-    err = max(err, split_err, opt_err, g12_err)
-    n_cases += n_split + n_opt + n_g12
+    dh256_err, n_dh256 = paged_dh256_cases(torch)
+    err = max(err, split_err, opt_err, g12_err, dh256_err)
+    n_cases += n_split + n_opt + n_g12 + n_dh256
     print(f"phase 1: {n_cases} paged_decode cases ({n_split} for the split, "
-          f"{n_opt} with softcap or window, {n_g12} at G 12) within "
+          f"{n_opt} with softcap or window, {n_g12} at G 12, {n_dh256} at "
+          f"dh 256) within "
           f"attn_tolerance of their plain versions; max |err| {err} "
           f"({time.perf_counter() - t0:.1f} s)", flush=True)
     return err
@@ -1471,6 +1534,93 @@ def paged_g12_cases(torch):
                     *ins, splits=splits)))
             n += 1
     return err, n
+
+
+def paged_dh256_cases(torch):
+    """Phase 1's cases for the dh-256 instances (recurrentgemma-9b's G 16,
+    run as two groups of 8 heads over the same pages): KVH 1 (the served
+    MQA) and 2 (each group finds its KV head), page 8 and 16, both dtypes,
+    a permuted table and one with repeats; windows of 2048 (the served
+    one), 100 and 7, and none; lengths 0, 1, around the window, ragged and
+    full, 130 or 23 pages a row; each at the split ``autotune`` chooses,
+    at one split and at the most the window admits.  Returns (max |err|,
+    cases)."""
+    from repro_torch.kernels.paged_decode import ops
+    from repro_torch.kernels.paged_decode.ref import window_pages
+    gen = torch.Generator(device="cuda").manual_seed(20)
+    err, n = 0.0, 0
+    for i, (kvh, page, dtype, window) in enumerate(itertools.product(
+            (1, 2), (8, 16), (torch.float32, torch.bfloat16),
+            (2048, 100, 7, 0))):
+        pps = 130 if i % 2 == 0 else 23
+        full = pps * page
+        w = window or 50
+        lengths = [0, 1, min(w - 1, full) or 1, min(w, full),
+                   min(w + 1, full), 1 + (43 * i + 5) % full, full]
+        ins = _paged_inputs(torch, gen, len(lengths), kvh, 16, 256, page,
+                            pps, dtype, bool(i % 3), lengths)
+        span = window_pages(window, page, pps)
+        for splits in sorted({None, 1, min(span, ops.MAX_SPLITS)},
+                             key=lambda x: x or 0):
+            got = ops.paged_decode_attention(*ins, splits=splits,
+                                             window=window)
+            err = max(err, check_paged(
+                torch, ins, f"paged_decode KVH={kvh} G=16 dh=256 {dtype} "
+                f"page={page} pps={pps} window={window} splits={splits} "
+                f"lengths={lengths}", got, window=window))
+            n += 1
+    return err, n
+
+
+def _rglru_inputs(torch, gen, bsz, s, w):
+    """a in (0, 1), beta = sqrt(1 - a^2), gx ~ 3 N(0, 1), h0 ~ N(0, 1):
+    float32 on the card, as the model's gates give them."""
+    def rnd(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda")
+    a = torch.rand(bsz, s, w, generator=gen, device="cuda")
+    beta = torch.sqrt(torch.clamp(1.0 - a * a, min=1e-12))
+    return a, beta, 3 * rnd(bsz, s, w), rnd(bsz, w)
+
+
+def check_rglru(torch, ins, where):
+    """The recurrence kernel against its plain version on ``ins``: every
+    h_t and h_S bit for bit (both compute fma(a, h, beta gx) in order, the
+    plain one by an exact float64 emulation); returns the plain version's
+    ms (CUDA events around its one call: at the prefill's shape it takes
+    seconds, so it is not run again to be timed)."""
+    from repro_torch.kernels.rglru_scan.ops import rglru_scan
+    from repro_torch.kernels.rglru_scan.ref import rglru_scan_ref
+    hs, last = rglru_scan(*ins)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    p_hs, p_last = rglru_scan_ref(*ins)
+    end.record()
+    end.synchronize()
+    check(_bits_equal(torch, hs, p_hs) and _bits_equal(torch, last, p_last),
+          f"rglru_scan {where}: off by "
+          f"{(hs - p_hs).abs().max().item() if hs.numel() else 0.0}")
+    return start.elapsed_time(end)
+
+
+def rglru_cases(torch):
+    """Phase 1 for the RG-LRU recurrence: (B, S, W) from one element, the
+    decode step (S = 1) at recurrentgemma-9b's (2, 4096), odd S and W (one
+    past the 64-channel CTA and the 32-step chunk, a ragged last chunk,
+    many chunks), S = 0 (h_S = h0), bit for bit against the plain version;
+    returns max |err|."""
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    t0 = time.perf_counter()
+    shapes = [(1, 1, 1), (2, 1, 4096), (1, 31, 33), (2, 32, 64),
+              (2, 33, 65), (3, 300, 17), (2, 1000, 4097), (1, 2049, 200),
+              (2, 64, 8192), (2, 0, 40)]
+    for bsz, s, w in shapes:
+        check_rglru(torch, _rglru_inputs(torch, gen, bsz, s, w),
+                    f"B={bsz} S={s} W={w}")
+    print(f"phase 1: {len(shapes)} rglru_scan cases bit for bit against "
+          f"their plain versions ({time.perf_counter() - t0:.1f} s)",
+          flush=True)
+    return 0.0
 
 
 def paged_split_cases(torch):
@@ -2443,11 +2593,12 @@ def _dense_launches(cfg, gen):
 
 def _cache_tensors(cache, length):
     """A layer's cache as tensors to compare: a paged cache gathered
-    through its table to (B, length, KVH, dh) K and V."""
+    through its table to (B, length, KVH, dh) K and V; a mamba or RG-LRU
+    state by name."""
     from repro_torch.models.attention import contiguous_kv
     if "page_table" in cache:
         return contiguous_kv(cache, length)
-    return cache["conv"], cache["ssm"]
+    return tuple(cache[k] for k in sorted(cache))
 
 
 @contextlib.contextmanager
@@ -2479,7 +2630,7 @@ def _attention_calls():
 
 
 def serve_phase(torch, argv=SERVE_ARGS, want=_mamba_launches,
-                params=FALCON_MAMBA_PARAMS, cache_prompt=64):
+                params=FALCON_MAMBA_PARAMS, cache_prompt=32):
     """Serve through ``launch.serve.main`` and check the result, then trace
     the served model's forward (``trace_model``); returns the numbers for
     the records and the serve window's launch counts.  ``want(cfg, gen)``
@@ -2596,6 +2747,7 @@ def _device_ms(evt):
 
 # kernel-name fragments of the port's kernels and of cuBLAS's matrix products
 _KERNEL_CLASSES = (("selective_scan", ("selective_scan_kernel",)),
+                   ("rglru_scan", ("rglru_scan_kernel",)),
                    ("flash_attention", ("flash_attention_kernel",
                                         "flash_attention_tc_kernel")),
                    ("paged_decode", ("paged_decode_kernel",)),
@@ -3684,6 +3836,143 @@ def dense_archs_phase(torch):
     wall = time.perf_counter() - t0
     print(f"  phase 14 wall {wall:.1f} s", flush=True)
     return dict(served, phase_s=wall), launched
+
+
+# -- phase 15: recurrentgemma-9b at full width -------------------------------------
+
+RG_ARGS = ["--arch", "recurrentgemma-9b", "--batch", "2", "--prompt-len",
+           "8192", "--gen", "32", "--gs-backend", "hopper"]
+RG_PARAMS = 9_396_408_320
+RG_WINDOW = 2048
+# the served shapes: prefill B 2 x S 8192 (the published context, four
+# windows); decode at 8193..8224 positions, timed at 8208; the recurrence
+# over (B, S, lru_width) in prefill and (B, 1, lru_width) a decode step
+RG_FLASH_SHAPE = (2, 1, 16, 8192, 256)              # B, KVH, G, S = T, dh
+RG_PAGED_SHAPE = (2, 1, 16, 256, 16, 514, 8208)      # as PAGED_SHAPE
+RG_EMBED = (256000, 4096, 2 * 8192)                # vocab, d, lanes
+RG_SCAN_SHAPE = (2, 8192, 4096)                     # B, S, W
+RG_DECODE_SCAN_SHAPE = (2, 1, 4096)
+FP32_FLOP_PER_S = 67e12         # H100 SXM float32 outside the tensor cores
+
+
+def _rg_launches(cfg, gen):
+    """Launches a recurrentgemma-9b serve call on ``hopper`` must make:
+    flash attention once an attention layer, the recurrence once an RG-LRU
+    layer and the embedding gather once in the prefill; paged decode once
+    an attention layer, the recurrence once an RG-LRU layer and the gather
+    once in each step."""
+    from repro_torch.models.transformer import layer_kinds
+    kinds = layer_kinds(cfg)
+    rec, attn = kinds.count("rec"), kinds.count("attn_local")
+    return ({"flash_attention": attn, "rglru_scan": rec,
+             "gather_rows_b16": 1},
+            {"paged_decode": attn * gen, "rglru_scan": rec * gen,
+             "gather_rows_b16": gen})
+
+
+def rglru_row(torch, gen, shape, iters, where):
+    """The recurrence at ``shape`` (B, S, W): held bit for bit to its plain
+    version (whose one call is timed, ``check_rglru``), then timed
+    (``_turn_times``); the bound is the larger of its bytes (a, beta, gx,
+    h0 read, every h_t and h_S written) over 3.35 TB/s and its 2 flops an
+    element over the CUDA cores' float32 rate.  No PyTorch call computes
+    a linear recurrence."""
+    from repro_torch.kernels.rglru_scan.ops import rglru_scan
+    bsz, s, w = shape
+    ins = _rglru_inputs(torch, gen, bsz, s, w)
+    plain_ms = check_rglru(torch, ins, f"{where} {shape}")
+    turns = _turn_times(torch, {"kernel": lambda: rglru_scan(*ins)}, iters,
+                        "rglru_scan", where)
+    nbytes = 4 * (4 * bsz * s * w + 2 * bsz * w)
+    flops = 2 * bsz * s * w
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    flop_ms = flops / FP32_FLOP_PER_S * 1e3
+    row = dict(turns, plain_ms=plain_ms, library_ms=None, bound_ms=max(bytes_ms, flop_ms),
+               bound_by="bytes" if bytes_ms >= flop_ms else "operations",
+               bytes=nbytes, flops=flops, max_abs_err=0.0,
+               shape=list(shape) + ["float32"])
+    print(f"  rglru_scan {shape}: kernel ms {row['ms_pair']} device_ms "
+          f"{row['device_ms_pair']} "
+          f"({100 * row['bound_ms'] / row['device_ms']:.1f}% of the bound "
+          f"{row['bound_ms']:.4f} ms by {row['bound_by']}), plain "
+          f"{row['plain_ms']:.4f} ms, library none (no PyTorch call "
+          f"computes a linear recurrence)", flush=True)
+    del ins
+    torch.cuda.empty_cache()
+    return row
+
+
+def recurrentgemma_times(torch, err):
+    """Phase 4's kernel checks and timed rows at recurrentgemma-9b's served
+    shapes (phase 15): flash attention in bfloat16 at dh 256, MQA G 16,
+    causal with the window of 2048, against its plain version (a head at a
+    time) and beside ``scaled_dot_product_attention`` with the same band
+    as a boolean mask (``enable_gqa``), which computes the same function;
+    paged decode's dh-256 instance with the window at the decode shape,
+    at the timed length and the decode's first and last and at lengths
+    within the window; the embedding's gather of 16,384 token rows of the
+    (256,000, 4096) table beside ``index_select``; the recurrence at the
+    prefill's (2, 8192, 4096) and at a decode step's (2, 1, 4096)."""
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    gen = torch.Generator(device="cuda").manual_seed(22)
+    rows = {}
+    bsz, kvh, g, s, dh = RG_FLASH_SHAPE
+    q, k, v = _flash_inputs(torch, gen, bsz, kvh, g, s, dh, torch.bfloat16)
+    qh = q.view(bsz, kvh * g, s, dh)
+    pos = torch.arange(s, device="cuda")
+    band = ((pos[:, None] >= pos[None, :])
+            & (pos[:, None] - pos[None, :] < RG_WINDOW))
+    kw = dict(causal=True, window=RG_WINDOW, softcap=0.0)
+    rows["flash_attention/recurrentgemma_local"] = row = flash_row(
+        torch, q, k, v, kw, f"flash_attention recurrentgemma "
+        f"{RG_FLASH_SHAPE} {kw}",
+        list(RG_FLASH_SHAPE) + ["bfloat16", "causal", f"window {RG_WINDOW}"],
+        ("scaled_dot_product_attention(attn_mask=band, enable_gqa)",
+         lambda: sdpa(qh, k, v, attn_mask=band, enable_gqa=True)))
+    err["flash_attention"] = max(err["flash_attention"], row["max_abs_err"])
+    del q, k, v, qh, band
+    torch.cuda.empty_cache()
+
+    rows["paged_decode/recurrentgemma_local"] = row = paged_row(
+        torch, gen, RG_PAGED_SHAPE, dict(window=RG_WINDOW),
+        f"paged_decode recurrentgemma {RG_PAGED_SHAPE} window {RG_WINDOW}",
+        [[8193, 8224], [1, 2048], [2049, 5000]])
+    err["paged_decode"] = max(err["paged_decode"], row["max_abs_err"])
+
+    rows["gather_rows_b16/recurrentgemma_embed"] = embed_gather_row(
+        torch, gen, *RG_EMBED, "recurrentgemma")
+    rows["rglru_scan"] = rglru_row(torch, gen, RG_SCAN_SHAPE, 10,
+                                   "rglru_scan recurrentgemma prefill")
+    rows["rglru_scan/recurrentgemma_decode"] = rglru_row(
+        torch, gen, RG_DECODE_SCAN_SHAPE, 50,
+        "rglru_scan recurrentgemma decode step")
+    print_rows(rows)
+    return rows
+
+
+def recurrentgemma_phase(torch):
+    """Phase 15: serve recurrentgemma-9b at its published width and depth
+    (38 layers: 26 RG-LRU, 12 local attention) through ``launch.serve.main``
+    on ``hopper`` (``serve_phase``: launches, logits, the teacher-forced
+    forward, the cache of the iterated decode, the trace) before the model
+    is freed; every attention layer is local.  Its kernels' checks and rows
+    at its shapes run in phase 4 (``recurrentgemma_times``).  Returns the
+    numbers and the serve window's launches."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.transformer import layer_kinds
+    t0 = time.perf_counter()
+    print("\nphase 15: recurrentgemma-9b at full width", flush=True)
+    served, launches = serve_phase(torch, RG_ARGS, _rg_launches, RG_PARAMS,
+                                   cache_prompt=64)
+    attn = layer_kinds(get_config("recurrentgemma-9b")).count("attn_local")
+    want = {"flash_attention/local": attn,
+            "paged_decode/local": attn * served["gen"]}
+    check(served["attention_calls"] == want,
+          f"recurrentgemma attention calls {served['attention_calls']} != "
+          f"{want}")
+    served["phase_s"] = time.perf_counter() - t0
+    print(f"  phase 15 wall {served['phase_s']:.1f} s", flush=True)
+    return served, launches
 
 
 # -- phase 7: spatterd on the card ---------------------------------------------
@@ -5358,6 +5647,7 @@ def main():
     err["selective_scan"] = scan_cases(torch)
     err["flash_attention"] = flash_cases(torch)
     err["paged_decode"] = paged_cases(torch)
+    err["rglru_scan"] = rglru_cases(torch)
     print(f"phase 1 wall {time.perf_counter() - t0:.1f} s", flush=True)
 
     from repro_torch.kernels import reset_launches
@@ -5382,6 +5672,8 @@ def main():
     times.update(attention_times(torch, err))
     gemma2_rows = gemma2_attention_times(torch, err)   # phase 13's shapes
     dense_rows = dense_attention_times(torch, err)     # phase 14's shapes
+    rg_rows = recurrentgemma_times(torch, err)         # phase 15's shapes
+    times["rglru_scan"] = rg_rows.pop("rglru_scan")
     lulesh_s3_add = times.pop("lulesh_s3_add")
     peak_1_4 = max(peak_1_3, torch.cuda.max_memory_allocated())
     served, serve_launches = serve_phase(torch)
@@ -5400,6 +5692,7 @@ def main():
     deepseek, deepseek_launches, moe_rows = deepseek_phase(torch, err)
     gemma2, gemma2_launches = gemma2_phase(torch)
     dense, dense_launches = dense_archs_phase(torch)
+    rg, rg_launches = recurrentgemma_phase(torch)
     daemon = daemon_phase(torch, cli_results, suite_stats)
     # phase 10 last: it reuses phase 8's host draws, and its profiler
     # sessions come after every phase that checks a trace's launch count
@@ -5422,6 +5715,8 @@ def main():
     check(all(path_launches[k] > 0 for k in B16_KERNELS),
           f"a 16-bit kernel never launched in phase 11: {path_launches}")
     path_launches["selective_scan"] = serve_launches["selective_scan"]
+    # the recurrence's row is at the prefill's shape: its prefill launches
+    path_launches["rglru_scan"] = rg["launches_prefill"]["rglru_scan"]
     for k in ("flash_attention", "paged_decode"):
         path_launches[k] = llama_launches[k]
     rows = []
@@ -5495,6 +5790,24 @@ def main():
                          device_ms=t["device_ms"],
                          library_device_ms=t.get("library_device_ms"),
                          shape=t["shape"]))
+    # recurrentgemma-9b's at its shapes (phase 15): every attention layer
+    # local; the embedding's gather once a prefill and a step; the
+    # recurrence at a decode step's shape, once an RG-LRU layer a step
+    for name, t in rg_rows.items():
+        kernel = name.split("/")[0]
+        source, replaces = KERNEL_INFO[kernel]
+        n = (rg_launches[kernel] if kernel.startswith("gather") else
+             rg["launches_decode"][kernel] if kernel == "rglru_scan" else
+             rg["attention_calls"][f"{kernel}/local"])
+        rows.append(dict(name=name, route="cuda", source=source,
+                         replaces=replaces, launches=n,
+                         max_abs_err=t["max_abs_err"], ms=t["ms"],
+                         time_ms=t["ms"], plain_ms=t["plain_ms"],
+                         bound_ms=t["bound_ms"], bound_by=t["bound_by"],
+                         library_ms=t["library_ms"],
+                         device_ms=t["device_ms"],
+                         library_device_ms=t.get("library_device_ms"),
+                         shape=t["shape"]))
     cli = {f"{b}/{k}/{m}": dict(time_ms=r.time_s * 1e3, gbs=r.measured_gbs,
                                 host_s=r.host_s)
            for (b, k, m), r in cli_results.items()}
@@ -5510,7 +5823,7 @@ def main():
           f"{gemma2['max_memory_allocated']} bytes in phase 13's, "
           f"{dense['chatglm3-6b']['max_memory_allocated']} and "
           f"{dense['starcoder2-15b']['max_memory_allocated']} bytes in "
-          f"phase 14's")
+          f"phase 14's, {rg['max_memory_allocated']} bytes in phase 15's")
     print(json.dumps({"cli": cli, "suites_hopper": suites,
                       "gathers": {k: v for k, v in times.items()
                                   if k.startswith("gather_rows")},
@@ -5522,6 +5835,7 @@ def main():
     print(json.dumps({"deepseek": deepseek}))
     print(json.dumps({"gemma2": gemma2}))
     print(json.dumps({"dense_archs": dense}))
+    print(json.dumps({"recurrentgemma": rg}))
     print(json.dumps({"daemon": daemon}))
     print(json.dumps({"placements": placed}))
     print(json.dumps({"autotune": tuned}))

@@ -50,7 +50,7 @@
 //      (dh contiguous), through the transpose bit that 16-bit types allow.
 //   2. Asynchronous loads.  The producer warp issues TMA copies
 //      (cp.async.bulk.tensor) of Q and of a ring of kTcStages K/V tiles of
-//      kTcBK keys, which complete on "full" mbarriers; each consumer warp
+//      kBK keys, which complete on "full" mbarriers; each consumer warp
 //      hands a stage back on its "empty" mbarrier once its products have
 //      read it.  No thread widens or moves a K/V element, and the loop has
 //      no __syncthreads.
@@ -101,8 +101,16 @@
 //   - Fragment layout: thread t of a consumer warpgroup holds rows
 //     16 (t / 32) + (t % 32) / 4 and that + 8, columns 8 j + 2 (t % 4) + {0,
 //     1}; a row r is head r / (128 / G), position q0 + r % (128 / G).
-//   - Build time: two template instances (DH 64, 128), beside the float32
-//     body's two.
+//   - Build time: three template instances (DH 64, 128, 256), beside the
+//     float32 body's three.
+//   DH 256 (recurrentgemma-9b: MQA, G 16, so a CTA holds 8 positions of
+//   the 16 heads).  A tile is 64 keys (TcLayout::kBK), not 128: 64 KB of Q
+//   and 2 x 64 KB of K/V stages, ~194 KB in all.  S = Q K^T is wgmma
+//   m64n64k16 over 16 k-steps; O += P V is m64n256k16 over the four
+//   64-column boxes of V, at the uniform stride (LBO) of one box, 4 k-steps
+//   a tile.  O is 128 floats a thread, so registers (at most 224 a thread
+//   at 288 threads, one CTA an SM) are what this instance risks: the
+//   build prints ptxas's count and spills.
 //
 // flash_attention_f32 keeps the CUDA-core body: each thread owns 4 rows x 4
 // keys of a 64 x 32 score tile and 4 rows x DH/8 columns of the output; Q,
@@ -369,17 +377,20 @@ int launch_f32(const float* q, const float* k, const float* v, float* out,
 constexpr int kTcConsumers = 2;            // consumer warpgroups, 64 rows each
 constexpr int kTcRows = 64 * kTcConsumers;
 constexpr int kTcThreads = 128 * kTcConsumers + 32;   // + one producer warp
-constexpr int kTcBK = 128;                 // keys per tile
 constexpr int kTcStages = 2;               // K/V tiles in flight
 constexpr int kSwizzleRow = 128;           // bytes of a 128B-swizzled row
 constexpr int kBoxCols = kSwizzleRow / 2;  // bf16 columns per box
 
-// Byte offsets in the (1024-aligned) dynamic shared memory.
+// Keys a tile, and byte offsets in the (1024-aligned) dynamic shared
+// memory.  128 keys a tile at DH 64 and 128; 64 at DH 256, where 128 would
+// need 64 KB of Q and 2 x 128 KB of K/V stages, past the 227 KB a block
+// may take (64 keys: 64 + 2 x 64 KB).
 template <int DH>
 struct TcLayout {
+  static constexpr int kBK = DH > 128 ? 64 : 128;
   static constexpr int kBoxes = DH / kBoxCols;
   static constexpr int kQBox = kTcRows * kSwizzleRow;
-  static constexpr int kKVBox = kTcBK * kSwizzleRow;
+  static constexpr int kKVBox = kBK * kSwizzleRow;
   static constexpr int kQ = kBoxes * kQBox;
   static constexpr int kStage = 2 * kBoxes * kKVBox;    // K boxes, V boxes
   static constexpr int kBars = kQ + kTcStages * kStage;
@@ -487,6 +498,9 @@ __device__ __forceinline__ void fence_regs(uint32_t (&r)[N]) {
   "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
   "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "  \
   "%30, %31}"
+#define ACC128(d)                                                       \
+  ACC64(d), ACC8(d, 64), ACC8(d, 72), ACC8(d, 80), ACC8(d, 88),          \
+      ACC8(d, 96), ACC8(d, 104), ACC8(d, 112), ACC8(d, 120)
 #define REGS64                                                            \
   "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
   "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "  \
@@ -494,8 +508,29 @@ __device__ __forceinline__ void fence_regs(uint32_t (&r)[N]) {
   "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, "  \
   "%58, %59, %60, %61, %62, %63}"
 
-// d (64 x 128 f32) = (accumulate ? d : 0) + A B, A and B K-major in shared
-// memory.
+#define REGS128 \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, " \
+  "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, " \
+  "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, " \
+  "%58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, " \
+  "%72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, " \
+  "%86, %87, %88, %89, %90, %91, %92, %93, %94, %95, %96, %97, %98, %99, " \
+  "%100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, " \
+  "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, " \
+  "%124, %125, %126, %127}"
+
+// d (64 x N f32) = (accumulate ? d : 0) + A B, A and B K-major in shared
+// memory: N 64 (a 64-key tile, DH 256) or 128.
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t a,
+                                         uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " REGS32
+      ", %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : ACC32(d)
+      : "l"(a), "l"(b), "r"(accumulate));
+}
 __device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t a,
                                          uint64_t b, int accumulate) {
   asm volatile(
@@ -507,7 +542,8 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t a,
 }
 
 // d (64 x N f32) += A B, A in registers (a[0..3]), B MN-major in shared
-// memory (the transpose bit).
+// memory (the transpose bit): N = DH, 64, 128 or 256 (the widest wgmma
+// takes).
 __device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t* a,
                                          uint64_t b) {
   asm volatile(
@@ -524,6 +560,15 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t* a,
       "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " REGS64
       ", {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
       : ACC64(d)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+__device__ __forceinline__ void wgmma_rs(float (&d)[128], const uint32_t* a,
+                                         uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 " REGS128
+      ", {%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
+      : ACC128(d)
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
 }
 
@@ -554,6 +599,7 @@ flash_attention_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
                           float cap_in, float cap_out, int causal,
                           int window) {
   using L = TcLayout<DH>;
+  constexpr int kBK = L::kBK;
   extern __shared__ unsigned char smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
   const uint32_t base = (raw + 1023) & ~1023u;   // swizzle atoms: 1024 B
@@ -568,10 +614,10 @@ flash_attention_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
   int k_begin = 0;
   if (window > 0) {
     k_begin = max(q0 - window + 1, 0);
-    k_begin -= k_begin % kTcBK;
+    k_begin -= k_begin % kBK;
   }
   const int k_end = causal ? min(T_len, q_last + 1) : T_len;
-  const int n_tiles = (k_end - k_begin + kTcBK - 1) / kTcBK;
+  const int n_tiles = (k_end - k_begin + kBK - 1) / kBK;
 
   if (tid == 0) {
     mbar_init(bar_q, 1);
@@ -606,7 +652,7 @@ flash_attention_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
           mbar_wait(bar_empty + 8 * s, ((it / kTcStages) & 1) ^ 1);
         }
         mbar_expect_tx(bar_full + 8 * s, L::kStage);
-        const int k0 = k_begin + it * kTcBK;
+        const int k0 = k_begin + it * kBK;
         for (int c = 0; c < L::kBoxes; ++c) {
           tma_load_3d(stage + c * L::kKVBox, &tm_k, bar_full + 8 * s,
                       c * kBoxCols, k0, bh);
@@ -634,7 +680,7 @@ flash_attention_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
   mbar_wait(bar_q, 0);
   for (int it = 0; it < n_tiles; ++it) {
     const int s = it % kTcStages;
-    const int k0 = k_begin + it * kTcBK;
+    const int k0 = k_begin + it * kBK;
     const uint32_t k_s = base + L::kQ + s * L::kStage;
     const uint32_t v_s = k_s + L::kBoxes * L::kKVBox;
     mbar_wait(bar_full + 8 * s, (it / kTcStages) & 1);
@@ -642,7 +688,7 @@ flash_attention_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
 
     // S = Q K^T: DH / 16 k-steps, 32 bytes apart inside a swizzled row; the
     // first overwrites sc
-    float sc[kTcBK / 2];
+    float sc[kBK / 2];
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < DH / 16; ++kk) {
@@ -656,22 +702,22 @@ flash_attention_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
     fence_regs(sc);
 
     // sc[4 j + e]: row row[e / 2], key k0 + 8 j + 2 quad + e % 2
-    const bool need_mask = k0 + kTcBK > T_len ||
-                           (causal && k0 + kTcBK - 1 > q0) ||
+    const bool need_mask = k0 + kBK > T_len ||
+                           (causal && k0 + kBK - 1 > q0) ||
                            (window > 0 && q0 + bq - 1 - k0 >= window);
     // scores in the log2 domain are u mul: u = s and mul = scale log2(e),
     // or, with a softcap, u = tanh(s cap_in) cap_out and mul = 1
     float mul = score_mul;
     if (cap_in > 0.f) {
 #pragma unroll
-      for (int j = 0; j < kTcBK / 2; ++j) {
+      for (int j = 0; j < kBK / 2; ++j) {
         sc[j] = tanhf(sc[j] * cap_in) * cap_out;
       }
       mul = 1.f;
     }
     if (need_mask) {
 #pragma unroll
-      for (int j = 0; j < kTcBK / 2; ++j) {
+      for (int j = 0; j < kBK / 2; ++j) {
         const int i = (j >> 1) & 1;
         const int kpos = k0 + (j >> 2) * 8 + 2 * quad + (j & 1);
         if (kpos >= T_len || (causal && kpos > qpos[i]) ||
@@ -682,7 +728,7 @@ flash_attention_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
     }
     float tmax[2] = {-INFINITY, -INFINITY};
 #pragma unroll
-    for (int j = 0; j < kTcBK / 2; ++j) {
+    for (int j = 0; j < kBK / 2; ++j) {
       tmax[(j >> 1) & 1] = fmaxf(tmax[(j >> 1) & 1], sc[j]);
     }
     float corr[2], neg_m[2];
@@ -698,9 +744,9 @@ flash_attention_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
       m[i] = m_new;
       l[i] *= corr[i];                  // this thread's share of the row sum
     }
-    uint32_t pa[kTcBK / 4];             // P as kTcBK / 16 A fragments
+    uint32_t pa[kBK / 4];               // P as kBK / 16 A fragments
 #pragma unroll
-    for (int j = 0; j < kTcBK / 2; j += 2) {
+    for (int j = 0; j < kBK / 2; j += 2) {
       const int i = (j >> 1) & 1;
       const float p0 = fast_exp2(fmaf(sc[j], mul, neg_m[i]));
       const float p1 = fast_exp2(fmaf(sc[j + 1], mul, neg_m[i]));
@@ -713,12 +759,12 @@ flash_attention_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
       for (int j = 0; j < DH / 2; ++j) o[j] *= corr[(j >> 1) & 1];
     }
 
-    // O += P V: kTcBK / 16 k-steps of 16 keys, 2048 bytes apart
+    // O += P V: kBK / 16 k-steps of 16 keys, 2048 bytes apart
     fence_regs(o);
     fence_regs(pa);
     wgmma_fence();
 #pragma unroll
-    for (int kb = 0; kb < kTcBK / 16; ++kb) {
+    for (int kb = 0; kb < kBK / 16; ++kb) {
       wgmma_rs(o, pa + 4 * kb,
                sw128_desc(v_s + kb * 16 * kSwizzleRow, L::kKVBox));
     }
@@ -808,10 +854,11 @@ int launch_bf16(const void* q, const void* k, const void* v, void* out,
   const PFN_cuTensorMapEncodeTiled_v12000 encode = tensor_map_encoder();
   if (encode == nullptr) return static_cast<int>(cudaErrorNotSupported);
   const int bq = static_cast<int>(kTcRows / G);
+  constexpr int bk = TcLayout<DH>::kBK;
   CUtensorMap tm_q, tm_k, tm_v;
   if (!encode_3d(encode, &tm_q, q, DH, S, B * KVH * G, bq, G) ||
-      !encode_3d(encode, &tm_k, k, DH, T_len, B * KVH, kTcBK, 1) ||
-      !encode_3d(encode, &tm_v, v, DH, T_len, B * KVH, kTcBK, 1)) {
+      !encode_3d(encode, &tm_k, k, DH, T_len, B * KVH, bk, 1) ||
+      !encode_3d(encode, &tm_v, v, DH, T_len, B * KVH, bk, 1)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   constexpr int smem = TcLayout<DH>::kBytes;
@@ -859,6 +906,9 @@ extern "C" int flash_attention_f32(const void* q, const void* k, const void* v,
     case 128:
       return launch_f32<128>(tq, tk, tv, to, B, KVH, G, S, T, scale, causal,
                              window, softcap, s);
+    case 256:
+      return launch_f32<256>(tq, tk, tv, to, B, KVH, G, S, T, scale, causal,
+                             window, softcap, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -879,6 +929,9 @@ extern "C" int flash_attention_bf16(const void* q, const void* k,
                              window, softcap, s);
     case 128:
       return launch_bf16<128>(q, k, v, out, B, KVH, G, S, T, scale, causal,
+                              window, softcap, s);
+    case 256:
+      return launch_bf16<256>(q, k, v, out, B, KVH, G, S, T, scale, causal,
                               window, softcap, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);

@@ -36,10 +36,12 @@
 // the option code made the bf16 G = 4, DH = 128 instance spill (160 bytes)
 // and llama3-8b's decode, which takes neither, 9% slower on an H100.
 // G, the query heads per KV head, is 1, 2, 4, 8 or 16 at DH 64 and 128,
-// and 12 at DH 128 without the options (starcoder2-15b's 48 / 4): Layout
-// and reduce_dots pad a G that is no power of two to the next one (16
-// lanes' worth of dot sums for 12 heads), and leave the others' code as it
-// was.
+// 12 at DH 128 without the options (starcoder2-15b's 48 / 4), and 16 at DH
+// 256 (recurrentgemma-9b's MQA, launch_dh256: two groups of 8 heads, each
+// its own CTAs over the same pages, in the one kOpts instance a dtype):
+// Layout and reduce_dots pad a G that is no power of two to the next one
+// (16 lanes' worth of dot sums for 12 heads), and leave the others' code as
+// it was.
 //
 // What bounds it: bytes.  At the llama3-8b decode (B 4, KVH 8, G 4, DH 128,
 // page 16, 130 pages a row, length 2080, bf16) K and V are 4 x 8 x 2080 x
@@ -262,9 +264,10 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
                     const int* __restrict__ page_table,
                     const int* __restrict__ lengths, T* __restrict__ out,
                     float* __restrict__ ws, unsigned* __restrict__ counters,
-                    int kvh, int64_t P, int page, FastDiv<uint32_t> page_div,
-                    int pps, int splits, float scale_log2, float cap_in,
-                    float cap_out, int window, int span) {
+                    int kvh, int hg, int64_t P, int page,
+                    FastDiv<uint32_t> page_div, int pps, int splits,
+                    float scale_log2, float cap_in, float cap_out, int window,
+                    int span) {
   using L = Layout<T, G, DH>;
   constexpr int kTpr = L::kTpr, kE = L::kE, kVecE = L::kVecE;
   constexpr int kRows = L::kRows, kSlots = L::kSlots;
@@ -272,6 +275,7 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
   __shared__ bool s_last;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int slot = tid / kTpr, sl = tid % kTpr;
+  // h: the head (a group of G query heads; kvh = KV heads x hg groups)
   const int split = static_cast<int>(blockIdx.x % splits);
   const int h = static_cast<int>(blockIdx.x / splits);
   const int64_t b = blockIdx.y;
@@ -339,7 +343,7 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
   }
 
   if (t_end > t_lo) {
-    const int64_t head = static_cast<int64_t>(h) * P * page * DH;
+    const int64_t head = static_cast<int64_t>(h / hg) * P * page * DH;
     const T* kh = k_pages + head;
     const T* vh = v_pages + head;
     T* ring = reinterpret_cast<T*>(smem);
@@ -655,18 +659,21 @@ int64_t span_of(const Args& a) {
   return n < a.pps ? n : a.pps;
 }
 
+// hg: groups of G query heads a KV head (the launch's heads per KV head
+// over G), each its own CTAs, workspace and counter.
 template <typename T, int G, int DH, bool kOpts>
-int launch_instance(const Args& a) {
+int launch_instance(const Args& a, int hg = 1) {
   const cudaError_t err = configure<T, G, DH, kOpts>();
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid(static_cast<unsigned>(a.splits * a.KVH),
+  const dim3 grid(static_cast<unsigned>(a.splits * a.KVH * hg),
                   static_cast<unsigned>(a.B));
   paged_decode_kernel<T, G, DH, kOpts>
       <<<grid, kThreads, kSmemBytes, a.stream>>>(
       static_cast<const T*>(a.q), static_cast<const T*>(a.k),
       static_cast<const T*>(a.v), a.table, a.lengths, static_cast<T*>(a.out),
-      a.ws, a.counters, static_cast<int>(a.KVH), a.P,
-      static_cast<int>(a.page), make_div32(static_cast<uint32_t>(a.page)),
+      a.ws, a.counters, static_cast<int>(a.KVH * hg), static_cast<int>(hg),
+      a.P, static_cast<int>(a.page),
+      make_div32(static_cast<uint32_t>(a.page)),
       static_cast<int>(a.pps), static_cast<int>(a.splits), a.scale * kLog2e,
       a.softcap > 0.f ? a.scale / a.softcap : 0.f, a.softcap * kLog2e,
       static_cast<int>(a.window), static_cast<int>(span_of(a)));
@@ -698,6 +705,17 @@ int launch_g12(const Args& a, int64_t DH) {
   return launch_instance<T, 12, 128, false>(a);
 }
 
+// DH 256 (recurrentgemma-9b's G 16) has one instance a dtype, with the
+// options, which serves launches without them too: Layout<T, 16, 256>
+// would hold 128 q and 128 acc floats a thread and 65,792 bytes of combine
+// scratch, so the 16 heads run as 2 groups of 8 (64 + 64 floats, 32,896
+// bytes), each group's CTAs reading the same pages.
+template <typename T>
+int launch_dh256(const Args& a, int64_t G) {
+  if (G != 16) return static_cast<int>(cudaErrorInvalidValue);
+  return launch_instance<T, 8, 256, true>(a, 2);
+}
+
 template <typename T>
 int launch(const Args& a, int64_t G, int64_t DH) {
   if (a.B <= 0 || a.KVH <= 0) return 0;
@@ -708,6 +726,7 @@ int launch(const Args& a, int64_t G, int64_t DH) {
       (a.splits > 1 && (a.ws == nullptr || a.counters == nullptr))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  if (DH == 256) return launch_dh256<T>(a, G);
   switch (G) {
     case 1: return launch_g<T, 1>(a, DH);
     case 2: return launch_g<T, 2>(a, DH);
@@ -724,10 +743,10 @@ int launch(const Args& a, int64_t G, int64_t DH) {
 // Both return the cudaError_t of the launch (0 on success).  softcap and
 // window are 0 when off; splits lies in [1, min(span, 128)], span the
 // table entries a row's window touches (pages_per_seq without one).
-// workspace
-// holds B * KVH * splits * G * (DH + 2) floats and counters B * KVH zeros
-// (both unused, and may be null, when splits is 1); the kernel leaves the
-// counters zero, and calls that share them must be ordered (one stream).
+// workspace holds B * KVH * splits * G * (DH + 2) floats and counters B *
+// KVH * groups zeros, groups 2 at DH 256 and 1 elsewhere (both unused, and
+// may be null, when splits is 1); the kernel leaves the counters zero, and
+// calls that share them must be ordered (one stream).
 extern "C" int paged_decode_f32(const void* q, const void* k_pages,
                                 const void* v_pages, const void* page_table,
                                 const void* lengths, void* out,

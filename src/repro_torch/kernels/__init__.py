@@ -2,7 +2,8 @@
 
 ``gather_rows`` and ``scatter_rows`` (the Spatter main path),
 ``selective_scan`` (the Mamba serving path), ``flash_attention`` and
-``paged_decode`` (the dense serving path) each hold a wrapper (``ops``),
+``paged_decode`` (the dense serving path) and ``rglru_scan`` (the
+RG-LRU recurrence of recurrentgemma-9b) each hold a wrapper (``ops``),
 the plain PyTorch version of the same function (``ref``), and their CUDA
 source under ``src/repro_torch/csrc``.  A wrapper given CUDA tensors launches its kernel
 (or raises); given CPU tensors it runs the plain version.  Nothing is built

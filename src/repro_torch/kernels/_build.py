@@ -4,7 +4,8 @@ Each ``csrc/<name>.cu`` has a plain C interface and is compiled on first
 use, on the machine with the card, into its own shared library::
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \\
-         -Xcompiler -fPIC -Xptxas -v -o _build/<name>-<hash>.so csrc/<name>.cu
+         -Xcompiler -fPIC -Xptxas -v -split-compile=0 \\
+         -o _build/<name>-<hash>.so csrc/<name>.cu
 
 then loaded with ``ctypes`` (every pointer and the stream as ``c_void_p``).
 A library's identity (``lib_identity``) is a hash of its source, of the
@@ -45,16 +46,21 @@ PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
 SOURCES = ("gather_rows", "scatter_rows", "selective_scan",
-           "flash_attention", "paged_decode")
+           "flash_attention", "paged_decode", "rglru_scan")
+# -split-compile=0: nvcc optimises a source's template instances on every
+# core; on an H100 host (8 cores, nvcc 12.9) csrc/paged_decode.cu's 44
+# instances built in 25.5 s, not 53.4, to the same registers and spills
+# (probes/nvcc_time_probe.py)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+              "-split-compile=0")
 
 KERNELS = ("gather_rows", "gather_rows_smem", "scatter_store_rows",
            "scatter_store_rows_cov", "scatter_add_rows", "selective_scan",
            "flash_attention", "paged_decode", "gather_rows_b16",
            "gather_rows_smem_b16", "scatter_store_rows_b16",
            "scatter_store_rows_cov_b16", "scatter_add_rows_bf16",
-           "scatter_add_rows_f16")
+           "scatter_add_rows_f16", "rglru_scan")
 # the Spatter kernels' element types and their bytes: float32, and the two
 # 16-bit types, which the gathers and stores serve with one instance on
 # 2-byte words
@@ -112,6 +118,10 @@ _SIGNATURES = {
         f"flash_attention_{t}": (_P,) * 4 + (_I64,) * 6 + (_F32, _I32, _I64,
                                                             _F32, _P)
         for t in ("f32", "bf16")
+    },
+    "rglru_scan": {
+        # a, beta, gx, h0, hs, h_last, B, S, W, stream
+        "rglru_scan_f32": (_P,) * 6 + (_I64,) * 3 + (_P,),
     },
     "paged_decode": {
         # q, k_pages, v_pages, page_table, lengths, out, workspace,

@@ -6,9 +6,10 @@ names, up to its length, with an online softmax, gathering each K/V row
 through the table as it reads it.  Any page size; repeated pages are fine.
 The head size and the query heads per KV head are templates of the kernel,
 built for the (dh, G) pairs of ``SHAPES``: G 1, 2, 4, 8 and 16 at dh 64 and
-128, and G 12 (starcoder2-15b's) at dh 128 without the options; on CUDA
-tensors others raise (``check_kernel_shape``).  The plain version takes
-any.
+128, G 12 (starcoder2-15b's) at dh 128 without the options, and G 16 at
+dh 256 (recurrentgemma-9b's), run as two groups of 8 heads
+(``HEAD_GROUPS``); on CUDA tensors others raise (``check_kernel_shape``).
+The plain version takes any.
 
 Two options, gemma2's: ``softcap`` > 0 caps each scaled score with
 ``tanh(x / cap) * cap``; ``window`` > 0 attends only to the last
@@ -22,7 +23,8 @@ by ``kernels.autotune`` unless the caller passes it; ``paged_splits`` is
 the legacy rule, which ``autotune.disabled()`` serves) and merges their
 partial softmax sums in the same launch: the last CTA of a (row, head) to
 finish merges.  That takes a float32 workspace (the partials) and
-a counter per (row, head), which the wrapper keeps per (device, stream),
+a counter per (row, head, group of heads), which the wrapper keeps per
+(device, stream),
 grown when a call needs more and never freed.  The counters are zeroed
 once, when they are allocated, and every launch leaves them zero, so no
 call launches a memset; calls on one stream are ordered, and a call on
@@ -50,9 +52,15 @@ from .. import _build, autotune
 from .ref import paged_decode_attention_ref, window_pages
 
 # the (head size, query heads per KV head) pairs the kernel library holds,
-# with the options (``OPTION_SHAPES``) and without them (``SHAPES``)
-OPTION_SHAPES = tuple(itertools.product((64, 128), (1, 2, 4, 8, 16)))
+# with the options (``OPTION_SHAPES``) and without them (``SHAPES``); (256,
+# 16), recurrentgemma-9b's, has one instance a dtype, with the options,
+# which serves launches without them too
+OPTION_SHAPES = tuple(itertools.product((64, 128), (1, 2, 4, 8, 16))) + (
+    (256, 16),)
 SHAPES = OPTION_SHAPES + ((128, 12),)
+# pairs the kernel runs as several groups of query heads, each its own CTAs
+# over the same pages (csrc/paged_decode.cu launch_dh256): the groups
+HEAD_GROUPS = {(256, 16): 2}
 CTAS_PER_SM = 3       # csrc/paged_decode.cu kCtasPerSm: CTAs an SM holds
 MAX_SPLITS = 128      # csrc/paged_decode.cu kMaxSplits
 _ENTRY = {torch.float32: "paged_decode_f32",
@@ -99,9 +107,12 @@ def _workspace(index: int, floats: int, rows: int) -> tuple[int, int]:
 def tile_key(bsz: int, kvh: int, g: int, dh: int, page: int, pps: int,
              dtype: torch.dtype, platform: str) -> autotune.TileKey:
     """The ``autotune`` key of a paged-decode launch (its fields as the
-    ``TileKey`` note says; ``pps``: the table entries the launch splits a
-    row's, ``window_pages``)."""
-    return autotune.TileKey(op="paged_decode", batch=bsz * kvh, lanes=pps,
+    ``TileKey`` note says, ``batch`` counting each group of heads
+    (``HEAD_GROUPS``) as a head; ``pps``: the table entries the launch
+    splits a row's, ``window_pages``)."""
+    groups = HEAD_GROUPS.get((dh, g), 1)
+    return autotune.TileKey(op="paged_decode", batch=bsz * kvh * groups,
+                            lanes=pps,
                             rows=page, width=g * dh,
                             dtype=str(dtype).removeprefix("torch."),
                             platform=platform)
@@ -172,7 +183,7 @@ def paged_decode_attention(q, k_pages, v_pages, page_table, lengths, *,
         ws = cnt = None
         if splits > 1:
             ws, cnt = _workspace(dev.index, bsz * kvh * splits * g * (dh + 2),
-                                 bsz * kvh)
+                                 bsz * kvh * HEAD_GROUPS.get((dh, g), 1))
         _build.launch("paged_decode", dev, "paged_decode", _ENTRY[q.dtype],
                       q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
                       page_table.data_ptr(), lengths.data_ptr(),

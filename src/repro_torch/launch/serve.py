@@ -10,13 +10,17 @@
         --batch 4 --prompt-len 8192 --gen 32 --gs-backend hopper  # the card
     PYTHONPATH=src python -m repro_torch.launch.serve \\
         --arch starcoder2-15b --smoke --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve \\
+        --arch recurrentgemma-9b --batch 2 --prompt-len 8192 --gen 32 \\
+        --gs-backend hopper                                      # the card
 
 The port of ``repro/launch/serve.py`` for the ported architectures.  The
 weights are random, drawn on the device from a ``torch.Generator`` seeded
 by ``--seed``; the prompts are the same numpy draws as there.  The
 prefill returns the decode cache itself, with room for ``prompt_len +
 gen`` positions (``Model.prefill``; a dense model's KV cache is paged, its
-page table drawn from ``--seed``), so decode starts at position
+page table drawn from ``--seed``; a mamba or RG-LRU layer keeps its final
+state), so decode starts at position
 ``prompt_len`` with no splice.  ``--device`` defaults to
 ``cuda`` and raises without it; ``--device cpu`` runs the kernels' plain
 versions.  ``--gs-backend`` (default ``torch``) is the backend of the

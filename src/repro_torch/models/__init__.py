@@ -1,9 +1,9 @@
-"""Model code of the port: ``common``, ``ssm``, ``attention``, ``moe``,
-``transformer``, ``zoo``, ``convert``.  Submodules load on first use;
+"""Model code of the port: ``common``, ``ssm``, ``rglru``, ``attention``,
+``moe``, ``transformer``, ``zoo``, ``convert``.  Submodules load on first use;
 importing the package loads none of them and builds nothing."""
 import importlib
 
-_SUBMODULES = ("attention", "common", "convert", "moe", "ssm",
+_SUBMODULES = ("attention", "common", "convert", "moe", "rglru", "ssm",
                "transformer", "zoo")
 _EXPORTS = {"Model": "zoo", "count_params": "zoo"}
 

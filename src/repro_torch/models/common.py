@@ -1,6 +1,7 @@
 """Shared model machinery: declared parameters and their init, the RMS norm,
-the MLPs (SwiGLU, GeGLU and plain GELU), RoPE over the whole head or its
-first half, query-chunked attention.
+the MLPs (SwiGLU, GeGLU and plain GELU), the causal conv of the mamba and
+RG-LRU blocks, RoPE over the whole head or its first half, query-chunked
+attention.
 
 The port of ``repro/models/common.py:24-229``.  A module declares its
 parameters as ``ParamDef``s (shape, init, scale) in the JAX package's
@@ -111,6 +112,23 @@ def mlp_apply(cfg, p: MLP, x: torch.Tensor) -> torch.Tensor:
     act = (F.silu(g) if cfg.mlp_kind == "swiglu"
            else F.gelu(g, approximate="tanh"))
     return (act * h) @ p.wo
+
+
+def causal_conv(x: torch.Tensor, conv_w: torch.Tensor, conv_b: torch.Tensor,
+                conv_state=None):
+    """Depthwise causal conv of x (B,S,C) with K taps ``conv_w`` (K, C) and
+    ``conv_b`` (C,), after ``conv_state`` (the previous K-1 inputs; zeros
+    when None): the sum of the K shifted products in tap order, then the
+    bias, as the JAX package's mamba and RG-LRU blocks compute it.
+    Returns (y, the last K-1 inputs)."""
+    k = conv_w.shape[0]
+    pad = (x.new_zeros((x.shape[0], k - 1, x.shape[2]))
+           if conv_state is None else conv_state)
+    xp = torch.cat([pad, x], dim=1)                         # (B,S+K-1,C)
+    y = sum(xp[:, i:i + x.shape[1]] * conv_w[i] for i in range(k))
+    # a copy, not a view: a view would keep the whole (B,S,C) xp alive
+    new_state = xp[:, -(k - 1):].clone() if k > 1 else pad
+    return y + conv_b, new_state
 
 
 def softcap(x: torch.Tensor, cap: float) -> torch.Tensor:

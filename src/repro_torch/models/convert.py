@@ -2,14 +2,18 @@
 
 The JAX package scan-stacks each stage's layers on a leading axis
 (``params["stages"][s]["b<i>_<kind>"]``, one slice per group); the port
-keeps one ``Block`` per layer.  ``params_from_jax`` unstacks a JAX
+keeps one ``Block`` per layer, in ``stage_layout`` order (recurrentgemma's
+``b0_rec``, ``b1_rec``, ``b2_attn_local`` x 12 are layers 0-35, its last
+stage's ``b0_rec``, ``b1_rec`` layers 36 and 37).  ``params_from_jax``
+unstacks a JAX
 ``Model.init`` tree, given as numpy arrays, into a state dict for
 ``LM.load_state_dict`` (which casts to the module's dtype): a MoE layer's
 stacked (L, E, d, ff) experts become one (E, d, ff) tensor a layer, MLA's
 norms ``mixer.q_norm.scale`` and ``mixer.kv_norm.scale``.
 ``cache_from_jax`` and ``cache_to_jax`` do the same for decode caches: an
-MLA layer's latent cache (``c_kv``, ``k_pe``) and a mamba layer's state
-are contiguous on both sides and carried a layer at a time; between the
+MLA layer's latent cache (``c_kv``, ``k_pe``), a mamba layer's state and
+an RG-LRU layer's (``conv``, ``h``) are contiguous on both sides and
+carried a layer at a time; between the
 JAX package's contiguous K/V cache (count, B, max_len, KVH, dh) and the
 port's paged one they gather the pages through the table, and scatter
 them back.
@@ -62,9 +66,9 @@ def params_from_jax(cfg, tree: dict) -> dict[str, torch.Tensor]:
 
 def cache_from_jax(cfg, caches: list, seed: int = 0) -> list[dict]:
     """JAX decode cache (numpy leaves) -> the port's per-layer list, as
-    float32 CPU tensors (``ssm`` is float32 on both sides; an MLA latent
-    is carried as it is).  Contiguous K/V go into pages through one table
-    drawn from ``seed``."""
+    float32 CPU tensors (``ssm`` and ``h`` are float32 on both sides; an
+    MLA latent and a ``conv`` state are carried as they are).  Contiguous
+    K/V go into pages through one table drawn from ``seed``."""
     out, table = [], None
     for _, g, block in _layers(cfg, caches):
         if "k" not in block:

@@ -17,7 +17,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..kernels.selective_scan.ops import selective_scan
-from .common import ParamDef, make_params
+from .common import ParamDef, causal_conv, make_params
 
 
 def d_inner(cfg) -> int:
@@ -62,21 +62,6 @@ def _ssm_inputs(cfg, p: Mamba, u: torch.Tensor):
     return dt, b_mat, c_mat
 
 
-def _conv_causal(cfg, p: Mamba, x: torch.Tensor, conv_state=None):
-    """Depthwise causal conv1d. x (B,S,di). Returns (y, new_state)."""
-    dc = cfg.ssm_conv
-    if conv_state is None:
-        pad = x.new_zeros((x.shape[0], dc - 1, x.shape[2]))
-    else:
-        pad = conv_state
-    xp = torch.cat([pad, x], dim=1)                         # (B,S+dc-1,di)
-    y = sum(xp[:, i:i + x.shape[1]] * p.conv_w[i] for i in range(dc))
-    y = y + p.conv_b
-    # a copy, not a view: a view would keep the whole (B,S,di) xp alive
-    new_state = xp[:, -(dc - 1):].clone() if dc > 1 else pad
-    return y, new_state
-
-
 def _scan_step(a_log, d_skip, h, inp):
     """h' = exp(dt*A) h + dt*B*u ; y = C·h + D*u   (single timestep)."""
     u_t, dt_t, b_t, c_t = inp   # (B,di) (B,di) (B,N) (B,N), float32
@@ -96,7 +81,7 @@ def mamba_prefill(cfg, p: Mamba, x: torch.Tensor):
     """
     xz = x @ p.in_proj
     u, z = xz.chunk(2, dim=-1)                              # (B,S,di) each
-    u, conv_state = _conv_causal(cfg, p, u)
+    u, conv_state = causal_conv(u, p.conv_w, p.conv_b)
     u = F.silu(u)
     dt, b_mat, c_mat = _ssm_inputs(cfg, p, u)
     a = -torch.exp(p.a_log.to(torch.float32)).T.contiguous()   # (N, di)
@@ -125,7 +110,7 @@ def mamba_decode(cfg, p: Mamba, x: torch.Tensor, cache: dict):
     """Single-token state update, x (B,1,d): O(1) in context length."""
     xz = x @ p.in_proj                                      # (B,1,2di)
     u, z = xz.chunk(2, dim=-1)
-    u, conv_state = _conv_causal(cfg, p, u, cache["conv"])
+    u, conv_state = causal_conv(u, p.conv_w, p.conv_b, cache["conv"])
     u = F.silu(u)
     dt, b_mat, c_mat = _ssm_inputs(cfg, p, u)
     f32 = torch.float32

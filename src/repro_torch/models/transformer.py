@@ -3,11 +3,13 @@
 The port of ``repro/models/transformer.py`` for the families ported so far
 (``ssm``: falcon-mamba-7b; ``dense``: llama3-8b, and gemma2-27b with its
 alternating local and global layers, tied table and softcaps; ``moe``
-with MLA: deepseek-v2-236b).  The JAX package
+with MLA: deepseek-v2-236b; ``hybrid``: recurrentgemma-9b, RG-LRU blocks
+and local attention in its (rec, rec, attn) pattern).  The JAX package
 scan-stacks each stage's layers on a leading axis; here each layer is its
 own ``Block`` in an ``nn.ModuleList``, in ``stage_layout`` order, and a
 cache is a list with one entry per layer (a GQA layer's is paged, an MLA
-layer's contiguous, ``attention.py``).  ``gs_backend`` (default
+layer's contiguous, ``attention.py``; a mamba or RG-LRU layer's a state
+that does not grow).  ``gs_backend`` (default
 ``torch``, the counterpart of the JAX package's ``xla``) selects the
 ``repro_torch.backends`` implementation of the indexed ops: the embedding
 gather and the MoE dispatch's gathers and scatter-adds.  Other block
@@ -23,6 +25,7 @@ from torch import nn
 from .. import backends as gs_backends
 from . import attention as attn
 from . import moe as moe_mod
+from . import rglru as rglru_mod
 from . import ssm as ssm_mod
 from .common import (_NOT_PORTED, MLP, ParamDef, RMSNorm, init_params,
                      make_params, mlp_apply, rms_norm, softcap)
@@ -67,6 +70,13 @@ def stage_layout(cfg) -> list[tuple[int, tuple[str, ...]]]:
     """[(n_groups, kinds_per_group), ...] — total layers must match."""
     if cfg.family == "ssm":
         return [(cfg.n_layers, ("mamba",))]
+    if cfg.family == "hybrid":
+        # the pattern with its attention local, repeated; the remainder of
+        # the layers takes the pattern's first kinds as one more group
+        pat = tuple("attn_local" if k == "attn" else k
+                    for k in cfg.block_pattern or ("rec", "rec", "attn"))
+        full, rem = divmod(cfg.n_layers, len(pat))
+        return [(full, pat)] + ([(1, pat[:rem])] if rem else [])
     if cfg.family == "dense" and cfg.attn_kind == "local_global":
         if cfg.n_layers % 2:
             raise ValueError("local/global alternation needs an even "
@@ -85,25 +95,30 @@ def stage_layout(cfg) -> list[tuple[int, tuple[str, ...]]]:
 
 
 class Block(nn.Module):
-    """ln1 -> mixer (GQA, or MLA where ``attn_kind`` is ``mla``) ->
-    residual, then ln2 -> channel mixer -> residual: the gated MLP
-    (``dense``, ``local``, ``global``; at ``d_ff_dense`` in a model with
-    leading dense layers) or the ``MoE`` (``moe``).  A ``local`` block
-    attends over the last ``cfg.window`` positions.  A ``mamba`` block
-    has no channel mixer."""
+    """ln1 -> mixer (GQA, or MLA where ``attn_kind`` is ``mla``, or the
+    RG-LRU block for ``rec``) -> residual, then ln2 -> channel mixer ->
+    residual: the gated MLP (``dense``, ``local``, ``global``, ``rec``,
+    ``attn_local``; at ``d_ff_dense`` in a model with leading dense
+    layers) or the ``MoE`` (``moe``).  A ``local`` or ``attn_local``
+    block attends over the last ``cfg.window`` positions.  A ``mamba``
+    block has no channel mixer."""
 
     def __init__(self, cfg, kind: str, *, device=None, dtype=None):
         super().__init__()
-        if kind not in ("mamba", "dense", "local", "global", "moe"):
+        if kind not in ("mamba", "dense", "local", "global", "moe", "rec",
+                        "attn_local"):
             raise NotImplementedError(
                 f"block kind {kind!r} is not ported: {_NOT_PORTED}")
         self.kind = kind
-        self.window = cfg.window if kind == "local" else 0
+        self.window = cfg.window if kind in ("local", "attn_local") else 0
         self.ln1 = RMSNorm(cfg.d_model, device=device, dtype=dtype)
         if kind == "mamba":
             self.mixer = ssm_mod.Mamba(cfg, device=device, dtype=dtype)
             return
-        mixer = attn.MLA if cfg.attn_kind == "mla" else attn.GQA
+        if kind == "rec":
+            mixer = rglru_mod.RGLRU
+        else:
+            mixer = attn.MLA if cfg.attn_kind == "mla" else attn.GQA
         self.mixer = mixer(cfg, device=device, dtype=dtype)
         self.ln2 = RMSNorm(cfg.d_model, device=device, dtype=dtype)
         if kind == "moe":
@@ -142,18 +157,21 @@ def _channel_mix(cfg, blk: Block, h: torch.Tensor, gs_backend: str):
 def block_apply(cfg, blk: Block, x: torch.Tensor, positions: torch.Tensor,
                 cache=None, gs_backend: str = "torch"):
     """Returns (x', cache).  Given a ``cache`` entry (from ``init_cache``),
-    the block writes into it what decode continues from: a mamba block its
-    final state, a GQA block its K/V into the pages, an MLA block its
-    latent.  (A ``moe`` block's aux loss is ``moe.moe_apply``'s; the port
-    serves, so nothing sums it.)"""
+    the block writes into it what decode continues from: a mamba or rec
+    block its final state, a GQA block its K/V into the pages, an MLA
+    block its latent.  (A ``moe`` block's aux loss is ``moe.moe_apply``'s;
+    the port serves, so nothing sums it.)"""
     h = rms_norm(blk.ln1, x, cfg.norm_eps)
-    if blk.kind == "mamba":
-        y, state = ssm_mod.mamba_prefill(cfg, blk.mixer, h)
+    if blk.kind in ("mamba", "rec"):
+        prefill = (ssm_mod.mamba_prefill if blk.kind == "mamba"
+                   else rglru_mod.rglru_prefill)
+        y, state = prefill(cfg, blk.mixer, h)
         if cache is not None:
             for k, v in state.items():
                 cache[k].copy_(v)
-        return x + y, cache
-    if cfg.attn_kind == "mla":
+        if blk.kind == "mamba":
+            return x + y, cache
+    elif cfg.attn_kind == "mla":
         y, cache = attn.mla_apply(cfg, blk.mixer, h, positions, cache=cache)
     else:
         y, cache = attn.gqa_apply(cfg, blk.mixer, h, positions, cache=cache,
@@ -170,7 +188,9 @@ def block_decode(cfg, blk: Block, x: torch.Tensor, pos: int, cache,
     if blk.kind == "mamba":  # a mamba block keeps no positions
         y, cache = ssm_mod.mamba_decode(cfg, blk.mixer, h, cache)
         return x + y, cache
-    if cfg.attn_kind == "mla":
+    if blk.kind == "rec":
+        y, cache = rglru_mod.rglru_decode(cfg, blk.mixer, h, cache)
+    elif cfg.attn_kind == "mla":
         y, cache = attn.mla_decode(cfg, blk.mixer, h, pos, cache)
     else:
         y, cache = attn.gqa_decode(cfg, blk.mixer, h, pos, cache,
@@ -207,17 +227,18 @@ def init_cache(cfg, batch: int, max_len: int, dtype, device,
                seed: int = 0) -> list:
     """Zeroed per-layer caches.  GQA layers share one page table, drawn
     from ``seed``, of ceil(max_len / PAGE_SIZE) pages a row; an MLA
-    layer's latent cache is contiguous, (B, max_len, ...); a mamba cache
-    does not grow with the context."""
+    layer's latent cache is contiguous, (B, max_len, ...); a mamba or
+    RG-LRU cache does not grow with the context."""
     kinds = layer_kinds(cfg)
     if cfg.attn_kind == "mla":
         return [attn.mla_init_cache(cfg, batch, max_len, dtype, device)
                 for _ in kinds]
+    states = {"mamba": ssm_mod.mamba_init_cache,
+              "rec": rglru_mod.rglru_init_cache}
     table = None
-    if any(kind != "mamba" for kind in kinds):
+    if any(kind not in states for kind in kinds):
         table = attn.page_table(batch, attn.n_pages(max_len), seed, device)
-    return [ssm_mod.mamba_init_cache(cfg, batch, dtype, device)
-            if kind == "mamba" else
+    return [states[kind](cfg, batch, dtype, device) if kind in states else
             attn.gqa_init_cache(cfg, table, dtype, device) for kind in kinds]
 
 

@@ -44,8 +44,8 @@ class Model:
         """tokens (B,S) -> (last-position logits (B,V), per-layer caches
         that ``decode_step`` continues from at position S, with room for
         ``max_len`` positions (default S; a paged cache's table is drawn
-        from ``seed``; an MLA cache is contiguous).  A mamba cache does not
-        grow: ``max_len`` is ignored there.  ``gs_backend``: the backend
+        from ``seed``; an MLA cache is contiguous).  A mamba or RG-LRU
+        cache does not grow: ``max_len`` is ignored there.  ``gs_backend``: the backend
         of the embedding gather and the MoE dispatch."""
         b, s = tokens.shape
         caches = transformer.init_cache(self.cfg, b, max_len or s,
