@@ -6,7 +6,9 @@ row kernels, gemma2-27b served at full width through windowed, softcapped
 flash attention and paged decode, chatglm3-6b and starcoder2-15b served at
 full width (half-head RoPE, the plain GELU MLP, G 16 and G 12),
 recurrentgemma-9b served at full width (the RG-LRU recurrence, attention at
-head size 256), the trace of a model's gathers and
+head size 256), kimi-k2-1t-a32b served at full width (GQA at head size 112,
+a 384-expert dispatch on the row kernels), whisper-base served at full
+width (the encoder-decoder), the trace of a model's gathers and
 scatters replayed as Spatter patterns, the Spatter suite daemon, bucket launches placed over several devices, the
 static analysis with the modeled H100 column, the launch-parameter
 choice (``kernels/autotune.py``) with the CLI's serve modes, and the
@@ -64,7 +66,13 @@ only.  Phases:
      leaves no key; ``paged_dh256_cases``: G 16 as two groups of 8 heads,
      KVH 1 and 2, windows of 2048, 100 and 7 and none, lengths 0, 1,
      around the window, ragged and full, at 1, the chosen and the most
-     splits); both within ``attn_tolerance`` (flash in bf16 with 2^-8
+     splits), then head size 112 (``flash_dh112_cases``: kimi's G 8, S =
+     T from 1 to 2049, both dtypes, causal and not, a window of 64, rows
+     the window leaves no key; ``paged_dh112_cases``: (112, 8), KVH 8 and
+     2, lengths 0, 1, full and ragged, at 1, the chosen and the most
+     splits), then whisper's attention that is not causal with S != T
+     (``flash_cross_cases``: dh 64, G 1, S in {1, 33, 448} against T
+     1,500, and S = T = 1,500); both within ``attn_tolerance`` (flash in bf16 with 2^-8
      more for its rounded weights); the RG-LRU recurrence
      (``rglru_cases``: S from 0 to 2049, W from 1 to 8192, the decode
      step at (2, 1, 4096)) bit for bit; the Spatter grid
@@ -82,7 +90,10 @@ only.  Phases:
      ``hot_row_error_bound`` of the float64 sum, bit for bit at K = 1);
   2. the paper's CLI invocation ``-k Gather -p UNIFORM:8:1 -d 8 -l 2^24``
      through the port's CLI, as a gather, a store and an add scatter, on
-     ``-b hopper`` and then on ``-b torch`` (the library yardstick);
+     ``-b hopper`` (the torch yardstick of earlier runs is not run: no row
+     or check reads it, and phase 4 times the library calls at this
+     shape); from here to the end each pattern's host buffers are drawn
+     once (``_host_buffers_once``);
   3. the planner: ``run_suite(..., digest=True)`` on ``suites/demo.json``
      and on the appdb Table 5 suite at scale 1.0, on hopper and torch: the
      digests must agree, and each kernel's launch count must rise by a
@@ -116,7 +127,13 @@ only.  Phases:
      16, window 2048 beside ``scaled_dot_product_attention`` with the band
      as a boolean mask, paged decode's dh-256 instance with the window,
      the embedding gather, the RG-LRU recurrence at (2, 8192, 4096) and
-     at a decode step's (2, 1, 4096), bit for bit, no library call); the
+     at a decode step's (2, 1, 4096), bit for bit, no library call), then
+     at kimi-k2-1t-a32b's (``kimi_attention_times``: flash at dh 112, G
+     8 beside ``scaled_dot_product_attention`` with ``enable_gqa``, paged
+     decode's (112, 8) instance, the embedding gather) and whisper-base's
+     (``whisper_attention_times``: the encoder's flash, not causal, at dh
+     64, G 1 over 1,500 frames beside ``scaled_dot_product_attention``,
+     paged decode at (64, 1)); the
      Spatter lines run once a kernel instance (``kernel_times``): the
      gathers, the store and the coverage store in float32 and bfloat16
      (one instance serves both 16-bit types), the add in all three, each
@@ -160,9 +177,10 @@ only.  Phases:
   8. placements on the one card (``placement_phase``), shards on
      ``[cuda:0] * n``: every store edge case again through the store with
      its coverage map (``-0.0`` payloads, maps at every alignment, rows
-     past INT32_MAX), bit for bit and exactly; demo, the CLI pattern
-     and appdb at scale 1.0 on hopper, unplaced, on one device and at
-     (1, 2), (2, 1), (2, 2) and (1, 4): gather and store digests equal
+     past INT32_MAX), bit for bit and exactly; demo and the CLI pattern
+     on hopper, unplaced, on one device and at (1, 2), (2, 1), (2, 2) and
+     (1, 4), appdb at scale 1.0 unplaced, on one device and at (2, 2)
+     (``APPDB_PLACEMENTS``): gather and store digests equal
      phase 3's (the CLI pattern's: its unplaced run's), adds within
      ``add_error_bound`` of the unplaced outputs, launches buckets x
      shards x (1 + runs), the coverage store's where the lane axis is
@@ -188,7 +206,7 @@ only.  Phases:
      an ``.item()``, a sort) must each fire their rule; then predicted
      against measured GB/s per bucket, and ``modeled_h100_gbs`` with
      paper Eq. 1's R for demo and appdb;
- 10. (last, reusing phase 8's host draws) the launch-parameter choice
+ 10. (last) the launch-parameter choice
      (``autotune_phase``): every candidate launch of each chosen kernel
      against its plain version (``candidate_cases``); demo and appdb at
      scale 1.0 under the legacy rules and under the search,
@@ -199,7 +217,7 @@ only.  Phases:
      of their own, a fresh process over that daemon's disk tier that
      searches nothing and runs no nvcc, ``examples/quickstart_torch.py``;
      ``pipeline_model`` beside the CLI gather at ``vecs`` 1 and 4;
- 11. (inside phase 8's host draws) the Spatter path in bfloat16 and
+ 11. the Spatter path in bfloat16 and
      float16 (``dtype_phase``): demo and the CLI pattern in both, appdb
      at scale 1.0 in bfloat16 (store and add mode), on hopper and torch,
      gather and store
@@ -277,11 +295,34 @@ only.  Phases:
      the checks of ``serve_phase`` (the RG-LRU caches by name; its cache
      check over a 2 x 64-token prompt, where the other model phases take
      32 to keep the script within its time) and the trace (its kernels'
-     checks and times at these shapes run in phase 4).
+     checks and times at these shapes run in phase 4);
+ 16. (right after phase 15) kimi-k2-1t-a32b at its published width, cut
+     to 2 layers (the dense one and one MoE layer, 19,934,645,248
+     parameters, 39.87 GB; 61 layers are 2.05 TB), GQA 64/8 at head size
+     112 (the JAX package's config, not the published MLA), 384 experts
+     top-8 and one shared, through ``launch.serve.run`` on ``hopper``
+     (``kimi_phase``, ``moe_phase`` as phase 12): 4 prompts of 2048
+     tokens, 32 greedy steps; the prefill must launch flash attention
+     twice, ``gather_rows_b16`` 1 + 2 and ``scatter_add_rows_bf16`` 2
+     times (65,536 assignments, capacity 216), each step paged decode
+     twice and the same gathers and adds; phase 12's checks (the dispatch
+     against torch bit for bit, the model against torch and the two
+     consistency checks with routing imposed, the paged caches) and the
+     trace; its dispatch's four ops timed at the served shapes;
+ 17. (right after phase 16) whisper-base at its published width and
+     depth (6 encoder and 6 decoder layers, 97,166,336 parameters) through
+     ``launch.serve.main`` on ``hopper`` (``whisper_phase``): 16 requests
+     of 1,500 stub frames (30 s of audio, ``--prompt-len 6000``), 32
+     greedy steps from BOS; the prefill must launch flash attention 6
+     times (the encoder), each step paged decode 6 times and the
+     embedding gather once; each step's logits within ``SERVE_TOL`` of the
+     teacher-forced decoder over the same frames, the prefill's cross K/V
+     and the iterated decode's self K/V against a separate encoder pass
+     and the teacher-forced decoder's.
 
 The launch counts are set to 0 just before phase 2 and read just after
 phase 3, again just before and after the serve calls of phases 5, 6,
-12, 13, 14 and 15, just before and after phase 7's daemon, just before and after
+12, 13, 14, 15, 16 and 17, just before and after phase 7's daemon, just before and after
 phase 8's placed suites, just before and after phase 9's lint and cost passes
 (where they must equal the censuses' sum), and just before and after
 phase 10's two legs (whose legacy leg gives the smem gather's launches:
@@ -290,7 +331,8 @@ before and after each of phase 11's runs (its legacy leg, likewise, the
 16-bit smem gather's).  Any failed check raises, so
 the script exits nonzero.  Before the last line it prints a
 ``{"deepseek": {...}}``, a ``{"gemma2": {...}}``, a ``{"dense_archs":
-{...}}``, a ``{"recurrentgemma": {...}}``, a ``{"daemon": {...}}``, a ``{"placements": {...}}``, an ``{"autotune":
+{...}}``, a ``{"recurrentgemma": {...}}``, a ``{"kimi": {...}}``, a
+``{"whisper": {...}}``, a ``{"daemon": {...}}``, a ``{"placements": {...}}``, an ``{"autotune":
 {...}}``, a ``{"dtypes": {...}}``, an ``{"analysis": {...}}`` and a
 ``{"kernels": [...]}`` JSON
 line; the last line is
@@ -1292,10 +1334,13 @@ def flash_cases(torch):
         cases.append(None)
     cap_err, n_cap = flash_cap_cases(torch)
     dh256_err, n_dh256 = flash_dh256_cases(torch)
-    err = max(err, cap_err, dh256_err)
-    n_cases = len(cases) + n_cap + n_dh256
+    dh112_err, n_dh112 = flash_dh112_cases(torch)
+    cross_err, n_cross = flash_cross_cases(torch)
+    err = max(err, cap_err, dh256_err, dh112_err, cross_err)
+    n_cases = len(cases) + n_cap + n_dh256 + n_dh112 + n_cross
     print(f"phase 1: {n_cases} flash_attention cases ({n_cap} where the "
-          f"softcap bites, {n_dh256} at dh 256) within attn_tolerance "
+          f"softcap bites, {n_dh256} at dh 256, {n_dh112} at dh 112, "
+          f"{n_cross} not causal with S != T) within attn_tolerance "
           f"(+ 2^-8 for bf16's rounded weights) of their plain versions; "
           f"max |err| {err} "
           f"({time.perf_counter() - t0:.1f} s)", flush=True)
@@ -1324,6 +1369,63 @@ def flash_dh256_cases(torch):
             torch, q, k, v, causal, window, softcap,
             f"flash_attention B={bsz} KVH={kvh} G={g} S=T={s} dh=256 "
             f"{dtype} causal={causal} window={window} softcap={softcap}"))
+        n += 1
+    return err, n
+
+
+def flash_dh112_cases(torch):
+    """Phase 1's cases at head size 112 (kimi-k2-1t-a32b's 64 heads over 8
+    KV heads; the bf16 kernel's DH-128 tile with TMA zero-filling columns
+    112-127, the f32 kernel's partly idle last column group): G 8, KVH 1
+    and 2, S = T across the 128-key tile and its 16 positions a tile
+    (1, 17, 63, 64, 65, 300, 2049), both dtypes, causal and not, a window
+    of 64 cycled; then rows that a window leaves no key (S > T + window -
+    1), both dtypes; from their own generator.  Returns (max |err|,
+    cases)."""
+    gen = torch.Generator(device="cuda").manual_seed(28)
+    cases = [(1 + i % 2, 1 + (i // 2) % 2, s, dtype, causal, 64 * (i % 3 == 2))
+             for i, (s, dtype, causal) in enumerate(itertools.product(
+                 (1, 17, 63, 64, 65, 300, 2049),
+                 (torch.float32, torch.bfloat16), (True, False)))]
+    err, n = 0.0, 0
+    for bsz, kvh, s, dtype, causal, window in cases:
+        q, k, v = _flash_inputs(torch, gen, bsz, kvh, 8, s, 112, dtype)
+        err = max(err, check_flash(
+            torch, q, k, v, causal, window, 0.0,
+            f"flash_attention B={bsz} KVH={kvh} G=8 S=T={s} dh=112 {dtype} "
+            f"causal={causal} window={window}"))
+        n += 1
+    for (s, t, causal, window), dtype in itertools.product(
+            ((300, 129, True, 64), (200, 17, False, 8)),
+            (torch.float32, torch.bfloat16)):
+        q = _flash_inputs(torch, gen, 1, 2, 8, s, 112, dtype)[0]
+        _, k, v = _flash_inputs(torch, gen, 1, 2, 1, t, 112, dtype)
+        err = max(err, check_flash(
+            torch, q, k, v, causal, window, 0.0,
+            f"flash_attention B=1 KVH=2 G=8 S={s} T={t} dh=112 {dtype} "
+            f"causal={causal} window={window} (rows >= {t + window - 1} see "
+            f"no key)"))
+        n += 1
+    return err, n
+
+
+def flash_cross_cases(torch):
+    """Phase 1's cases of whisper-base's attention that is not causal
+    with S != T: its decoder's cross-attention, dh 64, G 1 (8 heads over 8
+    KV heads), S in {1, 33, 448} tokens against T = 1,500 frames (the
+    encoder's 30-second context), B 2, both dtypes; then S = T = 1,500, the
+    encoder's; from their own generator.  Returns (max |err|, cases)."""
+    gen = torch.Generator(device="cuda").manual_seed(29)
+    err, n = 0.0, 0
+    for (s, t), dtype in itertools.product(
+            ((1, 1500), (33, 1500), (448, 1500), (1500, 1500)),
+            (torch.float32, torch.bfloat16)):
+        q = _flash_inputs(torch, gen, 2, 8, 1, s, 64, dtype)[0]
+        _, k, v = _flash_inputs(torch, gen, 2, 8, 1, t, 64, dtype)
+        err = max(err, check_flash(
+            torch, q, k, v, False, 0, 0.0,
+            f"flash_attention B=2 KVH=8 G=1 S={s} T={t} dh=64 {dtype} "
+            f"causal=False"))
         n += 1
     return err, n
 
@@ -1459,11 +1561,12 @@ def paged_cases(torch):
     opt_err, n_opt = paged_option_cases(torch)
     g12_err, n_g12 = paged_g12_cases(torch)
     dh256_err, n_dh256 = paged_dh256_cases(torch)
-    err = max(err, split_err, opt_err, g12_err, dh256_err)
-    n_cases += n_split + n_opt + n_g12 + n_dh256
+    dh112_err, n_dh112 = paged_dh112_cases(torch)
+    err = max(err, split_err, opt_err, g12_err, dh256_err, dh112_err)
+    n_cases += n_split + n_opt + n_g12 + n_dh256 + n_dh112
     print(f"phase 1: {n_cases} paged_decode cases ({n_split} for the split, "
           f"{n_opt} with softcap or window, {n_g12} at G 12, {n_dh256} at "
-          f"dh 256) within "
+          f"dh 256, {n_dh112} at dh 112) within "
           f"attn_tolerance of their plain versions; max |err| {err} "
           f"({time.perf_counter() - t0:.1f} s)", flush=True)
     return err
@@ -1568,6 +1671,35 @@ def paged_dh256_cases(torch):
                 torch, ins, f"paged_decode KVH={kvh} G=16 dh=256 {dtype} "
                 f"page={page} pps={pps} window={window} splits={splits} "
                 f"lengths={lengths}", got, window=window))
+            n += 1
+    return err, n
+
+
+def paged_dh112_cases(torch):
+    """Phase 1's cases for the (112, 8) instances (kimi-k2-1t-a32b's 64
+    heads over 8 KV heads; 16 lanes a position over 128 padded columns, a
+    stage's copies in a guarded loop): KVH 8 (the served) and 2, page 8
+    and 16, both dtypes, a permuted table and one with repeats, rows of
+    length 0, 1, full and ragged, 130 or 9 pages a row; each at the split
+    ``autotune`` chooses, at one split and at the most the row admits.
+    Returns (max |err|, cases)."""
+    from repro_torch.kernels.paged_decode import ops
+    gen = torch.Generator(device="cuda").manual_seed(30)
+    err, n = 0.0, 0
+    for i, (kvh, page, dtype, repeats) in enumerate(itertools.product(
+            (8, 2), (8, 16), (torch.float32, torch.bfloat16),
+            (False, True))):
+        pps = 130 if i % 2 == 0 else 9
+        full = pps * page
+        lengths = [0, 1, full, 1 + (61 * i + 3) % full]
+        ins = _paged_inputs(torch, gen, len(lengths), kvh, 8, 112, page, pps,
+                            dtype, repeats, lengths)
+        for splits in (None, 1, min(pps, ops.MAX_SPLITS)):
+            err = max(err, check_paged(
+                torch, ins, f"paged_decode KVH={kvh} G=8 dh=112 {dtype} "
+                f"page={page} pps={pps} repeats={repeats} splits={splits} "
+                f"lengths={lengths}", ops.paged_decode_attention(
+                    *ins, splits=splits)))
             n += 1
     return err, n
 
@@ -1728,15 +1860,19 @@ def _bucket_kernel(bucket, mode, grid=(1, 1), dtype=None):
 
 
 def main_path(torch, torch_stats=None):
-    """The CLI and the planner on hopper and torch; returns the CLI
-    results by (backend, kind, mode) and the hopper suites' stats by suite
-    (their launches checked per bucket).  ``torch_stats``, when given, is
-    filled with the torch backend's suite stats by suite."""
+    """The CLI on hopper, and the planner on hopper and torch; returns the
+    CLI results by (backend, kind, mode) and the hopper suites' stats by
+    suite (their launches checked per bucket).  ``torch_stats``, when
+    given, is filled with the torch backend's suite stats by suite.  The
+    CLI's torch runs, a yardstick no row or check reads (phase 4 times
+    ``index_select``, ``index_put_`` and ``index_add_`` at the CLI's shape
+    beside each kernel), are not run; the suites' torch runs give the
+    digests the hopper runs are held to."""
     from repro_torch import appdb, load_suite, run_suite
     from repro_torch.__main__ import main as cli
 
     cli_results = {}
-    for backend in ("hopper", "torch"):
+    for backend in ("hopper",):
         for kernel, mode in (("Gather", "store"), ("Scatter", "store"),
                              ("Scatter", "add")):
             argv = (["-b", backend] + CLI_ARGS + ["-r", str(RUNS)]
@@ -2831,7 +2967,17 @@ def profile_serve(torch, argv=SERVE_ARGS, decode_steps=8):
 # width as published) hold 25,219,261,440, 50.44 GB
 DEEPSEEK_LAYERS = 7
 DEEPSEEK_PARAMS = 25_219_261_440
-DEEPSEEK_SERVE = dict(batch=4, prompt_len=2048, gen=32)
+DEEPSEEK_SERVE = dict(batch=4, prompt_len=2048, gen=32)   # kimi's too
+# kimi-k2-1t-a32b cut to its dense layer and one MoE layer (39.87 GB in
+# bfloat16; 3 layers would be 74 GB, 61 are 2.05 TB); its kernels' served
+# shapes: flash attention at the prefill (B, KVH, G, S = T, dh), paged
+# decode as PAGED_SHAPE (130 pages: room for 2048 + 32), timed at the
+# last step's 2,080 positions, the embedding's (vocab, d, B x prompt)
+KIMI_LAYERS = 2
+KIMI_PARAMS = 19_934_645_248
+KIMI_FLASH_SHAPE = (4, 8, 8, 2048, 112)
+KIMI_PAGED_SHAPE = (4, 8, 8, 112, 16, 130, 2080)
+KIMI_EMBED = (163840, 7168, 4 * 2048)
 # the consistency checks' prompt: 2 x 64 tokens, then 32 greedy steps
 DEEPSEEK_CHECK_PROMPT = 64
 # routing is discontinuous: where a layer's input moves by a rounding, a
@@ -2859,15 +3005,21 @@ _MOE_CLASSES = (("gather_rows", ("gather_d1_vec_kernel",
                 ("gemm", ("gemm", "gemv", "nvjet", "cutlass", "xmma")))
 
 
-def _deepseek_launches(cfg, gen):
-    """Launches a deepseek-v2-236b serve call on ``hopper`` must make: the
+def _moe_launches(cfg, gen):
+    """Launches a MoE model's serve call on ``hopper`` must make: the
     embedding gather, then in each MoE layer the dispatch's two gathers and
-    two scatter-adds, in the prefill and in each decode step; flash
-    attention, paged decode and the scan never."""
+    two scatter-adds, in the prefill and in each decode step; with GQA
+    (kimi-k2-1t-a32b), flash attention once a layer in the prefill and
+    paged decode once a layer a step; with MLA (deepseek-v2-236b) neither;
+    the scan never."""
     moe_layers = cfg.n_layers - cfg.n_dense_layers
     step = {"gather_rows_b16": 1 + 2 * moe_layers,
             "scatter_add_rows_bf16": 2 * moe_layers}
-    return step, {k: v * gen for k, v in step.items()}
+    prefill, decode = dict(step), {k: v * gen for k, v in step.items()}
+    if cfg.attn_kind != "mla":
+        prefill["flash_attention"] = cfg.n_layers
+        decode["paged_decode"] = cfg.n_layers * gen
+    return prefill, decode
 
 
 @contextlib.contextmanager
@@ -2996,15 +3148,15 @@ def dispatch_check(torch, cfg, taps):
     return dropped, worst
 
 
-def dispatch_times(torch, cfg, tap, err):
+def dispatch_times(torch, cfg, tap, err, prefix="moe"):
     """The dispatch's four ops at the served shapes (the first MoE layer's
     input and plan), each beside its library call in turns
     (``_turn_times``): the gather of token rows (``index_select``), the
     fill of the (E cap + 1, d) buffers (``index_add_``), the gather back
     and the combine; with each one's plain version and byte bound (a
-    lane's 4-byte index and its row read and written; an add reads and
-    writes each row it touches once).  Returns rows keyed
-    ``<kernel>/moe_<op>``."""
+    lane's 4-byte index read and its row written, each distinct row read
+    once; an add reads and writes each row it touches once).  Returns rows keyed
+    ``<kernel>/<prefix>_<op>``."""
     from repro_torch.kernels.gather_rows import ops as g
     from repro_torch.kernels.gather_rows.ref import gather_rows_ref
     from repro_torch.kernels.scatter_rows import ops as s
@@ -3039,7 +3191,9 @@ def dispatch_times(torch, cfg, tap, err):
         t = _turn_times(torch, {
             "library": lambda: src[0].index_select(0, flat),
             "kernel": lambda: g.gather_rows(src, idx)}, 20, "gather", name)
-        nbytes = lanes * (4 + 2 * row_b)
+        # each lane's index read and row written, each distinct row read
+        # once (a token's row serves its top_k lanes)
+        nbytes = lanes * (4 + row_b) + torch.unique(idx).numel() * row_b
         t.update(plain_ms=_time_ms(torch, lambda: gather_rows_ref(src, idx),
                                    3),
                  bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
@@ -3076,10 +3230,11 @@ def dispatch_times(torch, cfg, tap, err):
 
     print(f"\n  the dispatch's ops at the served shapes ({n} tokens x top "
           f"{cfg.top_k} = {lanes} lanes, d {d}, cap {cap}):", flush=True)
-    gather_row("gather_rows_b16/moe_gather", xt[None], tok)
-    add_row("scatter_add_rows_bf16/moe_fill", e * cap + 1, slot, gathered)
-    gather_row("gather_rows_b16/moe_gather_back", table, back)
-    add_row("scatter_add_rows_bf16/moe_combine", n, tok, vals)
+    gather_row(f"gather_rows_b16/{prefix}_gather", xt[None], tok)
+    add_row(f"scatter_add_rows_bf16/{prefix}_fill", e * cap + 1, slot,
+            gathered)
+    gather_row(f"gather_rows_b16/{prefix}_gather_back", table, back)
+    add_row(f"scatter_add_rows_bf16/{prefix}_combine", n, tok, vals)
     for name, r in rows.items():
         print(f"  {name} {r['shape']}: kernel ms {r['ms_pair']} device_ms "
               f"{r['device_ms_pair']}; library ms {r['library_ms_pair']} "
@@ -3139,13 +3294,30 @@ def _profile_moe(torch, model, lm, prompts, gen, decode_steps=4):
 
 
 def deepseek_phase(torch, err):
-    """Phase 12: serve deepseek-v2-236b at its published width, cut to
-    ``DEEPSEEK_LAYERS`` layers, through ``launch.serve.run`` on
-    ``hopper``; check launches, logits, the dispatch a layer against
-    ``torch``, the model end to end against ``torch``, the two
-    consistency checks at the no-drop capacity factor; profile, and time
-    the dispatch's ops.  Returns the numbers for the records, the serve
-    window's launches, and the dispatch's kernel rows."""
+    """Phase 12: deepseek-v2-236b (MLA) at its published width, cut to
+    ``DEEPSEEK_LAYERS`` layers (``moe_phase``)."""
+    return moe_phase(torch, err, "deepseek-v2-236b", DEEPSEEK_LAYERS,
+                     DEEPSEEK_PARAMS, 12, "moe")
+
+
+def kimi_phase(torch, err):
+    """Phase 16: kimi-k2-1t-a32b (GQA at dh 112, 384 experts top-8) at its
+    published width, cut to ``KIMI_LAYERS`` layers, the dense layer and one
+    MoE layer (``moe_phase``); its flash and paged decode rows run in phase
+    4 (``kimi_attention_times``)."""
+    return moe_phase(torch, err, "kimi-k2-1t-a32b", KIMI_LAYERS, KIMI_PARAMS,
+                     16, "kimi_moe")
+
+
+def moe_phase(torch, err, arch, layers, params, phase, prefix):
+    """Serve ``arch`` at its published width, cut to ``layers`` layers,
+    through ``launch.serve.run`` on ``hopper`` (``DEEPSEEK_SERVE``); check
+    launches, logits, the dispatch a layer against ``torch``, the model end
+    to end against ``torch``, the two consistency checks at the no-drop
+    capacity factor; profile, trace (``trace_model``), and time the
+    dispatch's ops (rows ``<kernel>/<prefix>_<op>``).  Returns the numbers
+    for the records, the serve window's launches, and the dispatch's kernel
+    rows."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import KERNELS, reset_launches
     from repro_torch.launch import serve
@@ -3157,11 +3329,10 @@ def deepseek_phase(torch, err):
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     t_phase = time.perf_counter()
-    cfg = dataclasses.replace(get_config("deepseek-v2-236b"),
-                              n_layers=DEEPSEEK_LAYERS)
+    cfg = dataclasses.replace(get_config(arch), n_layers=layers)
     n_moe = cfg.n_layers - cfg.n_dense_layers
     sv = DEEPSEEK_SERVE
-    print(f"\nphase 12: serve.run(deepseek-v2-236b at {cfg.n_layers} layers, "
+    print(f"\nphase {phase}: serve.run({arch} at {cfg.n_layers} layers, "
           f"{sv}, gs_backend='hopper')", flush=True)
     reset_launches()
     t0 = time.perf_counter()
@@ -3171,10 +3342,9 @@ def deepseek_phase(torch, err):
     wall = time.perf_counter() - t0
     lm, model, dev = res.params, res.model, res.logits.device
     n_params = sum(p.numel() for p in lm.parameters())
-    check(n_params == DEEPSEEK_PARAMS,
-          f"{n_params} parameters, not {DEEPSEEK_PARAMS}")
+    check(n_params == params, f"{n_params} parameters, not {params}")
     want_prefill, want_decode = ({k: w.get(k, 0) for k in KERNELS}
-                                 for w in _deepseek_launches(cfg, res.gen))
+                                 for w in _moe_launches(cfg, res.gen))
     check(res.launches_prefill == want_prefill,
           f"prefill launches {res.launches_prefill} != {want_prefill}")
     check(res.launches_decode == want_decode,
@@ -3212,7 +3382,7 @@ def deepseek_phase(torch, err):
               f"dropped share a MoE layer at capacity_factor "
               f"{cfg.capacity_factor}: {[round(x, 5) for x in dropped]}",
               flush=True)
-        rows = dispatch_times(torch, cfg, taps[0], err)
+        rows = dispatch_times(torch, cfg, taps[0], err, prefix)
         del taps
         with _moe_taps(torch) as taps:
             transformer.forward(cfg, lm, res.prompts, gs_backend="torch")
@@ -3319,8 +3489,9 @@ def deepseek_phase(torch, err):
                                              gs_backend="hopper")
         del topes
     check(len(pre) == len(it) == cfg.n_layers, "cache layers")
-    cache_err = max(_rel_err(p[k], i[k]) for p, i in zip(pre, it)
-                    for k in ("c_kv", "k_pe"))
+    cache_err = max(_rel_err(a, c) for p, i in zip(pre, it)
+                    for a, c in zip(_cache_tensors(p, plen),
+                                    _cache_tensors(i, plen)))
     check(cache_err <= tol, f"prefill cache vs iterated decode, routing "
           f"imposed: {cache_err} x SERVE_TOL > {tol}")
     print(f"  prefill cache of 2 x {plen} tokens vs decode_step iterated, "
@@ -3357,7 +3528,7 @@ def deepseek_phase(torch, err):
     gc.collect()
     torch.cuda.empty_cache()
     out["phase_s"] = time.perf_counter() - t_phase
-    print(f"  phase 12 wall {out['phase_s']:.1f} s", flush=True)
+    print(f"  phase {phase} wall {out['phase_s']:.1f} s", flush=True)
     return out, serve_launches, rows
 
 
@@ -3584,7 +3755,8 @@ def embed_gather_row(torch, gen, vocab, d, lanes, where):
         "library": lambda: table[0].index_select(0, flat),
         "kernel": lambda: g.gather_rows(table, idx)}, 20, "gather",
         f"gather_rows_b16 {where} embedding")
-    nbytes = lanes * (4 + 2 * d * 2)
+    # each lane's index read and row written, each distinct row read once
+    nbytes = lanes * (4 + 2 * d) + torch.unique(idx).numel() * 2 * d
     row = dict(
         turns, plain_ms=_time_ms(torch, lambda: gather_rows_ref(table, idx),
                                  3),
@@ -3614,9 +3786,10 @@ def flash_row(torch, q, k, v, kw, where, shape, library=(NO_SOFTCAP_CALL,
     if call is not None:
         fns = {"library": call, **fns}
     turns = _turn_times(torch, fns, 5, "flash_attention", where)
+    pairs = _causal_pairs(s, kw["window"]) if kw["causal"] else s * s
     return dict(_bound_row(
         ms=turns["ms"], plain_ms=plain_ms, library_ms=turns.get("library_ms"),
-        flops=2 * 2 * bsz * kvh * g * _causal_pairs(s, kw["window"]) * dh,
+        flops=2 * 2 * bsz * kvh * g * pairs * dh,
         nbytes=2 * (q.numel() * 2 + k.numel() + v.numel()), shape=shape,
         library=name, turns=turns), max_abs_err=e)
 
@@ -3973,6 +4146,239 @@ def recurrentgemma_phase(torch):
     served["phase_s"] = time.perf_counter() - t0
     print(f"  phase 15 wall {served['phase_s']:.1f} s", flush=True)
     return served, launches
+
+
+# -- phase 16: kimi-k2-1t-a32b's kernels at its served shapes (phase 4) ------
+
+def kimi_attention_times(torch, err):
+    """Phase 4's kernel checks and timed rows at kimi-k2-1t-a32b's served
+    shapes (phase 16), in bfloat16: flash attention at dh 112, G 8, causal
+    (``KIMI_FLASH_SHAPE``), against its plain version (a head at a time)
+    and beside ``scaled_dot_product_attention`` with ``enable_gqa``, which
+    computes the same function; paged decode's (112, 8) instance at the
+    last step's length and at the decode's first and at short rows; the
+    embedding's gather of 8,192 token rows of the (163,840, 7,168) table
+    beside ``index_select``.  The dispatch's four ops are timed in phase
+    16 itself, at its first MoE layer's input (``dispatch_times``)."""
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    gen = torch.Generator(device="cuda").manual_seed(31)
+    rows = {}
+    bsz, kvh, g, s, dh = KIMI_FLASH_SHAPE
+    q, k, v = _flash_inputs(torch, gen, bsz, kvh, g, s, dh, torch.bfloat16)
+    qh = q.view(bsz, kvh * g, s, dh)
+    rows["flash_attention/kimi"] = row = flash_row(
+        torch, q, k, v, dict(causal=True, window=0, softcap=0.0),
+        f"flash_attention kimi {KIMI_FLASH_SHAPE}",
+        list(KIMI_FLASH_SHAPE) + ["bfloat16", "causal"],
+        ("scaled_dot_product_attention(is_causal, enable_gqa)",
+         lambda: sdpa(qh, k, v, is_causal=True, enable_gqa=True)))
+    err["flash_attention"] = max(err["flash_attention"], row["max_abs_err"])
+    del q, k, v, qh
+    torch.cuda.empty_cache()
+    rows["paged_decode/kimi"] = row = paged_row(
+        torch, gen, KIMI_PAGED_SHAPE, {},
+        f"paged_decode kimi {KIMI_PAGED_SHAPE}", [[2049, 2064, 1, 17]])
+    err["paged_decode"] = max(err["paged_decode"], row["max_abs_err"])
+    rows["gather_rows_b16/kimi_embed"] = embed_gather_row(
+        torch, gen, *KIMI_EMBED, "kimi")
+    print_rows(rows)
+    return rows
+
+
+# -- phase 17: whisper-base at full width ---------------------------------------
+
+# 16 requests of 30 s of audio: 1,500 frames each (whisper's encoder
+# context, arXiv:2212.04356; --prompt-len 6000 at its frame ratio of 4),
+# then 32 greedy steps from BOS at position 0, with room for 6,032 decoder
+# positions as the JAX driver sizes the cache (377 pages of 16)
+WHISPER_ARGS = ["--arch", "whisper-base", "--batch", "16", "--prompt-len",
+                "6000", "--gen", "32", "--gs-backend", "hopper"]
+WHISPER_PARAMS = 97_166_336
+WHISPER_FLASH_SHAPE = (16, 8, 1, 1500, 64)          # B, KVH, G, S = T, dh
+WHISPER_PAGED_SHAPE = (16, 8, 1, 64, 16, 377, 16)   # as PAGED_SHAPE
+
+
+def _whisper_launches(cfg, gen):
+    """Launches a whisper-base serve call on ``hopper`` must make: flash
+    attention once an encoder layer in the prefill (which gathers no
+    token); paged decode once a decoder layer and the embedding gather
+    once in each step (the cross-attention is plain torch)."""
+    return ({"flash_attention": cfg.n_enc_layers},
+            {"paged_decode": cfg.n_layers * gen, "gather_rows_b16": gen})
+
+
+def whisper_attention_times(torch, err):
+    """Phase 4's kernel checks and timed rows at whisper-base's served
+    shapes (phase 17), in bfloat16: the encoder's flash attention, not
+    causal, at dh 64, G 1 over 1,500 frames (``WHISPER_FLASH_SHAPE``),
+    against its plain version and beside ``scaled_dot_product_attention``,
+    which computes the same function; paged decode's (64, 1) instance at
+    the decode's mid-point, 16 positions of the 6,032 its table holds, and
+    at its first and last."""
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    gen = torch.Generator(device="cuda").manual_seed(32)
+    rows = {}
+    bsz, kvh, g, s, dh = WHISPER_FLASH_SHAPE
+    q, k, v = _flash_inputs(torch, gen, bsz, kvh, g, s, dh, torch.bfloat16)
+    qh = q.view(bsz, kvh * g, s, dh)
+    rows["flash_attention/whisper_encoder"] = row = flash_row(
+        torch, q, k, v, dict(causal=False, window=0, softcap=0.0),
+        f"flash_attention whisper encoder {WHISPER_FLASH_SHAPE}",
+        list(WHISPER_FLASH_SHAPE) + ["bfloat16", "not causal"],
+        ("scaled_dot_product_attention", lambda: sdpa(qh, k, v)))
+    err["flash_attention"] = max(err["flash_attention"], row["max_abs_err"])
+    del q, k, v, qh
+    torch.cuda.empty_cache()
+    rows["paged_decode/whisper"] = row = paged_row(
+        torch, gen, WHISPER_PAGED_SHAPE, {},
+        f"paged_decode whisper {WHISPER_PAGED_SHAPE}", [[1, 32] * 8])
+    err["paged_decode"] = max(err["paged_decode"], row["max_abs_err"])
+    print_rows(rows)
+    return rows
+
+
+@contextlib.contextmanager
+def _self_kv_taps():
+    """Record the K/V (B, S, KVH, dh) of each self-attention call of
+    ``attention.gqa_apply`` (no ``kv`` given) in call order, recomputed
+    from the same input (plain torch: no kernel launch)."""
+    from repro_torch.models import attention
+    taps, orig = [], attention.gqa_apply
+
+    def tapped(cfg, p, x, positions, **kw):
+        if kw.get("kv") is None:
+            taps.append(attention.gqa_kv(cfg, p, x, positions))
+        return orig(cfg, p, x, positions, **kw)
+    attention.gqa_apply = tapped
+    try:
+        yield taps
+    finally:
+        attention.gqa_apply = orig
+
+
+def whisper_phase(torch):
+    """Phase 17: serve whisper-base at its published width and depth (6
+    encoder and 6 decoder layers) through ``launch.serve.main`` on
+    ``hopper``: exact launches, the parameters, each step's logits against
+    the teacher-forced decoder over the same frames and tokens, within
+    SERVE_TOL; then, on 2 requests, the caches: the cross K/V the prefill
+    wrote against those of a separate encoder pass, and the self-attention
+    K/V that ``decode_step`` iterated over the served tokens wrote against
+    those of the teacher-forced decoder.  Its kernels' rows at its shapes
+    run in phase 4 (``whisper_attention_times``).  Returns the numbers and
+    the serve window's launches."""
+    from repro_torch.kernels import KERNELS, reset_launches
+    from repro_torch.launch import serve
+    from repro_torch.models import attention, encdec
+    t0 = time.perf_counter()
+    print("\nphase 17: whisper-base at full width", flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    print(f"$ python -m repro_torch.launch.serve {' '.join(WHISPER_ARGS)}",
+          flush=True)
+    reset_launches()
+    t1 = time.perf_counter()
+    with _attention_calls() as calls:
+        res = serve.main(list(WHISPER_ARGS))
+    serve_launches = _launches()
+    wall = time.perf_counter() - t1
+    cfg, lm, model = res.model.cfg, res.params, res.model
+    n_params = sum(p.numel() for p in lm.parameters())
+    check(n_params == WHISPER_PARAMS,
+          f"{n_params} parameters, not {WHISPER_PARAMS}")
+    want_prefill, want_decode = ({k: w.get(k, 0) for k in KERNELS}
+                                 for w in _whisper_launches(cfg, res.gen))
+    check(res.launches_prefill == want_prefill,
+          f"prefill launches {res.launches_prefill} != {want_prefill}")
+    check(res.launches_decode == want_decode,
+          f"decode launches {res.launches_decode} != {want_decode}")
+    check(serve_launches == {k: want_prefill[k] + want_decode[k]
+                             for k in KERNELS},
+          f"serve window launches {serve_launches}")
+    want_calls = {"flash_attention/global": cfg.n_enc_layers,
+                  "paged_decode/global": cfg.n_layers * res.gen}
+    check(calls == want_calls, f"attention calls {calls} != {want_calls}")
+    check(bool((res.tokens[:, 0] == 1).all()), "decode did not start at BOS")
+    check(bool(torch.isfinite(res.logits.float()).all()), "non-finite logits")
+    peak = torch.cuda.max_memory_allocated()
+    frames = res.frames
+    n_frames = frames.shape[1]
+
+    # each step's logits vs the teacher-forced decoder over the same frames
+    with torch.no_grad():
+        hidden = model.forward(lm, res.tokens[:, :-1], frames=frames,
+                               gs_backend="hopper")
+        tf = encdec.unembed_logits(cfg, lm.embed, hidden).float()
+        del hidden
+    rms = tf.pow(2).mean().sqrt().item()
+    scale = max(1.0, rms)
+    logit_err = _rel_err(res.logits, tf, scale)
+    check(logit_err <= 1.0, f"decode logits vs teacher-forced decoder: "
+          f"{logit_err} x SERVE_TOL (logits of rms {rms})")
+    top2 = tf.topk(2, dim=-1).values
+    wide = (top2[..., 0] - top2[..., 1]) > 2 * (
+        SERVE_TOL["atol"] * scale + SERVE_TOL["rtol"] * top2[..., 0].abs())
+    agree = tf.argmax(-1) == res.tokens[:, 1:]
+    check(bool(agree[wide].all()), "a greedy token differs from the "
+          "teacher-forced argmax where the top-2 margin is wide")
+    print(f"  teacher-forced decoder over {tuple(res.tokens[:, :-1].shape)} "
+          f"tokens and {n_frames} frames: decode logits (rms {rms:.4f}) "
+          f"within {logit_err:.3f} x SERVE_TOL; greedy tokens agree at "
+          f"{int(agree.sum())} of {agree.numel()} positions, at all "
+          f"{int(wide.sum())} with a wide top-2 margin", flush=True)
+    del tf, top2, wide
+
+    # the caches of 2 requests: cross K/V vs a separate encoder pass, the
+    # self K/V of iterated decode_step vs the teacher-forced decoder's
+    gen, two, toks = res.gen, frames[:2], res.tokens[:2, :res.gen]
+    with torch.no_grad():
+        _, cache = model.prefill(lm, two, max_len=gen)
+        for t in range(gen):
+            _, cache = model.decode_step(lm, cache, toks[:, t:t + 1], t,
+                                         gs_backend="hopper")
+        enc = encdec.encode(cfg, lm, two)
+        pos = torch.arange(n_frames, dtype=torch.int32, device=two.device)
+        cross = [attention.gqa_kv(cfg, blk.cross_attn, enc, pos)
+                 for blk in lm.dec]
+        with _self_kv_taps() as taps:
+            encdec.decode_train(cfg, lm, toks, enc, "hopper")
+    check(len(taps) == len(cross) == len(cache) == cfg.n_layers,
+          f"{len(taps)} self-attention taps for {cfg.n_layers} layers")
+    cross_err = max(_rel_err(c[name], want) for c, kv in zip(cache, cross)
+                    for name, want in zip(("cross_k", "cross_v"), kv))
+    self_err = max(_rel_err(got, want) for c, kv in zip(cache, taps)
+                   for got, want in zip(attention.contiguous_kv(c, gen), kv))
+    check(cross_err <= 1.0 and self_err <= 1.0,
+          f"caches: cross {cross_err}, self {self_err} x SERVE_TOL")
+    print(f"  caches of 2 requests, all {cfg.n_layers} decoder layers: the "
+          f"prefill's cross K/V vs a separate encoder pass within "
+          f"{cross_err:.3f} x SERVE_TOL, the self K/V of {gen} decode steps "
+          f"vs the teacher-forced decoder's within {self_err:.3f} x",
+          flush=True)
+    del cache, enc, cross, taps
+    out = dict(arch=res.arch, batch=res.batch, prompt_len=res.prompt_len,
+               frames=n_frames, gen=res.gen, prefill_ms=res.prefill_ms,
+               decode_ms_per_step=res.decode_ms / res.gen, tok_s=res.tok_s,
+               params=n_params, weight_bytes=res.weight_bytes,
+               max_memory_allocated=peak, serve_wall_s=wall,
+               launches_prefill=res.launches_prefill,
+               launches_decode=res.launches_decode,
+               attention_calls=dict(sorted(calls.items())),
+               logit_err_x_tol=logit_err, logit_rms=rms,
+               cross_cache_err_x_tol=cross_err,
+               self_cache_err_x_tol=self_err,
+               greedy_agree=int(agree.sum()), greedy_positions=agree.numel())
+    print(f"  serve: prefill (encoder) {res.prefill_ms:.1f} ms, decode "
+          f"{out['decode_ms_per_step']:.2f} ms/step, {res.tok_s:.1f} tok/s, "
+          f"{n_params} params, max_memory_allocated {peak} bytes, wall "
+          f"{wall:.1f} s", flush=True)
+    del res, lm, model, frames, two
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["phase_s"] = time.perf_counter() - t0
+    print(f"  phase 17 wall {out['phase_s']:.1f} s", flush=True)
+    return out, serve_launches
 
 
 # -- phase 7: spatterd on the card ---------------------------------------------
@@ -4387,6 +4793,11 @@ def daemon_phase(torch, cli_results, suite_stats):
 # -- phase 8: placements on the card -------------------------------------------
 
 PLACEMENT_SHAPES = ((1, 2), (2, 1), (2, 2), (1, 4))
+# appdb (Table 5 at scale 1.0, 34 patterns in 13 buckets) runs unplaced, on
+# one device and at (2, 2), which splits both batches and lanes; demo and
+# the CLI pattern run at every shape (appdb's other three took ~35 s of
+# the script's 1,200 on an H100 host: PERF.md section 4)
+APPDB_PLACEMENTS = ("unplaced", "1x1", "2x2")
 # the CLI add at (2, 1) over its unplaced time, at most (fixed before the
 # skip of +-0.0 payloads first ran on the card)
 CLI_ADD_2X1_RATIO = 2.0
@@ -4395,10 +4806,12 @@ CLI_ADD_2X1_RATIO = 2.0
 @contextlib.contextmanager
 def _host_buffers_once():
     """Draw each pattern's host buffers once, and stack each bucket's
-    members once for each launched (batch, lanes, mode), across phases 8,
-    10 and 11: the planner's numpy draws and stacking (outside every timed
-    region) would otherwise take most of those phases (appdb's buckets
-    stack ~14 GB).  The launch copies the stacked arrays to the device and
+    members once for each launched (batch, lanes, mode), across phases 2-3
+    and 7-11 (``main`` holds it from phase 2 on): the planner's numpy draws
+    and stacking (outside every timed region) would otherwise take most of
+    those phases (appdb's buckets stack ~14 GB; phase 3's torch run, phase
+    7's daemon and phase 8 each drew them anew, ~37 s a time on an H100
+    host).  The launch copies the stacked arrays to the device and
     writes only there, so they are reused as they are.  Launches and
     outputs do not change."""
     from repro_torch import plan
@@ -4478,10 +4891,10 @@ def placement_phase(torch, suite_stats):
     """Phase 8: placements on the one card, shards on ``[cuda:0] * n``.
 
     (a) every store edge case once more with the coverage map
-    (``store_edge_cases(with_cov=True)``); (b) demo, appdb at scale 1.0
-    and the CLI pattern (gather and scatter at 2^27 lanes) on hopper,
-    unplaced, on a one-device placement and on each of
-    ``PLACEMENT_SHAPES``: gathers and stores (the suite in store mode)
+    (``store_edge_cases(with_cov=True)``); (b) demo and the CLI pattern
+    (gather and scatter at 2^27 lanes) on hopper, unplaced, on a
+    one-device placement and on each of ``PLACEMENT_SHAPES``, and appdb
+    at scale 1.0 at ``APPDB_PLACEMENTS``: gathers and stores (the suite in store mode)
     must give phase 3's digests (the CLI pattern: its unplaced run's),
     adds (the scatters in add mode) must lie within ``add_error_bound`` of
     the unplaced run's outputs and, unplaced too, within ``RMS_ERRORS`` x
@@ -4537,6 +4950,8 @@ def placement_phase(torch, suite_stats):
             scatters = [p for p in pats if p.kind == "scatter"]
             bounds, base_add = {}, None
             for label, mesh in meshes.items():
+                if name == "appdb" and label not in APPDB_PLACEMENTS:
+                    continue
                 b, l = mesh.grid if mesh else (1, 1)
                 for mode, run in (("store", pats), ("add", scatters)):
                     r = _placed_suite(torch, run, mode, mesh, cache)
@@ -5649,7 +6064,13 @@ def main():
     err["paged_decode"] = paged_cases(torch)
     err["rglru_scan"] = rglru_cases(torch)
     print(f"phase 1 wall {time.perf_counter() - t0:.1f} s", flush=True)
+    with _host_buffers_once():
+        return _phases_2_to_17(torch, err)
 
+
+def _phases_2_to_17(torch, err):
+    """Every phase after phase 1, inside ``main``'s ``_host_buffers_once``,
+    then the records and the last line."""
     from repro_torch.kernels import reset_launches
     reset_launches()
     t0 = time.perf_counter()
@@ -5668,14 +6089,19 @@ def main():
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
 
+    t0 = time.perf_counter()
     times = kernel_times(torch, err)
     times.update(attention_times(torch, err))
     gemma2_rows = gemma2_attention_times(torch, err)   # phase 13's shapes
     dense_rows = dense_attention_times(torch, err)     # phase 14's shapes
     rg_rows = recurrentgemma_times(torch, err)         # phase 15's shapes
     times["rglru_scan"] = rg_rows.pop("rglru_scan")
+    kimi_rows = kimi_attention_times(torch, err)       # phase 16's shapes
+    whisper_rows = whisper_attention_times(torch, err)  # phase 17's shapes
     lulesh_s3_add = times.pop("lulesh_s3_add")
     peak_1_4 = max(peak_1_3, torch.cuda.max_memory_allocated())
+    print(f"phase 4 wall {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
     served, serve_launches = serve_phase(torch)
     steady = profile_serve(torch)           # falcon-mamba-7b, steady state
     times["selective_scan"].update(
@@ -5686,6 +6112,7 @@ def main():
     torch.cuda.empty_cache()
     served_llama, llama_launches = serve_phase(
         torch, LLAMA_ARGS, _dense_launches, LLAMA3_8B_PARAMS)
+    print(f"phases 5-6 wall {time.perf_counter() - t0:.1f} s", flush=True)
     gc.collect()
     torch.cuda.empty_cache()
     # phase 12 frees its 50 GB model before it returns, phase 13 its 54 GB
@@ -5693,13 +6120,15 @@ def main():
     gemma2, gemma2_launches = gemma2_phase(torch)
     dense, dense_launches = dense_archs_phase(torch)
     rg, rg_launches = recurrentgemma_phase(torch)
+    # phase 16 frees its 40 GB model before it returns
+    kimi, kimi_launches, kimi_moe_rows = kimi_phase(torch, err)
+    whisper, whisper_launches = whisper_phase(torch)
     daemon = daemon_phase(torch, cli_results, suite_stats)
-    # phase 10 last: it reuses phase 8's host draws, and its profiler
-    # sessions come after every phase that checks a trace's launch count
-    with _host_buffers_once():
-        placed = placement_phase(torch, suite_stats)
-        tuned = autotune_phase(torch, suite_stats)
-        halves = dtype_phase(torch)
+    # phase 10 last: its profiler sessions come after every phase that
+    # checks a trace's launch count
+    placed = placement_phase(torch, suite_stats)
+    tuned = autotune_phase(torch, suite_stats)
+    halves = dtype_phase(torch)
     path_launches = {k: main_launches[k] for k in SPATTER_KERNELS}
     path_launches["scatter_store_rows_cov"] = placed["launches"][
         "scatter_store_rows_cov"]
@@ -5736,14 +6165,16 @@ def main():
             rows[-1]["add_routes"] = {
                 "cli": t["route"],
                 "lulesh_s3": lulesh_s3_add[dname]["route"]}
-    # the MoE dispatch's ops at deepseek-v2-236b's served shapes (phase
-    # 12): the embedding takes one gather a call, each op one of each MoE
-    # layer's two gathers or two adds
-    calls = 1 + deepseek["gen"]
-    for name, t in moe_rows.items():
+    # the MoE dispatch's ops at deepseek-v2-236b's and kimi-k2-1t-a32b's
+    # served shapes (phases 12 and 16): the embedding takes one gather a
+    # call, each op one of each MoE layer's two gathers or two adds
+    for name, t, served_moe, launched in (
+            [(n, t, deepseek, deepseek_launches) for n, t in moe_rows.items()]
+            + [(n, t, kimi, kimi_launches)
+               for n, t in kimi_moe_rows.items()]):
         kernel = name.split("/")[0]
         source, replaces = KERNEL_INFO[kernel]
-        n = deepseek_launches[kernel] - (calls if kernel.startswith(
+        n = launched[kernel] - (1 + served_moe["gen"] if kernel.startswith(
             "gather") else 0)
         rows.append(dict(name=name, route="cuda", source=source,
                          replaces=replaces, launches=n // 2,
@@ -5808,6 +6239,27 @@ def main():
                          device_ms=t["device_ms"],
                          library_device_ms=t.get("library_device_ms"),
                          shape=t["shape"]))
+    # kimi-k2-1t-a32b's at its shapes (phase 16): flash once a layer a
+    # prefill, paged decode once a layer a step, the embedding's gather
+    # once a prefill and a step (its other gathers are the dispatch's);
+    # whisper-base's (phase 17): the encoder's flash, the decoder's paged
+    # decode
+    for name, t in list(kimi_rows.items()) + list(whisper_rows.items()):
+        kernel, which = name.split("/")
+        source, replaces = KERNEL_INFO[kernel]
+        served_by, launched = ((kimi, kimi_launches) if which.startswith(
+            "kimi") else (whisper, whisper_launches))
+        n = (1 + served_by["gen"] if kernel.startswith("gather")
+             else launched[kernel])
+        rows.append(dict(name=name, route="cuda", source=source,
+                         replaces=replaces, launches=n,
+                         max_abs_err=t["max_abs_err"], ms=t["ms"],
+                         time_ms=t["ms"], plain_ms=t["plain_ms"],
+                         bound_ms=t["bound_ms"], bound_by=t["bound_by"],
+                         library_ms=t["library_ms"],
+                         device_ms=t["device_ms"],
+                         library_device_ms=t.get("library_device_ms"),
+                         shape=t["shape"]))
     cli = {f"{b}/{k}/{m}": dict(time_ms=r.time_s * 1e3, gbs=r.measured_gbs,
                                 host_s=r.host_s)
            for (b, k, m), r in cli_results.items()}
@@ -5823,7 +6275,9 @@ def main():
           f"{gemma2['max_memory_allocated']} bytes in phase 13's, "
           f"{dense['chatglm3-6b']['max_memory_allocated']} and "
           f"{dense['starcoder2-15b']['max_memory_allocated']} bytes in "
-          f"phase 14's, {rg['max_memory_allocated']} bytes in phase 15's")
+          f"phase 14's, {rg['max_memory_allocated']} bytes in phase 15's, "
+          f"{kimi['max_memory_allocated']} bytes in phase 16's, "
+          f"{whisper['max_memory_allocated']} bytes in phase 17's")
     print(json.dumps({"cli": cli, "suites_hopper": suites,
                       "gathers": {k: v for k, v in times.items()
                                   if k.startswith("gather_rows")},
@@ -5836,6 +6290,8 @@ def main():
     print(json.dumps({"gemma2": gemma2}))
     print(json.dumps({"dense_archs": dense}))
     print(json.dumps({"recurrentgemma": rg}))
+    print(json.dumps({"kimi": kimi}))
+    print(json.dumps({"whisper": whisper}))
     print(json.dumps({"daemon": daemon}))
     print(json.dumps({"placements": placed}))
     print(json.dumps({"autotune": tuned}))

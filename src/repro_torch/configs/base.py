@@ -12,11 +12,12 @@ import dataclasses
 import importlib
 
 ARCH_IDS = ["falcon-mamba-7b", "llama3-8b", "deepseek-v2-236b", "gemma2-27b",
-            "chatglm3-6b", "starcoder2-15b", "recurrentgemma-9b"]
+            "chatglm3-6b", "starcoder2-15b", "recurrentgemma-9b",
+            "kimi-k2-1t-a32b", "whisper-base"]
 
 # the JAX package's other architectures: ROADMAP A7 (the model side) ports
 # them
-NOT_PORTED = ("kimi-k2-1t-a32b", "whisper-base", "internvl2-26b")
+NOT_PORTED = ("internvl2-26b",)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -101,8 +101,8 @@
 //   - Fragment layout: thread t of a consumer warpgroup holds rows
 //     16 (t / 32) + (t % 32) / 4 and that + 8, columns 8 j + 2 (t % 4) + {0,
 //     1}; a row r is head r / (128 / G), position q0 + r % (128 / G).
-//   - Build time: three template instances (DH 64, 128, 256), beside the
-//     float32 body's three.
+//   - Build time: four template instances (DH 64, 112, 128, 256), beside
+//     the float32 body's four.
 //   DH 256 (recurrentgemma-9b: MQA, G 16, so a CTA holds 8 positions of
 //   the 16 heads).  A tile is 64 keys (TcLayout::kBK), not 128: 64 KB of Q
 //   and 2 x 64 KB of K/V stages, ~194 KB in all.  S = Q K^T is wgmma
@@ -111,11 +111,23 @@
 //   a tile.  O is 128 floats a thread, so registers (at most 224 a thread
 //   at 288 threads, one CTA an SM) are what this instance risks: the
 //   build prints ptxas's count and spills.
+//   DH 112 (kimi-k2-1t-a32b: GQA, G 8).  The tile stays DH 128's: the
+//   tensor maps' inner dimension is 112 (224-byte rows, a multiple of 16
+//   bytes), so TMA fills columns 112-127 of the second 64-column box with
+//   zeros, and expect_tx counts the whole box, as for keys past T.  S = Q
+//   K^T takes DH / 16 = 7 k-steps (the zero columns would add nothing);
+//   O += P V runs at the padded width kDP = 128 (m64n128k16, V's two
+//   boxes), its columns 112-127 stay 0 and are never stored, and the
+//   rescale, the epilogue and mean_of_v touch only the 112 real ones.  A
+//   native m64n112k16 P V would do 14% fewer products (not tried).
 //
 // flash_attention_f32 keeps the CUDA-core body: each thread owns 4 rows x 4
 // keys of a 64 x 32 score tile and 4 rows x DH/8 columns of the output; Q,
 // K and P are staged transposed, so each step of either product reads two
-// float4 from shared memory for 16 FMAs.  The tensor-core alternative is
+// float4 from shared memory for 16 FMAs.  At DH 112 (no multiple of 32)
+// the eight column groups hold 4 float4 columns each over 128, and those
+// at or past DH (the last column of groups 4-7) are neither computed nor
+// stored.  The tensor-core alternative is
 // TF32, which keeps ~10 bits of the mantissa and would break the float32
 // account of the tolerance the port holds it to; serving runs in bf16.
 #include <cuda.h>
@@ -186,8 +198,10 @@ flash_attention_kernel(const float* __restrict__ q,
                        float softcap) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   Smem<DH>& sm = *reinterpret_cast<Smem<DH>*>(smem_raw);
+  static_assert(DH % 16 == 0, "DH: whole 16-column pieces");
   constexpr int kChunks = DH / 4;               // 16-byte loads per row
-  constexpr int kCols = DH / 32;                // float4 output columns
+  constexpr int kCols = (DH + 31) / 32;         // float4 output columns
+  constexpr bool kRagged = DH % 32 != 0;        // the last one partly past DH
   const int tid = threadIdx.x;
   const int ty = tid >> 3, tx = tid & 7;
   const int64_t q0 = (static_cast<int64_t>(gridDim.x) - 1 - blockIdx.x) * bq;
@@ -308,6 +322,7 @@ flash_attention_kernel(const float* __restrict__ q,
       const float pv[4] = {p.x, p.y, p.z, p.w};
 #pragma unroll
       for (int cc = 0; cc < kCols; ++cc) {
+        if (kRagged && cc == kCols - 1 && tx * 4 + 32 * cc >= DH) continue;
         const float4 w =
             *reinterpret_cast<const float4*>(&sm.v[kk][tx * 4 + 32 * cc]);
 #pragma unroll
@@ -339,6 +354,7 @@ flash_attention_kernel(const float* __restrict__ q,
 #pragma unroll
     for (int cc = 0; cc < kCols; ++cc) {
       const int c = tx * 4 + 32 * cc;
+      if (kRagged && cc == kCols - 1 && c >= DH) continue;
       *reinterpret_cast<float4*>(orow + c) =
           empty ? *reinterpret_cast<const float4*>(mean + c)
                 : make_float4(o[i][cc * 4 + 0] / denom,
@@ -382,13 +398,17 @@ constexpr int kSwizzleRow = 128;           // bytes of a 128B-swizzled row
 constexpr int kBoxCols = kSwizzleRow / 2;  // bf16 columns per box
 
 // Keys a tile, and byte offsets in the (1024-aligned) dynamic shared
-// memory.  128 keys a tile at DH 64 and 128; 64 at DH 256, where 128 would
-// need 64 KB of Q and 2 x 128 KB of K/V stages, past the 227 KB a block
-// may take (64 keys: 64 + 2 x 64 KB).
+// memory.  128 keys a tile at DH 64, 112 and 128; 64 at DH 256, where 128
+// would need 64 KB of Q and 2 x 128 KB of K/V stages, past the 227 KB a
+// block may take (64 keys: 64 + 2 x 64 KB).  A row is kBoxes 64-column
+// boxes, the last zero-filled past DH (DH 112: two boxes, 128 columns).
 template <int DH>
 struct TcLayout {
+  static_assert(DH % 16 == 0 && DH <= 256,
+                "DH: whole k16 steps, at most the widest wgmma");
   static constexpr int kBK = DH > 128 ? 64 : 128;
-  static constexpr int kBoxes = DH / kBoxCols;
+  static constexpr int kBoxes = (DH + kBoxCols - 1) / kBoxCols;
+  static constexpr int kDP = kBoxes * kBoxCols;   // P V's (padded) width
   static constexpr int kQBox = kTcRows * kSwizzleRow;
   static constexpr int kKVBox = kBK * kSwizzleRow;
   static constexpr int kQ = kBoxes * kQBox;
@@ -542,7 +562,7 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t a,
 }
 
 // d (64 x N f32) += A B, A in registers (a[0..3]), B MN-major in shared
-// memory (the transpose bit): N = DH, 64, 128 or 256 (the widest wgmma
+// memory (the transpose bit): N = kDP, 64, 128 or 256 (the widest wgmma
 // takes).
 __device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t* a,
                                          uint64_t b) {
@@ -673,9 +693,9 @@ flash_attention_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
 #pragma unroll
   for (int i = 0; i < 2; ++i) qpos[i] = q0 + row[i] % bq;
   float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
-  float o[DH / 2];
+  float o[L::kDP / 2];             // columns past DH stay 0
 #pragma unroll
-  for (int j = 0; j < DH / 2; ++j) o[j] = 0.f;
+  for (int j = 0; j < L::kDP / 2; ++j) o[j] = 0.f;
   const uint32_t q_wg = base + 64 * wg * kSwizzleRow;
   mbar_wait(bar_q, 0);
   for (int it = 0; it < n_tiles; ++it) {
@@ -686,8 +706,9 @@ flash_attention_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
     mbar_wait(bar_full + 8 * s, (it / kTcStages) & 1);
     __syncwarp();
 
-    // S = Q K^T: DH / 16 k-steps, 32 bytes apart inside a swizzled row; the
-    // first overwrites sc
+    // S = Q K^T: DH / 16 k-steps, 32 bytes apart inside a swizzled row (at
+    // DH 112 the second box's zero columns are not multiplied); the first
+    // overwrites sc
     float sc[kBK / 2];
     wgmma_fence();
 #pragma unroll
@@ -903,6 +924,9 @@ extern "C" int flash_attention_f32(const void* q, const void* k, const void* v,
     case 64:
       return launch_f32<64>(tq, tk, tv, to, B, KVH, G, S, T, scale, causal,
                             window, softcap, s);
+    case 112:
+      return launch_f32<112>(tq, tk, tv, to, B, KVH, G, S, T, scale, causal,
+                             window, softcap, s);
     case 128:
       return launch_f32<128>(tq, tk, tv, to, B, KVH, G, S, T, scale, causal,
                              window, softcap, s);
@@ -927,6 +951,9 @@ extern "C" int flash_attention_bf16(const void* q, const void* k,
     case 64:
       return launch_bf16<64>(q, k, v, out, B, KVH, G, S, T, scale, causal,
                              window, softcap, s);
+    case 112:
+      return launch_bf16<112>(q, k, v, out, B, KVH, G, S, T, scale, causal,
+                              window, softcap, s);
     case 128:
       return launch_bf16<128>(q, k, v, out, B, KVH, G, S, T, scale, causal,
                               window, softcap, s);

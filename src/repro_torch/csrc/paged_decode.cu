@@ -41,7 +41,12 @@
 // its own CTAs over the same pages, in the one kOpts instance a dtype):
 // Layout and reduce_dots pad a G that is no power of two to the next one
 // (16 lanes' worth of dot sums for 12 heads), and leave the others' code as
-// it was.
+// it was.  G 8 at DH 112 (kimi-k2-1t-a32b's 64 / 8, launch_dh112; one
+// instance a dtype, without the options) pads the columns the same way: 16
+// lanes a position hold 8 columns each over kDP = 128, so the last two
+// lanes (with zero q) load, add and keep nothing, and a stage holds the
+// whole passes that fit (32 bf16 or 16 f32 positions), its copies in a
+// loop whose last round is guarded (448 16-byte pieces over 128 threads).
 //
 // What bounds it: bytes.  At the llama3-8b decode (B 4, KVH 8, G 4, DH 128,
 // page 16, 130 pages a row, length 2080, bf16) K and V are 4 x 8 x 2080 x
@@ -119,25 +124,35 @@ __host__ __device__ constexpr int pow2_ceil(int n) {
 // The thread layout of one (T, G, DH) instance.  kTpr lanes share a
 // position (8, 16 or 32, so that G x kE <= 64 query values sit in
 // registers; G x DH / 64 rounded up to a power of two, which a G that is
-// not one, such as 12, needs for kE to divide DH); each holds kE of its DH
-// columns, kVecE at a time.
+// not one, such as 12, needs for kE to divide DH); each holds kE of its
+// columns, kVecE at a time.  kE is DH / kTpr rounded up to a power of two,
+// so kTpr x kE = kDP columns are held; where kDP > DH (DH 112: 7 -> 8
+// columns, 128 in all) the pieces at or past DH belong to no column, and a
+// lane skips them (kPadded).  A stage holds the whole passes that fit, and
+// where its 16-byte pieces do not divide over the threads the copy loop's
+// last round is guarded (kCopyTail).
 template <typename T, int G, int DH>
 struct Layout {
   static constexpr int kTprWant = pow2_ceil(G * DH / 64);
   static constexpr int kTpr = kTprWant < 8 ? 8 : (kTprWant > 32 ? 32 : kTprWant);
-  static constexpr int kE = DH / kTpr;
+  static constexpr int kE = pow2_ceil((DH + kTpr - 1) / kTpr);
+  static constexpr int kDP = kE * kTpr;
+  static constexpr bool kPadded = kDP != DH;
   static constexpr int kVecE = kE * static_cast<int>(sizeof(T)) < 16
                                    ? kE : 16 / static_cast<int>(sizeof(T));
   static constexpr int kLoads = kE / kVecE;
   static constexpr int kSlots = kThreads / kTpr;      // positions a pass
   static constexpr int kRowBytes = DH * static_cast<int>(sizeof(T));
-  static constexpr int kRows = kStageBytes / (2 * kRowBytes);  // a stage
+  static constexpr int kRows =                        // a stage
+      kStageBytes / (2 * kRowBytes) / kSlots * kSlots;
   static constexpr int kPasses = kRows / kSlots;
   static constexpr int kChunks = kRowBytes / 16;      // 16-byte pieces a row
-  static constexpr int kCopies = kRows * kChunks / kThreads;  // K (and V)
-  static_assert(kLoads * kVecE == kE && kE * kTpr == DH, "columns");
-  static_assert(kPasses * kSlots == kRows, "passes");
-  static_assert(kCopies * kThreads == kRows * kChunks, "copies");
+  static constexpr int kCopies =                      // K (and V)
+      (kRows * kChunks + kThreads - 1) / kThreads;
+  static constexpr bool kCopyTail = kCopies * kThreads != kRows * kChunks;
+  static_assert(kLoads * kVecE == kE && DH % kVecE == 0 && DH <= kDP,
+                "columns");
+  static_assert(kPasses >= 1 && kChunks * 16 == kRowBytes, "passes");
   // the slots' acc, l and the warps' m, then reused by the merge
   static_assert((kSlots * G * (DH + 1) + kWarps * G) * 4 <= kSmemBytes,
                 "combine scratch");
@@ -321,12 +336,22 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
   lookup(0, pi, phys);
   float qr[G][kE];                 // q's columns of this thread
   const T* qb = q + bh * G * DH;
+  // whether piece j of this lane's columns lies inside the head (always,
+  // unless the columns are padded)
+  auto live = [&](int j) {
+    return !L::kPadded || (j * kTpr + sl) * kVecE < DH;
+  };
 #pragma unroll
   for (int g = 0; g < G; ++g) {
 #pragma unroll
     for (int j = 0; j < L::kLoads; ++j) {
-      load_f32<T, kVecE>(qb + g * DH + (j * kTpr + sl) * kVecE,
-                         &qr[g][j * kVecE]);
+      if (live(j)) {
+        load_f32<T, kVecE>(qb + g * DH + (j * kTpr + sl) * kVecE,
+                           &qr[g][j * kVecE]);
+      } else {
+#pragma unroll
+        for (int i = 0; i < kVecE; ++i) qr[g][j * kVecE + i] = 0.f;
+      }
     }
   }
   if (!kOpts || window == 0) len = clamp_len(lengths[b]);
@@ -360,7 +385,7 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
         const int c = tid + i * kThreads;
         const int r = c / L::kChunks, col = c % L::kChunks;
         const int t = t_lo + st * kRows + r;
-        if (t < t_end) {
+        if (t < t_end && (!L::kCopyTail || c < kRows * L::kChunks)) {
           const int64_t pg = phys[i] < 0 ? 0 : (phys[i] >= P ? P - 1 : phys[i]);
           const int64_t src = (pg * page + (t - pi[i] * page)) * DH +
                               col * (16 / sizeof(T));
@@ -401,6 +426,7 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
         if (valid && !zero) {
 #pragma unroll
           for (int j = 0; j < L::kLoads; ++j) {
+            if (!live(j)) continue;
             float kx[kVecE];
             load_f32<T, kVecE>(ks + r * DH + (j * kTpr + sl) * kVecE, kx);
 #pragma unroll
@@ -451,6 +477,7 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
         if (valid) {
 #pragma unroll
           for (int j = 0; j < L::kLoads; ++j) {
+            if (!live(j)) continue;
             float vx[kVecE];
             load_f32<T, kVecE>(vs + r * DH + (j * kTpr + sl) * kVecE, vx);
 #pragma unroll
@@ -478,6 +505,7 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
   for (int g = 0; g < G; ++g) {
 #pragma unroll
     for (int j = 0; j < L::kLoads; ++j) {
+      if (!live(j)) continue;
 #pragma unroll
       for (int i = 0; i < kVecE; ++i) {
         red[(slot * G + g) * DH + (j * kTpr + sl) * kVecE + i] =
@@ -716,6 +744,16 @@ int launch_dh256(const Args& a, int64_t G) {
   return launch_instance<T, 8, 256, true>(a, 2);
 }
 
+// DH 112 (kimi-k2-1t-a32b's G 8) has one instance a dtype, without the
+// options: the one a served config launches.
+template <typename T>
+int launch_dh112(const Args& a, int64_t G) {
+  if (G != 8 || a.softcap > 0.f || a.window > 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return launch_instance<T, 8, 112, false>(a);
+}
+
 template <typename T>
 int launch(const Args& a, int64_t G, int64_t DH) {
   if (a.B <= 0 || a.KVH <= 0) return 0;
@@ -727,6 +765,7 @@ int launch(const Args& a, int64_t G, int64_t DH) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (DH == 256) return launch_dh256<T>(a, G);
+  if (DH == 112) return launch_dh112<T>(a, G);
   switch (G) {
     case 1: return launch_g<T, 1>(a, DH);
     case 2: return launch_g<T, 2>(a, DH);

@@ -5,9 +5,10 @@ launch computes the attention of every (batch row, KV head, query head)
 with an online softmax, never writing the scores to device memory.  In
 bfloat16 the products run on the tensor cores (wgmma, K/V tiles copied by
 TMA); in float32 on the CUDA cores.  Any S and T run (no block multiple).
-The head size is a template of the kernel: 64, 128 or 256
-(recurrentgemma-9b's; the bf16 kernel takes 64 keys a tile there, 128 at
-the others); on CUDA tensors any other raises, and so do more than 64
+The head size is a template of the kernel: 64, 112 (kimi-k2-1t-a32b's:
+the bf16 kernel runs DH 128's tile, its last 16 columns zero-filled by
+TMA), 128 or 256 (recurrentgemma-9b's; the bf16 kernel takes 64 keys a
+tile there, 128 at the others); on CUDA tensors any other raises, and so do more than 64
 query heads per KV head (``check_kernel_shape``).  The plain version
 takes any.
 
@@ -25,7 +26,7 @@ import torch
 from .. import _build
 from .ref import flash_attention_ref
 
-HEAD_DIMS = (64, 128, 256)
+HEAD_DIMS = (64, 112, 128, 256)
 MAX_GROUP = 64                  # a CTA's 64 (f32) or 128 rows: G x rows / G
 _ENTRY = {torch.float32: "flash_attention_f32",
           torch.bfloat16: "flash_attention_bf16"}

@@ -13,6 +13,11 @@
     PYTHONPATH=src python -m repro_torch.launch.serve \\
         --arch recurrentgemma-9b --batch 2 --prompt-len 8192 --gen 32 \\
         --gs-backend hopper                                      # the card
+    PYTHONPATH=src python -m repro_torch.launch.serve \\
+        --arch kimi-k2-1t-a32b --layers 2 --batch 4 --prompt-len 2048 \\
+        --gen 32 --gs-backend hopper                             # the card
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch whisper-base \\
+        --batch 16 --prompt-len 6000 --gen 32 --gs-backend hopper  # the card
 
 The port of ``repro/launch/serve.py`` for the ported architectures.  The
 weights are random, drawn on the device from a ``torch.Generator`` seeded
@@ -28,8 +33,16 @@ indexed ops (the embedding gather, the MoE dispatch's gathers and
 scatter-adds; the JAX package's ``gs_backend``): ``hopper`` runs the
 hand-written row kernels.  ``--layers N`` cuts the depth to N layers at
 the published width (deepseek-v2-236b's 60 layers hold 471 GB in
-bfloat16, six cards' memory; 7 layers, 50 GB, fit one).  ``run`` serves
-a config object, so a caller may cut it otherwise.  Times are host
+bfloat16, six cards' memory; 7 layers, 50 GB, fit one; kimi-k2-1t-a32b's
+61 hold 2.05 TB, and 2, its dense layer and one MoE layer, 39.9 GB).
+``run`` serves a config object, so a caller may cut it otherwise.
+
+whisper-base (the ``audio`` family) follows the JAX driver: the prompt
+stands for ``prompt_len // frame_ratio`` frames, stub embeddings drawn
+from ``--seed`` at scale 0.01 after the prompts, which the prefill encodes
+(it yields no logits); decoding starts from BOS (token 1) at position 0,
+with room for ``prompt_len + gen`` decoder positions, so ``logits`` holds
+the ``gen`` steps' only and ``tokens[:, 0]`` is BOS.  Times are host
 clocks around work that ends in a device synchronise.
 """
 from __future__ import annotations
@@ -63,10 +76,12 @@ class ServeResult:
     prompts: torch.Tensor            # (B, prompt_len), on the device
     tokens: torch.Tensor             # (B, gen + 1): [:, 0] from the prefill
     logits: torch.Tensor             # (B, gen + 1, V): prefill, each step
+                                     # (audio: BOS, then (B, gen, V))
     launches_prefill: dict           # kernel launches during the prefill
     launches_decode: dict            # and during the decode steps
     model: Model
     params: torch.nn.Module
+    frames: torch.Tensor | None = None   # audio: the (B, F, d) stub frames
 
 
 def _parser() -> argparse.ArgumentParser:
@@ -114,6 +129,11 @@ def run(cfg, batch: int, prompt_len: int, gen: int, seed: int = 0,
     b, plen = batch, prompt_len
     prompts = torch.from_numpy(
         rng.integers(2, cfg.vocab, (b, plen))).to(dev)
+    audio = cfg.family == "audio"
+    if audio:
+        frames = torch.from_numpy(0.01 * rng.standard_normal(
+            (b, plen // cfg.frame_ratio, cfg.d_model))).to(
+                dev, params.embed.table.dtype)
 
     def sync():
         if dev.type == "cuda":
@@ -123,20 +143,26 @@ def run(cfg, batch: int, prompt_len: int, gen: int, seed: int = 0,
     sync()
     before = dict(launches)
     t0 = time.perf_counter()
-    logits, cache = model.prefill(params, prompts, max_len=plen + gen,
-                                  seed=seed, gs_backend=gs_backend)
+    logits, cache = model.prefill(params, frames if audio else prompts,
+                                  max_len=plen + gen, seed=seed,
+                                  gs_backend=gs_backend)
     sync()
     t_prefill = time.perf_counter() - t0
     launches_prefill = _delta(before)
     print(f"[serve] prefill: {b}x{plen} in {t_prefill * 1e3:.1f} ms")
 
     # -- decode ----------------------------------------------------------------
-    tok = logits.argmax(-1, keepdim=True)                   # (B, 1)
-    all_logits, all_tokens = [logits], [tok]
+    if audio:                      # BOS at position 0: no prefill logits
+        tok = torch.ones((b, 1), dtype=torch.int64, device=dev)
+        all_logits, start = [], 0
+    else:
+        tok = logits.argmax(-1, keepdim=True)               # (B, 1)
+        all_logits, start = [logits], plen
+    all_tokens = [tok]
     before = dict(launches)
     t0 = time.perf_counter()
     for i in range(gen):
-        logits, cache = model.decode_step(params, cache, tok, plen + i,
+        logits, cache = model.decode_step(params, cache, tok, start + i,
                                           gs_backend=gs_backend)
         tok = logits.argmax(-1, keepdim=True)
         all_logits.append(logits)
@@ -157,7 +183,7 @@ def run(cfg, batch: int, prompt_len: int, gen: int, seed: int = 0,
                          for p in params.parameters()),
         prompts=prompts, tokens=tokens, logits=torch.stack(all_logits, 1),
         launches_prefill=launches_prefill, launches_decode=launches_decode,
-        model=model, params=params)
+        model=model, params=params, frames=frames if audio else None)
 
 
 if __name__ == "__main__":

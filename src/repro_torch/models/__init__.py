@@ -1,10 +1,10 @@
 """Model code of the port: ``common``, ``ssm``, ``rglru``, ``attention``,
-``moe``, ``transformer``, ``zoo``, ``convert``.  Submodules load on first use;
+``moe``, ``transformer``, ``encdec``, ``zoo``, ``convert``.  Submodules load on first use;
 importing the package loads none of them and builds nothing."""
 import importlib
 
-_SUBMODULES = ("attention", "common", "convert", "moe", "rglru", "ssm",
-               "transformer", "zoo")
+_SUBMODULES = ("attention", "common", "convert", "encdec", "moe", "rglru",
+               "ssm", "transformer", "zoo")
 _EXPORTS = {"Model": "zoo", "count_params": "zoo"}
 
 __all__ = sorted(_EXPORTS) + list(_SUBMODULES)

@@ -1,6 +1,7 @@
 """GQA attention (llama3-8b; gemma2-27b's local and global layers with its
-softcap) over a paged KV cache, and MLA (deepseek-v2) over a contiguous
-latent cache.
+softcap; kimi-k2-1t-a32b at head size 112; whisper-base's encoder, not
+causal, and its decoder's cross-attention over K/V from ``gqa_kv``) over a
+paged KV cache, and MLA (deepseek-v2) over a contiguous latent cache.
 
 The port of ``repro/models/attention.py``, with its parameter names and
 layouts.  GQA: ``wq`` (d, H, dh), ``wk`` and
@@ -73,7 +74,7 @@ class GQA(nn.Module):
         make_params(self, self.defs, device, dtype)
 
 
-def _proj(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+def project(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """einsum("bsd,dhe->bshe") as one matrix product."""
     d, h, e = w.shape
     return (x @ w.reshape(d, h * e)).reshape(*x.shape[:2], h, e)
@@ -82,33 +83,49 @@ def _proj(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 def _qkv(cfg, p: GQA, x: torch.Tensor, positions: torch.Tensor):
     """x (B,S,d) -> q (B,S,KVH,G,dh), k and v (B,S,KVH,dh), RoPE applied."""
     kvh, dh = cfg.n_kv_heads, cfg.dh
-    q = apply_rope(_proj(x, p.wq), positions, cfg.rope_theta, cfg.rope)
-    k = apply_rope(_proj(x, p.wk), positions, cfg.rope_theta, cfg.rope)
-    v = _proj(x, p.wv)
+    q = apply_rope(project(x, p.wq), positions, cfg.rope_theta, cfg.rope)
+    k = apply_rope(project(x, p.wk), positions, cfg.rope_theta, cfg.rope)
+    v = project(x, p.wv)
     b, s = x.shape[:2]
     return q.reshape(b, s, kvh, cfg.n_heads // kvh, dh), k, v
 
 
-def _out(p: nn.Module, o: torch.Tensor) -> torch.Tensor:
+def out_proj(p: nn.Module, o: torch.Tensor) -> torch.Tensor:
     """o (B,S,H,e) -> einsum("bshe,hed->bsd", o, wo)."""
     h, e, d = p.wo.shape
     return o.reshape(*o.shape[:2], h * e) @ p.wo.reshape(h * e, d)
 
 
+def gqa_kv(cfg, p: GQA, src: torch.Tensor, positions: torch.Tensor):
+    """K/V (B,T,KVH,dh) each from an external source sequence src (B,T,d)
+    (cross-attention: whisper's decoder over the encoder states), RoPE on
+    K as the config has it."""
+    if positions.dim() == 1:
+        positions = positions[None, :]
+    k = apply_rope(project(src, p.wk), positions, cfg.rope_theta, cfg.rope)
+    return k, project(src, p.wv)
+
+
 def gqa_apply(cfg, p: GQA, x: torch.Tensor, positions: torch.Tensor, *,
-              cache: dict | None = None, window: int = 0):
+              cache: dict | None = None, window: int = 0,
+              causal: bool = True, kv: tuple | None = None):
     """Prefill attention. x (B,S,d); positions (S,) or (B,S); ``window``
-    > 0 for a local layer.  With a ``cache``, its pages receive this
-    sequence's K/V at positions 0..S-1.  Returns (y (B,S,d), cache)."""
+    > 0 for a local layer; ``causal=False`` for an encoder.  ``kv``
+    replaces the self-attention K/V with (B,T,KVH,dh) ones from
+    ``gqa_kv`` (cross-attention, T may differ from S).  With a ``cache``,
+    its pages receive this sequence's K/V at positions 0..S-1.  Returns (y
+    (B,S,d), cache)."""
     if positions.dim() == 1:
         positions = positions[None, :]
     q, k, v = _qkv(cfg, p, x, positions)
+    if kv is not None:
+        k, v = kv
     b, s, kvh, g, dh = q.shape
     o = flash_attention(q.permute(0, 2, 3, 1, 4).contiguous(),
                         k.transpose(1, 2).contiguous(),
-                        v.transpose(1, 2).contiguous(), causal=True,
+                        v.transpose(1, 2).contiguous(), causal=causal,
                         window=window, softcap=cfg.attn_softcap)
-    y = _out(p, o.permute(0, 3, 1, 2, 4).reshape(b, s, kvh * g, dh))
+    y = out_proj(p, o.permute(0, 3, 1, 2, 4).reshape(b, s, kvh * g, dh))
     if cache is not None:
         write_prefill(cache, k, v)
     return y, cache
@@ -179,7 +196,7 @@ def gqa_decode(cfg, p: GQA, x: torch.Tensor, pos: int, cache: dict, *,
     o = paged_decode_attention(q[:, 0].contiguous(), cache["k_pages"],
                                cache["v_pages"], table, lengths,
                                softcap=cfg.attn_softcap, window=window)
-    return _out(p, o.reshape(b, 1, cfg.n_heads, cfg.dh)), cache
+    return out_proj(p, o.reshape(b, 1, cfg.n_heads, cfg.dh)), cache
 
 
 def contiguous_kv(cache: dict, length: int):
@@ -227,7 +244,7 @@ def _mla_q(cfg, p: MLA, x: torch.Tensor, positions: torch.Tensor):
     """x (B,S,d) -> q_nope (B,S,H,dn), q_rope (B,S,H,dr), RoPE applied."""
     dn = cfg.qk_nope_dim
     cq = rms_norm(p.q_norm, x @ p.w_dq, cfg.norm_eps)
-    q = _proj(cq, p.w_uq)                                  # (B,S,H,dn+dr)
+    q = project(cq, p.w_uq)                                  # (B,S,H,dn+dr)
     return q[..., :dn], apply_rope(q[..., dn:], positions, cfg.rope_theta,
                                    "full")
 
@@ -253,14 +270,14 @@ def mla_apply(cfg, p: MLA, x: torch.Tensor, positions: torch.Tensor, *,
                      cfg.v_head_dim)
     q_nope, q_rope = _mla_q(cfg, p, x, positions)
     c_kv, k_pe = _mla_ckv(cfg, p, x, positions)
-    k_nope = _proj(c_kv, p.w_uk)
-    v = _proj(c_kv, p.w_uv)
+    k_nope = project(c_kv, p.w_uk)
+    v = project(c_kv, p.w_uv)
     # every MLA head has its own K: KVH = H groups of G = 1
     q = torch.cat([q_nope, q_rope], dim=-1)[:, :, :, None, :]
     k = torch.cat([k_nope, k_pe[:, :, None, :].expand(b, s, h, dr)], dim=-1)
     o = chunked_attention(q, k, v, chunk=cfg.attn_chunk, causal=True,
                           scale=1.0 / math.sqrt(dn + dr))
-    y = _out(p, o.reshape(b, s, h, dv))
+    y = out_proj(p, o.reshape(b, s, h, dv))
     if cache is not None:
         if s > cache["c_kv"].shape[1]:
             raise ValueError(f"{s} positions do not fit the cache's "
@@ -305,4 +322,4 @@ def mla_decode(cfg, p: MLA, x: torch.Tensor, pos: int, cache: dict):
     prob = torch.softmax(scores.masked_fill_(~valid, -1e30), dim=-1)
     o_c = torch.einsum("bhst,btr->bshr", prob, c_kv)
     o = torch.einsum("bshr,rhe->bshe", o_c.to(x.dtype), p.w_uv)
-    return _out(p, o), cache
+    return out_proj(p, o), cache

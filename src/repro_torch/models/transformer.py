@@ -3,7 +3,9 @@
 The port of ``repro/models/transformer.py`` for the families ported so far
 (``ssm``: falcon-mamba-7b; ``dense``: llama3-8b, and gemma2-27b with its
 alternating local and global layers, tied table and softcaps; ``moe``
-with MLA: deepseek-v2-236b; ``hybrid``: recurrentgemma-9b, RG-LRU blocks
+with MLA: deepseek-v2-236b, with GQA: kimi-k2-1t-a32b (the JAX package's
+config: GQA at head size 112, not the published model's MLA); ``hybrid``:
+recurrentgemma-9b, RG-LRU blocks
 and local attention in its (rec, rec, attn) pattern).  The JAX package
 scan-stacks each stage's layers on a leading axis; here each layer is its
 own ``Block`` in an ``nn.ModuleList``, in ``stage_layout`` order, and a

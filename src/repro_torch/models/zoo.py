@@ -5,6 +5,12 @@
     logits, cache = model.prefill(params, tokens, max_len)   # ready to decode
     logits, cache = model.decode_step(params, cache, tokens, pos)
 
+The ``audio`` family (whisper-base, ``encdec``): ``init`` returns an
+``EncDec``; ``prefill(params, frames, max_len)`` encodes the (B, F, d)
+frames and fills the cross K/V, returning no logits (``None``, the cache),
+and decoding starts from BOS at position 0; ``forward(params, tokens,
+frames=...)`` is the teacher-forced pass.
+
 The port of ``repro/models/zoo.py``.  ``device=None`` means ``cuda`` and
 raises without CUDA; only an explicit ``device="cpu"`` runs on the CPU.
 """
@@ -13,7 +19,7 @@ from __future__ import annotations
 import torch
 
 from ..engine import resolve_device
-from . import transformer
+from . import encdec, transformer
 
 
 def model_dtype(cfg) -> torch.dtype:
@@ -24,19 +30,25 @@ class Model:
     def __init__(self, cfg):
         self.cfg = cfg
 
+    @property
+    def audio(self) -> bool:
+        return self.cfg.family == "audio"
+
     def init(self, generator: torch.Generator | None = None, device=None,
-             dtype=None) -> transformer.LM:
+             dtype=None) -> transformer.LM | encdec.EncDec:
         """The parameters, drawn on ``device`` from ``generator`` (default:
         a generator on that device seeded 0) in ``dtype`` (default the
         config's)."""
         dev = resolve_device(device)
         if generator is None:
             generator = torch.Generator(device=dev).manual_seed(0)
-        lm = transformer.LM(self.cfg, device=dev,
-                            dtype=dtype or model_dtype(self.cfg))
-        return lm.init_(generator)
+        net = encdec.EncDec if self.audio else transformer.LM
+        return net(self.cfg, device=dev,
+                   dtype=dtype or model_dtype(self.cfg)).init_(generator)
 
     def forward(self, params, tokens, **kw):
+        if self.audio:
+            return encdec.forward(self.cfg, params, tokens, **kw)
         return transformer.forward(self.cfg, params, tokens, **kw)
 
     def prefill(self, params, tokens: torch.Tensor, max_len: int | None = None,
@@ -46,7 +58,18 @@ class Model:
         ``max_len`` positions (default S; a paged cache's table is drawn
         from ``seed``; an MLA cache is contiguous).  A mamba or RG-LRU
         cache does not grow: ``max_len`` is ignored there.  ``gs_backend``: the backend
-        of the embedding gather and the MoE dispatch."""
+        of the embedding gather and the MoE dispatch.  For the ``audio``
+        family ``tokens`` are the (B, F, d) frames and ``max_len`` the
+        decoder's positions: returns (None, the filled cache)."""
+        if self.audio:
+            if max_len is None:
+                raise ValueError("an audio prefill needs max_len, the "
+                                 "decoder's positions")
+            cache = encdec.init_cache(self.cfg, tokens.shape[0], max_len,
+                                      params.embed.table.dtype,
+                                      tokens.device, tokens.shape[1], seed)
+            return None, encdec.prefill_cross(self.cfg, params, tokens,
+                                              cache)
         b, s = tokens.shape
         caches = transformer.init_cache(self.cfg, b, max_len or s,
                                         params.embed.table.dtype,
@@ -59,13 +82,20 @@ class Model:
         return last, caches
 
     def init_cache(self, batch: int, max_len: int, dtype=None, device=None,
-                   seed: int = 0):
+                   seed: int = 0, n_frames: int = 0):
+        if self.audio:
+            return encdec.init_cache(self.cfg, batch, max_len,
+                                     dtype or model_dtype(self.cfg),
+                                     resolve_device(device), n_frames, seed)
         return transformer.init_cache(self.cfg, batch, max_len,
                                       dtype or model_dtype(self.cfg),
                                       resolve_device(device), seed)
 
     def decode_step(self, params, cache, tokens, pos,
                     gs_backend: str = "torch"):
+        if self.audio:
+            return encdec.decode_step(self.cfg, params, cache, tokens, pos,
+                                      gs_backend=gs_backend)
         return transformer.decode_step(self.cfg, params, cache, tokens, pos,
                                        gs_backend=gs_backend)
 
@@ -73,5 +103,5 @@ class Model:
 def count_params(cfg) -> int:
     """Total parameters, counted on the ``meta`` device (nothing is
     allocated)."""
-    lm = transformer.LM(cfg, device="meta")
-    return sum(p.numel() for p in lm.parameters())
+    net = encdec.EncDec if cfg.family == "audio" else transformer.LM
+    return sum(p.numel() for p in net(cfg, device="meta").parameters())

@@ -315,7 +315,7 @@ def test_full_width_params_convert_and_count():
 
 def test_unported_archs_raise_naming_roadmap():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_config("kimi-k2-1t-a32b")
+        get_config("internvl2-26b")
     with pytest.raises(ValueError, match="unknown"):
         get_config("no-such-arch")
 
