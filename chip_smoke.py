@@ -2765,6 +2765,31 @@ def _attention_calls():
         attention.paged_decode_attention = saved["paged_decode"]
 
 
+@contextlib.contextmanager
+def _embed_launches():
+    """Count the launches of ``gather_rows_b16`` made inside the models'
+    embedding lookups (``transformer.embed_lookup``, which ``encdec``
+    calls by its own name too), apart from the model's other gathers (a
+    MoE dispatch's): the wrapper's own count, read before and after each
+    lookup."""
+    from repro_torch.kernels import launches
+    from repro_torch.models import encdec, transformer
+    counted = {"calls": 0, "gather_rows_b16": 0}
+    saved = transformer.embed_lookup
+
+    def call(*args, **kw):
+        before = launches["gather_rows_b16"]
+        out = saved(*args, **kw)
+        counted["calls"] += 1
+        counted["gather_rows_b16"] += launches["gather_rows_b16"] - before
+        return out
+    transformer.embed_lookup = encdec.embed_lookup = call
+    try:
+        yield counted
+    finally:
+        transformer.embed_lookup = encdec.embed_lookup = saved
+
+
 def serve_phase(torch, argv=SERVE_ARGS, want=_mamba_launches,
                 params=FALCON_MAMBA_PARAMS, cache_prompt=32):
     """Serve through ``launch.serve.main`` and check the result, then trace
@@ -3336,8 +3361,9 @@ def moe_phase(torch, err, arch, layers, params, phase, prefix):
           f"{sv}, gs_backend='hopper')", flush=True)
     reset_launches()
     t0 = time.perf_counter()
-    res = serve.run(cfg, sv["batch"], sv["prompt_len"], sv["gen"], seed=0,
-                    device="cuda", gs_backend="hopper")
+    with _embed_launches() as embed:
+        res = serve.run(cfg, sv["batch"], sv["prompt_len"], sv["gen"],
+                        seed=0, device="cuda", gs_backend="hopper")
     serve_launches = _launches()
     wall = time.perf_counter() - t0
     lm, model, dev = res.params, res.model, res.logits.device
@@ -3352,6 +3378,10 @@ def moe_phase(torch, err, arch, layers, params, phase, prefix):
     check(serve_launches == {k: want_prefill[k] + want_decode[k]
                              for k in KERNELS},
           f"serve window launches {serve_launches}")
+    # the embedding's gathers: one a prefill and one a step, apart from
+    # the dispatch's
+    check(embed == {"calls": 1 + res.gen, "gather_rows_b16": 1 + res.gen},
+          f"embedding lookups {embed}, not one a prefill and a step")
     check(bool(torch.isfinite(res.logits.float()).all()), "non-finite logits")
     peak = torch.cuda.max_memory_allocated()
     print(f"  serve: prefill {res.prefill_ms:.1f} ms, decode "
@@ -3511,6 +3541,7 @@ def moe_phase(torch, err, arch, layers, params, phase, prefix):
                max_memory_allocated=peak, serve_wall_s=wall,
                launches_prefill=res.launches_prefill,
                launches_decode=res.launches_decode,
+               embed_launches=embed["gather_rows_b16"],
                dropped_share=dropped, combine_max_abs_err=combine_err,
                route_flips_hopper_vs_torch=e2e_flips,
                torch_spread_x_tol=noise, tol_x_serve_tol=tol,
@@ -4196,6 +4227,7 @@ WHISPER_ARGS = ["--arch", "whisper-base", "--batch", "16", "--prompt-len",
 WHISPER_PARAMS = 97_166_336
 WHISPER_FLASH_SHAPE = (16, 8, 1, 1500, 64)          # B, KVH, G, S = T, dh
 WHISPER_PAGED_SHAPE = (16, 8, 1, 64, 16, 377, 16)   # as PAGED_SHAPE
+WHISPER_EMBED = (51865, 512, 16)    # vocab, d, a step's token rows
 
 
 def _whisper_launches(cfg, gen):
@@ -4214,7 +4246,8 @@ def whisper_attention_times(torch, err):
     against its plain version and beside ``scaled_dot_product_attention``,
     which computes the same function; paged decode's (64, 1) instance at
     the decode's mid-point, 16 positions of the 6,032 its table holds, and
-    at its first and last."""
+    at its first and last; the embedding's gather of a step's 16 token
+    rows of the (51,865, 512) table, bit for bit, beside ``index_select``."""
     sdpa = torch.nn.functional.scaled_dot_product_attention
     gen = torch.Generator(device="cuda").manual_seed(32)
     rows = {}
@@ -4233,6 +4266,8 @@ def whisper_attention_times(torch, err):
         torch, gen, WHISPER_PAGED_SHAPE, {},
         f"paged_decode whisper {WHISPER_PAGED_SHAPE}", [[1, 32] * 8])
     err["paged_decode"] = max(err["paged_decode"], row["max_abs_err"])
+    rows["gather_rows_b16/whisper_embed"] = embed_gather_row(
+        torch, gen, *WHISPER_EMBED, "whisper")
     print_rows(rows)
     return rows
 
@@ -4279,7 +4314,7 @@ def whisper_phase(torch):
           flush=True)
     reset_launches()
     t1 = time.perf_counter()
-    with _attention_calls() as calls:
+    with _attention_calls() as calls, _embed_launches() as embed:
         res = serve.main(list(WHISPER_ARGS))
     serve_launches = _launches()
     wall = time.perf_counter() - t1
@@ -4299,16 +4334,20 @@ def whisper_phase(torch):
     want_calls = {"flash_attention/global": cfg.n_enc_layers,
                   "paged_decode/global": cfg.n_layers * res.gen}
     check(calls == want_calls, f"attention calls {calls} != {want_calls}")
+    check(embed == {"calls": res.gen, "gather_rows_b16": res.gen},
+          f"embedding lookups {embed}, not one a step")
     check(bool((res.tokens[:, 0] == 1).all()), "decode did not start at BOS")
     check(bool(torch.isfinite(res.logits.float()).all()), "non-finite logits")
     peak = torch.cuda.max_memory_allocated()
     frames = res.frames
     n_frames = frames.shape[1]
 
-    # each step's logits vs the teacher-forced decoder over the same frames
+    # each step's logits vs the teacher-forced decoder over the same
+    # frames, its embedding through torch's own gather (the served steps'
+    # went through the hopper kernel)
     with torch.no_grad():
         hidden = model.forward(lm, res.tokens[:, :-1], frames=frames,
-                               gs_backend="hopper")
+                               gs_backend="torch")
         tf = encdec.unembed_logits(cfg, lm.embed, hidden).float()
         del hidden
     rms = tf.pow(2).mean().sqrt().item()
@@ -4365,6 +4404,7 @@ def whisper_phase(torch):
                launches_prefill=res.launches_prefill,
                launches_decode=res.launches_decode,
                attention_calls=dict(sorted(calls.items())),
+               embed_launches=embed["gather_rows_b16"],
                logit_err_x_tol=logit_err, logit_rms=rms,
                cross_cache_err_x_tol=cross_err,
                self_cache_err_x_tol=self_err,
@@ -6053,6 +6093,23 @@ print(json.dumps(dict(searched=st["searched"], seeded=st["seeded"],
 """
 
 
+def kernel_row(name, t, launches, max_abs_err=None):
+    """One entry of the ``kernels`` line: the row ``t`` of kernel ``name``
+    (``<kernel>`` or ``<kernel>/<where>``) with ``launches`` from the main
+    path's run; its source and the TPU kernel it replaces from
+    ``KERNEL_INFO``."""
+    source, replaces = KERNEL_INFO[name.split("/")[0]]
+    return dict(name=name, route="cuda", source=source, replaces=replaces,
+                launches=launches,
+                max_abs_err=(t["max_abs_err"] if max_abs_err is None
+                             else max_abs_err),
+                ms=t["ms"], time_ms=t["ms"], plain_ms=t["plain_ms"],
+                bound_ms=t["bound_ms"], bound_by=t.get("bound_by", "bytes"),
+                library_ms=t["library_ms"], device_ms=t.get("device_ms"),
+                library_device_ms=t.get("library_device_ms"),
+                shape=t["shape"])
+
+
 def main():
     torch = setup()
     build()
@@ -6149,117 +6206,65 @@ def _phases_2_to_17(torch, err):
     for k in ("flash_attention", "paged_decode"):
         path_launches[k] = llama_launches[k]
     rows = []
-    for name, (source, replaces) in KERNEL_INFO.items():
+    for name in KERNEL_INFO:
         t = times[name]
-        rows.append(dict(name=name, route="cuda", source=source,
-                         replaces=replaces, launches=path_launches[name],
-                         max_abs_err=err[name], ms=t["ms"], time_ms=t["ms"],
-                         plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
-                         bound_by=t.get("bound_by", "bytes"),
-                         library_ms=t["library_ms"],
-                         device_ms=t.get("device_ms"),
-                         library_device_ms=t.get("library_device_ms"),
-                         shape=t["shape"]))
+        rows.append(kernel_row(name, t, path_launches[name], err[name]))
         if name.startswith("scatter_add_rows"):
             dname = t["shape"][-1] if len(t["shape"]) > 3 else "float32"
             rows[-1]["add_routes"] = {
                 "cli": t["route"],
                 "lulesh_s3": lulesh_s3_add[dname]["route"]}
     # the MoE dispatch's ops at deepseek-v2-236b's and kimi-k2-1t-a32b's
-    # served shapes (phases 12 and 16): the embedding takes one gather a
-    # call, each op one of each MoE layer's two gathers or two adds
+    # served shapes (phases 12 and 16): each op one of each MoE layer's two
+    # gathers or two adds, the embedding's gathers (counted apart,
+    # ``_embed_launches``) taken out
     for name, t, served_moe, launched in (
             [(n, t, deepseek, deepseek_launches) for n, t in moe_rows.items()]
             + [(n, t, kimi, kimi_launches)
                for n, t in kimi_moe_rows.items()]):
         kernel = name.split("/")[0]
-        source, replaces = KERNEL_INFO[kernel]
-        n = launched[kernel] - (1 + served_moe["gen"] if kernel.startswith(
-            "gather") else 0)
-        rows.append(dict(name=name, route="cuda", source=source,
-                         replaces=replaces, launches=n // 2,
-                         max_abs_err=t["max_abs_err"], ms=t["ms"],
-                         time_ms=t["ms"], plain_ms=t["plain_ms"],
-                         bound_ms=t["bound_ms"], bound_by=t["bound_by"],
-                         library_ms=t["library_ms"],
-                         device_ms=t["device_ms"],
-                         library_device_ms=t["library_device_ms"],
-                         shape=t["shape"]))
+        n = launched[kernel] - (served_moe["embed_launches"]
+                                if kernel.startswith("gather") else 0)
+        rows.append(kernel_row(name, t, n // 2))
     # gemma2-27b's kernels at its served shapes (phase 13): flash attention
     # and paged decode as the serve window's local and global layers called
     # them (``_attention_calls``); the embedding's gather once a prefill and
     # a step
     for name, t in gemma2_rows.items():
         kernel = name.split("/")[0]
-        source, replaces = KERNEL_INFO[kernel]
-        n = (gemma2_launches[kernel] if kernel.startswith("gather") else
-             gemma2["attention_calls"][f"{kernel}/{name.split('_')[-1]}"])
-        rows.append(dict(name=name, route="cuda", source=source,
-                         replaces=replaces, launches=n,
-                         max_abs_err=t["max_abs_err"], ms=t["ms"],
-                         time_ms=t["ms"], plain_ms=t["plain_ms"],
-                         bound_ms=t["bound_ms"], bound_by=t["bound_by"],
-                         library_ms=t["library_ms"],
-                         device_ms=t["device_ms"],
-                         library_device_ms=t.get("library_device_ms"),
-                         shape=t["shape"]))
+        rows.append(kernel_row(name, t, (
+            gemma2_launches[kernel] if kernel.startswith("gather") else
+            gemma2["attention_calls"][f"{kernel}/{name.split('_')[-1]}"])))
     # chatglm3-6b's and starcoder2-15b's at theirs (phase 14): every
     # attention layer global; the embedding's gather once a prefill and a
     # step
     for name, t in dense_rows.items():
         kernel, arch = name.split("/")
         arch = arch.removesuffix("_embed")
-        source, replaces = KERNEL_INFO[kernel]
-        n = (dense_launches[arch][kernel] if kernel.startswith("gather")
-             else dense[arch]["attention_calls"][f"{kernel}/global"])
-        rows.append(dict(name=name, route="cuda", source=source,
-                         replaces=replaces, launches=n,
-                         max_abs_err=t["max_abs_err"], ms=t["ms"],
-                         time_ms=t["ms"], plain_ms=t["plain_ms"],
-                         bound_ms=t["bound_ms"], bound_by=t["bound_by"],
-                         library_ms=t["library_ms"],
-                         device_ms=t["device_ms"],
-                         library_device_ms=t.get("library_device_ms"),
-                         shape=t["shape"]))
+        rows.append(kernel_row(name, t, (
+            dense_launches[arch][kernel] if kernel.startswith("gather")
+            else dense[arch]["attention_calls"][f"{kernel}/global"])))
     # recurrentgemma-9b's at its shapes (phase 15): every attention layer
     # local; the embedding's gather once a prefill and a step; the
     # recurrence at a decode step's shape, once an RG-LRU layer a step
     for name, t in rg_rows.items():
         kernel = name.split("/")[0]
-        source, replaces = KERNEL_INFO[kernel]
-        n = (rg_launches[kernel] if kernel.startswith("gather") else
-             rg["launches_decode"][kernel] if kernel == "rglru_scan" else
-             rg["attention_calls"][f"{kernel}/local"])
-        rows.append(dict(name=name, route="cuda", source=source,
-                         replaces=replaces, launches=n,
-                         max_abs_err=t["max_abs_err"], ms=t["ms"],
-                         time_ms=t["ms"], plain_ms=t["plain_ms"],
-                         bound_ms=t["bound_ms"], bound_by=t["bound_by"],
-                         library_ms=t["library_ms"],
-                         device_ms=t["device_ms"],
-                         library_device_ms=t.get("library_device_ms"),
-                         shape=t["shape"]))
+        rows.append(kernel_row(name, t, (
+            rg_launches[kernel] if kernel.startswith("gather") else
+            rg["launches_decode"][kernel] if kernel == "rglru_scan" else
+            rg["attention_calls"][f"{kernel}/local"])))
     # kimi-k2-1t-a32b's at its shapes (phase 16): flash once a layer a
     # prefill, paged decode once a layer a step, the embedding's gather
-    # once a prefill and a step (its other gathers are the dispatch's);
-    # whisper-base's (phase 17): the encoder's flash, the decoder's paged
-    # decode
+    # once a prefill and a step (``_embed_launches``: its other gathers are
+    # the dispatch's); whisper-base's (phase 17): the encoder's flash, the
+    # decoder's paged decode, the embedding's gather once a step
     for name, t in list(kimi_rows.items()) + list(whisper_rows.items()):
         kernel, which = name.split("/")
-        source, replaces = KERNEL_INFO[kernel]
         served_by, launched = ((kimi, kimi_launches) if which.startswith(
             "kimi") else (whisper, whisper_launches))
-        n = (1 + served_by["gen"] if kernel.startswith("gather")
-             else launched[kernel])
-        rows.append(dict(name=name, route="cuda", source=source,
-                         replaces=replaces, launches=n,
-                         max_abs_err=t["max_abs_err"], ms=t["ms"],
-                         time_ms=t["ms"], plain_ms=t["plain_ms"],
-                         bound_ms=t["bound_ms"], bound_by=t["bound_by"],
-                         library_ms=t["library_ms"],
-                         device_ms=t["device_ms"],
-                         library_device_ms=t.get("library_device_ms"),
-                         shape=t["shape"]))
+        rows.append(kernel_row(name, t, (
+            served_by["embed_launches"] if kernel.startswith("gather")
+            else launched[kernel])))
     cli = {f"{b}/{k}/{m}": dict(time_ms=r.time_s * 1e3, gbs=r.measured_gbs,
                                 host_s=r.host_s)
            for (b, k, m), r in cli_results.items()}

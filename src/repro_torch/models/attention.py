@@ -80,14 +80,17 @@ def project(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return (x @ w.reshape(d, h * e)).reshape(*x.shape[:2], h, e)
 
 
-def _qkv(cfg, p: GQA, x: torch.Tensor, positions: torch.Tensor):
-    """x (B,S,d) -> q (B,S,KVH,G,dh), k and v (B,S,KVH,dh), RoPE applied."""
+def _q(cfg, p: GQA, x: torch.Tensor, positions: torch.Tensor):
+    """x (B,S,d) -> q (B,S,KVH,G,dh), RoPE applied."""
     kvh, dh = cfg.n_kv_heads, cfg.dh
     q = apply_rope(project(x, p.wq), positions, cfg.rope_theta, cfg.rope)
-    k = apply_rope(project(x, p.wk), positions, cfg.rope_theta, cfg.rope)
-    v = project(x, p.wv)
     b, s = x.shape[:2]
-    return q.reshape(b, s, kvh, cfg.n_heads // kvh, dh), k, v
+    return q.reshape(b, s, kvh, cfg.n_heads // kvh, dh)
+
+
+def _qkv(cfg, p: GQA, x: torch.Tensor, positions: torch.Tensor):
+    """x (B,S,d) -> q (B,S,KVH,G,dh), k and v (B,S,KVH,dh), RoPE applied."""
+    return (_q(cfg, p, x, positions),) + gqa_kv(cfg, p, x, positions)
 
 
 def out_proj(p: nn.Module, o: torch.Tensor) -> torch.Tensor:
@@ -117,9 +120,10 @@ def gqa_apply(cfg, p: GQA, x: torch.Tensor, positions: torch.Tensor, *,
     (B,S,d), cache)."""
     if positions.dim() == 1:
         positions = positions[None, :]
-    q, k, v = _qkv(cfg, p, x, positions)
-    if kv is not None:
-        k, v = kv
+    if kv is None:
+        q, k, v = _qkv(cfg, p, x, positions)
+    else:
+        q, (k, v) = _q(cfg, p, x, positions), kv
     b, s, kvh, g, dh = q.shape
     o = flash_attention(q.permute(0, 2, 3, 1, 4).contiguous(),
                         k.transpose(1, 2).contiguous(),
