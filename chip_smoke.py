@@ -8,8 +8,11 @@ full width (half-head RoPE, the plain GELU MLP, G 16 and G 12),
 recurrentgemma-9b served at full width (the RG-LRU recurrence, attention at
 head size 256), kimi-k2-1t-a32b served at full width (GQA at head size 112,
 a 384-expert dispatch on the row kernels), whisper-base served at full
-width (the encoder-decoder), the trace of a model's gathers and
-scatters replayed as Spatter patterns, the Spatter suite daemon, bucket launches placed over several devices, the
+width (the encoder-decoder), internvl2-26b served at full width with
+image embeddings (paged decode at G 6), llama3-8b trained at full width
+(AdamW, the supervisor, flash attention's backward kernel), the trace
+of a model's gathers and scatters replayed as Spatter patterns, the
+Spatter suite daemon, bucket launches placed over several devices, the
 static analysis with the modeled H100 column, the launch-parameter
 choice (``kernels/autotune.py``) with the CLI's serve modes, and the
 Spatter path on bfloat16 and float16 tables.
@@ -20,7 +23,7 @@ Imports ``repro_torch`` (from ``src/``), ``torch``, numpy and the stdlib
 only.  Phases:
 
   0. print the card (``nvidia-smi``), the torch and CUDA versions, and
-     build the fifteen CUDA kernels of the six sources in
+     build the sixteen CUDA kernels of the six sources in
      ``src/repro_torch/csrc`` with nvcc (one process per source, all at
      once);
   1. hold each kernel against its plain PyTorch version on the card over
@@ -60,7 +63,8 @@ only.  Phases:
      most splits the window admits), then the G-12 instances
      (``paged_g12_cases``: page 8 and 16, both dtypes, both tables,
      lengths 0, 1, full and ragged, at the chosen split, one and the
-     most), then head size 256 (``flash_dh256_cases``: MQA G 16 and
+     most; the same for the G-6 instances at KVH 8), then head size 256
+     (``flash_dh256_cases``: MQA G 16 and
      (2, 4), S = T from 1 to 2049 across the 64-key tile, both dtypes,
      causal and not, windows of 64 and 2048, a softcap; rows the window
      leaves no key; ``paged_dh256_cases``: G 16 as two groups of 8 heads,
@@ -88,6 +92,12 @@ only.  Phases:
      D in {1, 2, 3, 8}, dst at an odd element offset and vals out of
      phase, within ``add_error_bound`` of the plain version and within
      ``hot_row_error_bound`` of the float64 sum, bit for bit at K = 1);
+     then flash attention's lse instances and its backward
+     (``flash_bwd_cases``: dh 128, G 1, 4, 6 and 8, (S, T) of 128, 1,000
+     and 4,096 with S != T among them, causal and not, both dtypes: the
+     lse within its bound of the plain version's, the output bit-equal to
+     the serve instance's, dq, dk and dv within ``bwd_tolerance`` (plus a
+     bf16 rounding) of ``flash_attention_bwd_ref``);
   2. the paper's CLI invocation ``-k Gather -p UNIFORM:8:1 -d 8 -l 2^24``
      through the port's CLI, as a gather, a store and an add scatter, on
      ``-b hopper`` (the torch yardstick of earlier runs is not run: no row
@@ -133,8 +143,13 @@ only.  Phases:
      decode's (112, 8) instance, the embedding gather) and whisper-base's
      (``whisper_attention_times``: the encoder's flash, not causal, at dh
      64, G 1 over 1,500 frames beside ``scaled_dot_product_attention``,
-     paged decode at (64, 1)); the
-     Spatter lines run once a kernel instance (``kernel_times``): the
+     paged decode at (64, 1)), internvl2-26b's
+     (``internvl2_attention_times``: flash at G 6 over 2,304 positions
+     beside ``scaled_dot_product_attention``, paged decode's (128, 6)
+     instance, the embedding gather) and flash attention's backward at
+     the training shape (``flash_bwd_time``: (4, 8, 4, 4096, 128) bf16
+     causal beside SDPA's backward); the Spatter lines run once a kernel
+     instance (``kernel_times``): the
      gathers, the store and the coverage store in float32 and bfloat16
      (one instance serves both 16-bit types), the add in all three, each
      beside its library call at the same dtype;
@@ -319,10 +334,37 @@ only.  Phases:
      teacher-forced decoder over the same frames, the prefill's cross K/V
      and the iterated decode's self K/V against a separate encoder pass
      and the teacher-forced decoder's.
+ 18. (right after phase 17) internvl2-26b at its published width and
+     depth (48 layers, 19,861,260,288 parameters, 39.7 GB) through
+     ``launch.serve.main(images=True)`` on ``hopper`` (``internvl2_phase``,
+     ``serve_phase``): 256 stub image embeddings before each of 4 prompts
+     of 2,048 tokens, 32 greedy steps from position 2,304; the prefill
+     must launch flash attention 48 times (G 6) and the embedding gather
+     once, each step paged decode 48 times (its (128, 6) instance) and
+     the gather once; the logits against the teacher-forced forward over
+     the same images, the cache of an image prefill continued by decode
+     against the image prefill; its kernels' rows at these shapes run in
+     phase 4 (``internvl2_attention_times``);
+ 19. (right after phase 18) training (``train_phase``): one step of
+     llama3-8b at full width and 2 layers (2 x 2,048 tokens) whose loss
+     and every gradient's norm must agree with the same step through the
+     plain attention (``TRAIN_LOSS_RTOL``, ``TRAIN_NORM_RTOL``); then
+     ``launch.train`` at full width cut to 8 layers (2.80e9 parameters:
+     with their gradients and float32 moments ~34 GB; 32 layers would need
+     ~96 GB), 4 x 4,096 tokens, 4 steps, no checkpoint written: step 0's
+     loss within ``TRAIN_LOSS_MARGIN`` of ln V, losses and grad norms
+     finite, flash attention's forward launched 16 and its backward 8
+     times a step (block remat runs each forward twice), nothing else;
+     then the crash-restart demo (``examples/train_ft_demo_torch.py
+     --d-model 512``) on the card; flash attention's backward row at the
+     training shape (4, 8, 4, 4,096, 128) runs in phase 4
+     (``flash_bwd_time``, beside SDPA's backward).
 
 The launch counts are set to 0 just before phase 2 and read just after
 phase 3, again just before and after the serve calls of phases 5, 6,
-12, 13, 14, 15, 16 and 17, just before and after phase 7's daemon, just before and after
+12, 13, 14, 15, 16, 17 and 18, just before and after phase 19's
+training run and each of its checked steps, just before and after
+phase 7's daemon, just before and after
 phase 8's placed suites, just before and after phase 9's lint and cost passes
 (where they must equal the censuses' sum), and just before and after
 phase 10's two legs (whose legacy leg gives the smem gather's launches:
@@ -332,7 +374,9 @@ before and after each of phase 11's runs (its legacy leg, likewise, the
 the script exits nonzero.  Before the last line it prints a
 ``{"deepseek": {...}}``, a ``{"gemma2": {...}}``, a ``{"dense_archs":
 {...}}``, a ``{"recurrentgemma": {...}}``, a ``{"kimi": {...}}``, a
-``{"whisper": {...}}``, a ``{"daemon": {...}}``, a ``{"placements": {...}}``, an ``{"autotune":
+``{"whisper": {...}}``, an ``{"internvl2": {...}}``, a ``{"train":
+{...}}``, a ``{"daemon": {...}}``, a ``{"placements": {...}}``, an
+``{"autotune":
 {...}}``, a ``{"dtypes": {...}}``, an ``{"analysis": {...}}`` and a
 ``{"kernels": [...]}`` JSON
 line; the last line is
@@ -409,6 +453,12 @@ KERNEL_INFO = {                  # name -> (source, TPU kernel it replaces)
     # no TPU kernel: the JAX package runs the RG-LRU recurrence as lax.scan
     "rglru_scan": ("src/repro_torch/csrc/rglru_scan.cu",
                    "none: src/repro/models/rglru.py:96 (lax.scan)"),
+    # no TPU kernel: the JAX package's custom_vjp recomputes its backward
+    # through the reference
+    "flash_attention_bwd": (
+        "src/repro_torch/csrc/flash_attention.cu",
+        "none: src/repro/kernels/flash_attention/ops.py:41 (_bwd: jax.vjp "
+        "of the reference)"),
 }
 B16_KERNELS = ("gather_rows_b16", "gather_rows_smem_b16",
                "scatter_store_rows_b16", "scatter_store_rows_cov_b16",
@@ -1560,12 +1610,14 @@ def paged_cases(torch):
     split_err, n_split = paged_split_cases(torch)
     opt_err, n_opt = paged_option_cases(torch)
     g12_err, n_g12 = paged_g12_cases(torch)
+    g6_err, n_g6 = paged_g12_cases(torch, g=6, kvh=8, seed=19)
     dh256_err, n_dh256 = paged_dh256_cases(torch)
     dh112_err, n_dh112 = paged_dh112_cases(torch)
-    err = max(err, split_err, opt_err, g12_err, dh256_err, dh112_err)
-    n_cases += n_split + n_opt + n_g12 + n_dh256 + n_dh112
+    err = max(err, split_err, opt_err, g12_err, g6_err, dh256_err, dh112_err)
+    n_cases += n_split + n_opt + n_g12 + n_g6 + n_dh256 + n_dh112
     print(f"phase 1: {n_cases} paged_decode cases ({n_split} for the split, "
-          f"{n_opt} with softcap or window, {n_g12} at G 12, {n_dh256} at "
+          f"{n_opt} with softcap or window, {n_g12} at G 12, {n_g6} at G 6, "
+          f"{n_dh256} at "
           f"dh 256, {n_dh112} at dh 112) within "
           f"attn_tolerance of their plain versions; max |err| {err} "
           f"({time.perf_counter() - t0:.1f} s)", flush=True)
@@ -1612,26 +1664,27 @@ def paged_option_cases(torch):
     return err, n
 
 
-def paged_g12_cases(torch):
+def paged_g12_cases(torch, g=12, kvh=4, seed=17):
     """Phase 1's cases for the G-12 instances (starcoder2-15b's 48 query
-    heads over 4 KV heads, dh 128, no option): page 8 and 16, both dtypes,
+    heads over 4 KV heads, dh 128, no option), or with ``g=6, kvh=8`` the
+    G-6 ones (internvl2-26b's 48 over 8): page 8 and 16, both dtypes,
     a permuted table and one with repeats, rows of length 0, 1, full and
     ragged, 130 or 9 pages a row; each at the split ``autotune`` chooses,
     at one split and at the most the row admits.  Returns (max |err|,
     cases)."""
     from repro_torch.kernels.paged_decode import ops
-    gen = torch.Generator(device="cuda").manual_seed(17)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
     err, n = 0.0, 0
     for i, (page, dtype, repeats) in enumerate(itertools.product(
             (8, 16), (torch.float32, torch.bfloat16), (False, True))):
         pps = 130 if i % 2 == 0 else 9
         full = pps * page
         lengths = [0, 1, full, 1 + (53 * i + 7) % full]
-        ins = _paged_inputs(torch, gen, len(lengths), 4, 12, 128, page, pps,
+        ins = _paged_inputs(torch, gen, len(lengths), kvh, g, 128, page, pps,
                             dtype, repeats, lengths)
         for splits in (None, 1, min(pps, ops.MAX_SPLITS)):
             err = max(err, check_paged(
-                torch, ins, f"paged_decode KVH=4 G=12 dh=128 {dtype} "
+                torch, ins, f"paged_decode KVH={kvh} G={g} dh=128 {dtype} "
                 f"page={page} pps={pps} repeats={repeats} splits={splits} "
                 f"lengths={lengths}", ops.paged_decode_attention(
                     *ins, splits=splits)))
@@ -2791,7 +2844,7 @@ def _embed_launches():
 
 
 def serve_phase(torch, argv=SERVE_ARGS, want=_mamba_launches,
-                params=FALCON_MAMBA_PARAMS, cache_prompt=32):
+                params=FALCON_MAMBA_PARAMS, cache_prompt=32, images=False):
     """Serve through ``launch.serve.main`` and check the result, then trace
     the served model's forward (``trace_model``); returns the numbers for
     the records and the serve window's launch counts.  ``want(cfg, gen)``
@@ -2801,7 +2854,11 @@ def serve_phase(torch, argv=SERVE_ARGS, want=_mamba_launches,
     SERVE_TOL with its atol in units of max(1, their rms): SERVE_TOL is
     stated for values of magnitude ~1, and gemma2's tied table, drawn at
     scale 1 as the JAX package declares it, gives logits of rms ~25 at
-    full width."""
+    full width.  With ``images`` (a ``vlm`` model) the serve call puts
+    stub image embeddings before each prompt, the teacher-forced forward
+    takes the same ones, and the cache checked is an image prefill of the
+    first ``cache_prompt`` / 2 tokens continued by decode_step against
+    the image prefill of all ``cache_prompt``."""
     from repro_torch.kernels import KERNELS, reset_launches
     from repro_torch.launch import serve
     from repro_torch.models import transformer
@@ -2815,7 +2872,7 @@ def serve_phase(torch, argv=SERVE_ARGS, want=_mamba_launches,
     reset_launches()
     t0 = time.perf_counter()
     with _attention_calls() as calls:
-        res = serve.main(list(argv))
+        res = serve.main(list(argv), images=images)
     serve_launches = _launches()
     wall = time.perf_counter() - t0
     cfg, lm, dev = res.model.cfg, res.params, res.logits.device
@@ -2839,11 +2896,13 @@ def serve_phase(torch, argv=SERVE_ARGS, want=_mamba_launches,
     peak = torch.cuda.max_memory_allocated()
 
     # the whole slice: teacher-forced forward vs each decode step
+    img = res.img_embeds
+    n_img = 0 if img is None else img.shape[1]
     with torch.no_grad():
         seq = torch.cat([res.prompts, res.tokens[:, :-1]], 1)
-        hidden = transformer.forward(cfg, lm, seq)
+        hidden = transformer.forward(cfg, lm, seq, img_embeds=img)
         tf = transformer.unembed_logits(
-            cfg, lm.embed, hidden[:, res.prompt_len - 1:]).float()
+            cfg, lm.embed, hidden[:, n_img + res.prompt_len - 1:]).float()
         del hidden
     rms = tf.pow(2).mean().sqrt().item()
     scale = max(1.0, rms)
@@ -2866,19 +2925,28 @@ def serve_phase(torch, argv=SERVE_ARGS, want=_mamba_launches,
 
     # the prefill cache vs decode_step iterated over the prompt
     prompt = res.prompts[:2, :cache_prompt].contiguous()
+    length = n_img + cache_prompt
     with torch.no_grad():
-        _, pre = res.model.prefill(lm, prompt)
-        it = res.model.init_cache(2, cache_prompt, device=dev)
-        for t in range(cache_prompt):
-            _, it = res.model.decode_step(lm, it, prompt[:, t:t + 1], t)
+        if img is None:
+            _, pre = res.model.prefill(lm, prompt)
+            it, first = res.model.init_cache(2, cache_prompt, device=dev), 0
+        else:
+            first = cache_prompt // 2
+            _, pre = res.model.prefill(lm, prompt, img_embeds=img[:2])
+            _, it = res.model.prefill(lm, prompt[:, :first], max_len=length,
+                                      img_embeds=img[:2])
+        for t in range(first, cache_prompt):
+            _, it = res.model.decode_step(lm, it, prompt[:, t:t + 1],
+                                          n_img + t)
     cache_err = max(_rel_err(a, b) for p, i in zip(pre, it)
-                    for a, b in zip(_cache_tensors(p, cache_prompt),
-                                    _cache_tensors(i, cache_prompt)))
+                    for a, b in zip(_cache_tensors(p, length),
+                                    _cache_tensors(i, length)))
     check(len(pre) == len(it) == cfg.n_layers and cache_err <= 1.0,
           f"prefill cache vs iterated decode: {cache_err} x SERVE_TOL")
-    print(f"  prefill cache of 2 x {cache_prompt} tokens vs decode_step "
-          f"iterated: within {cache_err:.3f} x SERVE_TOL, all "
-          f"{cfg.n_layers} layers", flush=True)
+    print(f"  prefill cache of 2 x {n_img} images + {cache_prompt} tokens "
+          f"vs decode_step iterated from token {first}: within "
+          f"{cache_err:.3f} x SERVE_TOL, all {cfg.n_layers} layers",
+          flush=True)
     out = dict(arch=res.arch, batch=res.batch, prompt_len=res.prompt_len,
                gen=res.gen, prefill_ms=res.prefill_ms,
                decode_ms_per_step=res.decode_ms / res.gen, tok_s=res.tok_s,
@@ -6093,6 +6161,481 @@ print(json.dumps(dict(searched=st["searched"], seeded=st["seeded"],
 """
 
 
+# -- phases 1 and 4: flash attention's lse and backward ---------------------
+
+# the training shape of phase 19's flash calls: B, KVH, G, S = T, dh
+TRAIN_FLASH_SHAPE = (4, 8, 4, 4096, 128)
+
+
+def bwd_tolerance(s, t, dh):
+    """Error allowed each of dq, dk, dv, as a share of that tensor's
+    largest magnitude: the kernel and the plain version sum the same
+    float32 terms in other orders (S + T + dh of them along the longest
+    chain, gamma_n <= n 2^-24 of the summed magnitudes, the largest value
+    standing in for them, with 4 x margin)."""
+    return 2.0 ** -22 * (s + t + dh)
+
+
+def bwd_magnitudes(torch, q, k, v, o, lse, do, scale, causal):
+    """The sums of |terms| behind dq, dk and dv (float32): scale |dS| |K|,
+    scale |dS|^T |Q| and P^T |dO|, with P and dS formed as
+    ``flash_attention_bwd_ref`` forms them."""
+    f32 = torch.float32
+    q, k, v, o, do = (x.to(f32) for x in (q, k, v, o, do))
+    s_len, t_len = q.shape[3], k.shape[2]
+    p = torch.exp(torch.einsum("bhgqd,bhtd->bhgqt", q, k) * scale
+                  - lse[..., None])
+    if causal:
+        p = p * torch.ones(s_len, t_len, device=q.device).tril()
+    ds = (p * (torch.einsum("bhgqd,bhtd->bhgqt", do, v)
+               - (do * o).sum(-1, keepdim=True))).abs()
+    return (torch.einsum("bhgqt,bhtd->bhgqd", ds, k.abs()) * scale,
+            torch.einsum("bhgqt,bhgqd->bhtd", ds, q.abs()) * scale,
+            torch.einsum("bhgqt,bhgqd->bhtd", p, do.abs()))
+
+
+def check_flash_bwd(torch, got, want, s, t, dh, where, mags=None):
+    """dq, dk, dv (``got``, in the inputs' dtype) against the plain
+    version's float32 ``want``: within ``bwd_tolerance`` of each tensor's
+    largest value, plus for bfloat16 one rounding (2^-8 relative) of each
+    value and 2^-8 of its ``mags`` (``bwd_magnitudes``): the tensor-core
+    passes round P and dS to bfloat16 (2^-9 a term) before the products
+    that sum them.  Returns max |err| against the plain output in got's
+    dtype."""
+    torch.cuda.synchronize()
+    e = 0.0
+    for i, (name, a, w) in enumerate(zip(("dq", "dk", "dv"), got, want)):
+        check(a.shape == w.shape, f"{where} {name}: shape {tuple(a.shape)}")
+        check(bool(torch.isfinite(a.float()).all()),
+              f"{where} {name}: not finite")
+        round_out = 2.0 ** -8 if a.dtype == torch.bfloat16 else 0.0
+        bound = (round_out * w.abs()
+                 + bwd_tolerance(s, t, dh) * w.abs().max())
+        if a.dtype == torch.bfloat16:
+            bound = bound + 2.0 ** -8 * mags[i]
+        diff = (a.float() - w).abs()
+        check(bool((diff <= bound).all()),
+              f"{where} {name}: off by {diff.max().item()} (bound "
+              f"{bound.flatten()[diff.flatten().argmax()].item()})")
+        e = max(e, (a.float() - w.to(a.dtype).float()).abs().max().item())
+    return e
+
+
+def flash_bwd_cases(torch):
+    """Phase 1 for the lse instances and the backward: bf16 and f32; G 1,
+    4, 6 and 8; (S, T) of 128, 1,000 and 4,096, S != T among them; causal
+    and not; dh 128, B 1.  Each case's lse within 2^-22 (dh + T + 16) (1 +
+    max |lse|) of the plain version's (float32 scores of dh terms, a row
+    sum of T, each exp2 within 2^-22), its output equal bit for bit to the
+    serve instance's (the flag adds a store only), and dq, dk, dv, from
+    that output and lse, against ``flash_attention_bwd_ref``
+    (``check_flash_bwd``, with ``bwd_magnitudes``).  Returns max |err| of
+    the backward."""
+    from repro_torch.kernels.flash_attention.ops import (
+        flash_attention, flash_attention_bwd, flash_attention_lse)
+    from repro_torch.kernels.flash_attention.ref import (
+        flash_attention_bwd_ref, flash_attention_ref)
+    gen = torch.Generator(device="cuda").manual_seed(61)
+    err, n, t0 = 0.0, 0, time.perf_counter()
+    sizes = ((128, 128), (1000, 1000), (4096, 4096), (128, 1000),
+             (1000, 128), (4096, 1000))
+    dh = 128
+    scale = dh ** -0.5
+    for dtype, g, (s, t), causal in itertools.product(
+            (torch.float32, torch.bfloat16), (1, 4, 6, 8), sizes,
+            (True, False)):
+        kvh = 1 if s * t >= 4096 * 1000 else 2
+        q = _flash_inputs(torch, gen, 1, kvh, g, s, dh, dtype)[0]
+        _, k, v = _flash_inputs(torch, gen, 1, kvh, 1, t, dh, dtype)
+        do = torch.randn(q.shape, generator=gen, device="cuda").to(dtype)
+        where = (f"flash_attention_bwd KVH={kvh} G={g} S={s} T={t} dh={dh} "
+                 f"{dtype} causal={causal}")
+        o, lse = flash_attention_lse(q, k, v, causal=causal)
+        check(torch.equal(o, flash_attention(q, k, v, causal=causal)),
+              f"{where}: the lse instance's output differs from the serve "
+              "instance's")
+        _, want_lse = flash_attention_ref(q.float(), k.float(), v.float(),
+                                          scale=scale, causal=causal,
+                                          return_lse=True)
+        lse_bound = (2.0 ** -22 * (dh + t + 16)
+                     * (1 + want_lse.abs().max().item()))
+        lse_err = (lse - want_lse).abs().max().item()
+        check(lse_err <= lse_bound, f"{where}: lse off by {lse_err} (bound "
+              f"{lse_bound})")
+        got = flash_attention_bwd(q, k, v, o, lse, do, scale=scale,
+                                  causal=causal)
+        want = flash_attention_bwd_ref(q.float(), k.float(), v.float(),
+                                       o.float(), lse, do.float(),
+                                       scale=scale, causal=causal)
+        mags = bwd_magnitudes(torch, q, k, v, o, lse, do, scale, causal)
+        err = max(err, check_flash_bwd(torch, got, want, s, t, dh, where,
+                                       mags))
+        n += 1
+        del q, k, v, do, o, lse, got, want, want_lse, mags
+    torch.cuda.empty_cache()
+    print(f"phase 1: {n} flash lse and backward cases within their bounds "
+          f"of the plain versions (lse instances' outputs bit-equal to the "
+          f"serve instances'); max |err| {err} "
+          f"({time.perf_counter() - t0:.1f} s)", flush=True)
+    return err
+
+
+def flash_bwd_time(torch, err):
+    """Phase 4's row of the backward at ``TRAIN_FLASH_SHAPE``, bf16,
+    causal: held to its plain version a (row, KV head) at a time (the
+    whole float32 score tensors would take 8.6 GB each), then timed in
+    turns beside the backward of ``scaled_dot_product_attention``
+    (``enable_gqa``) through ``torch.autograd.grad`` after its own
+    forward.  The bound counts the function's five products of the
+    forward's size (2.5 x the forward's FLOP), not the seven this kernel
+    runs; bytes: q, k, v, out, dO and lse read, dq, dk, dv written."""
+    from repro_torch.kernels.flash_attention.ops import (
+        flash_attention_bwd, flash_attention_lse)
+    from repro_torch.kernels.flash_attention.ref import (
+        flash_attention_bwd_ref)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    gen = torch.Generator(device="cuda").manual_seed(51)
+    bsz, kvh, g, s, dh = TRAIN_FLASH_SHAPE
+    where = f"flash_attention_bwd {TRAIN_FLASH_SHAPE}"
+    q, k, v = _flash_inputs(torch, gen, bsz, kvh, g, s, dh, torch.bfloat16)
+    do = torch.randn(q.shape, generator=gen, device="cuda").to(
+        torch.bfloat16)
+    scale = dh ** -0.5
+    o, lse = flash_attention_lse(q, k, v)
+    got = flash_attention_bwd(q, k, v, o, lse, do, scale=scale)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    want = [torch.empty(x.shape, dtype=torch.float32, device="cuda")
+            for x in (q, k, v)]
+    for b in range(bsz):
+        for h in range(kvh):
+            part = flash_attention_bwd_ref(
+                *(x[b:b + 1, h:h + 1].float() for x in (q, k, v, o)),
+                lse[b:b + 1, h:h + 1], do[b:b + 1, h:h + 1].float(),
+                scale=scale)
+            for w, x in zip(want, part):
+                w[b:b + 1, h:h + 1] = x
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    mags = [torch.empty_like(w) for w in want]
+    for b in range(bsz):
+        for h in range(kvh):
+            part = bwd_magnitudes(
+                torch, *(x[b:b + 1, h:h + 1] for x in (q, k, v, o, lse, do)),
+                scale, True)
+            for m, x in zip(mags, part):
+                m[b:b + 1, h:h + 1] = x
+    e = check_flash_bwd(torch, got, want, s, s, dh, where, mags)
+    err["flash_attention_bwd"] = max(err["flash_attention_bwd"], e)
+    del got, want, mags
+    torch.cuda.empty_cache()
+    qh = q.view(bsz, kvh * g, s, dh).detach().requires_grad_()
+    kl, vl = k.detach().requires_grad_(), v.detach().requires_grad_()
+    out_l = sdpa(qh, kl, vl, is_causal=True, enable_gqa=True)
+    doh = do.view(bsz, kvh * g, s, dh)
+    iters = 3
+
+    def launched_once(names, launched):
+        traced = sum(c for k, c in names.items()
+                     if "flash_attention_bwd_dkdv" in k)
+        check(launched.get("flash_attention_bwd") == iters
+              and 0 < traced <= iters,
+              f"{where}: launched {launched}, traced {names}, in {iters} "
+              "calls")
+    t = _in_turns(torch, {
+        "library": lambda: torch.autograd.grad(out_l, (qh, kl, vl), doh,
+                                               retain_graph=True),
+        "kernel": lambda: flash_attention_bwd(q, k, v, o, lse, do,
+                                              scale=scale)},
+        iters, {"kernel": launched_once})
+    ms, dms, names, _ = t["kernel"]
+    lms, ldms, lnames, _ = t["library"]
+    turns = dict(ms=min(ms), ms_pair=ms, device_ms=min(dms),
+                 device_ms_pair=dms, kernels=names, library_ms=min(lms),
+                 library_ms_pair=lms, library_device_ms=min(ldms),
+                 library_device_ms_pair=ldms, library_kernels=lnames)
+    pairs = bsz * kvh * g * s * (s + 1) // 2
+    row = dict(_bound_row(
+        ms=turns["ms"], plain_ms=plain_ms, library_ms=turns["library_ms"],
+        flops=5 * 2 * pairs * dh,
+        nbytes=2 * (4 * q.numel() + 4 * k.numel()) + 4 * lse.numel(),
+        shape=list(TRAIN_FLASH_SHAPE) + ["bfloat16", "causal", "backward"],
+        library="scaled_dot_product_attention(is_causal, enable_gqa) "
+                "backward (torch.autograd.grad after its own forward)",
+        turns=turns), max_abs_err=e)
+    del q, k, v, do, o, lse, qh, kl, vl, out_l, doh
+    torch.cuda.empty_cache()
+    return row
+
+
+# -- phase 18: internvl2-26b at full width, with images ----------------------
+
+# its serve call on ``hopper`` (the embedding through the row gather), with
+# 256 stub image embeddings before each prompt (``images=True``); its
+# kernels' served shapes: flash attention over 256 + 2048 positions (B,
+# KVH, G, S = T, dh), paged decode as PAGED_SHAPE with room for 256 + 2048
+# + 32 positions, timed mid-decode, and the embedding's (vocab, d, B x
+# prompt lanes)
+INTERNVL2_ARGS = ["--arch", "internvl2-26b", "--batch", "4", "--prompt-len",
+                  "2048", "--gen", "32", "--gs-backend", "hopper"]
+INTERNVL2_PARAMS = 19_861_260_288
+INTERNVL2_FLASH_SHAPE = (4, 8, 6, 2304, 128)
+INTERNVL2_PAGED_SHAPE = (4, 8, 6, 128, 16, 146, 2320)
+INTERNVL2_EMBED = (92553, 6144, 4 * 2048)
+
+
+def internvl2_attention_times(torch, err):
+    """Phase 4's kernel checks and timed rows at internvl2-26b's served
+    shapes (phase 18), in bfloat16: flash attention at G 6 (128 rows a CTA:
+    21 positions of the 6 heads, 2 rows idle), causal, against its plain
+    version (a head at a time) and beside ``scaled_dot_product_attention``
+    with ``enable_gqa``; paged decode's (128, 6) instance at the timed
+    length and at the decode's first and last and short rows; the
+    embedding's gather beside ``index_select``."""
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    gen = torch.Generator(device="cuda").manual_seed(41)
+    rows = {}
+    bsz, kvh, g, s, dh = INTERNVL2_FLASH_SHAPE
+    q, k, v = _flash_inputs(torch, gen, bsz, kvh, g, s, dh, torch.bfloat16)
+    qh = q.view(bsz, kvh * g, s, dh)
+    rows["flash_attention/internvl2"] = row = flash_row(
+        torch, q, k, v, dict(causal=True, window=0, softcap=0.0),
+        f"flash_attention internvl2 {INTERNVL2_FLASH_SHAPE}",
+        list(INTERNVL2_FLASH_SHAPE) + ["bfloat16", "causal"],
+        ("scaled_dot_product_attention(is_causal, enable_gqa)",
+         lambda: sdpa(qh, k, v, is_causal=True, enable_gqa=True)))
+    err["flash_attention"] = max(err["flash_attention"], row["max_abs_err"])
+    del q, k, v, qh
+    torch.cuda.empty_cache()
+    rows["paged_decode/internvl2"] = row = paged_row(
+        torch, gen, INTERNVL2_PAGED_SHAPE, {},
+        f"paged_decode internvl2 {INTERNVL2_PAGED_SHAPE}",
+        [[2305, 2336, 1, 17]])
+    err["paged_decode"] = max(err["paged_decode"], row["max_abs_err"])
+    rows["gather_rows_b16/internvl2_embed"] = embed_gather_row(
+        torch, gen, *INTERNVL2_EMBED, "internvl2")
+    print_rows(rows)
+    return rows
+
+
+def internvl2_phase(torch):
+    """Phase 18: serve internvl2-26b at its published width and depth
+    through ``launch.serve.main(images=True)`` on ``hopper``
+    (``serve_phase``: launches, logits against the teacher-forced forward
+    over the same images, the cache of an image prefill continued by
+    decode, the trace), 256 stub image embeddings before each of 4
+    prompts of 2,048 tokens, 32 greedy steps from position 2,304.  Its
+    kernels' checks and rows at these shapes run in phase 4
+    (``internvl2_attention_times``).  Returns the numbers and the serve
+    window's launches."""
+    from repro_torch.configs import get_config
+    t0 = time.perf_counter()
+    print("\nphase 18: internvl2-26b at full width, with images",
+          flush=True)
+    out, launched = serve_phase(torch, INTERNVL2_ARGS,
+                                _hopper_dense_launches, INTERNVL2_PARAMS,
+                                images=True)
+    layers = get_config("internvl2-26b").n_layers
+    want = {"flash_attention/global": layers,
+            "paged_decode/global": layers * out["gen"]}
+    check(out["attention_calls"] == want,
+          f"internvl2-26b attention calls {out['attention_calls']} != {want}")
+    out["phase_s"] = time.perf_counter() - t0
+    print(f"  phase 18 wall {out['phase_s']:.1f} s", flush=True)
+    return out, launched
+
+
+# -- phase 19: training llama3-8b at full width -----------------------------
+
+TRAIN_ARGS = ["--arch", "llama3-8b", "--layers", "8", "--batch", "4",
+              "--seq", "4096", "--steps", "4", "--ckpt-every", "1000"]
+# the step checked against the plain attention: full width, 2 layers
+TRAIN_CHECK = dict(layers=2, batch=2, seq=2048)
+# the two attentions round bf16 activations at other places (the kernel
+# rounds P to bf16 before P V, the plain version does not): each value
+# moves by a few 2^-9, which the mean loss averages out and a gradient's
+# norm sums over its entries
+TRAIN_LOSS_RTOL = 2 ** -8
+TRAIN_NORM_RTOL = 2 ** -5
+# step 0's loss: logits of unit variance (a unit-rms final state through
+# the 1/sqrt(d)-scaled unembedding) give ln V + 1/2 on average
+TRAIN_LOSS_MARGIN = 1.0
+
+
+def _grad_check_step(torch):
+    """One step's loss and every parameter's gradient norm at full width
+    and ``TRAIN_CHECK``'s depth and shape, through the kernels and through
+    the plain attention (the wrapper's plain version, differentiated by
+    autograd, in ``models.attention``'s place); returns the numbers."""
+    import math
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import TokenPipeline
+    from repro_torch.kernels import reset_launches
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+    from repro_torch.models import attention
+    from repro_torch.models.zoo import Model
+    cfg = dataclasses.replace(get_config("llama3-8b"),
+                              n_layers=TRAIN_CHECK["layers"])
+    model = Model(cfg)
+    lm = model.init(torch.Generator(device="cuda").manual_seed(0), "cuda",
+                    trainable=True)
+    params = dict(lm.named_parameters())
+    batch = {k: torch.from_numpy(v).cuda() for k, v in TokenPipeline(
+        vocab=cfg.vocab, seq_len=TRAIN_CHECK["seq"],
+        global_batch=TRAIN_CHECK["batch"], seed=0).batch(0).items()}
+
+    def loss_and_norms():
+        reset_launches()
+        loss = model.loss(lm, batch)
+        grads = torch.autograd.grad(loss, list(params.values()))
+        norms = {k: g.float().norm().item() for k, g in zip(params, grads)}
+        return loss.item(), norms, _launches()
+
+    k_loss, k_norms, k_launched = loss_and_norms()
+    saved = attention.flash_attention
+
+    def plain(q, k, v, *, causal=True, window=0, softcap=0.0):
+        return flash_attention_ref(q, k, v, scale=q.shape[-1] ** -0.5,
+                                   causal=causal, window=window,
+                                   softcap=softcap)
+    attention.flash_attention = plain
+    try:
+        p_loss, p_norms, p_launched = loss_and_norms()
+    finally:
+        attention.flash_attention = saved
+    layers = cfg.n_layers
+    # block remat: each layer's forward runs twice, its backward once
+    want = {"flash_attention": 2 * layers, "flash_attention_bwd": layers}
+    check(k_launched == {k: want.get(k, 0) for k in k_launched},
+          f"kernel step launched {k_launched}, not {want}")
+    check(not any(p_launched.values()), f"plain step launched {p_launched}")
+    loss_rel = abs(k_loss - p_loss) / abs(p_loss)
+    norm_rel = {k: abs(k_norms[k] - p_norms[k]) / p_norms[k]
+                for k in params}
+    worst = max(norm_rel, key=norm_rel.get)
+    check(all(map(math.isfinite, k_norms.values())) and p_norms[worst] > 0,
+          "a gradient norm is not finite or is 0")
+    check(loss_rel <= TRAIN_LOSS_RTOL,
+          f"loss {k_loss} vs {p_loss} through the plain attention")
+    check(norm_rel[worst] <= TRAIN_NORM_RTOL,
+          f"{worst}: gradient norm {k_norms[worst]} vs {p_norms[worst]}")
+    print(f"  one step at {layers} layers, {TRAIN_CHECK['batch']} x "
+          f"{TRAIN_CHECK['seq']}: loss {k_loss} (plain attention {p_loss}, "
+          f"{loss_rel:.2e} apart, <= {TRAIN_LOSS_RTOL:.2e}); {len(params)} "
+          f"gradient norms within {norm_rel[worst]:.2e} (<= "
+          f"{TRAIN_NORM_RTOL:.2e}; {worst}); launches {k_launched}",
+          flush=True)
+    del lm, params, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(loss=k_loss, plain_loss=p_loss, loss_rel=loss_rel,
+                max_norm_rel=norm_rel[worst], worst_param=worst,
+                launches=k_launched, **TRAIN_CHECK)
+
+
+def train_phase(torch):
+    """Phase 19: training.  (a) ``_grad_check_step``.  (b) ``launch.train``
+    at ``TRAIN_ARGS`` (llama3-8b at full width cut to 8 layers, 4 x 4096
+    tokens a step, no checkpoint written: the state is ~34 GB): step 0's
+    loss within ``TRAIN_LOSS_MARGIN`` of ln V, every loss and grad_norm
+    finite, the flash forward launched 2 x 8 and the backward 8 times a
+    step exactly (block remat), nothing else; seconds a step, tokens a
+    second, peak memory.  (c) the crash-restart demo
+    (``examples/train_ft_demo_torch.py``, the smoke config at d_model 512
+    so that its heads are 128 wide) on the card, float32: a crash at step
+    25, the restore from the latest checkpoint (20, or 10 while 20's
+    write is in flight), the loss falling.  Returns the numbers
+    and (b)'s launches."""
+    import importlib.util
+    import math
+    import statistics
+    import tempfile
+
+    import numpy as np
+
+    from repro_torch.kernels import KERNELS, reset_launches
+    from repro_torch.launch import train as train_cli
+    from repro_torch.models.zoo import count_params
+    t0 = time.perf_counter()
+    print("\nphase 19: training llama3-8b at full width", flush=True)
+    out = {"grad_check": _grad_check_step(torch)}
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    with tempfile.TemporaryDirectory() as d:
+        argv = TRAIN_ARGS + ["--ckpt-dir", d]
+        print(f"\n$ python -m repro_torch.launch.train {' '.join(argv)}",
+              flush=True)
+        reset_launches()
+        t1 = time.perf_counter()
+        result = train_cli.main(argv)
+        wall = time.perf_counter() - t1
+        launched = _launches()
+    peak = torch.cuda.max_memory_allocated()
+    args = train_cli._parser().parse_args(argv)
+    cfg = train_cli.config(args)
+    steps, layers = args.steps, cfg.n_layers
+    m = result.metrics
+    check(len(m) == steps and [s.step for s in result.stats] == list(
+        range(steps)), f"ran steps {[s.step for s in result.stats]}")
+    check(all(np.isfinite(x["loss"]) and np.isfinite(x["grad_norm"])
+              for x in m), f"metrics not finite: {m}")
+    ln_v = math.log(cfg.vocab)
+    check(abs(m[0]["loss"] - ln_v) <= TRAIN_LOSS_MARGIN,
+          f"step 0 loss {m[0]['loss']} vs ln V {ln_v}")
+    want = {"flash_attention": 2 * layers * steps,
+            "flash_attention_bwd": layers * steps}
+    check(launched == result.launches
+          == {k: want.get(k, 0) for k in KERNELS},
+          f"train launches {launched} ({result.launches}) != {want}")
+    walls = [s.wall_s for s in result.stats]
+    step_s = statistics.median(walls[1:])
+    tokens = args.batch * args.seq
+    out["train"] = dict(
+        args=argv[:-2], layers=layers, params=count_params(cfg),
+        steps=steps, losses=[x["loss"] for x in m],
+        grad_norms=[x["grad_norm"] for x in m], ln_vocab=ln_v,
+        step_wall_s=walls, step_s=step_s, tok_s=tokens / step_s,
+        max_memory_allocated=peak, run_wall_s=wall,
+        launches={k: v for k, v in result.launches.items() if v})
+    print(f"  train: {steps} steps of {args.batch} x {args.seq} at "
+          f"{layers} layers ({out['train']['params']} params): losses "
+          f"{out['train']['losses']}, grad norms "
+          f"{out['train']['grad_norms']}; steps {walls} s, median after "
+          f"the first {step_s:.3f} s ({tokens / step_s:.0f} tok/s); "
+          f"max_memory_allocated {peak} bytes; launches "
+          f"{out['train']['launches']}", flush=True)
+    del result
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    path = ROOT / "examples" / "train_ft_demo_torch.py"
+    spec = importlib.util.spec_from_file_location("train_ft_demo_torch",
+                                                  path)
+    demo = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(demo)
+    t1 = time.perf_counter()
+    sup, crash = demo.main(["--d-model", "512"])
+    losses = [s.loss for s in sup.stats]
+    # the latest checkpoint on disk at the crash: step 20's, or step 10's
+    # while 20's asynchronous write is still in flight (the JAX
+    # supervisor's restart does not wait for it either)
+    check(crash["restored_from"] in (10, 20) and not crash["armed"]
+          and len(losses) == demo.STEPS + demo.CRASH_AT
+          - crash["restored_from"], f"the demo's restart: {crash}")
+    out["crash_restart"] = dict(
+        restored_from=crash["restored_from"], steps_run=len(losses),
+        first5=float(np.mean(losses[:5])), last5=float(np.mean(losses[-5:])),
+        wall_s=time.perf_counter() - t1)
+    print(f"  crash-restart demo on the card: {out['crash_restart']}",
+          flush=True)
+    out["phase_s"] = time.perf_counter() - t0
+    print(f"  phase 19 wall {out['phase_s']:.1f} s", flush=True)
+    return out, want
+
+
 def kernel_row(name, t, launches, max_abs_err=None):
     """One entry of the ``kernels`` line: the row ``t`` of kernel ``name``
     (``<kernel>`` or ``<kernel>/<where>``) with ``launches`` from the main
@@ -6120,12 +6663,13 @@ def main():
     err["flash_attention"] = flash_cases(torch)
     err["paged_decode"] = paged_cases(torch)
     err["rglru_scan"] = rglru_cases(torch)
+    err["flash_attention_bwd"] = flash_bwd_cases(torch)
     print(f"phase 1 wall {time.perf_counter() - t0:.1f} s", flush=True)
     with _host_buffers_once():
-        return _phases_2_to_17(torch, err)
+        return _phases_2_to_19(torch, err)
 
 
-def _phases_2_to_17(torch, err):
+def _phases_2_to_19(torch, err):
     """Every phase after phase 1, inside ``main``'s ``_host_buffers_once``,
     then the records and the last line."""
     from repro_torch.kernels import reset_launches
@@ -6155,6 +6699,8 @@ def _phases_2_to_17(torch, err):
     times["rglru_scan"] = rg_rows.pop("rglru_scan")
     kimi_rows = kimi_attention_times(torch, err)       # phase 16's shapes
     whisper_rows = whisper_attention_times(torch, err)  # phase 17's shapes
+    internvl2_rows = internvl2_attention_times(torch, err)  # phase 18's
+    times["flash_attention_bwd"] = flash_bwd_time(torch, err)  # phase 19's
     lulesh_s3_add = times.pop("lulesh_s3_add")
     peak_1_4 = max(peak_1_3, torch.cuda.max_memory_allocated())
     print(f"phase 4 wall {time.perf_counter() - t0:.1f} s", flush=True)
@@ -6180,6 +6726,8 @@ def _phases_2_to_17(torch, err):
     # phase 16 frees its 40 GB model before it returns
     kimi, kimi_launches, kimi_moe_rows = kimi_phase(torch, err)
     whisper, whisper_launches = whisper_phase(torch)
+    internvl2, internvl2_launches = internvl2_phase(torch)
+    train, train_launches = train_phase(torch)
     daemon = daemon_phase(torch, cli_results, suite_stats)
     # phase 10 last: its profiler sessions come after every phase that
     # checks a trace's launch count
@@ -6205,6 +6753,9 @@ def _phases_2_to_17(torch, err):
     path_launches["rglru_scan"] = rg["launches_prefill"]["rglru_scan"]
     for k in ("flash_attention", "paged_decode"):
         path_launches[k] = llama_launches[k]
+    # the backward's row is at phase 19's training shape: its launches there
+    path_launches["flash_attention_bwd"] = train_launches[
+        "flash_attention_bwd"]
     rows = []
     for name in KERNEL_INFO:
         t = times[name]
@@ -6265,6 +6816,13 @@ def _phases_2_to_17(torch, err):
         rows.append(kernel_row(name, t, (
             served_by["embed_launches"] if kernel.startswith("gather")
             else launched[kernel])))
+    # internvl2-26b's at its shapes (phase 18): every attention layer
+    # global; the embedding's gather once a prefill and a step
+    for name, t in internvl2_rows.items():
+        kernel = name.split("/")[0]
+        rows.append(kernel_row(name, t, (
+            internvl2_launches[kernel] if kernel.startswith("gather")
+            else internvl2["attention_calls"][f"{kernel}/global"])))
     cli = {f"{b}/{k}/{m}": dict(time_ms=r.time_s * 1e3, gbs=r.measured_gbs,
                                 host_s=r.host_s)
            for (b, k, m), r in cli_results.items()}
@@ -6282,7 +6840,10 @@ def _phases_2_to_17(torch, err):
           f"{dense['starcoder2-15b']['max_memory_allocated']} bytes in "
           f"phase 14's, {rg['max_memory_allocated']} bytes in phase 15's, "
           f"{kimi['max_memory_allocated']} bytes in phase 16's, "
-          f"{whisper['max_memory_allocated']} bytes in phase 17's")
+          f"{whisper['max_memory_allocated']} bytes in phase 17's, "
+          f"{internvl2['max_memory_allocated']} bytes in phase 18's, "
+          f"{train['train']['max_memory_allocated']} bytes in phase 19's "
+          f"training run")
     print(json.dumps({"cli": cli, "suites_hopper": suites,
                       "gathers": {k: v for k, v in times.items()
                                   if k.startswith("gather_rows")},
@@ -6297,6 +6858,8 @@ def _phases_2_to_17(torch, err):
     print(json.dumps({"recurrentgemma": rg}))
     print(json.dumps({"kimi": kimi}))
     print(json.dumps({"whisper": whisper}))
+    print(json.dumps({"internvl2": internvl2}))
+    print(json.dumps({"train": train}))
     print(json.dumps({"daemon": daemon}))
     print(json.dumps({"placements": placed}))
     print(json.dumps({"autotune": tuned}))

@@ -40,6 +40,7 @@ from typing import Callable
 import torch
 
 from .kernels._build import DTYPES   # float32, bfloat16, float16
+from .kernels._build import refuse_grad
 from .kernels.gather_rows import ops as gather_ops
 from .kernels.scatter_rows import ops as scatter_ops
 from .kernels.scatter_rows.ref import store_coverage_
@@ -127,10 +128,13 @@ def scatter_scalar(dst, idx, vals, mode, keep):
 # -- hopper -------------------------------------------------------------------
 
 def gather_hopper(src, idx, tiles=None):
+    # the JAX package's Pallas gather has no gradient either
+    refuse_grad("gather_rows", src)
     return gather_ops.gather_rows(src, idx, tiles)
 
 
 def scatter_hopper(dst, idx, vals, mode, keep, tiles=None, cov=None):
+    refuse_grad(f"scatter_{mode}_rows", dst, vals)
     if mode == "add":
         return scatter_ops.scatter_add_rows_(
             dst, idx, vals, smem=None if tiles is None else tiles.smem)

@@ -1,4 +1,4 @@
-// GQA flash attention, forward, for Hopper (sm_90a):
+// GQA flash attention, forward and backward, for Hopper (sm_90a):
 //   out[b, h, g, i] = softmax_j(mask(cap(q[b, h, g, i] . k[b, h, j] * scale)))
 //                     . v[b, h, j]
 //
@@ -11,6 +11,13 @@
 // window; masked scores are -1e30 as there, and cap(x) = tanh(x / softcap)
 // * softcap when softcap > 0.  m and l are float32; the output is divided by
 // max(l, 1e-30) and rounded once.  Offsets are 64-bit.
+//
+// Given an lse pointer, each body's instance with kLse (built at DH 128
+// only, for training; the template flag leaves the serve instances' code
+// as it was) also writes every query row's log-sum-exp of its masked,
+// scaled scores, in natural units, float32, (B, KVH, G, S): the row max
+// plus the log of the row sum, which the backward (the last section of
+// this file) needs.
 //
 // What changes from the TPU.  There the grid (B, KVH, S / bq, T / bk) runs
 // in order and (m, l, acc) wait in VMEM scratch across the kv steps.  Here
@@ -138,6 +145,7 @@
 #include <climits>
 #include <cmath>
 #include <cstdint>
+#include <type_traits>
 
 namespace {
 
@@ -188,14 +196,14 @@ __device__ __forceinline__ bool sees_no_key(int64_t i, int64_t T_len,
   return window > 0 && i - window >= T_len - 1;
 }
 
-template <int DH>
+template <int DH, bool kLse>
 __global__ void __launch_bounds__(kThreads)
 flash_attention_kernel(const float* __restrict__ q,
                        const float* __restrict__ k,
                        const float* __restrict__ v, float* __restrict__ out,
-                       int kvh, int G, int64_t S, int64_t T_len, int bq,
-                       float scale, int causal, int64_t window,
-                       float softcap) {
+                       float* __restrict__ lse, int kvh, int G, int64_t S,
+                       int64_t T_len, int bq, float scale, int causal,
+                       int64_t window, float softcap) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   Smem<DH>& sm = *reinterpret_cast<Smem<DH>*>(smem_raw);
   static_assert(DH % 16 == 0, "DH: whole 16-column pieces");
@@ -350,6 +358,10 @@ flash_attention_kernel(const float* __restrict__ q,
     if (r >= rows || qpos[i] >= S) continue;
     const float denom = fmaxf(l[i], 1e-30f);
     const bool empty = any_empty && sees_no_key(qpos[i], T_len, window);
+    if (kLse && tx == 0) {
+      lse[(bh * G + r / bq) * S + qpos[i]] =
+          empty ? kMasked : m[i] + logf(l[i]);
+    }
     float* orow = out + ((bh * G + r / bq) * S + qpos[i]) * DH;
 #pragma unroll
     for (int cc = 0; cc < kCols; ++cc) {
@@ -365,11 +377,11 @@ flash_attention_kernel(const float* __restrict__ q,
   }
 }
 
-template <int DH>
+template <int DH, bool kLse = false>
 int launch_f32(const float* q, const float* k, const float* v, float* out,
-               int64_t B, int64_t KVH, int64_t G, int64_t S, int64_t T_len,
-               float scale, int causal, int64_t window, float softcap,
-               cudaStream_t s) {
+               float* lse, int64_t B, int64_t KVH, int64_t G, int64_t S,
+               int64_t T_len, float scale, int causal, int64_t window,
+               float softcap, cudaStream_t s) {
   const int bq = static_cast<int>(kRows / G);
   const int64_t n_qt = (S + bq - 1) / bq;
   if (n_qt > INT_MAX || KVH > 65535 || B > 65535) {
@@ -377,14 +389,14 @@ int launch_f32(const float* q, const float* k, const float* v, float* out,
   }
   const size_t smem = sizeof(Smem<DH>);
   cudaError_t err = cudaFuncSetAttribute(
-      flash_attention_kernel<DH>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
+      flash_attention_kernel<DH, kLse>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid(static_cast<unsigned>(n_qt), static_cast<unsigned>(KVH),
                   static_cast<unsigned>(B));
-  flash_attention_kernel<DH><<<grid, kThreads, smem, s>>>(
-      q, k, v, out, static_cast<int>(KVH), static_cast<int>(G), S, T_len, bq,
-      scale, causal, window, softcap);
+  flash_attention_kernel<DH, kLse><<<grid, kThreads, smem, s>>>(
+      q, k, v, out, lse, static_cast<int>(KVH), static_cast<int>(G), S,
+      T_len, bq, scale, causal, window, softcap);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -608,13 +620,14 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 // score_mul = scale log2(e); with a softcap, x = tanh(s cap_in) cap_out
 // with cap_in = scale / softcap and cap_out = softcap log2(e).  Scores live
 // in the log2 domain: p = exp2(x - m).
-template <int DH>
+template <int DH, bool kLse>
 __global__ void __launch_bounds__(kTcThreads, 1)
 flash_attention_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
                           const __grid_constant__ CUtensorMap tm_k,
                           const __grid_constant__ CUtensorMap tm_v,
                           const __nv_bfloat16* __restrict__ v,
-                          __nv_bfloat16* __restrict__ out, int kvh, int G,
+                          __nv_bfloat16* __restrict__ out,
+                          float* __restrict__ lse, int kvh, int G,
                           int S, int T_len, int bq, float score_mul,
                           float cap_in, float cap_out, int causal,
                           int window) {
@@ -820,6 +833,11 @@ flash_attention_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
     // division, before the one rounding to bf16
     const float inv = __frcp_rn(fmaxf(l[i], 1e-30f));
     const bool empty = any_empty && sees_no_key(qpos[i], T_len, window);
+    if (kLse && quad == 0) {       // m is in log2 units: back to natural
+      lse[(static_cast<int64_t>(bh) * G + g) * S + qpos[i]] =
+          empty || m[i] == -INFINITY ? kMasked
+                                     : (m[i] + log2f(l[i])) / kLog2e;
+    }
     __nv_bfloat16* orow =
         out + ((static_cast<int64_t>(bh) * G + g) * S + qpos[i]) * DH;
 #pragma unroll
@@ -863,11 +881,11 @@ bool encode_3d(PFN_cuTensorMapEncodeTiled_v12000 encode, CUtensorMap* map,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <int DH>
+template <int DH, bool kLse = false>
 int launch_bf16(const void* q, const void* k, const void* v, void* out,
-                int64_t B, int64_t KVH, int64_t G, int64_t S, int64_t T_len,
-                float scale, int causal, int64_t window, float softcap,
-                cudaStream_t s) {
+                float* lse, int64_t B, int64_t KVH, int64_t G, int64_t S,
+                int64_t T_len, float scale, int causal, int64_t window,
+                float softcap, cudaStream_t s) {
   if (S > INT_MAX || T_len > INT_MAX || B * KVH * G > INT_MAX ||
       KVH > 65535 || B > 65535) {
     return static_cast<int>(cudaErrorInvalidConfiguration);
@@ -884,16 +902,16 @@ int launch_bf16(const void* q, const void* k, const void* v, void* out,
   }
   constexpr int smem = TcLayout<DH>::kBytes;
   cudaError_t err = cudaFuncSetAttribute(
-      flash_attention_tc_kernel<DH>,
+      flash_attention_tc_kernel<DH, kLse>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid(static_cast<unsigned>((S + bq - 1) / bq),
                   static_cast<unsigned>(KVH), static_cast<unsigned>(B));
   const int win = window < INT_MAX ? static_cast<int>(window) : INT_MAX;
   const float cap_in = softcap > 0.f ? scale / softcap : 0.f;
-  flash_attention_tc_kernel<DH><<<grid, kTcThreads, smem, s>>>(
+  flash_attention_tc_kernel<DH, kLse><<<grid, kTcThreads, smem, s>>>(
       tm_q, tm_k, tm_v, static_cast<const __nv_bfloat16*>(v),
-      static_cast<__nv_bfloat16*>(out),
+      static_cast<__nv_bfloat16*>(out), lse,
       static_cast<int>(KVH), static_cast<int>(G), static_cast<int>(S),
       static_cast<int>(T_len), bq, scale * kLog2e, cap_in, softcap * kLog2e,
       causal, win);
@@ -904,14 +922,713 @@ bool bad_args(int64_t G, int64_t T_len, int64_t window) {
   return G < 1 || G > kRows || T_len < 1 || window < 0;
 }
 
+// -- backward: dQ, dK, dV on the CUDA cores ----------------------------------
+//
+// Replaces no TPU kernel: the JAX package's custom_vjp (_bwd in
+// src/repro/kernels/flash_attention/ops.py) recomputes its backward
+// through the reference.  FlashAttention-2's backward, from q, k, v, out,
+// dout and the forward's row log-sum-exp lse (natural units of the scaled
+// score), in three launches on the caller's stream:
+//   1. flash_attention_bwd_delta: D[row] = sum_d dout[row, d] out[row, d]
+//      in float32, one warp a row.
+//   2. flash_attention_bwd_dkdv: one CTA a tile of kBwdKeys keys of one
+//      (batch row, KV head), K and V held in shared memory as float32, dK
+//      and dV summed in registers.  It walks the G query heads that share
+//      the KV head and, for each, the query tiles that can see its keys
+//      (with causal, the tiles from its first key on): S = Q K^T, P =
+//      exp(scale S - lse) (0 where masked), dP = dO V^T, dS = P (dP - D);
+//      dV += P^T dO, dK += dS^T Q.  Every dK and dV element is summed by
+//      one thread, over G too, so there are no atomics and the sums do not
+//      depend on timing.
+//   3. flash_attention_bwd_dq: one CTA a tile of kBwdRows query rows of one
+//      head: the same S, P, dP and dS over the key tiles the rows see,
+//      then dQ += dS K.
+// dQ and dK take the scale at the end; all three are rounded once to the
+// inputs' type.  Below, passes 2 and 3 for float32: tiles float32 in shared
+// memory, products on the CUDA cores.
+//
+// What bounds it: operations, and this body is far from them.  The
+// function is five products of the forward's size (Q K^T, dO V^T, P^T dO,
+// dS^T Q, dS K: 2.5 x the forward's two); at the llama3-8b training shape
+// (B 4, KVH 8, G 4, S = T = 4096, DH 128, causal) 1.4e12 FLOP, 1.39 ms on
+// bf16 tensor cores.  This body runs seven (pass 3 recomputes Q K^T and
+// dO V^T), each as float32 FMAs from shared memory (a thread 4 x 4 scores
+// from 16 float4 loads a 4-column step; 4 keys x 8 columns of dK and dV
+// from 8 scalar and 4 float4 loads a query row), so the CUDA cores' 67
+// TFLOP/s and shared memory's bandwidth bound it.  That body serves float32;
+// bfloat16 runs passes 2 and 3 on the tensor cores (mma.sync, next
+// section), whose bf16 rate is what bounds it; wgmma, TMA and warp
+// specialisation are later work.  Only DH 128 is built; the wrapper
+// refuses window and softcap.
+
+constexpr int kBwdThreads = 256;     // 16 x 16 threads
+constexpr int kBwdRows = 64;         // query rows a tile
+constexpr int kBwdKeys = 64;         // keys a tile
+constexpr int kBwdPad = 4;           // floats after each row of a tile
+constexpr int kBwdPStride = kBwdKeys + 16;   // P / dS rows: no conflicts
+
+template <int DH>
+struct BwdSmem {
+  float a[kBwdRows][DH + kBwdPad];     // Q of the tile's rows
+  float b[kBwdRows][DH + kBwdPad];     // dO of the tile's rows
+  float k[kBwdKeys][DH + kBwdPad];     // K of the key tile
+  float v[kBwdKeys][DH + kBwdPad];     // V of the key tile
+  float p[kBwdRows][kBwdPStride];      // P (pass 2)
+  float ds[kBwdRows][kBwdPStride];     // dS
+  float lse[kBwdRows];
+  float d[kBwdRows];
+};
+
+__device__ __forceinline__ void load4_f32(const float* p, float* x) {
+  const float4 r = *reinterpret_cast<const float4*>(p);
+  x[0] = r.x;
+  x[1] = r.y;
+  x[2] = r.z;
+  x[3] = r.w;
+}
+__device__ __forceinline__ void load4_f32(const __nv_bfloat16* p, float* x) {
+  const uint2 r = *reinterpret_cast<const uint2*>(p);
+  const float2 lo = __bfloat1622float2(
+      *reinterpret_cast<const __nv_bfloat162*>(&r.x));
+  const float2 hi = __bfloat1622float2(
+      *reinterpret_cast<const __nv_bfloat162*>(&r.y));
+  x[0] = lo.x;
+  x[1] = lo.y;
+  x[2] = hi.x;
+  x[3] = hi.y;
+}
+
+__device__ __forceinline__ void store4(float* p, const float* x) {
+  *reinterpret_cast<float4*>(p) = make_float4(x[0], x[1], x[2], x[3]);
+}
+
+// rows row0 .. row0 + 63 of a (n_rows, DH) matrix into a float32 tile; rows
+// past n_rows are zeros
+template <int DH, typename T>
+__device__ void load_tile(float (*dst)[DH + kBwdPad], const T* src,
+                          int64_t row0, int64_t n_rows, int tid) {
+  for (int c = tid; c < kBwdRows * (DH / 4); c += kBwdThreads) {
+    const int r = c / (DH / 4), c4 = (c % (DH / 4)) * 4;
+    float x[4] = {0.f, 0.f, 0.f, 0.f};
+    if (row0 + r < n_rows) load4_f32(src + (row0 + r) * DH + c4, x);
+    store4(&dst[r][c4], x);
+  }
+}
+
+__device__ __forceinline__ float dot4(const float4& a, const float4& b) {
+  return a.x * b.x + a.y * b.y + a.z * b.z + a.w * b.w;
+}
+
+// dS (and, with kStoreP, P) of the tile's rows q0.. against keys k0.. into
+// shared memory, from a, b, k, v, lse and d already there.  Thread (ty, tx)
+// takes rows ty + 16 i and keys tx + 16 j (neighbouring threads on
+// neighbouring rows of k and v: conflict-free float4 loads).
+template <int DH, bool kStoreP>
+__device__ void tile_ds(BwdSmem<DH>& sm, int64_t q0, int64_t k0, int64_t S,
+                        int64_t T_len, float score_mul, int causal, int tid) {
+  const int ty = tid >> 4, tx = tid & 15;
+  float s[4][4], dp[4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
+#pragma unroll 2
+  for (int d = 0; d < DH; d += 4) {
+    float4 qa[4], oa[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      qa[i] = *reinterpret_cast<const float4*>(&sm.a[ty + 16 * i][d]);
+      oa[i] = *reinterpret_cast<const float4*>(&sm.b[ty + 16 * i][d]);
+    }
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const float4 kb = *reinterpret_cast<const float4*>(&sm.k[tx + 16 * j][d]);
+      const float4 vb = *reinterpret_cast<const float4*>(&sm.v[tx + 16 * j][d]);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        s[i][j] += dot4(qa[i], kb);
+        dp[i][j] += dot4(oa[i], vb);
+      }
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int r = ty + 16 * i;
+    const int64_t qpos = q0 + r;
+    const float lse2 = sm.lse[r] * kLog2e, dr = sm.d[r];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int c = tx + 16 * j;
+      const int64_t kpos = k0 + c;
+      const bool keep = qpos < S && kpos < T_len && (!causal || kpos <= qpos);
+      const float p = keep ? exp2f(fmaf(s[i][j], score_mul, -lse2)) : 0.f;
+      if (kStoreP) sm.p[r][c] = p;
+      sm.ds[r][c] = p * (dp[i][j] - dr);
+    }
+  }
+}
+
+template <typename T, int DH>
+__global__ void __launch_bounds__(kBwdThreads)
+flash_attention_bwd_delta(const T* __restrict__ out, const T* __restrict__ dout,
+          float* __restrict__ delta, int64_t n_rows) {
+  const int64_t row = static_cast<int64_t>(blockIdx.x) * (kBwdThreads / 32) +
+                      (threadIdx.x >> 5);
+  const int lane = threadIdx.x & 31;
+  if (row >= n_rows) return;
+  float acc = 0.f;
+  for (int c = lane * 4; c < DH; c += 128) {
+    float o[4], g[4];
+    load4_f32(out + row * DH + c, o);
+    load4_f32(dout + row * DH + c, g);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc = fmaf(o[e], g[e], acc);
+  }
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    acc += __shfl_xor_sync(0xffffffffu, acc, off);
+  }
+  if (lane == 0) delta[row] = acc;
+}
+
+// grid (key tiles, KVH, B)
+template <typename T, int DH>
+__global__ void __launch_bounds__(kBwdThreads)
+flash_attention_bwd_dkdv(const T* __restrict__ q, const T* __restrict__ k,
+         const T* __restrict__ v, const T* __restrict__ dout,
+         const float* __restrict__ lse, const float* __restrict__ delta,
+         T* __restrict__ dk, T* __restrict__ dv, int kvh, int G, int64_t S,
+         int64_t T_len, float scale, float score_mul, int causal) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  BwdSmem<DH>& sm = *reinterpret_cast<BwdSmem<DH>*>(smem_raw);
+  constexpr int kC = DH / 64;                 // float4 column groups a thread
+  const int tid = threadIdx.x;
+  const int ky = tid >> 4, dx = tid & 15;
+  const int64_t k0 = static_cast<int64_t>(blockIdx.x) * kBwdKeys;
+  const int64_t bh = static_cast<int64_t>(blockIdx.z) * kvh + blockIdx.y;
+  load_tile<DH>(sm.k, k + bh * T_len * DH, k0, T_len, tid);
+  load_tile<DH>(sm.v, v + bh * T_len * DH, k0, T_len, tid);
+  float acc_k[4][4 * kC], acc_v[4][4 * kC];
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+#pragma unroll
+    for (int e = 0; e < 4 * kC; ++e) acc_k[j][e] = acc_v[j][e] = 0.f;
+  // with causal, query tiles before the key tile see none of its keys
+  const int64_t q_begin = causal ? k0 - k0 % kBwdRows : 0;
+  for (int g = 0; g < G; ++g) {
+    const int64_t head = bh * G + g;          // rows of q, dout, lse, delta
+    for (int64_t q0 = q_begin; q0 < S; q0 += kBwdRows) {
+      __syncthreads();                        // the last tile's readers
+      load_tile<DH>(sm.a, q + head * S * DH, q0, S, tid);
+      load_tile<DH>(sm.b, dout + head * S * DH, q0, S, tid);
+      if (tid < kBwdRows) {
+        const bool in = q0 + tid < S;
+        sm.lse[tid] = in ? lse[head * S + q0 + tid] : 0.f;
+        sm.d[tid] = in ? delta[head * S + q0 + tid] : 0.f;
+      }
+      __syncthreads();
+      tile_ds<DH, true>(sm, q0, k0, S, T_len, score_mul, causal, tid);
+      __syncthreads();
+      // dV += P^T dO, dK += dS^T Q: keys ky + 16 j, columns dx 4 + 64 c
+#pragma unroll 4
+      for (int r = 0; r < kBwdRows; ++r) {
+        float pj[4], sj[4];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          pj[j] = sm.p[r][ky + 16 * j];
+          sj[j] = sm.ds[r][ky + 16 * j];
+        }
+#pragma unroll
+        for (int c = 0; c < kC; ++c) {
+          const float4 o4 =
+              *reinterpret_cast<const float4*>(&sm.b[r][dx * 4 + 64 * c]);
+          const float4 q4 =
+              *reinterpret_cast<const float4*>(&sm.a[r][dx * 4 + 64 * c]);
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            acc_v[j][4 * c + 0] = fmaf(pj[j], o4.x, acc_v[j][4 * c + 0]);
+            acc_v[j][4 * c + 1] = fmaf(pj[j], o4.y, acc_v[j][4 * c + 1]);
+            acc_v[j][4 * c + 2] = fmaf(pj[j], o4.z, acc_v[j][4 * c + 2]);
+            acc_v[j][4 * c + 3] = fmaf(pj[j], o4.w, acc_v[j][4 * c + 3]);
+            acc_k[j][4 * c + 0] = fmaf(sj[j], q4.x, acc_k[j][4 * c + 0]);
+            acc_k[j][4 * c + 1] = fmaf(sj[j], q4.y, acc_k[j][4 * c + 1]);
+            acc_k[j][4 * c + 2] = fmaf(sj[j], q4.z, acc_k[j][4 * c + 2]);
+            acc_k[j][4 * c + 3] = fmaf(sj[j], q4.w, acc_k[j][4 * c + 3]);
+          }
+        }
+      }
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const int64_t kpos = k0 + ky + 16 * j;
+    if (kpos >= T_len) continue;
+#pragma unroll
+    for (int c = 0; c < kC; ++c) {
+      float xk[4], xv[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        xk[e] = acc_k[j][4 * c + e] * scale;
+        xv[e] = acc_v[j][4 * c + e];
+      }
+      const int64_t off = (bh * T_len + kpos) * DH + dx * 4 + 64 * c;
+      store4(dk + off, xk);
+      store4(dv + off, xv);
+    }
+  }
+}
+
+// grid (query tiles, KVH G, B)
+template <typename T, int DH>
+__global__ void __launch_bounds__(kBwdThreads)
+flash_attention_bwd_dq(const T* __restrict__ q, const T* __restrict__ k,
+       const T* __restrict__ v, const T* __restrict__ dout,
+       const float* __restrict__ lse, const float* __restrict__ delta,
+       T* __restrict__ dq, int kvh, int G, int64_t S, int64_t T_len,
+       float scale, float score_mul, int causal) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  BwdSmem<DH>& sm = *reinterpret_cast<BwdSmem<DH>*>(smem_raw);
+  constexpr int kC = DH / 64;
+  const int tid = threadIdx.x;
+  const int qy = tid >> 4, dx = tid & 15;
+  const int64_t q0 = static_cast<int64_t>(blockIdx.x) * kBwdRows;
+  const int64_t head = static_cast<int64_t>(blockIdx.z) * kvh * G +
+                       blockIdx.y;            // (b, h, g) of the query rows
+  const int64_t bh = head / G;
+  load_tile<DH>(sm.a, q + head * S * DH, q0, S, tid);
+  load_tile<DH>(sm.b, dout + head * S * DH, q0, S, tid);
+  if (tid < kBwdRows) {
+    const bool in = q0 + tid < S;
+    sm.lse[tid] = in ? lse[head * S + q0 + tid] : 0.f;
+    sm.d[tid] = in ? delta[head * S + q0 + tid] : 0.f;
+  }
+  float acc[4][4 * kC];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int e = 0; e < 4 * kC; ++e) acc[i][e] = 0.f;
+  const int64_t q_last = (q0 + kBwdRows < S ? q0 + kBwdRows : S) - 1;
+  const int64_t k_end = causal ? (T_len < q_last + 1 ? T_len : q_last + 1)
+                               : T_len;
+  for (int64_t k0 = 0; k0 < k_end; k0 += kBwdKeys) {
+    __syncthreads();                          // the last tile's readers
+    load_tile<DH>(sm.k, k + bh * T_len * DH, k0, T_len, tid);
+    load_tile<DH>(sm.v, v + bh * T_len * DH, k0, T_len, tid);
+    __syncthreads();
+    tile_ds<DH, false>(sm, q0, k0, S, T_len, score_mul, causal, tid);
+    __syncthreads();
+    // dQ += dS K: rows qy + 16 i, columns dx 4 + 64 c
+#pragma unroll 4
+    for (int c2 = 0; c2 < kBwdKeys; ++c2) {
+      float si[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) si[i] = sm.ds[qy + 16 * i][c2];
+#pragma unroll
+      for (int c = 0; c < kC; ++c) {
+        const float4 k4 =
+            *reinterpret_cast<const float4*>(&sm.k[c2][dx * 4 + 64 * c]);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          acc[i][4 * c + 0] = fmaf(si[i], k4.x, acc[i][4 * c + 0]);
+          acc[i][4 * c + 1] = fmaf(si[i], k4.y, acc[i][4 * c + 1]);
+          acc[i][4 * c + 2] = fmaf(si[i], k4.z, acc[i][4 * c + 2]);
+          acc[i][4 * c + 3] = fmaf(si[i], k4.w, acc[i][4 * c + 3]);
+        }
+      }
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int64_t qpos = q0 + qy + 16 * i;
+    if (qpos >= S) continue;
+#pragma unroll
+    for (int c = 0; c < kC; ++c) {
+      float x[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) x[e] = acc[i][4 * c + e] * scale;
+      store4(dq + (head * S + qpos) * DH + dx * 4 + 64 * c, x);
+    }
+  }
+}
+
+// -- backward, bfloat16: passes 2 and 3 on the tensor cores -------------------
+//
+// The bf16 entry runs passes 2 and 3 with mma.sync m16n8k16 (bf16 in, float32
+// sums) on bf16 tiles in shared memory (rows padded by 16 bytes, so the 8
+// rows an ldmatrix reads fall in 8 distinct bank groups).  A CTA's 8 warps
+// split each 64 x 64 score tile as 4 x 2 blocks of 16 rows x 32 keys, and
+// each 64 x 128 sum (dK, dV or dQ) as 4 x 2 blocks of 16 rows x 64 columns,
+// held in registers.  P and dS are rounded to bf16 in shared memory (2^-9
+// each) before they enter P^T dO, dS^T Q and dS K; S, dP and every sum stay
+// float32.  Operands that the products need transposed (P^T, dS^T, and dO,
+// Q and K as the k-major B) come in through ldmatrix.trans.
+
+constexpr int kTcbRow = 128 + 8;         // bf16 a row of a DH-128 tile
+constexpr int kTcbPRow = kBwdKeys + 8;   // bf16 a row of P or dS
+
+struct BwdTcSmem {
+  __nv_bfloat16 a[kBwdRows][kTcbRow];    // Q of the tile's rows
+  __nv_bfloat16 b[kBwdRows][kTcbRow];    // dO of the tile's rows
+  __nv_bfloat16 k[kBwdKeys][kTcbRow];    // K of the key tile
+  __nv_bfloat16 v[kBwdKeys][kTcbRow];    // V of the key tile
+  __nv_bfloat16 p[kBwdRows][kTcbPRow];   // P (pass 2)
+  __nv_bfloat16 ds[kBwdRows][kTcbPRow];  // dS
+  float lse[kBwdRows];
+  float d[kBwdRows];
+};
+
+// rows row0 .. row0 + 63 of a (n_rows, 128) bf16 matrix, 16 bytes a copy;
+// rows past n_rows are zeros
+__device__ void load_tile_tc(__nv_bfloat16 (*dst)[kTcbRow],
+                             const __nv_bfloat16* src, int64_t row0,
+                             int64_t n_rows, int tid) {
+  for (int c = tid; c < kBwdRows * 16; c += kBwdThreads) {
+    const int r = c >> 4, c8 = (c & 15) * 8;
+    uint4 x = make_uint4(0u, 0u, 0u, 0u);
+    if (row0 + r < n_rows) {
+      x = *reinterpret_cast<const uint4*>(src + (row0 + r) * 128 + c8);
+    }
+    *reinterpret_cast<uint4*>(&dst[r][c8]) = x;
+  }
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p)));
+}
+
+__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p)));
+}
+
+// c (16 x 8, float32) += a (16 x 16) b (16 x 8), bf16 operands
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Where lane (lj = lane / 8, li = lane % 8) points ldmatrix.x4 for a 16 x 16
+// A fragment at (m0, k0) of a row-major [m][k] tile, and for two 8-wide B
+// fragments (n0, n0 + 8) x 16 k of a [n][k] tile; with .trans, for an A
+// fragment of a [k][m] tile and B fragments of a [k][n] tile.
+#define A_ROW(m0, k0) (m0) + (lj & 1) * 8 + li][(k0) + (lj >> 1) * 8
+#define B_ROW(n0, k0) (n0) + (lj >> 1) * 8 + li][(k0) + (lj & 1) * 8
+#define AT_ROW(m0, k0) (k0) + (lj >> 1) * 8 + li][(m0) + (lj & 1) * 8
+#define BT_ROW(n0, k0) (k0) + (lj & 1) * 8 + li][(n0) + (lj >> 1) * 8
+
+// dS (and, with kStoreP, P) of the tile's rows q0.. against keys k0.., as
+// bf16 in shared memory, from a, b, k, v, lse and d already there: warp w
+// takes rows 16 (w / 2) .. + 16 and keys 32 (w % 2) .. + 32.
+template <bool kStoreP>
+__device__ void tile_ds_tc(BwdTcSmem& sm, int64_t q0, int64_t k0, int64_t S,
+                           int64_t T_len, float score_mul, int causal,
+                           int warp, int lane) {
+  const int lj = lane >> 3, li = lane & 7;
+  const int mr = 16 * (warp >> 1), nc = 32 * (warp & 1);
+  float s[4][4], dp[4][4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < 128; kk += 16) {
+    uint32_t aq[4], ao[4];
+    ldsm_x4(aq, &sm.a[A_ROW(mr, kk)]);
+    ldsm_x4(ao, &sm.b[A_ROW(mr, kk)]);
+#pragma unroll
+    for (int jp = 0; jp < 2; ++jp) {
+      uint32_t bk[4], bv[4];
+      ldsm_x4(bk, &sm.k[B_ROW(nc + 16 * jp, kk)]);
+      ldsm_x4(bv, &sm.v[B_ROW(nc + 16 * jp, kk)]);
+      mma_bf16(s[2 * jp], aq, bk[0], bk[1]);
+      mma_bf16(s[2 * jp + 1], aq, bk[2], bk[3]);
+      mma_bf16(dp[2 * jp], ao, bv[0], bv[1]);
+      mma_bf16(dp[2 * jp + 1], ao, bv[2], bv[3]);
+    }
+  }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {            // rows lane / 4 and that + 8
+    const int r = mr + (lane >> 2) + 8 * h;
+    const int64_t qpos = q0 + r;
+    const float lse2 = sm.lse[r] * kLog2e, dr = sm.d[r];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int c = nc + 8 * j + 2 * (lane & 3);
+      float p[2], ds[2];
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int64_t kpos = k0 + c + e;
+        const bool keep = qpos < S && kpos < T_len &&
+                          (!causal || kpos <= qpos);
+        p[e] = keep ? exp2f(fmaf(s[j][2 * h + e], score_mul, -lse2)) : 0.f;
+        ds[e] = p[e] * (dp[j][2 * h + e] - dr);
+      }
+      if (kStoreP) {
+        *reinterpret_cast<__nv_bfloat162*>(&sm.p[r][c]) =
+            __floats2bfloat162_rn(p[0], p[1]);
+      }
+      *reinterpret_cast<__nv_bfloat162*>(&sm.ds[r][c]) =
+          __floats2bfloat162_rn(ds[0], ds[1]);
+    }
+  }
+}
+
+// the bf16 pair of acc rows (lane / 4, + 8) and columns 2 (lane % 4) of an
+// 8-wide block, times ``mul``, to out[row][col], rows past n_rows skipped
+__device__ __forceinline__ void store_acc_tc(__nv_bfloat16* out,
+                                             const float (&c)[4], int64_t row,
+                                             int64_t n_rows, int col,
+                                             float mul) {
+  if (row < n_rows) {
+    *reinterpret_cast<__nv_bfloat162*>(out + row * 128 + col) =
+        __floats2bfloat162_rn(c[0] * mul, c[1] * mul);
+  }
+  if (row + 8 < n_rows) {
+    *reinterpret_cast<__nv_bfloat162*>(out + (row + 8) * 128 + col) =
+        __floats2bfloat162_rn(c[2] * mul, c[3] * mul);
+  }
+}
+
+// grid (key tiles, KVH, B)
+__global__ void __launch_bounds__(kBwdThreads)
+flash_attention_bwd_dkdv_tc(const __nv_bfloat16* __restrict__ q,
+                            const __nv_bfloat16* __restrict__ k,
+                            const __nv_bfloat16* __restrict__ v,
+                            const __nv_bfloat16* __restrict__ dout,
+                            const float* __restrict__ lse,
+                            const float* __restrict__ delta,
+                            __nv_bfloat16* __restrict__ dk,
+                            __nv_bfloat16* __restrict__ dv, int kvh, int G,
+                            int64_t S, int64_t T_len, float scale,
+                            float score_mul, int causal) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  BwdTcSmem& sm = *reinterpret_cast<BwdTcSmem*>(smem_raw);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int lj = lane >> 3, li = lane & 7;
+  const int kr = 16 * (warp >> 1), dc = 64 * (warp & 1);
+  const int64_t k0 = static_cast<int64_t>(blockIdx.x) * kBwdKeys;
+  const int64_t bh = static_cast<int64_t>(blockIdx.z) * kvh + blockIdx.y;
+  load_tile_tc(sm.k, k + bh * T_len * 128, k0, T_len, tid);
+  load_tile_tc(sm.v, v + bh * T_len * 128, k0, T_len, tid);
+  float acc_k[8][4], acc_v[8][4];
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc_k[j][e] = acc_v[j][e] = 0.f;
+  const int64_t q_begin = causal ? k0 - k0 % kBwdRows : 0;
+  for (int g = 0; g < G; ++g) {
+    const int64_t head = bh * G + g;
+    for (int64_t q0 = q_begin; q0 < S; q0 += kBwdRows) {
+      __syncthreads();                        // the last tile's readers
+      load_tile_tc(sm.a, q + head * S * 128, q0, S, tid);
+      load_tile_tc(sm.b, dout + head * S * 128, q0, S, tid);
+      if (tid < kBwdRows) {
+        const bool in = q0 + tid < S;
+        sm.lse[tid] = in ? lse[head * S + q0 + tid] : 0.f;
+        sm.d[tid] = in ? delta[head * S + q0 + tid] : 0.f;
+      }
+      __syncthreads();
+      tile_ds_tc<true>(sm, q0, k0, S, T_len, score_mul, causal, warp, lane);
+      __syncthreads();
+      // dV += P^T dO, dK += dS^T Q: keys kr .. + 16, columns dc .. + 64
+#pragma unroll
+      for (int qq = 0; qq < kBwdRows; qq += 16) {
+        uint32_t ap[4], as[4];
+        ldsm_x4_t(ap, &sm.p[AT_ROW(kr, qq)]);
+        ldsm_x4_t(as, &sm.ds[AT_ROW(kr, qq)]);
+#pragma unroll
+        for (int jp = 0; jp < 4; ++jp) {
+          uint32_t bo[4], bq[4];
+          ldsm_x4_t(bo, &sm.b[BT_ROW(dc + 16 * jp, qq)]);
+          ldsm_x4_t(bq, &sm.a[BT_ROW(dc + 16 * jp, qq)]);
+          mma_bf16(acc_v[2 * jp], ap, bo[0], bo[1]);
+          mma_bf16(acc_v[2 * jp + 1], ap, bo[2], bo[3]);
+          mma_bf16(acc_k[2 * jp], as, bq[0], bq[1]);
+          mma_bf16(acc_k[2 * jp + 1], as, bq[2], bq[3]);
+        }
+      }
+    }
+  }
+  const int64_t row = k0 + kr + (lane >> 2);
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const int col = dc + 8 * j + 2 * (lane & 3);
+    store_acc_tc(dk + bh * T_len * 128, acc_k[j], row, T_len, col, scale);
+    store_acc_tc(dv + bh * T_len * 128, acc_v[j], row, T_len, col, 1.f);
+  }
+}
+
+// grid (query tiles, KVH G, B)
+__global__ void __launch_bounds__(kBwdThreads)
+flash_attention_bwd_dq_tc(const __nv_bfloat16* __restrict__ q,
+                          const __nv_bfloat16* __restrict__ k,
+                          const __nv_bfloat16* __restrict__ v,
+                          const __nv_bfloat16* __restrict__ dout,
+                          const float* __restrict__ lse,
+                          const float* __restrict__ delta,
+                          __nv_bfloat16* __restrict__ dq, int kvh, int G,
+                          int64_t S, int64_t T_len, float scale,
+                          float score_mul, int causal) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  BwdTcSmem& sm = *reinterpret_cast<BwdTcSmem*>(smem_raw);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int lj = lane >> 3, li = lane & 7;
+  const int mr = 16 * (warp >> 1), dc = 64 * (warp & 1);
+  const int64_t q0 = static_cast<int64_t>(blockIdx.x) * kBwdRows;
+  const int64_t head = static_cast<int64_t>(blockIdx.z) * kvh * G +
+                       blockIdx.y;
+  const int64_t bh = head / G;
+  load_tile_tc(sm.a, q + head * S * 128, q0, S, tid);
+  load_tile_tc(sm.b, dout + head * S * 128, q0, S, tid);
+  if (tid < kBwdRows) {
+    const bool in = q0 + tid < S;
+    sm.lse[tid] = in ? lse[head * S + q0 + tid] : 0.f;
+    sm.d[tid] = in ? delta[head * S + q0 + tid] : 0.f;
+  }
+  float acc[8][4];
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+  const int64_t q_last = (q0 + kBwdRows < S ? q0 + kBwdRows : S) - 1;
+  const int64_t k_end = causal ? (T_len < q_last + 1 ? T_len : q_last + 1)
+                               : T_len;
+  for (int64_t k0 = 0; k0 < k_end; k0 += kBwdKeys) {
+    __syncthreads();                          // the last tile's readers
+    load_tile_tc(sm.k, k + bh * T_len * 128, k0, T_len, tid);
+    load_tile_tc(sm.v, v + bh * T_len * 128, k0, T_len, tid);
+    __syncthreads();
+    tile_ds_tc<false>(sm, q0, k0, S, T_len, score_mul, causal, warp, lane);
+    __syncthreads();
+    // dQ += dS K: rows mr .. + 16, columns dc .. + 64
+#pragma unroll
+    for (int kk = 0; kk < kBwdKeys; kk += 16) {
+      uint32_t a[4];
+      ldsm_x4(a, &sm.ds[A_ROW(mr, kk)]);
+#pragma unroll
+      for (int jp = 0; jp < 4; ++jp) {
+        uint32_t b[4];
+        ldsm_x4_t(b, &sm.k[BT_ROW(dc + 16 * jp, kk)]);
+        mma_bf16(acc[2 * jp], a, b[0], b[1]);
+        mma_bf16(acc[2 * jp + 1], a, b[2], b[3]);
+      }
+    }
+  }
+  const int64_t row = q0 + mr + (lane >> 2);
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    store_acc_tc(dq + head * S * 128, acc[j], row, S,
+                 dc + 8 * j + 2 * (lane & 3), scale);
+  }
+}
+
+#undef A_ROW
+#undef B_ROW
+#undef AT_ROW
+#undef BT_ROW
+
+template <typename T, int DH>
+int launch_bwd(const void* q, const void* k, const void* v, const void* o,
+               const void* dout, const float* lse, void* dq, void* dk,
+               void* dv, float* delta, int64_t B, int64_t KVH, int64_t G,
+               int64_t S, int64_t T_len, float scale, int causal,
+               cudaStream_t s) {
+  const int64_t n_rows = B * KVH * G * S;
+  const int64_t q_tiles = (S + kBwdRows - 1) / kBwdRows;
+  const int64_t k_tiles = (T_len + kBwdKeys - 1) / kBwdKeys;
+  const int64_t rows_a_cta = kBwdThreads / 32;
+  if (q_tiles > INT_MAX || k_tiles > INT_MAX || KVH * G > 65535 ||
+      B > 65535 || (n_rows + rows_a_cta - 1) / rows_a_cta > INT_MAX) {
+    return static_cast<int>(cudaErrorInvalidConfiguration);
+  }
+  const T* tq = static_cast<const T*>(q);
+  const T* tk = static_cast<const T*>(k);
+  const T* tv = static_cast<const T*>(v);
+  const T* tdo = static_cast<const T*>(dout);
+  const unsigned delta_ctas =
+      static_cast<unsigned>((n_rows + rows_a_cta - 1) / rows_a_cta);
+  flash_attention_bwd_delta<T, DH><<<delta_ctas, kBwdThreads, 0, s>>>(
+      static_cast<const T*>(o), tdo, delta, n_rows);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const float score_mul = scale * kLog2e;
+  if constexpr (std::is_same_v<T, __nv_bfloat16>) {
+    static_assert(DH == 128, "the tensor-core passes take DH 128");
+    const int tc_smem = static_cast<int>(sizeof(BwdTcSmem));
+    err = cudaFuncSetAttribute(flash_attention_bwd_dkdv_tc,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               tc_smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    flash_attention_bwd_dkdv_tc<<<dim3(static_cast<unsigned>(k_tiles),
+                                       static_cast<unsigned>(KVH),
+                                       static_cast<unsigned>(B)),
+                                  kBwdThreads, tc_smem, s>>>(
+        tq, tk, tv, tdo, lse, delta, static_cast<T*>(dk),
+        static_cast<T*>(dv), static_cast<int>(KVH), static_cast<int>(G), S,
+        T_len, scale, score_mul, causal);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+    err = cudaFuncSetAttribute(flash_attention_bwd_dq_tc,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               tc_smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    flash_attention_bwd_dq_tc<<<dim3(static_cast<unsigned>(q_tiles),
+                                     static_cast<unsigned>(KVH * G),
+                                     static_cast<unsigned>(B)),
+                                kBwdThreads, tc_smem, s>>>(
+        tq, tk, tv, tdo, lse, delta, static_cast<T*>(dq),
+        static_cast<int>(KVH), static_cast<int>(G), S, T_len, scale,
+        score_mul, causal);
+    return static_cast<int>(cudaGetLastError());
+  } else {
+    const int smem = static_cast<int>(sizeof(BwdSmem<DH>));
+    err = cudaFuncSetAttribute(flash_attention_bwd_dkdv<T, DH>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    flash_attention_bwd_dkdv<T, DH><<<dim3(static_cast<unsigned>(k_tiles),
+                                           static_cast<unsigned>(KVH),
+                                           static_cast<unsigned>(B)),
+                                      kBwdThreads, smem, s>>>(
+        tq, tk, tv, tdo, lse, delta, static_cast<T*>(dk), static_cast<T*>(dv),
+        static_cast<int>(KVH), static_cast<int>(G), S, T_len, scale, score_mul,
+        causal);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+    err = cudaFuncSetAttribute(flash_attention_bwd_dq<T, DH>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    flash_attention_bwd_dq<T, DH><<<dim3(static_cast<unsigned>(q_tiles),
+                                         static_cast<unsigned>(KVH * G),
+                                         static_cast<unsigned>(B)),
+                                    kBwdThreads, smem, s>>>(
+        tq, tk, tv, tdo, lse, delta, static_cast<T*>(dq),
+        static_cast<int>(KVH), static_cast<int>(G), S, T_len, scale, score_mul,
+        causal);
+    return static_cast<int>(cudaGetLastError());
+  }
+}
+
 }  // namespace
 
-// Both return the cudaError_t of the launch (0 on success).
+// The forward entries return the cudaError_t of the launch (0 on success).
+// lse, when not null, receives each query row's log-sum-exp (B, KVH, G, S)
+// in float32 (only DH 128 writes it; another DH with lse is refused).
 extern "C" int flash_attention_f32(const void* q, const void* k, const void* v,
-                                   void* out, int64_t B, int64_t KVH,
-                                   int64_t G, int64_t S, int64_t T,
-                                   int64_t DH, float scale, int causal,
-                                   int64_t window, float softcap,
+                                   void* out, void* lse, int64_t B,
+                                   int64_t KVH, int64_t G, int64_t S,
+                                   int64_t T, int64_t DH, float scale,
+                                   int causal, int64_t window, float softcap,
                                    void* stream) {
   if (B <= 0 || KVH <= 0 || S <= 0) return 0;
   if (bad_args(G, T, window)) return static_cast<int>(cudaErrorInvalidValue);
@@ -920,47 +1637,100 @@ extern "C" int flash_attention_f32(const void* q, const void* k, const void* v,
   const float* tk = static_cast<const float*>(k);
   const float* tv = static_cast<const float*>(v);
   float* to = static_cast<float*>(out);
+  float* tl = static_cast<float*>(lse);
+  if (tl != nullptr) {
+    if (DH != 128) return static_cast<int>(cudaErrorInvalidValue);
+    return launch_f32<128, true>(tq, tk, tv, to, tl, B, KVH, G, S, T, scale,
+                                 causal, window, softcap, s);
+  }
   switch (DH) {
     case 64:
-      return launch_f32<64>(tq, tk, tv, to, B, KVH, G, S, T, scale, causal,
-                            window, softcap, s);
+      return launch_f32<64>(tq, tk, tv, to, tl, B, KVH, G, S, T, scale,
+                            causal, window, softcap, s);
     case 112:
-      return launch_f32<112>(tq, tk, tv, to, B, KVH, G, S, T, scale, causal,
-                             window, softcap, s);
+      return launch_f32<112>(tq, tk, tv, to, tl, B, KVH, G, S, T, scale,
+                             causal, window, softcap, s);
     case 128:
-      return launch_f32<128>(tq, tk, tv, to, B, KVH, G, S, T, scale, causal,
-                             window, softcap, s);
+      return launch_f32<128>(tq, tk, tv, to, tl, B, KVH, G, S, T, scale,
+                             causal, window, softcap, s);
     case 256:
-      return launch_f32<256>(tq, tk, tv, to, B, KVH, G, S, T, scale, causal,
-                             window, softcap, s);
+      return launch_f32<256>(tq, tk, tv, to, tl, B, KVH, G, S, T, scale,
+                             causal, window, softcap, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
 extern "C" int flash_attention_bf16(const void* q, const void* k,
-                                    const void* v, void* out, int64_t B,
-                                    int64_t KVH, int64_t G, int64_t S,
-                                    int64_t T, int64_t DH, float scale,
-                                    int causal, int64_t window, float softcap,
-                                    void* stream) {
+                                    const void* v, void* out, void* lse,
+                                    int64_t B, int64_t KVH, int64_t G,
+                                    int64_t S, int64_t T, int64_t DH,
+                                    float scale, int causal, int64_t window,
+                                    float softcap, void* stream) {
   if (B <= 0 || KVH <= 0 || S <= 0) return 0;
   if (bad_args(G, T, window)) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* tl = static_cast<float*>(lse);
+  if (tl != nullptr) {
+    if (DH != 128) return static_cast<int>(cudaErrorInvalidValue);
+    return launch_bf16<128, true>(q, k, v, out, tl, B, KVH, G, S, T, scale,
+                                  causal, window, softcap, s);
+  }
   switch (DH) {
     case 64:
-      return launch_bf16<64>(q, k, v, out, B, KVH, G, S, T, scale, causal,
-                             window, softcap, s);
+      return launch_bf16<64>(q, k, v, out, tl, B, KVH, G, S, T, scale,
+                             causal, window, softcap, s);
     case 112:
-      return launch_bf16<112>(q, k, v, out, B, KVH, G, S, T, scale, causal,
-                              window, softcap, s);
+      return launch_bf16<112>(q, k, v, out, tl, B, KVH, G, S, T, scale,
+                              causal, window, softcap, s);
     case 128:
-      return launch_bf16<128>(q, k, v, out, B, KVH, G, S, T, scale, causal,
-                              window, softcap, s);
+      return launch_bf16<128>(q, k, v, out, tl, B, KVH, G, S, T, scale,
+                              causal, window, softcap, s);
     case 256:
-      return launch_bf16<256>(q, k, v, out, B, KVH, G, S, T, scale, causal,
-                              window, softcap, s);
+      return launch_bf16<256>(q, k, v, out, tl, B, KVH, G, S, T, scale,
+                              causal, window, softcap, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
+}
+
+// The backward: dq (as q), dk and dv (as k) from q, k, v, out, dout and the
+// forward's lse, with delta a float32 scratch of B KVH G S; no window or
+// softcap.  Returns the first failing launch's cudaError_t (0 on success).
+extern "C" int flash_attention_bwd_f32(const void* q, const void* k,
+                                       const void* v, const void* out,
+                                       const void* dout, const void* lse,
+                                       void* dq, void* dk, void* dv,
+                                       void* delta, int64_t B, int64_t KVH,
+                                       int64_t G, int64_t S, int64_t T,
+                                       int64_t DH, float scale, int causal,
+                                       void* stream) {
+  if (B <= 0 || KVH <= 0 || S <= 0) return 0;
+  if (G < 1 || T < 1 || DH != 128) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return launch_bwd<float, 128>(q, k, v, out, dout,
+                                static_cast<const float*>(lse), dq, dk, dv,
+                                static_cast<float*>(delta), B, KVH, G, S, T,
+                                scale, causal,
+                                static_cast<cudaStream_t>(stream));
+}
+
+extern "C" int flash_attention_bwd_bf16(const void* q, const void* k,
+                                        const void* v, const void* out,
+                                        const void* dout, const void* lse,
+                                        void* dq, void* dk, void* dv,
+                                        void* delta, int64_t B, int64_t KVH,
+                                        int64_t G, int64_t S, int64_t T,
+                                        int64_t DH, float scale, int causal,
+                                        void* stream) {
+  if (B <= 0 || KVH <= 0 || S <= 0) return 0;
+  if (G < 1 || T < 1 || DH != 128) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return launch_bwd<__nv_bfloat16, 128>(q, k, v, out, dout,
+                                        static_cast<const float*>(lse), dq,
+                                        dk, dv, static_cast<float*>(delta),
+                                        B, KVH, G, S, T, scale, causal,
+                                        static_cast<cudaStream_t>(stream));
 }

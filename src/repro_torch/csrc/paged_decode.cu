@@ -36,13 +36,14 @@
 // the option code made the bf16 G = 4, DH = 128 instance spill (160 bytes)
 // and llama3-8b's decode, which takes neither, 9% slower on an H100.
 // G, the query heads per KV head, is 1, 2, 4, 8 or 16 at DH 64 and 128,
-// 12 at DH 128 without the options (starcoder2-15b's 48 / 4), and 16 at DH
-// 256 (recurrentgemma-9b's MQA, launch_dh256: two groups of 8 heads, each
-// its own CTAs over the same pages, in the one kOpts instance a dtype):
-// Layout and reduce_dots pad a G that is no power of two to the next one
-// (16 lanes' worth of dot sums for 12 heads), and leave the others' code as
-// it was.  G 8 at DH 112 (kimi-k2-1t-a32b's 64 / 8, launch_dh112; one
-// instance a dtype, without the options) pads the columns the same way: 16
+// 12 and 6 at DH 128 without the options (starcoder2-15b's 48 / 4,
+// internvl2-26b's 48 / 8), and 16 at DH 256 (recurrentgemma-9b's MQA,
+// launch_dh256: two groups of 8 heads, each its own CTAs over the same
+// pages, in the one kOpts instance a dtype): Layout and reduce_dots pad a
+// G that is no power of two to the next one (16 lanes' worth of dot sums
+// for 12 heads, 8 for 6), and leave the others' code as it was.  G 8 at
+// DH 112 (kimi-k2-1t-a32b's 64 / 8, launch_dh112; one instance a dtype,
+// without the options) pads the columns the same way: 16
 // lanes a position hold 8 columns each over kDP = 128, so the last two
 // lanes (with zero q) load, add and keep nothing, and a stage holds the
 // whole passes that fit (32 bf16 or 16 f32 positions), its copies in a
@@ -722,15 +723,18 @@ int launch_g(const Args& a, int64_t DH) {
   }
 }
 
-// G 12 (starcoder2-15b's 48 query heads over 4 KV heads) has one instance
-// a type, at DH 128 without the options: the one a served config launches
-// (the wrapper refuses the others before it gets here).
-template <typename T>
-int launch_g12(const Args& a, int64_t DH) {
+// G 12 (starcoder2-15b's 48 query heads over 4 KV heads) and G 6
+// (internvl2-26b's 48 over 8) have one instance a type each, at DH 128
+// without the options: the one a served config launches (the wrapper
+// refuses the others before it gets here).  Neither is a power of two:
+// Layout rounds G x DH / 64 up (G 6: 16 lanes a position, 8 columns each)
+// and reduce_dots pads the heads to 8 or 16.
+template <typename T, int G>
+int launch_dh128_only(const Args& a, int64_t DH) {
   if (DH != 128 || a.softcap > 0.f || a.window > 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  return launch_instance<T, 12, 128, false>(a);
+  return launch_instance<T, G, 128, false>(a);
 }
 
 // DH 256 (recurrentgemma-9b's G 16) has one instance a dtype, with the
@@ -770,8 +774,9 @@ int launch(const Args& a, int64_t G, int64_t DH) {
     case 1: return launch_g<T, 1>(a, DH);
     case 2: return launch_g<T, 2>(a, DH);
     case 4: return launch_g<T, 4>(a, DH);
+    case 6: return launch_dh128_only<T, 6>(a, DH);
     case 8: return launch_g<T, 8>(a, DH);
-    case 12: return launch_g12<T>(a, DH);
+    case 12: return launch_dh128_only<T, 12>(a, DH);
     case 16: return launch_g<T, 16>(a, DH);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }

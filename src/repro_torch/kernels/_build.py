@@ -60,7 +60,7 @@ KERNELS = ("gather_rows", "gather_rows_smem", "scatter_store_rows",
            "flash_attention", "paged_decode", "gather_rows_b16",
            "gather_rows_smem_b16", "scatter_store_rows_b16",
            "scatter_store_rows_cov_b16", "scatter_add_rows_bf16",
-           "scatter_add_rows_f16", "rglru_scan")
+           "scatter_add_rows_f16", "rglru_scan", "flash_attention_bwd")
 # the Spatter kernels' element types and their bytes: float32, and the two
 # 16-bit types, which the gathers and stores serve with one instance on
 # 2-byte words
@@ -113,11 +113,14 @@ _SIGNATURES = {
         "selective_scan_bf16": (_P,) * 8 + (_I64,) * 4 + (_P,),
     },
     "flash_attention": {
-        # q, k, v, out, B, KVH, G, S, T, DH, scale, causal, window, softcap,
-        # stream
-        f"flash_attention_{t}": (_P,) * 4 + (_I64,) * 6 + (_F32, _I32, _I64,
-                                                            _F32, _P)
-        for t in ("f32", "bf16")
+        # q, k, v, out, lse (null: not written), B, KVH, G, S, T, DH, scale,
+        # causal, window, softcap, stream
+        **{f"flash_attention_{t}": (_P,) * 5 + (_I64,) * 6 + (
+            _F32, _I32, _I64, _F32, _P) for t in ("f32", "bf16")},
+        # q, k, v, out, dout, lse, dq, dk, dv, delta, B, KVH, G, S, T, DH,
+        # scale, causal, stream
+        **{f"flash_attention_bwd_{t}": (_P,) * 10 + (_I64,) * 6 + (
+            _F32, _I32, _P) for t in ("f32", "bf16")},
     },
     "rglru_scan": {
         # a, beta, gx, h0, hs, h_last, B, S, W, stream
@@ -339,6 +342,17 @@ def check_operand(name: str, t, dtype, ndim: int) -> None:
         raise ValueError(f"{name}: expected {ndim} dims, got {tuple(t.shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name}: expected a contiguous tensor")
+
+
+def refuse_grad(kernel: str, *tensors) -> None:
+    """Raise where autograd would have to pass kernel ``kernel``, which has
+    no backward: grad is on and an operand requires it.  (Its output would
+    otherwise carry no gradient, silently.)"""
+    if torch.is_grad_enabled() and any(
+            isinstance(t, torch.Tensor) and t.requires_grad for t in tensors):
+        raise NotImplementedError(
+            f"{kernel}: no backward kernel yet (ROADMAP, the training "
+            "queue); run it without grad, or train through another path")
 
 
 def common_device(**tensors):

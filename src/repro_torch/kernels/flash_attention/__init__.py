@@ -1,1 +1,2 @@
-"""GQA flash attention, forward (CUDA kernel in ``csrc/flash_attention.cu``)."""
+"""GQA flash attention, forward and backward (CUDA kernels in
+``csrc/flash_attention.cu``)."""

@@ -14,8 +14,20 @@ takes any.
 
 On CPU tensors the wrapper runs the plain version (``ref``); on CUDA
 tensors it launches the kernel or raises.  q, k, v are all float32 or all
-bfloat16, contiguous.  Only the forward: the JAX package's backward
-recomputes through its reference, and the port does not train yet.
+bfloat16, contiguous.
+
+The gradient.  The JAX package's ``custom_vjp`` recomputes its backward
+through the reference; here, where q, k or v requires grad on CUDA, the
+call goes through ``FlashAttentionFn``: the forward kernel also writes each
+query row's log-sum-exp (float32, (B, KVH, G, S)), and ``backward``
+launches the backward kernel (``flash_attention_bwd``: dQ, dK, dV from q,
+k, v, out, dO and that lse, FlashAttention-2's equations, bfloat16 on the
+tensor cores, float32 on the CUDA cores; counted as
+``flash_attention_bwd``, one a call).  Both are built at head size 128 only
+(``BWD_HEAD_DIMS``), without window or softcap: on CUDA any other of those
+with grad raises, with no fallback.  Without grad the call writes no lse.
+On CPU tensors autograd differentiates the plain version, the JAX
+``_bwd``'s own recompute.
 """
 from __future__ import annotations
 
@@ -24,12 +36,15 @@ import math
 import torch
 
 from .. import _build
-from .ref import flash_attention_ref
+from .ref import flash_attention_bwd_ref, flash_attention_ref
 
 HEAD_DIMS = (64, 112, 128, 256)
+BWD_HEAD_DIMS = (128,)           # the backward's and the lse's instances
 MAX_GROUP = 64                  # a CTA's 64 (f32) or 128 rows: G x rows / G
 _ENTRY = {torch.float32: "flash_attention_f32",
           torch.bfloat16: "flash_attention_bf16"}
+_BWD_ENTRY = {torch.float32: "flash_attention_bwd_f32",
+              torch.bfloat16: "flash_attention_bwd_bf16"}
 
 
 def check_kernel_shape(dh: int, g: int) -> None:
@@ -77,14 +92,133 @@ def flash_attention(q, k, v, *, scale: float | None = None,
         return flash_attention_ref(q, k, v, scale=scale, causal=causal,
                                    window=window, softcap=softcap)
     check_kernel_shape(dh, g)
-    for name, t in (("q", q), ("k", k), ("v", v)):
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        check_backward(dh, window, softcap)
+        return FlashAttentionFn.apply(q, k, v, scale, bool(causal))
+    return _forward(dev, q, k, v, scale, causal, window, softcap)[0]
+
+
+def check_backward(dh: int, window: int, softcap: float) -> None:
+    """Raise unless the backward kernel takes head size ``dh`` and neither
+    a window nor a softcap (ROADMAP: the training queue)."""
+    if dh not in BWD_HEAD_DIMS:
+        raise ValueError(f"no backward kernel at head size {dh}; built at "
+                         f"{BWD_HEAD_DIMS}")
+    if window > 0 or softcap > 0:
+        raise ValueError("no backward kernel with a window or a softcap "
+                         f"(window={window}, softcap={softcap})")
+
+
+def _aligned(**tensors) -> None:
+    for name, t in tensors.items():
         if t.data_ptr() % 16:            # 16-byte loads and TMA copies
             raise ValueError(f"{name}: data not 16-byte aligned")
+
+
+def _forward(dev, q, k, v, scale, causal, window, softcap, with_lse=False):
+    """Launch the forward kernel: (out, lse or None)."""
+    _aligned(q=q, k=k, v=v)
+    bsz, kvh, g, s, dh = q.shape
     out = torch.empty_like(q)
+    lse = (torch.empty((bsz, kvh, g, s), dtype=torch.float32, device=dev)
+           if with_lse else None)
     if bsz * kvh * s:
         _build.launch("flash_attention", dev, "flash_attention",
                       _ENTRY[q.dtype], q.data_ptr(), k.data_ptr(),
-                      v.data_ptr(), out.data_ptr(), bsz, kvh, g, s, t_len,
-                      dh, scale, int(bool(causal)), int(window),
-                      float(softcap))
-    return out
+                      v.data_ptr(), out.data_ptr(),
+                      None if lse is None else lse.data_ptr(), bsz, kvh, g,
+                      s, k.shape[2], dh, scale, int(bool(causal)),
+                      int(window), float(softcap))
+    return out, lse
+
+
+class FlashAttentionFn(torch.autograd.Function):
+    """Flash attention with the backward kernel as its gradient (CUDA, no
+    window or softcap): the forward saves q, k, v, out and the row lse."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, scale, causal):
+        out, lse = _forward(q.device, q, k, v, scale, causal, 0, 0.0,
+                            with_lse=True)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.scale, ctx.causal = scale, causal
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, lse,
+                                         dout.contiguous(), scale=ctx.scale,
+                                         causal=ctx.causal)
+        return dq, dk, dv, None, None
+
+
+def flash_attention_bwd(q, k, v, o, lse, do, *, scale: float,
+                        causal: bool = True):
+    """(dq, dk, dv) of flash attention (no window or softcap) from q, k, v,
+    the forward's output ``o`` and row log-sum-exp ``lse`` (B,KVH,G,S)
+    float32, and the gradient ``do`` of ``o``: dq in q's shape, dk and dv
+    in k's, each in the inputs' dtype.  On CPU tensors the plain version
+    (``flash_attention_bwd_ref``); on CUDA the backward kernel (head size
+    128) or a raise."""
+    _build.check_operand("q", q, getattr(q, "dtype", None), 5)
+    if q.dtype not in _BWD_ENTRY:
+        raise TypeError(f"q: expected float32 or bfloat16, got {q.dtype}")
+    bsz, kvh, g, s, dh = q.shape
+    for name, t in (("o", o), ("do", do)):
+        _build.check_operand(name, t, q.dtype, 5)
+        if t.shape != q.shape:
+            raise ValueError(f"{name}: expected shape {tuple(q.shape)}, got "
+                             f"{tuple(t.shape)}")
+    for name, t in (("k", k), ("v", v)):
+        _build.check_operand(name, t, q.dtype, 4)
+        if t.shape[:2] != (bsz, kvh) or t.shape[3] != dh or \
+                t.shape != k.shape:
+            raise ValueError(f"{name}: expected shape ({bsz}, {kvh}, T, "
+                             f"{dh}), got {tuple(t.shape)}")
+    _build.check_operand("lse", lse, torch.float32, 4)
+    if tuple(lse.shape) != (bsz, kvh, g, s):
+        raise ValueError(f"lse: expected shape {(bsz, kvh, g, s)}, got "
+                         f"{tuple(lse.shape)}")
+    t_len = k.shape[2]
+    if t_len < 1:
+        raise ValueError("k, v: no keys (T = 0)")
+    dev = _build.common_device(q=q, k=k, v=v, o=o, lse=lse, do=do)
+    if dev.type == "cpu":
+        return flash_attention_bwd_ref(q, k, v, o, lse, do, scale=scale,
+                                       causal=causal)
+    check_kernel_shape(dh, g)
+    check_backward(dh, 0, 0.0)
+    _aligned(q=q, k=k, v=v, o=o, do=do)
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    delta = torch.empty((bsz, kvh, g, s), dtype=torch.float32, device=dev)
+    if bsz * kvh * s:
+        _build.launch("flash_attention_bwd", dev, "flash_attention",
+                      _BWD_ENTRY[q.dtype], q.data_ptr(), k.data_ptr(),
+                      v.data_ptr(), o.data_ptr(), do.data_ptr(),
+                      lse.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+                      dv.data_ptr(), delta.data_ptr(), bsz, kvh, g, s, t_len,
+                      dh, float(scale), int(bool(causal)))
+    else:
+        dk.zero_()
+        dv.zero_()
+    return dq, dk, dv
+
+
+def flash_attention_lse(q, k, v, *, scale: float | None = None,
+                        causal: bool = True):
+    """(out, lse): the forward with each query row's log-sum-exp, as the
+    backward needs it; on CPU tensors the plain version's
+    (``flash_attention_ref(..., return_lse=True)``), on CUDA the kernel's
+    lse instance (head size 128, no window or softcap)."""
+    dh = q.shape[-1]
+    scale = 1.0 / math.sqrt(dh) if scale is None else float(scale)
+    dev = _build.common_device(q=q, k=k, v=v)
+    if dev.type == "cpu":
+        return flash_attention_ref(q, k, v, scale=scale, causal=causal,
+                                   return_lse=True)
+    for name, t, nd in (("q", q, 5), ("k", k, 4), ("v", v, 4)):
+        _build.check_operand(name, t, (torch.float32, torch.bfloat16), nd)
+    check_kernel_shape(dh, q.shape[2])
+    check_backward(dh, 0, 0.0)
+    return _forward(dev, q, k, v, scale, causal, 0, 0.0, with_lse=True)

@@ -1,14 +1,11 @@
-"""Plain PyTorch version of the flash-attention kernel."""
+"""Plain PyTorch versions of the flash-attention kernels, forward and
+backward."""
 import torch
 
 
-def flash_attention_ref(q, k, v, *, scale: float, causal: bool = True,
-                        window: int = 0, softcap: float = 0.0):
-    """q (B,KVH,G,S,dh); k/v (B,KVH,T,dh) -> (B,KVH,G,S,dh) in q's dtype.
-
-    The full float32 score tensor, masked (-1e30) and softmaxed, as the JAX
-    package's ``flash_attention_ref``.
-    """
+def _masked_scores(q, k, *, scale, causal, window, softcap):
+    """The float32 scores (B,KVH,G,S,T), capped and masked (-1e30), as the
+    JAX package's ``flash_attention_ref`` forms them."""
     s_len, t_len = q.shape[3], k.shape[2]
     s = torch.einsum("bhgqd,bhtd->bhgqt", q.to(torch.float32),
                      k.to(torch.float32)) * scale
@@ -21,7 +18,46 @@ def flash_attention_ref(q, k, v, *, scale: float, causal: bool = True,
         mask &= q_pos >= k_pos
     if window > 0:
         mask &= (q_pos - k_pos) < window
-    s = torch.where(mask, s, torch.full((), -1e30, device=q.device))
+    return torch.where(mask, s, torch.full((), -1e30, device=q.device)), mask
+
+
+def flash_attention_ref(q, k, v, *, scale: float, causal: bool = True,
+                        window: int = 0, softcap: float = 0.0,
+                        return_lse: bool = False):
+    """q (B,KVH,G,S,dh); k/v (B,KVH,T,dh) -> (B,KVH,G,S,dh) in q's dtype.
+
+    The full float32 score tensor, masked (-1e30) and softmaxed, as the JAX
+    package's ``flash_attention_ref``.  With ``return_lse`` also each query
+    row's log-sum-exp of its masked scores (B,KVH,G,S), float32: what the
+    kernel's forward saves for the backward.
+    """
+    s, _ = _masked_scores(q, k, scale=scale, causal=causal, window=window,
+                          softcap=softcap)
     p = torch.softmax(s, dim=-1)
     out = torch.einsum("bhgqt,bhtd->bhgqd", p, v.to(torch.float32))
-    return out.to(q.dtype)
+    out = out.to(q.dtype)
+    if return_lse:
+        return out, torch.logsumexp(s, dim=-1)
+    return out
+
+
+def flash_attention_bwd_ref(q, k, v, o, lse, do, *, scale: float,
+                            causal: bool = True):
+    """The backward kernel's plain version: FlashAttention-2's equations
+    written out in float32 from the forward's output ``o`` and row
+    log-sum-exp ``lse`` (B,KVH,G,S), for upstream gradient ``do`` of ``o``.
+    Returns (dq in q's dtype, dk and dv in k's); dk and dv sum over the G
+    query heads that share a KV head."""
+    f32 = torch.float32
+    q32, k32, v32 = q.to(f32), k.to(f32), v.to(f32)
+    do32 = do.to(f32)
+    s, mask = _masked_scores(q, k, scale=scale, causal=causal, window=0,
+                             softcap=0.0)
+    p = torch.exp(s - lse.to(f32)[..., None]) * mask        # P
+    dv = torch.einsum("bhgqt,bhgqd->bhtd", p, do32)         # P^T dO
+    dp = torch.einsum("bhgqd,bhtd->bhgqt", do32, v32)       # dO V^T
+    d = (do32 * o.to(f32)).sum(-1, keepdim=True)            # rowsum(dO o O)
+    ds = p * (dp - d)
+    dq = torch.einsum("bhgqt,bhtd->bhgqd", ds, k32) * scale
+    dk = torch.einsum("bhgqt,bhgqd->bhtd", ds, q32) * scale
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)

@@ -6,7 +6,8 @@ names, up to its length, with an online softmax, gathering each K/V row
 through the table as it reads it.  Any page size; repeated pages are fine.
 The head size and the query heads per KV head are templates of the kernel,
 built for the (dh, G) pairs of ``SHAPES``: G 1, 2, 4, 8 and 16 at dh 64 and
-128, G 12 (starcoder2-15b's) at dh 128 and G 8 at dh 112
+128, G 12 (starcoder2-15b's) and G 6 (internvl2-26b's) at dh 128 and G 8
+at dh 112
 (kimi-k2-1t-a32b's, 16 lanes a position over 128 padded columns), both
 without the options, and G 16 at dh 256 (recurrentgemma-9b's), run as two
 groups of 8 heads (``HEAD_GROUPS``); on CUDA tensors others raise
@@ -59,7 +60,7 @@ from .ref import paged_decode_attention_ref, window_pages
 # which serves launches without them too
 OPTION_SHAPES = tuple(itertools.product((64, 128), (1, 2, 4, 8, 16))) + (
     (256, 16),)
-SHAPES = OPTION_SHAPES + ((128, 12), (112, 8))
+SHAPES = OPTION_SHAPES + ((128, 12), (128, 6), (112, 8))
 # pairs the kernel runs as several groups of query heads, each its own CTAs
 # over the same pages (csrc/paged_decode.cu launch_dh256): the groups
 HEAD_GROUPS = {(256, 16): 2}

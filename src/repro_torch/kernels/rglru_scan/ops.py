@@ -13,6 +13,8 @@ through the same launch at S = 1.
 On CPU tensors the wrapper runs the plain version (``ref``); on CUDA
 tensors it launches the kernel or raises.  Every operand is float32 and
 contiguous.
+The kernel has no backward: on CUDA tensors with grad on and an operand
+that requires it, the wrapper raises (``_build.refuse_grad``).
 """
 from __future__ import annotations
 
@@ -37,6 +39,7 @@ def rglru_scan(a, beta, gx, h0):
     dev = _build.common_device(a=a, beta=beta, gx=gx, h0=h0)
     if dev.type == "cpu":
         return rglru_scan_ref(a, beta, gx, h0)
+    _build.refuse_grad("rglru_scan", a, beta, gx, h0)
     hs = torch.empty_like(a)
     h_last = torch.empty_like(h0)
     if bsz * w:

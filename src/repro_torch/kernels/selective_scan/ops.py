@@ -10,6 +10,8 @@ On CPU tensors the wrapper runs the plain version (``ref``); on CUDA
 tensors it launches the kernel or raises.  u, dt, b, c are all float32 or
 all bfloat16; a and d_skip are float32; everything is contiguous (the
 model makes its column slices b, c of ``x_proj``'s output contiguous).
+The kernel has no backward: on CUDA tensors with grad on and an operand
+that requires it, the wrapper raises (``_build.refuse_grad``).
 """
 from __future__ import annotations
 
@@ -48,6 +50,7 @@ def selective_scan(u, dt, b, c, a, d_skip):
     dev = _build.common_device(u=u, dt=dt, b=b, c=c, a=a, d_skip=d_skip)
     if dev.type == "cpu":
         return selective_scan_ref(u, dt, b, c, a, d_skip)
+    _build.refuse_grad("selective_scan", u, dt, b, c, a, d_skip)
     y = torch.empty_like(u)
     h_final = torch.empty((bsz, n, d), dtype=torch.float32, device=dev)
     if bsz * d:

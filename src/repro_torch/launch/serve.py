@@ -18,6 +18,8 @@
         --gen 32 --gs-backend hopper                             # the card
     PYTHONPATH=src python -m repro_torch.launch.serve --arch whisper-base \\
         --batch 16 --prompt-len 6000 --gen 32 --gs-backend hopper  # the card
+    PYTHONPATH=src python -m repro_torch.launch.serve \\
+        --arch internvl2-26b --batch 4 --prompt-len 2048 --gen 32  # the card
 
 The port of ``repro/launch/serve.py`` for the ported architectures.  The
 weights are random, drawn on the device from a ``torch.Generator`` seeded
@@ -44,6 +46,14 @@ from ``--seed`` at scale 0.01 after the prompts, which the prefill encodes
 with room for ``prompt_len + gen`` decoder positions, so ``logits`` holds
 the ``gen`` steps' only and ``tokens[:, 0]`` is BOS.  Times are host
 clocks around work that ends in a device synchronise.
+
+internvl2-26b (the ``vlm`` family): the JAX driver never passes image
+embeddings (``repro/launch/serve.py:57-59``), so the CLI serves its text
+only, as there.  ``run(..., images=True)`` (no flag: a caller's, as
+``chip_smoke.py``'s) puts ``n_img_tokens`` stub embeddings drawn from
+``--seed`` after the prompts (N(0, 1), the scale of the table's rows)
+before each prompt: the cache has room for n_img + prompt_len + gen
+positions and decoding starts at n_img + prompt_len.
 """
 from __future__ import annotations
 
@@ -82,6 +92,7 @@ class ServeResult:
     model: Model
     params: torch.nn.Module
     frames: torch.Tensor | None = None   # audio: the (B, F, d) stub frames
+    img_embeds: torch.Tensor | None = None   # vlm: the (B, n_img, d) ones
 
 
 def _parser() -> argparse.ArgumentParser:
@@ -108,20 +119,24 @@ def _delta(before: dict) -> dict:
     return {k: launches[k] - before[k] for k in launches}
 
 
-def main(argv=None) -> ServeResult:
+def main(argv=None, images: bool = False) -> ServeResult:
+    """The CLI; ``images`` as for ``run``."""
     args = _parser().parse_args(argv)
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
     if args.layers is not None:
         cfg = dataclasses.replace(cfg, n_layers=args.layers)
     return run(cfg, args.batch, args.prompt_len, args.gen, args.seed,
-               args.device, args.gs_backend)
+               args.device, args.gs_backend, images)
 
 
 def run(cfg, batch: int, prompt_len: int, gen: int, seed: int = 0,
-        device=None, gs_backend: str = "torch") -> ServeResult:
+        device=None, gs_backend: str = "torch",
+        images: bool = False) -> ServeResult:
     """Draw ``cfg``'s weights from ``seed`` on ``device`` (default cuda),
     prefill ``batch`` prompts of ``prompt_len`` tokens, then decode
-    ``gen`` greedy steps, the indexed ops on ``gs_backend``."""
+    ``gen`` greedy steps, the indexed ops on ``gs_backend``; ``images``
+    (a ``vlm`` config only) puts stub image embeddings before each
+    prompt."""
     dev = resolve_device(device)
     model = Model(cfg)
     params = model.init(torch.Generator(device=dev).manual_seed(seed), dev)
@@ -134,6 +149,12 @@ def run(cfg, batch: int, prompt_len: int, gen: int, seed: int = 0,
         frames = torch.from_numpy(0.01 * rng.standard_normal(
             (b, plen // cfg.frame_ratio, cfg.d_model))).to(
                 dev, params.embed.table.dtype)
+    if images and cfg.family != "vlm":
+        raise ValueError(f"{cfg.arch_id} takes no images")
+    img = (torch.from_numpy(rng.standard_normal(
+        (b, cfg.n_img_tokens, cfg.d_model))).to(dev, params.embed.table.dtype)
+        if images else None)
+    n_img = 0 if img is None else img.shape[1]
 
     def sync():
         if dev.type == "cuda":
@@ -144,8 +165,8 @@ def run(cfg, batch: int, prompt_len: int, gen: int, seed: int = 0,
     before = dict(launches)
     t0 = time.perf_counter()
     logits, cache = model.prefill(params, frames if audio else prompts,
-                                  max_len=plen + gen, seed=seed,
-                                  gs_backend=gs_backend)
+                                  max_len=n_img + plen + gen, seed=seed,
+                                  gs_backend=gs_backend, img_embeds=img)
     sync()
     t_prefill = time.perf_counter() - t0
     launches_prefill = _delta(before)
@@ -157,7 +178,7 @@ def run(cfg, batch: int, prompt_len: int, gen: int, seed: int = 0,
         all_logits, start = [], 0
     else:
         tok = logits.argmax(-1, keepdim=True)               # (B, 1)
-        all_logits, start = [logits], plen
+        all_logits, start = [logits], n_img + plen
     all_tokens = [tok]
     before = dict(launches)
     t0 = time.perf_counter()
@@ -183,7 +204,8 @@ def run(cfg, batch: int, prompt_len: int, gen: int, seed: int = 0,
                          for p in params.parameters()),
         prompts=prompts, tokens=tokens, logits=torch.stack(all_logits, 1),
         launches_prefill=launches_prefill, launches_decode=launches_decode,
-        model=model, params=params, frames=frames if audio else None)
+        model=model, params=params, frames=frames if audio else None,
+        img_embeds=img)
 
 
 if __name__ == "__main__":

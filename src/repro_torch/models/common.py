@@ -10,8 +10,8 @@ names and layouts (weights are (in, out), so a layer is ``x @ w``);
 allocates nothing), and ``init_params`` draws them from an explicit
 ``torch.Generator``, leaf by leaf, in the working dtype: ``normal`` draws
 N(0, 1) times ``scale`` (``None`` -> 1/sqrt(fan_in)), ``zeros`` and
-``ones`` fill.  Parameters hold no gradient: the port serves, it does not
-train yet.
+``ones`` fill.  Parameters are registered holding no gradient, for
+serving; ``zoo.Model.init(trainable=True)`` turns it on for training.
 """
 from __future__ import annotations
 

@@ -6,7 +6,9 @@ alternating local and global layers, tied table and softcaps; ``moe``
 with MLA: deepseek-v2-236b, with GQA: kimi-k2-1t-a32b (the JAX package's
 config: GQA at head size 112, not the published model's MLA); ``hybrid``:
 recurrentgemma-9b, RG-LRU blocks
-and local attention in its (rec, rec, attn) pattern).  The JAX package
+and local attention in its (rec, rec, attn) pattern; ``vlm``:
+internvl2-26b, the dense stack after precomputed image embeddings, its
+InternViT frontend a stub as in the JAX package).  The JAX package
 scan-stacks each stage's layers on a leading axis; here each layer is its
 own ``Block`` in an ``nn.ModuleList``, in ``stage_layout`` order, and a
 cache is a list with one entry per layer (a GQA layer's is paged, an MLA
@@ -16,6 +18,17 @@ that does not grow).  ``gs_backend`` (default
 ``repro_torch.backends`` implementation of the indexed ops: the embedding
 gather and the MoE dispatch's gathers and scatter-adds.  Other block
 kinds and families raise, naming the ROADMAP item that will port them.
+
+The loss (``lm_loss``, the port of ``repro/models/transformer.py:291-327``)
+is the mean token cross-entropy over chunks of 512 positions, each chunk's
+logits recomputed in backward (``torch.utils.checkpoint``), so no (B, S,
+V) logits tensor is kept; a MoE model adds 0.01 x its load-balance aux
+loss; a ``vlm`` model scores its text positions only.  Where grad is on
+and ``cfg.remat`` is ``block`` (or ``full``), each block is checkpointed:
+its input is kept and its insides are recomputed in backward, as the JAX
+package's scan body saves only the block outputs.  The hand-written
+kernels that have no backward (the scans, the row gathers and adds of
+``gs_backend="hopper"``) raise where a gradient would have to pass them.
 """
 from __future__ import annotations
 
@@ -23,6 +36,7 @@ import math
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from .. import backends as gs_backends
 from . import attention as attn
@@ -84,7 +98,7 @@ def stage_layout(cfg) -> list[tuple[int, tuple[str, ...]]]:
             raise ValueError("local/global alternation needs an even "
                              f"n_layers, not {cfg.n_layers}")
         return [(cfg.n_layers // 2, ("local", "global"))]
-    if cfg.family == "dense" and cfg.attn_kind == "full":
+    if cfg.family in ("dense", "vlm") and cfg.attn_kind == "full":
         return [(cfg.n_layers, ("dense",))]
     if cfg.family == "moe":
         out = []
@@ -151,18 +165,19 @@ class LM(nn.Module):
 
 
 def _channel_mix(cfg, blk: Block, h: torch.Tensor, gs_backend: str):
+    """(y, aux): a ``moe`` block's load-balance aux loss, 0 elsewhere."""
     if blk.kind == "moe":
-        return moe_mod.moe_apply(cfg, blk.mlp, h, gs_backend)[0]
-    return mlp_apply(cfg, blk.mlp, h)
+        return moe_mod.moe_apply(cfg, blk.mlp, h, gs_backend)
+    return mlp_apply(cfg, blk.mlp, h), 0.0
 
 
 def block_apply(cfg, blk: Block, x: torch.Tensor, positions: torch.Tensor,
                 cache=None, gs_backend: str = "torch"):
-    """Returns (x', cache).  Given a ``cache`` entry (from ``init_cache``),
-    the block writes into it what decode continues from: a mamba or rec
-    block its final state, a GQA block its K/V into the pages, an MLA
-    block its latent.  (A ``moe`` block's aux loss is ``moe.moe_apply``'s;
-    the port serves, so nothing sums it.)"""
+    """Returns (x', cache, aux).  Given a ``cache`` entry (from
+    ``init_cache``), the block writes into it what decode continues from: a
+    mamba or rec block its final state, a GQA block its K/V into the
+    pages, an MLA block its latent.  ``aux`` is a ``moe`` block's
+    load-balance aux loss (``moe.moe_apply``'s), 0 for the others."""
     h = rms_norm(blk.ln1, x, cfg.norm_eps)
     if blk.kind in ("mamba", "rec"):
         prefill = (ssm_mod.mamba_prefill if blk.kind == "mamba"
@@ -172,15 +187,22 @@ def block_apply(cfg, blk: Block, x: torch.Tensor, positions: torch.Tensor,
             for k, v in state.items():
                 cache[k].copy_(v)
         if blk.kind == "mamba":
-            return x + y, cache
+            return x + y, cache, 0.0
     elif cfg.attn_kind == "mla":
         y, cache = attn.mla_apply(cfg, blk.mixer, h, positions, cache=cache)
     else:
         y, cache = attn.gqa_apply(cfg, blk.mixer, h, positions, cache=cache,
                                   window=blk.window)
     x = x + y
-    return x + _channel_mix(cfg, blk, rms_norm(blk.ln2, x, cfg.norm_eps),
-                            gs_backend), cache
+    y, aux = _channel_mix(cfg, blk, rms_norm(blk.ln2, x, cfg.norm_eps),
+                          gs_backend)
+    return x + y, cache, aux
+
+
+def _block_remat(cfg, blk: Block, x, positions, gs_backend):
+    """One block with no cache, for ``checkpoint``: (x', aux) as tensors."""
+    x, _, aux = block_apply(cfg, blk, x, positions, None, gs_backend)
+    return x, torch.as_tensor(aux, dtype=torch.float32, device=x.device)
 
 
 def block_decode(cfg, blk: Block, x: torch.Tensor, pos: int, cache,
@@ -199,24 +221,88 @@ def block_decode(cfg, blk: Block, x: torch.Tensor, pos: int, cache,
                                    window=blk.window)
     x = x + y
     return x + _channel_mix(cfg, blk, rms_norm(blk.ln2, x, cfg.norm_eps),
-                            gs_backend), cache
+                            gs_backend)[0], cache
+
+
+def trunk(cfg, lm: LM, tokens: torch.Tensor, *, caches: list | None = None,
+          gs_backend: str = "torch", img_embeds: torch.Tensor | None = None):
+    """(hidden (B,S,d), aux loss, per-layer caches or None): the embedding
+    (after ``img_embeds`` (B, n_img, d) for a ``vlm`` model, so S counts
+    the image positions, and before the sqrt(d_model) scale, as
+    ``repro/models/transformer.py:266-269``), every block, the final
+    norm.  With grad on, no caches and ``cfg.remat`` not ``none``, each
+    block is checkpointed."""
+    x = embed_lookup(cfg, lm.embed, tokens, backend=gs_backend)
+    if cfg.family == "vlm" and img_embeds is not None:
+        x = torch.cat([img_embeds.to(x.dtype), x], dim=1)
+    x = x * math.sqrt(cfg.d_model)
+    positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
+    remat = (caches is None and cfg.remat != "none"
+             and torch.is_grad_enabled())
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    out = []
+    for i, blk in enumerate(lm.layers):
+        if remat:
+            x, a = checkpoint(_block_remat, cfg, blk, x, positions,
+                              gs_backend, use_reentrant=False)
+            c = None
+        else:
+            x, c, a = block_apply(cfg, blk, x, positions,
+                                  None if caches is None else caches[i],
+                                  gs_backend)
+        aux = aux + a
+        out.append(c)
+    x = rms_norm(lm.ln_f, x, cfg.norm_eps)
+    return x, aux, (None if caches is None else out)
 
 
 def forward(cfg, lm: LM, tokens: torch.Tensor, *, caches: list | None = None,
-            gs_backend: str = "torch"):
-    """tokens (B,S) -> hidden (B,S,d).  Given ``caches`` (from
+            gs_backend: str = "torch", img_embeds: torch.Tensor | None = None):
+    """tokens (B,S) -> hidden (B,S,d), after ``img_embeds`` (B, n_img, d)
+    for a ``vlm`` model (then (B, n_img + S, d)).  Given ``caches`` (from
     ``init_cache``), also returns the per-layer caches that ``decode_step``
-    continues from at position S."""
-    x = embed_lookup(cfg, lm.embed, tokens, backend=gs_backend)
-    x = x * math.sqrt(cfg.d_model)
-    positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
-    out = []
-    for i, blk in enumerate(lm.layers):
-        x, c = block_apply(cfg, blk, x, positions,
-                           None if caches is None else caches[i], gs_backend)
-        out.append(c)
-    x = rms_norm(lm.ln_f, x, cfg.norm_eps)
+    continues from at position n_img + S."""
+    x, _, out = trunk(cfg, lm, tokens, caches=caches, gs_backend=gs_backend,
+                      img_embeds=img_embeds)
     return x if caches is None else (x, out)
+
+
+def chunked_xent(cfg, lm: LM, hidden: torch.Tensor, labels: torch.Tensor,
+                 chunk: int = 512) -> torch.Tensor:
+    """Mean token cross-entropy of ``labels`` (B,S) under the logits of
+    ``hidden`` (B,S,d), a chunk of ``chunk`` positions at a time (all S in
+    one where S is no multiple of it, as there): each chunk's float32
+    logits are recomputed in backward, never kept."""
+    b, s, _ = hidden.shape
+    chunk = min(chunk, s)
+    if s % chunk:
+        chunk = s
+
+    def one(h, lab):
+        logits = unembed_logits(cfg, lm.embed, h).to(torch.float32)
+        lse = torch.logsumexp(logits, dim=-1)
+        gold = logits.gather(-1, lab[..., None].to(torch.int64))[..., 0]
+        return (lse - gold).sum()
+
+    total = hidden.new_zeros((), dtype=torch.float32)
+    for c0 in range(0, s, chunk):
+        h, lab = hidden[:, c0:c0 + chunk], labels[:, c0:c0 + chunk]
+        total = total + (checkpoint(one, h, lab, use_reentrant=False)
+                         if torch.is_grad_enabled() else one(h, lab))
+    return total / (b * s)
+
+
+def lm_loss(cfg, lm: LM, batch: dict, *, aux_weight: float = 0.01,
+            gs_backend: str = "torch") -> torch.Tensor:
+    """The training loss of ``batch`` (``tokens``, ``labels`` (B,S) and,
+    for a ``vlm`` model, optionally ``img_embeds``): ``chunked_xent`` over
+    the text positions plus ``aux_weight`` x the MoE aux loss."""
+    img = batch.get("img_embeds")
+    hidden, aux, _ = trunk(cfg, lm, batch["tokens"], gs_backend=gs_backend,
+                           img_embeds=img)
+    if cfg.family == "vlm" and img is not None:
+        hidden = hidden[:, img.shape[1]:]      # text positions only
+    return chunked_xent(cfg, lm, hidden, batch["labels"]) + aux_weight * aux
 
 
 def layer_kinds(cfg) -> list[str]:

@@ -4,6 +4,13 @@
     params = model.init(torch.Generator("cuda").manual_seed(0))   # an LM
     logits, cache = model.prefill(params, tokens, max_len)   # ready to decode
     logits, cache = model.decode_step(params, cache, tokens, pos)
+    lm = model.init(gen, trainable=True)                     # to train
+    loss = model.loss(lm, {"tokens": ..., "labels": ...})
+
+The ``vlm`` family (internvl2-26b): ``prefill(params, tokens, max_len,
+img_embeds=...)`` puts the (B, n_img, d) image embeddings before the
+prompt, so the cache holds n_img + S positions and decoding continues at
+n_img + S; ``max_len`` counts the image positions (default n_img + S).
 
 The ``audio`` family (whisper-base, ``encdec``): ``init`` returns an
 ``EncDec``; ``prefill(params, frames, max_len)`` encodes the (B, F, d)
@@ -13,6 +20,9 @@ frames=...)`` is the teacher-forced pass.
 
 The port of ``repro/models/zoo.py``.  ``device=None`` means ``cuda`` and
 raises without CUDA; only an explicit ``device="cpu"`` runs on the CPU.
+Parameters hold no gradient unless ``init(trainable=True)``; serving
+(``prefill``, ``decode_step``) runs under ``torch.no_grad`` whatever they
+hold, so it builds no autograd graph.
 """
 from __future__ import annotations
 
@@ -35,24 +45,39 @@ class Model:
         return self.cfg.family == "audio"
 
     def init(self, generator: torch.Generator | None = None, device=None,
-             dtype=None) -> transformer.LM | encdec.EncDec:
+             dtype=None, trainable: bool = False
+             ) -> transformer.LM | encdec.EncDec:
         """The parameters, drawn on ``device`` from ``generator`` (default:
         a generator on that device seeded 0) in ``dtype`` (default the
-        config's)."""
+        config's); with ``trainable`` they require grad."""
         dev = resolve_device(device)
         if generator is None:
             generator = torch.Generator(device=dev).manual_seed(0)
         net = encdec.EncDec if self.audio else transformer.LM
-        return net(self.cfg, device=dev,
-                   dtype=dtype or model_dtype(self.cfg)).init_(generator)
+        net = net(self.cfg, device=dev,
+                  dtype=dtype or model_dtype(self.cfg)).init_(generator)
+        return net.requires_grad_(trainable)
 
     def forward(self, params, tokens, **kw):
         if self.audio:
             return encdec.forward(self.cfg, params, tokens, **kw)
         return transformer.forward(self.cfg, params, tokens, **kw)
 
+    def loss(self, params, batch: dict) -> torch.Tensor:
+        """The training loss (``transformer.lm_loss``) of ``batch``:
+        ``tokens`` and ``labels`` (B, S) and, for a ``vlm`` model,
+        optionally ``img_embeds``.  The ``audio`` family's loss is not
+        ported (ROADMAP, the training queue)."""
+        if self.audio:
+            raise NotImplementedError(
+                "the encoder-decoder loss is not ported (ROADMAP, the "
+                "training queue)")
+        return transformer.lm_loss(self.cfg, params, batch)
+
+    @torch.no_grad()
     def prefill(self, params, tokens: torch.Tensor, max_len: int | None = None,
-                seed: int = 0, gs_backend: str = "torch"):
+                seed: int = 0, gs_backend: str = "torch",
+                img_embeds: torch.Tensor | None = None):
         """tokens (B,S) -> (last-position logits (B,V), per-layer caches
         that ``decode_step`` continues from at position S, with room for
         ``max_len`` positions (default S; a paged cache's table is drawn
@@ -60,7 +85,10 @@ class Model:
         cache does not grow: ``max_len`` is ignored there.  ``gs_backend``: the backend
         of the embedding gather and the MoE dispatch.  For the ``audio``
         family ``tokens`` are the (B, F, d) frames and ``max_len`` the
-        decoder's positions: returns (None, the filled cache)."""
+        decoder's positions: returns (None, the filled cache).  For the
+        ``vlm`` family ``img_embeds`` (B, n_img, d) go before the prompt:
+        the cache continues at n_img + S and ``max_len`` (default n_img +
+        S) counts them."""
         if self.audio:
             if max_len is None:
                 raise ValueError("an audio prefill needs max_len, the "
@@ -71,12 +99,15 @@ class Model:
             return None, encdec.prefill_cross(self.cfg, params, tokens,
                                               cache)
         b, s = tokens.shape
+        if img_embeds is not None and self.cfg.family == "vlm":
+            s += img_embeds.shape[1]
         caches = transformer.init_cache(self.cfg, b, max_len or s,
                                         params.embed.table.dtype,
                                         tokens.device, seed)
         hidden, caches = transformer.forward(self.cfg, params, tokens,
                                              caches=caches,
-                                             gs_backend=gs_backend)
+                                             gs_backend=gs_backend,
+                                             img_embeds=img_embeds)
         last = transformer.unembed_logits(self.cfg, params.embed,
                                           hidden[:, -1:])[:, 0]
         return last, caches
@@ -91,6 +122,7 @@ class Model:
                                       dtype or model_dtype(self.cfg),
                                       resolve_device(device), seed)
 
+    @torch.no_grad()
     def decode_step(self, params, cache, tokens, pos,
                     gs_backend: str = "torch"):
         if self.audio:

@@ -362,7 +362,7 @@ def test_paged_kernel_shapes_take_g12_at_dh128_only():
     assert (128, 12) in paged_ops.SHAPES
     paged_ops.check_kernel_shape(128, 12)
     for dh, g, opts in ((64, 12, False), (128, 3, False), (128, 12, True),
-                        (128, 6, False), (256, 12, False)):
+                        (128, 6, True), (128, 10, False), (256, 12, False)):
         with pytest.raises(ValueError, match="not supported"):
             paged_ops.check_kernel_shape(dh, g, options=opts)
 
