@@ -9,7 +9,8 @@ shows the supervisor restoring from the latest async checkpoint (step 20,
 or 10 while 20's write is in flight) and continuing to a lower loss: ``examples/train_ft_demo.py`` on the
 PyTorch port.  Without ``--device`` it runs on the card, where the flash
 kernels' backward takes head size 128 only: ``--d-model 512`` widens the
-smoke config as ``launch.train``'s flag does (4 heads of 128, d_ff 2048).
+smoke config through ``launch.train.config``, as that driver's flag does
+(4 heads of 128, d_ff 2048).
 """
 import argparse
 import dataclasses
@@ -18,9 +19,9 @@ import tempfile
 import numpy as np
 import torch
 
-from repro_torch.configs import get_smoke_config
 from repro_torch.data import TokenPipeline
 from repro_torch.engine import resolve_device
+from repro_torch.launch.train import config
 from repro_torch.models.zoo import Model
 from repro_torch.optim import AdamWConfig, init_opt_state, warmup_cosine
 from repro_torch.runtime.supervisor import SupervisorConfig, TrainSupervisor
@@ -36,12 +37,10 @@ def main(argv=None):
     ap.add_argument("--d-model", type=int, default=0)
     args = ap.parse_args(argv)
     dev = resolve_device(args.device)
-    cfg = dataclasses.replace(get_smoke_config("llama3-8b"), dtype="float32",
-                              remat="none")
-    if args.d_model:
-        cfg = dataclasses.replace(
-            cfg, d_model=args.d_model, d_ff=4 * args.d_model,
-            head_dim=max(16, args.d_model // cfg.n_heads))
+    cfg = dataclasses.replace(
+        config(argparse.Namespace(arch="llama3-8b", smoke=True, layers=0,
+                                  d_model=args.d_model)),
+        dtype="float32", remat="none")
     model = Model(cfg)
     pipe = TokenPipeline(vocab=cfg.vocab, seq_len=32, global_batch=8, seed=0)
     opt_cfg = AdamWConfig(lr=warmup_cosine(3e-3, warmup=5, total=STEPS),

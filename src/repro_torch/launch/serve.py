@@ -49,11 +49,13 @@ clocks around work that ends in a device synchronise.
 
 internvl2-26b (the ``vlm`` family): the JAX driver never passes image
 embeddings (``repro/launch/serve.py:57-59``), so the CLI serves its text
-only, as there.  ``run(..., images=True)`` (no flag: a caller's, as
-``chip_smoke.py``'s) puts ``n_img_tokens`` stub embeddings drawn from
-``--seed`` after the prompts (N(0, 1), the scale of the table's rows)
-before each prompt: the cache has room for n_img + prompt_len + gen
-positions and decoding starts at n_img + prompt_len.
+only, as there.  ``run(..., images=True)`` is no flag and no part of
+the JAX driver: it is the hook through which ``chip_smoke.py``'s phase 18
+serves images in the same timed and counted window as every other
+model.  It puts ``n_img_tokens`` stub embeddings drawn from ``--seed``
+after the prompts (N(0, 1), the scale of the table's rows) before each
+prompt: the cache has room for n_img + prompt_len + gen positions and
+decoding starts at n_img + prompt_len.
 """
 from __future__ import annotations
 

@@ -1,7 +1,8 @@
 """End-to-end training driver: pipeline -> train step -> supervisor.
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch llama3-8b \\
-        --smoke --device cpu --steps 30 --batch 8 --seq 32
+        --smoke --device cpu --steps 30 --batch 8 --seq 32 \\
+        --ckpt-dir "$(mktemp -d)"
     PYTHONPATH=src python -m repro_torch.launch.train --arch llama3-8b \\
         --layers 8 --batch 4 --seq 4096 --steps 4 --ckpt-every 1000  # card
 
@@ -127,7 +128,10 @@ def run(args) -> TrainResult:
                     p.copy_(restored["params"][k])
             opt = restored["opt"]
             start = latest
-            print(f"[train] restored checkpoint step {latest}", flush=True)
+            print(f"[train] RESUMING from checkpoint step {latest} in "
+                  f"{ckpt_mgr.ckpt.dir} ({max(0, args.steps - latest)} of "
+                  f"{args.steps} steps left; a fresh --ckpt-dir starts "
+                  "over)", flush=True)
 
         def step_fn(state, i):
             # the state's params are lm's own tensors: the step updates
