@@ -93,11 +93,13 @@ only.  Phases:
      phase, within ``add_error_bound`` of the plain version and within
      ``hot_row_error_bound`` of the float64 sum, bit for bit at K = 1);
      then flash attention's lse instances and its backward
-     (``flash_bwd_cases``: dh 128, G 1, 4, 6 and 8, (S, T) of 128, 1,000
-     and 4,096 with S != T among them, causal and not, both dtypes: the
-     lse within its bound of the plain version's, the output bit-equal to
-     the serve instance's, dq, dk and dv within ``bwd_tolerance`` (plus a
-     bf16 rounding) of ``flash_attention_bwd_ref``);
+     (``flash_bwd_cases``: dh 128, G 1, 4, 6 and 8 at (S, T) of 128,
+     1,000 and 4,096 with S != T among them, then G 1 to 16 at every (S,
+     T) of the tile edges ``BWD_EDGE_LENGTHS``, causal and not, both
+     dtypes: the lse within its bound of the plain version's, the output
+     bit-equal to the serve instance's, dq, dk and dv within
+     ``bwd_tolerance`` (plus a bf16 rounding) of
+     ``flash_attention_bwd_ref``);
   2. the paper's CLI invocation ``-k Gather -p UNIFORM:8:1 -d 8 -l 2^24``
      through the port's CLI, as a gather, a store and an add scatter, on
      ``-b hopper`` (the torch yardstick of earlier runs is not run: no row
@@ -179,7 +181,8 @@ only.  Phases:
      digests must equal phase 3's and a numpy reference, and each
      kernel's launches the responses' buckets x (1 + runs); the CLI
      gather's min-of-K time, taken while a second client keeps sending
-     demo, within ``DAEMON_TIME_TOL`` of phase 2's; eight concurrent demo
+     demo, within ``DAEMON_TIME_TOL`` of the same gather run directly
+     through the CLI just before it; eight concurrent demo
      clients, then eight staged behind a paused scheduler (a coalesced
      launch, summed request misses equal to the cache's); then ``python
      -m repro_torch.serve.daemon --cache-dir D`` in processes of its own:
@@ -4493,8 +4496,9 @@ def whisper_phase(torch):
 # -- phase 7: spatterd on the card ---------------------------------------------
 
 # the CLI gather's min-of-K time through the daemon, while a second client's
-# demo requests run at the same time, must lie within this share of phase
-# 2's time (fixed before the phase's first run on the card)
+# demo requests run at the same time, must lie within this share of the
+# same gather's time through the CLI, taken in phase 7 just before (fixed
+# before the phase's first run on the card)
 DAEMON_TIME_TOL = 0.10
 CLI_DOC = {"name": "cli", "kernel": "Gather", "pattern": "UNIFORM:8:1",
            "delta": 8, "count": 2 ** 24}        # CLI_ARGS as a suite entry
@@ -4620,6 +4624,7 @@ def daemon_phase(torch, cli_results, suite_stats):
     import threading
 
     from repro_torch import appdb
+    from repro_torch.__main__ import main as cli
     from repro_torch.kernels import reset_launches
     from repro_torch.pattern import Pattern
     from repro_torch.plan import ExecutorCache, SuitePlan
@@ -4702,7 +4707,18 @@ def daemon_phase(torch, cli_results, suite_stats):
                 time_ms=row["time_s"] * 1e3, gbs=row["measured_gbs"],
                 elapsed_s=resp["elapsed_s"])
 
-        # the CLI gather, warm, while another client keeps sending demo
+        # the CLI gather, warm, directly through the CLI and then through
+        # the daemon while another client keeps sending demo: both readings
+        # taken here, seconds apart, so the card's state between phase 2
+        # and phase 7 does not enter the ratio
+        before = _launches()
+        direct = cli(["-b", "hopper"] + CLI_ARGS + ["-r", str(RUNS)]
+                     + ["--mode", "store"])
+        check(direct.time_s > 0, "phase 7: the direct CLI gather has no time")
+        with expect_lock:                     # its launches are not the
+            for k, n in _launches().items():    # daemon's: expected here
+                expect[k] += n - before[k]
+        torch.cuda.empty_cache()
         done, side, side_errors = threading.Event(), [], []
 
         def side_client():
@@ -4730,20 +4746,23 @@ def daemon_phase(torch, cli_results, suite_stats):
         if side_errors:
             raise side_errors[0]
         daemon_ms = timed["stats"]["table"][0]["time_s"] * 1e3
+        direct_ms = direct.time_s * 1e3
         phase2_ms = cli_results[("hopper", "gather", "store")].time_s * 1e3
-        ratio = daemon_ms / phase2_ms
-        out["timing"] = dict(daemon_ms=daemon_ms, phase2_ms=phase2_ms,
-                             ratio=ratio, tol=DAEMON_TIME_TOL,
+        ratio = daemon_ms / direct_ms
+        out["timing"] = dict(daemon_ms=daemon_ms, direct_ms=direct_ms,
+                             phase2_ms=phase2_ms, ratio=ratio,
+                             tol=DAEMON_TIME_TOL,
                              side_requests=len(side),
                              lock_wait_ms=timed["serve"]["lock_wait_ms"],
                              side_lock_wait_ms=sum(side))
-        print(f"  CLI gather through the daemon {daemon_ms:.4f} ms, phase 2 "
-              f"{phase2_ms:.4f} ms, ratio {ratio:.4f} (tolerance "
-              f"{DAEMON_TIME_TOL}); {len(side)} demo requests beside it",
+        print(f"  CLI gather through the daemon {daemon_ms:.4f} ms, directly "
+              f"through the CLI just before {direct_ms:.4f} ms, ratio "
+              f"{ratio:.4f} (tolerance {DAEMON_TIME_TOL}; phase 2 "
+              f"{phase2_ms:.4f} ms); {len(side)} demo requests beside it",
               flush=True)
         check(abs(ratio - 1) <= DAEMON_TIME_TOL,
-              f"phase 7: CLI gather {daemon_ms:.4f} ms vs phase 2 "
-              f"{phase2_ms:.4f} ms")
+              f"phase 7: CLI gather through the daemon {daemon_ms:.4f} ms vs "
+              f"directly {direct_ms:.4f} ms")
         check(not th.is_alive(), "phase 7: the side client hung")
 
         # eight concurrent demo clients, then eight staged while paused
@@ -6195,14 +6214,35 @@ def bwd_magnitudes(torch, q, k, v, o, lse, do, scale, causal):
             torch.einsum("bhgqt,bhgqd->bhtd", p, do.abs()))
 
 
-def check_flash_bwd(torch, got, want, s, t, dh, where, mags=None):
+def vanishing_magnitudes(torch, q, k, v, do, scale, causal):
+    """For inputs where every query row sees exactly one key (T = 1, or
+    S = 1 with causal), the sums of |terms| behind dq and dk (float32):
+    there P = 1 and O = V's row, so dS = dO . v - dO . o is 0 in exact
+    arithmetic and dq, dk are whatever rounding leaves of two dot
+    products of dh terms each; this is scale (|dO| |V|^T) |K| and its
+    transpose against |Q|, the magnitudes that rounding works on."""
+    f32 = torch.float32
+    q, k, v, do = (x.to(f32).abs() for x in (q, k, v, do))
+    m = torch.einsum("bhgqd,bhtd->bhgqt", do, v)
+    if causal:
+        m = m * torch.ones(q.shape[3], k.shape[2], device=q.device).tril()
+    return (torch.einsum("bhgqt,bhtd->bhgqd", m, k) * scale,
+            torch.einsum("bhgqt,bhgqd->bhtd", m, q) * scale)
+
+
+def check_flash_bwd(torch, got, want, s, t, dh, where, mags=None,
+                    vanishing=None):
     """dq, dk, dv (``got``, in the inputs' dtype) against the plain
     version's float32 ``want``: within ``bwd_tolerance`` of each tensor's
     largest value, plus for bfloat16 one rounding (2^-8 relative) of each
     value and 2^-8 of its ``mags`` (``bwd_magnitudes``): the tensor-core
     passes round P and dS to bfloat16 (2^-9 a term) before the products
-    that sum them.  Returns max |err| against the plain output in got's
-    dtype."""
+    that sum them.  ``vanishing`` (``vanishing_magnitudes``), given where
+    every query row sees exactly one key, holds dq and dk, which are 0 in
+    exact arithmetic (so that their largest value is rounding and stands
+    in for nothing), to ``bwd_tolerance`` of those magnitudes instead, plus
+    the same bfloat16 terms; dv is held as always.  Returns max |err|
+    against the plain output in got's dtype."""
     torch.cuda.synchronize()
     e = 0.0
     for i, (name, a, w) in enumerate(zip(("dq", "dk", "dv"), got, want)):
@@ -6210,8 +6250,9 @@ def check_flash_bwd(torch, got, want, s, t, dh, where, mags=None):
         check(bool(torch.isfinite(a.float()).all()),
               f"{where} {name}: not finite")
         round_out = 2.0 ** -8 if a.dtype == torch.bfloat16 else 0.0
-        bound = (round_out * w.abs()
-                 + bwd_tolerance(s, t, dh) * w.abs().max())
+        scale_of = (vanishing[i] if vanishing is not None and i < 2
+                    else w.abs().max())
+        bound = round_out * w.abs() + bwd_tolerance(s, t, dh) * scale_of
         if a.dtype == torch.bfloat16:
             bound = bound + 2.0 ** -8 * mags[i]
         diff = (a.float() - w).abs()
@@ -6222,16 +6263,23 @@ def check_flash_bwd(torch, got, want, s, t, dh, where, mags=None):
     return e
 
 
+# the lengths at the bf16 backward's tile edges (64 query rows a step, 128
+# keys a CTA, 64 a warpgroup), each S against each T
+BWD_EDGE_LENGTHS = (1, 63, 64, 65, 127, 128, 129, 1000)
+
+
 def flash_bwd_cases(torch):
-    """Phase 1 for the lse instances and the backward: bf16 and f32; G 1,
-    4, 6 and 8; (S, T) of 128, 1,000 and 4,096, S != T among them; causal
-    and not; dh 128, B 1.  Each case's lse within 2^-22 (dh + T + 16) (1 +
-    max |lse|) of the plain version's (float32 scores of dh terms, a row
-    sum of T, each exp2 within 2^-22), its output equal bit for bit to the
-    serve instance's (the flag adds a store only), and dq, dk, dv, from
-    that output and lse, against ``flash_attention_bwd_ref``
-    (``check_flash_bwd``, with ``bwd_magnitudes``).  Returns max |err| of
-    the backward."""
+    """Phase 1 for the lse instances and the backward: bf16 and f32, causal
+    and not, dh 128, B 1; G 1, 4, 6 and 8 at (S, T) of 128, 1,000 and
+    4,096, S != T among them; then G 1, 4, 6, 8, 12 and 16 (a CTA walks
+    the G heads) at every (S, T) of ``BWD_EDGE_LENGTHS``.  Each case's lse
+    within 2^-22 (dh + T + 16) (1 + max |lse|) of the plain version's
+    (float32 scores of dh terms, a row sum of T, each exp2 within 2^-22),
+    its output equal bit for bit to the serve instance's (the flag adds a
+    store only), and dq, dk, dv, from that output and lse, against
+    ``flash_attention_bwd_ref`` (``check_flash_bwd``, with
+    ``bwd_magnitudes``; where every row sees one key, dq and dk with
+    ``vanishing_magnitudes``).  Returns max |err| of the backward."""
     from repro_torch.kernels.flash_attention.ops import (
         flash_attention, flash_attention_bwd, flash_attention_lse)
     from repro_torch.kernels.flash_attention.ref import (
@@ -6242,9 +6290,13 @@ def flash_bwd_cases(torch):
              (1000, 128), (4096, 1000))
     dh = 128
     scale = dh ** -0.5
-    for dtype, g, (s, t), causal in itertools.product(
-            (torch.float32, torch.bfloat16), (1, 4, 6, 8), sizes,
-            (True, False)):
+    dtypes = (torch.float32, torch.bfloat16)
+    cases = list(itertools.product(dtypes, (1, 4, 6, 8), sizes,
+                                   (True, False)))
+    cases += itertools.product(
+        dtypes, (1, 4, 6, 8, 12, 16),
+        itertools.product(BWD_EDGE_LENGTHS, BWD_EDGE_LENGTHS), (True, False))
+    for dtype, g, (s, t), causal in cases:
         kvh = 1 if s * t >= 4096 * 1000 else 2
         q = _flash_inputs(torch, gen, 1, kvh, g, s, dh, dtype)[0]
         _, k, v = _flash_inputs(torch, gen, 1, kvh, 1, t, dh, dtype)
@@ -6269,10 +6321,12 @@ def flash_bwd_cases(torch):
                                        o.float(), lse, do.float(),
                                        scale=scale, causal=causal)
         mags = bwd_magnitudes(torch, q, k, v, o, lse, do, scale, causal)
+        van = (vanishing_magnitudes(torch, q, k, v, do, scale, causal)
+               if t == 1 or (causal and s == 1) else None)
         err = max(err, check_flash_bwd(torch, got, want, s, t, dh, where,
-                                       mags))
+                                       mags, van))
         n += 1
-        del q, k, v, do, o, lse, got, want, want_lse, mags
+        del q, k, v, do, o, lse, got, want, want_lse, mags, van
     torch.cuda.empty_cache()
     print(f"phase 1: {n} flash lse and backward cases within their bounds "
           f"of the plain versions (lse instances' outputs bit-equal to the "
@@ -6288,8 +6342,9 @@ def flash_bwd_time(torch, err):
     turns beside the backward of ``scaled_dot_product_attention``
     (``enable_gqa``) through ``torch.autograd.grad`` after its own
     forward.  The bound counts the function's five products of the
-    forward's size (2.5 x the forward's FLOP), not the seven this kernel
-    runs; bytes: q, k, v, out, dO and lse read, dq, dk, dv written."""
+    forward's size (2.5 x the forward's FLOP), the five this kernel runs;
+    bytes: q, k, v, out, dO and lse read, dq, dk, dv written (not the
+    float32 dQ workspace, which the function does not need)."""
     from repro_torch.kernels.flash_attention.ops import (
         flash_attention_bwd, flash_attention_lse)
     from repro_torch.kernels.flash_attention.ref import (
@@ -6337,10 +6392,11 @@ def flash_bwd_time(torch, err):
     iters = 3
 
     def launched_once(names, launched):
-        traced = sum(c for k, c in names.items()
-                     if "flash_attention_bwd_dkdv" in k)
+        traced = [sum(c for k, c in names.items() if kernel in k)
+                  for kernel in ("flash_attention_bwd_wgmma",
+                                 "flash_attention_bwd_dq_round")]
         check(launched.get("flash_attention_bwd") == iters
-              and 0 < traced <= iters,
+              and all(0 < n <= iters for n in traced),
               f"{where}: launched {launched}, traced {names}, in {iters} "
               "calls")
     t = _in_turns(torch, {

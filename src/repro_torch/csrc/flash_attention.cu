@@ -145,7 +145,6 @@
 #include <climits>
 #include <cmath>
 #include <cstdint>
-#include <type_traits>
 
 namespace {
 
@@ -922,44 +921,43 @@ bool bad_args(int64_t G, int64_t T_len, int64_t window) {
   return G < 1 || G > kRows || T_len < 1 || window < 0;
 }
 
-// -- backward: dQ, dK, dV on the CUDA cores ----------------------------------
+// -- backward: dQ, dK, dV ----------------------------------------------------
 //
 // Replaces no TPU kernel: the JAX package's custom_vjp (_bwd in
 // src/repro/kernels/flash_attention/ops.py) recomputes its backward
-// through the reference.  FlashAttention-2's backward, from q, k, v, out,
+// through the reference.  FlashAttention-2's equations, from q, k, v, out,
 // dout and the forward's row log-sum-exp lse (natural units of the scaled
-// score), in three launches on the caller's stream:
+// score): D = rowsum(dout out), P = exp(scale S - lse) (0 where masked),
+// dP = dO V^T, dS = P (dP - D); dV = P^T dO, dK = scale dS^T Q, dQ = scale
+// dS K.  Only DH 128 is built; the wrapper refuses window and softcap.
+//
+// What bounds it: operations.  The function is five products of the
+// forward's size (Q K^T, dO V^T, P^T dO, dS^T Q, dS K: 2.5 x the forward's
+// two); at the llama3-8b training shape (B 4, KVH 8, G 4, S = T = 4096, DH
+// 128, causal) 1.4e12 FLOP, 1.39 ms on bf16 tensor cores.
+//
+// float32, on the CUDA cores, in three launches on the caller's stream:
 //   1. flash_attention_bwd_delta: D[row] = sum_d dout[row, d] out[row, d]
 //      in float32, one warp a row.
 //   2. flash_attention_bwd_dkdv: one CTA a tile of kBwdKeys keys of one
 //      (batch row, KV head), K and V held in shared memory as float32, dK
 //      and dV summed in registers.  It walks the G query heads that share
 //      the KV head and, for each, the query tiles that can see its keys
-//      (with causal, the tiles from its first key on): S = Q K^T, P =
-//      exp(scale S - lse) (0 where masked), dP = dO V^T, dS = P (dP - D);
-//      dV += P^T dO, dK += dS^T Q.  Every dK and dV element is summed by
-//      one thread, over G too, so there are no atomics and the sums do not
+//      (with causal, the tiles from its first key on): S, P, dP, dS; dV +=
+//      P^T dO, dK += dS^T Q.  Every dK and dV element is summed by one
+//      thread, over G too, so there are no atomics and the sums do not
 //      depend on timing.
 //   3. flash_attention_bwd_dq: one CTA a tile of kBwdRows query rows of one
 //      head: the same S, P, dP and dS over the key tiles the rows see,
 //      then dQ += dS K.
 // dQ and dK take the scale at the end; all three are rounded once to the
-// inputs' type.  Below, passes 2 and 3 for float32: tiles float32 in shared
-// memory, products on the CUDA cores.
-//
-// What bounds it: operations, and this body is far from them.  The
-// function is five products of the forward's size (Q K^T, dO V^T, P^T dO,
-// dS^T Q, dS K: 2.5 x the forward's two); at the llama3-8b training shape
-// (B 4, KVH 8, G 4, S = T = 4096, DH 128, causal) 1.4e12 FLOP, 1.39 ms on
-// bf16 tensor cores.  This body runs seven (pass 3 recomputes Q K^T and
-// dO V^T), each as float32 FMAs from shared memory (a thread 4 x 4 scores
-// from 16 float4 loads a 4-column step; 4 keys x 8 columns of dK and dV
-// from 8 scalar and 4 float4 loads a query row), so the CUDA cores' 67
-// TFLOP/s and shared memory's bandwidth bound it.  That body serves float32;
-// bfloat16 runs passes 2 and 3 on the tensor cores (mma.sync, next
-// section), whose bf16 rate is what bounds it; wgmma, TMA and warp
-// specialisation are later work.  Only DH 128 is built; the wrapper
-// refuses window and softcap.
+// inputs' type.  Tiles are float32 in shared memory and each product runs
+// as float32 FMAs from it (a thread 4 x 4 scores from 16 float4 loads a
+// 4-column step; 4 keys x 8 columns of dK and dV from 8 scalar and 4
+// float4 loads a query row), seven products in all (pass 3 recomputes Q
+// K^T and dO V^T), so the CUDA cores' 67 TFLOP/s and shared memory's
+// bandwidth bound it.  bfloat16 runs one wgmma pass instead (its own
+// section below).
 
 constexpr int kBwdThreads = 256;     // 16 x 16 threads
 constexpr int kBwdRows = 64;         // query rows a tile
@@ -1071,7 +1069,8 @@ __device__ void tile_ds(BwdSmem<DH>& sm, int64_t q0, int64_t k0, int64_t S,
 template <typename T, int DH>
 __global__ void __launch_bounds__(kBwdThreads)
 flash_attention_bwd_delta(const T* __restrict__ out, const T* __restrict__ dout,
-          float* __restrict__ delta, int64_t n_rows) {
+          float* __restrict__ delta, float* __restrict__ zero,
+          int64_t n_rows) {
   const int64_t row = static_cast<int64_t>(blockIdx.x) * (kBwdThreads / 32) +
                       (threadIdx.x >> 5);
   const int lane = threadIdx.x & 31;
@@ -1089,6 +1088,12 @@ flash_attention_bwd_delta(const T* __restrict__ out, const T* __restrict__ dout,
     acc += __shfl_xor_sync(0xffffffffu, acc, off);
   }
   if (lane == 0) delta[row] = acc;
+  if (zero != nullptr) {                   // the row of a float32 workspace
+    for (int c = lane * 4; c < DH; c += 128) {
+      *reinterpret_cast<float4*>(zero + row * DH + c) =
+          make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+  }
 }
 
 // grid (key tiles, KVH, B)
@@ -1251,290 +1256,548 @@ flash_attention_bwd_dq(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-// -- backward, bfloat16: passes 2 and 3 on the tensor cores -------------------
+// -- backward, bfloat16: one wgmma pass fed by TMA ---------------------------
 //
-// The bf16 entry runs passes 2 and 3 with mma.sync m16n8k16 (bf16 in, float32
-// sums) on bf16 tiles in shared memory (rows padded by 16 bytes, so the 8
-// rows an ldmatrix reads fall in 8 distinct bank groups).  A CTA's 8 warps
-// split each 64 x 64 score tile as 4 x 2 blocks of 16 rows x 32 keys, and
-// each 64 x 128 sum (dK, dV or dQ) as 4 x 2 blocks of 16 rows x 64 columns,
-// held in registers.  P and dS are rounded to bf16 in shared memory (2^-9
-// each) before they enter P^T dO, dS^T Q and dS K; S, dP and every sum stay
-// float32.  Operands that the products need transposed (P^T, dS^T, and dO,
-// Q and K as the k-major B) come in through ldmatrix.trans.
+// FlashAttention-3's backward (Shah et al., 2024, section 3 and appendix B),
+// cut to DH 128 without window or softcap, in three launches:
+//   1. flash_attention_bwd_delta (above): D, and zeros in dq_acc, a float32
+//      workspace of dQ (B, KVH, G, S, 128) that the wrapper allocates.
+//   2. flash_attention_bwd_wgmma: one CTA a tile of kBwdKeysTc = 128 keys of
+//      one (batch row, KV head), two warpgroups of 64 keys each.  The CTA
+//      walks the G query heads that share the KV head and the query tiles of
+//      kBwdRowsTc = 64 rows that can see its keys (with causal, from the tile
+//      that holds its first key on), and sums dK and dV over all of them in
+//      registers, with no atomics.  Each warpgroup, over its 64 keys and a
+//      step's 64 rows:
+//        S^T = K Q^T, then dP^T = V dO^T  (wgmma m64n64k16, A and B K-major
+//                                          in shared memory, 8 k-steps each,
+//                                          two commit groups: P^T is formed
+//                                          while dP^T is in flight);
+//        P^T = exp2(S^T scale log2(e) - lse log2(e)), masked only in a tile
+//        that the diagonal or the ragged T edge cuts, and dS^T = P^T (dP^T
+//        - D), in the accumulator registers; each rounded to bf16 once;
+//        dS^T to shared memory (128B-swizzled, a row a key), then, after
+//        named barrier 1 over both warpgroups, one commit group of
+//          dV += P^T dO   (wgmma m64n128k16: P^T packed from the
+//                          accumulator as the register A, dO as MN-major B
+//                          through the transpose bit, as the forward's P V),
+//          dK += dS^T Q   (m64n128k16: the warpgroup's rows of dS^T as
+//                          K-major A, Q as MN-major B),
+//          dQ = dS K      (m64n64k16 over the 128 keys of both warpgroups,
+//                          for the warpgroup's 64 of dQ's 128 columns: A
+//                          and B both MN-major);
+//        dQ's 64 x 64 float32 block to shared memory, 128B-swizzled, and one
+//        thread of the warpgroup adds it into dq_acc by two TMA reduce-adds
+//        (cp.reduce.async.bulk.tensor, boxes of 32 columns x 64 rows over
+//        (128, S, B KVH G): rows past S are dropped); it waits for their
+//        reads of the block one step later, before the block is written
+//        again (named barriers 2 and 3).
+//      Five products, none recomputed.  Warp 0 copies K and V once and keeps
+//      a ring of kBwdStages (Q, dO) tiles: Q and dO by TMA (the forward's
+//      encode_3d maps, 3-d boxes over (DH, S, B KVH G), so rows past S
+//      arrive as zeros; K and V over (DH, T, B KVH)), the step's 64 rows of
+//      lse and D by cp.async (float32 rows of S are 16-byte aligned only
+//      where S % 4 == 0, so not by TMA; rows past S zero-filled), all on the
+//      stage's "full" mbarrier (33 arrivals: the expect_tx and the warp's 32
+//      lanes' cp.async).  A stage is refilled once all eight warps have
+//      arrived on its "empty" mbarrier.  A row past S has Q = dO = lse = D =
+//      0, so it adds nothing to dK or dV, and its dQ is dropped.
+//   3. flash_attention_bwd_dq_round: dq = bf16(dq_acc scale).
+// Order: the CTAs of one (batch row, KV head) are consecutive, and every CTA
+// walks the query tiles from the last down, the G heads inner, so the CTAs
+// that run together read the same Q and dO tiles and add into the same dQ
+// rows at about the same time: both stay in L2 (at the llama3-8b training
+// shape each CTA reads 32 KB of Q and dO a step and adds 32 KB of dQ, 4.4
+// GB each in all).  Shared memory: K and V 64 KB, two (Q, dO) stages 64
+// KB, two dS^T tiles 32 KB (dS^T alternates between them, so a warpgroup
+// that runs ahead never overwrites the tile the other still multiplies),
+// dQ's two blocks 32 KB, the rows' lse and D: ~194 KB, one CTA an SM.
+// Registers: a thread holds dK and dV (64 + 64 floats), S^T and dP^T (32 +
+// 32), P^T packed (16 words) and dQ's block (32, in S^T's registers),
+// within the 255 registers that 256 threads allow, with no spill (the
+// build prints ptxas's count).
+// Where it leaves FlashAttention-3's split, each choice measured on the
+// card (probes/flash_bwd_probe.py): no producer warpgroup and no
+// setmaxnreg: at 384 threads ptxas allocated the consumers no more than
+// ~208 registers whatever setmaxnreg asked, spilled ~520 bytes and
+// serialised every wgmma (8.0 ms at the training shape); dK's A is dS^T
+// from shared memory, not registers (16 registers fewer); dQ is added by
+// TMA reduce-adds of whole tiles, not by red.global.add.v2.f32 from
+// registers (those reductions took 4.4 of the 8.0 ms); a third stage did
+// not help; nor did freeing the two warpgroups of each other (each its own
+// keys' share of dQ, no barrier 1).
+// Ordering as the forward's: wgmma.fence before each batch, wait_group
+// before the registers are read, fence_regs, fence.proxy.async after
+// generic stores that the async proxy (wgmma, TMA) reads and before a stage
+// goes back.  Rounding: P and dS are rounded to bf16 once before they enter
+// the products that sum them (2^-9 a term); S, dP and every sum stay
+// float32.  dQ's float32 sums arrive by L2 reductions in an order that
+// changes from run to run; dK and dV are each summed by one thread in a
+// fixed order.
+// What bounds it: operations (1.37e12 FLOP at the llama3-8b training shape,
+// 1.39 ms).  What it does not yet do: the two warpgroups run in step (each
+// step's exponentials leave the tensor cores idle; FA3 ping-pongs them),
+// and no CTA is persistent.
 
-constexpr int kTcbRow = 128 + 8;         // bf16 a row of a DH-128 tile
-constexpr int kTcbPRow = kBwdKeys + 8;   // bf16 a row of P or dS
+constexpr int kBwdKeysTc = 128;            // keys a CTA: 64 a warpgroup
+constexpr int kBwdRowsTc = 64;             // query rows a step
+constexpr int kBwdStages = 2;              // (Q, dO) tiles in flight
+constexpr int kBwdTcThreads = 2 * 128;     // two warpgroups, 64 keys each
+constexpr int kDqBoxCols = kSwizzleRow / 4;   // float32 columns a dQ box
 
-struct BwdTcSmem {
-  __nv_bfloat16 a[kBwdRows][kTcbRow];    // Q of the tile's rows
-  __nv_bfloat16 b[kBwdRows][kTcbRow];    // dO of the tile's rows
-  __nv_bfloat16 k[kBwdKeys][kTcbRow];    // K of the key tile
-  __nv_bfloat16 v[kBwdKeys][kTcbRow];    // V of the key tile
-  __nv_bfloat16 p[kBwdRows][kTcbPRow];   // P (pass 2)
-  __nv_bfloat16 ds[kBwdRows][kTcbPRow];  // dS
-  float lse[kBwdRows];
-  float d[kBwdRows];
+struct BwdTcLayout {                       // byte offsets from a 1024 boundary
+  static constexpr int kKVBox = kBwdKeysTc * kSwizzleRow;   // 64 columns
+  static constexpr int kRowBox = kBwdRowsTc * kSwizzleRow;
+  static constexpr int kK = 0;                              // two boxes
+  static constexpr int kV = 2 * kKVBox;
+  static constexpr int kStage0 = 4 * kKVBox;
+  static constexpr int kStage = 4 * kRowBox;                // Q, then dO
+  static constexpr int kDS = kStage0 + kBwdStages * kStage;
+  static constexpr int kDSTile = kBwdKeysTc * kSwizzleRow;  // dS^T, MN-major
+  static constexpr int kDQ = kDS + 2 * kDSTile;   // a warpgroup: two boxes
+  static constexpr int kDQBlock = 2 * kRowBox;
+  static constexpr int kRowVals = kDQ + 2 * kDQBlock;       // lse2, D a stage
+  static constexpr int kBars = kRowVals + kBwdStages * 2 * kBwdRowsTc * 4;
+  // K/V's barrier, then kBwdStages "full", then kBwdStages "empty"
+  static constexpr int kBytes = kBars + 8 * (1 + 2 * kBwdStages) + 1024;
 };
 
-// rows row0 .. row0 + 63 of a (n_rows, 128) bf16 matrix, 16 bytes a copy;
-// rows past n_rows are zeros
-__device__ void load_tile_tc(__nv_bfloat16 (*dst)[kTcbRow],
-                             const __nv_bfloat16* src, int64_t row0,
-                             int64_t n_rows, int tid) {
-  for (int c = tid; c < kBwdRows * 16; c += kBwdThreads) {
-    const int r = c >> 4, c8 = (c & 15) * 8;
-    uint4 x = make_uint4(0u, 0u, 0u, 0u);
-    if (row0 + r < n_rows) {
-      x = *reinterpret_cast<const uint4*>(src + (row0 + r) * 128 + c8);
-    }
-    *reinterpret_cast<uint4*>(&dst[r][c8]) = x;
-  }
+__device__ __forceinline__ void sts_u32(uint32_t addr, uint32_t v) {
+  asm volatile("st.shared.b32 [%0], %1;" :: "r"(addr), "r"(v) : "memory");
+}
+__device__ __forceinline__ void sts_f2(uint32_t addr, float a, float b) {
+  asm volatile("st.shared.v2.f32 [%0], {%1, %2};"
+               :: "r"(addr), "f"(a), "f"(b) : "memory");
+}
+__device__ __forceinline__ float2 lds_f2(uint32_t addr) {
+  float2 v;
+  asm volatile("ld.shared.v2.f32 {%0, %1}, [%2];"
+               : "=f"(v.x), "=f"(v.y) : "r"(addr) : "memory");
+  return v;
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;" :: "n"(N) : "memory");
 }
 
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
+// d (64 x 64 f32) = (accumulate ? d : 0) + A B, A and B both MN-major in
+// shared memory (the transpose bits)
+__device__ __forceinline__ void wgmma_ss_mn(float (&d)[32], uint64_t a,
+                                            uint64_t b, int accumulate) {
   asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_u32(p)));
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " REGS32
+      ", %32, %33, p, 1, 1, 1, 1;\n}\n"
+      : ACC32(d)
+      : "l"(a), "l"(b), "r"(accumulate));
 }
 
-__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const void* p) {
+// d (64 x 128 f32) += A B, A K-major and B MN-major in shared memory
+__device__ __forceinline__ void wgmma_ss_bt(float (&d)[64], uint64_t a,
+                                            uint64_t b) {
   asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_u32(p)));
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " REGS64
+      ", %64, %65, p, 1, 1, 0, 1;\n}\n"
+      : ACC64(d)
+      : "l"(a), "l"(b), "r"(1));
 }
 
-// c (16 x 8, float32) += a (16 x 16) b (16 x 8), bf16 operands
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
+__device__ __forceinline__ void tma_reduce_add_3d(const CUtensorMap* map,
+                                                  uint32_t src, int c0,
+                                                  int c1, int c2) {
   asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+      "cp.reduce.async.bulk.tensor.3d.global.shared::cta.add.bulk_group"
+      " [%0, {%2, %3, %4}], [%1];"
+      :: "l"(reinterpret_cast<uint64_t>(map)), "r"(src), "r"(c0), "r"(c1),
+         "r"(c2)
+      : "memory");
 }
 
-// Where lane (lj = lane / 8, li = lane % 8) points ldmatrix.x4 for a 16 x 16
-// A fragment at (m0, k0) of a row-major [m][k] tile, and for two 8-wide B
-// fragments (n0, n0 + 8) x 16 k of a [n][k] tile; with .trans, for an A
-// fragment of a [k][m] tile and B fragments of a [k][n] tile.
-#define A_ROW(m0, k0) (m0) + (lj & 1) * 8 + li][(k0) + (lj >> 1) * 8
-#define B_ROW(n0, k0) (n0) + (lj >> 1) * 8 + li][(k0) + (lj & 1) * 8
-#define AT_ROW(m0, k0) (k0) + (lj >> 1) * 8 + li][(m0) + (lj & 1) * 8
-#define BT_ROW(n0, k0) (k0) + (lj & 1) * 8 + li][(n0) + (lj >> 1) * 8
+// cp.async of 4 bytes, zero-filled when !valid
+__device__ __forceinline__ void cp_async4(uint32_t dst, const float* src,
+                                          bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;"
+               :: "r"(dst), "l"(src), "r"(valid ? 4 : 0) : "memory");
+}
 
-// dS (and, with kStoreP, P) of the tile's rows q0.. against keys k0.., as
-// bf16 in shared memory, from a, b, k, v, lse and d already there: warp w
-// takes rows 16 (w / 2) .. + 16 and keys 32 (w % 2) .. + 32.
-template <bool kStoreP>
-__device__ void tile_ds_tc(BwdTcSmem& sm, int64_t q0, int64_t k0, int64_t S,
-                           int64_t T_len, float score_mul, int causal,
-                           int warp, int lane) {
-  const int lj = lane >> 3, li = lane & 7;
-  const int mr = 16 * (warp >> 1), nc = 32 * (warp & 1);
-  float s[4][4], dp[4][4];
-#pragma unroll
-  for (int j = 0; j < 4; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
-#pragma unroll
-  for (int kk = 0; kk < 128; kk += 16) {
-    uint32_t aq[4], ao[4];
-    ldsm_x4(aq, &sm.a[A_ROW(mr, kk)]);
-    ldsm_x4(ao, &sm.b[A_ROW(mr, kk)]);
-#pragma unroll
-    for (int jp = 0; jp < 2; ++jp) {
-      uint32_t bk[4], bv[4];
-      ldsm_x4(bk, &sm.k[B_ROW(nc + 16 * jp, kk)]);
-      ldsm_x4(bv, &sm.v[B_ROW(nc + 16 * jp, kk)]);
-      mma_bf16(s[2 * jp], aq, bk[0], bk[1]);
-      mma_bf16(s[2 * jp + 1], aq, bk[2], bk[3]);
-      mma_bf16(dp[2 * jp], ao, bv[0], bv[1]);
-      mma_bf16(dp[2 * jp + 1], ao, bv[2], bv[3]);
+// Stage s of the ring gets step (head, q0): Q and dO by TMA from lane 0,
+// the rows' lse and D by cp.async from every lane of the calling warp; all
+// complete on full[s].  Rows past S arrive as zeros (Q, dO, lse, D alike).
+__device__ __forceinline__ void bwd_load_step(
+    const CUtensorMap* tm_q, const CUtensorMap* tm_do, const float* lse,
+    const float* delta, uint32_t stage, uint32_t rows, uint32_t full,
+    int head, int q0, int S, int lane) {
+  using L = BwdTcLayout;
+  if (lane == 0) {
+    mbar_expect_tx(full, L::kStage);
+    for (int c = 0; c < 2; ++c) {
+      tma_load_3d(stage + c * L::kRowBox, tm_q, full, c * kBoxCols, q0, head);
+      tma_load_3d(stage + (2 + c) * L::kRowBox, tm_do, full, c * kBoxCols,
+                  q0, head);
     }
   }
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {            // rows lane / 4 and that + 8
-    const int r = mr + (lane >> 2) + 8 * h;
-    const int64_t qpos = q0 + r;
-    const float lse2 = sm.lse[r] * kLog2e, dr = sm.d[r];
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int c = nc + 8 * j + 2 * (lane & 3);
-      float p[2], ds[2];
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int64_t kpos = k0 + c + e;
-        const bool keep = qpos < S && kpos < T_len &&
-                          (!causal || kpos <= qpos);
-        p[e] = keep ? exp2f(fmaf(s[j][2 * h + e], score_mul, -lse2)) : 0.f;
-        ds[e] = p[e] * (dp[j][2 * h + e] - dr);
+  for (int r = lane; r < kBwdRowsTc; r += 32) {
+    const int pos = q0 + r < S ? q0 + r : S - 1;   // an address in bounds
+    const int64_t at = static_cast<int64_t>(head) * S + pos;
+    cp_async4(rows + 4 * r, lse + at, q0 + r < S);
+    cp_async4(rows + 4 * (kBwdRowsTc + r), delta + at, q0 + r < S);
+  }
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];"
+               :: "r"(full) : "memory");
+}
+
+// grid: (B KVH) x key tiles, the key tile fastest
+__global__ void __launch_bounds__(kBwdTcThreads, 1)
+flash_attention_bwd_wgmma(const __grid_constant__ CUtensorMap tm_q,
+                          const __grid_constant__ CUtensorMap tm_k,
+                          const __grid_constant__ CUtensorMap tm_v,
+                          const __grid_constant__ CUtensorMap tm_do,
+                          const __grid_constant__ CUtensorMap tm_dq,
+                          const float* __restrict__ lse,
+                          const float* __restrict__ delta,
+                          __nv_bfloat16* __restrict__ dk,
+                          __nv_bfloat16* __restrict__ dv, int G, int S,
+                          int T_len, float scale, float score_mul,
+                          int causal) {
+  using L = BwdTcLayout;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023) & ~1023u;   // swizzle atoms: 1024 B
+  const uint32_t bar_kv = base + L::kBars;
+  const uint32_t bar_full = bar_kv + 8;
+  const uint32_t bar_empty = bar_full + 8 * kBwdStages;
+  const int tid = threadIdx.x;
+  const int n_kt = (T_len + kBwdKeysTc - 1) / kBwdKeysTc;
+  const int bh = blockIdx.x / n_kt;
+  const int k0 = blockIdx.x % n_kt * kBwdKeysTc;
+  // with causal, query tiles before the key tile see none of its keys; the
+  // steps run from the last query tile down, the G heads inner
+  const int q_first = causal ? k0 : 0;
+  const int q_last = (S - 1) / kBwdRowsTc * kBwdRowsTc;
+  const int n_items = q_first < S ? G * ((q_last - q_first) / kBwdRowsTc + 1)
+                                  : 0;
+  const int wg = tid >> 7;
+  const bool loader = tid < 32;                // warp 0 refills the ring
+  const bool dq_lead = (tid & 127) == 0;       // the warpgroup's dQ adds
+
+  if (tid == 0) {
+    mbar_init(bar_kv, 1);
+    for (int s = 0; s < kBwdStages; ++s) {
+      mbar_init(bar_full + 8 * s, 1 + 32);
+      mbar_init(bar_empty + 8 * s, 8);          // one per warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+  // the loader's next step: (head bh G + g_ld, q0_ld)
+  int g_ld = 0, q0_ld = q_last;
+  if (loader && n_items > 0) {
+    if (tid == 0) {
+      mbar_expect_tx(bar_kv, 4 * L::kKVBox);
+      for (int c = 0; c < 2; ++c) {
+        tma_load_3d(base + L::kK + c * L::kKVBox, &tm_k, bar_kv,
+                    c * kBoxCols, k0, bh);
+        tma_load_3d(base + L::kV + c * L::kKVBox, &tm_v, bar_kv,
+                    c * kBoxCols, k0, bh);
       }
-      if (kStoreP) {
-        *reinterpret_cast<__nv_bfloat162*>(&sm.p[r][c]) =
-            __floats2bfloat162_rn(p[0], p[1]);
+    }
+    for (int it = 0; it < kBwdStages && it < n_items; ++it) {
+      bwd_load_step(&tm_q, &tm_do, lse, delta,
+                    base + L::kStage0 + it * L::kStage,
+                    base + L::kRowVals + it * 2 * kBwdRowsTc * 4,
+                    bar_full + 8 * it, bh * G + g_ld, q0_ld, S, tid);
+      if (++g_ld == G) {
+        g_ld = 0;
+        q0_ld -= kBwdRowsTc;
       }
-      *reinterpret_cast<__nv_bfloat162*>(&sm.ds[r][c]) =
-          __floats2bfloat162_rn(ds[0], ds[1]);
     }
   }
-}
 
-// the bf16 pair of acc rows (lane / 4, + 8) and columns 2 (lane % 4) of an
-// 8-wide block, times ``mul``, to out[row][col], rows past n_rows skipped
-__device__ __forceinline__ void store_acc_tc(__nv_bfloat16* out,
-                                             const float (&c)[4], int64_t row,
-                                             int64_t n_rows, int col,
-                                             float mul) {
-  if (row < n_rows) {
-    *reinterpret_cast<__nv_bfloat162*>(out + row * 128 + col) =
-        __floats2bfloat162_rn(c[0] * mul, c[1] * mul);
-  }
-  if (row + 8 < n_rows) {
-    *reinterpret_cast<__nv_bfloat162*>(out + (row + 8) * 128 + col) =
-        __floats2bfloat162_rn(c[2] * mul, c[3] * mul);
-  }
-}
+  // warpgroup wg holds keys k0 + 64 wg .. + 63
+  const int warp = (tid >> 5) & 3, lane = tid & 31, quad = lane & 3;
+  const int sw = lane >> 2;                    // a row's 128B-swizzle phase
+  const int key_lo = 64 * wg + 16 * warp + sw;         // and key_lo + 8
+  float acc_dk[64], acc_dv[64];
+#pragma unroll
+  for (int j = 0; j < 64; ++j) acc_dk[j] = acc_dv[j] = 0.f;
+  const uint32_t k_wg = base + L::kK + 64 * wg * kSwizzleRow;
+  const uint32_t v_wg = base + L::kV + 64 * wg * kSwizzleRow;
+  const uint32_t k_cols = base + L::kK + wg * L::kKVBox;   // dQ's B
+  const uint32_t dq_s = base + L::kDQ + wg * L::kDQBlock;
+  const bool edge = k0 + 64 * wg + 64 > T_len;
+  if (n_items > 0) mbar_wait(bar_kv, 0);
+  int g = 0, q0 = q_last;
+  for (int it = 0; it < n_items; ++it) {
+    const int s = it % kBwdStages;
+    const uint32_t q_s = base + L::kStage0 + s * L::kStage;
+    const uint32_t do_s = q_s + 2 * L::kRowBox;
+    const uint32_t ds_s = base + L::kDS + (it & 1) * L::kDSTile;
+    // this thread's query rows' lse at rv + 32 j, D at rv + 256 + 32 j:
+    // rows 8 j + 2 quad, + 1
+    const uint32_t rv = base + L::kRowVals + s * 2 * kBwdRowsTc * 4 + 8 * quad;
+    mbar_wait(bar_full + 8 * s, (it / kBwdStages) & 1);
+    __syncwarp();
 
-// grid (key tiles, KVH, B)
-__global__ void __launch_bounds__(kBwdThreads)
-flash_attention_bwd_dkdv_tc(const __nv_bfloat16* __restrict__ q,
-                            const __nv_bfloat16* __restrict__ k,
-                            const __nv_bfloat16* __restrict__ v,
-                            const __nv_bfloat16* __restrict__ dout,
-                            const float* __restrict__ lse,
-                            const float* __restrict__ delta,
-                            __nv_bfloat16* __restrict__ dk,
-                            __nv_bfloat16* __restrict__ dv, int kvh, int G,
-                            int64_t S, int64_t T_len, float scale,
-                            float score_mul, int causal) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  BwdTcSmem& sm = *reinterpret_cast<BwdTcSmem*>(smem_raw);
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int lj = lane >> 3, li = lane & 7;
-  const int kr = 16 * (warp >> 1), dc = 64 * (warp & 1);
-  const int64_t k0 = static_cast<int64_t>(blockIdx.x) * kBwdKeys;
-  const int64_t bh = static_cast<int64_t>(blockIdx.z) * kvh + blockIdx.y;
-  load_tile_tc(sm.k, k + bh * T_len * 128, k0, T_len, tid);
-  load_tile_tc(sm.v, v + bh * T_len * 128, k0, T_len, tid);
-  float acc_k[8][4], acc_v[8][4];
+    // S^T = K Q^T, then dP^T = V dO^T: 8 k-steps of 16 columns, 32 bytes
+    // apart inside a swizzled row; the first of each overwrites st, dpt
+    float st[32], dpt[32];
+    wgmma_fence();
 #pragma unroll
-  for (int j = 0; j < 8; ++j)
+    for (int kk = 0; kk < 8; ++kk) {
+      const uint32_t a_off = (kk / 4) * L::kKVBox + (kk % 4) * 32;
+      const uint32_t b_off = (kk / 4) * L::kRowBox + (kk % 4) * 32;
+      wgmma_ss(st, sw128_desc(k_wg + a_off, 16), sw128_desc(q_s + b_off, 16),
+               kk > 0);
+    }
+    wgmma_commit();
 #pragma unroll
-    for (int e = 0; e < 4; ++e) acc_k[j][e] = acc_v[j][e] = 0.f;
-  const int64_t q_begin = causal ? k0 - k0 % kBwdRows : 0;
-  for (int g = 0; g < G; ++g) {
-    const int64_t head = bh * G + g;
-    for (int64_t q0 = q_begin; q0 < S; q0 += kBwdRows) {
-      __syncthreads();                        // the last tile's readers
-      load_tile_tc(sm.a, q + head * S * 128, q0, S, tid);
-      load_tile_tc(sm.b, dout + head * S * 128, q0, S, tid);
-      if (tid < kBwdRows) {
-        const bool in = q0 + tid < S;
-        sm.lse[tid] = in ? lse[head * S + q0 + tid] : 0.f;
-        sm.d[tid] = in ? delta[head * S + q0 + tid] : 0.f;
-      }
-      __syncthreads();
-      tile_ds_tc<true>(sm, q0, k0, S, T_len, score_mul, causal, warp, lane);
-      __syncthreads();
-      // dV += P^T dO, dK += dS^T Q: keys kr .. + 16, columns dc .. + 64
+    for (int kk = 0; kk < 8; ++kk) {
+      const uint32_t a_off = (kk / 4) * L::kKVBox + (kk % 4) * 32;
+      const uint32_t b_off = (kk / 4) * L::kRowBox + (kk % 4) * 32;
+      wgmma_ss(dpt, sw128_desc(v_wg + a_off, 16),
+               sw128_desc(do_s + b_off, 16), kk > 0);
+    }
+    wgmma_commit();
+
+    // st[4 j + 2 i + e]: key k0 + key_lo + 8 i, query row q0 + 8 j + 2 quad
+    // + e; P^T in its place while dP^T is in flight
+    wgmma_wait<1>();
+    fence_regs(st);
+    const bool need_mask = edge || (causal && k0 + 64 * wg + 63 > q0);
 #pragma unroll
-      for (int qq = 0; qq < kBwdRows; qq += 16) {
-        uint32_t ap[4], as[4];
-        ldsm_x4_t(ap, &sm.p[AT_ROW(kr, qq)]);
-        ldsm_x4_t(as, &sm.ds[AT_ROW(kr, qq)]);
+    for (int j = 0; j < 8; ++j) {
+      const float2 l = lds_f2(rv + 32 * j);
 #pragma unroll
-        for (int jp = 0; jp < 4; ++jp) {
-          uint32_t bo[4], bq[4];
-          ldsm_x4_t(bo, &sm.b[BT_ROW(dc + 16 * jp, qq)]);
-          ldsm_x4_t(bq, &sm.a[BT_ROW(dc + 16 * jp, qq)]);
-          mma_bf16(acc_v[2 * jp], ap, bo[0], bo[1]);
-          mma_bf16(acc_v[2 * jp + 1], ap, bo[2], bo[3]);
-          mma_bf16(acc_k[2 * jp], as, bq[0], bq[1]);
-          mma_bf16(acc_k[2 * jp + 1], as, bq[2], bq[3]);
+      for (int i = 0; i < 2; ++i) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int x = 4 * j + 2 * i + e;
+          st[x] = fast_exp2(fmaf(st[x], score_mul, (e ? l.y : l.x) * -kLog2e));
+          if (need_mask) {
+            const int kpos = k0 + key_lo + 8 * i;
+            const int qpos = q0 + 8 * j + 2 * quad + e;
+            if (kpos >= T_len || (causal && kpos > qpos)) st[x] = 0.f;
+          }
         }
       }
     }
-  }
-  const int64_t row = k0 + kr + (lane >> 2);
+    wgmma_wait<0>();
+    fence_regs(dpt);
+    uint32_t pa[16];                    // P^T as 4 A fragments
 #pragma unroll
-  for (int j = 0; j < 8; ++j) {
-    const int col = dc + 8 * j + 2 * (lane & 3);
-    store_acc_tc(dk + bh * T_len * 128, acc_k[j], row, T_len, col, scale);
-    store_acc_tc(dv + bh * T_len * 128, acc_v[j], row, T_len, col, 1.f);
-  }
-}
-
-// grid (query tiles, KVH G, B)
-__global__ void __launch_bounds__(kBwdThreads)
-flash_attention_bwd_dq_tc(const __nv_bfloat16* __restrict__ q,
-                          const __nv_bfloat16* __restrict__ k,
-                          const __nv_bfloat16* __restrict__ v,
-                          const __nv_bfloat16* __restrict__ dout,
-                          const float* __restrict__ lse,
-                          const float* __restrict__ delta,
-                          __nv_bfloat16* __restrict__ dq, int kvh, int G,
-                          int64_t S, int64_t T_len, float scale,
-                          float score_mul, int causal) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  BwdTcSmem& sm = *reinterpret_cast<BwdTcSmem*>(smem_raw);
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int lj = lane >> 3, li = lane & 7;
-  const int mr = 16 * (warp >> 1), dc = 64 * (warp & 1);
-  const int64_t q0 = static_cast<int64_t>(blockIdx.x) * kBwdRows;
-  const int64_t head = static_cast<int64_t>(blockIdx.z) * kvh * G +
-                       blockIdx.y;
-  const int64_t bh = head / G;
-  load_tile_tc(sm.a, q + head * S * 128, q0, S, tid);
-  load_tile_tc(sm.b, dout + head * S * 128, q0, S, tid);
-  if (tid < kBwdRows) {
-    const bool in = q0 + tid < S;
-    sm.lse[tid] = in ? lse[head * S + q0 + tid] : 0.f;
-    sm.d[tid] = in ? delta[head * S + q0 + tid] : 0.f;
-  }
-  float acc[8][4];
+    for (int j = 0; j < 8; ++j) {
+      const float2 dd = lds_f2(rv + 4 * kBwdRowsTc + 32 * j);
 #pragma unroll
-  for (int j = 0; j < 8; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
-  const int64_t q_last = (q0 + kBwdRows < S ? q0 + kBwdRows : S) - 1;
-  const int64_t k_end = causal ? (T_len < q_last + 1 ? T_len : q_last + 1)
-                               : T_len;
-  for (int64_t k0 = 0; k0 < k_end; k0 += kBwdKeys) {
-    __syncthreads();                          // the last tile's readers
-    load_tile_tc(sm.k, k + bh * T_len * 128, k0, T_len, tid);
-    load_tile_tc(sm.v, v + bh * T_len * 128, k0, T_len, tid);
-    __syncthreads();
-    tile_ds_tc<false>(sm, q0, k0, S, T_len, score_mul, causal, warp, lane);
-    __syncthreads();
-    // dQ += dS K: rows mr .. + 16, columns dc .. + 64
-#pragma unroll
-    for (int kk = 0; kk < kBwdKeys; kk += 16) {
-      uint32_t a[4];
-      ldsm_x4(a, &sm.ds[A_ROW(mr, kk)]);
-#pragma unroll
-      for (int jp = 0; jp < 4; ++jp) {
-        uint32_t b[4];
-        ldsm_x4_t(b, &sm.k[BT_ROW(dc + 16 * jp, kk)]);
-        mma_bf16(acc[2 * jp], a, b[0], b[1]);
-        mma_bf16(acc[2 * jp + 1], a, b[2], b[3]);
+      for (int i = 0; i < 2; ++i) {
+        const int x = 4 * j + 2 * i;
+        pa[2 * j + i] = pack_bf16(st[x], st[x + 1]);
+        dpt[x] = st[x] * (dpt[x] - dd.x);
+        dpt[x + 1] = st[x + 1] * (dpt[x + 1] - dd.y);
       }
     }
-  }
-  const int64_t row = q0 + mr + (lane >> 2);
+
+    // dS^T to shared memory as bf16, 128B-swizzled: row = key, 64 query
+    // rows of 2 bytes a row (chunk j of 16 bytes holds query rows 8 j .. 8 j
+    // + 7); rows key_lo and key_lo + 8 share the swizzle phase sw.  K-major,
+    // the warpgroup's rows are dK's A; MN-major, all 128 are dQ's
 #pragma unroll
-  for (int j = 0; j < 8; ++j) {
-    store_acc_tc(dq + head * S * 128, acc[j], row, S,
-                 dc + 8 * j + 2 * (lane & 3), scale);
+    for (int i = 0; i < 2; ++i) {
+      const uint32_t off = (key_lo + 8 * i) * kSwizzleRow + 4 * quad;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const uint32_t at = off + ((j ^ sw) << 4);
+        const int x = 4 * j + 2 * i;
+        sts_u32(ds_s + at, pack_bf16(dpt[x], dpt[x + 1]));
+      }
+    }
+    asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+    asm volatile("bar.sync 1, %0;" :: "n"(256) : "memory");
+
+    // dV += P^T dO (P^T from registers), dK += dS^T Q: 4 k-steps of 16
+    // query rows, 32 bytes apart in a row of dS^T, 2048 bytes apart in dO
+    // and Q (B MN-major, its two 64-column boxes kRowBox apart)
+    fence_regs(acc_dv);
+    fence_regs(acc_dk);
+    fence_regs(pa);
+    wgmma_fence();
+#pragma unroll
+    for (int kb = 0; kb < 4; ++kb) {
+      wgmma_rs(acc_dv, pa + 4 * kb,
+               sw128_desc(do_s + kb * 16 * kSwizzleRow, L::kRowBox));
+    }
+#pragma unroll
+    for (int kb = 0; kb < 4; ++kb) {
+      wgmma_ss_bt(acc_dk,
+                  sw128_desc(ds_s + 64 * wg * kSwizzleRow + kb * 32, 16),
+                  sw128_desc(q_s + kb * 16 * kSwizzleRow, L::kRowBox));
+    }
+
+    // dQ (64 rows x this warpgroup's 64 columns) = dS K over the 128 keys,
+    // both warpgroups' dS^T: 8 k-steps of 16 keys, 2048 bytes apart in dS^T
+    // and in K's box wg; the three products are one commit group.  dQ takes
+    // st's registers (P^T is packed by now): one home for both
+    float (&dq)[32] = st;
+#pragma unroll
+    for (int kk = 0; kk < 8; ++kk) {
+      wgmma_ss_mn(dq, sw128_desc(ds_s + kk * 16 * kSwizzleRow, L::kDSTile),
+                  sw128_desc(k_cols + kk * 16 * kSwizzleRow, L::kKVBox),
+                  kk > 0);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(acc_dv);
+    fence_regs(acc_dk);
+    fence_regs(pa);
+    fence_regs(dq);
+    asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+    __syncwarp();
+    if (lane == 0) mbar_arrive(bar_empty + 8 * s);
+    // once every warp is done with stage s, the loader refills it
+    if (loader && it + kBwdStages < n_items) {
+      mbar_wait(bar_empty + 8 * s, (it / kBwdStages) & 1);
+      bwd_load_step(&tm_q, &tm_do, lse, delta, q_s,
+                    base + L::kRowVals + s * 2 * kBwdRowsTc * 4,
+                    bar_full + 8 * s, bh * G + g_ld, q0_ld, S, lane);
+      if (++g_ld == G) {
+        g_ld = 0;
+        q0_ld -= kBwdRowsTc;
+      }
+    }
+
+    // dq[4 j + 2 i + e]: query row 16 warp + sw + 8 i of the tile, column
+    // 8 j + 2 quad + e of the warpgroup's 64: box j / 4, 16-byte chunk
+    // 2 (j % 4) + quad / 2 of the row, swizzled
+    if (dq_lead) {                      // the last step's adds have read it
+      asm volatile("cp.async.bulk.wait_group.read 0;" ::: "memory");
+    }
+    asm volatile("bar.sync %0, %1;" :: "r"(2 + wg), "n"(128) : "memory");
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const uint32_t row = dq_s + (16 * warp + sw + 8 * i) * kSwizzleRow +
+                           8 * (quad & 1);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        sts_f2(row + (j >> 2) * L::kRowBox +
+                   (((2 * (j & 3) + (quad >> 1)) ^ sw) << 4),
+               dq[4 * j + 2 * i], dq[4 * j + 2 * i + 1]);
+      }
+    }
+    asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+    asm volatile("bar.sync %0, %1;" :: "r"(2 + wg), "n"(128) : "memory");
+    if (dq_lead) {
+      for (int b = 0; b < 2; ++b) {
+        tma_reduce_add_3d(&tm_dq, dq_s + b * L::kRowBox,
+                          64 * wg + b * kDqBoxCols, q0, bh * G + g);
+      }
+      asm volatile("cp.async.bulk.commit_group;" ::: "memory");
+    }
+    if (++g == G) {
+      g = 0;
+      q0 -= kBwdRowsTc;
+    }
+  }
+  if (dq_lead) asm volatile("cp.async.bulk.wait_group 0;" ::: "memory");
+
+  // acc_dk[4 j + 2 i + e], acc_dv likewise: key k0 + key_lo + 8 i, column
+  // 8 j + 2 quad + e
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int kpos = k0 + key_lo + 8 * i;
+    if (kpos >= T_len) continue;
+    const int64_t off = (static_cast<int64_t>(bh) * T_len + kpos) * 128;
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      const int c = 8 * j + 2 * quad;
+      *reinterpret_cast<__nv_bfloat162*>(dk + off + c) =
+          __floats2bfloat162_rn(acc_dk[4 * j + 2 * i] * scale,
+                                acc_dk[4 * j + 2 * i + 1] * scale);
+      *reinterpret_cast<__nv_bfloat162*>(dv + off + c) =
+          __floats2bfloat162_rn(acc_dv[4 * j + 2 * i],
+                                acc_dv[4 * j + 2 * i + 1]);
+    }
   }
 }
 
-#undef A_ROW
-#undef B_ROW
-#undef AT_ROW
-#undef BT_ROW
+// dq = bf16(acc scale), four values a thread and step
+__global__ void __launch_bounds__(256)
+flash_attention_bwd_dq_round(const float* __restrict__ acc,
+                             __nv_bfloat16* __restrict__ dq, int64_t n4,
+                             float scale) {
+  for (int64_t i = static_cast<int64_t>(blockIdx.x) * 256 + threadIdx.x;
+       i < n4; i += static_cast<int64_t>(gridDim.x) * 256) {
+    const float4 x = reinterpret_cast<const float4*>(acc)[i];
+    reinterpret_cast<uint2*>(dq)[i] =
+        make_uint2(pack_bf16(x.x * scale, x.y * scale),
+                   pack_bf16(x.z * scale, x.w * scale));
+  }
+}
+
+// dQ's float32 workspace (128, S, heads), reduced into in 128B-swizzled
+// boxes of (32, 64, 1)
+bool encode_dq_acc(PFN_cuTensorMapEncodeTiled_v12000 encode, CUtensorMap* map,
+                   void* ptr, uint64_t S, uint64_t heads) {
+  const cuuint64_t dims[3] = {128, S, heads};
+  const cuuint64_t strides[2] = {128 * 4, 128 * S * 4};      // bytes
+  const cuuint32_t box[3] = {kDqBoxCols, kBwdRowsTc, 1};
+  const cuuint32_t elem[3] = {1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3, ptr, dims, strides,
+                box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+int launch_bwd_bf16(const void* q, const void* k, const void* v,
+                    const void* o, const void* dout, const float* lse,
+                    void* dq, void* dk, void* dv, float* delta, float* dq_acc,
+                    int64_t B, int64_t KVH, int64_t G, int64_t S,
+                    int64_t T_len, float scale, int causal, cudaStream_t s) {
+  const int64_t n_rows = B * KVH * G * S;
+  const int64_t rows_a_cta = kBwdThreads / 32;
+  const int64_t k_tiles = (T_len + kBwdKeysTc - 1) / kBwdKeysTc;
+  if (S > INT_MAX || T_len > INT_MAX || B * KVH * G > INT_MAX ||
+      k_tiles * B * KVH > INT_MAX ||
+      (n_rows + rows_a_cta - 1) / rows_a_cta > INT_MAX) {
+    return static_cast<int>(cudaErrorInvalidConfiguration);
+  }
+  const PFN_cuTensorMapEncodeTiled_v12000 encode = tensor_map_encoder();
+  if (encode == nullptr) return static_cast<int>(cudaErrorNotSupported);
+  CUtensorMap tm_q, tm_k, tm_v, tm_do, tm_dq;
+  if (!encode_3d(encode, &tm_q, q, 128, S, B * KVH * G, kBwdRowsTc, 1) ||
+      !encode_3d(encode, &tm_do, dout, 128, S, B * KVH * G, kBwdRowsTc, 1) ||
+      !encode_3d(encode, &tm_k, k, 128, T_len, B * KVH, kBwdKeysTc, 1) ||
+      !encode_3d(encode, &tm_v, v, 128, T_len, B * KVH, kBwdKeysTc, 1) ||
+      !encode_dq_acc(encode, &tm_dq, dq_acc, S, B * KVH * G)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  flash_attention_bwd_delta<__nv_bfloat16, 128>
+      <<<static_cast<unsigned>((n_rows + rows_a_cta - 1) / rows_a_cta),
+         kBwdThreads, 0, s>>>(static_cast<const __nv_bfloat16*>(o),
+                              static_cast<const __nv_bfloat16*>(dout), delta,
+                              dq_acc, n_rows);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  constexpr int smem = BwdTcLayout::kBytes;
+  err = cudaFuncSetAttribute(flash_attention_bwd_wgmma,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  flash_attention_bwd_wgmma<<<static_cast<unsigned>(k_tiles * B * KVH),
+                              kBwdTcThreads, smem, s>>>(
+      tm_q, tm_k, tm_v, tm_do, tm_dq, lse, delta,
+      static_cast<__nv_bfloat16*>(dk), static_cast<__nv_bfloat16*>(dv),
+      static_cast<int>(G), static_cast<int>(S),
+      static_cast<int>(T_len), scale, scale * kLog2e, causal);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int64_t n4 = n_rows * 128 / 4;
+  const int64_t blocks = (n4 + 255) / 256;
+  flash_attention_bwd_dq_round<<<static_cast<unsigned>(
+                                     blocks < 132 * 16 ? blocks : 132 * 16),
+                                 256, 0, s>>>(
+      dq_acc, static_cast<__nv_bfloat16*>(dq), n4, scale);
+  return static_cast<int>(cudaGetLastError());
+}
 
 template <typename T, int DH>
 int launch_bwd(const void* q, const void* k, const void* v, const void* o,
@@ -1557,66 +1820,36 @@ int launch_bwd(const void* q, const void* k, const void* v, const void* o,
   const unsigned delta_ctas =
       static_cast<unsigned>((n_rows + rows_a_cta - 1) / rows_a_cta);
   flash_attention_bwd_delta<T, DH><<<delta_ctas, kBwdThreads, 0, s>>>(
-      static_cast<const T*>(o), tdo, delta, n_rows);
+      static_cast<const T*>(o), tdo, delta, nullptr, n_rows);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   const float score_mul = scale * kLog2e;
-  if constexpr (std::is_same_v<T, __nv_bfloat16>) {
-    static_assert(DH == 128, "the tensor-core passes take DH 128");
-    const int tc_smem = static_cast<int>(sizeof(BwdTcSmem));
-    err = cudaFuncSetAttribute(flash_attention_bwd_dkdv_tc,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               tc_smem);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    flash_attention_bwd_dkdv_tc<<<dim3(static_cast<unsigned>(k_tiles),
-                                       static_cast<unsigned>(KVH),
-                                       static_cast<unsigned>(B)),
-                                  kBwdThreads, tc_smem, s>>>(
-        tq, tk, tv, tdo, lse, delta, static_cast<T*>(dk),
-        static_cast<T*>(dv), static_cast<int>(KVH), static_cast<int>(G), S,
-        T_len, scale, score_mul, causal);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return static_cast<int>(err);
-    err = cudaFuncSetAttribute(flash_attention_bwd_dq_tc,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               tc_smem);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    flash_attention_bwd_dq_tc<<<dim3(static_cast<unsigned>(q_tiles),
-                                     static_cast<unsigned>(KVH * G),
-                                     static_cast<unsigned>(B)),
-                                kBwdThreads, tc_smem, s>>>(
-        tq, tk, tv, tdo, lse, delta, static_cast<T*>(dq),
-        static_cast<int>(KVH), static_cast<int>(G), S, T_len, scale,
-        score_mul, causal);
-    return static_cast<int>(cudaGetLastError());
-  } else {
-    const int smem = static_cast<int>(sizeof(BwdSmem<DH>));
-    err = cudaFuncSetAttribute(flash_attention_bwd_dkdv<T, DH>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               smem);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    flash_attention_bwd_dkdv<T, DH><<<dim3(static_cast<unsigned>(k_tiles),
-                                           static_cast<unsigned>(KVH),
-                                           static_cast<unsigned>(B)),
-                                      kBwdThreads, smem, s>>>(
-        tq, tk, tv, tdo, lse, delta, static_cast<T*>(dk), static_cast<T*>(dv),
-        static_cast<int>(KVH), static_cast<int>(G), S, T_len, scale, score_mul,
-        causal);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return static_cast<int>(err);
-    err = cudaFuncSetAttribute(flash_attention_bwd_dq<T, DH>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               smem);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    flash_attention_bwd_dq<T, DH><<<dim3(static_cast<unsigned>(q_tiles),
-                                         static_cast<unsigned>(KVH * G),
+  const int smem = static_cast<int>(sizeof(BwdSmem<DH>));
+  err = cudaFuncSetAttribute(flash_attention_bwd_dkdv<T, DH>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  flash_attention_bwd_dkdv<T, DH><<<dim3(static_cast<unsigned>(k_tiles),
+                                         static_cast<unsigned>(KVH),
                                          static_cast<unsigned>(B)),
                                     kBwdThreads, smem, s>>>(
-        tq, tk, tv, tdo, lse, delta, static_cast<T*>(dq),
-        static_cast<int>(KVH), static_cast<int>(G), S, T_len, scale, score_mul,
-        causal);
-    return static_cast<int>(cudaGetLastError());
-  }
+      tq, tk, tv, tdo, lse, delta, static_cast<T*>(dk), static_cast<T*>(dv),
+      static_cast<int>(KVH), static_cast<int>(G), S, T_len, scale, score_mul,
+      causal);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = cudaFuncSetAttribute(flash_attention_bwd_dq<T, DH>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  flash_attention_bwd_dq<T, DH><<<dim3(static_cast<unsigned>(q_tiles),
+                                       static_cast<unsigned>(KVH * G),
+                                       static_cast<unsigned>(B)),
+                                  kBwdThreads, smem, s>>>(
+      tq, tk, tv, tdo, lse, delta, static_cast<T*>(dq),
+      static_cast<int>(KVH), static_cast<int>(G), S, T_len, scale, score_mul,
+      causal);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -1695,16 +1928,18 @@ extern "C" int flash_attention_bf16(const void* q, const void* k,
 }
 
 // The backward: dq (as q), dk and dv (as k) from q, k, v, out, dout and the
-// forward's lse, with delta a float32 scratch of B KVH G S; no window or
-// softcap.  Returns the first failing launch's cudaError_t (0 on success).
+// forward's lse, with delta a float32 scratch of B KVH G S and (bfloat16
+// only; null for float32) dq_acc a float32 scratch of B KVH G S 128; no
+// window or softcap.  Returns the first failing launch's cudaError_t (0 on
+// success).
 extern "C" int flash_attention_bwd_f32(const void* q, const void* k,
                                        const void* v, const void* out,
                                        const void* dout, const void* lse,
                                        void* dq, void* dk, void* dv,
-                                       void* delta, int64_t B, int64_t KVH,
-                                       int64_t G, int64_t S, int64_t T,
-                                       int64_t DH, float scale, int causal,
-                                       void* stream) {
+                                       void* delta, void* dq_acc, int64_t B,
+                                       int64_t KVH, int64_t G, int64_t S,
+                                       int64_t T, int64_t DH, float scale,
+                                       int causal, void* stream) {
   if (B <= 0 || KVH <= 0 || S <= 0) return 0;
   if (G < 1 || T < 1 || DH != 128) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -1720,17 +1955,16 @@ extern "C" int flash_attention_bwd_bf16(const void* q, const void* k,
                                         const void* v, const void* out,
                                         const void* dout, const void* lse,
                                         void* dq, void* dk, void* dv,
-                                        void* delta, int64_t B, int64_t KVH,
-                                        int64_t G, int64_t S, int64_t T,
-                                        int64_t DH, float scale, int causal,
-                                        void* stream) {
+                                        void* delta, void* dq_acc, int64_t B,
+                                        int64_t KVH, int64_t G, int64_t S,
+                                        int64_t T, int64_t DH, float scale,
+                                        int causal, void* stream) {
   if (B <= 0 || KVH <= 0 || S <= 0) return 0;
-  if (G < 1 || T < 1 || DH != 128) {
+  if (G < 1 || T < 1 || DH != 128 || dq_acc == nullptr) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  return launch_bwd<__nv_bfloat16, 128>(q, k, v, out, dout,
-                                        static_cast<const float*>(lse), dq,
-                                        dk, dv, static_cast<float*>(delta),
-                                        B, KVH, G, S, T, scale, causal,
-                                        static_cast<cudaStream_t>(stream));
+  return launch_bwd_bf16(q, k, v, out, dout, static_cast<const float*>(lse),
+                         dq, dk, dv, static_cast<float*>(delta),
+                         static_cast<float*>(dq_acc), B, KVH, G, S, T, scale,
+                         causal, static_cast<cudaStream_t>(stream));
 }

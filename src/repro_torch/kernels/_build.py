@@ -117,9 +117,10 @@ _SIGNATURES = {
         # causal, window, softcap, stream
         **{f"flash_attention_{t}": (_P,) * 5 + (_I64,) * 6 + (
             _F32, _I32, _I64, _F32, _P) for t in ("f32", "bf16")},
-        # q, k, v, out, dout, lse, dq, dk, dv, delta, B, KVH, G, S, T, DH,
-        # scale, causal, stream
-        **{f"flash_attention_bwd_{t}": (_P,) * 10 + (_I64,) * 6 + (
+        # q, k, v, out, dout, lse, dq, dk, dv, delta, dq_acc (bf16's float32
+        # dQ workspace; null for f32), B, KVH, G, S, T, DH, scale, causal,
+        # stream
+        **{f"flash_attention_bwd_{t}": (_P,) * 11 + (_I64,) * 6 + (
             _F32, _I32, _P) for t in ("f32", "bf16")},
     },
     "rglru_scan": {

@@ -21,8 +21,9 @@ through the reference; here, where q, k or v requires grad on CUDA, the
 call goes through ``FlashAttentionFn``: the forward kernel also writes each
 query row's log-sum-exp (float32, (B, KVH, G, S)), and ``backward``
 launches the backward kernel (``flash_attention_bwd``: dQ, dK, dV from q,
-k, v, out, dO and that lse, FlashAttention-2's equations, bfloat16 on the
-tensor cores, float32 on the CUDA cores; counted as
+k, v, out, dO and that lse, FlashAttention-2's equations; bfloat16 in one
+wgmma pass fed by TMA, dQ summed in a float32 workspace of q's shape that
+the wrapper allocates; float32 on the CUDA cores; counted as
 ``flash_attention_bwd``, one a call).  Both are built at head size 128 only
 (``BWD_HEAD_DIMS``), without window or softcap: on CUDA any other of those
 with grad raises, with no fallback.  Without grad the call writes no lse.
@@ -192,13 +193,17 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, scale: float,
     _aligned(q=q, k=k, v=v, o=o, do=do)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     delta = torch.empty((bsz, kvh, g, s), dtype=torch.float32, device=dev)
+    # bf16 sums dQ in float32 by L2 reductions (its delta pass zeroes it)
+    dq_acc = (torch.empty(q.shape, dtype=torch.float32, device=dev)
+              if q.dtype == torch.bfloat16 else None)
     if bsz * kvh * s:
         _build.launch("flash_attention_bwd", dev, "flash_attention",
                       _BWD_ENTRY[q.dtype], q.data_ptr(), k.data_ptr(),
                       v.data_ptr(), o.data_ptr(), do.data_ptr(),
                       lse.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-                      dv.data_ptr(), delta.data_ptr(), bsz, kvh, g, s, t_len,
-                      dh, float(scale), int(bool(causal)))
+                      dv.data_ptr(), delta.data_ptr(),
+                      None if dq_acc is None else dq_acc.data_ptr(), bsz,
+                      kvh, g, s, t_len, dh, float(scale), int(bool(causal)))
     else:
         dk.zero_()
         dv.zero_()

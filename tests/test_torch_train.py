@@ -168,7 +168,12 @@ def test_token_pipeline_equals_jax_bit_for_bit(vocab, seq, batch, seed):
 FLASH_CASES = [  # B, KVH, G, S, T, causal
     (1, 2, 3, 24, 24, True), (2, 1, 4, 16, 40, True),
     (1, 2, 2, 40, 16, True), (2, 2, 3, 24, 40, False),
-    (1, 1, 1, 32, 32, False)]
+    (1, 1, 1, 32, 32, False),
+    # G 12 and 16 (the bf16 kernel's CTA walks the G heads), at lengths
+    # that are no multiple of a block: 130 halves the JAX block to 2
+    (1, 1, 12, 13, 13, True), (1, 2, 16, 9, 17, False),
+    (2, 1, 12, 17, 7, True), (1, 1, 16, 1, 5, True),
+    (1, 1, 12, 130, 16, False), (1, 1, 16, 16, 130, True)]
 
 
 def _flash_inputs(b, kvh, g, s, t, dh=16, seed=0):
