@@ -1,8 +1,8 @@
 """ModelConfig: the JAX package's architecture dataclass, copied.
 
-The same fields and defaults as ``repro/configs/base.py`` (copied, not
-imported: the port never imports ``repro``), so a config module of the
-JAX package ports verbatim.  ``ARCH_IDS`` lists the architectures the port
+The same fields, defaults and derived counts as ``repro/configs/base.py``
+(copied, not imported: the port never imports ``repro``), so a config
+module of the JAX package ports verbatim.  ``ARCH_IDS`` lists the architectures the port
 runs; any other architecture of the JAX package raises, naming the ROADMAP
 item that will port it.
 """
@@ -102,6 +102,32 @@ class ModelConfig:
     @property
     def dh(self) -> int:
         return self.head_dim or (self.d_model // max(1, self.n_heads))
+
+    @property
+    def is_subquadratic(self) -> bool:
+        """Whether the arch runs the 500k context (``long_500k``): its
+        mixers keep no cache that grows with every position."""
+        return self.family in ("ssm", "hybrid")
+
+    def param_count(self) -> int:
+        """Total parameters (analytic: ``models.zoo.count_params``)."""
+        from ..models.zoo import count_params
+        return count_params(self)
+
+    def active_param_count(self) -> int:
+        """Parameters a token runs (a MoE model's top_k experts)."""
+        from ..models.zoo import count_params
+        return count_params(self, active_only=True)
+
+
+def shape_skips(cfg: ModelConfig, shape: ShapeConfig) -> str | None:
+    """Why the (arch, shape) cell is skipped, or None: ``long_500k`` only
+    for sub-quadratic archs, as the JAX package's ``shape_skips``."""
+    if shape.name == "long_500k" and not cfg.is_subquadratic:
+        return ("full-attention arch (global attention layers present): "
+                "524k context requires sub-quadratic attention — skipped "
+                "per assignment; see DESIGN.md §6")
+    return None
 
 
 def _module(arch_id: str):

@@ -12,8 +12,8 @@
 // * softcap when softcap > 0.  m and l are float32; the output is divided by
 // max(l, 1e-30) and rounded once.  Offsets are 64-bit.
 //
-// Given an lse pointer, each body's instance with kLse (built at DH 128
-// only, for training; the template flag leaves the serve instances' code
+// Given an lse pointer, each body's instance with kLse (built at DH 64 and
+// 128 only, for training; the template flag leaves the serve instances' code
 // as it was) also writes every query row's log-sum-exp of its masked,
 // scaled scores, in natural units, float32, (B, KVH, G, S): the row max
 // plus the log of the row sum, which the backward (the last section of
@@ -929,7 +929,20 @@ bool bad_args(int64_t G, int64_t T_len, int64_t window) {
 // dout and the forward's row log-sum-exp lse (natural units of the scaled
 // score): D = rowsum(dout out), P = exp(scale S - lse) (0 where masked),
 // dP = dO V^T, dS = P (dP - D); dV = P^T dO, dK = scale dS^T Q, dQ = scale
-// dS K.  Only DH 128 is built; the wrapper refuses window and softcap.
+// dS K.  Built at DH 64 and 128.  With a softcap c the scores are capped,
+// s = tanh(x scale / c) c, P is formed from them, and the chain rule through
+// the cap multiplies dS by 1 - (s / c)^2 before dQ and dK take it.  With a
+// window, keys with i - j >= window are masked as in the forward, and the
+// loops skip the tiles that the window empties.  A query row that the window
+// leaves no key (i >= T + window - 1, only where S > T) took the mean of V
+// in the forward, as the reference's -1e30 scores give it: those scores are
+// constants, so such a row adds dO / T to every key's dV and nothing to dQ
+// or dK; the passes that sum dV add it once after their loops
+// (keyless_dv), and P = 0 there inside them (its lse is -1e30, so exp(s -
+// lse) would be 1: the mask, not the formula, decides).  The plain,
+// windowed and softcapped variants are template instances (kExt for the
+// CUDA-core passes; kCap, kWin for the wgmma pass), so the plain instances'
+// code is the same as without the options.
 //
 // What bounds it: operations.  The function is five products of the
 // forward's size (Q K^T, dO V^T, P^T dO, dS^T Q, dS K: 2.5 x the forward's
@@ -1017,13 +1030,24 @@ __device__ __forceinline__ float dot4(const float4& a, const float4& b) {
   return a.x * b.x + a.y * b.y + a.z * b.z + a.w * b.w;
 }
 
+// The mask and the softcap of a backward instance: with kExt a window (> 0:
+// keys with i - j < window) and a softcap (> 0: cap_in = scale / softcap,
+// cap_out = softcap log2(e)), read at run time; without, neither.
+struct BwdOpts {
+  int64_t window;
+  float cap_in, cap_out;
+};
+
 // dS (and, with kStoreP, P) of the tile's rows q0.. against keys k0.. into
 // shared memory, from a, b, k, v, lse and d already there.  Thread (ty, tx)
 // takes rows ty + 16 i and keys tx + 16 j (neighbouring threads on
-// neighbouring rows of k and v: conflict-free float4 loads).
-template <int DH, bool kStoreP>
+// neighbouring rows of k and v: conflict-free float4 loads).  With a
+// softcap, P = exp2(tanh(s cap_in) cap_out - lse log2(e)) and dS takes the
+// cap's derivative, 1 - tanh^2, before it is stored.
+template <int DH, bool kStoreP, bool kExt>
 __device__ void tile_ds(BwdSmem<DH>& sm, int64_t q0, int64_t k0, int64_t S,
-                        int64_t T_len, float score_mul, int causal, int tid) {
+                        int64_t T_len, float score_mul, int causal,
+                        const BwdOpts& opt, int tid) {
   const int ty = tid >> 4, tx = tid & 15;
   float s[4][4], dp[4][4];
 #pragma unroll
@@ -1058,10 +1082,19 @@ __device__ void tile_ds(BwdSmem<DH>& sm, int64_t q0, int64_t k0, int64_t S,
     for (int j = 0; j < 4; ++j) {
       const int c = tx + 16 * j;
       const int64_t kpos = k0 + c;
-      const bool keep = qpos < S && kpos < T_len && (!causal || kpos <= qpos);
-      const float p = keep ? exp2f(fmaf(s[i][j], score_mul, -lse2)) : 0.f;
+      bool keep = qpos < S && kpos < T_len && (!causal || kpos <= qpos);
+      float x = fmaf(s[i][j], score_mul, -lse2), fac = 1.f;
+      if (kExt) {
+        keep = keep && (opt.window <= 0 || qpos - kpos < opt.window);
+        if (opt.cap_in > 0.f) {
+          const float t = tanhf(s[i][j] * opt.cap_in);
+          x = fmaf(t, opt.cap_out, -lse2);
+          fac = 1.f - t * t;
+        }
+      }
+      const float p = keep ? exp2f(x) : 0.f;
       if (kStoreP) sm.p[r][c] = p;
-      sm.ds[r][c] = p * (dp[i][j] - dr);
+      sm.ds[r][c] = p * (dp[i][j] - dr) * fac;
     }
   }
 }
@@ -1096,14 +1129,43 @@ flash_attention_bwd_delta(const T* __restrict__ out, const T* __restrict__ dout,
   }
 }
 
+// Whether some query row of S sees no key of T under the window (rows from
+// T + window - 1 on): the reference gives such a row P = 1 / T over every
+// key (its -1e30 scores are constants), so dV += dO / T, dQ and dK nothing.
+__host__ __device__ __forceinline__ bool has_keyless_rows(int64_t S,
+                                                          int64_t T_len,
+                                                          int64_t window) {
+  return window > 0 && S - 1 >= T_len + window - 1;
+}
+
+// sum[c] = the sum over the G heads of one (batch row, KV head) and over
+// the rows that see no key of dout's column c, over T (the dV that every
+// key gets from those rows); the caller synchronises
+template <int DH, typename T>
+__device__ void keyless_dv(const T* __restrict__ dout, int64_t head0, int G,
+                           int64_t S, int64_t T_len, int64_t window,
+                           float* sum, int tid, int threads) {
+  for (int c = tid; c < DH; c += threads) {
+    float acc = 0.f;
+    for (int g = 0; g < G; ++g) {
+      const T* rows = dout + (head0 + g) * S * DH;
+      for (int64_t i = T_len + window - 1; i < S; ++i) {
+        acc += static_cast<float>(rows[i * DH + c]);
+      }
+    }
+    sum[c] = acc / static_cast<float>(T_len);
+  }
+}
+
 // grid (key tiles, KVH, B)
-template <typename T, int DH>
+template <typename T, int DH, bool kExt>
 __global__ void __launch_bounds__(kBwdThreads)
 flash_attention_bwd_dkdv(const T* __restrict__ q, const T* __restrict__ k,
          const T* __restrict__ v, const T* __restrict__ dout,
          const float* __restrict__ lse, const float* __restrict__ delta,
          T* __restrict__ dk, T* __restrict__ dv, int kvh, int G, int64_t S,
-         int64_t T_len, float scale, float score_mul, int causal) {
+         int64_t T_len, float scale, float score_mul, int causal,
+         BwdOpts opt) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   BwdSmem<DH>& sm = *reinterpret_cast<BwdSmem<DH>*>(smem_raw);
   constexpr int kC = DH / 64;                 // float4 column groups a thread
@@ -1118,11 +1180,17 @@ flash_attention_bwd_dkdv(const T* __restrict__ q, const T* __restrict__ k,
   for (int j = 0; j < 4; ++j)
 #pragma unroll
     for (int e = 0; e < 4 * kC; ++e) acc_k[j][e] = acc_v[j][e] = 0.f;
-  // with causal, query tiles before the key tile see none of its keys
+  // with causal, query tiles before the key tile see none of its keys; with
+  // a window, rows past its last key + window - 1 none either
   const int64_t q_begin = causal ? k0 - k0 % kBwdRows : 0;
+  int64_t q_end = S;
+  if (kExt && opt.window > 0) {
+    const int64_t k_hi = (k0 + kBwdKeys < T_len ? k0 + kBwdKeys : T_len) - 1;
+    q_end = k_hi + opt.window < S ? k_hi + opt.window : S;
+  }
   for (int g = 0; g < G; ++g) {
     const int64_t head = bh * G + g;          // rows of q, dout, lse, delta
-    for (int64_t q0 = q_begin; q0 < S; q0 += kBwdRows) {
+    for (int64_t q0 = q_begin; q0 < q_end; q0 += kBwdRows) {
       __syncthreads();                        // the last tile's readers
       load_tile<DH>(sm.a, q + head * S * DH, q0, S, tid);
       load_tile<DH>(sm.b, dout + head * S * DH, q0, S, tid);
@@ -1132,7 +1200,8 @@ flash_attention_bwd_dkdv(const T* __restrict__ q, const T* __restrict__ k,
         sm.d[tid] = in ? delta[head * S + q0 + tid] : 0.f;
       }
       __syncthreads();
-      tile_ds<DH, true>(sm, q0, k0, S, T_len, score_mul, causal, tid);
+      tile_ds<DH, true, kExt>(sm, q0, k0, S, T_len, score_mul, causal, opt,
+                              tid);
       __syncthreads();
       // dV += P^T dO, dK += dS^T Q: keys ky + 16 j, columns dx 4 + 64 c
 #pragma unroll 4
@@ -1164,6 +1233,21 @@ flash_attention_bwd_dkdv(const T* __restrict__ q, const T* __restrict__ k,
       }
     }
   }
+  if (kExt && has_keyless_rows(S, T_len, opt.window)) {
+    __syncthreads();                          // the last tile's readers
+    float* sum = &sm.p[0][0];                 // P is free: DH floats
+    keyless_dv<DH>(dout, bh * G, G, S, T_len, opt.window, sum, tid,
+                   kBwdThreads);
+    __syncthreads();
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int c = 0; c < kC; ++c)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          acc_v[j][4 * c + e] += sum[dx * 4 + 64 * c + e];
+        }
+  }
 #pragma unroll
   for (int j = 0; j < 4; ++j) {
     const int64_t kpos = k0 + ky + 16 * j;
@@ -1184,13 +1268,13 @@ flash_attention_bwd_dkdv(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 // grid (query tiles, KVH G, B)
-template <typename T, int DH>
+template <typename T, int DH, bool kExt>
 __global__ void __launch_bounds__(kBwdThreads)
 flash_attention_bwd_dq(const T* __restrict__ q, const T* __restrict__ k,
        const T* __restrict__ v, const T* __restrict__ dout,
        const float* __restrict__ lse, const float* __restrict__ delta,
        T* __restrict__ dq, int kvh, int G, int64_t S, int64_t T_len,
-       float scale, float score_mul, int causal) {
+       float scale, float score_mul, int causal, BwdOpts opt) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   BwdSmem<DH>& sm = *reinterpret_cast<BwdSmem<DH>*>(smem_raw);
   constexpr int kC = DH / 64;
@@ -1215,12 +1299,19 @@ flash_attention_bwd_dq(const T* __restrict__ q, const T* __restrict__ k,
   const int64_t q_last = (q0 + kBwdRows < S ? q0 + kBwdRows : S) - 1;
   const int64_t k_end = causal ? (T_len < q_last + 1 ? T_len : q_last + 1)
                                : T_len;
-  for (int64_t k0 = 0; k0 < k_end; k0 += kBwdKeys) {
+  // with a window, key tiles wholly before q0 - window + 1 are seen by no row
+  int64_t k_begin = 0;
+  if (kExt && opt.window > 0) {
+    k_begin = q0 - opt.window + 1 > 0 ? q0 - opt.window + 1 : 0;
+    k_begin -= k_begin % kBwdKeys;
+  }
+  for (int64_t k0 = k_begin; k0 < k_end; k0 += kBwdKeys) {
     __syncthreads();                          // the last tile's readers
     load_tile<DH>(sm.k, k + bh * T_len * DH, k0, T_len, tid);
     load_tile<DH>(sm.v, v + bh * T_len * DH, k0, T_len, tid);
     __syncthreads();
-    tile_ds<DH, false>(sm, q0, k0, S, T_len, score_mul, causal, tid);
+    tile_ds<DH, false, kExt>(sm, q0, k0, S, T_len, score_mul, causal, opt,
+                             tid);
     __syncthreads();
     // dQ += dS K: rows qy + 16 i, columns dx 4 + 64 c
 #pragma unroll 4
@@ -1259,7 +1350,7 @@ flash_attention_bwd_dq(const T* __restrict__ q, const T* __restrict__ k,
 // -- backward, bfloat16: one wgmma pass fed by TMA ---------------------------
 //
 // FlashAttention-3's backward (Shah et al., 2024, section 3 and appendix B),
-// cut to DH 128 without window or softcap, in three launches:
+// cut to DH 64 and 128, in three launches (described at DH 128):
 //   1. flash_attention_bwd_delta (above): D, and zeros in dq_acc, a float32
 //      workspace of dQ (B, KVH, G, S, 128) that the wrapper allocates.
 //   2. flash_attention_bwd_wgmma: one CTA a tile of kBwdKeysTc = 128 keys of
@@ -1338,6 +1429,22 @@ flash_attention_bwd_dq(const T* __restrict__ q, const T* __restrict__ k,
 // 1.39 ms).  What it does not yet do: the two warpgroups run in step (each
 // step's exponentials leave the tensor cores idle; FA3 ping-pongs them),
 // and no CTA is persistent.
+// The options (template flags, so llama's instance <128, false, false> is
+// the code without them):
+//   - kWin: a key tile walks only the query tiles its window reaches (rows
+//     up to its last key + window - 1), and masks a step only where the
+//     diagonal, the window's edge or the ragged T edge cuts it.  After the
+//     loop, rows that see no key add dO / T to dV (keyless_dv, through the
+//     dQ blocks' shared memory, once both warpgroups' adds have read them).
+//   - kCap: while dP^T is in flight, S^T becomes t = tanh(S^T cap_in), the
+//     forward's accurate tanhf; then P^T = exp2(t cap_out - lse log2(e))
+//     and dS^T = P^T (dP^T - D) (1 - t^2) in the accumulator registers,
+//     before its bf16 rounding.  t lives in S^T's registers: no more are
+//     live than without the cap.
+//   - DH 64 (whisper-base): a row of a Q, dO, K or V tile is one 128-byte
+//     swizzle row; S^T and dP^T take 4 k-steps, dV and dK are m64n64k16,
+//     and dQ's 64 columns are summed by each warpgroup over its own 64 keys
+//     (both add into the same dQ rows); shared memory ~130 KB.
 
 constexpr int kBwdKeysTc = 128;            // keys a CTA: 64 a warpgroup
 constexpr int kBwdRowsTc = 64;             // query rows a step
@@ -1345,13 +1452,16 @@ constexpr int kBwdStages = 2;              // (Q, dO) tiles in flight
 constexpr int kBwdTcThreads = 2 * 128;     // two warpgroups, 64 keys each
 constexpr int kDqBoxCols = kSwizzleRow / 4;   // float32 columns a dQ box
 
+template <int DH>
 struct BwdTcLayout {                       // byte offsets from a 1024 boundary
+  static_assert(DH == 64 || DH == 128, "DH: one or two 64-column boxes");
+  static constexpr int kBoxes = DH / kBoxCols;
   static constexpr int kKVBox = kBwdKeysTc * kSwizzleRow;   // 64 columns
   static constexpr int kRowBox = kBwdRowsTc * kSwizzleRow;
-  static constexpr int kK = 0;                              // two boxes
-  static constexpr int kV = 2 * kKVBox;
-  static constexpr int kStage0 = 4 * kKVBox;
-  static constexpr int kStage = 4 * kRowBox;                // Q, then dO
+  static constexpr int kK = 0;                              // kBoxes boxes
+  static constexpr int kV = kBoxes * kKVBox;
+  static constexpr int kStage0 = 2 * kBoxes * kKVBox;
+  static constexpr int kStage = 2 * kBoxes * kRowBox;       // Q, then dO
   static constexpr int kDS = kStage0 + kBwdStages * kStage;
   static constexpr int kDSTile = kBwdKeysTc * kSwizzleRow;  // dS^T, MN-major
   static constexpr int kDQ = kDS + 2 * kDSTile;   // a warpgroup: two boxes
@@ -1392,7 +1502,17 @@ __device__ __forceinline__ void wgmma_ss_mn(float (&d)[32], uint64_t a,
       : "l"(a), "l"(b), "r"(accumulate));
 }
 
-// d (64 x 128 f32) += A B, A K-major and B MN-major in shared memory
+// d (64 x N f32) += A B, A K-major and B MN-major in shared memory: N 64
+// (DH 64) or 128
+__device__ __forceinline__ void wgmma_ss_bt(float (&d)[32], uint64_t a,
+                                            uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " REGS32
+      ", %32, %33, p, 1, 1, 0, 1;\n}\n"
+      : ACC32(d)
+      : "l"(a), "l"(b), "r"(1));
+}
 __device__ __forceinline__ void wgmma_ss_bt(float (&d)[64], uint64_t a,
                                             uint64_t b) {
   asm volatile(
@@ -1424,17 +1544,18 @@ __device__ __forceinline__ void cp_async4(uint32_t dst, const float* src,
 // Stage s of the ring gets step (head, q0): Q and dO by TMA from lane 0,
 // the rows' lse and D by cp.async from every lane of the calling warp; all
 // complete on full[s].  Rows past S arrive as zeros (Q, dO, lse, D alike).
+template <int DH>
 __device__ __forceinline__ void bwd_load_step(
     const CUtensorMap* tm_q, const CUtensorMap* tm_do, const float* lse,
     const float* delta, uint32_t stage, uint32_t rows, uint32_t full,
     int head, int q0, int S, int lane) {
-  using L = BwdTcLayout;
+  using L = BwdTcLayout<DH>;
   if (lane == 0) {
     mbar_expect_tx(full, L::kStage);
-    for (int c = 0; c < 2; ++c) {
+    for (int c = 0; c < L::kBoxes; ++c) {
       tma_load_3d(stage + c * L::kRowBox, tm_q, full, c * kBoxCols, q0, head);
-      tma_load_3d(stage + (2 + c) * L::kRowBox, tm_do, full, c * kBoxCols,
-                  q0, head);
+      tma_load_3d(stage + (L::kBoxes + c) * L::kRowBox, tm_do, full,
+                  c * kBoxCols, q0, head);
     }
   }
   for (int r = lane; r < kBwdRowsTc; r += 32) {
@@ -1447,7 +1568,9 @@ __device__ __forceinline__ void bwd_load_step(
                :: "r"(full) : "memory");
 }
 
-// grid: (B KVH) x key tiles, the key tile fastest
+// grid: (B KVH) x key tiles, the key tile fastest.  kCap: a softcap
+// (cap_in = scale / softcap, cap_out = softcap log2(e)); kWin: a window.
+template <int DH, bool kCap, bool kWin>
 __global__ void __launch_bounds__(kBwdTcThreads, 1)
 flash_attention_bwd_wgmma(const __grid_constant__ CUtensorMap tm_q,
                           const __grid_constant__ CUtensorMap tm_k,
@@ -1456,11 +1579,13 @@ flash_attention_bwd_wgmma(const __grid_constant__ CUtensorMap tm_q,
                           const __grid_constant__ CUtensorMap tm_dq,
                           const float* __restrict__ lse,
                           const float* __restrict__ delta,
+                          const __nv_bfloat16* __restrict__ dout,
                           __nv_bfloat16* __restrict__ dk,
                           __nv_bfloat16* __restrict__ dv, int G, int S,
                           int T_len, float scale, float score_mul,
-                          int causal) {
-  using L = BwdTcLayout;
+                          int causal, float cap_in, float cap_out,
+                          int window) {
+  using L = BwdTcLayout<DH>;
   extern __shared__ unsigned char smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
   const uint32_t base = (raw + 1023) & ~1023u;   // swizzle atoms: 1024 B
@@ -1471,12 +1596,19 @@ flash_attention_bwd_wgmma(const __grid_constant__ CUtensorMap tm_q,
   const int n_kt = (T_len + kBwdKeysTc - 1) / kBwdKeysTc;
   const int bh = blockIdx.x / n_kt;
   const int k0 = blockIdx.x % n_kt * kBwdKeysTc;
-  // with causal, query tiles before the key tile see none of its keys; the
-  // steps run from the last query tile down, the G heads inner
+  // with causal, query tiles before the key tile see none of its keys; with
+  // a window, rows past its last key + window - 1 none either; the steps
+  // run from the last query tile down, the G heads inner
   const int q_first = causal ? k0 : 0;
-  const int q_last = (S - 1) / kBwdRowsTc * kBwdRowsTc;
-  const int n_items = q_first < S ? G * ((q_last - q_first) / kBwdRowsTc + 1)
-                                  : 0;
+  int q_lim = S - 1;
+  if (kWin) {
+    const int64_t row_hi = static_cast<int64_t>(min(k0 + kBwdKeysTc, T_len)) +
+                           window - 2;          // last key + window - 1
+    q_lim = row_hi < S - 1 ? static_cast<int>(row_hi) : S - 1;
+  }
+  const int q_last = q_lim / kBwdRowsTc * kBwdRowsTc;
+  const int n_items = q_first <= q_lim
+                          ? G * ((q_last - q_first) / kBwdRowsTc + 1) : 0;
   const int wg = tid >> 7;
   const bool loader = tid < 32;                // warp 0 refills the ring
   const bool dq_lead = (tid & 127) == 0;       // the warpgroup's dQ adds
@@ -1494,8 +1626,8 @@ flash_attention_bwd_wgmma(const __grid_constant__ CUtensorMap tm_q,
   int g_ld = 0, q0_ld = q_last;
   if (loader && n_items > 0) {
     if (tid == 0) {
-      mbar_expect_tx(bar_kv, 4 * L::kKVBox);
-      for (int c = 0; c < 2; ++c) {
+      mbar_expect_tx(bar_kv, 2 * L::kBoxes * L::kKVBox);
+      for (int c = 0; c < L::kBoxes; ++c) {
         tma_load_3d(base + L::kK + c * L::kKVBox, &tm_k, bar_kv,
                     c * kBoxCols, k0, bh);
         tma_load_3d(base + L::kV + c * L::kKVBox, &tm_v, bar_kv,
@@ -1503,10 +1635,10 @@ flash_attention_bwd_wgmma(const __grid_constant__ CUtensorMap tm_q,
       }
     }
     for (int it = 0; it < kBwdStages && it < n_items; ++it) {
-      bwd_load_step(&tm_q, &tm_do, lse, delta,
-                    base + L::kStage0 + it * L::kStage,
-                    base + L::kRowVals + it * 2 * kBwdRowsTc * 4,
-                    bar_full + 8 * it, bh * G + g_ld, q0_ld, S, tid);
+      bwd_load_step<DH>(&tm_q, &tm_do, lse, delta,
+                        base + L::kStage0 + it * L::kStage,
+                        base + L::kRowVals + it * 2 * kBwdRowsTc * 4,
+                        bar_full + 8 * it, bh * G + g_ld, q0_ld, S, tid);
       if (++g_ld == G) {
         g_ld = 0;
         q0_ld -= kBwdRowsTc;
@@ -1518,12 +1650,19 @@ flash_attention_bwd_wgmma(const __grid_constant__ CUtensorMap tm_q,
   const int warp = (tid >> 5) & 3, lane = tid & 31, quad = lane & 3;
   const int sw = lane >> 2;                    // a row's 128B-swizzle phase
   const int key_lo = 64 * wg + 16 * warp + sw;         // and key_lo + 8
-  float acc_dk[64], acc_dv[64];
+  float acc_dk[DH / 2], acc_dv[DH / 2];
 #pragma unroll
-  for (int j = 0; j < 64; ++j) acc_dk[j] = acc_dv[j] = 0.f;
+  for (int j = 0; j < DH / 2; ++j) acc_dk[j] = acc_dv[j] = 0.f;
   const uint32_t k_wg = base + L::kK + 64 * wg * kSwizzleRow;
   const uint32_t v_wg = base + L::kV + 64 * wg * kSwizzleRow;
-  const uint32_t k_cols = base + L::kK + wg * L::kKVBox;   // dQ's B
+  // dQ's product: at DH 128 the warpgroup's 64 of dQ's columns over both
+  // warpgroups' 128 keys (K's box wg); at DH 64 all 64 columns over its own
+  // 64 keys (each warpgroup adds its share of dQ)
+  constexpr int kDqKeys = DH == 128 ? kBwdKeysTc : 64;
+  const int dq_key0 = DH == 128 ? 0 : 64 * wg;
+  const int dq_col0 = DH == 128 ? 64 * wg : 0;
+  const uint32_t k_cols = base + L::kK + (DH == 128 ? wg * L::kKVBox : 0) +
+                          dq_key0 * kSwizzleRow;
   const uint32_t dq_s = base + L::kDQ + wg * L::kDQBlock;
   const bool edge = k0 + 64 * wg + 64 > T_len;
   if (n_items > 0) mbar_wait(bar_kv, 0);
@@ -1531,7 +1670,7 @@ flash_attention_bwd_wgmma(const __grid_constant__ CUtensorMap tm_q,
   for (int it = 0; it < n_items; ++it) {
     const int s = it % kBwdStages;
     const uint32_t q_s = base + L::kStage0 + s * L::kStage;
-    const uint32_t do_s = q_s + 2 * L::kRowBox;
+    const uint32_t do_s = q_s + L::kBoxes * L::kRowBox;
     const uint32_t ds_s = base + L::kDS + (it & 1) * L::kDSTile;
     // this thread's query rows' lse at rv + 32 j, D at rv + 256 + 32 j:
     // rows 8 j + 2 quad, + 1
@@ -1539,12 +1678,12 @@ flash_attention_bwd_wgmma(const __grid_constant__ CUtensorMap tm_q,
     mbar_wait(bar_full + 8 * s, (it / kBwdStages) & 1);
     __syncwarp();
 
-    // S^T = K Q^T, then dP^T = V dO^T: 8 k-steps of 16 columns, 32 bytes
-    // apart inside a swizzled row; the first of each overwrites st, dpt
+    // S^T = K Q^T, then dP^T = V dO^T: DH / 16 k-steps of 16 columns, 32
+    // bytes apart inside a swizzled row; the first of each overwrites st, dpt
     float st[32], dpt[32];
     wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < 8; ++kk) {
+    for (int kk = 0; kk < DH / 16; ++kk) {
       const uint32_t a_off = (kk / 4) * L::kKVBox + (kk % 4) * 32;
       const uint32_t b_off = (kk / 4) * L::kRowBox + (kk % 4) * 32;
       wgmma_ss(st, sw128_desc(k_wg + a_off, 16), sw128_desc(q_s + b_off, 16),
@@ -1552,7 +1691,7 @@ flash_attention_bwd_wgmma(const __grid_constant__ CUtensorMap tm_q,
     }
     wgmma_commit();
 #pragma unroll
-    for (int kk = 0; kk < 8; ++kk) {
+    for (int kk = 0; kk < DH / 16; ++kk) {
       const uint32_t a_off = (kk / 4) * L::kKVBox + (kk % 4) * 32;
       const uint32_t b_off = (kk / 4) * L::kRowBox + (kk % 4) * 32;
       wgmma_ss(dpt, sw128_desc(v_wg + a_off, 16),
@@ -1561,24 +1700,31 @@ flash_attention_bwd_wgmma(const __grid_constant__ CUtensorMap tm_q,
     wgmma_commit();
 
     // st[4 j + 2 i + e]: key k0 + key_lo + 8 i, query row q0 + 8 j + 2 quad
-    // + e; P^T in its place while dP^T is in flight
+    // + e; while dP^T is in flight, P^T in its place, or with a softcap
+    // tanh(S^T cap_in), from which P^T and the cap's derivative follow
     wgmma_wait<1>();
     fence_regs(st);
-    const bool need_mask = edge || (causal && k0 + 64 * wg + 63 > q0);
+    const bool need_mask =
+        edge || (causal && k0 + 64 * wg + 63 > q0) ||
+        (kWin && q0 + kBwdRowsTc - 1 - (k0 + 64 * wg) >= window);
+    auto masked = [&](int x) {
+      const int kpos = k0 + key_lo + 8 * ((x >> 1) & 1);
+      const int qpos = q0 + 8 * (x >> 2) + 2 * quad + (x & 1);
+      return kpos >= T_len || (causal && kpos > qpos) ||
+             (kWin && qpos - kpos >= window);
+    };
+    if (kCap) {
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const float2 l = lds_f2(rv + 32 * j);
+      for (int x = 0; x < 32; ++x) st[x] = tanhf(st[x] * cap_in);
+    } else {
 #pragma unroll
-      for (int i = 0; i < 2; ++i) {
+      for (int j = 0; j < 8; ++j) {
+        const float2 l = lds_f2(rv + 32 * j);
 #pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int x = 4 * j + 2 * i + e;
-          st[x] = fast_exp2(fmaf(st[x], score_mul, (e ? l.y : l.x) * -kLog2e));
-          if (need_mask) {
-            const int kpos = k0 + key_lo + 8 * i;
-            const int qpos = q0 + 8 * j + 2 * quad + e;
-            if (kpos >= T_len || (causal && kpos > qpos)) st[x] = 0.f;
-          }
+        for (int x = 4 * j; x < 4 * j + 4; ++x) {
+          st[x] = fast_exp2(fmaf(st[x], score_mul,
+                                 ((x & 1) ? l.y : l.x) * -kLog2e));
+          if (need_mask && masked(x)) st[x] = 0.f;
         }
       }
     }
@@ -1588,19 +1734,32 @@ flash_attention_bwd_wgmma(const __grid_constant__ CUtensorMap tm_q,
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
       const float2 dd = lds_f2(rv + 4 * kBwdRowsTc + 32 * j);
+      float2 l;
+      if (kCap) l = lds_f2(rv + 32 * j);
 #pragma unroll
       for (int i = 0; i < 2; ++i) {
         const int x = 4 * j + 2 * i;
-        pa[2 * j + i] = pack_bf16(st[x], st[x + 1]);
-        dpt[x] = st[x] * (dpt[x] - dd.x);
-        dpt[x + 1] = st[x + 1] * (dpt[x + 1] - dd.y);
+        float p[2], fac[2] = {1.f, 1.f};
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          p[e] = st[x + e];
+          if (kCap) {           // dS^T takes d cap / d s = 1 - tanh^2
+            const float t = st[x + e];
+            p[e] = fast_exp2(fmaf(t, cap_out, (e ? l.y : l.x) * -kLog2e));
+            if (need_mask && masked(x + e)) p[e] = 0.f;
+            fac[e] = 1.f - t * t;
+          }
+        }
+        pa[2 * j + i] = pack_bf16(p[0], p[1]);
+        dpt[x] = p[0] * (dpt[x] - dd.x) * fac[0];
+        dpt[x + 1] = p[1] * (dpt[x + 1] - dd.y) * fac[1];
       }
     }
 
     // dS^T to shared memory as bf16, 128B-swizzled: row = key, 64 query
     // rows of 2 bytes a row (chunk j of 16 bytes holds query rows 8 j .. 8 j
     // + 7); rows key_lo and key_lo + 8 share the swizzle phase sw.  K-major,
-    // the warpgroup's rows are dK's A; MN-major, all 128 are dQ's
+    // the warpgroup's rows are dK's A; MN-major, dQ's
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
       const uint32_t off = (key_lo + 8 * i) * kSwizzleRow + 4 * quad;
@@ -1616,7 +1775,7 @@ flash_attention_bwd_wgmma(const __grid_constant__ CUtensorMap tm_q,
 
     // dV += P^T dO (P^T from registers), dK += dS^T Q: 4 k-steps of 16
     // query rows, 32 bytes apart in a row of dS^T, 2048 bytes apart in dO
-    // and Q (B MN-major, its two 64-column boxes kRowBox apart)
+    // and Q (B MN-major, its 64-column boxes kRowBox apart)
     fence_regs(acc_dv);
     fence_regs(acc_dk);
     fence_regs(pa);
@@ -1633,14 +1792,16 @@ flash_attention_bwd_wgmma(const __grid_constant__ CUtensorMap tm_q,
                   sw128_desc(q_s + kb * 16 * kSwizzleRow, L::kRowBox));
     }
 
-    // dQ (64 rows x this warpgroup's 64 columns) = dS K over the 128 keys,
-    // both warpgroups' dS^T: 8 k-steps of 16 keys, 2048 bytes apart in dS^T
-    // and in K's box wg; the three products are one commit group.  dQ takes
-    // st's registers (P^T is packed by now): one home for both
+    // dQ (64 rows x 64 columns) = dS K: kDqKeys / 16 k-steps of 16 keys,
+    // 2048 bytes apart in dS^T and in K; the three products are one commit
+    // group.  dQ takes st's registers (P^T is packed by now): one home for
+    // both
     float (&dq)[32] = st;
 #pragma unroll
-    for (int kk = 0; kk < 8; ++kk) {
-      wgmma_ss_mn(dq, sw128_desc(ds_s + kk * 16 * kSwizzleRow, L::kDSTile),
+    for (int kk = 0; kk < kDqKeys / 16; ++kk) {
+      wgmma_ss_mn(dq,
+                  sw128_desc(ds_s + (dq_key0 + kk * 16) * kSwizzleRow,
+                             L::kDSTile),
                   sw128_desc(k_cols + kk * 16 * kSwizzleRow, L::kKVBox),
                   kk > 0);
     }
@@ -1656,9 +1817,9 @@ flash_attention_bwd_wgmma(const __grid_constant__ CUtensorMap tm_q,
     // once every warp is done with stage s, the loader refills it
     if (loader && it + kBwdStages < n_items) {
       mbar_wait(bar_empty + 8 * s, (it / kBwdStages) & 1);
-      bwd_load_step(&tm_q, &tm_do, lse, delta, q_s,
-                    base + L::kRowVals + s * 2 * kBwdRowsTc * 4,
-                    bar_full + 8 * s, bh * G + g_ld, q0_ld, S, lane);
+      bwd_load_step<DH>(&tm_q, &tm_do, lse, delta, q_s,
+                        base + L::kRowVals + s * 2 * kBwdRowsTc * 4,
+                        bar_full + 8 * s, bh * G + g_ld, q0_ld, S, lane);
       if (++g_ld == G) {
         g_ld = 0;
         q0_ld -= kBwdRowsTc;
@@ -1666,7 +1827,7 @@ flash_attention_bwd_wgmma(const __grid_constant__ CUtensorMap tm_q,
     }
 
     // dq[4 j + 2 i + e]: query row 16 warp + sw + 8 i of the tile, column
-    // 8 j + 2 quad + e of the warpgroup's 64: box j / 4, 16-byte chunk
+    // 8 j + 2 quad + e of the block's 64: box j / 4, 16-byte chunk
     // 2 (j % 4) + quad / 2 of the row, swizzled
     if (dq_lead) {                      // the last step's adds have read it
       asm volatile("cp.async.bulk.wait_group.read 0;" ::: "memory");
@@ -1688,7 +1849,7 @@ flash_attention_bwd_wgmma(const __grid_constant__ CUtensorMap tm_q,
     if (dq_lead) {
       for (int b = 0; b < 2; ++b) {
         tma_reduce_add_3d(&tm_dq, dq_s + b * L::kRowBox,
-                          64 * wg + b * kDqBoxCols, q0, bh * G + g);
+                          dq_col0 + b * kDqBoxCols, q0, bh * G + g);
       }
       asm volatile("cp.async.bulk.commit_group;" ::: "memory");
     }
@@ -1699,15 +1860,33 @@ flash_attention_bwd_wgmma(const __grid_constant__ CUtensorMap tm_q,
   }
   if (dq_lead) asm volatile("cp.async.bulk.wait_group 0;" ::: "memory");
 
+  // rows that see no key give every key dO / T: summed into the dQ blocks'
+  // shared memory once both warpgroups' adds have read them
+  if (kWin && has_keyless_rows(S, T_len, window)) {
+    float* sum = reinterpret_cast<float*>(smem_raw + (base - raw) + L::kDQ);
+    asm volatile("bar.sync 1, %0;" :: "n"(256) : "memory");
+    keyless_dv<DH>(dout, static_cast<int64_t>(bh) * G, G, S, T_len, window,
+                   sum, tid, kBwdTcThreads);
+    asm volatile("bar.sync 1, %0;" :: "n"(256) : "memory");
+#pragma unroll
+    for (int j = 0; j < DH / 8; ++j) {
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        acc_dv[4 * j + 2 * i] += sum[8 * j + 2 * quad];
+        acc_dv[4 * j + 2 * i + 1] += sum[8 * j + 2 * quad + 1];
+      }
+    }
+  }
+
   // acc_dk[4 j + 2 i + e], acc_dv likewise: key k0 + key_lo + 8 i, column
   // 8 j + 2 quad + e
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     const int kpos = k0 + key_lo + 8 * i;
     if (kpos >= T_len) continue;
-    const int64_t off = (static_cast<int64_t>(bh) * T_len + kpos) * 128;
+    const int64_t off = (static_cast<int64_t>(bh) * T_len + kpos) * DH;
 #pragma unroll
-    for (int j = 0; j < 16; ++j) {
+    for (int j = 0; j < DH / 8; ++j) {
       const int c = 8 * j + 2 * quad;
       *reinterpret_cast<__nv_bfloat162*>(dk + off + c) =
           __floats2bfloat162_rn(acc_dk[4 * j + 2 * i] * scale,
@@ -1733,12 +1912,12 @@ flash_attention_bwd_dq_round(const float* __restrict__ acc,
   }
 }
 
-// dQ's float32 workspace (128, S, heads), reduced into in 128B-swizzled
+// dQ's float32 workspace (DH, S, heads), reduced into in 128B-swizzled
 // boxes of (32, 64, 1)
 bool encode_dq_acc(PFN_cuTensorMapEncodeTiled_v12000 encode, CUtensorMap* map,
-                   void* ptr, uint64_t S, uint64_t heads) {
-  const cuuint64_t dims[3] = {128, S, heads};
-  const cuuint64_t strides[2] = {128 * 4, 128 * S * 4};      // bytes
+                   void* ptr, uint64_t dh, uint64_t S, uint64_t heads) {
+  const cuuint64_t dims[3] = {dh, S, heads};
+  const cuuint64_t strides[2] = {dh * 4, dh * S * 4};        // bytes
   const cuuint32_t box[3] = {kDqBoxCols, kBwdRowsTc, 1};
   const cuuint32_t elem[3] = {1, 1, 1};
   return encode(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3, ptr, dims, strides,
@@ -1747,11 +1926,13 @@ bool encode_dq_acc(PFN_cuTensorMapEncodeTiled_v12000 encode, CUtensorMap* map,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
+template <int DH, bool kCap, bool kWin>
 int launch_bwd_bf16(const void* q, const void* k, const void* v,
                     const void* o, const void* dout, const float* lse,
                     void* dq, void* dk, void* dv, float* delta, float* dq_acc,
                     int64_t B, int64_t KVH, int64_t G, int64_t S,
-                    int64_t T_len, float scale, int causal, cudaStream_t s) {
+                    int64_t T_len, float scale, int causal, int64_t window,
+                    float softcap, cudaStream_t s) {
   const int64_t n_rows = B * KVH * G * S;
   const int64_t rows_a_cta = kBwdThreads / 32;
   const int64_t k_tiles = (T_len + kBwdKeysTc - 1) / kBwdKeysTc;
@@ -1763,34 +1944,37 @@ int launch_bwd_bf16(const void* q, const void* k, const void* v,
   const PFN_cuTensorMapEncodeTiled_v12000 encode = tensor_map_encoder();
   if (encode == nullptr) return static_cast<int>(cudaErrorNotSupported);
   CUtensorMap tm_q, tm_k, tm_v, tm_do, tm_dq;
-  if (!encode_3d(encode, &tm_q, q, 128, S, B * KVH * G, kBwdRowsTc, 1) ||
-      !encode_3d(encode, &tm_do, dout, 128, S, B * KVH * G, kBwdRowsTc, 1) ||
-      !encode_3d(encode, &tm_k, k, 128, T_len, B * KVH, kBwdKeysTc, 1) ||
-      !encode_3d(encode, &tm_v, v, 128, T_len, B * KVH, kBwdKeysTc, 1) ||
-      !encode_dq_acc(encode, &tm_dq, dq_acc, S, B * KVH * G)) {
+  if (!encode_3d(encode, &tm_q, q, DH, S, B * KVH * G, kBwdRowsTc, 1) ||
+      !encode_3d(encode, &tm_do, dout, DH, S, B * KVH * G, kBwdRowsTc, 1) ||
+      !encode_3d(encode, &tm_k, k, DH, T_len, B * KVH, kBwdKeysTc, 1) ||
+      !encode_3d(encode, &tm_v, v, DH, T_len, B * KVH, kBwdKeysTc, 1) ||
+      !encode_dq_acc(encode, &tm_dq, dq_acc, DH, S, B * KVH * G)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  flash_attention_bwd_delta<__nv_bfloat16, 128>
+  flash_attention_bwd_delta<__nv_bfloat16, DH>
       <<<static_cast<unsigned>((n_rows + rows_a_cta - 1) / rows_a_cta),
          kBwdThreads, 0, s>>>(static_cast<const __nv_bfloat16*>(o),
                               static_cast<const __nv_bfloat16*>(dout), delta,
                               dq_acc, n_rows);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  constexpr int smem = BwdTcLayout::kBytes;
-  err = cudaFuncSetAttribute(flash_attention_bwd_wgmma,
+  constexpr int smem = BwdTcLayout<DH>::kBytes;
+  err = cudaFuncSetAttribute(flash_attention_bwd_wgmma<DH, kCap, kWin>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  flash_attention_bwd_wgmma<<<static_cast<unsigned>(k_tiles * B * KVH),
-                              kBwdTcThreads, smem, s>>>(
-      tm_q, tm_k, tm_v, tm_do, tm_dq, lse, delta,
-      static_cast<__nv_bfloat16*>(dk), static_cast<__nv_bfloat16*>(dv),
-      static_cast<int>(G), static_cast<int>(S),
-      static_cast<int>(T_len), scale, scale * kLog2e, causal);
+  const int win = window < INT_MAX ? static_cast<int>(window) : INT_MAX;
+  flash_attention_bwd_wgmma<DH, kCap, kWin>
+      <<<static_cast<unsigned>(k_tiles * B * KVH), kBwdTcThreads, smem, s>>>(
+          tm_q, tm_k, tm_v, tm_do, tm_dq, lse, delta,
+          static_cast<const __nv_bfloat16*>(dout),
+          static_cast<__nv_bfloat16*>(dk), static_cast<__nv_bfloat16*>(dv),
+          static_cast<int>(G), static_cast<int>(S), static_cast<int>(T_len),
+          scale, scale * kLog2e, causal,
+          softcap > 0.f ? scale / softcap : 0.f, softcap * kLog2e, win);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int64_t n4 = n_rows * 128 / 4;
+  const int64_t n4 = n_rows * DH / 4;
   const int64_t blocks = (n4 + 255) / 256;
   flash_attention_bwd_dq_round<<<static_cast<unsigned>(
                                      blocks < 132 * 16 ? blocks : 132 * 16),
@@ -1799,12 +1983,12 @@ int launch_bwd_bf16(const void* q, const void* k, const void* v,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T, int DH>
+template <typename T, int DH, bool kExt>
 int launch_bwd(const void* q, const void* k, const void* v, const void* o,
                const void* dout, const float* lse, void* dq, void* dk,
                void* dv, float* delta, int64_t B, int64_t KVH, int64_t G,
                int64_t S, int64_t T_len, float scale, int causal,
-               cudaStream_t s) {
+               const BwdOpts& opt, cudaStream_t s) {
   const int64_t n_rows = B * KVH * G * S;
   const int64_t q_tiles = (S + kBwdRows - 1) / kBwdRows;
   const int64_t k_tiles = (T_len + kBwdKeys - 1) / kBwdKeys;
@@ -1825,30 +2009,30 @@ int launch_bwd(const void* q, const void* k, const void* v, const void* o,
   if (err != cudaSuccess) return static_cast<int>(err);
   const float score_mul = scale * kLog2e;
   const int smem = static_cast<int>(sizeof(BwdSmem<DH>));
-  err = cudaFuncSetAttribute(flash_attention_bwd_dkdv<T, DH>,
+  err = cudaFuncSetAttribute(flash_attention_bwd_dkdv<T, DH, kExt>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  flash_attention_bwd_dkdv<T, DH><<<dim3(static_cast<unsigned>(k_tiles),
-                                         static_cast<unsigned>(KVH),
-                                         static_cast<unsigned>(B)),
-                                    kBwdThreads, smem, s>>>(
+  flash_attention_bwd_dkdv<T, DH, kExt><<<dim3(static_cast<unsigned>(k_tiles),
+                                               static_cast<unsigned>(KVH),
+                                               static_cast<unsigned>(B)),
+                                          kBwdThreads, smem, s>>>(
       tq, tk, tv, tdo, lse, delta, static_cast<T*>(dk), static_cast<T*>(dv),
       static_cast<int>(KVH), static_cast<int>(G), S, T_len, scale, score_mul,
-      causal);
+      causal, opt);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  err = cudaFuncSetAttribute(flash_attention_bwd_dq<T, DH>,
+  err = cudaFuncSetAttribute(flash_attention_bwd_dq<T, DH, kExt>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  flash_attention_bwd_dq<T, DH><<<dim3(static_cast<unsigned>(q_tiles),
-                                       static_cast<unsigned>(KVH * G),
-                                       static_cast<unsigned>(B)),
-                                  kBwdThreads, smem, s>>>(
+  flash_attention_bwd_dq<T, DH, kExt><<<dim3(static_cast<unsigned>(q_tiles),
+                                             static_cast<unsigned>(KVH * G),
+                                             static_cast<unsigned>(B)),
+                                        kBwdThreads, smem, s>>>(
       tq, tk, tv, tdo, lse, delta, static_cast<T*>(dq),
       static_cast<int>(KVH), static_cast<int>(G), S, T_len, scale, score_mul,
-      causal);
+      causal, opt);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1856,7 +2040,7 @@ int launch_bwd(const void* q, const void* k, const void* v, const void* o,
 
 // The forward entries return the cudaError_t of the launch (0 on success).
 // lse, when not null, receives each query row's log-sum-exp (B, KVH, G, S)
-// in float32 (only DH 128 writes it; another DH with lse is refused).
+// in float32 (only DH 64 and 128 write it; another DH with lse is refused).
 extern "C" int flash_attention_f32(const void* q, const void* k, const void* v,
                                    void* out, void* lse, int64_t B,
                                    int64_t KVH, int64_t G, int64_t S,
@@ -1872,6 +2056,10 @@ extern "C" int flash_attention_f32(const void* q, const void* k, const void* v,
   float* to = static_cast<float*>(out);
   float* tl = static_cast<float*>(lse);
   if (tl != nullptr) {
+    if (DH == 64) {
+      return launch_f32<64, true>(tq, tk, tv, to, tl, B, KVH, G, S, T, scale,
+                                  causal, window, softcap, s);
+    }
     if (DH != 128) return static_cast<int>(cudaErrorInvalidValue);
     return launch_f32<128, true>(tq, tk, tv, to, tl, B, KVH, G, S, T, scale,
                                  causal, window, softcap, s);
@@ -1905,6 +2093,10 @@ extern "C" int flash_attention_bf16(const void* q, const void* k,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* tl = static_cast<float*>(lse);
   if (tl != nullptr) {
+    if (DH == 64) {
+      return launch_bf16<64, true>(q, k, v, out, tl, B, KVH, G, S, T, scale,
+                                   causal, window, softcap, s);
+    }
     if (DH != 128) return static_cast<int>(cudaErrorInvalidValue);
     return launch_bf16<128, true>(q, k, v, out, tl, B, KVH, G, S, T, scale,
                                   causal, window, softcap, s);
@@ -1928,10 +2120,50 @@ extern "C" int flash_attention_bf16(const void* q, const void* k,
 }
 
 // The backward: dq (as q), dk and dv (as k) from q, k, v, out, dout and the
-// forward's lse, with delta a float32 scratch of B KVH G S and (bfloat16
-// only; null for float32) dq_acc a float32 scratch of B KVH G S 128; no
-// window or softcap.  Returns the first failing launch's cudaError_t (0 on
-// success).
+// forward's lse (of the same causal, window and softcap), with delta a
+// float32 scratch of B KVH G S and (bfloat16 only; null for float32) dq_acc
+// a float32 scratch of B KVH G S DH; DH 64 or 128.  Returns the first
+// failing launch's cudaError_t (0 on success).
+namespace {
+
+template <typename E, int DH>
+int launch_bwd_f32(const void* q, const void* k, const void* v,
+                   const void* out, const void* dout, const float* lse,
+                   void* dq, void* dk, void* dv, float* delta, int64_t B,
+                   int64_t KVH, int64_t G, int64_t S, int64_t T, float scale,
+                   int causal, int64_t window, float softcap,
+                   cudaStream_t s) {
+  const BwdOpts opt{window, softcap > 0.f ? scale / softcap : 0.f,
+                    softcap * kLog2e};
+  if (window > 0 || softcap > 0.f) {
+    return launch_bwd<E, DH, true>(q, k, v, out, dout, lse, dq, dk, dv,
+                                   delta, B, KVH, G, S, T, scale, causal, opt,
+                                   s);
+  }
+  return launch_bwd<E, DH, false>(q, k, v, out, dout, lse, dq, dk, dv, delta,
+                                  B, KVH, G, S, T, scale, causal, opt, s);
+}
+
+template <int DH>
+int launch_bwd_bf16_opts(const void* q, const void* k, const void* v,
+                         const void* out, const void* dout, const float* lse,
+                         void* dq, void* dk, void* dv, float* delta,
+                         float* dq_acc, int64_t B, int64_t KVH, int64_t G,
+                         int64_t S, int64_t T, float scale, int causal,
+                         int64_t window, float softcap, cudaStream_t s) {
+  const bool cap = softcap > 0.f, win = window > 0;
+  auto run = [&](auto launch) {
+    return launch(q, k, v, out, dout, lse, dq, dk, dv, delta, dq_acc, B, KVH,
+                  G, S, T, scale, causal, window, softcap, s);
+  };
+  if (cap && win) return run(launch_bwd_bf16<DH, true, true>);
+  if (cap) return run(launch_bwd_bf16<DH, true, false>);
+  if (win) return run(launch_bwd_bf16<DH, false, true>);
+  return run(launch_bwd_bf16<DH, false, false>);
+}
+
+}  // namespace
+
 extern "C" int flash_attention_bwd_f32(const void* q, const void* k,
                                        const void* v, const void* out,
                                        const void* dout, const void* lse,
@@ -1939,16 +2171,19 @@ extern "C" int flash_attention_bwd_f32(const void* q, const void* k,
                                        void* delta, void* dq_acc, int64_t B,
                                        int64_t KVH, int64_t G, int64_t S,
                                        int64_t T, int64_t DH, float scale,
-                                       int causal, void* stream) {
+                                       int causal, int64_t window,
+                                       float softcap, void* stream) {
   if (B <= 0 || KVH <= 0 || S <= 0) return 0;
-  if (G < 1 || T < 1 || DH != 128) {
+  if (G < 1 || T < 1 || window < 0 || (DH != 64 && DH != 128)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  return launch_bwd<float, 128>(q, k, v, out, dout,
-                                static_cast<const float*>(lse), dq, dk, dv,
-                                static_cast<float*>(delta), B, KVH, G, S, T,
-                                scale, causal,
-                                static_cast<cudaStream_t>(stream));
+  auto run = [&](auto launch) {
+    return launch(q, k, v, out, dout, static_cast<const float*>(lse), dq, dk,
+                  dv, static_cast<float*>(delta), B, KVH, G, S, T, scale,
+                  causal, window, softcap, static_cast<cudaStream_t>(stream));
+  };
+  return DH == 64 ? run(launch_bwd_f32<float, 64>)
+                  : run(launch_bwd_f32<float, 128>);
 }
 
 extern "C" int flash_attention_bwd_bf16(const void* q, const void* k,
@@ -1958,13 +2193,19 @@ extern "C" int flash_attention_bwd_bf16(const void* q, const void* k,
                                         void* delta, void* dq_acc, int64_t B,
                                         int64_t KVH, int64_t G, int64_t S,
                                         int64_t T, int64_t DH, float scale,
-                                        int causal, void* stream) {
+                                        int causal, int64_t window,
+                                        float softcap, void* stream) {
   if (B <= 0 || KVH <= 0 || S <= 0) return 0;
-  if (G < 1 || T < 1 || DH != 128 || dq_acc == nullptr) {
+  if (G < 1 || T < 1 || window < 0 || (DH != 64 && DH != 128) ||
+      dq_acc == nullptr) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  return launch_bwd_bf16(q, k, v, out, dout, static_cast<const float*>(lse),
-                         dq, dk, dv, static_cast<float*>(delta),
-                         static_cast<float*>(dq_acc), B, KVH, G, S, T, scale,
-                         causal, static_cast<cudaStream_t>(stream));
+  auto run = [&](auto launch) {
+    return launch(q, k, v, out, dout, static_cast<const float*>(lse), dq, dk,
+                  dv, static_cast<float*>(delta), static_cast<float*>(dq_acc),
+                  B, KVH, G, S, T, scale, causal, window, softcap,
+                  static_cast<cudaStream_t>(stream));
+  };
+  return DH == 64 ? run(launch_bwd_bf16_opts<64>)
+                  : run(launch_bwd_bf16_opts<128>);
 }

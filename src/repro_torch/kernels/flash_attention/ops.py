@@ -24,9 +24,10 @@ launches the backward kernel (``flash_attention_bwd``: dQ, dK, dV from q,
 k, v, out, dO and that lse, FlashAttention-2's equations; bfloat16 in one
 wgmma pass fed by TMA, dQ summed in a float32 workspace of q's shape that
 the wrapper allocates; float32 on the CUDA cores; counted as
-``flash_attention_bwd``, one a call).  Both are built at head size 128 only
-(``BWD_HEAD_DIMS``), without window or softcap: on CUDA any other of those
-with grad raises, with no fallback.  Without grad the call writes no lse.
+``flash_attention_bwd``, one a call).  Both are built at head sizes 64
+and 128 (``BWD_HEAD_DIMS``), with any window and softcap, carried from
+the forward to the backward: on CUDA another head size with grad raises,
+with no fallback.  Without grad the call writes no lse.
 On CPU tensors autograd differentiates the plain version, the JAX
 ``_bwd``'s own recompute.
 """
@@ -40,7 +41,7 @@ from .. import _build
 from .ref import flash_attention_bwd_ref, flash_attention_ref
 
 HEAD_DIMS = (64, 112, 128, 256)
-BWD_HEAD_DIMS = (128,)           # the backward's and the lse's instances
+BWD_HEAD_DIMS = (64, 128)        # the backward's and the lse's instances
 MAX_GROUP = 64                  # a CTA's 64 (f32) or 128 rows: G x rows / G
 _ENTRY = {torch.float32: "flash_attention_f32",
           torch.bfloat16: "flash_attention_bf16"}
@@ -94,20 +95,18 @@ def flash_attention(q, k, v, *, scale: float | None = None,
                                    window=window, softcap=softcap)
     check_kernel_shape(dh, g)
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
-        check_backward(dh, window, softcap)
-        return FlashAttentionFn.apply(q, k, v, scale, bool(causal))
+        check_backward(dh)
+        return FlashAttentionFn.apply(q, k, v, scale, bool(causal),
+                                      int(window), float(softcap))
     return _forward(dev, q, k, v, scale, causal, window, softcap)[0]
 
 
-def check_backward(dh: int, window: int, softcap: float) -> None:
-    """Raise unless the backward kernel takes head size ``dh`` and neither
-    a window nor a softcap (ROADMAP: the training queue)."""
+def check_backward(dh: int) -> None:
+    """Raise unless the backward kernel (and the forward's lse instance)
+    takes head size ``dh``; any window and softcap run."""
     if dh not in BWD_HEAD_DIMS:
         raise ValueError(f"no backward kernel at head size {dh}; built at "
-                         f"{BWD_HEAD_DIMS}")
-    if window > 0 or softcap > 0:
-        raise ValueError("no backward kernel with a window or a softcap "
-                         f"(window={window}, softcap={softcap})")
+                         f"{BWD_HEAD_DIMS} (ROADMAP A10.3: 112 and 256)")
 
 
 def _aligned(**tensors) -> None:
@@ -134,34 +133,37 @@ def _forward(dev, q, k, v, scale, causal, window, softcap, with_lse=False):
 
 
 class FlashAttentionFn(torch.autograd.Function):
-    """Flash attention with the backward kernel as its gradient (CUDA, no
-    window or softcap): the forward saves q, k, v, out and the row lse."""
+    """Flash attention with the backward kernel as its gradient (CUDA): the
+    forward saves q, k, v, out and the row lse; the mask and the softcap
+    reach both."""
 
     @staticmethod
-    def forward(ctx, q, k, v, scale, causal):
-        out, lse = _forward(q.device, q, k, v, scale, causal, 0, 0.0,
-                            with_lse=True)
+    def forward(ctx, q, k, v, scale, causal, window, softcap):
+        out, lse = _forward(q.device, q, k, v, scale, causal, window,
+                            softcap, with_lse=True)
         ctx.save_for_backward(q, k, v, out, lse)
-        ctx.scale, ctx.causal = scale, causal
+        ctx.opts = dict(scale=scale, causal=causal, window=window,
+                        softcap=softcap)
         return out
 
     @staticmethod
     def backward(ctx, dout):
         q, k, v, out, lse = ctx.saved_tensors
         dq, dk, dv = flash_attention_bwd(q, k, v, out, lse,
-                                         dout.contiguous(), scale=ctx.scale,
-                                         causal=ctx.causal)
-        return dq, dk, dv, None, None
+                                         dout.contiguous(), **ctx.opts)
+        return dq, dk, dv, None, None, None, None
 
 
 def flash_attention_bwd(q, k, v, o, lse, do, *, scale: float,
-                        causal: bool = True):
-    """(dq, dk, dv) of flash attention (no window or softcap) from q, k, v,
-    the forward's output ``o`` and row log-sum-exp ``lse`` (B,KVH,G,S)
-    float32, and the gradient ``do`` of ``o``: dq in q's shape, dk and dv
-    in k's, each in the inputs' dtype.  On CPU tensors the plain version
-    (``flash_attention_bwd_ref``); on CUDA the backward kernel (head size
-    128) or a raise."""
+                        causal: bool = True, window: int = 0,
+                        softcap: float = 0.0):
+    """(dq, dk, dv) of flash attention from q, k, v, the forward's output
+    ``o`` and row log-sum-exp ``lse`` (B,KVH,G,S) float32 (both from the
+    same ``causal``, ``window`` and ``softcap``), and the gradient ``do``
+    of ``o``: dq in q's shape, dk and dv in k's, each in the inputs'
+    dtype.  On CPU tensors the plain version (``flash_attention_bwd_ref``:
+    the JAX package's vjp, rows that the window leaves no key included); on
+    CUDA the backward kernel (head sizes ``BWD_HEAD_DIMS``) or a raise."""
     _build.check_operand("q", q, getattr(q, "dtype", None), 5)
     if q.dtype not in _BWD_ENTRY:
         raise TypeError(f"q: expected float32 or bfloat16, got {q.dtype}")
@@ -184,12 +186,15 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, scale: float,
     t_len = k.shape[2]
     if t_len < 1:
         raise ValueError("k, v: no keys (T = 0)")
+    if window < 0:
+        raise ValueError(f"window must be >= 0, got {window}")
     dev = _build.common_device(q=q, k=k, v=v, o=o, lse=lse, do=do)
     if dev.type == "cpu":
         return flash_attention_bwd_ref(q, k, v, o, lse, do, scale=scale,
-                                       causal=causal)
+                                       causal=causal, window=window,
+                                       softcap=softcap)
     check_kernel_shape(dh, g)
-    check_backward(dh, 0, 0.0)
+    check_backward(dh)
     _aligned(q=q, k=k, v=v, o=o, do=do)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     delta = torch.empty((bsz, kvh, g, s), dtype=torch.float32, device=dev)
@@ -203,7 +208,8 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, scale: float,
                       lse.data_ptr(), dq.data_ptr(), dk.data_ptr(),
                       dv.data_ptr(), delta.data_ptr(),
                       None if dq_acc is None else dq_acc.data_ptr(), bsz,
-                      kvh, g, s, t_len, dh, float(scale), int(bool(causal)))
+                      kvh, g, s, t_len, dh, float(scale), int(bool(causal)),
+                      int(window), float(softcap))
     else:
         dk.zero_()
         dv.zero_()
@@ -211,19 +217,23 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, scale: float,
 
 
 def flash_attention_lse(q, k, v, *, scale: float | None = None,
-                        causal: bool = True):
-    """(out, lse): the forward with each query row's log-sum-exp, as the
-    backward needs it; on CPU tensors the plain version's
+                        causal: bool = True, window: int = 0,
+                        softcap: float = 0.0):
+    """(out, lse): the forward with each query row's log-sum-exp of its
+    capped, masked scores, as the backward needs it (-1e30 for a row that
+    the window leaves no key); on CPU tensors the plain version's
     (``flash_attention_ref(..., return_lse=True)``), on CUDA the kernel's
-    lse instance (head size 128, no window or softcap)."""
+    lse instance (head sizes ``BWD_HEAD_DIMS``)."""
     dh = q.shape[-1]
     scale = 1.0 / math.sqrt(dh) if scale is None else float(scale)
     dev = _build.common_device(q=q, k=k, v=v)
     if dev.type == "cpu":
         return flash_attention_ref(q, k, v, scale=scale, causal=causal,
+                                   window=window, softcap=softcap,
                                    return_lse=True)
     for name, t, nd in (("q", q, 5), ("k", k, 4), ("v", v, 4)):
         _build.check_operand(name, t, (torch.float32, torch.bfloat16), nd)
     check_kernel_shape(dh, q.shape[2])
-    check_backward(dh, 0, 0.0)
-    return _forward(dev, q, k, v, scale, causal, 0, 0.0, with_lse=True)
+    check_backward(dh)
+    return _forward(dev, q, k, v, scale, causal, window, softcap,
+                    with_lse=True)

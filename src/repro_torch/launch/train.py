@@ -16,8 +16,9 @@ Weights are drawn on the device from a ``torch.Generator`` seeded by
 --seed.  ``--device`` defaults to ``cuda`` and raises without it; ``cpu``
 runs the kernels' plain versions.  On CUDA every attention layer's
 forward and backward runs the hand-written flash kernels (printed as
-launch counts); a ``vlm`` model trains on zero image embeddings, as the
-JAX driver does.  The embedding and any MoE dispatch go through the
+launch counts); a ``vlm`` model trains on zero image embeddings and an
+``audio`` one on frames of 0.01 (seq / frame_ratio a row), as the JAX
+driver does.  The embedding and any MoE dispatch go through the
 ``torch`` backend (the row kernels have no backward).  A step's metrics
 are read back to the host, so its wall time includes the device's work.
 ``run`` takes the parsed flags and returns a ``TrainResult``: the
@@ -103,10 +104,15 @@ def run(args) -> TrainResult:
 
     def make_batch(i):
         b = {k: torch.from_numpy(v).to(dev) for k, v in pipe.batch(i).items()}
+        dtype = getattr(torch, cfg.dtype)
+        if cfg.family == "audio":
+            b["frames"] = torch.full(
+                (args.batch, args.seq // cfg.frame_ratio, cfg.d_model), 0.01,
+                dtype=dtype, device=dev)
         if cfg.family == "vlm":
             b["img_embeds"] = torch.zeros(
-                (args.batch, cfg.n_img_tokens, cfg.d_model),
-                dtype=getattr(torch, cfg.dtype), device=dev)
+                (args.batch, cfg.n_img_tokens, cfg.d_model), dtype=dtype,
+                device=dev)
         return b
 
     step_core = make_train_step(model, opt_cfg,

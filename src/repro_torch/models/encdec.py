@@ -17,6 +17,13 @@ self-attention is not causal and runs the flash-attention kernel at S = T
 over the tokens, and its cross-attention non-causal over the encoder
 states (S tokens against T = F frames).
 
+Training.  ``encdec_loss`` (the port of ``repro/models/encdec.py:101-105``)
+is ``encode``, then ``decode_train``, then the chunked cross-entropy of
+``transformer.chunked_xent``.  Where grad is on and ``cfg.remat`` is not
+``none``, each encoder and decoder block is checkpointed, as the decoder
+LM's blocks are (the JAX package keeps this stack's activations; the
+gradient is the same).
+
 Serving.  ``prefill_cross`` encodes the frames and fills each decoder
 layer's cross K/V once; it yields no logits, so decoding starts from BOS at
 position 0, as the JAX serve driver does.  A layer's cache is the GQA
@@ -33,10 +40,11 @@ import math
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from . import attention as attn
 from .common import MLP, RMSNorm, init_params, mlp_apply, rms_norm
-from .transformer import Embed, embed_lookup, unembed_logits
+from .transformer import Embed, chunked_xent, embed_lookup, unembed_logits
 
 
 def sinusoidal(positions: torch.Tensor, d: int) -> torch.Tensor:
@@ -93,6 +101,24 @@ class EncDec(nn.Module):
         return self
 
 
+def _remat(cfg) -> bool:
+    return cfg.remat != "none" and torch.is_grad_enabled()
+
+
+def _run(cfg, body, *args):
+    """``body(*args)``, checkpointed where ``_remat`` says so."""
+    if _remat(cfg):
+        return checkpoint(body, *args, use_reentrant=False)
+    return body(*args)
+
+
+def _enc_block(cfg, blk: EncBlock, x, positions):
+    h = rms_norm(blk.ln1, x, cfg.norm_eps)
+    x = x + attn.gqa_apply(cfg, blk.attn, h, positions, causal=False)[0]
+    h = rms_norm(blk.ln2, x, cfg.norm_eps)
+    return x + mlp_apply(cfg, blk.mlp, h)
+
+
 def encode(cfg, p: EncDec, frames: torch.Tensor) -> torch.Tensor:
     """frames (B, F, d) stub embeddings -> encoder states (B, F, d)."""
     f = frames.shape[1]
@@ -100,10 +126,7 @@ def encode(cfg, p: EncDec, frames: torch.Tensor) -> torch.Tensor:
                             cfg.d_model)[None].to(frames.dtype)
     positions = torch.arange(f, dtype=torch.int32, device=frames.device)
     for blk in p.enc:
-        h = rms_norm(blk.ln1, x, cfg.norm_eps)
-        x = x + attn.gqa_apply(cfg, blk.attn, h, positions, causal=False)[0]
-        h = rms_norm(blk.ln2, x, cfg.norm_eps)
-        x = x + mlp_apply(cfg, blk.mlp, h)
+        x = _run(cfg, _enc_block, cfg, blk, x, positions)
     return rms_norm(p.ln_enc, x, cfg.norm_eps)
 
 
@@ -125,22 +148,35 @@ def decode_train(cfg, p: EncDec, tokens: torch.Tensor,
     positions = torch.arange(s, dtype=torch.int32, device=dev)
     enc_pos = torch.arange(enc_out.shape[1], dtype=torch.int32, device=dev)
     for blk in p.dec:
-        h = rms_norm(blk.ln1, x, cfg.norm_eps)
-        x = x + attn.gqa_apply(cfg, blk.self_attn, h, positions,
-                               causal=True)[0]
-        h = rms_norm(blk.ln_x, x, cfg.norm_eps)
-        kv = attn.gqa_kv(cfg, blk.cross_attn, enc_out, enc_pos)
-        x = x + attn.gqa_apply(cfg, blk.cross_attn, h, positions,
-                               causal=False, kv=kv)[0]
-        h = rms_norm(blk.ln2, x, cfg.norm_eps)
-        x = x + mlp_apply(cfg, blk.mlp, h)
+        x = _run(cfg, _dec_block, cfg, blk, x, positions, enc_out, enc_pos)
     return rms_norm(p.ln_f, x, cfg.norm_eps)
+
+
+def _dec_block(cfg, blk: DecBlock, x, positions, enc_out, enc_pos):
+    h = rms_norm(blk.ln1, x, cfg.norm_eps)
+    x = x + attn.gqa_apply(cfg, blk.self_attn, h, positions, causal=True)[0]
+    h = rms_norm(blk.ln_x, x, cfg.norm_eps)
+    kv = attn.gqa_kv(cfg, blk.cross_attn, enc_out, enc_pos)
+    x = x + attn.gqa_apply(cfg, blk.cross_attn, h, positions, causal=False,
+                           kv=kv)[0]
+    h = rms_norm(blk.ln2, x, cfg.norm_eps)
+    return x + mlp_apply(cfg, blk.mlp, h)
 
 
 def forward(cfg, p: EncDec, tokens: torch.Tensor, frames: torch.Tensor,
             gs_backend: str = "torch") -> torch.Tensor:
     """``decode_train`` over ``encode(frames)``: hidden (B, S, d)."""
     return decode_train(cfg, p, tokens, encode(cfg, p, frames), gs_backend)
+
+
+def encdec_loss(cfg, p: EncDec, batch: dict,
+                gs_backend: str = "torch") -> torch.Tensor:
+    """The training loss of ``batch``: ``frames`` (B, F, d), ``tokens``
+    and ``labels`` (B, S); the mean token cross-entropy of the decoder
+    over the encoded frames."""
+    enc_out = encode(cfg, p, batch["frames"])
+    hidden = decode_train(cfg, p, batch["tokens"], enc_out, gs_backend)
+    return chunked_xent(cfg, p, hidden, batch["labels"])
 
 
 # -- serving ----------------------------------------------------------------

@@ -64,14 +64,12 @@ class Model:
         return transformer.forward(self.cfg, params, tokens, **kw)
 
     def loss(self, params, batch: dict) -> torch.Tensor:
-        """The training loss (``transformer.lm_loss``) of ``batch``:
-        ``tokens`` and ``labels`` (B, S) and, for a ``vlm`` model,
-        optionally ``img_embeds``.  The ``audio`` family's loss is not
-        ported (ROADMAP, the training queue)."""
+        """The training loss of ``batch``: ``tokens`` and ``labels`` (B, S)
+        and, for a ``vlm`` model, optionally ``img_embeds``
+        (``transformer.lm_loss``); for the ``audio`` family also the (B, F,
+        d) ``frames`` (``encdec.encdec_loss``)."""
         if self.audio:
-            raise NotImplementedError(
-                "the encoder-decoder loss is not ported (ROADMAP, the "
-                "training queue)")
+            return encdec.encdec_loss(self.cfg, params, batch)
         return transformer.lm_loss(self.cfg, params, batch)
 
     @torch.no_grad()
@@ -132,8 +130,48 @@ class Model:
                                        gs_backend=gs_backend)
 
 
-def count_params(cfg) -> int:
-    """Total parameters, counted on the ``meta`` device (nothing is
-    allocated)."""
+# -- analytic counts (the port of ``repro/models/zoo.py:157-188``) ------------
+
+def _count(cfg) -> tuple[int, int, int]:
+    """(total, routed expert, embedding table) parameters, counted on the
+    ``meta`` device (nothing is allocated): a routed expert's path holds
+    ``experts``, the table's ends in ``table``, as the JAX defs' do."""
     net = encdec.EncDec if cfg.family == "audio" else transformer.LM
-    return sum(p.numel() for p in net(cfg, device="meta").parameters())
+    total = routed = table = 0
+    for name, p in net(cfg, device="meta").named_parameters():
+        parts = name.split(".")
+        total += p.numel()
+        routed += p.numel() if "experts" in parts else 0
+        table += p.numel() if parts[-1] == "table" else 0
+    return total, routed, table
+
+
+def count_params(cfg, active_only: bool = False) -> int:
+    """Total parameters or, with ``active_only`` for a MoE model, those a
+    token runs."""
+    total, routed, _ = _count(cfg)
+    if active_only and cfg.n_experts:
+        return int(total - routed + routed * cfg.top_k / cfg.n_experts)
+    return total
+
+
+def matmul_params(cfg, active_only: bool = False) -> int:
+    """Parameters in matmuls: all but the embedding's lookup table (which
+    moves bytes), unless it is tied and so also the unembedding."""
+    total, routed, table = _count(cfg)
+    n = total if cfg.tie_embeddings else total - table
+    if active_only and cfg.n_experts:     # the top_k experts a token runs
+        n = n - routed + int(routed * cfg.top_k / cfg.n_experts)
+    return n
+
+
+def model_flops(cfg, shape) -> float:
+    """MODEL_FLOPS of one step of ``shape`` (a ``ShapeConfig``): 6 N D to
+    train, 2 N D forward only (D tokens: batch x seq, or batch for a decode
+    step), N the active matmul parameters."""
+    n = matmul_params(cfg, active_only=True)
+    if shape.kind == "train":
+        return 6.0 * n * shape.global_batch * shape.seq_len
+    if shape.kind == "prefill":
+        return 2.0 * n * shape.global_batch * shape.seq_len
+    return 2.0 * n * shape.global_batch

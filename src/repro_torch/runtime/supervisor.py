@@ -7,7 +7,10 @@ the port's ``CheckpointManager``.
     step function, restores the latest checkpoint (through ``build``),
     and resumes, at most ``max_restarts`` times.
   * preemption         — SIGTERM triggers a final synchronous checkpoint
-    before the loop returns.
+    before the loop returns; ``run`` installs its handler and puts the one
+    it found back when it returns (an installed handler that held the
+    run's state would keep a finished run's model and moments in device
+    memory).
   * straggler detection — per-step wall-time EWMA; a step exceeding
     ``straggler_factor`` x the EWMA is logged and counted (one process:
     the event is recorded, nothing is re-dispatched).
@@ -60,19 +63,28 @@ class TrainSupervisor:
         self._orig_handler = None
 
     # -- signals ----------------------------------------------------------------
-    def install_sigterm(self, get_state: Callable[[], tuple]):
+    def install_sigterm(self):
         def handler(signum, frame):
             self._stop = True
-        self._orig_handler = signal.signal(signal.SIGTERM, handler)
-        self._get_state = get_state
+        prev = signal.signal(signal.SIGTERM, handler)
+        if self._orig_handler is None:        # not ours, from a restart
+            self._orig_handler = prev
 
     # -- main loop ---------------------------------------------------------------
     def run(self, build: Callable, n_steps: int, log_every: int = 10):
+        try:
+            return self._run(build, n_steps, log_every)
+        finally:
+            if self._orig_handler is not None:
+                signal.signal(signal.SIGTERM, self._orig_handler)
+                self._orig_handler = None
+
+    def _run(self, build: Callable, n_steps: int, log_every: int):
         restarts = 0
         while True:
             try:
                 state, step_fn, start_step = build(self.ckpt)
-                self.install_sigterm(lambda: state)
+                self.install_sigterm()
                 for i in range(start_step, n_steps):
                     t0 = time.perf_counter()
                     state, metrics = step_fn(state, i)

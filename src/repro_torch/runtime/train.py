@@ -16,7 +16,7 @@ from __future__ import annotations
 
 import torch
 
-from ..models import transformer
+from ..models import encdec, transformer
 from ..models.zoo import Model
 from ..optim import AdamWConfig, adamw_update, clip_by_global_norm
 
@@ -32,16 +32,16 @@ def _grads(loss: torch.Tensor, params: dict) -> dict:
 def make_train_step(model: Model, opt_cfg: AdamWConfig, *,
                     microbatches: int = 1, aux_weight: float = 0.01):
     """Returns train_step(lm, opt_state, batch) -> (lm, opt_state,
-    metrics); ``batch`` holds ``tokens`` and ``labels`` (B, S) and, for a
-    ``vlm`` model, optionally ``img_embeds``, as tensors on lm's device.
-    The embedding and any MoE dispatch run on the ``torch`` backend: the
-    row kernels have no backward."""
+    metrics); ``batch`` holds ``tokens`` and ``labels`` (B, S), for a
+    ``vlm`` model optionally ``img_embeds`` and for the ``audio`` family
+    ``frames``, as tensors on lm's device.  The embedding and any MoE
+    dispatch run on the ``torch`` backend: the row kernels have no
+    backward."""
     cfg = model.cfg
-    if cfg.family == "audio":
-        raise NotImplementedError("the encoder-decoder loss is not ported "
-                                  "(ROADMAP, the training queue)")
 
     def loss_fn(lm, batch):
+        if cfg.family == "audio":
+            return encdec.encdec_loss(cfg, lm, batch)
         return transformer.lm_loss(cfg, lm, batch, aux_weight=aux_weight)
 
     def train_step(lm, opt_state, batch):

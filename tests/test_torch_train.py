@@ -5,8 +5,8 @@ the token pipeline, flash attention's gradient (the backward kernel's
 plain version and autograd through the wrapper), the loss and its
 gradients, one ``make_train_step``, microbatches, the checkpointer and
 the supervisor, each held to its JAX counterpart on the same numpy draws;
-the smoke configs (llama3-8b-smoke, internvl2-26b-smoke) in float32
-through ``models/convert.py``.  Tolerances are stated where they are used.
+every arch's smoke config (whisper-base's encoder-decoder loss among
+them) in float32 through ``models/convert.py``.  Tolerances are stated where they are used.
 Each test runs torch on one thread: these shapes are tiny, and more
 threads only wait on each other.
 """
@@ -26,7 +26,6 @@ from repro.checkpoint import Checkpointer as JCheckpointer
 from repro.configs import get_smoke_config as j_get_smoke_config
 from repro.data import TokenPipeline as JTokenPipeline
 from repro.kernels.flash_attention.ops import flash_attention as j_flash
-from repro.models import transformer as j_tf
 from repro.models.zoo import Model as JModel
 from repro.optim import AdamWConfig as JAdamWConfig
 from repro.optim import adamw_update as j_adamw_update
@@ -44,7 +43,7 @@ from repro_torch.kernels.flash_attention.ops import (flash_attention,
 from repro_torch.kernels.flash_attention.ref import (flash_attention_bwd_ref,
                                                      flash_attention_ref)
 from repro_torch.launch import train as train_cli
-from repro_torch.models import convert, transformer
+from repro_torch.models import convert, encdec, transformer
 from repro_torch.models.zoo import Model
 from repro_torch.optim import (AdamWConfig, adamw_update,
                                clip_by_global_norm, init_opt_state,
@@ -165,15 +164,40 @@ def test_token_pipeline_equals_jax_bit_for_bit(vocab, seq, batch, seed):
 
 # -- flash attention's gradient ------------------------------------------------------
 
-FLASH_CASES = [  # B, KVH, G, S, T, causal
-    (1, 2, 3, 24, 24, True), (2, 1, 4, 16, 40, True),
-    (1, 2, 2, 40, 16, True), (2, 2, 3, 24, 40, False),
-    (1, 1, 1, 32, 32, False),
+# B, KVH, G, S, T, causal, window, softcap, dh, q's scale
+FLASH_CASES = [
+    (1, 2, 3, 24, 24, True, 0, 0.0, 16, 1.0),
+    (2, 1, 4, 16, 40, True, 0, 0.0, 16, 1.0),
+    (1, 2, 2, 40, 16, True, 0, 0.0, 16, 1.0),
+    (2, 2, 3, 24, 40, False, 0, 0.0, 16, 1.0),
+    (1, 1, 1, 32, 32, False, 0, 0.0, 16, 1.0),
     # G 12 and 16 (the bf16 kernel's CTA walks the G heads), at lengths
     # that are no multiple of a block: 130 halves the JAX block to 2
-    (1, 1, 12, 13, 13, True), (1, 2, 16, 9, 17, False),
-    (2, 1, 12, 17, 7, True), (1, 1, 16, 1, 5, True),
-    (1, 1, 12, 130, 16, False), (1, 1, 16, 16, 130, True)]
+    (1, 1, 12, 13, 13, True, 0, 0.0, 16, 1.0),
+    (1, 2, 16, 9, 17, False, 0, 0.0, 16, 1.0),
+    (2, 1, 12, 17, 7, True, 0, 0.0, 16, 1.0),
+    (1, 1, 16, 1, 5, True, 0, 0.0, 16, 1.0),
+    (1, 1, 12, 130, 16, False, 0, 0.0, 16, 1.0),
+    (1, 1, 16, 16, 130, True, 0, 0.0, 16, 1.0),
+    # a window (gemma2's local layers), causal and not, S != T
+    (1, 2, 2, 40, 40, True, 8, 0.0, 16, 1.0),
+    (2, 1, 3, 24, 40, False, 5, 0.0, 16, 1.0),
+    (1, 2, 2, 17, 33, True, 1, 0.0, 16, 1.0),
+    # a softcap where it bites: q scaled so that |scores| reach 3 x the cap
+    (1, 2, 2, 24, 24, True, 0, 2.0, 16, 3.0),
+    (2, 1, 3, 16, 40, False, 0, 1.5, 16, 3.0),
+    # both (gemma2's local layers), and the softcap alone at dh 64
+    (1, 2, 2, 33, 33, True, 6, 2.0, 16, 3.0),
+    (1, 1, 2, 24, 24, True, 0, 3.0, 64, 2.0),
+    # dh 64 (whisper): the encoder, the causal decoder, S != T cross
+    (2, 2, 1, 24, 24, False, 0, 0.0, 64, 1.0),
+    (1, 2, 1, 40, 40, True, 0, 0.0, 64, 1.0),
+    (2, 1, 2, 40, 12, False, 0, 0.0, 64, 1.0),
+    # rows that the window leaves no key (i >= T + window - 1, so S > T):
+    # P = 1/T over every key, dV += dO / T, nothing to dQ or dK
+    (1, 2, 2, 40, 16, True, 8, 0.0, 16, 1.0),
+    (2, 1, 3, 30, 9, False, 4, 2.0, 16, 3.0),
+    (1, 1, 2, 24, 5, True, 1, 0.0, 64, 1.0)]
 
 
 def _flash_inputs(b, kvh, g, s, t, dh=16, seed=0):
@@ -185,33 +209,61 @@ def _flash_inputs(b, kvh, g, s, t, dh=16, seed=0):
             rng.standard_normal((b, kvh, g, s, dh)).astype(f))
 
 
-@pytest.mark.parametrize("b,kvh,g,s,t,causal", FLASH_CASES)
-def test_flash_backward_equals_jax_vjp(b, kvh, g, s, t, causal):
+@pytest.mark.parametrize("b,kvh,g,s,t,causal,window,softcap,dh,qs",
+                         FLASH_CASES)
+def test_flash_backward_equals_jax_vjp(b, kvh, g, s, t, causal, window,
+                                       softcap, dh, qs):
     """dq, dk, dv of the JAX flash attention (the Pallas forward in
     interpret mode, its custom_vjp's recompute) against the backward's
     plain version on the forward's out and lse, and against autograd
     through the port's wrapper (CPU: the plain forward), float32."""
-    q, k, v, do = _flash_inputs(b, kvh, g, s, t)
-    scale = 16 ** -0.5
-    out, vjp = jax.vjp(lambda q, k, v: j_flash(q, k, v, causal=causal,
-                                               interpret=True),
+    q, k, v, do = _flash_inputs(b, kvh, g, s, t, dh)
+    q = q * np.float32(qs)
+    scale = dh ** -0.5
+    opts = dict(causal=causal, window=window, softcap=softcap)
+    out, vjp = jax.vjp(lambda q, k, v: j_flash(q, k, v, interpret=True,
+                                               **opts),
                        *map(jnp.asarray, (q, k, v)))
     want = vjp(jnp.asarray(do))
     tq, tk, tv, tdo = map(_t, (q, k, v, do))
-    o, lse = flash_attention_lse(tq, tk, tv, causal=causal)
+    o, lse = flash_attention_lse(tq, tk, tv, **opts)
     np.testing.assert_allclose(o.numpy(), _np(out), **F32_TOL)
     before = launches["flash_attention_bwd"]
-    got = flash_attention_bwd(tq, tk, tv, o, lse, tdo, scale=scale,
-                              causal=causal)
+    got = flash_attention_bwd(tq, tk, tv, o, lse, tdo, scale=scale, **opts)
     ref = flash_attention_bwd_ref(tq, tk, tv, o, lse, tdo, scale=scale,
-                                  causal=causal)
+                                  **opts)
     assert launches["flash_attention_bwd"] == before   # CPU: no launch
     xq, xk, xv = (x.clone().requires_grad_() for x in (tq, tk, tv))
-    auto = torch.autograd.grad(flash_attention(xq, xk, xv, causal=causal),
+    auto = torch.autograd.grad(flash_attention(xq, xk, xv, **opts),
                                (xq, xk, xv), tdo)
     for mine in (got, ref, auto):
         for a, w in zip(mine, want):
             np.testing.assert_allclose(a.numpy(), _np(w), **F32_TOL)
+    if softcap:      # the cap bites: some score at least 2 x the cap
+        raw = torch.einsum("bhgqd,bhtd->bhgqt", tq, tk) * scale
+        assert float(raw.abs().max()) > 2 * softcap
+
+
+def test_flash_backward_rows_without_keys_follow_the_jax_vjp():
+    """A row that the window leaves no key takes V's mean in the forward;
+    its gradient gives each key's dV dO / T and dQ nothing, as the JAX
+    vjp does (the plain version does not read P = exp(s - lse) there: its
+    lse, -1e30 + ln T, rounds to -1e30 in float32, which would give P = 1
+    and dV off by a factor of T)."""
+    q, k, v, do = map(_t, _flash_inputs(1, 1, 1, 12, 4))
+    opts = dict(causal=True, window=2, softcap=0.0)
+    o, lse = flash_attention_lse(q, k, v, **opts)
+    empty = torch.arange(12) >= 4 + 2 - 1
+    assert bool((lse[..., empty] == -1e30).all())
+    dq, dk, dv = flash_attention_bwd(q, k, v, o, lse, do, scale=0.25,
+                                     **opts)
+    assert bool((dq[..., empty, :] == 0).all())
+    seen = flash_attention_bwd(q[..., ~empty, :], k, v, o[..., ~empty, :],
+                               lse[..., ~empty], do[..., ~empty, :],
+                               scale=0.25, **opts)
+    torch.testing.assert_close(dk, seen[1])
+    torch.testing.assert_close(
+        dv, seen[2] + do[..., empty, :].sum((2, 3))[:, :, None] / 4)
 
 
 def test_flash_forward_lse_is_the_logsumexp_of_the_masked_scores():
@@ -227,7 +279,9 @@ def test_flash_forward_lse_is_the_logsumexp_of_the_masked_scores():
 
 # -- the loss, its gradients and the train step ----------------------------------------
 
-ARCHS = ("llama3-8b", "internvl2-26b")
+ARCHS = ("llama3-8b", "internvl2-26b", "falcon-mamba-7b", "deepseek-v2-236b",
+         "gemma2-27b", "chatglm3-6b", "starcoder2-15b", "recurrentgemma-9b",
+         "kimi-k2-1t-a32b", "whisper-base")
 
 
 def _cfgs(arch, **kw):
@@ -245,7 +299,7 @@ def _model_params(jcfg, seed=0):
 
     def leaf(path, v):
         v = np.asarray(v, np.float32)
-        stacked = path[0].key == "stages"
+        stacked = path[0].key in ("stages", "enc", "dec")
         if stacked and v.ndim >= 3:
             v = rng.standard_normal(v.shape) / np.sqrt(v.shape[1])
         elif v.ndim == 1 or (stacked and v.ndim == 2):
@@ -256,7 +310,8 @@ def _model_params(jcfg, seed=0):
 
 
 def _port_lm(cfg, tree):
-    lm = transformer.LM(cfg, device="cpu", dtype=torch.float32)
+    net = encdec.EncDec if cfg.family == "audio" else transformer.LM
+    lm = net(cfg, device="cpu", dtype=torch.float32)
     lm.load_state_dict(convert.params_from_jax(cfg, tree))
     return lm.requires_grad_(True)
 
@@ -268,6 +323,9 @@ def _batch(cfg, b=2, s=24, seed=0, images=True):
     if cfg.family == "vlm" and images:
         batch["img_embeds"] = np.random.default_rng(seed).standard_normal(
             (b, cfg.n_img_tokens, cfg.d_model)).astype(np.float32)
+    if cfg.family == "audio":     # the stub frontend's frame embeddings
+        batch["frames"] = np.random.default_rng(seed).standard_normal(
+            (b, s // cfg.frame_ratio, cfg.d_model)).astype(np.float32)
     return batch
 
 
@@ -279,8 +337,8 @@ def test_lm_loss_and_gradients_equal_jax(arch, remat):
     lm = _port_lm(cfg, tree)
     batch = _batch(cfg)
     jloss, jgrads = jax.value_and_grad(
-        lambda p: j_tf.lm_loss(jcfg, p, {k: jnp.asarray(v)
-                                         for k, v in batch.items()}))(
+        lambda p: JModel(jcfg).loss(p, {k: jnp.asarray(v)
+                                        for k, v in batch.items()}))(
         jax.tree.map(jnp.asarray, tree))
     loss = Model(cfg).loss(lm, {k: _t(v) for k, v in batch.items()})
     np.testing.assert_allclose(float(loss.detach()), float(jloss),
@@ -413,11 +471,6 @@ def test_hopper_gather_refuses_a_gradient():
     b = {k: _t(v) for k, v in _batch(cfg).items()}
     with pytest.raises(NotImplementedError, match="no backward"):
         transformer.lm_loss(cfg, lm, b, gs_backend="hopper")
-
-
-def test_audio_family_loss_is_not_ported():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Model(get_smoke_config("whisper-base")).loss(None, {})
 
 
 # -- checkpointing ------------------------------------------------------------------
@@ -569,6 +622,31 @@ def test_supervisor_checkpoints_on_sigterm(tmp_path):
     finally:
         signal.signal(signal.SIGTERM, old)
     assert float(state["x"]) == 4.0 and sup.ckpt.latest_step() == 4
+    sup.ckpt.close()
+
+
+def test_supervisor_gives_back_sigterm_and_its_state(tmp_path):
+    """When ``run`` returns, SIGTERM has the handler it had before, and
+    nothing of the supervisor still holds the run's state (a finished
+    run's model would otherwise stay in device memory)."""
+    import weakref
+    if threading.current_thread() is not threading.main_thread():
+        pytest.skip("signal handlers install on the main thread only")
+    held = []
+
+    def build(ckpt):
+        state = {"w": torch.zeros(4)}
+        held.append(weakref.ref(state["w"]))
+        return state, lambda state, i: (state, {"loss": 0.0}), 0
+
+    before = signal.getsignal(signal.SIGTERM)
+    sup = TrainSupervisor(SupervisorConfig(ckpt_dir=str(tmp_path),
+                                           ckpt_every=100))
+    sup.run(build, 3)
+    assert signal.getsignal(signal.SIGTERM) is before
+    import gc
+    gc.collect()
+    assert held[0]() is None
     sup.ckpt.close()
 
 
