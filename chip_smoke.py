@@ -37,7 +37,7 @@ only.  Phases:
      D in {1, 3, 4, 8}, views in and out of phase, B in {1, 2, 3} with N
      from 1 to 8,191, the deep setting, the 64-bit instances): gathers and
      stores must be ``torch.equal``, adds within ``add_error_bound``; the
-     selective scan over B in {1, 3}, L in {1, 7, 300, 2048}, D in {16,
+     selective scan over B in {1, 3}, L in {1, 7, 300, 1000}, D in {16,
      200, 8192}, N in {4, 8, 16}, float32 and bfloat16, two ranges of dt,
      then L and D off the chunk's and the CTA's multiples with b and c at
      every alignment, within ``scan_tolerance``; flash attention first at
@@ -364,11 +364,29 @@ only.  Phases:
      --d-model 512``) on the card; flash attention's backward row at the
      training shape (4, 8, 4, 4,096, 128) runs in phase 4
      (``flash_bwd_time``, beside SDPA's backward).
+ 20. (right after phase 19) training gemma2-27b (4 layers, 2 x 8,192, its
+     window and softcap through the backward) and whisper-base (8 x
+     6,000 tokens over 1,500 frames) (``train2_phase``), each with exact
+     launches and step 0 against the plain attention; gemma2's one-step
+     check at ``GEMMA2_TRAIN_CHECK``.
+ 21. (right after phase 20) training falcon-mamba-7b (16 of 64 layers,
+     4 x 4,096 tokens, 2,217,676,800 parameters) and recurrentgemma-9b (6
+     of 38 layers, 2 x 8,192 tokens, 2,361,577,472 parameters)
+     (``train3_phase``) through the backward kernels of the selective
+     scan and the RG-LRU recurrence and flash's at dh 256: exact launches
+     (the scan 2 x 16 forward and 16 backward a step; the recurrence 2 x 4
+     and 4, flash 2 x 2 and 2), step 0 against ``step0_loss``, and the
+     one-step checks at ``FM_TRAIN_CHECK`` and ``RG_TRAIN_CHECK`` against
+     the plain backwards (``FM_TRAIN_LIMITS``, ``RG_TRAIN_LIMITS``); the
+     three backwards' phase-1 cases (``scan_bwd_cases``,
+     ``rglru_bwd_cases``, dh 256 in ``_bwd_option_case_list``) and their
+     rows at the training shapes (``train3_bwd_times``, phase 4).
 
 The launch counts are set to 0 just before phase 2 and read just after
 phase 3, again just before and after the serve calls of phases 5, 6,
 12, 13, 14, 15, 16, 17 and 18, just before and after phase 19's
-training run and each of its checked steps, just before and after
+training run and each of its checked steps (and those of phases 20 and
+21), just before and after
 phase 7's daemon, just before and after
 phase 8's placed suites, just before and after phase 9's lint and cost passes
 (where they must equal the censuses' sum), and just before and after
@@ -380,7 +398,8 @@ the script exits nonzero.  Before the last line it prints a
 ``{"deepseek": {...}}``, a ``{"gemma2": {...}}``, a ``{"dense_archs":
 {...}}``, a ``{"recurrentgemma": {...}}``, a ``{"kimi": {...}}``, a
 ``{"whisper": {...}}``, an ``{"internvl2": {...}}``, a ``{"train":
-{...}}``, a ``{"daemon": {...}}``, a ``{"placements": {...}}``, an
+{...}}``, a ``{"train2": {...}}``, a ``{"train3": {...}}``, a
+``{"daemon": {...}}``, a ``{"placements": {...}}``, an
 ``{"autotune":
 {...}}``, a ``{"dtypes": {...}}``, an ``{"analysis": {...}}`` and a
 ``{"kernels": [...]}`` JSON
@@ -464,6 +483,14 @@ KERNEL_INFO = {                  # name -> (source, TPU kernel it replaces)
         "src/repro_torch/csrc/flash_attention.cu",
         "none: src/repro/kernels/flash_attention/ops.py:41 (_bwd: jax.vjp "
         "of the reference)"),
+    # no TPU kernel: the JAX package differentiates lax.scan over
+    # _scan_step and _step (XLA's own gradient)
+    "selective_scan_bwd": ("src/repro_torch/csrc/selective_scan.cu",
+                           "none: src/repro/models/ssm.py:104 (lax.scan's "
+                           "gradient)"),
+    "rglru_scan_bwd": ("src/repro_torch/csrc/rglru_scan.cu",
+                       "none: src/repro/models/rglru.py:79 (lax.scan's "
+                       "gradient)"),
 }
 B16_KERNELS = ("gather_rows_b16", "gather_rows_smem_b16",
                "scatter_store_rows_b16", "scatter_store_rows_cov_b16",
@@ -1218,8 +1245,11 @@ def scan_cases(torch):
     """Phase 1 for the selective scan; returns max |err| over the cases."""
     gen = torch.Generator(device="cuda").manual_seed(1)
     err, n_cases, t0 = 0.0, 0, time.perf_counter()
+    # L up to 1,000 (63 chunks of 16, the last ragged): the plain version
+    # walks every step twice a case, and the script must stay within its
+    # time (the serve shape's L 2,048 is held in phase 4, ``scan_time``)
     for bsz in (1, 3):
-        for l in (1, 7, 300, 2048):
+        for l in (1, 7, 300, 1000):
             for d in (16, 200, 8192):
                 for n in (4, 8, 16):
                     for dtype in (torch.float32, torch.bfloat16):
@@ -2440,8 +2470,9 @@ def lulesh_add_time(torch, dtype):
     within the route's worst-case bound (``hot_row_error_bound``; on the
     streaming route ``add_error_bound`` of the plain version, inf at 16
     bits: K u >= 1/2).  Timed in turns with ``index_add_`` at the same
-    dtype (``_turn_times``: ms and device_ms); the errors of both against
-    the float64 sum are recorded."""
+    dtype (``_turn_times``: ms and device_ms), the plain version once
+    (CUDA events); the errors of the kernel and ``index_add_`` against the
+    float64 sum are recorded."""
     from repro_torch import appdb
     from repro_torch.kernels import _build
     from repro_torch.kernels.scatter_rows import ops as s
@@ -2480,6 +2511,15 @@ def lulesh_add_time(torch, dtype):
     del ones, pos, nonzero, want1, got1
 
     exact = _exact_sum(torch, idx3, vals3, v3)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    plain_dst = dst3.clone()
+    start.record()
+    scatter_add_rows_ref_(plain_dst, idx3, vals3)
+    end.record()
+    end.synchronize()
+    plain_ms = start.elapsed_time(end)
+    del plain_dst
     got = s.scatter_add_rows_(dst3.clone(), idx3, vals3)
     lib = dst3.clone().view(-1, 1).index_add_(0, idx3[0], vals3[0]).view(
         1, v3, 1)
@@ -2506,6 +2546,7 @@ def lulesh_add_time(torch, dtype):
         20, "scatter_add", name)
     row.update(dtype=str(dtype).removeprefix("torch."), lanes=n3, rows=v3,
                route="smem" if smem else "streaming", ctas=ctas,
+               plain_ms=plain_ms,
                err=err.max().item(),
                err_rms=(err / sigma).max().item(),
                library_err=(lib.double() - exact).abs().max().item(),
@@ -2516,7 +2557,8 @@ def lulesh_add_time(torch, dtype):
           f"{row['route']} route, {ctas} blocks): ms {row['ms_pair']} "
           f"device_ms {row['device_ms_pair']}; index_add_ ms "
           f"{row['library_ms_pair']} device_ms "
-          f"{row['library_device_ms_pair']}; bytes bound "
+          f"{row['library_device_ms_pair']}; plain {plain_ms:.4f} ms; "
+          f"bytes bound "
           f"{row['bound_ms']:.4f} ms; +-1 payloads bit-equal to the float64 "
           f"sum; |err| against it {row['err']:.6g} = {row['err_rms']:.4g} x "
           f"add_rms_error (up to {row['rms_error']:.6g}; limit "
@@ -3002,10 +3044,12 @@ def _by_class(evts, classes=_KERNEL_CLASSES):
 
 
 def profile_serve(torch, argv=SERVE_ARGS, decode_steps=8):
-    """Steady-state serve, not run by ``main``: after one warm serve call,
-    time a prefill and ``decode_steps`` decode steps again on the host
-    clock, then trace one of each with ``torch.profiler`` and print the
-    device time by kernel and the device's busy share of the wall."""
+    """Steady-state serve (``main`` runs it for falcon-mamba-7b after phase
+    5; its prefill's scan time goes into the scan's row): after one warm
+    serve call, time a prefill and ``decode_steps`` decode steps again on
+    the host clock, then trace one of each with ``torch.profiler`` and
+    print the device time by kernel and the device's busy share of the
+    wall."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.launch import serve
@@ -6364,7 +6408,9 @@ def _bwd_option_case_list():
     as ``FLASH_CAP_BITES``), with and without a window, at dh 128 and 64;
     dh 64 (whisper-base's) at every (S, T) of ``BWD_EDGE_LENGTHS``, G 1
     and 4, and at whisper's encoder (1500, 1500) and cross (1000, 1500)
-    lengths; each in float32 and bfloat16, causal and not."""
+    lengths; dh 256 (recurrentgemma-9b's) at every (S, T) of
+    ``BWD_EDGE_LENGTHS``, G 1 and 16, with a window of 64 (causal) and
+    without; each in float32 and bfloat16, causal and not."""
     out = []
     for dtype, causal in itertools.product(("float32", "bfloat16"),
                                            (True, False)):
@@ -6383,6 +6429,14 @@ def _bwd_option_case_list():
             out.append((dtype, g, s, t, 64, causal, 0, 0.0, 1.0))
         out += [(dtype, 1, 1500, 1500, 64, causal, 0, 0.0, 1.0),
                 (dtype, 1, 1000, 1500, 64, causal, 0, 0.0, 1.0)]
+        # dh 256 (recurrentgemma-9b's local layers): G 1 and 16 at every
+        # (S, T) of ``BWD_EDGE_LENGTHS``, without a window and (causal)
+        # with one of 64, rows without a key among them
+        for (s, t), g in itertools.product(
+                itertools.product(BWD_EDGE_LENGTHS, BWD_EDGE_LENGTHS),
+                (1, 16)):
+            for window in ((0, 64) if causal else (0,)):
+                out.append((dtype, g, s, t, 256, causal, window, 0.0, 1.0))
     return out
 
 
@@ -6449,25 +6503,27 @@ def flash_bwd_option_checks(torch):
 
 
 def flash_bwd_option_cases(torch):
-    """Phase 1's backward cases with a window, a softcap or dh 64
+    """Phase 1's backward cases with a window, a softcap, dh 64 or dh 256
     (``flash_bwd_option_checks``), and the wrapper's raise with grad at dh
-    112 and 256; returns max |err|."""
+    112 and with a softcap at dh 256; returns max |err|."""
     from repro_torch.kernels.flash_attention.ops import flash_attention
     t0 = time.perf_counter()
     errs = [run() for _, run in flash_bwd_option_checks(torch)]
-    for dh in (112, 256):          # no backward there: a raise, no fallback
+    # no backward there: a raise, no fallback
+    for dh, cap in ((112, 0.0), (256, 50.0)):
         q, k, v = (x.requires_grad_() for x in _flash_inputs(
             torch, torch.Generator(device="cuda").manual_seed(63), 1, 1, 1,
             64, dh, torch.bfloat16))
         try:
-            flash_attention(q, k, v)
-            check(False, f"flash_attention with grad at dh {dh} ran")
+            flash_attention(q, k, v, softcap=cap)
+            check(False, f"flash_attention with grad at dh {dh}, softcap "
+                  f"{cap} ran")
         except ValueError as e:
             check("no backward kernel" in str(e), f"dh {dh}: {e}")
     torch.cuda.empty_cache()
     print(f"phase 1: {len(errs)} flash lse and backward cases with a "
-          f"window, a softcap or dh 64 within their bounds of the plain "
-          f"versions; max |err| {max(errs)} "
+          f"window, a softcap, dh 64 or dh 256 within their bounds of the "
+          f"plain versions; max |err| {max(errs)} "
           f"({time.perf_counter() - t0:.1f} s)", flush=True)
     return max(errs)
 
@@ -6673,7 +6729,9 @@ def bwd_row(torch, err, shape, kw, where, iters):
     """The backward's row at ``shape`` (B, KVH, G, S, T, dh), bf16, with
     ``kw`` (causal, window, softcap): held to its plain version a (row, KV
     head) at a time (``check_flash_bwd``), then timed in turns beside
-    ``_library_backward``.  The bound is the larger of the
+    ``_library_backward``; each call launches the wgmma pass and dQ's
+    rounding, or at dh 256 the two mma.sync passes.  The bound is the
+    larger of the
     bytes (q, k, v, out, dO and lse read, dq, dk, dv written; not the
     float32 dQ workspace, which the function does not need), the five
     products of the forward's size over the pairs the mask keeps (2.5 x
@@ -6717,10 +6775,13 @@ def bwd_row(torch, err, shape, kw, where, iters):
     library_name, library = _library_backward(torch, q, k, v, o, do, kw,
                                               where)
 
+    passes = (("flash_attention_bwd_dkdv_mma", "flash_attention_bwd_dq_mma")
+              if dh == 256 else ("flash_attention_bwd_wgmma",
+                                 "flash_attention_bwd_dq_round"))
+
     def launched_once(names, launched):
         traced = [sum(c for k, c in names.items() if kernel in k)
-                  for kernel in ("flash_attention_bwd_wgmma",
-                                 "flash_attention_bwd_dq_round")]
+                  for kernel in passes]
         check(launched.get("flash_attention_bwd") == iters
               and all(0 < n <= iters for n in traced),
               f"{where}: launched {launched}, traced {names}, in {iters} "
@@ -6905,25 +6966,64 @@ TRAIN_GRAD_RTOL = 2 ** -5
 TRAIN_STEP0_RTOL = 2 ** -10
 
 
+def _backward_ops():
+    """The modules whose attribute each backward's name is, as the autograd
+    Functions look it up at the call."""
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.kernels.rglru_scan import ops as rglru_ops
+    from repro_torch.kernels.selective_scan import ops as scan_ops
+    return {"flash_attention_bwd": ops, "selective_scan_bwd": scan_ops,
+            "rglru_scan_bwd": rglru_ops}
+
+
+@contextlib.contextmanager
+def _swapped(fns):
+    """``fns`` ((module, attribute) -> function) in those places inside the
+    block."""
+    saved = {key: getattr(*key) for key in fns}
+    for (mod, attr), fn in fns.items():
+        setattr(mod, attr, fn)
+    try:
+        yield
+    finally:
+        for (mod, attr), fn in saved.items():
+            setattr(mod, attr, fn)
+
+
+def _plain_scan_bwd(u, dt, b, c, a, d_skip, dy, dh_final=None, ckpt=None):
+    """The scan's plain backward on the card's tensors, in
+    ``selective_scan_bwd``'s place (it rebuilds every state itself)."""
+    from repro_torch.kernels.selective_scan.ref import selective_scan_bwd_ref
+    return selective_scan_bwd_ref(u, dt, b, c, a, d_skip, dy, dh_final)
+
+
+def _plain_rglru_bwd(a, beta, gx, h0, hs, dhs, dh_last=None):
+    """The recurrence's plain backward on the card's tensors, in
+    ``rglru_scan_bwd``'s place."""
+    from repro_torch.kernels.rglru_scan.ref import rglru_scan_bwd_ref
+    return rglru_scan_bwd_ref(a, beta, gx, h0, hs, dhs, dh_last)
+
+
 def grad_readings(torch, backwards=(("kernel", None),), arch="llama3-8b",
                   shape=None):
     """One step's loss and every parameter's gradient of ``arch`` at full
     width and ``shape``'s depth and tokens (default ``TRAIN_CHECK``; its
     ``q_gain``, where given, multiplies every layer's query projection
     after the draw, so that the scores reach a softcap): first through the
-    plain attention
-    (the wrapper's plain version, differentiated by autograd, in
-    ``models.attention``'s place), then through the kernels once for each
-    ``(name, bwd)`` of ``backwards``, with ``bwd`` in the place of
-    ``ops.flash_attention_bwd`` where it is not None (a planted fault).
-    Returns, for each name: the loss, its distance from the plain one
-    relative to it, the kernel launches, and for each leaf its gradient's
-    norm and distance from the plain gradient, each relative to the plain
-    gradient's norm."""
+    plain versions (the flash wrapper's plain version, differentiated by
+    autograd, in ``models.attention``'s place; the plain backwards of the
+    scan and the recurrence in their wrappers' places, after their forward
+    kernels), then through the kernels once for each ``(name, bwd)`` of
+    ``backwards``, with ``bwd`` where it is not None (planted faults): a
+    dict of functions by the name of the backward each takes the place of
+    (``_backward_ops``).  Returns, for each
+    name: the loss, its distance from the plain one relative to it, the
+    kernel launches, and for each leaf its gradient's norm and distance
+    from the plain gradient, each relative to the plain gradient's
+    norm."""
     from repro_torch.configs import get_config
     from repro_torch.data import TokenPipeline
     from repro_torch.kernels import reset_launches
-    from repro_torch.kernels.flash_attention import ops
     from repro_torch.models import attention
     from repro_torch.models.zoo import Model
     shape = shape or TRAIN_CHECK
@@ -6931,9 +7031,10 @@ def grad_readings(torch, backwards=(("kernel", None),), arch="llama3-8b",
     model = Model(cfg)
     lm = model.init(torch.Generator(device="cuda").manual_seed(0), "cuda",
                     trainable=True)
-    with torch.no_grad():
-        for blk in lm.layers:
-            blk.mixer.wq.mul_(shape.get("q_gain", 1.0))
+    if "q_gain" in shape:
+        with torch.no_grad():
+            for blk in lm.layers:
+                blk.mixer.wq.mul_(shape["q_gain"])
     params = dict(lm.named_parameters())
     batch = {k: torch.from_numpy(v).cuda() for k, v in TokenPipeline(
         vocab=cfg.vocab, seq_len=shape["seq"],
@@ -6945,22 +7046,22 @@ def grad_readings(torch, backwards=(("kernel", None),), arch="llama3-8b",
         grads = torch.autograd.grad(loss, list(params.values()))
         return loss.item(), dict(zip(params, grads)), _launches()
 
-    saved_fwd, saved_bwd = attention.flash_attention, ops.flash_attention_bwd
-    attention.flash_attention = _plain_attention
-    try:
+    mods = _backward_ops()
+    with _swapped({(attention, "flash_attention"): _plain_attention,
+                   (mods["selective_scan_bwd"], "selective_scan_bwd"):
+                       _plain_scan_bwd,
+                   (mods["rglru_scan_bwd"], "rglru_scan_bwd"):
+                       _plain_rglru_bwd}):
         p_loss, p_grads, p_launched = step()
-    finally:
-        attention.flash_attention = saved_fwd
-    check(not any(p_launched.values()), f"plain step launched {p_launched}")
+    check(not any(n for k, n in p_launched.items()
+                  if k.startswith("flash_attention") or k.endswith("_bwd")),
+          f"plain step launched {p_launched}")
     p_norms = {k: g.float().norm().item() for k, g in p_grads.items()}
     check(all(n > 0 for n in p_norms.values()), "a plain gradient is 0")
     out = {}
     for name, bwd in backwards:
-        ops.flash_attention_bwd = bwd or saved_bwd
-        try:
+        with _swapped({(mods[k], k): fn for k, fn in (bwd or {}).items()}):
             loss, grads, launched = step()
-        finally:
-            ops.flash_attention_bwd = saved_bwd
         out[name] = dict(
             loss=loss, plain_loss=p_loss,
             loss_rel=abs(loss - p_loss) / abs(p_loss), launches=launched,
@@ -7002,10 +7103,11 @@ def _grad_check_step(torch, arch="llama3-8b", shape=None, limits=None):
     shape = shape or TRAIN_CHECK
     loss_rtol, norm_rtol, grad_rtol = limits or (
         TRAIN_LOSS_RTOL, TRAIN_NORM_RTOL, TRAIN_GRAD_RTOL)
+    from repro_torch.configs import get_config
     r = grad_readings(torch, arch=arch, shape=shape)["kernel"]
     layers = shape["layers"]
-    # block remat: each layer's forward runs twice, its backward once
-    want = {"flash_attention": 2 * layers, "flash_attention_bwd": layers}
+    want = _step_launches(dataclasses.replace(get_config(arch),
+                                              n_layers=layers))
     check(r["launches"] == {k: want.get(k, 0) for k in r["launches"]},
           f"kernel step launched {r['launches']}, not {want}")
     bad = grad_faults(r, limits)
@@ -7028,6 +7130,25 @@ def _grad_check_step(torch, arch="llama3-8b", shape=None, limits=None):
                 max_diff_rel=r["diff_rel"][worst["diff_rel"]],
                 worst_diff_param=worst["diff_rel"],
                 launches=r["launches"], **shape)
+
+
+def _step_launches(cfg):
+    """The kernel launches of one training step of ``cfg`` under block
+    remat, which runs each block's forward twice and its backward once:
+    flash attention's forward and backward for each attention call (an
+    encoder layer's one, a decoder layer's two in an ``audio`` model), the
+    scan's for a mamba layer, the recurrence's for an RG-LRU layer."""
+    from repro_torch.models.transformer import layer_kinds
+    if cfg.family == "audio":
+        calls = cfg.n_enc_layers + 2 * cfg.n_layers
+        return {"flash_attention": 2 * calls, "flash_attention_bwd": calls}
+    by_kind = {"mamba": "selective_scan", "rec": "rglru_scan"}
+    out = {}
+    for kind in layer_kinds(cfg):
+        fwd = by_kind.get(kind, "flash_attention")
+        out[fwd] = out.get(fwd, 0) + 2
+        out[f"{fwd}_bwd"] = out.get(f"{fwd}_bwd", 0) + 1
+    return out
 
 
 def _plain_attention(q, k, v, *, causal=True, window=0, softcap=0.0):
@@ -7091,11 +7212,11 @@ def train_run(torch, argv):
     """``launch.train`` at ``argv`` (no checkpoint written): step 0's loss
     within ``TRAIN_STEP0_RTOL`` of ``step0_loss`` (the same step through
     the plain attention), every loss and
-    grad_norm finite, flash attention's forward launched twice and its
-    backward once a step for each attention call of a step's forward
-    (block remat), nothing else; seconds a step, tokens and model FLOP/s,
-    peak memory; the backward's calls by kind (``_bwd_calls``).  Returns
-    the numbers and the run's launches."""
+    grad_norm finite, each step's launches ``_step_launches`` (block
+    remat: each forward kernel twice and its backward once a layer, or
+    attention call), nothing else; seconds a step, tokens and model
+    FLOP/s, peak memory; flash's backward calls by kind (``_bwd_calls``).
+    Returns the numbers and the run's launches."""
     import statistics
     import tempfile
 
@@ -7134,16 +7255,11 @@ def train_run(torch, argv):
     check(abs(m[0]["loss"] - expect) <= TRAIN_STEP0_RTOL * abs(expect),
           f"{cfg.arch_id}: step 0 loss {m[0]['loss']} vs {expect} through "
           "the plain attention")
-    # attention calls a step's forward: a layer's one, or an encoder
-    # layer's one and a decoder layer's two
-    per_step = (cfg.n_enc_layers + 2 * cfg.n_layers
-                if cfg.family == "audio" else cfg.n_layers)
-    want = {"flash_attention": 2 * per_step * steps,
-            "flash_attention_bwd": per_step * steps}
+    want = {k: n * steps for k, n in _step_launches(cfg).items()}
     check(launched == result.launches
           == {k: want.get(k, 0) for k in KERNELS},
           f"train launches {launched} ({result.launches}) != {want}")
-    check(sum(calls.values()) == want["flash_attention_bwd"],
+    check(sum(calls.values()) == want.get("flash_attention_bwd", 0),
           f"backward calls by kind {calls} != {want}")
     walls = [s.wall_s for s in result.stats]
     step_s = statistics.median(walls[1:])
@@ -7295,6 +7411,398 @@ def train2_phase(torch):
     return out, {"gemma2": g_launched, "whisper": w_launched}
 
 
+# -- phase 21: training falcon-mamba-7b and recurrentgemma-9b at full width ---
+
+# falcon-mamba-7b at full width cut to 16 of 64 layers, 4 x 4,096 tokens;
+# recurrentgemma-9b cut to 6 of 38 layers (two (rec, rec, attn) periods),
+# 2 x 8,192 tokens (past the window of 2,048); parameters by count_params
+FM_TRAIN_ARGS = ["--arch", "falcon-mamba-7b", "--layers", "16", "--batch",
+                 "4", "--seq", "4096", "--steps", "4", "--ckpt-every", "1000"]
+FM_TRAIN_PARAMS = 2_217_676_800
+RG_TRAIN_ARGS = ["--arch", "recurrentgemma-9b", "--layers", "6", "--batch",
+                 "2", "--seq", "8192", "--steps", "4", "--ckpt-every", "1000"]
+RG_TRAIN_PARAMS = 2_361_577_472
+# the steps checked against the plain backwards (and, for the attention
+# layer, the plain attention): full width, 1 x 4,096 tokens
+FM_TRAIN_CHECK = dict(layers=2, batch=1, seq=4096)
+RG_TRAIN_CHECK = dict(layers=3, batch=1, seq=4096)
+# their limits (loss, norms, distance), a few times the sound kernels'
+# readings on the H100 (``probes/train_grad_faults.py --arch``):
+# falcon-mamba-7b's loss 0 apart (the same forward kernel on both sides),
+# the norms within 7.8e-5 to 2.3e-4 (embed.table, whose gradient the
+# embedding's backward sums with atomics: it moves from run to run), the
+# distance within 7.1e-3 (embed.table), so phase 19's limits; the planted
+# faults read >= 2.2e-2 on the norms and >= 0.22 on the distance.
+# recurrentgemma-9b's loss 4.1e-6 apart (the attention layer's forward
+# rounds P to bf16 before P V, the plain one does not), the norms within
+# 4.6e-4, the distance within 3.0e-3 (layers.0.mixer.w_a); its faults
+# read >= 6.5e-2 and >= 0.18
+FM_TRAIN_LIMITS = (2 ** -18, 2 ** -10, 2 ** -5)
+RG_TRAIN_LIMITS = (2 ** -16, 2 ** -9, 2 ** -6)
+# the training shapes of the three backwards' phase-4 rows
+FM_SCAN_BWD_SHAPE = (4, 4096, 8192, 16)             # B, L, D, N
+RG_SCAN_BWD_SHAPE = (2, 8192, 4096)                 # B, S, W
+RG_TRAIN_BWD = ((2, 1, 16, 8192, 8192, 256),
+                dict(causal=True, window=RG_WINDOW, softcap=0.0))
+SCAN_BWD_NAMES = ("du", "ddt", "db", "dc", "da", "dd_skip")
+
+
+def scan_bwd_tolerance(bsz, l, d):
+    """Error allowed each gradient of the scan, as a share of that
+    tensor's largest magnitude: the kernel takes each factor exp(dt a) by
+    ex2.approx (2^-22 relative) where the plain version takes exp, and sums
+    in other orders, dB and dC over the D channels, da and dD over the B L
+    steps, the state's cotangent over up to L steps (4 x 2^-24 a term, as
+    ``bwd_tolerance``)."""
+    return 2.0 ** -22 * (bsz * l + d + 16)
+
+
+def check_scan_bwd(torch, ins, dy, dh, where, got=None):
+    """The scan's gradient through the wrapper with grad on
+    (``SelectiveScanFn``: the checkpointing forward, then the backward
+    kernel; or ``got`` where given) against ``selective_scan_bwd_ref`` on
+    the same values in float32: each gradient within
+    ``scan_bwd_tolerance`` of its largest magnitude, plus, in bfloat16, one
+    rounding (2^-8) of each value; the forward's y and h_final equal bit
+    for bit to the serve instance's.  Returns max |err| against the plain
+    gradients rounded to the kernel's dtypes, and the plain version's ms
+    (CUDA events around its one call)."""
+    from repro_torch.kernels.selective_scan.ops import selective_scan
+    from repro_torch.kernels.selective_scan.ref import selective_scan_bwd_ref
+    bsz, l, d = ins[0].shape
+    if got is None:
+        leaves = [t.detach().clone().requires_grad_() for t in ins]
+        serve_y, serve_h = selective_scan(*ins)
+        # autograd runs the backward on its own thread: the process-wide
+        # counts, not observe_launches, see its launch
+        before = _launches()
+        y, h = selective_scan(*leaves)
+        outs, cots = ([y, h], [dy, dh]) if dh is not None else ([y], [dy])
+        got = torch.autograd.grad(outs, leaves, cots)
+        ran = {k: n - before[k] for k, n in _launches().items()
+               if n != before[k]}
+        check(ran == {"selective_scan": 1, "selective_scan_bwd": 1},
+              f"selective_scan_bwd {where}: launched {ran}")
+        check(torch.equal(y, serve_y) and torch.equal(h, serve_h),
+              f"selective_scan {where}: the checkpointing instance's "
+              "outputs differ from the serve instance's")
+    torch.cuda.synchronize()
+    u, dt, b, c, a, d_skip = ins
+    f32 = [x.float() for x in (u, dt, b, c, dy)]
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    want = selective_scan_bwd_ref(*f32[:4], a, d_skip, f32[4], dh)
+    end.record()
+    end.synchronize()
+    del f32
+    tol = scan_bwd_tolerance(bsz, l, d)
+    e = 0.0
+    for name, x, g, w in zip(SCAN_BWD_NAMES, ins, got, want):
+        check(g.dtype == x.dtype and g.shape == w.shape,
+              f"selective_scan_bwd {where} {name}: {g.dtype} "
+              f"{tuple(g.shape)}")
+        check(bool(torch.isfinite(g.float()).all()),
+              f"selective_scan_bwd {where} {name}: not finite")
+        round_out = 2.0 ** -8 if g.dtype == torch.bfloat16 else 0.0
+        bound = round_out * w.abs() + tol * w.abs().max()
+        diff = (g.float() - w).abs()
+        check(bool((diff <= bound).all()),
+              f"selective_scan_bwd {where} {name}: off by "
+              f"{diff.max().item()} (bound "
+              f"{bound.flatten()[diff.flatten().argmax()].item()})")
+        e = max(e, (g.float() - w.to(g.dtype).float()).abs().max().item())
+    return e, start.elapsed_time(end)
+
+
+def scan_bwd_cases(torch):
+    """Phase 1 for the scan's backward: B 2, D 200 (three whole CTAs of 64
+    channels and a ragged one), L at the checkpoint's edges (1, 15, 16, 17)
+    and 1,000, N 4, 8 and 16, float32 and bfloat16, with and without a
+    cotangent of h_final (``check_scan_bwd``); returns max |err|."""
+    gen = torch.Generator(device="cuda").manual_seed(71)
+    err, n_cases, t0 = 0.0, 0, time.perf_counter()
+    for l, n, dtype, with_dh in itertools.product(
+            (1, 15, 16, 17, 1000), (4, 8, 16),
+            (torch.float32, torch.bfloat16), (False, True)):
+        ins = _scan_inputs(torch, gen, 2, l, 200, n, dtype, "softplus")
+        dy = torch.randn(2, l, 200, generator=gen, device="cuda").to(dtype)
+        dh = (torch.randn(2, n, 200, generator=gen, device="cuda")
+              if with_dh else None)
+        where = f"B=2 L={l} D=200 N={n} {dtype} dh_final={with_dh}"
+        err = max(err, check_scan_bwd(torch, ins, dy, dh, where)[0])
+        n_cases += 1
+    print(f"phase 1: {n_cases} selective_scan_bwd cases within "
+          f"scan_bwd_tolerance of their plain versions; max |err| {err} "
+          f"({time.perf_counter() - t0:.1f} s)", flush=True)
+    return err
+
+
+def check_rglru_bwd(torch, ins, dhs, dh, where):
+    """The recurrence's gradient through the wrapper with grad on
+    (``RGLRUScanFn``: the forward kernel, then the backward kernel) against
+    ``rglru_scan_bwd_ref`` on the forward's hs: da, dbeta, dgx and dh0 bit
+    for bit (both compute g = fma(a, g, dhs) and the products in order).
+    Returns the plain version's ms (CUDA events around its one call)."""
+    from repro_torch.kernels.rglru_scan.ops import rglru_scan
+    from repro_torch.kernels.rglru_scan.ref import rglru_scan_bwd_ref
+    leaves = [t.detach().clone().requires_grad_() for t in ins]
+    before = _launches()            # the backward runs on autograd's thread
+    hs, last = rglru_scan(*leaves)
+    outs, cots = ([hs, last], [dhs, dh]) if dh is not None else ([hs],
+                                                                 [dhs])
+    got = torch.autograd.grad(outs, leaves, cots)
+    ran = {k: n - before[k] for k, n in _launches().items() if n != before[k]}
+    check(ran == {"rglru_scan": 1, "rglru_scan_bwd": 1},
+          f"rglru_scan_bwd {where}: launched {ran}")
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    want = rglru_scan_bwd_ref(*ins, hs.detach(), dhs, dh)
+    end.record()
+    end.synchronize()
+    for name, g, w in zip(("da", "dbeta", "dgx", "dh0"), got, want):
+        check(_bits_equal(torch, g, w), f"rglru_scan_bwd {where} {name}: "
+              f"off by {(g - w).abs().max().item() if g.numel() else 0.0}")
+    return start.elapsed_time(end)
+
+
+# (B, W, S, with a cotangent of h_S): S 1, 2, 63 and 1,000 (one step, the
+# chunk of 16 steps not reached, ragged and many chunks), W 65 and 4,097
+# (one past the 64-channel CTA)
+RGLRU_BWD_CASES = [(bsz, w, s, with_dh) for (bsz, w), s, with_dh in
+                   itertools.product(((2, 65), (1, 4097)), (1, 2, 63, 1000),
+                                     (False, True))]
+
+
+def rglru_bwd_cases(torch):
+    """Phase 1 for the recurrence's backward: ``RGLRU_BWD_CASES`` bit for
+    bit against the plain version (``check_rglru_bwd``); returns max
+    |err|."""
+    gen = torch.Generator(device="cuda").manual_seed(73)
+    t0, n_cases = time.perf_counter(), 0
+    for bsz, w, s, with_dh in RGLRU_BWD_CASES:
+        ins = _rglru_inputs(torch, gen, bsz, s, w)
+        dhs = torch.randn(bsz, s, w, generator=gen, device="cuda")
+        dh = (torch.randn(bsz, w, generator=gen, device="cuda")
+              if with_dh else None)
+        check_rglru_bwd(torch, ins, dhs, dh,
+                        f"B={bsz} S={s} W={w} dh_last={with_dh}")
+        n_cases += 1
+    print(f"phase 1: {n_cases} rglru_scan_bwd cases bit for bit against "
+          f"their plain versions ({time.perf_counter() - t0:.1f} s)",
+          flush=True)
+    return 0.0
+
+
+def scan_bwd_time(torch, err):
+    """Phase 4's row of the scan's backward at ``FM_SCAN_BWD_SHAPE``
+    (falcon-mamba-7b's training shape), bf16, no cotangent of h_final:
+    the checkpoint from the forward under grad, the backward held to its
+    plain version (whose one call is timed, ``check_scan_bwd``), then
+    timed in turns (each call the backward kernel and its sum over the
+    CTAs).  The bound is the larger of its bytes (u, dt, dy, b, c, a,
+    d_skip read, du, ddt, db, dc, da, dd_skip written; not the checkpoint
+    or the partial sums, which the function does not need) over 3.35 TB/s
+    and the B L D N exponentials of dA over the SFU rate.  No PyTorch call
+    computes a selective scan."""
+    from repro_torch.kernels.selective_scan import ops
+    bsz, l, d, n = FM_SCAN_BWD_SHAPE
+    gen = torch.Generator(device="cuda").manual_seed(72)
+    ins = _scan_inputs(torch, gen, bsz, l, d, n, torch.bfloat16, "softplus")
+    dy = torch.randn(bsz, l, d, generator=gen, device="cuda").to(
+        torch.bfloat16)
+    _, _, ckpt = ops._forward(ins[0].device, *ins, with_ckpt=True)
+    got = ops.selective_scan_bwd(*ins, dy, None, ckpt)
+    e, plain_ms = check_scan_bwd(
+        torch, ins, dy, None, f"at the training shape {FM_SCAN_BWD_SHAPE}",
+        got)
+    err["selective_scan_bwd"] = max(err["selective_scan_bwd"], e)
+    del got
+    torch.cuda.empty_cache()
+
+    def launched_once(names, launched):
+        traced = [sum(c for k, c in names.items() if kernel in k)
+                  for kernel in ("selective_scan_bwd_kernel",
+                                 "selective_scan_bwd_sum")]
+        check(launched.get("selective_scan_bwd") == iters
+              and all(0 < x <= iters for x in traced),
+              f"selective_scan_bwd: launched {launched}, traced {names}, in "
+              f"{iters} calls")
+    iters = 5
+    tt = _in_turns(torch, {"kernel": lambda: ops.selective_scan_bwd(
+        *ins, dy, None, ckpt)}, iters, {"kernel": launched_once})
+    ms, dms, names, _ = tt["kernel"]
+    nbytes = 2 * (3 * bsz * l * d + 2 * bsz * l * n)      # u, dt, dy; b, c
+    nbytes += 2 * (2 * bsz * l * d + 2 * bsz * l * n)     # du, ddt; db, dc
+    nbytes += 4 * 2 * (n * d + d)                         # a, d_skip, grads
+    exps = bsz * l * d * n
+    clock = sm_clock_hz()
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    exp_ms = exps / (SFU_EXP_PER_CLOCK_PER_SM * N_SMS * clock) * 1e3
+    row = dict(ms=min(ms), ms_pair=ms, device_ms=min(dms),
+               device_ms_pair=dms, kernels=names, plain_ms=plain_ms,
+               library_ms=None, bound_ms=max(exp_ms, bytes_ms),
+               bound_by="operations" if exp_ms >= bytes_ms else "bytes",
+               bytes=nbytes, exps=exps, bytes_ms=bytes_ms, exp_ms=exp_ms,
+               sm_clock_mhz=clock / 1e6, max_abs_err=e,
+               checkpoint_bytes=ckpt.numel() * 4,
+               shape=[bsz, l, d, n, "bfloat16", "backward"])
+    print(f"  selective_scan_bwd {FM_SCAN_BWD_SHAPE} bf16: kernel ms {ms} "
+          f"device_ms {dms} ({100 * row['bound_ms'] / row['device_ms']:.1f}% "
+          f"of the bound {row['bound_ms']:.4f} ms by {row['bound_by']}: "
+          f"{exps} exponentials {exp_ms:.4f} ms, {nbytes} bytes "
+          f"{bytes_ms:.4f} ms), plain {plain_ms:.1f} ms, "
+          f"library none (no PyTorch call computes a selective scan); "
+          f"checkpoint {row['checkpoint_bytes']} bytes", flush=True)
+    del ins, dy, ckpt
+    torch.cuda.empty_cache()
+    return row
+
+
+def rglru_bwd_time(torch, err):
+    """Phase 4's row of the recurrence's backward at ``RG_SCAN_BWD_SHAPE``
+    (recurrentgemma-9b's training shape), with a cotangent of h_S: held
+    bit for bit to its plain version (whose one call is timed,
+    ``check_rglru_bwd``), then timed (``_turn_times``); the bound is the
+    larger of its bytes (a, beta, gx, hs, dhs and h0, dh_S read; da,
+    dbeta, dgx and dh0 written) over 3.35 TB/s and its 4 flops an element
+    over the CUDA cores' float32 rate.  No PyTorch call computes a linear
+    recurrence."""
+    from repro_torch.kernels.rglru_scan.ops import rglru_scan, rglru_scan_bwd
+    bsz, s, w = RG_SCAN_BWD_SHAPE
+    gen = torch.Generator(device="cuda").manual_seed(74)
+    ins = _rglru_inputs(torch, gen, bsz, s, w)
+    dhs = torch.randn(bsz, s, w, generator=gen, device="cuda")
+    dh = torch.randn(bsz, w, generator=gen, device="cuda")
+    plain_ms = check_rglru_bwd(torch, ins, dhs, dh,
+                               f"at the training shape {RG_SCAN_BWD_SHAPE}")
+    hs, _ = rglru_scan(*ins)
+    turns = _turn_times(torch, {"kernel": lambda: rglru_scan_bwd(
+        *ins, hs, dhs, dh)}, 10, "rglru_scan_bwd", "rglru_scan_bwd")
+    nbytes = 4 * (8 * bsz * s * w + 3 * bsz * w)
+    flops = 4 * bsz * s * w
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    flop_ms = flops / FP32_FLOP_PER_S * 1e3
+    row = dict(turns, plain_ms=plain_ms, library_ms=None,
+               bound_ms=max(bytes_ms, flop_ms),
+               bound_by="bytes" if bytes_ms >= flop_ms else "operations",
+               bytes=nbytes, flops=flops, max_abs_err=0.0,
+               shape=list(RG_SCAN_BWD_SHAPE) + ["float32", "backward"])
+    print(f"  rglru_scan_bwd {RG_SCAN_BWD_SHAPE}: kernel ms "
+          f"{row['ms_pair']} device_ms {row['device_ms_pair']} "
+          f"({100 * row['bound_ms'] / row['device_ms']:.1f}% of the bound "
+          f"{row['bound_ms']:.4f} ms by {row['bound_by']}), plain "
+          f"{plain_ms:.1f} ms, library none (no PyTorch call computes a "
+          f"linear recurrence)", flush=True)
+    del ins, dhs, dh, hs
+    torch.cuda.empty_cache()
+    err["rglru_scan_bwd"] = 0.0
+    return row
+
+
+def lse_row(torch):
+    """Phase 4's row of flash's forward instance that also writes each
+    row's log-sum-exp (``kLse``) at dh 256 with recurrentgemma-9b's window
+    (phase 21's training forward, at ``RG_FLASH_SHAPE``): its output equal
+    bit for bit to the serve instance's, its lse within the bound of phase
+    1's lse checks of the plain version's (a (row, KV head) at a time),
+    then timed (``_turn_times``); the bound as ``flash_row``'s, the lse's
+    bytes added.  No public PyTorch call returns the row log-sum-exp."""
+    from repro_torch.kernels.flash_attention.ops import (flash_attention,
+                                                         flash_attention_lse)
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+    bsz, kvh, g, s, dh = RG_FLASH_SHAPE
+    gen = torch.Generator(device="cuda").manual_seed(75)
+    q, k, v = _flash_inputs(torch, gen, bsz, kvh, g, s, dh, torch.bfloat16)
+    kw = dict(causal=True, window=RG_WINDOW, softcap=0.0)
+    where = f"flash_attention_lse recurrentgemma {RG_FLASH_SHAPE} {kw}"
+    o, lse = flash_attention_lse(q, k, v, **kw)
+    check(torch.equal(o, flash_attention(q, k, v, **kw)),
+          f"{where}: the lse instance's output differs from the serve "
+          "instance's")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    e = 0.0
+    for b in range(bsz):
+        for h in range(kvh):
+            _, want = flash_attention_ref(
+                *(x[b:b + 1, h:h + 1].float() for x in (q, k, v)),
+                scale=dh ** -0.5, return_lse=True, **kw)
+            got = lse[b:b + 1, h:h + 1]
+            bound = 2.0 ** -22 * (dh + s + 16) * (
+                1 + want.abs().max().item())
+            off = (got - want).abs().max().item()
+            check(off <= bound, f"{where}: lse off by {off} (bound "
+                  f"{bound})")
+            e = max(e, off)
+            del want
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    turns = _turn_times(torch, {"kernel": lambda: flash_attention_lse(
+        q, k, v, **kw)}, 5, "flash_attention", where)
+    row = dict(_bound_row(
+        ms=turns["ms"], plain_ms=plain_ms, library_ms=None,
+        flops=2 * 2 * bsz * kvh * g * _causal_pairs(s, RG_WINDOW) * dh,
+        nbytes=2 * (q.numel() * 2 + k.numel() + v.numel()) + 4 * lse.numel(),
+        shape=list(RG_FLASH_SHAPE) + ["bfloat16", "causal",
+                                      f"window {RG_WINDOW}", "lse"],
+        library="none: no public PyTorch call returns the row log-sum-exp",
+        turns=turns), max_abs_err=e)
+    del q, k, v, o, lse
+    torch.cuda.empty_cache()
+    return row
+
+
+def train3_bwd_times(torch, err):
+    """Phase 4's rows of the three backwards at phase 21's training
+    shapes: the scan's (``scan_bwd_time``), the recurrence's
+    (``rglru_bwd_time``) and flash attention's at dh 256, MQA G 16 with
+    the window of 2,048 (``bwd_row``, beside SDPA's backward with the band
+    as a boolean mask and ``enable_gqa``), and the forward's lse instance
+    there (``lse_row``)."""
+    shape, kw = RG_TRAIN_BWD
+    return {"selective_scan_bwd": scan_bwd_time(torch, err),
+            "rglru_scan_bwd": rglru_bwd_time(torch, err),
+            "flash_attention_bwd/recurrentgemma_local": bwd_row(
+                torch, err, shape, kw,
+                f"flash_attention_bwd recurrentgemma_local {shape} {kw}", 2),
+            "flash_attention/recurrentgemma_local_lse": lse_row(torch)}
+
+
+def train3_phase(torch):
+    """Phase 21: (a) the one-step checks of falcon-mamba-7b at
+    ``FM_TRAIN_CHECK`` and recurrentgemma-9b at ``RG_TRAIN_CHECK`` through
+    the kernels against the same step through the plain backwards of the
+    scan and the recurrence (and the plain attention), held to
+    ``FM_TRAIN_LIMITS`` and ``RG_TRAIN_LIMITS`` (``_grad_check_step``);
+    (b) ``train_run`` at ``FM_TRAIN_ARGS`` (2.22e9 parameters, ~27 GB with
+    bf16 gradients and float32 moments): the scan's forward 2 x 16 and
+    its backward 16 times a step; (c) ``train_run`` at ``RG_TRAIN_ARGS``
+    (2.36e9 parameters, ~28 GB): the recurrence's forward 2 x 4 and
+    backward 4 times, flash attention's forward 2 x 2 and backward 2 times
+    (dh 256, window 2,048) a step.  Returns the numbers and the runs'
+    launches."""
+    t0 = time.perf_counter()
+    print("\nphase 21: training falcon-mamba-7b and recurrentgemma-9b at "
+          "full width", flush=True)
+    out = {"fm_grad_check": _grad_check_step(
+        torch, "falcon-mamba-7b", FM_TRAIN_CHECK, FM_TRAIN_LIMITS),
+        "rg_grad_check": _grad_check_step(
+        torch, "recurrentgemma-9b", RG_TRAIN_CHECK, RG_TRAIN_LIMITS)}
+    out["falcon_mamba"], fm_launched = train_run(torch, FM_TRAIN_ARGS)
+    check(out["falcon_mamba"]["params"] == FM_TRAIN_PARAMS,
+          f"falcon-mamba-7b at 16 layers: {out['falcon_mamba']['params']} "
+          "parameters")
+    out["recurrentgemma"], rg_launched = train_run(torch, RG_TRAIN_ARGS)
+    check(out["recurrentgemma"]["params"] == RG_TRAIN_PARAMS,
+          f"recurrentgemma-9b at 6 layers: "
+          f"{out['recurrentgemma']['params']} parameters")
+    out["phase_s"] = time.perf_counter() - t0
+    print(f"  phase 21 wall {out['phase_s']:.1f} s", flush=True)
+    return out, {"falcon_mamba": fm_launched, "recurrentgemma": rg_launched}
+
+
 def kernel_row(name, t, launches, max_abs_err=None):
     """One entry of the ``kernels`` line: the row ``t`` of kernel ``name``
     (``<kernel>`` or ``<kernel>/<where>``) with ``launches`` from the main
@@ -7313,6 +7821,7 @@ def kernel_row(name, t, launches, max_abs_err=None):
 
 
 def main():
+    t_main = time.perf_counter()
     torch = setup()
     build()
     torch.cuda.reset_peak_memory_stats()
@@ -7324,14 +7833,17 @@ def main():
     err["rglru_scan"] = rglru_cases(torch)
     err["flash_attention_bwd"] = max(flash_bwd_cases(torch),
                                      flash_bwd_option_cases(torch))
+    err["selective_scan_bwd"] = scan_bwd_cases(torch)
+    err["rglru_scan_bwd"] = rglru_bwd_cases(torch)
     print(f"phase 1 wall {time.perf_counter() - t0:.1f} s", flush=True)
     with _host_buffers_once():
-        return _phases_2_to_20(torch, err)
+        return _phases_2_to_21(torch, err, t_main)
 
 
-def _phases_2_to_20(torch, err):
+def _phases_2_to_21(torch, err, t_main):
     """Every phase after phase 1, inside ``main``'s ``_host_buffers_once``,
-    then the records and the last line."""
+    then the records and the last line (``t_main``: ``main``'s start on
+    the host clock, for the script's wall)."""
     from repro_torch.kernels import reset_launches
     reset_launches()
     t0 = time.perf_counter()
@@ -7362,6 +7874,9 @@ def _phases_2_to_20(torch, err):
     internvl2_rows = internvl2_attention_times(torch, err)  # phase 18's
     times["flash_attention_bwd"] = flash_bwd_time(torch, err)  # phase 19's
     train2_rows = train2_bwd_times(torch, err)         # phase 20's shapes
+    train3_rows = train3_bwd_times(torch, err)         # phase 21's shapes
+    for name in ("selective_scan_bwd", "rglru_scan_bwd"):
+        times[name] = train3_rows.pop(name)
     lulesh_s3_add = times.pop("lulesh_s3_add")
     peak_1_4 = max(peak_1_3, torch.cuda.max_memory_allocated())
     print(f"phase 4 wall {time.perf_counter() - t0:.1f} s", flush=True)
@@ -7390,6 +7905,7 @@ def _phases_2_to_20(torch, err):
     internvl2, internvl2_launches = internvl2_phase(torch)
     train, train_launches = train_phase(torch)
     train2, _ = train2_phase(torch)
+    train3, train3_launches = train3_phase(torch)
     daemon = daemon_phase(torch, cli_results, suite_stats)
     # phase 10 last: its profiler sessions come after every phase that
     # checks a trace's launch count
@@ -7420,6 +7936,12 @@ def _phases_2_to_20(torch, err):
     # the backward's row is at phase 19's training shape: its launches there
     path_launches["flash_attention_bwd"] = train_launches[
         "flash_attention_bwd"]
+    # the scan's and the recurrence's backwards at phase 21's shapes: their
+    # launches in its falcon-mamba-7b and recurrentgemma-9b runs
+    path_launches["selective_scan_bwd"] = train3_launches["falcon_mamba"][
+        "selective_scan_bwd"]
+    path_launches["rglru_scan_bwd"] = train3_launches["recurrentgemma"][
+        "rglru_scan_bwd"]
     rows = []
     for name in KERNEL_INFO:
         t = times[name]
@@ -7493,6 +8015,14 @@ def _phases_2_to_20(torch, err):
         which = name.split("/")[1]
         rows.append(kernel_row(name, t, train2[which.split("_")[0]][
             "bwd_calls"][TRAIN2_BWD[which][2]]))
+    # flash's backward at dh 256 (phase 21's shape): its local calls in the
+    # recurrentgemma-9b run (every attention layer is local); the forward's
+    # lse instance there: the run's forward launches
+    for name, t in train3_rows.items():
+        rows.append(kernel_row(name, t, (
+            train3["recurrentgemma"]["bwd_calls"]["local"]
+            if name.startswith("flash_attention_bwd") else
+            train3_launches["recurrentgemma"]["flash_attention"])))
     cli = {f"{b}/{k}/{m}": dict(time_ms=r.time_s * 1e3, gbs=r.measured_gbs,
                                 host_s=r.host_s)
            for (b, k, m), r in cli_results.items()}
@@ -7515,7 +8045,9 @@ def _phases_2_to_20(torch, err):
           f"{train['train']['max_memory_allocated']} bytes in phase 19's "
           f"training run, {train2['gemma2']['max_memory_allocated']} and "
           f"{train2['whisper']['max_memory_allocated']} bytes in phase "
-          f"20's")
+          f"20's, {train3['falcon_mamba']['max_memory_allocated']} and "
+          f"{train3['recurrentgemma']['max_memory_allocated']} bytes in "
+          f"phase 21's")
     print(json.dumps({"cli": cli, "suites_hopper": suites,
                       "gathers": {k: v for k, v in times.items()
                                   if k.startswith("gather_rows")},
@@ -7533,11 +8065,14 @@ def _phases_2_to_20(torch, err):
     print(json.dumps({"internvl2": internvl2}))
     print(json.dumps({"train": train}))
     print(json.dumps({"train2": train2}))
+    print(json.dumps({"train3": train3}))
     print(json.dumps({"daemon": daemon}))
     print(json.dumps({"placements": placed}))
     print(json.dumps({"autotune": tuned}))
     print(json.dumps({"dtypes": halves}))
     print(json.dumps({"analysis": analysis}))
+    print(f"script wall {time.perf_counter() - t_main:.1f} s (build "
+          "included)", flush=True)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,5 +1,5 @@
-"""Show that phase 19's and phase 20's one-step checks catch a faulty flash
-backward.
+"""Show that the one-step checks of phases 19, 20 and 21 catch a faulty
+backward (flash attention's, the selective scan's, the RG-LRU's).
 
 Takes ``chip_smoke.grad_readings`` (one step at full width through the
 plain attention and through the kernels: llama3-8b at ``TRAIN_CHECK``'s 2
@@ -34,11 +34,35 @@ and for gemma2-27b also
     -1e30 (the backward, whose mask decides there, does not read it): run
     through the same cases, each of which must fail.
 
-Prints each run's readings against ``chip_smoke.grad_faults``'s limits
-(phase 19's, or ``GEMMA2_TRAIN_LIMITS``) and writes them all, per leaf, to
-``chiprun_out/train_grad_faults[_gemma2-27b].json``.
+With ``--arch falcon-mamba-7b`` (``FM_TRAIN_CHECK``: 2 layers, 1 x
+4,096 tokens) the faults are planted in the scan's backward:
 
-    python3 probes/train_grad_faults.py [--arch gemma2-27b]  # the card
+  * ``ddt_no_h_term``: ddt without its sum_n g h_{t-1} a dA term (the
+    plain backward's equations without it);
+  * ``walk_off_by_one``: the state's cotangent carried back by dA_t where
+    dA_{t+1} belongs (likewise);
+  * ``du_no_skip``: du without dy D (the kernel's du less it);
+  * ``dbc_one_cta``: dB and dC summed over the first CTA's 64 channels
+    only (the kernel on those channels).
+
+With ``--arch recurrentgemma-9b`` (``RG_TRAIN_CHECK``: rec, rec, attn at 1
+x 4,096 tokens) in the recurrence's and in flash's dh-256 backward:
+
+  * ``rglru_off_by_one``: g carried back by a_t where a_{t+1} belongs (the
+    plain backward's equations with it);
+  * ``window_off_256``: flash's backward without the window of 2,048;
+  * ``dh_last_dropped``: the cotangent of h_S not added.  The model's loss
+    never reads h_S (it is the decode cache), so the step cannot show
+    this fault; it is run through phase 1's recurrence cases
+    (``rglru_bwd_cases``' list), each of which with a cotangent of h_S
+    must fail.
+
+Prints each run's readings against ``chip_smoke.grad_faults``'s limits
+(phase 19's, ``GEMMA2_TRAIN_LIMITS``, ``FM_TRAIN_LIMITS`` or
+``RG_TRAIN_LIMITS``) and writes them all, per leaf, to
+``chiprun_out/train_grad_faults[_<arch>].json``.
+
+    python3 probes/train_grad_faults.py [--arch ARCH]  # the card
 
 Exit 0 when the kernel as built passes and every planted fault fails.
 """
@@ -55,7 +79,8 @@ sys.path.insert(0, str(ROOT))
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--arch", default="llama3-8b",
-                    choices=("llama3-8b", "gemma2-27b"))
+                    choices=("llama3-8b", "gemma2-27b", "falcon-mamba-7b",
+                             "recurrentgemma-9b"))
     args = ap.parse_args(argv)
     import chip_smoke as c
     torch = c.setup()
@@ -138,8 +163,26 @@ def main(argv=None):
         faults += [no_cap_factor, window_off]
         shape, limits = c.GEMMA2_TRAIN_CHECK, c.GEMMA2_TRAIN_LIMITS
         tag = "_gemma2-27b"
+    targets = {f.__name__: "flash_attention_bwd" for f in faults}
+    if args.arch == "falcon-mamba-7b":
+        faults = scan_faults(c, torch)
+        targets = {f.__name__: "selective_scan_bwd" for f in faults}
+        shape, limits = c.FM_TRAIN_CHECK, c.FM_TRAIN_LIMITS
+        tag = "_falcon-mamba-7b"
+    if args.arch == "recurrentgemma-9b":
+        faults = [rglru_off_by_one(torch)]
+        targets = {faults[0].__name__: "rglru_scan_bwd"}
+
+        def window_off_256(q, k, v, o, lse, do, *, scale, **kw):
+            return real(q, k, v, o, lse, do, scale=scale,
+                        **{**kw, "window": 0})
+        faults.append(window_off_256)
+        targets["window_off_256"] = "flash_attention_bwd"
+        shape, limits = c.RG_TRAIN_CHECK, c.RG_TRAIN_LIMITS
+        tag = "_recurrentgemma-9b"
     readings = c.grad_readings(
-        torch, [("kernel", None)] + [(f.__name__, f) for f in faults],
+        torch, [("kernel", None)] + [(f.__name__, {targets[f.__name__]: f})
+                                     for f in faults],
         arch=args.arch, shape=shape)
     loss_rtol, norm_rtol, grad_rtol = limits or (
         c.TRAIN_LOSS_RTOL, c.TRAIN_NORM_RTOL, c.TRAIN_GRAD_RTOL)
@@ -169,11 +212,134 @@ def main(argv=None):
                                      keyless_p_one, 2)
         caught += keyless_cases_fail(c, torch, ops, "flash_attention_lse",
                                      keyless_lse, 1)
+    if args.arch == "recurrentgemma-9b":
+        n_faults += 1
+        caught += dh_last_cases_fail(c, torch)
     sound = not verdicts["kernel"]
     print(f"the kernel as built {'passes' if sound else 'FAILS'}; {caught} "
           f"of {n_faults} planted faults fail", flush=True)
     ok = sound and caught == n_faults
     sys.exit(0 if ok else 1)
+
+
+def scan_faults(c, torch):
+    """The scan's planted backwards (the module docstring's list), each in
+    ``selective_scan_bwd``'s place."""
+    from repro_torch.kernels.selective_scan import ops as scan_ops
+    real = scan_ops.selective_scan_bwd
+    f32 = torch.float32
+
+    def plain(fault):
+        """The plain backward's equations (``selective_scan_bwd_ref``) with
+        ``fault``, on the card's tensors."""
+        def bwd(u, dt, b, c_, a, d_skip, dy, dh_final=None, ckpt=None):
+            bsz, l, d = u.shape
+            n = b.shape[2]
+            u32, dt32, b32, c32, dy32 = (x.to(f32) for x in (u, dt, b, c_,
+                                                             dy))
+            hs = torch.zeros((bsz, l + 1, n, d), dtype=f32, device=u.device)
+            for t in range(l):
+                e = torch.exp(dt32[:, t, None, :] * a[None])
+                hs[:, t + 1] = (hs[:, t] * e + (dt32[:, t] * u32[:, t])[
+                    :, None, :] * b32[:, t, :, None])
+            g = (torch.zeros((bsz, n, d), dtype=f32, device=u.device)
+                 if dh_final is None else dh_final.clone())
+            du, ddt = torch.empty_like(u32), torch.empty_like(u32)
+            db, dc = torch.empty_like(b32), torch.empty_like(b32)
+            da = torch.zeros((n, d), dtype=f32, device=u.device)
+            for t in reversed(range(l)):
+                gy, uu, dd = dy32[:, t], u32[:, t], dt32[:, t]
+                bt, ct = b32[:, t, :, None], c32[:, t, :, None]
+                hp, h = hs[:, t], hs[:, t + 1]
+                e = torch.exp(dd[:, None, :] * a[None])
+                g = gy[:, None, :] * ct + (g * e if fault == "off_by_one"
+                                           else g)
+                dc[:, t] = (gy[:, None, :] * h).sum(2)
+                db[:, t] = (g * (dd * uu)[:, None, :]).sum(2)
+                du[:, t] = gy * d_skip[0] + dd * (g * bt).sum(1)
+                h_term = 0.0 if fault == "no_h_term" else hp * a[None] * e
+                ddt[:, t] = (g * (uu[:, None, :] * bt + h_term)).sum(1)
+                da += (g * hp * dd[:, None, :] * e).sum(0)
+                g = g if fault == "off_by_one" else g * e
+            dd_skip = (dy32 * u32).sum((0, 1))[None]
+            return (du.to(u.dtype), ddt.to(u.dtype), db.to(u.dtype),
+                    dc.to(u.dtype), da, dd_skip)
+        return bwd
+
+    ddt_no_h_term = plain("no_h_term")
+    ddt_no_h_term.__name__ = "ddt_no_h_term"
+    walk_off_by_one = plain("off_by_one")
+    walk_off_by_one.__name__ = "walk_off_by_one"
+
+    def du_no_skip(u, dt, b, c_, a, d_skip, dy, dh_final=None, ckpt=None):
+        du, *rest = real(u, dt, b, c_, a, d_skip, dy, dh_final, ckpt)
+        return ((du.float() - dy.float() * d_skip[0]).to(du.dtype), *rest)
+
+    def dbc_one_cta(u, dt, b, c_, a, d_skip, dy, dh_final=None, ckpt=None):
+        out = list(real(u, dt, b, c_, a, d_skip, dy, dh_final, ckpt))
+        w = scan_ops.CTA_CHANNELS
+
+        def cut(x):
+            return x[..., :w].contiguous()
+        part = real(cut(u), cut(dt), b, c_, cut(a), cut(d_skip), cut(dy),
+                    None if dh_final is None else cut(dh_final), cut(ckpt))
+        out[2], out[3] = part[2], part[3]
+        return tuple(out)
+    return [ddt_no_h_term, walk_off_by_one, du_no_skip, dbc_one_cta]
+
+
+def rglru_off_by_one(torch):
+    """The recurrence's plain backward with g carried back by a_t where
+    a_{t+1} belongs."""
+    from repro_torch.kernels.rglru_scan.ref import fma_f32
+
+    def bwd(a, beta, gx, h0, hs, dhs, dh_last=None):
+        g = torch.zeros_like(h0) if dh_last is None else dh_last.clone()
+        da, dbeta, dgx = (torch.empty_like(a) for _ in range(3))
+        for t in reversed(range(a.shape[1])):
+            g = fma_f32(a[:, t], g, dhs[:, t])
+            da[:, t] = g * (hs[:, t - 1] if t > 0 else h0)
+            dbeta[:, t] = g * gx[:, t]
+            dgx[:, t] = g * beta[:, t]
+        return da, dbeta, dgx, a[:, 0] * g if a.shape[1] else g
+    bwd.__name__ = "rglru_off_by_one"
+    return bwd
+
+
+def dh_last_cases_fail(c, torch):
+    """Whether every phase-1 case of the recurrence's backward with a
+    cotangent of h_S fails with that cotangent dropped in
+    ``rglru_scan_bwd``'s place (1), while the cases without one pass (or
+    not: 0)."""
+    from repro_torch.kernels.rglru_scan import ops as rglru_ops
+    real = rglru_ops.rglru_scan_bwd
+
+    def dh_last_dropped(a, beta, gx, h0, hs, dhs, dh_last=None):
+        return real(a, beta, gx, h0, hs, dhs, None)
+    gen = torch.Generator(device="cuda").manual_seed(73)
+    failed = passed = sound = 0
+    rglru_ops.rglru_scan_bwd = dh_last_dropped
+    try:
+        for bsz, w, s, with_dh in c.RGLRU_BWD_CASES:
+            ins = c._rglru_inputs(torch, gen, bsz, s, w)
+            dhs = torch.randn(bsz, s, w, generator=gen, device="cuda")
+            dh = (torch.randn(bsz, w, generator=gen, device="cuda")
+                  if with_dh else None)
+            try:
+                c.check_rglru_bwd(torch, ins, dhs, dh, f"B={bsz} S={s} "
+                                  f"W={w} dh_last={with_dh}")
+                if with_dh:
+                    passed += 1
+                else:
+                    sound += 1
+            except c.SmokeFailure:
+                failed += with_dh
+    finally:
+        rglru_ops.rglru_scan_bwd = real
+    print(f"dh_last_dropped: {failed} of {failed + passed} phase-1 cases "
+          f"with a cotangent of h_S fail; {sound} without one pass",
+          flush=True)
+    return int(failed > 0 and passed == 0)
 
 
 def keyless_cases_fail(c, torch, ops, attr, fault, min_t):

@@ -12,9 +12,9 @@
 // * softcap when softcap > 0.  m and l are float32; the output is divided by
 // max(l, 1e-30) and rounded once.  Offsets are 64-bit.
 //
-// Given an lse pointer, each body's instance with kLse (built at DH 64 and
-// 128 only, for training; the template flag leaves the serve instances' code
-// as it was) also writes every query row's log-sum-exp of its masked,
+// Given an lse pointer, each body's instance with kLse (built at DH 64, 128
+// and 256 only, for training; the template flag leaves the serve instances'
+// code as it was) also writes every query row's log-sum-exp of its masked,
 // scaled scores, in natural units, float32, (B, KVH, G, S): the row max
 // plus the log of the row sum, which the backward (the last section of
 // this file) needs.
@@ -929,7 +929,8 @@ bool bad_args(int64_t G, int64_t T_len, int64_t window) {
 // dout and the forward's row log-sum-exp lse (natural units of the scaled
 // score): D = rowsum(dout out), P = exp(scale S - lse) (0 where masked),
 // dP = dO V^T, dS = P (dP - D); dV = P^T dO, dK = scale dS^T Q, dQ = scale
-// dS K.  Built at DH 64 and 128.  With a softcap c the scores are capped,
+// dS K.  Built at DH 64, 128 and 256 (bfloat16 at 256: window, no softcap).
+// With a softcap c the scores are capped,
 // s = tanh(x scale / c) c, P is formed from them, and the chain rule through
 // the cap multiplies dS by 1 - (s / c)^2 before dQ and dK take it.  With a
 // window, keys with i - j >= window are masked as in the forward, and the
@@ -969,25 +970,38 @@ bool bad_args(int64_t G, int64_t T_len, int64_t window) {
 // 4-column step; 4 keys x 8 columns of dK and dV from 8 scalar and 4
 // float4 loads a query row), seven products in all (pass 3 recomputes Q
 // K^T and dO V^T), so the CUDA cores' 67 TFLOP/s and shared memory's
-// bandwidth bound it.  bfloat16 runs one wgmma pass instead (its own
-// section below).
+// bandwidth bound it.  At DH 256 a tile is 32 rows and 32 keys (BwdTile).
+// bfloat16 runs one wgmma pass instead at DH 64 and 128, and two mma.sync
+// passes at DH 256 (their own sections below).
 
 constexpr int kBwdThreads = 256;     // 16 x 16 threads
-constexpr int kBwdRows = 64;         // query rows a tile
-constexpr int kBwdKeys = 64;         // keys a tile
+constexpr int kBwdRows = 64;         // query rows a tile (DH <= 128)
+constexpr int kBwdKeys = 64;         // keys a tile (DH <= 128)
 constexpr int kBwdPad = 4;           // floats after each row of a tile
-constexpr int kBwdPStride = kBwdKeys + 16;   // P / dS rows: no conflicts
+
+// A tile's query rows and keys: 64 of each up to DH 128; at DH 256 four
+// float32 tiles of 64 rows would be 266 KB, so 32 of each (146 KB), each
+// thread of the 16 x 16 then taking 2 rows (keys) where it took 4.
+template <int DH>
+struct BwdTile {
+  static constexpr int kRows = DH > 128 ? 32 : kBwdRows;
+  static constexpr int kKeys = DH > 128 ? 32 : kBwdKeys;
+  static constexpr int kJ = kRows / 16;         // a thread's rows, keys
+  static constexpr int kPStride = kKeys + 16;   // P / dS rows: no conflicts
+};
 
 template <int DH>
 struct BwdSmem {
-  float a[kBwdRows][DH + kBwdPad];     // Q of the tile's rows
-  float b[kBwdRows][DH + kBwdPad];     // dO of the tile's rows
-  float k[kBwdKeys][DH + kBwdPad];     // K of the key tile
-  float v[kBwdKeys][DH + kBwdPad];     // V of the key tile
-  float p[kBwdRows][kBwdPStride];      // P (pass 2)
-  float ds[kBwdRows][kBwdPStride];     // dS
-  float lse[kBwdRows];
-  float d[kBwdRows];
+  static constexpr int kRows = BwdTile<DH>::kRows;
+  static constexpr int kKeys = BwdTile<DH>::kKeys;
+  float a[kRows][DH + kBwdPad];        // Q of the tile's rows
+  float b[kRows][DH + kBwdPad];        // dO of the tile's rows
+  float k[kKeys][DH + kBwdPad];        // K of the key tile
+  float v[kKeys][DH + kBwdPad];        // V of the key tile
+  float p[kRows][BwdTile<DH>::kPStride];    // P (pass 2)
+  float ds[kRows][BwdTile<DH>::kPStride];   // dS
+  float lse[kRows];
+  float d[kRows];
 };
 
 __device__ __forceinline__ void load4_f32(const float* p, float* x) {
@@ -1013,12 +1027,12 @@ __device__ __forceinline__ void store4(float* p, const float* x) {
   *reinterpret_cast<float4*>(p) = make_float4(x[0], x[1], x[2], x[3]);
 }
 
-// rows row0 .. row0 + 63 of a (n_rows, DH) matrix into a float32 tile; rows
-// past n_rows are zeros
+// rows row0 .. row0 + BwdTile<DH>::kRows - 1 of a (n_rows, DH) matrix into a
+// float32 tile; rows past n_rows are zeros
 template <int DH, typename T>
 __device__ void load_tile(float (*dst)[DH + kBwdPad], const T* src,
                           int64_t row0, int64_t n_rows, int tid) {
-  for (int c = tid; c < kBwdRows * (DH / 4); c += kBwdThreads) {
+  for (int c = tid; c < BwdTile<DH>::kRows * (DH / 4); c += kBwdThreads) {
     const int r = c / (DH / 4), c4 = (c % (DH / 4)) * 4;
     float x[4] = {0.f, 0.f, 0.f, 0.f};
     if (row0 + r < n_rows) load4_f32(src + (row0 + r) * DH + c4, x);
@@ -1048,38 +1062,39 @@ template <int DH, bool kStoreP, bool kExt>
 __device__ void tile_ds(BwdSmem<DH>& sm, int64_t q0, int64_t k0, int64_t S,
                         int64_t T_len, float score_mul, int causal,
                         const BwdOpts& opt, int tid) {
+  constexpr int kJ = BwdTile<DH>::kJ;
   const int ty = tid >> 4, tx = tid & 15;
-  float s[4][4], dp[4][4];
+  float s[kJ][kJ], dp[kJ][kJ];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < kJ; ++i)
 #pragma unroll
-    for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
+    for (int j = 0; j < kJ; ++j) s[i][j] = dp[i][j] = 0.f;
 #pragma unroll 2
   for (int d = 0; d < DH; d += 4) {
-    float4 qa[4], oa[4];
+    float4 qa[kJ], oa[kJ];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
+    for (int i = 0; i < kJ; ++i) {
       qa[i] = *reinterpret_cast<const float4*>(&sm.a[ty + 16 * i][d]);
       oa[i] = *reinterpret_cast<const float4*>(&sm.b[ty + 16 * i][d]);
     }
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
+    for (int j = 0; j < kJ; ++j) {
       const float4 kb = *reinterpret_cast<const float4*>(&sm.k[tx + 16 * j][d]);
       const float4 vb = *reinterpret_cast<const float4*>(&sm.v[tx + 16 * j][d]);
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
+      for (int i = 0; i < kJ; ++i) {
         s[i][j] += dot4(qa[i], kb);
         dp[i][j] += dot4(oa[i], vb);
       }
     }
   }
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+  for (int i = 0; i < kJ; ++i) {
     const int r = ty + 16 * i;
     const int64_t qpos = q0 + r;
     const float lse2 = sm.lse[r] * kLog2e, dr = sm.d[r];
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
+    for (int j = 0; j < kJ; ++j) {
       const int c = tx + 16 * j;
       const int64_t kpos = k0 + c;
       bool keep = qpos < S && kpos < T_len && (!causal || kpos <= qpos);
@@ -1169,32 +1184,34 @@ flash_attention_bwd_dkdv(const T* __restrict__ q, const T* __restrict__ k,
   extern __shared__ __align__(16) unsigned char smem_raw[];
   BwdSmem<DH>& sm = *reinterpret_cast<BwdSmem<DH>*>(smem_raw);
   constexpr int kC = DH / 64;                 // float4 column groups a thread
+  constexpr int kJ = BwdTile<DH>::kJ, kRows = BwdTile<DH>::kRows;
+  constexpr int kKeys = BwdTile<DH>::kKeys;
   const int tid = threadIdx.x;
   const int ky = tid >> 4, dx = tid & 15;
-  const int64_t k0 = static_cast<int64_t>(blockIdx.x) * kBwdKeys;
+  const int64_t k0 = static_cast<int64_t>(blockIdx.x) * kKeys;
   const int64_t bh = static_cast<int64_t>(blockIdx.z) * kvh + blockIdx.y;
   load_tile<DH>(sm.k, k + bh * T_len * DH, k0, T_len, tid);
   load_tile<DH>(sm.v, v + bh * T_len * DH, k0, T_len, tid);
-  float acc_k[4][4 * kC], acc_v[4][4 * kC];
+  float acc_k[kJ][4 * kC], acc_v[kJ][4 * kC];
 #pragma unroll
-  for (int j = 0; j < 4; ++j)
+  for (int j = 0; j < kJ; ++j)
 #pragma unroll
     for (int e = 0; e < 4 * kC; ++e) acc_k[j][e] = acc_v[j][e] = 0.f;
   // with causal, query tiles before the key tile see none of its keys; with
   // a window, rows past its last key + window - 1 none either
-  const int64_t q_begin = causal ? k0 - k0 % kBwdRows : 0;
+  const int64_t q_begin = causal ? k0 - k0 % kRows : 0;
   int64_t q_end = S;
   if (kExt && opt.window > 0) {
-    const int64_t k_hi = (k0 + kBwdKeys < T_len ? k0 + kBwdKeys : T_len) - 1;
+    const int64_t k_hi = (k0 + kKeys < T_len ? k0 + kKeys : T_len) - 1;
     q_end = k_hi + opt.window < S ? k_hi + opt.window : S;
   }
   for (int g = 0; g < G; ++g) {
     const int64_t head = bh * G + g;          // rows of q, dout, lse, delta
-    for (int64_t q0 = q_begin; q0 < q_end; q0 += kBwdRows) {
+    for (int64_t q0 = q_begin; q0 < q_end; q0 += kRows) {
       __syncthreads();                        // the last tile's readers
       load_tile<DH>(sm.a, q + head * S * DH, q0, S, tid);
       load_tile<DH>(sm.b, dout + head * S * DH, q0, S, tid);
-      if (tid < kBwdRows) {
+      if (tid < kRows) {
         const bool in = q0 + tid < S;
         sm.lse[tid] = in ? lse[head * S + q0 + tid] : 0.f;
         sm.d[tid] = in ? delta[head * S + q0 + tid] : 0.f;
@@ -1205,10 +1222,10 @@ flash_attention_bwd_dkdv(const T* __restrict__ q, const T* __restrict__ k,
       __syncthreads();
       // dV += P^T dO, dK += dS^T Q: keys ky + 16 j, columns dx 4 + 64 c
 #pragma unroll 4
-      for (int r = 0; r < kBwdRows; ++r) {
-        float pj[4], sj[4];
+      for (int r = 0; r < kRows; ++r) {
+        float pj[kJ], sj[kJ];
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
+        for (int j = 0; j < kJ; ++j) {
           pj[j] = sm.p[r][ky + 16 * j];
           sj[j] = sm.ds[r][ky + 16 * j];
         }
@@ -1219,7 +1236,7 @@ flash_attention_bwd_dkdv(const T* __restrict__ q, const T* __restrict__ k,
           const float4 q4 =
               *reinterpret_cast<const float4*>(&sm.a[r][dx * 4 + 64 * c]);
 #pragma unroll
-          for (int j = 0; j < 4; ++j) {
+          for (int j = 0; j < kJ; ++j) {
             acc_v[j][4 * c + 0] = fmaf(pj[j], o4.x, acc_v[j][4 * c + 0]);
             acc_v[j][4 * c + 1] = fmaf(pj[j], o4.y, acc_v[j][4 * c + 1]);
             acc_v[j][4 * c + 2] = fmaf(pj[j], o4.z, acc_v[j][4 * c + 2]);
@@ -1240,7 +1257,7 @@ flash_attention_bwd_dkdv(const T* __restrict__ q, const T* __restrict__ k,
                    kBwdThreads);
     __syncthreads();
 #pragma unroll
-    for (int j = 0; j < 4; ++j)
+    for (int j = 0; j < kJ; ++j)
 #pragma unroll
       for (int c = 0; c < kC; ++c)
 #pragma unroll
@@ -1249,7 +1266,7 @@ flash_attention_bwd_dkdv(const T* __restrict__ q, const T* __restrict__ k,
         }
   }
 #pragma unroll
-  for (int j = 0; j < 4; ++j) {
+  for (int j = 0; j < kJ; ++j) {
     const int64_t kpos = k0 + ky + 16 * j;
     if (kpos >= T_len) continue;
 #pragma unroll
@@ -1278,34 +1295,36 @@ flash_attention_bwd_dq(const T* __restrict__ q, const T* __restrict__ k,
   extern __shared__ __align__(16) unsigned char smem_raw[];
   BwdSmem<DH>& sm = *reinterpret_cast<BwdSmem<DH>*>(smem_raw);
   constexpr int kC = DH / 64;
+  constexpr int kJ = BwdTile<DH>::kJ, kRows = BwdTile<DH>::kRows;
+  constexpr int kKeys = BwdTile<DH>::kKeys;
   const int tid = threadIdx.x;
   const int qy = tid >> 4, dx = tid & 15;
-  const int64_t q0 = static_cast<int64_t>(blockIdx.x) * kBwdRows;
+  const int64_t q0 = static_cast<int64_t>(blockIdx.x) * kRows;
   const int64_t head = static_cast<int64_t>(blockIdx.z) * kvh * G +
                        blockIdx.y;            // (b, h, g) of the query rows
   const int64_t bh = head / G;
   load_tile<DH>(sm.a, q + head * S * DH, q0, S, tid);
   load_tile<DH>(sm.b, dout + head * S * DH, q0, S, tid);
-  if (tid < kBwdRows) {
+  if (tid < kRows) {
     const bool in = q0 + tid < S;
     sm.lse[tid] = in ? lse[head * S + q0 + tid] : 0.f;
     sm.d[tid] = in ? delta[head * S + q0 + tid] : 0.f;
   }
-  float acc[4][4 * kC];
+  float acc[kJ][4 * kC];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < kJ; ++i)
 #pragma unroll
     for (int e = 0; e < 4 * kC; ++e) acc[i][e] = 0.f;
-  const int64_t q_last = (q0 + kBwdRows < S ? q0 + kBwdRows : S) - 1;
+  const int64_t q_last = (q0 + kRows < S ? q0 + kRows : S) - 1;
   const int64_t k_end = causal ? (T_len < q_last + 1 ? T_len : q_last + 1)
                                : T_len;
   // with a window, key tiles wholly before q0 - window + 1 are seen by no row
   int64_t k_begin = 0;
   if (kExt && opt.window > 0) {
     k_begin = q0 - opt.window + 1 > 0 ? q0 - opt.window + 1 : 0;
-    k_begin -= k_begin % kBwdKeys;
+    k_begin -= k_begin % kKeys;
   }
-  for (int64_t k0 = k_begin; k0 < k_end; k0 += kBwdKeys) {
+  for (int64_t k0 = k_begin; k0 < k_end; k0 += kKeys) {
     __syncthreads();                          // the last tile's readers
     load_tile<DH>(sm.k, k + bh * T_len * DH, k0, T_len, tid);
     load_tile<DH>(sm.v, v + bh * T_len * DH, k0, T_len, tid);
@@ -1315,16 +1334,16 @@ flash_attention_bwd_dq(const T* __restrict__ q, const T* __restrict__ k,
     __syncthreads();
     // dQ += dS K: rows qy + 16 i, columns dx 4 + 64 c
 #pragma unroll 4
-    for (int c2 = 0; c2 < kBwdKeys; ++c2) {
-      float si[4];
+    for (int c2 = 0; c2 < kKeys; ++c2) {
+      float si[kJ];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) si[i] = sm.ds[qy + 16 * i][c2];
+      for (int i = 0; i < kJ; ++i) si[i] = sm.ds[qy + 16 * i][c2];
 #pragma unroll
       for (int c = 0; c < kC; ++c) {
         const float4 k4 =
             *reinterpret_cast<const float4*>(&sm.k[c2][dx * 4 + 64 * c]);
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
+        for (int i = 0; i < kJ; ++i) {
           acc[i][4 * c + 0] = fmaf(si[i], k4.x, acc[i][4 * c + 0]);
           acc[i][4 * c + 1] = fmaf(si[i], k4.y, acc[i][4 * c + 1]);
           acc[i][4 * c + 2] = fmaf(si[i], k4.z, acc[i][4 * c + 2]);
@@ -1334,7 +1353,7 @@ flash_attention_bwd_dq(const T* __restrict__ q, const T* __restrict__ k,
     }
   }
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+  for (int i = 0; i < kJ; ++i) {
     const int64_t qpos = q0 + qy + 16 * i;
     if (qpos >= S) continue;
 #pragma unroll
@@ -1345,6 +1364,408 @@ flash_attention_bwd_dq(const T* __restrict__ q, const T* __restrict__ k,
       store4(dq + (head * S + qpos) * DH + dx * 4 + 64 * c, x);
     }
   }
+}
+
+// -- backward, bfloat16 at DH 256: two mma.sync passes -------------------------
+//
+// recurrentgemma-9b's local attention (DH 256, MQA at G 16, window 2048,
+// no softcap) trains through these.  The wgmma pass below does not fit DH
+// 256: a warpgroup's 64 keys of dK and dV would be 256 float32 a thread,
+// and K and V (64 KB at 64 keys) beside a (Q, dO) stage (64 KB) and dS^T
+// leave no second stage in 227 KB.  So DH 256 runs the CUDA-core passes'
+// shape (pass 2 dK and dV over the keys, pass 3 dQ over the query rows,
+// after flash_attention_bwd_delta) with each product on the tensor cores
+// by mma.sync m16n8k16 (bf16 in, float32 sums), on bf16 tiles in shared
+// memory (rows padded by 16 bytes, so the 8 rows an ldmatrix reads fall in
+// 8 distinct bank groups): 4 tiles of 64 x 256 (Q, dO, K, V) and P, dS of
+// 64 x 64, 150 KB, one CTA an SM.  A CTA's 8 warps split each 64 x 64
+// score tile as 4 x 2 blocks of 16 rows x 32 keys, and each 64 x 256 sum
+// (dK, dV or dQ) as 4 x 2 blocks of 16 rows x 128 columns, held in
+// registers (dK and dV: 128 floats a thread).  Operands that the products
+// need transposed (P^T, dS^T, and dO, Q and K as the k-major B) come in
+// through ldmatrix.trans.  P and dS are rounded to bf16 in shared memory
+// (2^-9 each) before P^T dO, dS^T Q and dS K; S, dP and every sum stay
+// float32.  dK, dV and dQ are each summed by one thread in a fixed order
+// (over the G heads too, as the CUDA-core passes), so no atomics and no
+// float32 dQ workspace.  Seven products, as the CUDA-core passes (pass 3
+// recomputes Q K^T and dO V^T).  kWin (a template flag; the plain instance
+// is the code without it): the loops skip the tiles that the window
+// empties, the mask keeps i - j < window, and rows that see no key add
+// dO / T to dV after the loop (keyless_dv).  What bounds it: operations
+// (2.75e12 FLOP of the five products at the training shape (2, 1, 16,
+// 8192, 8192) with window 2048: 2.8 ms on the bf16 tensor cores); mma.sync
+// reaches a fraction of wgmma's rate, and each step waits on its loads
+// (no pipeline), so this is the simple pass, not a fast one.
+
+template <int DH>
+struct BwdMma {
+  static constexpr int kRow = DH + 8;            // bf16 a row of a tile
+  static constexpr int kPRow = kBwdKeys + 8;     // bf16 a row of P or dS
+  static constexpr int kCols = DH / 2;           // a warp's columns of a sum
+  static constexpr int kBlocks = kCols / 8;      // its 8-column blocks
+};
+
+template <int DH>
+struct BwdMmaSmem {
+  __nv_bfloat16 a[kBwdRows][BwdMma<DH>::kRow];    // Q of the tile's rows
+  __nv_bfloat16 b[kBwdRows][BwdMma<DH>::kRow];    // dO of the tile's rows
+  __nv_bfloat16 k[kBwdKeys][BwdMma<DH>::kRow];    // K of the key tile
+  __nv_bfloat16 v[kBwdKeys][BwdMma<DH>::kRow];    // V of the key tile
+  __nv_bfloat16 p[kBwdRows][BwdMma<DH>::kPRow];   // P (pass 2)
+  __nv_bfloat16 ds[kBwdRows][BwdMma<DH>::kPRow];  // dS
+  float lse[kBwdRows];
+  float d[kBwdRows];
+};
+
+// rows row0 .. row0 + 63 of a (n_rows, DH) bf16 matrix, 16 bytes a copy;
+// rows past n_rows are zeros
+template <int DH>
+__device__ void load_tile_mma(__nv_bfloat16 (*dst)[BwdMma<DH>::kRow],
+                              const __nv_bfloat16* src, int64_t row0,
+                              int64_t n_rows, int tid) {
+  for (int c = tid; c < kBwdRows * (DH / 8); c += kBwdThreads) {
+    const int r = c / (DH / 8), c8 = (c % (DH / 8)) * 8;
+    uint4 x = make_uint4(0u, 0u, 0u, 0u);
+    if (row0 + r < n_rows) {
+      x = *reinterpret_cast<const uint4*>(src + (row0 + r) * DH + c8);
+    }
+    *reinterpret_cast<uint4*>(&dst[r][c8]) = x;
+  }
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p)));
+}
+
+__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p)));
+}
+
+// c (16 x 8, float32) += a (16 x 16) b (16 x 8), bf16 operands
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Where lane (lj = lane / 8, li = lane % 8) points ldmatrix.x4 for a 16 x 16
+// A fragment at (m0, k0) of a row-major [m][k] tile, and for two 8-wide B
+// fragments (n0, n0 + 8) x 16 k of a [n][k] tile; with .trans, for an A
+// fragment of a [k][m] tile and B fragments of a [k][n] tile.
+#define A_ROW(m0, k0) (m0) + (lj & 1) * 8 + li][(k0) + (lj >> 1) * 8
+#define B_ROW(n0, k0) (n0) + (lj >> 1) * 8 + li][(k0) + (lj & 1) * 8
+#define AT_ROW(m0, k0) (k0) + (lj >> 1) * 8 + li][(m0) + (lj & 1) * 8
+#define BT_ROW(n0, k0) (k0) + (lj & 1) * 8 + li][(n0) + (lj >> 1) * 8
+
+// dS (and, with kStoreP, P) of the tile's rows q0.. against keys k0.., as
+// bf16 in shared memory, from a, b, k, v, lse and d already there: warp w
+// takes rows 16 (w / 2) .. + 16 and keys 32 (w % 2) .. + 32.  With kWin,
+// keys with i - j >= window are masked too.
+template <int DH, bool kStoreP, bool kWin>
+__device__ void tile_ds_mma(BwdMmaSmem<DH>& sm, int64_t q0, int64_t k0,
+                            int64_t S, int64_t T_len, float score_mul,
+                            int causal, int64_t window, int warp, int lane) {
+  const int lj = lane >> 3, li = lane & 7;
+  const int mr = 16 * (warp >> 1), nc = 32 * (warp & 1);
+  float s[4][4], dp[4][4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+#pragma unroll 4
+  for (int kk = 0; kk < DH; kk += 16) {
+    uint32_t aq[4], ao[4];
+    ldsm_x4(aq, &sm.a[A_ROW(mr, kk)]);
+    ldsm_x4(ao, &sm.b[A_ROW(mr, kk)]);
+#pragma unroll
+    for (int jp = 0; jp < 2; ++jp) {
+      uint32_t bk[4], bv[4];
+      ldsm_x4(bk, &sm.k[B_ROW(nc + 16 * jp, kk)]);
+      ldsm_x4(bv, &sm.v[B_ROW(nc + 16 * jp, kk)]);
+      mma_bf16(s[2 * jp], aq, bk[0], bk[1]);
+      mma_bf16(s[2 * jp + 1], aq, bk[2], bk[3]);
+      mma_bf16(dp[2 * jp], ao, bv[0], bv[1]);
+      mma_bf16(dp[2 * jp + 1], ao, bv[2], bv[3]);
+    }
+  }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {            // rows lane / 4 and that + 8
+    const int r = mr + (lane >> 2) + 8 * h;
+    const int64_t qpos = q0 + r;
+    const float lse2 = sm.lse[r] * kLog2e, dr = sm.d[r];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int c = nc + 8 * j + 2 * (lane & 3);
+      float p[2], ds[2];
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int64_t kpos = k0 + c + e;
+        bool keep = qpos < S && kpos < T_len && (!causal || kpos <= qpos);
+        if (kWin) keep = keep && qpos - kpos < window;
+        p[e] = keep ? exp2f(fmaf(s[j][2 * h + e], score_mul, -lse2)) : 0.f;
+        ds[e] = p[e] * (dp[j][2 * h + e] - dr);
+      }
+      if (kStoreP) {
+        *reinterpret_cast<__nv_bfloat162*>(&sm.p[r][c]) =
+            __floats2bfloat162_rn(p[0], p[1]);
+      }
+      *reinterpret_cast<__nv_bfloat162*>(&sm.ds[r][c]) =
+          __floats2bfloat162_rn(ds[0], ds[1]);
+    }
+  }
+}
+
+// the bf16 pair of acc rows (lane / 4, + 8) and columns 2 (lane % 4) of an
+// 8-wide block, times ``mul``, to out[row][col] of a (n_rows, DH) matrix,
+// rows past n_rows skipped
+template <int DH>
+__device__ __forceinline__ void store_acc_mma(__nv_bfloat16* out,
+                                              const float (&c)[4],
+                                              int64_t row, int64_t n_rows,
+                                              int col, float mul) {
+  if (row < n_rows) {
+    *reinterpret_cast<__nv_bfloat162*>(out + row * DH + col) =
+        __floats2bfloat162_rn(c[0] * mul, c[1] * mul);
+  }
+  if (row + 8 < n_rows) {
+    *reinterpret_cast<__nv_bfloat162*>(out + (row + 8) * DH + col) =
+        __floats2bfloat162_rn(c[2] * mul, c[3] * mul);
+  }
+}
+
+// grid (key tiles, KVH, B)
+template <int DH, bool kWin>
+__global__ void __launch_bounds__(kBwdThreads, 1)
+flash_attention_bwd_dkdv_mma(const __nv_bfloat16* __restrict__ q,
+                             const __nv_bfloat16* __restrict__ k,
+                             const __nv_bfloat16* __restrict__ v,
+                             const __nv_bfloat16* __restrict__ dout,
+                             const float* __restrict__ lse,
+                             const float* __restrict__ delta,
+                             __nv_bfloat16* __restrict__ dk,
+                             __nv_bfloat16* __restrict__ dv, int kvh, int G,
+                             int64_t S, int64_t T_len, float scale,
+                             float score_mul, int causal, int64_t window) {
+  constexpr int kNB = BwdMma<DH>::kBlocks;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  BwdMmaSmem<DH>& sm = *reinterpret_cast<BwdMmaSmem<DH>*>(smem_raw);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int lj = lane >> 3, li = lane & 7;
+  const int kr = 16 * (warp >> 1), dc = BwdMma<DH>::kCols * (warp & 1);
+  const int64_t k0 = static_cast<int64_t>(blockIdx.x) * kBwdKeys;
+  const int64_t bh = static_cast<int64_t>(blockIdx.z) * kvh + blockIdx.y;
+  load_tile_mma<DH>(sm.k, k + bh * T_len * DH, k0, T_len, tid);
+  load_tile_mma<DH>(sm.v, v + bh * T_len * DH, k0, T_len, tid);
+  float acc_k[kNB][4], acc_v[kNB][4];
+#pragma unroll
+  for (int j = 0; j < kNB; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc_k[j][e] = acc_v[j][e] = 0.f;
+  // with causal, query tiles before the key tile see none of its keys; with
+  // a window, rows past its last key + window - 1 none either
+  const int64_t q_begin = causal ? k0 - k0 % kBwdRows : 0;
+  int64_t q_end = S;
+  if (kWin) {
+    const int64_t k_hi = (k0 + kBwdKeys < T_len ? k0 + kBwdKeys : T_len) - 1;
+    q_end = k_hi + window < S ? k_hi + window : S;
+  }
+  for (int g = 0; g < G; ++g) {
+    const int64_t head = bh * G + g;          // rows of q, dout, lse, delta
+    for (int64_t q0 = q_begin; q0 < q_end; q0 += kBwdRows) {
+      __syncthreads();                        // the last tile's readers
+      load_tile_mma<DH>(sm.a, q + head * S * DH, q0, S, tid);
+      load_tile_mma<DH>(sm.b, dout + head * S * DH, q0, S, tid);
+      if (tid < kBwdRows) {
+        const bool in = q0 + tid < S;
+        sm.lse[tid] = in ? lse[head * S + q0 + tid] : 0.f;
+        sm.d[tid] = in ? delta[head * S + q0 + tid] : 0.f;
+      }
+      __syncthreads();
+      tile_ds_mma<DH, true, kWin>(sm, q0, k0, S, T_len, score_mul, causal,
+                                  window, warp, lane);
+      __syncthreads();
+      // dV += P^T dO, dK += dS^T Q: keys kr .. + 16, columns dc .. + DH / 2
+#pragma unroll
+      for (int qq = 0; qq < kBwdRows; qq += 16) {
+        uint32_t ap[4], as[4];
+        ldsm_x4_t(ap, &sm.p[AT_ROW(kr, qq)]);
+        ldsm_x4_t(as, &sm.ds[AT_ROW(kr, qq)]);
+#pragma unroll
+        for (int jp = 0; jp < kNB / 2; ++jp) {
+          uint32_t bo[4], bq[4];
+          ldsm_x4_t(bo, &sm.b[BT_ROW(dc + 16 * jp, qq)]);
+          ldsm_x4_t(bq, &sm.a[BT_ROW(dc + 16 * jp, qq)]);
+          mma_bf16(acc_v[2 * jp], ap, bo[0], bo[1]);
+          mma_bf16(acc_v[2 * jp + 1], ap, bo[2], bo[3]);
+          mma_bf16(acc_k[2 * jp], as, bq[0], bq[1]);
+          mma_bf16(acc_k[2 * jp + 1], as, bq[2], bq[3]);
+        }
+      }
+    }
+  }
+  if (kWin && has_keyless_rows(S, T_len, window)) {
+    __syncthreads();                          // the last tile's readers
+    float* sum = reinterpret_cast<float*>(&sm.p[0][0]);   // DH floats
+    keyless_dv<DH>(dout, bh * G, G, S, T_len, window, sum, tid, kBwdThreads);
+    __syncthreads();
+#pragma unroll
+    for (int j = 0; j < kNB; ++j) {
+      const int col = dc + 8 * j + 2 * (lane & 3);
+      acc_v[j][0] += sum[col];
+      acc_v[j][1] += sum[col + 1];
+      acc_v[j][2] += sum[col];
+      acc_v[j][3] += sum[col + 1];
+    }
+  }
+  const int64_t row = k0 + kr + (lane >> 2);
+#pragma unroll
+  for (int j = 0; j < kNB; ++j) {
+    const int col = dc + 8 * j + 2 * (lane & 3);
+    store_acc_mma<DH>(dk + bh * T_len * DH, acc_k[j], row, T_len, col, scale);
+    store_acc_mma<DH>(dv + bh * T_len * DH, acc_v[j], row, T_len, col, 1.f);
+  }
+}
+
+// grid (query tiles, KVH G, B)
+template <int DH, bool kWin>
+__global__ void __launch_bounds__(kBwdThreads, 1)
+flash_attention_bwd_dq_mma(const __nv_bfloat16* __restrict__ q,
+                           const __nv_bfloat16* __restrict__ k,
+                           const __nv_bfloat16* __restrict__ v,
+                           const __nv_bfloat16* __restrict__ dout,
+                           const float* __restrict__ lse,
+                           const float* __restrict__ delta,
+                           __nv_bfloat16* __restrict__ dq, int kvh, int G,
+                           int64_t S, int64_t T_len, float scale,
+                           float score_mul, int causal, int64_t window) {
+  constexpr int kNB = BwdMma<DH>::kBlocks;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  BwdMmaSmem<DH>& sm = *reinterpret_cast<BwdMmaSmem<DH>*>(smem_raw);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int lj = lane >> 3, li = lane & 7;
+  const int mr = 16 * (warp >> 1), dc = BwdMma<DH>::kCols * (warp & 1);
+  const int64_t q0 = static_cast<int64_t>(blockIdx.x) * kBwdRows;
+  const int64_t head = static_cast<int64_t>(blockIdx.z) * kvh * G +
+                       blockIdx.y;
+  const int64_t bh = head / G;
+  load_tile_mma<DH>(sm.a, q + head * S * DH, q0, S, tid);
+  load_tile_mma<DH>(sm.b, dout + head * S * DH, q0, S, tid);
+  if (tid < kBwdRows) {
+    const bool in = q0 + tid < S;
+    sm.lse[tid] = in ? lse[head * S + q0 + tid] : 0.f;
+    sm.d[tid] = in ? delta[head * S + q0 + tid] : 0.f;
+  }
+  float acc[kNB][4];
+#pragma unroll
+  for (int j = 0; j < kNB; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+  const int64_t q_last = (q0 + kBwdRows < S ? q0 + kBwdRows : S) - 1;
+  const int64_t k_end = causal ? (T_len < q_last + 1 ? T_len : q_last + 1)
+                               : T_len;
+  // with a window, key tiles wholly before q0 - window + 1 are seen by no row
+  int64_t k_begin = 0;
+  if (kWin) {
+    k_begin = q0 - window + 1 > 0 ? q0 - window + 1 : 0;
+    k_begin -= k_begin % kBwdKeys;
+  }
+  for (int64_t k0 = k_begin; k0 < k_end; k0 += kBwdKeys) {
+    __syncthreads();                          // the last tile's readers
+    load_tile_mma<DH>(sm.k, k + bh * T_len * DH, k0, T_len, tid);
+    load_tile_mma<DH>(sm.v, v + bh * T_len * DH, k0, T_len, tid);
+    __syncthreads();
+    tile_ds_mma<DH, false, kWin>(sm, q0, k0, S, T_len, score_mul, causal,
+                                 window, warp, lane);
+    __syncthreads();
+    // dQ += dS K: rows mr .. + 16, columns dc .. + DH / 2
+#pragma unroll
+    for (int kk = 0; kk < kBwdKeys; kk += 16) {
+      uint32_t a[4];
+      ldsm_x4(a, &sm.ds[A_ROW(mr, kk)]);
+#pragma unroll
+      for (int jp = 0; jp < kNB / 2; ++jp) {
+        uint32_t b[4];
+        ldsm_x4_t(b, &sm.k[BT_ROW(dc + 16 * jp, kk)]);
+        mma_bf16(acc[2 * jp], a, b[0], b[1]);
+        mma_bf16(acc[2 * jp + 1], a, b[2], b[3]);
+      }
+    }
+  }
+  const int64_t row = q0 + mr + (lane >> 2);
+#pragma unroll
+  for (int j = 0; j < kNB; ++j) {
+    store_acc_mma<DH>(dq + head * S * DH, acc[j], row, S,
+                      dc + 8 * j + 2 * (lane & 3), scale);
+  }
+}
+
+#undef A_ROW
+#undef B_ROW
+#undef AT_ROW
+#undef BT_ROW
+
+// delta, then the two mma.sync passes, on the caller's stream
+template <int DH, bool kWin>
+int launch_bwd_mma(const void* q, const void* k, const void* v,
+                   const void* o, const void* dout, const float* lse,
+                   void* dq, void* dk, void* dv, float* delta, int64_t B,
+                   int64_t KVH, int64_t G, int64_t S, int64_t T_len,
+                   float scale, int causal, int64_t window, cudaStream_t s) {
+  using bf16 = __nv_bfloat16;
+  const int64_t n_rows = B * KVH * G * S;
+  const int64_t q_tiles = (S + kBwdRows - 1) / kBwdRows;
+  const int64_t k_tiles = (T_len + kBwdKeys - 1) / kBwdKeys;
+  const int64_t rows_a_cta = kBwdThreads / 32;
+  if (q_tiles > INT_MAX || k_tiles > INT_MAX || KVH * G > 65535 ||
+      B > 65535 || (n_rows + rows_a_cta - 1) / rows_a_cta > INT_MAX) {
+    return static_cast<int>(cudaErrorInvalidConfiguration);
+  }
+  const bf16* tq = static_cast<const bf16*>(q);
+  const bf16* tk = static_cast<const bf16*>(k);
+  const bf16* tv = static_cast<const bf16*>(v);
+  const bf16* tdo = static_cast<const bf16*>(dout);
+  flash_attention_bwd_delta<bf16, DH>
+      <<<static_cast<unsigned>((n_rows + rows_a_cta - 1) / rows_a_cta),
+         kBwdThreads, 0, s>>>(static_cast<const bf16*>(o), tdo, delta,
+                              nullptr, n_rows);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const float score_mul = scale * kLog2e;
+  constexpr int smem = static_cast<int>(sizeof(BwdMmaSmem<DH>));
+  err = cudaFuncSetAttribute(flash_attention_bwd_dkdv_mma<DH, kWin>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  flash_attention_bwd_dkdv_mma<DH, kWin>
+      <<<dim3(static_cast<unsigned>(k_tiles), static_cast<unsigned>(KVH),
+              static_cast<unsigned>(B)),
+         kBwdThreads, smem, s>>>(tq, tk, tv, tdo, lse, delta,
+                                 static_cast<bf16*>(dk), static_cast<bf16*>(dv),
+                                 static_cast<int>(KVH), static_cast<int>(G), S,
+                                 T_len, scale, score_mul, causal, window);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = cudaFuncSetAttribute(flash_attention_bwd_dq_mma<DH, kWin>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  flash_attention_bwd_dq_mma<DH, kWin>
+      <<<dim3(static_cast<unsigned>(q_tiles),
+              static_cast<unsigned>(KVH * G), static_cast<unsigned>(B)),
+         kBwdThreads, smem, s>>>(tq, tk, tv, tdo, lse, delta,
+                                 static_cast<bf16*>(dq),
+                                 static_cast<int>(KVH), static_cast<int>(G), S,
+                                 T_len, scale, score_mul, causal, window);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // -- backward, bfloat16: one wgmma pass fed by TMA ---------------------------
@@ -1990,8 +2411,9 @@ int launch_bwd(const void* q, const void* k, const void* v, const void* o,
                int64_t S, int64_t T_len, float scale, int causal,
                const BwdOpts& opt, cudaStream_t s) {
   const int64_t n_rows = B * KVH * G * S;
-  const int64_t q_tiles = (S + kBwdRows - 1) / kBwdRows;
-  const int64_t k_tiles = (T_len + kBwdKeys - 1) / kBwdKeys;
+  constexpr int kRows = BwdTile<DH>::kRows, kKeys = BwdTile<DH>::kKeys;
+  const int64_t q_tiles = (S + kRows - 1) / kRows;
+  const int64_t k_tiles = (T_len + kKeys - 1) / kKeys;
   const int64_t rows_a_cta = kBwdThreads / 32;
   if (q_tiles > INT_MAX || k_tiles > INT_MAX || KVH * G > 65535 ||
       B > 65535 || (n_rows + rows_a_cta - 1) / rows_a_cta > INT_MAX) {
@@ -2040,7 +2462,8 @@ int launch_bwd(const void* q, const void* k, const void* v, const void* o,
 
 // The forward entries return the cudaError_t of the launch (0 on success).
 // lse, when not null, receives each query row's log-sum-exp (B, KVH, G, S)
-// in float32 (only DH 64 and 128 write it; another DH with lse is refused).
+// in float32 (only DH 64, 128 and 256 write it; another DH with lse is
+// refused).
 extern "C" int flash_attention_f32(const void* q, const void* k, const void* v,
                                    void* out, void* lse, int64_t B,
                                    int64_t KVH, int64_t G, int64_t S,
@@ -2059,6 +2482,10 @@ extern "C" int flash_attention_f32(const void* q, const void* k, const void* v,
     if (DH == 64) {
       return launch_f32<64, true>(tq, tk, tv, to, tl, B, KVH, G, S, T, scale,
                                   causal, window, softcap, s);
+    }
+    if (DH == 256) {
+      return launch_f32<256, true>(tq, tk, tv, to, tl, B, KVH, G, S, T,
+                                   scale, causal, window, softcap, s);
     }
     if (DH != 128) return static_cast<int>(cudaErrorInvalidValue);
     return launch_f32<128, true>(tq, tk, tv, to, tl, B, KVH, G, S, T, scale,
@@ -2097,6 +2524,10 @@ extern "C" int flash_attention_bf16(const void* q, const void* k,
       return launch_bf16<64, true>(q, k, v, out, tl, B, KVH, G, S, T, scale,
                                    causal, window, softcap, s);
     }
+    if (DH == 256) {
+      return launch_bf16<256, true>(q, k, v, out, tl, B, KVH, G, S, T, scale,
+                                    causal, window, softcap, s);
+    }
     if (DH != 128) return static_cast<int>(cudaErrorInvalidValue);
     return launch_bf16<128, true>(q, k, v, out, tl, B, KVH, G, S, T, scale,
                                   causal, window, softcap, s);
@@ -2121,9 +2552,10 @@ extern "C" int flash_attention_bf16(const void* q, const void* k,
 
 // The backward: dq (as q), dk and dv (as k) from q, k, v, out, dout and the
 // forward's lse (of the same causal, window and softcap), with delta a
-// float32 scratch of B KVH G S and (bfloat16 only; null for float32) dq_acc
-// a float32 scratch of B KVH G S DH; DH 64 or 128.  Returns the first
-// failing launch's cudaError_t (0 on success).
+// float32 scratch of B KVH G S and (bfloat16 at DH 64 and 128 only; null
+// otherwise) dq_acc a float32 scratch of B KVH G S DH; DH 64, 128 or 256
+// (bfloat16 at 256: no softcap).  Returns the first failing launch's
+// cudaError_t (0 on success).
 namespace {
 
 template <typename E, int DH>
@@ -2174,7 +2606,7 @@ extern "C" int flash_attention_bwd_f32(const void* q, const void* k,
                                        int causal, int64_t window,
                                        float softcap, void* stream) {
   if (B <= 0 || KVH <= 0 || S <= 0) return 0;
-  if (G < 1 || T < 1 || window < 0 || (DH != 64 && DH != 128)) {
+  if (G < 1 || T < 1 || window < 0 || (DH != 64 && DH != 128 && DH != 256)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   auto run = [&](auto launch) {
@@ -2182,6 +2614,7 @@ extern "C" int flash_attention_bwd_f32(const void* q, const void* k,
                   dv, static_cast<float*>(delta), B, KVH, G, S, T, scale,
                   causal, window, softcap, static_cast<cudaStream_t>(stream));
   };
+  if (DH == 256) return run(launch_bwd_f32<float, 256>);
   return DH == 64 ? run(launch_bwd_f32<float, 64>)
                   : run(launch_bwd_f32<float, 128>);
 }
@@ -2196,8 +2629,20 @@ extern "C" int flash_attention_bwd_bf16(const void* q, const void* k,
                                         int causal, int64_t window,
                                         float softcap, void* stream) {
   if (B <= 0 || KVH <= 0 || S <= 0) return 0;
-  if (G < 1 || T < 1 || window < 0 || (DH != 64 && DH != 128) ||
-      dq_acc == nullptr) {
+  if (G < 1 || T < 1 || window < 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (DH == 256) {                  // the mma.sync passes, without softcap
+    if (softcap > 0.f) return static_cast<int>(cudaErrorInvalidValue);
+    auto mma = [&](auto launch) {
+      return launch(q, k, v, out, dout, static_cast<const float*>(lse), dq,
+                    dk, dv, static_cast<float*>(delta), B, KVH, G, S, T,
+                    scale, causal, window, static_cast<cudaStream_t>(stream));
+    };
+    return window > 0 ? mma(launch_bwd_mma<256, true>)
+                      : mma(launch_bwd_mma<256, false>);
+  }
+  if ((DH != 64 && DH != 128) || dq_acc == nullptr) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   auto run = [&](auto launch) {

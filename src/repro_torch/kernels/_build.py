@@ -60,7 +60,8 @@ KERNELS = ("gather_rows", "gather_rows_smem", "scatter_store_rows",
            "flash_attention", "paged_decode", "gather_rows_b16",
            "gather_rows_smem_b16", "scatter_store_rows_b16",
            "scatter_store_rows_cov_b16", "scatter_add_rows_bf16",
-           "scatter_add_rows_f16", "rglru_scan", "flash_attention_bwd")
+           "scatter_add_rows_f16", "rglru_scan", "flash_attention_bwd",
+           "selective_scan_bwd", "rglru_scan_bwd")
 # the Spatter kernels' element types and their bytes: float32, and the two
 # 16-bit types, which the gathers and stores serve with one instance on
 # 2-byte words
@@ -111,6 +112,13 @@ _SIGNATURES = {
         # u, dt, b, c, a, d_skip, y, h_final, B, L, D, N, stream
         "selective_scan_f32": (_P,) * 8 + (_I64,) * 4 + (_P,),
         "selective_scan_bf16": (_P,) * 8 + (_I64,) * 4 + (_P,),
+        # u, dt, b, c, a, d_skip, y, h_final, ckpt, B, L, D, N, stream
+        **{f"selective_scan_ckpt_{t}": (_P,) * 9 + (_I64,) * 4 + (_P,)
+           for t in ("f32", "bf16")},
+        # u, dt, b, c, a, d_skip, dy, dh_final (null: none), ckpt, du, ddt,
+        # db, dc, da, dd, part_bc, part_a, part_d, B, L, D, N, stream
+        **{f"selective_scan_bwd_{t}": (_P,) * 18 + (_I64,) * 4 + (_P,)
+           for t in ("f32", "bf16")},
     },
     "flash_attention": {
         # q, k, v, out, lse (null: not written), B, KVH, G, S, T, DH, scale,
@@ -126,6 +134,9 @@ _SIGNATURES = {
     "rglru_scan": {
         # a, beta, gx, h0, hs, h_last, B, S, W, stream
         "rglru_scan_f32": (_P,) * 6 + (_I64,) * 3 + (_P,),
+        # a, beta, gx, h0, hs, dhs, dh_last (null: none), da, dbeta, dgx,
+        # dh0, B, S, W, stream
+        "rglru_scan_bwd_f32": (_P,) * 11 + (_I64,) * 3 + (_P,),
     },
     "paged_decode": {
         # q, k_pages, v_pages, page_table, lengths, out, workspace,

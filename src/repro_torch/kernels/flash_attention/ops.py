@@ -24,10 +24,13 @@ launches the backward kernel (``flash_attention_bwd``: dQ, dK, dV from q,
 k, v, out, dO and that lse, FlashAttention-2's equations; bfloat16 in one
 wgmma pass fed by TMA, dQ summed in a float32 workspace of q's shape that
 the wrapper allocates; float32 on the CUDA cores; counted as
-``flash_attention_bwd``, one a call).  Both are built at head sizes 64
-and 128 (``BWD_HEAD_DIMS``), with any window and softcap, carried from
-the forward to the backward: on CUDA another head size with grad raises,
-with no fallback.  Without grad the call writes no lse.
+``flash_attention_bwd``, one a call).  Both are built at head sizes 64,
+128 and 256 (``BWD_HEAD_DIMS``), with any window and softcap, carried from
+the forward to the backward, except a softcap at 256 (no config has one:
+the bfloat16 backward there is two mma.sync passes with a window and no
+softcap, and needs no dQ workspace): on CUDA another head size with grad,
+or a softcap at 256, raises, with no fallback.  Without grad the call
+writes no lse.
 On CPU tensors autograd differentiates the plain version, the JAX
 ``_bwd``'s own recompute.
 """
@@ -41,7 +44,8 @@ from .. import _build
 from .ref import flash_attention_bwd_ref, flash_attention_ref
 
 HEAD_DIMS = (64, 112, 128, 256)
-BWD_HEAD_DIMS = (64, 128)        # the backward's and the lse's instances
+BWD_HEAD_DIMS = (64, 128, 256)   # the backward's and the lse's instances
+NO_CAP_BWD_HEAD_DIMS = (256,)    # backward instances without a softcap
 MAX_GROUP = 64                  # a CTA's 64 (f32) or 128 rows: G x rows / G
 _ENTRY = {torch.float32: "flash_attention_f32",
           torch.bfloat16: "flash_attention_bf16"}
@@ -95,18 +99,21 @@ def flash_attention(q, k, v, *, scale: float | None = None,
                                    window=window, softcap=softcap)
     check_kernel_shape(dh, g)
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
-        check_backward(dh)
+        check_backward(dh, softcap)
         return FlashAttentionFn.apply(q, k, v, scale, bool(causal),
                                       int(window), float(softcap))
     return _forward(dev, q, k, v, scale, causal, window, softcap)[0]
 
 
-def check_backward(dh: int) -> None:
+def check_backward(dh: int, softcap: float = 0.0) -> None:
     """Raise unless the backward kernel (and the forward's lse instance)
-    takes head size ``dh``; any window and softcap run."""
+    takes head size ``dh`` with ``softcap``; any window runs."""
     if dh not in BWD_HEAD_DIMS:
         raise ValueError(f"no backward kernel at head size {dh}; built at "
-                         f"{BWD_HEAD_DIMS} (ROADMAP A10.3: 112 and 256)")
+                         f"{BWD_HEAD_DIMS} (ROADMAP A10.4: 112)")
+    if softcap > 0 and dh in NO_CAP_BWD_HEAD_DIMS:
+        raise ValueError(f"no backward kernel with a softcap at head size "
+                         f"{dh}: no config caps its scores there")
 
 
 def _aligned(**tensors) -> None:
@@ -194,13 +201,15 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, scale: float,
                                        causal=causal, window=window,
                                        softcap=softcap)
     check_kernel_shape(dh, g)
-    check_backward(dh)
+    check_backward(dh, softcap)
     _aligned(q=q, k=k, v=v, o=o, do=do)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     delta = torch.empty((bsz, kvh, g, s), dtype=torch.float32, device=dev)
-    # bf16 sums dQ in float32 by L2 reductions (its delta pass zeroes it)
+    # bf16's wgmma pass sums dQ in float32 by L2 reductions (its delta pass
+    # zeroes it); at dh 256 each dQ row is one thread's sum
     dq_acc = (torch.empty(q.shape, dtype=torch.float32, device=dev)
-              if q.dtype == torch.bfloat16 else None)
+              if q.dtype == torch.bfloat16 and dh not in NO_CAP_BWD_HEAD_DIMS
+              else None)
     if bsz * kvh * s:
         _build.launch("flash_attention_bwd", dev, "flash_attention",
                       _BWD_ENTRY[q.dtype], q.data_ptr(), k.data_ptr(),

@@ -35,3 +35,26 @@ def rglru_scan_ref(a, beta, gx, h0):
         h = fma_f32(a[:, t], h, beta[:, t] * gx[:, t])
         hs[:, t] = h
     return hs, h.clone()
+
+
+def rglru_scan_bwd_ref(a, beta, gx, h0, hs, dhs, dh_last=None):
+    """The gradient of the recurrence in the backward kernel's order: with
+    g the cotangent of h_t, from g = dh_last (0 without) and a_S = 1,
+    walking t back, g = a_{t+1} g + dhs_t with one rounding (``fma_f32``),
+    then da_t = g h_{t-1} (h0 at t = 0, else ``hs``), dbeta_t = g gx_t,
+    dgx_t = g beta_t; dh0 = a_0 g_0.
+
+    All float32: a, beta, gx, hs, dhs (B, S, W); h0, dh_last (B, W).
+    Returns (da, dbeta, dgx, dh0).
+    """
+    g = (torch.zeros_like(h0, dtype=torch.float32) if dh_last is None
+         else dh_last.to(torch.float32))
+    a_next = torch.ones_like(g)
+    da, dbeta, dgx = (torch.empty_like(a) for _ in range(3))
+    for t in reversed(range(a.shape[1])):
+        g = fma_f32(a_next, g, dhs[:, t])
+        da[:, t] = g * (hs[:, t - 1] if t > 0 else h0)
+        dbeta[:, t] = g * gx[:, t]
+        dgx[:, t] = g * beta[:, t]
+        a_next = a[:, t]
+    return da, dbeta, dgx, a_next * g

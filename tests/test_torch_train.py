@@ -197,7 +197,13 @@ FLASH_CASES = [
     # P = 1/T over every key, dV += dO / T, nothing to dQ or dK
     (1, 2, 2, 40, 16, True, 8, 0.0, 16, 1.0),
     (2, 1, 3, 30, 9, False, 4, 2.0, 16, 3.0),
-    (1, 1, 2, 24, 5, True, 1, 0.0, 64, 1.0)]
+    (1, 1, 2, 24, 5, True, 1, 0.0, 64, 1.0),
+    # dh 256 (recurrentgemma-9b's local layers: MQA at G 16, a window),
+    # windowed and not, rows without a key among them
+    (1, 1, 16, 24, 24, True, 8, 0.0, 256, 1.0),
+    (1, 1, 16, 17, 33, False, 0, 0.0, 256, 1.0),
+    (2, 1, 2, 40, 40, True, 16, 0.0, 256, 1.0),
+    (1, 1, 16, 30, 9, True, 4, 0.0, 256, 1.0)]
 
 
 def _flash_inputs(b, kvh, g, s, t, dh=16, seed=0):
