@@ -1247,13 +1247,15 @@ def scan_cases(torch):
     err, n_cases, t0 = 0.0, 0, time.perf_counter()
     # L up to 1,000 (63 chunks of 16, the last ragged): the plain version
     # walks every step twice a case, and the script must stay within its
-    # time (the serve shape's L 2,048 is held in phase 4, ``scan_time``)
+    # time (the serve shape's L 2,048 is held in phase 4, ``scan_time``);
+    # so B 3 takes the model's dt only
     for bsz in (1, 3):
         for l in (1, 7, 300, 1000):
             for d in (16, 200, 8192):
                 for n in (4, 8, 16):
                     for dtype in (torch.float32, torch.bfloat16):
-                        for dt_kind in ("abs", "softplus"):
+                        for dt_kind in (("abs", "softplus") if bsz == 1
+                                        else ("softplus",)):
                             ins = _scan_inputs(torch, gen, bsz, l, d, n,
                                                dtype, dt_kind)
                             where = (f"B={bsz} L={l} D={d} N={n} {dtype} "
@@ -7464,21 +7466,27 @@ def check_scan_bwd(torch, ins, dy, dh, where, got=None):
     the same values in float32: each gradient within
     ``scan_bwd_tolerance`` of its largest magnitude, plus, in bfloat16, one
     rounding (2^-8) of each value; the forward's y and h_final equal bit
-    for bit to the serve instance's.  Returns max |err| against the plain
-    gradients rounded to the kernel's dtypes, and the plain version's ms
-    (CUDA events around its one call)."""
+    for bit to the serve instance's; and, without ``got``, a second call
+    through the wrapper gives the same gradient bit for bit (no float
+    atomics: the same bits on every run).  Returns max |err| against the
+    plain gradients rounded to the kernel's dtypes, and the plain
+    version's ms (CUDA events around its one call)."""
     from repro_torch.kernels.selective_scan.ops import selective_scan
     from repro_torch.kernels.selective_scan.ref import selective_scan_bwd_ref
     bsz, l, d = ins[0].shape
     if got is None:
         leaves = [t.detach().clone().requires_grad_() for t in ins]
         serve_y, serve_h = selective_scan(*ins)
+
+        def through_wrapper():
+            y, h = selective_scan(*leaves)
+            outs, cots = ([y, h], [dy, dh]) if dh is not None else ([y],
+                                                                    [dy])
+            return y, h, torch.autograd.grad(outs, leaves, cots)
         # autograd runs the backward on its own thread: the process-wide
         # counts, not observe_launches, see its launch
         before = _launches()
-        y, h = selective_scan(*leaves)
-        outs, cots = ([y, h], [dy, dh]) if dh is not None else ([y], [dy])
-        got = torch.autograd.grad(outs, leaves, cots)
+        y, h, got = through_wrapper()
         ran = {k: n - before[k] for k, n in _launches().items()
                if n != before[k]}
         check(ran == {"selective_scan": 1, "selective_scan_bwd": 1},
@@ -7486,6 +7494,11 @@ def check_scan_bwd(torch, ins, dy, dh, where, got=None):
         check(torch.equal(y, serve_y) and torch.equal(h, serve_h),
               f"selective_scan {where}: the checkpointing instance's "
               "outputs differ from the serve instance's")
+        again = through_wrapper()[2]
+        for name, g1, g2 in zip(SCAN_BWD_NAMES, got, again):
+            check(_bits_equal(torch, g1, g2),
+                  f"selective_scan_bwd {where} {name}: two launches differ "
+                  "in their bits")
     torch.cuda.synchronize()
     u, dt, b, c, a, d_skip = ins
     f32 = [x.float() for x in (u, dt, b, c, dy)]
@@ -7515,25 +7528,64 @@ def check_scan_bwd(torch, ins, dy, dh, where, got=None):
     return e, start.elapsed_time(end)
 
 
+def check_scan_ckpt(torch, ins, where):
+    """The checkpointing forward's states (``selective_scan_ckpt_*``, the
+    state before every ``CHUNK``-th step) against
+    ``selective_scan_ckpt_ref`` on the same values in float32: within
+    ``scan_tolerance`` of the magnitudes each state sums (the plain
+    version on |u| and |b| bounds them), as ``check_scan``'s h_final.
+    Returns max |err|."""
+    from repro_torch.kernels.selective_scan import ops
+    from repro_torch.kernels.selective_scan.ref import selective_scan_ckpt_ref
+    u, dt, b, _, a, _ = ins
+    ckpt = ops._forward(u.device, *ins, with_ckpt=True)[2]
+    f32 = [t.float() for t in (u, dt, b)]
+    want = selective_scan_ckpt_ref(*f32, a, ops.CHUNK)
+    mag = selective_scan_ckpt_ref(f32[0].abs(), f32[1], f32[2].abs(), a,
+                                  ops.CHUNK)
+    check(ckpt.shape == want.shape and ckpt.dtype == torch.float32,
+          f"selective_scan_ckpt {where}: {ckpt.dtype} {tuple(ckpt.shape)}")
+    diff = (ckpt - want).abs()
+    check(bool((diff <= scan_tolerance(u.shape[1]) * mag).all()),
+          f"selective_scan_ckpt {where}: off by {diff.max().item()}")
+    return diff.max().item() if diff.numel() else 0.0
+
+
+# the checkpoint's edges (CHUNK 8: one step, a step short, one chunk, a
+# step past) and many chunks; D one whole CTA of 128 channels and a ragged
+# one: 200 (a multiple of 8, so 16-byte aligned rows: the instance whose
+# inputs come by cp.async, in bfloat16 at N 8 and 16 and in float32) and
+# 201 (the loads into registers; the ragged CTA's last thread pair holds
+# one channel)
+SCAN_BWD_LENGTHS = (1, 7, 8, 9, 1000)
+SCAN_BWD_WIDTHS = (200, 201)
+
+
 def scan_bwd_cases(torch):
-    """Phase 1 for the scan's backward: B 2, D 200 (three whole CTAs of 64
-    channels and a ragged one), L at the checkpoint's edges (1, 15, 16, 17)
-    and 1,000, N 4, 8 and 16, float32 and bfloat16, with and without a
-    cotangent of h_final (``check_scan_bwd``); returns max |err|."""
+    """Phase 1 for the scan's backward: B 2, D in ``SCAN_BWD_WIDTHS``, L in
+    ``SCAN_BWD_LENGTHS``, N 4, 8 and 16, float32 and bfloat16, with and
+    without a cotangent of h_final: each case launched twice, within
+    ``scan_bwd_tolerance`` of its plain version and the same bits both
+    times (``check_scan_bwd``), and its checkpoint against
+    ``selective_scan_ckpt_ref`` (``check_scan_ckpt``); returns max
+    |err|."""
     gen = torch.Generator(device="cuda").manual_seed(71)
-    err, n_cases, t0 = 0.0, 0, time.perf_counter()
-    for l, n, dtype, with_dh in itertools.product(
-            (1, 15, 16, 17, 1000), (4, 8, 16),
+    err, ckpt_err, n_cases, t0 = 0.0, 0.0, 0, time.perf_counter()
+    for d, l, n, dtype, with_dh in itertools.product(
+            SCAN_BWD_WIDTHS, SCAN_BWD_LENGTHS, (4, 8, 16),
             (torch.float32, torch.bfloat16), (False, True)):
-        ins = _scan_inputs(torch, gen, 2, l, 200, n, dtype, "softplus")
-        dy = torch.randn(2, l, 200, generator=gen, device="cuda").to(dtype)
-        dh = (torch.randn(2, n, 200, generator=gen, device="cuda")
+        ins = _scan_inputs(torch, gen, 2, l, d, n, dtype, "softplus")
+        dy = torch.randn(2, l, d, generator=gen, device="cuda").to(dtype)
+        dh = (torch.randn(2, n, d, generator=gen, device="cuda")
               if with_dh else None)
-        where = f"B=2 L={l} D=200 N={n} {dtype} dh_final={with_dh}"
+        where = f"B=2 L={l} D={d} N={n} {dtype} dh_final={with_dh}"
         err = max(err, check_scan_bwd(torch, ins, dy, dh, where)[0])
+        ckpt_err = max(ckpt_err, check_scan_ckpt(torch, ins, where))
         n_cases += 1
     print(f"phase 1: {n_cases} selective_scan_bwd cases within "
-          f"scan_bwd_tolerance of their plain versions; max |err| {err} "
+          f"scan_bwd_tolerance of their plain versions, each the same bits "
+          f"on two launches; max |err| {err}; their checkpoints within "
+          f"scan_tolerance of selective_scan_ckpt_ref, max |err| {ckpt_err} "
           f"({time.perf_counter() - t0:.1f} s)", flush=True)
     return err
 
@@ -7633,6 +7685,12 @@ def scan_bwd_time(torch, err):
     tt = _in_turns(torch, {"kernel": lambda: ops.selective_scan_bwd(
         *ins, dy, None, ckpt)}, iters, {"kernel": launched_once})
     ms, dms, names, _ = tt["kernel"]
+    # the walk's resources: registers, spills, warps an SM, waves
+    attrs = ops.bwd_kernel_attrs(torch.bfloat16, n)
+    ctas = bsz * -(-d // attrs["channels_per_cta"])
+    attrs.update(ctas=ctas, warps_per_sm=attrs["ctas_per_sm"] *
+                 attrs["threads"] // 32,
+                 waves=ctas / max(1, attrs["ctas_per_sm"] * N_SMS))
     nbytes = 2 * (3 * bsz * l * d + 2 * bsz * l * n)      # u, dt, dy; b, c
     nbytes += 2 * (2 * bsz * l * d + 2 * bsz * l * n)     # du, ddt; db, dc
     nbytes += 4 * 2 * (n * d + d)                         # a, d_skip, grads
@@ -7646,7 +7704,7 @@ def scan_bwd_time(torch, err):
                bound_by="operations" if exp_ms >= bytes_ms else "bytes",
                bytes=nbytes, exps=exps, bytes_ms=bytes_ms, exp_ms=exp_ms,
                sm_clock_mhz=clock / 1e6, max_abs_err=e,
-               checkpoint_bytes=ckpt.numel() * 4,
+               checkpoint_bytes=ckpt.numel() * 4, walk=attrs,
                shape=[bsz, l, d, n, "bfloat16", "backward"])
     print(f"  selective_scan_bwd {FM_SCAN_BWD_SHAPE} bf16: kernel ms {ms} "
           f"device_ms {dms} ({100 * row['bound_ms'] / row['device_ms']:.1f}% "
@@ -7654,7 +7712,12 @@ def scan_bwd_time(torch, err):
           f"{exps} exponentials {exp_ms:.4f} ms, {nbytes} bytes "
           f"{bytes_ms:.4f} ms), plain {plain_ms:.1f} ms, "
           f"library none (no PyTorch call computes a selective scan); "
-          f"checkpoint {row['checkpoint_bytes']} bytes", flush=True)
+          f"checkpoint {row['checkpoint_bytes']} bytes; the walk "
+          f"{attrs['registers']} registers, {attrs['local_bytes']} local "
+          f"(spill) bytes a thread, {attrs['threads']} threads and "
+          f"{attrs['smem_bytes']} shared bytes a CTA, "
+          f"{attrs['ctas_per_sm']} CTAs ({attrs['warps_per_sm']} warps) an "
+          f"SM, {ctas} CTAs in {attrs['waves']:.2f} waves", flush=True)
     del ins, dy, ckpt
     torch.cuda.empty_cache()
     return row

@@ -42,8 +42,11 @@ With ``--arch falcon-mamba-7b`` (``FM_TRAIN_CHECK``: 2 layers, 1 x
   * ``walk_off_by_one``: the state's cotangent carried back by dA_t where
     dA_{t+1} belongs (likewise);
   * ``du_no_skip``: du without dy D (the kernel's du less it);
-  * ``dbc_one_cta``: dB and dC summed over the first CTA's 64 channels
-    only (the kernel on those channels).
+  * ``dbc_one_cta``: dB and dC summed over the first CTA's 128 channels
+    only (the kernel on those channels);
+  * ``ckpt_neighbour``: each chunk of 8 steps rebuilt from its
+    neighbour's checkpoint, the state 8 steps earlier (the kernel given
+    the checkpoint rolled by one chunk).
 
 With ``--arch recurrentgemma-9b`` (``RG_TRAIN_CHECK``: rec, rec, attn at 1
 x 4,096 tokens) in the recurrence's and in flash's dh-256 backward:
@@ -285,7 +288,13 @@ def scan_faults(c, torch):
                     None if dh_final is None else cut(dh_final), cut(ckpt))
         out[2], out[3] = part[2], part[3]
         return tuple(out)
-    return [ddt_no_h_term, walk_off_by_one, du_no_skip, dbc_one_cta]
+
+    def ckpt_neighbour(u, dt, b, c_, a, d_skip, dy, dh_final=None,
+                       ckpt=None):
+        return real(u, dt, b, c_, a, d_skip, dy, dh_final,
+                    torch.roll(ckpt, 1, dims=1))
+    return [ddt_no_h_term, walk_off_by_one, du_no_skip, dbc_one_cta,
+            ckpt_neighbour]
 
 
 def rglru_off_by_one(torch):

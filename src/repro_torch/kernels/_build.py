@@ -119,6 +119,8 @@ _SIGNATURES = {
         # db, dc, da, dd, part_bc, part_a, part_d, B, L, D, N, stream
         **{f"selective_scan_bwd_{t}": (_P,) * 18 + (_I64,) * 4 + (_P,)
            for t in ("f32", "bf16")},
+        # N, bf16, int *out (no stream: a query, not a launch)
+        "selective_scan_bwd_attrs": (_I64, _I64, _P),
     },
     "flash_attention": {
         # q, k, v, out, lse (null: not written), B, KVH, G, S, T, DH, scale,

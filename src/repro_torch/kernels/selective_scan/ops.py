@@ -14,14 +14,17 @@ model makes its column slices b, c of ``x_proj``'s output contiguous).
 The gradient.  Where an operand requires grad, the call goes through
 ``SelectiveScanFn``: on CUDA its forward is the kernel's instance that also
 writes the state before every ``CHUNK``-th step (the checkpoint, (B, L /
-CHUNK, N, D) float32), and its backward launches the backward kernel
-(``selective_scan_bwd``, counted as ``selective_scan_bwd``, one a call),
-which rebuilds each chunk's states from that checkpoint and walks it in
-reverse.  On CPU tensors the same Function runs the plain forward and the
-plain backward (``selective_scan_bwd_ref``).  The gradients of u, dt, b
-and c come back in u's dtype, those of a and d_skip in float32.
+CHUNK, N, D) float32; ``selective_scan_ckpt_ref`` is its plain version),
+and its backward launches the backward kernel (``selective_scan_bwd``,
+counted as ``selective_scan_bwd``, one a call), which rebuilds each
+chunk's states from that checkpoint and walks it in reverse.  On CPU
+tensors the same Function runs the plain forward and the plain backward
+(``selective_scan_bwd_ref``).  The gradients of u, dt, b and c come back
+in u's dtype, those of a and d_skip in float32.
 """
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -29,8 +32,8 @@ from .. import _build
 from .ref import selective_scan_bwd_ref, selective_scan_ref
 
 STATE_SIZES = (4, 8, 16)
-CHUNK = 16              # steps between checkpoints (the kernels' kChunk)
-CTA_CHANNELS = 64       # channels a backward CTA sums dB, dC over
+CHUNK = 8               # steps between checkpoints (the kernels' kCkptSteps)
+CTA_CHANNELS = 128      # channels a backward CTA sums dB, dC over
 _ENTRY = {torch.float32: "selective_scan_f32",
           torch.bfloat16: "selective_scan_bf16"}
 _CKPT_ENTRY = {torch.float32: "selective_scan_ckpt_f32",
@@ -175,3 +178,21 @@ def selective_scan_bwd(u, dt, b, c, a, d_skip, dy, dh_final=None,
                   part_bc.data_ptr(), part_a.data_ptr(), part_d.data_ptr(),
                   bsz, l, d, n)
     return du, ddt, db, dc, da, dd
+
+
+def bwd_kernel_attrs(dtype, n):
+    """The backward kernel's resources on the current card at state size
+    ``n`` (CUDA's function attributes and occupancy calculator), for the
+    instance that 16-byte aligned operands take: registers and local bytes
+    (spills) a thread, threads and dynamic shared bytes a CTA, CTAs an SM,
+    channels a CTA, and whether its inputs come by cp.async.  Builds the
+    library; launches nothing."""
+    if dtype not in _BWD_ENTRY or n not in STATE_SIZES:
+        raise ValueError(f"no backward instance for {dtype}, N={n}")
+    out = (ctypes.c_int * 7)()
+    err = _build.c_function("selective_scan", "selective_scan_bwd_attrs")(
+        n, int(dtype == torch.bfloat16), ctypes.addressof(out))
+    if err != 0:
+        raise RuntimeError(f"selective_scan_bwd_attrs: CUDA error {err}")
+    return dict(zip(("registers", "local_bytes", "threads", "smem_bytes",
+                     "ctas_per_sm", "channels_per_cta", "async"), out))

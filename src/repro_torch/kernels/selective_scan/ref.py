@@ -22,6 +22,27 @@ def selective_scan_ref(u, dt, b, c, a, d_skip):
     return y.to(u.dtype), h
 
 
+def selective_scan_ckpt_ref(u, dt, b, a, chunk):
+    """The states that the checkpointing forward writes for the backward:
+    the state before every ``chunk``-th step (``ops.CHUNK`` on the card),
+    by ``selective_scan_ref``'s recurrence in float32.  u, dt (B, L, D); b
+    (B, L, N); a (N, D) float32.  Returns (B, ceil(L / chunk), N, D)
+    float32, the kernel's layout: entry k is the state before step k
+    chunk (entry 0 the zero state)."""
+    bsz, l, d = u.shape
+    n = b.shape[2]
+    u32, dt32, b32 = (t.to(torch.float32) for t in (u, dt, b))
+    h = torch.zeros((bsz, n, d), dtype=torch.float32, device=u.device)
+    out = torch.empty((bsz, -(-l // chunk), n, d), dtype=torch.float32,
+                      device=u.device)
+    for t in range(l):
+        if t % chunk == 0:
+            out[:, t // chunk] = h
+        da = torch.exp(dt32[:, t, None, :] * a[None])              # (B,N,D)
+        h = h * da + (dt32[:, t] * u32[:, t])[:, None, :] * b32[:, t, :, None]
+    return out
+
+
 def selective_scan_bwd_ref(u, dt, b, c, a, d_skip, dy, dh_final=None):
     """The gradient of ``selective_scan_ref`` by the backward kernel's
     equations, in float32: the forward's states kept whole, then, with g_t

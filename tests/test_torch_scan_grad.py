@@ -24,9 +24,10 @@ from repro_torch.kernels import launches
 from repro_torch.kernels.rglru_scan.ops import rglru_scan, rglru_scan_bwd
 from repro_torch.kernels.rglru_scan.ref import (rglru_scan_bwd_ref,
                                                 rglru_scan_ref)
-from repro_torch.kernels.selective_scan.ops import (selective_scan,
+from repro_torch.kernels.selective_scan.ops import (CHUNK, selective_scan,
                                                     selective_scan_bwd)
 from repro_torch.kernels.selective_scan.ref import (selective_scan_bwd_ref,
+                                                    selective_scan_ckpt_ref,
                                                     selective_scan_ref)
 
 # float32 on both sides; a gradient sums the terms of every later step (up
@@ -82,7 +83,7 @@ SCAN_NAMES = ("du", "ddt", "db", "dc", "da", "dd_skip")
 def test_scan_bwd_ref_equals_jax_vjp_of_the_oracle(bsz, l, n, with_dh):
     """Every gradient of the scan's plain backward against ``jax.vjp`` of
     the JAX oracle, with and without a cotangent of the final state (L 64
-    and 129: whole and ragged chunks of the kernel's 16 steps)."""
+    and 129: whole and ragged chunks of the kernel's 8 steps)."""
     u, dt, b, c, a, d_skip, dy, dh = _scan_draw(bsz, l, n, seed=l + n)
     if not with_dh:
         dh = np.zeros_like(dh)
@@ -124,6 +125,38 @@ def test_scan_bwd_ref_equals_jax_vjp_of_the_model_scan(bsz, l, n):
                        ("da_log", (da * _t(a)).T, want[4]),
                        ("d_skip", dd[0], want[5])):
         _close(g.numpy(), w, name)
+
+
+# float32 on both sides, the same recurrence in the same order; exp and
+# jnp.exp may differ by an ulp a step, and a state carries those of up to
+# 3 CHUNK steps here: 1e-5 relative, 1e-6 of the largest state near 0
+CKPT_TOL = dict(rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("n", [4, 16])
+@pytest.mark.parametrize("l", [1, CHUNK - 1, CHUNK, CHUNK + 1,
+                               3 * CHUNK - 1])
+def test_scan_ckpt_ref_equals_jax_prefix_states(l, n):
+    """The plain version of the checkpoint: entry k is the state before
+    step k CHUNK, which is the h_final that the JAX oracle returns on the
+    prefix of k CHUNK steps (entry 0 the zero state, the empty prefix's);
+    L on the chunk's edges (one step, a step short of a chunk, a chunk, a
+    step past it, three chunks less one)."""
+    u, dt, b, c, a, d_skip, _, _ = _scan_draw(2, l, n, seed=5 * l + n)
+    got = selective_scan_ckpt_ref(*map(_t, (u, dt, b, a)), CHUNK)
+    assert got.dtype == torch.float32
+    assert got.shape == (2, -(-l // CHUNK), n, D)
+    for k in range(got.shape[1]):
+        t = k * CHUNK
+        _, want = j_selective_scan_ref(*(jnp.asarray(x[:, :t])
+                                         for x in (u, dt, b, c)),
+                                       jnp.asarray(a), jnp.asarray(d_skip))
+        want = np.asarray(want)
+        top = max(1.0, float(np.abs(want).max(initial=0.0)))
+        np.testing.assert_allclose(got[:, k].numpy(), want,
+                                   rtol=CKPT_TOL["rtol"],
+                                   atol=CKPT_TOL["atol"] * top,
+                                   err_msg=f"state before step {t}")
 
 
 def test_scan_bwd_bf16_rounds_once():
