@@ -6400,6 +6400,9 @@ def flash_bwd_cases(torch):
 # the options' lengths: a window's edges, a tile, past a tile, and rows
 # past T + window - 1, which see no key
 BWD_OPT_LENGTHS = (1, 64, 65, 129, 1000)
+# dh 256's: ``BWD_EDGE_LENGTHS`` and 31-33, the edges of a 32-row step (its
+# pass takes 64 rows a step and 64 keys a CTA, and builds at 32 rows too)
+BWD_DH256_LENGTHS = tuple(sorted(BWD_EDGE_LENGTHS + (31, 32, 33)))
 
 
 def _bwd_option_case_list():
@@ -6411,8 +6414,9 @@ def _bwd_option_case_list():
     dh 64 (whisper-base's) at every (S, T) of ``BWD_EDGE_LENGTHS``, G 1
     and 4, and at whisper's encoder (1500, 1500) and cross (1000, 1500)
     lengths; dh 256 (recurrentgemma-9b's) at every (S, T) of
-    ``BWD_EDGE_LENGTHS``, G 1 and 16, with a window of 64 (causal) and
-    without; each in float32 and bfloat16, causal and not."""
+    ``BWD_DH256_LENGTHS``, G 1 and 16, without a window, with one of 129
+    (no multiple of its pass's 64-row step or 64-key tile) and, causal,
+    one of 64; each in float32 and bfloat16, causal and not."""
     out = []
     for dtype, causal in itertools.product(("float32", "bfloat16"),
                                            (True, False)):
@@ -6432,12 +6436,12 @@ def _bwd_option_case_list():
         out += [(dtype, 1, 1500, 1500, 64, causal, 0, 0.0, 1.0),
                 (dtype, 1, 1000, 1500, 64, causal, 0, 0.0, 1.0)]
         # dh 256 (recurrentgemma-9b's local layers): G 1 and 16 at every
-        # (S, T) of ``BWD_EDGE_LENGTHS``, without a window and (causal)
-        # with one of 64, rows without a key among them
+        # (S, T) of ``BWD_DH256_LENGTHS``, without a window, with one of
+        # 129 and (causal) one of 64, rows without a key among them
         for (s, t), g in itertools.product(
-                itertools.product(BWD_EDGE_LENGTHS, BWD_EDGE_LENGTHS),
+                itertools.product(BWD_DH256_LENGTHS, BWD_DH256_LENGTHS),
                 (1, 16)):
-            for window in ((0, 64) if causal else (0,)):
+            for window in ((0, 64, 129) if causal else (0, 129)):
                 out.append((dtype, g, s, t, 256, causal, window, 0.0, 1.0))
     return out
 
@@ -6731,16 +6735,17 @@ def bwd_row(torch, err, shape, kw, where, iters):
     """The backward's row at ``shape`` (B, KVH, G, S, T, dh), bf16, with
     ``kw`` (causal, window, softcap): held to its plain version a (row, KV
     head) at a time (``check_flash_bwd``), then timed in turns beside
-    ``_library_backward``; each call launches the wgmma pass and dQ's
-    rounding, or at dh 256 the two mma.sync passes.  The bound is the
-    larger of the
+    ``_library_backward``; each call launches the wgmma pass (at dh 256
+    its own, ``flash_attention_bwd_dh256``) and dQ's rounding; without a
+    softcap the pass's resources (``bwd_kernel_attrs``) are printed and
+    kept in the row.  The bound is the larger of the
     bytes (q, k, v, out, dO and lse read, dq, dk, dv written; not the
     float32 dQ workspace, which the function does not need), the five
     products of the forward's size over the pairs the mask keeps (2.5 x
     the forward's FLOP) on the bf16 tensor cores, and the exponential (and
     with a softcap the tanh) of each kept pair on the SFU."""
     from repro_torch.kernels.flash_attention.ops import (
-        flash_attention_bwd, flash_attention_lse)
+        bwd_kernel_attrs, flash_attention_bwd, flash_attention_lse)
     from repro_torch.kernels.flash_attention.ref import (
         flash_attention_bwd_ref)
     bsz, kvh, g, s, t, dh = shape
@@ -6777,9 +6782,9 @@ def bwd_row(torch, err, shape, kw, where, iters):
     library_name, library = _library_backward(torch, q, k, v, o, do, kw,
                                               where)
 
-    passes = (("flash_attention_bwd_dkdv_mma", "flash_attention_bwd_dq_mma")
-              if dh == 256 else ("flash_attention_bwd_wgmma",
-                                 "flash_attention_bwd_dq_round"))
+    passes = ("flash_attention_bwd_dh256" if dh == 256
+              else "flash_attention_bwd_wgmma",
+              "flash_attention_bwd_dq_round")
 
     def launched_once(names, launched):
         traced = [sum(c for k, c in names.items() if kernel in k)
@@ -6820,6 +6825,14 @@ def bwd_row(torch, err, shape, kw, where, iters):
                    bound_share=sfu_ms / row["ms"])
     print(f"    SFU: {sfu} exponentials and tanh, {sfu_ms:.4f} ms; bound "
           f"{row['bound_ms']:.4f} ms", flush=True)
+    if not kw["softcap"]:
+        a = row["pass"] = bwd_kernel_attrs(dh, kw["window"])
+        print(f"    the pass: {a['registers']} registers, "
+              f"{a['local_bytes']} local (spill) bytes a thread, "
+              f"{a['threads']} threads and {a['smem_bytes']} shared bytes a "
+              f"CTA, {a['ctas_per_sm']} CTA(s) an SM, {a['stages']} (Q, dO) "
+              f"stage(s) of {a['rows_per_step']} rows, "
+              f"{a['keys_per_cta']} keys a CTA", flush=True)
     del q, k, v, do, o, lse, library, fns
     torch.cuda.empty_cache()
     return row

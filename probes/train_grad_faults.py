@@ -54,6 +54,12 @@ x 4,096 tokens) in the recurrence's and in flash's dh-256 backward:
   * ``rglru_off_by_one``: g carried back by a_t where a_{t+1} belongs (the
     plain backward's equations with it);
   * ``window_off_256``: flash's backward without the window of 2,048;
+  * ``dq_half_dropped``: a fault of the DH-256 pass's design planted in its
+    source (``DQ_HALF_MUTATION``: warpgroup 1 never adds its half of dQ's
+    columns into the workspace), built beside the sound library and called
+    in its place; it must fail the step, and every phase-1 bf16 dh-256
+    backward case (``flash_bwd_option_checks``) where dQ is not 0 in exact
+    arithmetic (some row sees two keys) must fail too;
   * ``dh_last_dropped``: the cotangent of h_S not added.  The model's loss
     never reads h_S (it is the decode cache), so the step cannot show
     this fault; it is run through phase 1's recurrence cases
@@ -70,13 +76,22 @@ Prints each run's readings against ``chip_smoke.grad_faults``'s limits
 Exit 0 when the kernel as built passes and every planted fault fails.
 """
 import argparse
+import ctypes
 import json
 import math
+import subprocess
 import sys
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT))
+# the DH-256 pass with warpgroup 1's reduce-adds of dQ (columns 128-255)
+# left out
+DQ_HALF_MUTATION = (
+    "    if (dq_lead) {\n      for (int b = 0; b < 4; ++b) {\n"
+    "        tma_reduce_add_3d(&tm_dq, dq_s + b * L::kRowBox,",
+    "    if (dq_lead && wg == 0) {\n      for (int b = 0; b < 4; ++b) {\n"
+    "        tma_reduce_add_3d(&tm_dq, dq_s + b * L::kRowBox,")
 
 
 def main(argv=None):
@@ -87,6 +102,8 @@ def main(argv=None):
     args = ap.parse_args(argv)
     import chip_smoke as c
     torch = c.setup()
+    mutant = (start_mutant_build() if args.arch == "recurrentgemma-9b"
+              else None)
     c.build()
     from repro_torch.kernels.flash_attention import ops
     from repro_torch.kernels.flash_attention.ref import (_masked_scores,
@@ -181,6 +198,9 @@ def main(argv=None):
                         **{**kw, "window": 0})
         faults.append(window_off_256)
         targets["window_off_256"] = "flash_attention_bwd"
+        dq_half_dropped = mutant_backward(real, mutant)
+        faults.append(dq_half_dropped)
+        targets["dq_half_dropped"] = "flash_attention_bwd"
         shape, limits = c.RG_TRAIN_CHECK, c.RG_TRAIN_LIMITS
         tag = "_recurrentgemma-9b"
     readings = c.grad_readings(
@@ -216,8 +236,9 @@ def main(argv=None):
         caught += keyless_cases_fail(c, torch, ops, "flash_attention_lse",
                                      keyless_lse, 1)
     if args.arch == "recurrentgemma-9b":
-        n_faults += 1
+        n_faults += 2
         caught += dh_last_cases_fail(c, torch)
+        caught += dh256_cases_fail(c, torch, ops, dq_half_dropped)
     sound = not verdicts["kernel"]
     print(f"the kernel as built {'passes' if sound else 'FAILS'}; {caught} "
           f"of {n_faults} planted faults fail", flush=True)
@@ -313,6 +334,78 @@ def rglru_off_by_one(torch):
         return da, dbeta, dgx, a[:, 0] * g if a.shape[1] else g
     bwd.__name__ = "rglru_off_by_one"
     return bwd
+
+
+def start_mutant_build():
+    """Start nvcc on a copy of ``csrc/flash_attention.cu`` with
+    ``DQ_HALF_MUTATION`` (beside the sound build, in ``_build/``); returns
+    (process, library path)."""
+    from repro_torch.kernels import _build
+    text = (_build.CSRC_DIR / "flash_attention.cu").read_text()
+    old, new = DQ_HALF_MUTATION
+    if text.count(old) != 1:
+        sys.exit(f"mutation site not found once: {old!r}")
+    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    cu = _build.BUILD_DIR / "flash_attention_dq_half_dropped.cu"
+    cu.write_text(text.replace(old, new))
+    so = cu.with_suffix(".so")
+    proc = subprocess.Popen(
+        [_build.nvcc_path(), *_build.NVCC_FLAGS, "-o", str(so), str(cu)],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    return proc, so
+
+
+def mutant_backward(real, mutant):
+    """``dq_half_dropped``: the wrapper ``real`` (counting its launch as
+    ever) with the mutant library's bf16 entry in the sound one's place."""
+    from repro_torch.kernels import _build
+    proc, so = mutant
+    log, _ = proc.communicate()
+    if proc.returncode != 0:
+        sys.exit(f"the mutant did not build:\n{log[-3000:]}")
+    key = ("flash_attention", "flash_attention_bwd_bf16")
+    fn = getattr(ctypes.CDLL(str(so)), key[1])
+    fn.argtypes = list(_build._SIGNATURES[key[0]][key[1]])
+    fn.restype = ctypes.c_int
+
+    def dq_half_dropped(*args, **kw):
+        _build.c_function(*key)                  # the sound one, looked up
+        sound = _build._fns[key]
+        _build._fns[key] = fn
+        try:
+            return real(*args, **kw)
+        finally:
+            _build._fns[key] = sound
+    return dq_half_dropped
+
+
+def dh256_cases_fail(c, torch, ops, fault):
+    """Whether every phase-1 bf16 dh-256 backward case where dQ is not 0
+    in exact arithmetic fails with ``fault`` in ``flash_attention_bwd``'s
+    place (1) or not (0); the cases where every query row sees one key (T
+    1, or S 1 with causal: dS = 0) are run and counted apart."""
+    saved = ops.flash_attention_bwd
+    ops.flash_attention_bwd = fault
+    failed = passed = vanishing = 0
+    try:
+        for case, (_, run) in zip(c._bwd_option_case_list(),
+                                  c.flash_bwd_option_checks(torch)):
+            dtype, _, s, t, dh, causal, _, _, _ = case
+            if dh != 256 or dtype != "bfloat16":
+                continue
+            one_key = t == 1 or (causal and s == 1)
+            try:
+                run()
+                passed += not one_key
+                vanishing += one_key
+            except c.SmokeFailure:
+                failed += not one_key
+    finally:
+        ops.flash_attention_bwd = saved
+    print(f"{fault.__name__}: {failed} of {failed + passed} phase-1 bf16 "
+          f"dh-256 cases with dQ fail; {vanishing} where every row sees one "
+          "key pass", flush=True)
+    return int(failed > 0 and passed == 0)
 
 
 def dh_last_cases_fail(c, torch):

@@ -971,8 +971,8 @@ bool bad_args(int64_t G, int64_t T_len, int64_t window) {
 // float4 loads a query row), seven products in all (pass 3 recomputes Q
 // K^T and dO V^T), so the CUDA cores' 67 TFLOP/s and shared memory's
 // bandwidth bound it.  At DH 256 a tile is 32 rows and 32 keys (BwdTile).
-// bfloat16 runs one wgmma pass instead at DH 64 and 128, and two mma.sync
-// passes at DH 256 (their own sections below).
+// bfloat16 runs one wgmma pass instead: at DH 64 and 128 split by keys, at
+// DH 256 by products (their own sections below).
 
 constexpr int kBwdThreads = 256;     // 16 x 16 threads
 constexpr int kBwdRows = 64;         // query rows a tile (DH <= 128)
@@ -1366,412 +1366,11 @@ flash_attention_bwd_dq(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-// -- backward, bfloat16 at DH 256: two mma.sync passes -------------------------
-//
-// recurrentgemma-9b's local attention (DH 256, MQA at G 16, window 2048,
-// no softcap) trains through these.  The wgmma pass below does not fit DH
-// 256: a warpgroup's 64 keys of dK and dV would be 256 float32 a thread,
-// and K and V (64 KB at 64 keys) beside a (Q, dO) stage (64 KB) and dS^T
-// leave no second stage in 227 KB.  So DH 256 runs the CUDA-core passes'
-// shape (pass 2 dK and dV over the keys, pass 3 dQ over the query rows,
-// after flash_attention_bwd_delta) with each product on the tensor cores
-// by mma.sync m16n8k16 (bf16 in, float32 sums), on bf16 tiles in shared
-// memory (rows padded by 16 bytes, so the 8 rows an ldmatrix reads fall in
-// 8 distinct bank groups): 4 tiles of 64 x 256 (Q, dO, K, V) and P, dS of
-// 64 x 64, 150 KB, one CTA an SM.  A CTA's 8 warps split each 64 x 64
-// score tile as 4 x 2 blocks of 16 rows x 32 keys, and each 64 x 256 sum
-// (dK, dV or dQ) as 4 x 2 blocks of 16 rows x 128 columns, held in
-// registers (dK and dV: 128 floats a thread).  Operands that the products
-// need transposed (P^T, dS^T, and dO, Q and K as the k-major B) come in
-// through ldmatrix.trans.  P and dS are rounded to bf16 in shared memory
-// (2^-9 each) before P^T dO, dS^T Q and dS K; S, dP and every sum stay
-// float32.  dK, dV and dQ are each summed by one thread in a fixed order
-// (over the G heads too, as the CUDA-core passes), so no atomics and no
-// float32 dQ workspace.  Seven products, as the CUDA-core passes (pass 3
-// recomputes Q K^T and dO V^T).  kWin (a template flag; the plain instance
-// is the code without it): the loops skip the tiles that the window
-// empties, the mask keeps i - j < window, and rows that see no key add
-// dO / T to dV after the loop (keyless_dv).  What bounds it: operations
-// (2.75e12 FLOP of the five products at the training shape (2, 1, 16,
-// 8192, 8192) with window 2048: 2.8 ms on the bf16 tensor cores); mma.sync
-// reaches a fraction of wgmma's rate, and each step waits on its loads
-// (no pipeline), so this is the simple pass, not a fast one.
-
-template <int DH>
-struct BwdMma {
-  static constexpr int kRow = DH + 8;            // bf16 a row of a tile
-  static constexpr int kPRow = kBwdKeys + 8;     // bf16 a row of P or dS
-  static constexpr int kCols = DH / 2;           // a warp's columns of a sum
-  static constexpr int kBlocks = kCols / 8;      // its 8-column blocks
-};
-
-template <int DH>
-struct BwdMmaSmem {
-  __nv_bfloat16 a[kBwdRows][BwdMma<DH>::kRow];    // Q of the tile's rows
-  __nv_bfloat16 b[kBwdRows][BwdMma<DH>::kRow];    // dO of the tile's rows
-  __nv_bfloat16 k[kBwdKeys][BwdMma<DH>::kRow];    // K of the key tile
-  __nv_bfloat16 v[kBwdKeys][BwdMma<DH>::kRow];    // V of the key tile
-  __nv_bfloat16 p[kBwdRows][BwdMma<DH>::kPRow];   // P (pass 2)
-  __nv_bfloat16 ds[kBwdRows][BwdMma<DH>::kPRow];  // dS
-  float lse[kBwdRows];
-  float d[kBwdRows];
-};
-
-// rows row0 .. row0 + 63 of a (n_rows, DH) bf16 matrix, 16 bytes a copy;
-// rows past n_rows are zeros
-template <int DH>
-__device__ void load_tile_mma(__nv_bfloat16 (*dst)[BwdMma<DH>::kRow],
-                              const __nv_bfloat16* src, int64_t row0,
-                              int64_t n_rows, int tid) {
-  for (int c = tid; c < kBwdRows * (DH / 8); c += kBwdThreads) {
-    const int r = c / (DH / 8), c8 = (c % (DH / 8)) * 8;
-    uint4 x = make_uint4(0u, 0u, 0u, 0u);
-    if (row0 + r < n_rows) {
-      x = *reinterpret_cast<const uint4*>(src + (row0 + r) * DH + c8);
-    }
-    *reinterpret_cast<uint4*>(&dst[r][c8]) = x;
-  }
-}
-
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_u32(p)));
-}
-
-__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_u32(p)));
-}
-
-// c (16 x 8, float32) += a (16 x 16) b (16 x 8), bf16 operands
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// Where lane (lj = lane / 8, li = lane % 8) points ldmatrix.x4 for a 16 x 16
-// A fragment at (m0, k0) of a row-major [m][k] tile, and for two 8-wide B
-// fragments (n0, n0 + 8) x 16 k of a [n][k] tile; with .trans, for an A
-// fragment of a [k][m] tile and B fragments of a [k][n] tile.
-#define A_ROW(m0, k0) (m0) + (lj & 1) * 8 + li][(k0) + (lj >> 1) * 8
-#define B_ROW(n0, k0) (n0) + (lj >> 1) * 8 + li][(k0) + (lj & 1) * 8
-#define AT_ROW(m0, k0) (k0) + (lj >> 1) * 8 + li][(m0) + (lj & 1) * 8
-#define BT_ROW(n0, k0) (k0) + (lj & 1) * 8 + li][(n0) + (lj >> 1) * 8
-
-// dS (and, with kStoreP, P) of the tile's rows q0.. against keys k0.., as
-// bf16 in shared memory, from a, b, k, v, lse and d already there: warp w
-// takes rows 16 (w / 2) .. + 16 and keys 32 (w % 2) .. + 32.  With kWin,
-// keys with i - j >= window are masked too.
-template <int DH, bool kStoreP, bool kWin>
-__device__ void tile_ds_mma(BwdMmaSmem<DH>& sm, int64_t q0, int64_t k0,
-                            int64_t S, int64_t T_len, float score_mul,
-                            int causal, int64_t window, int warp, int lane) {
-  const int lj = lane >> 3, li = lane & 7;
-  const int mr = 16 * (warp >> 1), nc = 32 * (warp & 1);
-  float s[4][4], dp[4][4];
-#pragma unroll
-  for (int j = 0; j < 4; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
-#pragma unroll 4
-  for (int kk = 0; kk < DH; kk += 16) {
-    uint32_t aq[4], ao[4];
-    ldsm_x4(aq, &sm.a[A_ROW(mr, kk)]);
-    ldsm_x4(ao, &sm.b[A_ROW(mr, kk)]);
-#pragma unroll
-    for (int jp = 0; jp < 2; ++jp) {
-      uint32_t bk[4], bv[4];
-      ldsm_x4(bk, &sm.k[B_ROW(nc + 16 * jp, kk)]);
-      ldsm_x4(bv, &sm.v[B_ROW(nc + 16 * jp, kk)]);
-      mma_bf16(s[2 * jp], aq, bk[0], bk[1]);
-      mma_bf16(s[2 * jp + 1], aq, bk[2], bk[3]);
-      mma_bf16(dp[2 * jp], ao, bv[0], bv[1]);
-      mma_bf16(dp[2 * jp + 1], ao, bv[2], bv[3]);
-    }
-  }
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {            // rows lane / 4 and that + 8
-    const int r = mr + (lane >> 2) + 8 * h;
-    const int64_t qpos = q0 + r;
-    const float lse2 = sm.lse[r] * kLog2e, dr = sm.d[r];
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int c = nc + 8 * j + 2 * (lane & 3);
-      float p[2], ds[2];
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int64_t kpos = k0 + c + e;
-        bool keep = qpos < S && kpos < T_len && (!causal || kpos <= qpos);
-        if (kWin) keep = keep && qpos - kpos < window;
-        p[e] = keep ? exp2f(fmaf(s[j][2 * h + e], score_mul, -lse2)) : 0.f;
-        ds[e] = p[e] * (dp[j][2 * h + e] - dr);
-      }
-      if (kStoreP) {
-        *reinterpret_cast<__nv_bfloat162*>(&sm.p[r][c]) =
-            __floats2bfloat162_rn(p[0], p[1]);
-      }
-      *reinterpret_cast<__nv_bfloat162*>(&sm.ds[r][c]) =
-          __floats2bfloat162_rn(ds[0], ds[1]);
-    }
-  }
-}
-
-// the bf16 pair of acc rows (lane / 4, + 8) and columns 2 (lane % 4) of an
-// 8-wide block, times ``mul``, to out[row][col] of a (n_rows, DH) matrix,
-// rows past n_rows skipped
-template <int DH>
-__device__ __forceinline__ void store_acc_mma(__nv_bfloat16* out,
-                                              const float (&c)[4],
-                                              int64_t row, int64_t n_rows,
-                                              int col, float mul) {
-  if (row < n_rows) {
-    *reinterpret_cast<__nv_bfloat162*>(out + row * DH + col) =
-        __floats2bfloat162_rn(c[0] * mul, c[1] * mul);
-  }
-  if (row + 8 < n_rows) {
-    *reinterpret_cast<__nv_bfloat162*>(out + (row + 8) * DH + col) =
-        __floats2bfloat162_rn(c[2] * mul, c[3] * mul);
-  }
-}
-
-// grid (key tiles, KVH, B)
-template <int DH, bool kWin>
-__global__ void __launch_bounds__(kBwdThreads, 1)
-flash_attention_bwd_dkdv_mma(const __nv_bfloat16* __restrict__ q,
-                             const __nv_bfloat16* __restrict__ k,
-                             const __nv_bfloat16* __restrict__ v,
-                             const __nv_bfloat16* __restrict__ dout,
-                             const float* __restrict__ lse,
-                             const float* __restrict__ delta,
-                             __nv_bfloat16* __restrict__ dk,
-                             __nv_bfloat16* __restrict__ dv, int kvh, int G,
-                             int64_t S, int64_t T_len, float scale,
-                             float score_mul, int causal, int64_t window) {
-  constexpr int kNB = BwdMma<DH>::kBlocks;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  BwdMmaSmem<DH>& sm = *reinterpret_cast<BwdMmaSmem<DH>*>(smem_raw);
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int lj = lane >> 3, li = lane & 7;
-  const int kr = 16 * (warp >> 1), dc = BwdMma<DH>::kCols * (warp & 1);
-  const int64_t k0 = static_cast<int64_t>(blockIdx.x) * kBwdKeys;
-  const int64_t bh = static_cast<int64_t>(blockIdx.z) * kvh + blockIdx.y;
-  load_tile_mma<DH>(sm.k, k + bh * T_len * DH, k0, T_len, tid);
-  load_tile_mma<DH>(sm.v, v + bh * T_len * DH, k0, T_len, tid);
-  float acc_k[kNB][4], acc_v[kNB][4];
-#pragma unroll
-  for (int j = 0; j < kNB; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc_k[j][e] = acc_v[j][e] = 0.f;
-  // with causal, query tiles before the key tile see none of its keys; with
-  // a window, rows past its last key + window - 1 none either
-  const int64_t q_begin = causal ? k0 - k0 % kBwdRows : 0;
-  int64_t q_end = S;
-  if (kWin) {
-    const int64_t k_hi = (k0 + kBwdKeys < T_len ? k0 + kBwdKeys : T_len) - 1;
-    q_end = k_hi + window < S ? k_hi + window : S;
-  }
-  for (int g = 0; g < G; ++g) {
-    const int64_t head = bh * G + g;          // rows of q, dout, lse, delta
-    for (int64_t q0 = q_begin; q0 < q_end; q0 += kBwdRows) {
-      __syncthreads();                        // the last tile's readers
-      load_tile_mma<DH>(sm.a, q + head * S * DH, q0, S, tid);
-      load_tile_mma<DH>(sm.b, dout + head * S * DH, q0, S, tid);
-      if (tid < kBwdRows) {
-        const bool in = q0 + tid < S;
-        sm.lse[tid] = in ? lse[head * S + q0 + tid] : 0.f;
-        sm.d[tid] = in ? delta[head * S + q0 + tid] : 0.f;
-      }
-      __syncthreads();
-      tile_ds_mma<DH, true, kWin>(sm, q0, k0, S, T_len, score_mul, causal,
-                                  window, warp, lane);
-      __syncthreads();
-      // dV += P^T dO, dK += dS^T Q: keys kr .. + 16, columns dc .. + DH / 2
-#pragma unroll
-      for (int qq = 0; qq < kBwdRows; qq += 16) {
-        uint32_t ap[4], as[4];
-        ldsm_x4_t(ap, &sm.p[AT_ROW(kr, qq)]);
-        ldsm_x4_t(as, &sm.ds[AT_ROW(kr, qq)]);
-#pragma unroll
-        for (int jp = 0; jp < kNB / 2; ++jp) {
-          uint32_t bo[4], bq[4];
-          ldsm_x4_t(bo, &sm.b[BT_ROW(dc + 16 * jp, qq)]);
-          ldsm_x4_t(bq, &sm.a[BT_ROW(dc + 16 * jp, qq)]);
-          mma_bf16(acc_v[2 * jp], ap, bo[0], bo[1]);
-          mma_bf16(acc_v[2 * jp + 1], ap, bo[2], bo[3]);
-          mma_bf16(acc_k[2 * jp], as, bq[0], bq[1]);
-          mma_bf16(acc_k[2 * jp + 1], as, bq[2], bq[3]);
-        }
-      }
-    }
-  }
-  if (kWin && has_keyless_rows(S, T_len, window)) {
-    __syncthreads();                          // the last tile's readers
-    float* sum = reinterpret_cast<float*>(&sm.p[0][0]);   // DH floats
-    keyless_dv<DH>(dout, bh * G, G, S, T_len, window, sum, tid, kBwdThreads);
-    __syncthreads();
-#pragma unroll
-    for (int j = 0; j < kNB; ++j) {
-      const int col = dc + 8 * j + 2 * (lane & 3);
-      acc_v[j][0] += sum[col];
-      acc_v[j][1] += sum[col + 1];
-      acc_v[j][2] += sum[col];
-      acc_v[j][3] += sum[col + 1];
-    }
-  }
-  const int64_t row = k0 + kr + (lane >> 2);
-#pragma unroll
-  for (int j = 0; j < kNB; ++j) {
-    const int col = dc + 8 * j + 2 * (lane & 3);
-    store_acc_mma<DH>(dk + bh * T_len * DH, acc_k[j], row, T_len, col, scale);
-    store_acc_mma<DH>(dv + bh * T_len * DH, acc_v[j], row, T_len, col, 1.f);
-  }
-}
-
-// grid (query tiles, KVH G, B)
-template <int DH, bool kWin>
-__global__ void __launch_bounds__(kBwdThreads, 1)
-flash_attention_bwd_dq_mma(const __nv_bfloat16* __restrict__ q,
-                           const __nv_bfloat16* __restrict__ k,
-                           const __nv_bfloat16* __restrict__ v,
-                           const __nv_bfloat16* __restrict__ dout,
-                           const float* __restrict__ lse,
-                           const float* __restrict__ delta,
-                           __nv_bfloat16* __restrict__ dq, int kvh, int G,
-                           int64_t S, int64_t T_len, float scale,
-                           float score_mul, int causal, int64_t window) {
-  constexpr int kNB = BwdMma<DH>::kBlocks;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  BwdMmaSmem<DH>& sm = *reinterpret_cast<BwdMmaSmem<DH>*>(smem_raw);
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int lj = lane >> 3, li = lane & 7;
-  const int mr = 16 * (warp >> 1), dc = BwdMma<DH>::kCols * (warp & 1);
-  const int64_t q0 = static_cast<int64_t>(blockIdx.x) * kBwdRows;
-  const int64_t head = static_cast<int64_t>(blockIdx.z) * kvh * G +
-                       blockIdx.y;
-  const int64_t bh = head / G;
-  load_tile_mma<DH>(sm.a, q + head * S * DH, q0, S, tid);
-  load_tile_mma<DH>(sm.b, dout + head * S * DH, q0, S, tid);
-  if (tid < kBwdRows) {
-    const bool in = q0 + tid < S;
-    sm.lse[tid] = in ? lse[head * S + q0 + tid] : 0.f;
-    sm.d[tid] = in ? delta[head * S + q0 + tid] : 0.f;
-  }
-  float acc[kNB][4];
-#pragma unroll
-  for (int j = 0; j < kNB; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
-  const int64_t q_last = (q0 + kBwdRows < S ? q0 + kBwdRows : S) - 1;
-  const int64_t k_end = causal ? (T_len < q_last + 1 ? T_len : q_last + 1)
-                               : T_len;
-  // with a window, key tiles wholly before q0 - window + 1 are seen by no row
-  int64_t k_begin = 0;
-  if (kWin) {
-    k_begin = q0 - window + 1 > 0 ? q0 - window + 1 : 0;
-    k_begin -= k_begin % kBwdKeys;
-  }
-  for (int64_t k0 = k_begin; k0 < k_end; k0 += kBwdKeys) {
-    __syncthreads();                          // the last tile's readers
-    load_tile_mma<DH>(sm.k, k + bh * T_len * DH, k0, T_len, tid);
-    load_tile_mma<DH>(sm.v, v + bh * T_len * DH, k0, T_len, tid);
-    __syncthreads();
-    tile_ds_mma<DH, false, kWin>(sm, q0, k0, S, T_len, score_mul, causal,
-                                 window, warp, lane);
-    __syncthreads();
-    // dQ += dS K: rows mr .. + 16, columns dc .. + DH / 2
-#pragma unroll
-    for (int kk = 0; kk < kBwdKeys; kk += 16) {
-      uint32_t a[4];
-      ldsm_x4(a, &sm.ds[A_ROW(mr, kk)]);
-#pragma unroll
-      for (int jp = 0; jp < kNB / 2; ++jp) {
-        uint32_t b[4];
-        ldsm_x4_t(b, &sm.k[BT_ROW(dc + 16 * jp, kk)]);
-        mma_bf16(acc[2 * jp], a, b[0], b[1]);
-        mma_bf16(acc[2 * jp + 1], a, b[2], b[3]);
-      }
-    }
-  }
-  const int64_t row = q0 + mr + (lane >> 2);
-#pragma unroll
-  for (int j = 0; j < kNB; ++j) {
-    store_acc_mma<DH>(dq + head * S * DH, acc[j], row, S,
-                      dc + 8 * j + 2 * (lane & 3), scale);
-  }
-}
-
-#undef A_ROW
-#undef B_ROW
-#undef AT_ROW
-#undef BT_ROW
-
-// delta, then the two mma.sync passes, on the caller's stream
-template <int DH, bool kWin>
-int launch_bwd_mma(const void* q, const void* k, const void* v,
-                   const void* o, const void* dout, const float* lse,
-                   void* dq, void* dk, void* dv, float* delta, int64_t B,
-                   int64_t KVH, int64_t G, int64_t S, int64_t T_len,
-                   float scale, int causal, int64_t window, cudaStream_t s) {
-  using bf16 = __nv_bfloat16;
-  const int64_t n_rows = B * KVH * G * S;
-  const int64_t q_tiles = (S + kBwdRows - 1) / kBwdRows;
-  const int64_t k_tiles = (T_len + kBwdKeys - 1) / kBwdKeys;
-  const int64_t rows_a_cta = kBwdThreads / 32;
-  if (q_tiles > INT_MAX || k_tiles > INT_MAX || KVH * G > 65535 ||
-      B > 65535 || (n_rows + rows_a_cta - 1) / rows_a_cta > INT_MAX) {
-    return static_cast<int>(cudaErrorInvalidConfiguration);
-  }
-  const bf16* tq = static_cast<const bf16*>(q);
-  const bf16* tk = static_cast<const bf16*>(k);
-  const bf16* tv = static_cast<const bf16*>(v);
-  const bf16* tdo = static_cast<const bf16*>(dout);
-  flash_attention_bwd_delta<bf16, DH>
-      <<<static_cast<unsigned>((n_rows + rows_a_cta - 1) / rows_a_cta),
-         kBwdThreads, 0, s>>>(static_cast<const bf16*>(o), tdo, delta,
-                              nullptr, n_rows);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const float score_mul = scale * kLog2e;
-  constexpr int smem = static_cast<int>(sizeof(BwdMmaSmem<DH>));
-  err = cudaFuncSetAttribute(flash_attention_bwd_dkdv_mma<DH, kWin>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  flash_attention_bwd_dkdv_mma<DH, kWin>
-      <<<dim3(static_cast<unsigned>(k_tiles), static_cast<unsigned>(KVH),
-              static_cast<unsigned>(B)),
-         kBwdThreads, smem, s>>>(tq, tk, tv, tdo, lse, delta,
-                                 static_cast<bf16*>(dk), static_cast<bf16*>(dv),
-                                 static_cast<int>(KVH), static_cast<int>(G), S,
-                                 T_len, scale, score_mul, causal, window);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  err = cudaFuncSetAttribute(flash_attention_bwd_dq_mma<DH, kWin>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  flash_attention_bwd_dq_mma<DH, kWin>
-      <<<dim3(static_cast<unsigned>(q_tiles),
-              static_cast<unsigned>(KVH * G), static_cast<unsigned>(B)),
-         kBwdThreads, smem, s>>>(tq, tk, tv, tdo, lse, delta,
-                                 static_cast<bf16*>(dq),
-                                 static_cast<int>(KVH), static_cast<int>(G), S,
-                                 T_len, scale, score_mul, causal, window);
-  return static_cast<int>(cudaGetLastError());
-}
-
 // -- backward, bfloat16: one wgmma pass fed by TMA ---------------------------
 //
 // FlashAttention-3's backward (Shah et al., 2024, section 3 and appendix B),
-// cut to DH 64 and 128, in three launches (described at DH 128):
+// cut to DH 64 and 128 (DH 256: the next section), in three launches
+// (described at DH 128):
 //   1. flash_attention_bwd_delta (above): D, and zeros in dq_acc, a float32
 //      workspace of dQ (B, KVH, G, S, 128) that the wrapper allocates.
 //   2. flash_attention_bwd_wgmma: one CTA a tile of kBwdKeysTc = 128 keys of
@@ -1896,6 +1495,9 @@ struct BwdTcLayout {                       // byte offsets from a 1024 boundary
 __device__ __forceinline__ void sts_u32(uint32_t addr, uint32_t v) {
   asm volatile("st.shared.b32 [%0], %1;" :: "r"(addr), "r"(v) : "memory");
 }
+__device__ __forceinline__ void sts_f1(uint32_t addr, float a) {
+  asm volatile("st.shared.f32 [%0], %1;" :: "r"(addr), "f"(a) : "memory");
+}
 __device__ __forceinline__ void sts_f2(uint32_t addr, float a, float b) {
   asm volatile("st.shared.v2.f32 [%0], {%1, %2};"
                :: "r"(addr), "f"(a), "f"(b) : "memory");
@@ -1904,6 +1506,18 @@ __device__ __forceinline__ float2 lds_f2(uint32_t addr) {
   float2 v;
   asm volatile("ld.shared.v2.f32 {%0, %1}, [%2];"
                : "=f"(v.x), "=f"(v.y) : "r"(addr) : "memory");
+  return v;
+}
+__device__ __forceinline__ void sts_f4(uint32_t addr, float a, float b,
+                                       float c, float d) {
+  asm volatile("st.shared.v4.f32 [%0], {%1, %2, %3, %4};"
+               :: "r"(addr), "f"(a), "f"(b), "f"(c), "f"(d) : "memory");
+}
+__device__ __forceinline__ float4 lds_f4(uint32_t addr) {
+  float4 v;
+  asm volatile("ld.shared.v4.f32 {%0, %1, %2, %3}, [%4];"
+               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+               : "r"(addr) : "memory");
   return v;
 }
 template <int N>
@@ -2334,17 +1948,494 @@ flash_attention_bwd_dq_round(const float* __restrict__ acc,
 }
 
 // dQ's float32 workspace (DH, S, heads), reduced into in 128B-swizzled
-// boxes of (32, 64, 1)
+// boxes of (32, rows, 1)
 bool encode_dq_acc(PFN_cuTensorMapEncodeTiled_v12000 encode, CUtensorMap* map,
-                   void* ptr, uint64_t dh, uint64_t S, uint64_t heads) {
+                   void* ptr, uint64_t dh, uint64_t S, uint64_t heads,
+                   uint32_t rows) {
   const cuuint64_t dims[3] = {dh, S, heads};
   const cuuint64_t strides[2] = {dh * 4, dh * S * 4};        // bytes
-  const cuuint32_t box[3] = {kDqBoxCols, kBwdRowsTc, 1};
+  const cuuint32_t box[3] = {kDqBoxCols, rows, 1};
   const cuuint32_t elem[3] = {1, 1, 1};
   return encode(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3, ptr, dims, strides,
                 box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
                 CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// -- backward, bfloat16 at DH 256: one wgmma pass fed by TMA ----------------
+//
+// recurrentgemma-9b's local attention (DH 256, MQA at G 16, window 2048, no
+// softcap) trains through flash_attention_bwd_dh256, launched as the pass
+// above is (the delta pass zeroes dq_acc first, flash_attention_bwd_dq_round
+// rounds it after).  The pass above does not fit DH 256: at 128 keys a CTA
+// and 64 a warpgroup a thread would hold 256 floats of dK and dV, and K and
+// V (64 KB at 64 keys) beside a 64-row (Q, dO) stage (64 KB) and dS^T leave
+// no room for a second stage.  So the work is split by product, not by key:
+//   - A CTA takes kB256Keys = 64 keys of one (batch row, KV head) and has two
+//     warpgroups (256 threads, one CTA an SM; no producer warp and no
+//     setmaxnreg: at more than 256 threads ptxas caps the registers below
+//     what a thread holds here).  Warpgroup 0 owns dV and warpgroup 1 owns
+//     dK, 64 keys x 256 columns each (128 floats a thread), summed over the
+//     G heads and the query rows in a fixed order, with no atomics.
+//   - A step is kB256Rows = R = 64 query rows of one head:
+//       wg 0: S^T = K Q^T (wgmma m64nRk16, 16 k-steps, A and B K-major);
+//             P^T = exp2(S^T scale log2(e) - lse log2(e)), masked only in a
+//             step that the diagonal, the window's edge or the ragged T edge
+//             cuts; P^T to shared memory as float32 for wg 1 (named barrier
+//             kBarP); then dV += P^T dO (m64n256k16: P^T rounded to bf16 as
+//             the register A, dO MN-major B through the transpose bit).
+//       wg 1: dP^T = V dO^T (as S^T); once P^T is in, dS^T = P^T (dP^T - D)
+//             in the accumulator registers, rounded to bf16 once: the
+//             register A of dK += dS^T Q (m64n256k16), and, swizzled in
+//             shared memory (a 2R-byte row a key), B of dQ's product (named
+//             barrier kBarDs over both warpgroups).
+//       both: dQ^T = K^T dS^T for the warpgroup's 128 of dQ's 256 columns,
+//             swapped so that M is 64 columns and N the step's R rows (two
+//             m64nRk16 products over the 64 keys, K's box as MN-major A,
+//             dS^T as MN-major B); each block to shared memory as float32,
+//             128B-swizzled, and one thread of the warpgroup adds it into
+//             dq_acc by four TMA reduce-adds (boxes of 32 columns x R rows
+//             over (256, S, B KVH G): rows past S are dropped); it waits for
+//             their reads of the block one step later, before the block is
+//             written again (named barriers 3 + wg).
+//     Five products, none recomputed.  The first products of a step, S^T
+//     and dP^T, are the same code with other operands, so both warpgroups
+//     run them at once; while wg 0 exponentiates, wg 1's dP^T is still on
+//     the tensor cores, and while wg 1 forms dS^T, wg 0's dV is.
+//   - The ring: kB256Stages stages of R rows, each a Q part (Q, lse) and a
+//     dO part (dO, D) with "full" and "empty" mbarriers of their own, so
+//     that each part is refilled as soon as its last reader is done: Q is
+//     read by S^T and dK, dO by dP^T and dV; wg 0 hands Q back after S^T
+//     and dO back after dV, wg 1 dO back after dS^T and Q back after dK.
+//     The last reader refills (b256_load_part: the tile by TMA, the rows'
+//     lse or D by cp.async): warp 3 dO once dV is done, warp 7 Q once dK
+//     is; warp 7 also copies K and V once (64 KB).  Not warps 0 and 4,
+//     whose lane 0 adds the warpgroup's dQ.
+//   - The walk (B256Walk): the G heads outer, the query rows inner, from the
+//     CTA's first row up, so the ~132 resident CTAs read the Q and dO rows
+//     of one head, ~10 MB at the training shape (B 2, KVH 1, G 16, S = T =
+//     8192, window 2048), which L2 holds, and add into the same dQ rows.
+//     CTAs are ordered key tile first, (batch row, KV head) inner: with
+//     causal, the CTAs with the most rows start first.
+// Shared memory at R 64 and one stage: K and V 64 KB, the stage 64 KB, P^T
+// 16 KB (float32), dS^T 8 KB, dQ's blocks 64 KB (32 KB a warpgroup), the
+// rows' lse and D: ~218 KB, one CTA an SM.  Registers: a thread holds dV
+// or dK (128 floats), S^T or dP^T (32), P^T or dS^T packed (16) and dQ's
+// two blocks (64): ptxas allocates ~240 of the 255 that 256 threads allow,
+// with no spill (the build prints the count).  Each choice was timed on the
+// card against its alternatives (probes/flash_bwd_probe.py --shape rg;
+// PERF.md): 32-row steps with two or three stages, heads inner, (batch
+// row, KV head) first, refills from the warps that add dQ, and split
+// slots (Q's two, dO's one; dQ unswapped, added a warp at a time) were
+// each slower.
+// What bounds it: operations (1.20e12 FLOP of the five products over the
+// pairs that the mask keeps at the training shape, 1.22 ms at 989 TFLOP/s).
+// What costs beyond them: shared memory, ~490 KB a step against 2,560
+// tensor cycles: S^T and dP^T read a K or V tile beside each Q or dO tile
+// (m64n64, 128 KB), dQ's float32 blocks cross it twice (the stores, the
+// TMA's reads; 128 KB), the other products' operands, P^T and the TMA's
+// fills the rest; and L2 carries each Q and dO row to the ~33 CTAs whose
+// keys it sees and each CTA's dQ adds (~17 GB at this shape).
+// The contract is the pass above's: kWin's mask i - j < window with causal,
+// ragged S and T (rows past S have Q = dO = lse = D = 0 and add nothing,
+// keys past T are masked and not stored), rows that see no key add dO / T
+// to dV after the walk (keyless_dv), P and dS rounded to bf16 once, S, dP
+// and every sum float32; dQ's sums arrive by L2 reductions in an order that
+// changes from run to run.  No softcap (no config caps its scores here).
+
+constexpr int kB256Keys = 64;            // keys a CTA
+constexpr int kB256Rows = 64;            // query rows a step (R)
+constexpr int kB256Stages = 1;           // (Q, dO) stages in flight
+constexpr bool kB256HeadsOuter = true;   // the walk: heads outer, rows inner
+constexpr int kBarP = 1, kBarDs = 2;     // named barriers; 3 + wg: dQ's
+
+struct B256Layout {                      // byte offsets from a 1024 boundary
+  static constexpr int kRows = kB256Rows;
+  static constexpr int kBoxes = 256 / kBoxCols;              // 64 columns
+  static constexpr int kKVBox = kB256Keys * kSwizzleRow;
+  static constexpr int kRowBox = kRows * kSwizzleRow;         // also dQ's
+  static constexpr int kPart = kBoxes * kRowBox;              // Q or dO
+  static constexpr int kK = 0;
+  static constexpr int kV = kBoxes * kKVBox;
+  static constexpr int kStage0 = 2 * kBoxes * kKVBox;
+  static constexpr int kStage = 2 * kPart;                    // Q, then dO
+  static constexpr int kPT = kStage0 + kB256Stages * kStage;  // float32
+  static constexpr int kDsRow = 2 * kRows;       // dS^T: bytes a key, also
+  static constexpr int kDS = kPT + kB256Keys * kRows * 4;   // its swizzle
+  static constexpr int kDQ = kDS + kB256Keys * kDsRow;   // 4 boxes a wg
+  static constexpr int kDQBlock = 4 * kRowBox;
+  static constexpr int kRowVals = kDQ + 2 * kDQBlock;   // lse, D a stage
+  static constexpr int kBars = kRowVals + kB256Stages * 2 * kRows * 4;
+  // K/V's barrier, then a stage's Q "full", dO "full", Q "empty" and dO
+  // "empty", stage by stage
+  static constexpr int kBytes = kBars + 8 * (1 + 4 * kB256Stages) + 1024;
+  // R 32 (the probe's r32 variants, which add the m64n32 products) or 64
+  static_assert(kRows == 32 || kRows == 64, "R: one m64nR product a step");
+  static_assert(kBytes <= 232448, "past the 227 KB a block may take");
+};
+
+// A descriptor of dS^T as an MN-major operand: a row (one key) of
+// kRowBytes (64 or 128), swizzled at that width, 8-row groups 8 kRowBytes
+// apart; one swizzle atom across (R columns), so the leading offset, the
+// stride between atoms, is never read.
+template <int kRowBytes>
+__device__ __forceinline__ uint64_t ds_desc(uint32_t addr) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(kRowBytes) << 16) |
+         (static_cast<uint64_t>(8 * kRowBytes >> 4) << 32) |
+         (static_cast<uint64_t>(kRowBytes == 128 ? 1 : 2) << 62);
+}
+
+// The CTA's steps: (head g, rows q0 .. q0 + R - 1)
+struct B256Walk {
+  int g, q0;
+  __device__ B256Walk(int q_first, int q_last)
+      : g(0), q0(kB256HeadsOuter ? q_first : q_last) {}
+  __device__ void next(int G, int q_first, int q_last) {
+    if (kB256HeadsOuter) {
+      q0 += kB256Rows;
+      if (q0 > q_last) {
+        q0 = q_first;
+        ++g;
+      }
+    } else if (++g == G) {
+      g = 0;
+      q0 -= kB256Rows;
+    }
+  }
+};
+
+// A part of a stage, Q with the rows' lse or dO with their D, for step
+// (head, q0): the tile by TMA from lane 0, the R rows' values by cp.async
+// from every lane of the calling warp; both complete on ``full``.  Rows
+// past S arrive as zeros.
+__device__ __forceinline__ void b256_load_part(const CUtensorMap* tm,
+                                               const float* vals,
+                                               uint32_t tile, uint32_t rows,
+                                               uint32_t full, int head,
+                                               int q0, int S, int lane) {
+  using L = B256Layout;
+  if (lane == 0) {
+    mbar_expect_tx(full, L::kPart);
+    for (int c = 0; c < L::kBoxes; ++c) {
+      tma_load_3d(tile + c * L::kRowBox, tm, full, c * kBoxCols, q0, head);
+    }
+  }
+  for (int r = lane; r < L::kRows; r += 32) {
+    const int pos = q0 + r < S ? q0 + r : S - 1;   // an address in bounds
+    cp_async4(rows + 4 * r, vals + static_cast<int64_t>(head) * S + pos,
+              q0 + r < S);
+  }
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];"
+               :: "r"(full) : "memory");
+}
+
+// grid: key tiles x (B KVH), (B KVH) fastest.  The arguments are the pass
+// above's (cap_in and cap_out unread).
+template <bool kCap, bool kWin>
+__global__ void __launch_bounds__(kBwdTcThreads, 1)
+flash_attention_bwd_dh256(const __grid_constant__ CUtensorMap tm_q,
+                          const __grid_constant__ CUtensorMap tm_k,
+                          const __grid_constant__ CUtensorMap tm_v,
+                          const __grid_constant__ CUtensorMap tm_do,
+                          const __grid_constant__ CUtensorMap tm_dq,
+                          const float* __restrict__ lse,
+                          const float* __restrict__ delta,
+                          const __nv_bfloat16* __restrict__ dout,
+                          __nv_bfloat16* __restrict__ dk,
+                          __nv_bfloat16* __restrict__ dv, int G, int S,
+                          int T_len, float scale, float score_mul,
+                          int causal, float cap_in, float cap_out,
+                          int window) {
+  static_assert(!kCap, "no softcap at DH 256");
+  using L = B256Layout;
+  constexpr int R = kB256Rows, NS = kB256Stages, DH = 256;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023) & ~1023u;   // swizzle atoms: 1024 B
+  const uint32_t bar_kv = base + L::kBars;
+  // stage s's barriers: bars(s) + 0 Q full, + 8 dO full, + 16 Q empty,
+  // + 24 dO empty
+  const uint32_t bars = bar_kv + 8;
+  const int tid = threadIdx.x;
+  const int n_bh = gridDim.x / ((T_len + kB256Keys - 1) / kB256Keys);
+  const int bh = blockIdx.x % n_bh;
+  const int k0 = blockIdx.x / n_bh * kB256Keys;
+  // with causal, rows before the key tile see none of its keys; with a
+  // window, rows past its last key + window - 1 none either
+  const int q_first = causal ? k0 : 0;
+  int q_lim = S - 1;
+  if (kWin) {
+    const int64_t row_hi = static_cast<int64_t>(min(k0 + kB256Keys, T_len)) +
+                           window - 2;          // last key + window - 1
+    q_lim = row_hi < S - 1 ? static_cast<int>(row_hi) : S - 1;
+  }
+  const int q_last = q_lim / R * R;
+  const int n_items = q_first <= q_lim ? G * ((q_last - q_first) / R + 1) : 0;
+  const int wg = tid >> 7;
+  const int warp = (tid >> 5) & 3, lane = tid & 31, quad = lane & 3;
+  // warp 3 refills dO's parts, warp 7 Q's (and copies K and V)
+  const bool loader = warp == 3;
+  const bool dq_lead = (tid & 127) == 0;       // the warpgroup's dQ adds
+  const CUtensorMap* tm_ld = wg == 0 ? &tm_do : &tm_q;
+  const float* vals_ld = wg == 0 ? delta : lse;
+  const int part = wg == 0 ? L::kPart : 0;           // dO's, Q's tile
+  const int part_vals = wg == 0 ? R : 0;              // D's, lse's rows
+  const int part_bar = wg == 0 ? 8 : 0;               // dO's, Q's "full"
+
+  if (tid == 0) {
+    mbar_init(bar_kv, 1);
+    for (int s = 0; s < NS; ++s) {
+      mbar_init(bars + 32 * s, 1 + 32);         // Q full: tx, 32 cp.async
+      mbar_init(bars + 32 * s + 8, 1 + 32);     // dO full
+      mbar_init(bars + 32 * s + 16, 8);         // Q empty: one per warp
+      mbar_init(bars + 32 * s + 24, 8);         // dO empty
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+  B256Walk ld(q_first, q_last);                // the loader's next step
+  if (loader && n_items > 0) {
+    if (wg == 1 && lane == 0) {
+      mbar_expect_tx(bar_kv, 2 * L::kBoxes * L::kKVBox);
+      for (int c = 0; c < L::kBoxes; ++c) {
+        tma_load_3d(base + L::kK + c * L::kKVBox, &tm_k, bar_kv,
+                    c * kBoxCols, k0, bh);
+        tma_load_3d(base + L::kV + c * L::kKVBox, &tm_v, bar_kv,
+                    c * kBoxCols, k0, bh);
+      }
+    }
+    for (int it = 0; it < NS && it < n_items; ++it) {
+      b256_load_part(tm_ld, vals_ld, base + L::kStage0 + it * L::kStage + part,
+                     base + L::kRowVals + it * 2 * R * 4 + 4 * part_vals,
+                     bars + 32 * it + part_bar, bh * G + ld.g, ld.q0, S,
+                     lane);
+      ld.next(G, q_first, q_last);
+    }
+  }
+
+  // acc[4 j + 2 i + e]: dV (wg 0) or dK (wg 1) of key k0 + key_lo + 8 i,
+  // column 8 j + 2 quad + e
+  const int key_lo = 16 * warp + (lane >> 2);
+  float acc[DH / 2];
+#pragma unroll
+  for (int j = 0; j < DH / 2; ++j) acc[j] = 0.f;
+  const uint32_t kv_wg = base + (wg == 0 ? L::kK : L::kV);   // K or V
+  const uint32_t pt = base + L::kPT + 16 * (tid & 127);   // + 2048 a float4
+  const uint32_t ds = base + L::kDS;
+  const uint32_t dq_s = base + L::kDQ + wg * L::kDQBlock;
+  // the swizzle phase of dS^T's rows key_lo and key_lo + 8
+  const int ds_sw = (key_lo * L::kDsRow >> 7) & (L::kDsRow / 16 - 1);
+  const bool edge = k0 + kB256Keys > T_len;
+  if (n_items > 0) mbar_wait(bar_kv, 0);
+  B256Walk w(q_first, q_last);
+  for (int it = 0; it < n_items; ++it) {
+    const int s = it % NS;
+    const uint32_t par = (it / NS) & 1;
+    const uint32_t q_s = base + L::kStage0 + s * L::kStage;
+    const uint32_t do_s = q_s + L::kPart;
+    const uint32_t bar_s = bars + 32 * s;
+    // this thread's query rows' lse at rv + 32 j, D at rv + 4 R + 32 j:
+    // rows 8 j + 2 quad, + 1
+    const uint32_t rv = base + L::kRowVals + s * 2 * R * 4 + 8 * quad;
+    // wg 0 starts on Q, wg 1 on dO
+    mbar_wait(bar_s + 8 * wg, par);
+    __syncwarp();
+
+    // wg 0: S^T = K Q^T, wg 1: dP^T = V dO^T; 16 k-steps of 16 columns, 32
+    // bytes apart inside a swizzled row.  sp[4 j + 2 i + e]: key k0 +
+    // key_lo + 8 i, query row q0 + 8 j + 2 quad + e
+    float sp[R / 2];
+    const uint32_t b_s = wg == 0 ? q_s : do_s;
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < DH / 16; ++kk) {
+      const uint32_t a_off = (kk / 4) * L::kKVBox + (kk % 4) * 32;
+      const uint32_t b_off = (kk / 4) * L::kRowBox + (kk % 4) * 32;
+      wgmma_ss(sp, sw128_desc(kv_wg + a_off, 16), sw128_desc(b_s + b_off, 16),
+               kk > 0);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(sp);
+
+    uint32_t pk[R / 4];                 // P^T (wg 0) or dS^T (wg 1), bf16
+    if (wg == 0) {
+      const bool need_mask =
+          edge || (causal && k0 + kB256Keys - 1 > w.q0) ||
+          (kWin && w.q0 + R - 1 - k0 >= window);
+      auto masked = [&](int x) {
+        const int kpos = k0 + key_lo + 8 * ((x >> 1) & 1);
+        const int qpos = w.q0 + 8 * (x >> 2) + 2 * quad + (x & 1);
+        return kpos >= T_len || (causal && kpos > qpos) ||
+               (kWin && qpos - kpos >= window);
+      };
+#pragma unroll
+      for (int j = 0; j < R / 8; ++j) {
+        const float2 l = lds_f2(rv + 32 * j);
+#pragma unroll
+        for (int x = 4 * j; x < 4 * j + 4; ++x) {
+          sp[x] = fast_exp2(fmaf(sp[x], score_mul,
+                                 ((x & 1) ? l.y : l.x) * -kLog2e));
+          if (need_mask && masked(x)) sp[x] = 0.f;
+        }
+        sts_f4(pt + 2048 * j, sp[4 * j], sp[4 * j + 1], sp[4 * j + 2],
+               sp[4 * j + 3]);
+      }
+      asm volatile("bar.arrive %0, %1;" :: "n"(kBarP), "n"(256) : "memory");
+    } else {
+      asm volatile("bar.sync %0, %1;" :: "n"(kBarP), "n"(256) : "memory");
+#pragma unroll
+      for (int j = 0; j < R / 8; ++j) {
+        const float4 p = lds_f4(pt + 2048 * j);
+        const float2 dd = lds_f2(rv + 4 * R + 32 * j);
+        sp[4 * j] = p.x * (sp[4 * j] - dd.x);
+        sp[4 * j + 1] = p.y * (sp[4 * j + 1] - dd.y);
+        sp[4 * j + 2] = p.z * (sp[4 * j + 2] - dd.x);
+        sp[4 * j + 3] = p.w * (sp[4 * j + 3] - dd.y);
+      }
+    }
+    // wg 0 is done with Q and lse, wg 1 with dO and D
+    __syncwarp();
+    if (lane == 0) mbar_arrive(bar_s + 16 + 8 * wg);
+#pragma unroll
+    for (int x = 0; x < R / 2; x += 2) pk[x / 2] = pack_bf16(sp[x], sp[x + 1]);
+    if (wg == 1) {
+      // dS^T to shared memory: row = key, query row r at byte 2 r (chunk j
+      // of 16 bytes: rows 8 j .. 8 j + 7), the chunk swizzled by ds_sw
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const uint32_t row = ds + (key_lo + 8 * i) * L::kDsRow + 4 * quad;
+#pragma unroll
+        for (int j = 0; j < R / 8; ++j) {
+          sts_u32(row + ((j ^ ds_sw) << 4), pk[2 * j + i]);
+        }
+      }
+      asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+    }
+
+    // wg 0: dV += P^T dO, wg 1: dK += dS^T Q: R / 16 k-steps of 16 query
+    // rows, 2048 bytes apart in dO and Q (B MN-major, its four 64-column
+    // boxes kRowBox apart); each waits for the other's part
+    mbar_wait(bar_s + 8 - 8 * wg, par);
+    const uint32_t b2 = wg == 0 ? do_s : q_s;
+    fence_regs(acc);
+    fence_regs(pk);
+    wgmma_fence();
+#pragma unroll
+    for (int kb = 0; kb < R / 16; ++kb) {
+      wgmma_rs(acc, pk + 4 * kb,
+               sw128_desc(b2 + kb * 16 * kSwizzleRow, L::kRowBox));
+    }
+    wgmma_commit();
+    asm volatile("bar.sync %0, %1;" :: "n"(kBarDs), "n"(256) : "memory");
+
+    // dQ^T (64 columns x R rows) = K^T dS^T for the warpgroup's boxes 2 wg
+    // and 2 wg + 1 of K: 4 k-steps of 16 keys, 2048 bytes apart in K and 16
+    // rows of dS^T apart in dS^T.  dq256[c][4 j + 2 i + e]: column 128 wg +
+    // 64 c + key_lo + 8 i, query row q0 + 8 j + 2 quad + e
+    float dq256[2][R / 2];
+    wgmma_fence();
+#pragma unroll
+    for (int c = 0; c < 2; ++c) {
+#pragma unroll
+      for (int kk = 0; kk < kB256Keys / 16; ++kk) {
+        wgmma_ss_mn(dq256[c],
+                    sw128_desc(base + L::kK + (2 * wg + c) * L::kKVBox +
+                                   kk * 16 * kSwizzleRow, L::kKVBox),
+                    ds_desc<L::kDsRow>(ds + kk * 16 * L::kDsRow), kk > 0);
+      }
+    }
+    wgmma_commit();
+    // once dV (dK) has read its part, the warp hands it back; the last
+    // reader refills it for the step NS on
+    wgmma_wait<1>();
+    fence_regs(acc);
+    fence_regs(pk);
+    asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+    __syncwarp();
+    if (lane == 0) mbar_arrive(bar_s + 24 - 8 * wg);
+    if (loader && it + NS < n_items) {
+      mbar_wait(bar_s + 24 - 8 * wg, par);
+      b256_load_part(tm_ld, vals_ld, q_s + part, rv - 8 * quad + 4 * part_vals,
+                     bar_s + part_bar, bh * G + ld.g, ld.q0, S, lane);
+      ld.next(G, q_first, q_last);
+    }
+    wgmma_wait<0>();
+    fence_regs(dq256[0]);
+    fence_regs(dq256[1]);
+
+    // dQ's four boxes of 32 columns x R rows, float32, 128B-swizzled: the
+    // column's 16-byte chunk of the row XOR the row's phase r % 8
+    if (dq_lead) {                      // the last step's adds have read it
+      asm volatile("cp.async.bulk.wait_group.read 0;" ::: "memory");
+    }
+    asm volatile("bar.sync %0, %1;" :: "r"(3 + wg), "n"(128) : "memory");
+#pragma unroll
+    for (int c = 0; c < 2; ++c) {
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int col = key_lo + 8 * i;               // of the 64
+        const uint32_t box = dq_s + (2 * c + col / 32) * L::kRowBox;
+#pragma unroll
+        for (int x = 2 * i; x < R / 2; x += 4) {
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int r = 8 * (x >> 2) + 2 * quad + e;
+            sts_f1(box + r * kSwizzleRow +
+                       ((((col % 32) >> 2) ^ (r & 7)) << 4) + 4 * (col & 3),
+                   dq256[c][x + e]);
+          }
+        }
+      }
+    }
+    asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+    asm volatile("bar.sync %0, %1;" :: "r"(3 + wg), "n"(128) : "memory");
+    if (dq_lead) {
+      for (int b = 0; b < 4; ++b) {
+        tma_reduce_add_3d(&tm_dq, dq_s + b * L::kRowBox,
+                          128 * wg + 32 * b, w.q0, bh * G + w.g);
+      }
+      asm volatile("cp.async.bulk.commit_group;" ::: "memory");
+    }
+    w.next(G, q_first, q_last);
+  }
+  if (dq_lead) asm volatile("cp.async.bulk.wait_group 0;" ::: "memory");
+
+  // rows that see no key give every key dO / T: summed into P^T's shared
+  // memory once both warpgroups are past their last step
+  if (kWin && has_keyless_rows(S, T_len, window)) {
+    float* sum = reinterpret_cast<float*>(smem_raw + (base - raw) + L::kPT);
+    asm volatile("bar.sync 1, %0;" :: "n"(256) : "memory");
+    keyless_dv<DH>(dout, static_cast<int64_t>(bh) * G, G, S, T_len, window,
+                   sum, tid, kBwdTcThreads);
+    asm volatile("bar.sync 1, %0;" :: "n"(256) : "memory");
+    if (wg == 0) {
+#pragma unroll
+      for (int j = 0; j < DH / 8; ++j) {
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          acc[4 * j + 2 * i] += sum[8 * j + 2 * quad];
+          acc[4 * j + 2 * i + 1] += sum[8 * j + 2 * quad + 1];
+        }
+      }
+    }
+  }
+
+  __nv_bfloat16* out = wg == 0 ? dv : dk;
+  const float mul = wg == 0 ? 1.f : scale;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int kpos = k0 + key_lo + 8 * i;
+    if (kpos >= T_len) continue;
+    const int64_t off = (static_cast<int64_t>(bh) * T_len + kpos) * DH;
+#pragma unroll
+    for (int j = 0; j < DH / 8; ++j) {
+      *reinterpret_cast<__nv_bfloat162*>(out + off + 8 * j + 2 * quad) =
+          __floats2bfloat162_rn(acc[4 * j + 2 * i] * mul,
+                                acc[4 * j + 2 * i + 1] * mul);
+    }
+  }
 }
 
 template <int DH, bool kCap, bool kWin>
@@ -2354,9 +2445,12 @@ int launch_bwd_bf16(const void* q, const void* k, const void* v,
                     int64_t B, int64_t KVH, int64_t G, int64_t S,
                     int64_t T_len, float scale, int causal, int64_t window,
                     float softcap, cudaStream_t s) {
+  constexpr bool kWide = DH == 256;            // its own pass (above)
+  constexpr int kKeys = kWide ? kB256Keys : kBwdKeysTc;
+  constexpr int kRows = kWide ? kB256Rows : kBwdRowsTc;
   const int64_t n_rows = B * KVH * G * S;
   const int64_t rows_a_cta = kBwdThreads / 32;
-  const int64_t k_tiles = (T_len + kBwdKeysTc - 1) / kBwdKeysTc;
+  const int64_t k_tiles = (T_len + kKeys - 1) / kKeys;
   if (S > INT_MAX || T_len > INT_MAX || B * KVH * G > INT_MAX ||
       k_tiles * B * KVH > INT_MAX ||
       (n_rows + rows_a_cta - 1) / rows_a_cta > INT_MAX) {
@@ -2365,11 +2459,11 @@ int launch_bwd_bf16(const void* q, const void* k, const void* v,
   const PFN_cuTensorMapEncodeTiled_v12000 encode = tensor_map_encoder();
   if (encode == nullptr) return static_cast<int>(cudaErrorNotSupported);
   CUtensorMap tm_q, tm_k, tm_v, tm_do, tm_dq;
-  if (!encode_3d(encode, &tm_q, q, DH, S, B * KVH * G, kBwdRowsTc, 1) ||
-      !encode_3d(encode, &tm_do, dout, DH, S, B * KVH * G, kBwdRowsTc, 1) ||
-      !encode_3d(encode, &tm_k, k, DH, T_len, B * KVH, kBwdKeysTc, 1) ||
-      !encode_3d(encode, &tm_v, v, DH, T_len, B * KVH, kBwdKeysTc, 1) ||
-      !encode_dq_acc(encode, &tm_dq, dq_acc, DH, S, B * KVH * G)) {
+  if (!encode_3d(encode, &tm_q, q, DH, S, B * KVH * G, kRows, 1) ||
+      !encode_3d(encode, &tm_do, dout, DH, S, B * KVH * G, kRows, 1) ||
+      !encode_3d(encode, &tm_k, k, DH, T_len, B * KVH, kKeys, 1) ||
+      !encode_3d(encode, &tm_v, v, DH, T_len, B * KVH, kKeys, 1) ||
+      !encode_dq_acc(encode, &tm_dq, dq_acc, DH, S, B * KVH * G, kRows)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   flash_attention_bwd_delta<__nv_bfloat16, DH>
@@ -2379,21 +2473,28 @@ int launch_bwd_bf16(const void* q, const void* k, const void* v,
                               dq_acc, n_rows);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  constexpr int smem = BwdTcLayout<DH>::kBytes;
-  err = cudaFuncSetAttribute(flash_attention_bwd_wgmma<DH, kCap, kWin>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
   const int win = window < INT_MAX ? static_cast<int>(window) : INT_MAX;
-  flash_attention_bwd_wgmma<DH, kCap, kWin>
-      <<<static_cast<unsigned>(k_tiles * B * KVH), kBwdTcThreads, smem, s>>>(
-          tm_q, tm_k, tm_v, tm_do, tm_dq, lse, delta,
-          static_cast<const __nv_bfloat16*>(dout),
-          static_cast<__nv_bfloat16*>(dk), static_cast<__nv_bfloat16*>(dv),
-          static_cast<int>(G), static_cast<int>(S), static_cast<int>(T_len),
-          scale, scale * kLog2e, causal,
-          softcap > 0.f ? scale / softcap : 0.f, softcap * kLog2e, win);
-  err = cudaGetLastError();
+  auto pass = [&](auto kernel, int smem) {
+    cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return e;
+    kernel<<<static_cast<unsigned>(k_tiles * B * KVH), kBwdTcThreads, smem,
+             s>>>(tm_q, tm_k, tm_v, tm_do, tm_dq, lse, delta,
+                  static_cast<const __nv_bfloat16*>(dout),
+                  static_cast<__nv_bfloat16*>(dk),
+                  static_cast<__nv_bfloat16*>(dv), static_cast<int>(G),
+                  static_cast<int>(S), static_cast<int>(T_len), scale,
+                  scale * kLog2e, causal,
+                  softcap > 0.f ? scale / softcap : 0.f, softcap * kLog2e,
+                  win);
+    return cudaGetLastError();
+  };
+  if constexpr (kWide) {
+    err = pass(flash_attention_bwd_dh256<kCap, kWin>, B256Layout::kBytes);
+  } else {
+    err = pass(flash_attention_bwd_wgmma<DH, kCap, kWin>,
+               BwdTcLayout<DH>::kBytes);
+  }
   if (err != cudaSuccess) return static_cast<int>(err);
   const int64_t n4 = n_rows * DH / 4;
   const int64_t blocks = (n4 + 255) / 256;
@@ -2552,8 +2653,8 @@ extern "C" int flash_attention_bf16(const void* q, const void* k,
 
 // The backward: dq (as q), dk and dv (as k) from q, k, v, out, dout and the
 // forward's lse (of the same causal, window and softcap), with delta a
-// float32 scratch of B KVH G S and (bfloat16 at DH 64 and 128 only; null
-// otherwise) dq_acc a float32 scratch of B KVH G S DH; DH 64, 128 or 256
+// float32 scratch of B KVH G S and (bfloat16 only; null for float32)
+// dq_acc a float32 scratch of B KVH G S DH; DH 64, 128 or 256
 // (bfloat16 at 256: no softcap).  Returns the first failing launch's
 // cudaError_t (0 on success).
 namespace {
@@ -2632,17 +2733,8 @@ extern "C" int flash_attention_bwd_bf16(const void* q, const void* k,
   if (G < 1 || T < 1 || window < 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  if (DH == 256) {                  // the mma.sync passes, without softcap
-    if (softcap > 0.f) return static_cast<int>(cudaErrorInvalidValue);
-    auto mma = [&](auto launch) {
-      return launch(q, k, v, out, dout, static_cast<const float*>(lse), dq,
-                    dk, dv, static_cast<float*>(delta), B, KVH, G, S, T,
-                    scale, causal, window, static_cast<cudaStream_t>(stream));
-    };
-    return window > 0 ? mma(launch_bwd_mma<256, true>)
-                      : mma(launch_bwd_mma<256, false>);
-  }
-  if ((DH != 64 && DH != 128) || dq_acc == nullptr) {
+  if ((DH != 64 && DH != 128 && DH != 256) || dq_acc == nullptr ||
+      (DH == 256 && softcap > 0.f)) {     // no softcap instance at DH 256
     return static_cast<int>(cudaErrorInvalidValue);
   }
   auto run = [&](auto launch) {
@@ -2651,6 +2743,70 @@ extern "C" int flash_attention_bwd_bf16(const void* q, const void* k,
                   B, KVH, G, S, T, scale, causal, window, softcap,
                   static_cast<cudaStream_t>(stream));
   };
+  if (DH == 256) {
+    return window > 0 ? run(launch_bwd_bf16<256, false, true>)
+                      : run(launch_bwd_bf16<256, false, false>);
+  }
   return DH == 64 ? run(launch_bwd_bf16_opts<64>)
                   : run(launch_bwd_bf16_opts<128>);
+}
+
+namespace {
+
+// out[0..8): registers a thread, local memory a thread (bytes: spills),
+// threads a CTA, dynamic shared memory a CTA (bytes), CTAs an SM can hold
+// (the occupancy calculator), (Q, dO) stages, query rows a step, keys a CTA
+template <class K>
+int pass_attrs(K kernel, int smem, int stages, int rows, int keys,
+               int* out) {
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  cudaFuncAttributes fa{};
+  if (err == cudaSuccess) err = cudaFuncGetAttributes(&fa, kernel);
+  int ctas = 0;
+  if (err == cudaSuccess) {
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&ctas, kernel,
+                                                        kBwdTcThreads, smem);
+  }
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int vals[8] = {fa.numRegs, static_cast<int>(fa.localSizeBytes),
+                       kBwdTcThreads, smem, ctas, stages, rows, keys};
+  for (int i = 0; i < 8; ++i) out[i] = vals[i];
+  return 0;
+}
+
+}  // namespace
+
+// The bfloat16 backward pass's resources at head size DH (64, 128 or 256),
+// without a softcap, with a window where window > 0, into int out[8] as
+// pass_attrs lists them; a query, not a launch.
+extern "C" int flash_attention_bwd_attrs(int64_t DH, int64_t window,
+                                         void* out) {
+  int* o = static_cast<int*>(out);
+  const bool win = window > 0;
+  switch (DH) {
+    case 64:
+      return win ? pass_attrs(flash_attention_bwd_wgmma<64, false, true>,
+                              BwdTcLayout<64>::kBytes, kBwdStages, kBwdRowsTc,
+                              kBwdKeysTc, o)
+                 : pass_attrs(flash_attention_bwd_wgmma<64, false, false>,
+                              BwdTcLayout<64>::kBytes, kBwdStages, kBwdRowsTc,
+                              kBwdKeysTc, o);
+    case 128:
+      return win ? pass_attrs(flash_attention_bwd_wgmma<128, false, true>,
+                              BwdTcLayout<128>::kBytes, kBwdStages,
+                              kBwdRowsTc, kBwdKeysTc, o)
+                 : pass_attrs(flash_attention_bwd_wgmma<128, false, false>,
+                              BwdTcLayout<128>::kBytes, kBwdStages,
+                              kBwdRowsTc, kBwdKeysTc, o);
+    case 256:
+      return win ? pass_attrs(flash_attention_bwd_dh256<false, true>,
+                              B256Layout::kBytes, kB256Stages, kB256Rows,
+                              kB256Keys, o)
+                 : pass_attrs(flash_attention_bwd_dh256<false, false>,
+                              B256Layout::kBytes, kB256Stages, kB256Rows,
+                              kB256Keys, o);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
 }

@@ -132,6 +132,8 @@ _SIGNATURES = {
         # window, softcap, stream
         **{f"flash_attention_bwd_{t}": (_P,) * 11 + (_I64,) * 6 + (
             _F32, _I32, _I64, _F32, _P) for t in ("f32", "bf16")},
+        # DH, window, int *out (no stream: a query, not a launch)
+        "flash_attention_bwd_attrs": (_I64, _I64, _P),
     },
     "rglru_scan": {
         # a, beta, gx, h0, hs, h_last, B, S, W, stream

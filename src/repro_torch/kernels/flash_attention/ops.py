@@ -27,15 +27,16 @@ the wrapper allocates; float32 on the CUDA cores; counted as
 ``flash_attention_bwd``, one a call).  Both are built at head sizes 64,
 128 and 256 (``BWD_HEAD_DIMS``), with any window and softcap, carried from
 the forward to the backward, except a softcap at 256 (no config has one:
-the bfloat16 backward there is two mma.sync passes with a window and no
-softcap, and needs no dQ workspace): on CUDA another head size with grad,
-or a softcap at 256, raises, with no fallback.  Without grad the call
+the bfloat16 backward there is a wgmma pass of its own, split by products
+rather than by keys, with a window and no softcap): on CUDA another head
+size with grad, or a softcap at 256, raises, with no fallback.  Without grad the call
 writes no lse.
 On CPU tensors autograd differentiates the plain version, the JAX
 ``_bwd``'s own recompute.
 """
 from __future__ import annotations
 
+import ctypes
 import math
 
 import torch
@@ -205,11 +206,10 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, scale: float,
     _aligned(q=q, k=k, v=v, o=o, do=do)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     delta = torch.empty((bsz, kvh, g, s), dtype=torch.float32, device=dev)
-    # bf16's wgmma pass sums dQ in float32 by L2 reductions (its delta pass
-    # zeroes it); at dh 256 each dQ row is one thread's sum
+    # bf16's wgmma passes sum dQ in float32 by L2 reductions (the delta
+    # pass zeroes it)
     dq_acc = (torch.empty(q.shape, dtype=torch.float32, device=dev)
-              if q.dtype == torch.bfloat16 and dh not in NO_CAP_BWD_HEAD_DIMS
-              else None)
+              if q.dtype == torch.bfloat16 else None)
     if bsz * kvh * s:
         _build.launch("flash_attention_bwd", dev, "flash_attention",
                       _BWD_ENTRY[q.dtype], q.data_ptr(), k.data_ptr(),
@@ -223,6 +223,25 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, scale: float,
         dk.zero_()
         dv.zero_()
     return dq, dk, dv
+
+
+def bwd_kernel_attrs(dh: int, window: int = 0) -> dict:
+    """The bfloat16 backward pass's resources on the current card at head
+    size ``dh`` without a softcap (with a window where ``window`` > 0):
+    registers and local bytes (spills) a thread, threads and dynamic shared
+    bytes a CTA, CTAs an SM (CUDA's function attributes and occupancy
+    calculator), and its (Q, dO) stages, query rows a step and keys a CTA.
+    Builds the library; launches nothing."""
+    if dh not in BWD_HEAD_DIMS:
+        raise ValueError(f"no backward instance at head size {dh}")
+    out = (ctypes.c_int * 8)()
+    err = _build.c_function("flash_attention", "flash_attention_bwd_attrs")(
+        dh, int(window), ctypes.addressof(out))
+    if err != 0:
+        raise RuntimeError(f"flash_attention_bwd_attrs: CUDA error {err}")
+    return dict(zip(("registers", "local_bytes", "threads", "smem_bytes",
+                     "ctas_per_sm", "stages", "rows_per_step",
+                     "keys_per_cta"), out))
 
 
 def flash_attention_lse(q, k, v, *, scale: float | None = None,

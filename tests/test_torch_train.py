@@ -203,7 +203,16 @@ FLASH_CASES = [
     (1, 1, 16, 24, 24, True, 8, 0.0, 256, 1.0),
     (1, 1, 16, 17, 33, False, 0, 0.0, 256, 1.0),
     (2, 1, 2, 40, 40, True, 16, 0.0, 256, 1.0),
-    (1, 1, 16, 30, 9, True, 4, 0.0, 256, 1.0)]
+    (1, 1, 16, 30, 9, True, 4, 0.0, 256, 1.0),
+    # the edges of its bf16 pass's 32- and 64-row steps and 64-key tiles
+    # (S or T of 31-33 and 65), and a window of 129 (no multiple of either)
+    # at G 16, causal and not
+    (1, 1, 16, 31, 33, True, 0, 0.0, 256, 1.0),
+    (1, 1, 16, 33, 31, False, 0, 0.0, 256, 1.0),
+    (1, 1, 2, 32, 65, True, 0, 0.0, 256, 1.0),
+    (1, 1, 2, 65, 32, False, 0, 0.0, 256, 1.0),
+    (1, 1, 16, 160, 160, True, 129, 0.0, 256, 1.0),
+    (1, 1, 16, 140, 150, False, 129, 0.0, 256, 1.0)]
 
 
 def _flash_inputs(b, kvh, g, s, t, dh=16, seed=0):
